@@ -1,0 +1,132 @@
+"""Context: the user-facing catalog and SQL entry point of the port.
+
+The counterpart of ``dask_sql_tpu.Context``, minimal for the first slice:
+``create_table`` (a dict of numpy arrays, a ``Table``, or a pandas frame),
+``drop_table``, ``sql`` and ``explain``.  The planner is the JAX package's
+Python parser, binder and optimizer, copied; execution is the eager
+executor (``physical/rel/executor.py``).
+
+Queries run on the card unless the caller asks for another device:
+``Context()`` means ``device="cuda"`` and raises when CUDA is unavailable;
+the tests pass ``device="cpu"``.
+"""
+from __future__ import annotations
+
+from typing import Any, List, Optional, Union
+
+import torch
+
+from .datacontainer import SchemaContainer, TableEntry
+from .plan.binder import Binder
+from .plan.nodes import Field, RelNode
+from .plan.optimizer import optimize
+from .sql import ast as A
+from .sql.parser import parse_sql
+from .table import Table
+
+
+class Context:
+    """Catalog + SQL entry point.
+
+        from dask_sql_tpu_torch import Context
+        c = Context()                     # on the card
+        c.create_table("t", {"k": np.array(["a", "b", "a"]), "x": np.arange(3.0)})
+        c.sql("SELECT k, SUM(x) AS s FROM t GROUP BY k").to_numpy()
+    """
+
+    DEFAULT_SCHEMA_NAME = "root"
+
+    def __init__(self, device: Union[str, torch.device, None] = None):
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Context: CUDA is not available; pass device='cpu' to run on "
+                "the CPU")
+        self.device = device
+        self.schema_name = self.DEFAULT_SCHEMA_NAME
+        self.schema = {self.DEFAULT_SCHEMA_NAME:
+                       SchemaContainer(self.DEFAULT_SCHEMA_NAME)}
+
+    # -------------------------------------------------------------- tables
+    def create_table(self, table_name: str, input_table: Any,
+                     schema_name: Optional[str] = None) -> None:
+        """Register a dict of column -> numpy array (or list), a ``Table``,
+        or a pandas DataFrame as a SQL table on this context's device."""
+        if isinstance(input_table, Table):
+            table = Table(input_table.names,
+                          [_to(c, self.device) for c in input_table.columns])
+        elif isinstance(input_table, dict):
+            table = Table.from_pydict(input_table, self.device)
+        elif hasattr(input_table, "columns") and hasattr(input_table, "dtypes"):
+            table = Table.from_pandas(input_table, self.device)
+        else:
+            raise TypeError(
+                f"create_table: unsupported input {type(input_table).__name__}")
+        schema_name = schema_name or self.schema_name
+        self.schema[schema_name].tables[table_name.lower()] = TableEntry(table=table)
+
+    def drop_table(self, table_name: str, schema_name: Optional[str] = None):
+        schema_name = schema_name or self.schema_name
+        del self.schema[schema_name].tables[table_name.lower()]
+
+    # ----------------------------------------------------------------- sql
+    def sql(self, sql: str, return_futures: bool = True):
+        """Parse, plan, optimize and execute one query.
+
+        Returns a device ``Table`` (``return_futures=True``) or a pandas
+        DataFrame (``return_futures=False``)."""
+        from .physical.rel.executor import RelExecutor
+
+        result = None
+        for stmt in parse_sql(sql):
+            if not isinstance(stmt, A.QueryStatement):
+                raise NotImplementedError(
+                    f"Statement {type(stmt).__name__} is not ported yet")
+            result = RelExecutor(self).execute(self._get_plan(stmt.query, sql))
+        if result is None:
+            result = Table([], [])
+        return result if return_futures else result.to_pandas()
+
+    def _get_plan(self, query: A.SelectLike, sql: str = "") -> RelNode:
+        return optimize(Binder(self, sql).bind(query))
+
+    def explain(self, sql: str) -> str:
+        """The optimized plan as text."""
+        stmt = parse_sql(sql)[0]
+        if isinstance(stmt, (A.ExplainStatement, A.QueryStatement)):
+            return self._get_plan(stmt.query, sql).explain()
+        return f"-- {type(stmt).__name__}"
+
+    # ----------------------------------------------------- catalog interface
+    def resolve_table(self, parts: List[str]):
+        """Binder hook: (schema, table, fields, view_plan) or None."""
+        candidates = []
+        if len(parts) == 1:
+            candidates.append((self.schema_name, parts[0]))
+        elif len(parts) >= 2:
+            candidates.append((parts[0], ".".join(parts[1:])))
+            candidates.append((self.schema_name, ".".join(parts)))
+        for schema_name, table_name in candidates:
+            schema = self.schema.get(schema_name)
+            if schema is None:
+                continue
+            entry = schema.tables.get(table_name.lower())
+            if entry is not None:
+                fields = [Field(n, c.stype) for n, c in
+                          zip(entry.table.names, entry.table.columns)]
+                return schema_name, table_name.lower(), fields, None
+        return None
+
+    def get_function(self, name: str):
+        return None
+
+    def resolve_model(self, parts: List[str]):
+        return None
+
+
+def _to(col, device):
+    from .table import Column
+
+    return Column(col.data.to(device), col.stype,
+                  None if col.mask is None else col.mask.to(device),
+                  col.dictionary)

@@ -1,0 +1,406 @@
+"""The static-domain segmented sum: a hand-written Hopper kernel and its
+plain PyTorch version.
+
+``SELECT agg(x) ... GROUP BY k`` over a small static key domain (the TPC-H
+Q1 shape) reduces to masked per-group sums of A value rows:
+
+    out[a, g] = sum over rows i with codes[i] == g and mask[i] of vals[a, i]
+
+The JAX package computes them on the TPU with the Pallas kernel
+``_seg_matmul_perblock_kernel`` (``dask_sql_tpu/ops/pallas_kernels.py``):
+exact fixed-point ("limb") sums.  The port keeps the contract and changes
+the grid to suit the card (see ``csrc/segsum_fixedpoint.cu``):
+
+- every value becomes sign-split 21-bit integer limbs on a fixed-point
+  grid: 1 limb for a ``unit`` row (0/1 streams), 3 per sign for an ``int``
+  row (|v| < 2**53), 4 per sign for a ``float`` row, which is first scaled by
+  the exact power of two 2**k that puts its masked abs-max just below 2**84;
+- the (limb row, group) totals are integer sums in int64 -- exact and
+  independent of summation order;
+- the totals recombine with exact power-of-two weights and Neumaier
+  compensation, and NaN/+Inf/-Inf counts restore IEEE semantics.
+
+Unit and int rows are therefore bit-exact whenever sum(|v|) <= 2**53, as in
+the JAX package; float rows are within one unit of 2**(e-84) per value,
+where 2**e bounds the row's masked abs-max.
+
+One function differs between the card and the CPU: the limb totals.
+``segsum_limb_totals`` launches the CUDA kernel for a CUDA tensor and runs
+``segsum_limb_totals_plain`` for a CPU tensor; everything around it (grid
+exponents, layout, recombination) is shared, so the kernel and the plain
+version give bit-identical results on the same inputs.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from .sorted_agg import ieee_reassemble
+
+LIMB_BITS = 21
+LIMB_BASE = float(1 << LIMB_BITS)
+INV_LIMB_BASE = 1.0 / LIMB_BASE           # exact power of two
+# float rows are scaled so that |v| * 2**k < 2**GRID_BITS: 4 limbs per sign
+GRID_BITS = 84
+CLASS_LIMBS = {"unit": 1, "int": 3, "float": GRID_BITS // LIMB_BITS}
+# a limb total is below n * 2**21; n < 2**32 keeps it below 2**53, so every
+# total converts to f64 exactly (and stays far from int64 overflow)
+MAX_ROWS = 1 << 32
+# shared memory one block of the kernel may use for its accumulators
+SMEM_BUDGET = 200 * 1024
+
+#: launches of each hand-written kernel; only the kernel wrappers add to it
+LAUNCHES: Dict[str, int] = {"segsum_fixedpoint": 0}
+
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "segsum_fixedpoint.cu"
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# shared pieces: exact powers of two, grid exponents, limb layout
+# ---------------------------------------------------------------------------
+
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """Exact 2.0**e (float64) for integer e in [-1022, 1023], built from the
+    IEEE bit pattern."""
+    return ((e.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
+def _grid_exponents(vals: torch.Tensor, mask: torch.Tensor,
+                    row_classes: Sequence[str]) -> torch.Tensor:
+    """Per-row k (int64): the float rows' values are scaled by 2**k.
+
+    k = 84 - e with 2**(e-1) <= absmax < 2**e (``frexp``), where absmax is
+    taken over the finite values of rows that contribute (mask) only: a huge
+    value in a filtered-out row must not coarsen the grid for the others.
+    k is clipped so that every scale and recombination weight stays a
+    normal power of two; rows with absmax 0, and unit/int rows, take k = 0.
+    """
+    a = vals.shape[0]
+    k = torch.zeros(a, dtype=torch.int64, device=vals.device)
+    float_rows = [i for i, c in enumerate(row_classes) if c == "float"]
+    if not float_rows:
+        return k
+    idx = torch.tensor(float_rows, dtype=torch.int64, device=vals.device)
+    fv = vals.index_select(0, idx)
+    keep = mask.bool()[None, :] & torch.isfinite(fv)
+    absmax = torch.where(keep, fv.abs(), 0.0).amax(dim=1)
+    _, ex = torch.frexp(absmax)
+    kf = torch.where(absmax > 0, (GRID_BITS - ex.to(torch.int64)).clamp(-940, 1000),
+                     0)
+    return k.index_copy(0, idx, kf)
+
+
+def limb_layout(row_classes: Sequence[str]) -> Tuple[List[int], List[int],
+                                                     List[int]]:
+    """(limbs per sign, signed flag, first limb row) per value row, plus the
+    total limb-row count as the last entry of the third list.  Row i owns
+    limb rows [out0[i], out0[i+1]): the positive half's limbs 0..L-1, then,
+    for signed rows, the negative half's."""
+    limbs, signed, out0 = [], [], [0]
+    for c in row_classes:
+        n_limbs = CLASS_LIMBS[c]
+        is_signed = c != "unit"
+        limbs.append(n_limbs)
+        signed.append(int(is_signed))
+        out0.append(out0[-1] + n_limbs * (2 if is_signed else 1))
+    return limbs, signed, out0
+
+
+# ---------------------------------------------------------------------------
+# the limb totals: plain version and kernel
+# ---------------------------------------------------------------------------
+
+def segsum_limb_totals_plain(vals: torch.Tensor, codes: torch.Tensor,
+                             mask: torch.Tensor, scale: torch.Tensor,
+                             row_classes: Sequence[str], num_groups: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel, on any device.
+
+    vals (A, n) f64, codes (n,) int32, mask (n,) uint8, scale (A,) f64.
+    Returns (limb totals (L, G) int64, non-finite counts (3*A, G) int64:
+    NaN rows, then +Inf rows, then -Inf rows).  As in the JAX package, the
+    non-finite values are zeroed and 3*A indicator rows of class 'unit' are
+    summed alongside; rows whose code is outside [0, G) contribute nothing.
+    """
+    a, _ = vals.shape
+    g = num_groups
+    keep = (mask != 0) & (codes >= 0) & (codes < g)
+    index = codes.long().clamp(0, g - 1)
+    isnan = torch.isnan(vals)
+    ispos = torch.isposinf(vals)
+    isneg = torch.isneginf(vals)
+    clean = torch.where(isnan | ispos | isneg, 0.0, vals)
+    stacked = torch.cat([clean, isnan.double(), ispos.double(), isneg.double()])
+    classes = list(row_classes) + ["unit"] * (3 * a)
+    scales = torch.cat([scale, torch.ones(3 * a, dtype=torch.float64,
+                                          device=vals.device)])
+    limbs, signed, out0 = limb_layout(classes)
+    totals = torch.zeros((out0[-1], g), dtype=torch.int64, device=vals.device)
+    for i in range(stacked.shape[0]):
+        v = torch.where(keep, stacked[i], 0.0) * scales[i]
+        halves = [v.clamp_min(0.0).floor()]
+        if signed[i]:
+            halves.append((-v).clamp_min(0.0).floor())
+        r = out0[i]
+        for h in halves:
+            for _ in range(limbs[i]):
+                q = (h * INV_LIMB_BASE).floor()
+                totals[r].index_add_(0, index, (h - q * LIMB_BASE).to(torch.int64))
+                h = q
+                r += 1
+    n_limb_rows = out0[a]
+    return totals[:n_limb_rows], totals[n_limb_rows:]
+
+
+def _kernel_tiles(row_classes: Sequence[str], num_groups: int
+                  ) -> Tuple[List[int], int]:
+    """Split the value rows into tiles whose accumulators fit SMEM_BUDGET.
+    Returns (tile start rows + the end row, the largest tile's bytes)."""
+    starts, largest, used = [0], 0, 0
+    for i, c in enumerate(row_classes):
+        rows = CLASS_LIMBS[c] * (2 if c != "unit" else 1) + 3
+        need = rows * num_groups * 8
+        if need > SMEM_BUDGET:
+            raise ValueError(
+                f"segsum_fixedpoint: {num_groups} groups need {need} bytes of "
+                f"shared memory for one {c} row (budget {SMEM_BUDGET})")
+        if used + need > SMEM_BUDGET:
+            starts.append(i)
+            used = 0
+        used += need
+        largest = max(largest, used)
+    starts.append(len(row_classes))
+    return starts, largest
+
+
+def segsum_limb_totals_cuda(vals: torch.Tensor, codes: torch.Tensor,
+                            mask: torch.Tensor, scale: torch.Tensor,
+                            row_classes: Sequence[str], num_groups: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/segsum_fixedpoint.cu`` on the tensors' CUDA device.
+
+    Same arguments and results as ``segsum_limb_totals_plain``.  Raises on
+    any input the kernel does not take, and when the launch fails."""
+    a, n = vals.shape
+    dev = vals.device
+    if dev.type != "cuda":
+        raise ValueError(f"segsum_fixedpoint kernel needs CUDA tensors, got {dev}")
+    for name, t, dtype, shape in (("vals", vals, torch.float64, (a, n)),
+                                  ("codes", codes, torch.int32, (n,)),
+                                  ("mask", mask, torch.uint8, (n,)),
+                                  ("scale", scale, torch.float64, (a,))):
+        if t.device != dev:
+            raise ValueError(f"segsum_fixedpoint: {name} on {t.device}, vals on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"segsum_fixedpoint: {name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"segsum_fixedpoint: {name} shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"segsum_fixedpoint: {name} must be contiguous")
+    if len(row_classes) != a:
+        raise ValueError(f"{len(row_classes)} row classes for {a} rows")
+    if n >= MAX_ROWS:
+        raise ValueError(f"segsum_fixedpoint: {n} rows, limit {MAX_ROWS - 1}")
+    limbs, signed, out0 = limb_layout(row_classes)
+    tiles, smem = _kernel_tiles(row_classes, num_groups)
+    out_limbs = torch.zeros((out0[-1], num_groups), dtype=torch.int64, device=dev)
+    out_nonfinite = torch.zeros((3 * a, num_groups), dtype=torch.int64, device=dev)
+    if n == 0 or a == 0:
+        return out_limbs, out_nonfinite
+    meta = [torch.tensor(x, dtype=torch.int32, device=dev)
+            for x in (limbs, signed, out0, tiles)]
+    lib = _load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.dsql_segsum_fixedpoint(
+        vals.data_ptr(), n, a, codes.data_ptr(), mask.data_ptr(),
+        scale.data_ptr(), meta[0].data_ptr(), meta[1].data_ptr(),
+        meta[2].data_ptr(), meta[3].data_ptr(), len(tiles) - 1, num_groups,
+        smem, out_limbs.data_ptr(), out_nonfinite.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"segsum_fixedpoint launch failed: CUDA error {rc}")
+    LAUNCHES["segsum_fixedpoint"] += 1
+    return out_limbs, out_nonfinite
+
+
+def segsum_limb_totals(vals, codes, mask, scale, row_classes, num_groups):
+    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if vals.device.type == "cuda":
+        return segsum_limb_totals_cuda(vals, codes, mask, scale, row_classes,
+                                       num_groups)
+    if vals.device.type == "cpu":
+        return segsum_limb_totals_plain(vals, codes, mask, scale, row_classes,
+                                        num_groups)
+    raise ValueError(f"segsum_fixedpoint: no kernel for device {vals.device}")
+
+
+# ---------------------------------------------------------------------------
+# the full segmented sums
+# ---------------------------------------------------------------------------
+
+def _recombine(totals: torch.Tensor, row_classes: Sequence[str],
+               k: torch.Tensor) -> torch.Tensor:
+    """(A, G) f64 sums from (L, G) int64 limb totals: limb total * +-2**(21*lk
+    - k[row]) -- every product exact -- added per row in layout order with
+    Neumaier compensation, all rows at once."""
+    a = len(row_classes)
+    g = totals.shape[1]
+    dev = totals.device
+    limbs, signed, out0 = limb_layout(row_classes)
+    width = max((limbs[i] * (1 + signed[i]) for i in range(a)), default=0)
+    src = [[out0[-1]] * width for _ in range(a)]   # out0[-1]: the zero row
+    lk = [[0] * width for _ in range(a)]
+    sign = [[0.0] * width for _ in range(a)]
+    for i in range(a):
+        for j in range(limbs[i] * (1 + signed[i])):
+            src[i][j] = out0[i] + j
+            lk[i][j] = j % limbs[i]
+            sign[i][j] = 1.0 if j < limbs[i] else -1.0
+    ext = torch.cat([totals, torch.zeros((1, g), dtype=totals.dtype, device=dev)])
+    src_t = torch.tensor(src, dtype=torch.int64, device=dev).reshape(a, width)
+    lk_t = torch.tensor(lk, dtype=torch.int64, device=dev).reshape(a, width)
+    sign_t = torch.tensor(sign, dtype=torch.float64, device=dev).reshape(a, width)
+    weight = _pow2(LIMB_BITS * lk_t - k[:, None]) * sign_t
+    terms = ext[src_t].double() * weight[:, :, None]         # (A, width, G)
+    s = torch.zeros((a, g), dtype=torch.float64, device=dev)
+    c = torch.zeros_like(s)
+    for j in range(width):
+        term = terms[:, j]
+        t = s + term
+        c = c + torch.where(s.abs() >= term.abs(), (s - t) + term, (term - t) + s)
+        s = t
+    return s + c
+
+
+def segmented_sums_fixedpoint(vals: torch.Tensor, codes: torch.Tensor,
+                              mask: torch.Tensor, num_groups: int, *,
+                              row_classes: Optional[Sequence[str]] = None,
+                              limb_totals=segsum_limb_totals) -> torch.Tensor:
+    """Exact masked segmented sums (A, num_groups) float64 of ``vals`` (A, n)
+    over ``codes`` (n,) and ``mask`` (n,) bool, on the limb grid.
+
+    ``row_classes`` (default all ``float``) picks each row's grid, as in
+    the JAX package.  ``limb_totals`` is the function that sums the limbs:
+    by default the kernel on the card and the plain version on the CPU;
+    ``segsum_limb_totals_plain`` runs the plain version on any device."""
+    a, n = vals.shape
+    cls = ["float"] * a if row_classes is None else list(row_classes)
+    if len(cls) != a:
+        raise ValueError(f"{len(cls)} row classes for {a} rows")
+    dev = vals.device
+    if n == 0 or a == 0:
+        return torch.zeros((a, num_groups), dtype=torch.float64, device=dev)
+    if n >= MAX_ROWS:
+        raise ValueError(f"segmented_sums_fixedpoint: {n} rows, limit {MAX_ROWS - 1}")
+    vals = vals.to(torch.float64).contiguous()
+    codes = codes.to(torch.int32).contiguous()
+    mask = mask.to(torch.uint8).contiguous()
+    k = _grid_exponents(vals, mask, cls)
+    limb_tot, nonfinite = limb_totals(vals, codes, mask, _pow2(k), cls, num_groups)
+    sums = _recombine(limb_tot, cls, k)
+    return ieee_reassemble(sums, nonfinite[:a], nonfinite[a:2 * a],
+                           nonfinite[2 * a:])
+
+
+def segmented_sums_exact(vals: torch.Tensor, codes: torch.Tensor,
+                         mask: torch.Tensor, num_groups: int,
+                         **kw) -> torch.Tensor:
+    """The all-'int' case of segmented_sums_fixedpoint (bit-exact whenever
+    sum(|v|) <= 2**53)."""
+    return segmented_sums_fixedpoint(vals, codes, mask, num_groups,
+                                     row_classes=["int"] * vals.shape[0], **kw)
+
+
+def segmented_sums_dispatch(vals: torch.Tensor, codes: torch.Tensor,
+                            mask: torch.Tensor, num_groups: int,
+                            row_classes=None) -> torch.Tensor:
+    """The static-domain GROUP BY reduction: the fixed-point sums, through
+    the kernel for a CUDA tensor (it launches or raises) and the plain
+    version for a CPU tensor."""
+    return segmented_sums_fixedpoint(vals, codes, mask, num_groups,
+                                     row_classes=row_classes)
+
+
+def reference_segmented_sums(vals: torch.Tensor, codes: torch.Tensor,
+                             mask: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """One ``index_add_``: the library yardstick and test oracle (masked NaN
+    rows contribute nothing).  The engine never calls it."""
+    out = torch.zeros((vals.shape[0], num_groups), dtype=torch.float64,
+                      device=vals.device)
+    return out.index_add_(1, codes.long(),
+                          torch.where(mask.bool(), vals.to(torch.float64), 0.0))
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+
+def _build_dir() -> Path:
+    return Path(__file__).resolve().parents[2] / "build" / "dask_sql_tpu_torch"
+
+
+def _library_path() -> Path:
+    digest = hashlib.sha256(_SOURCE.read_bytes()
+                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    return _build_dir() / f"libsegsum_fixedpoint-{digest}.so"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    home = os.environ.get("CUDA_HOME") or CUDA_HOME
+    if not home:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return str(Path(home) / "bin" / "nvcc")
+
+
+def build_kernels() -> Dict[str, object]:
+    """Compile ``csrc/segsum_fixedpoint.cu`` with nvcc for sm_90a into the
+    build directory (skipped when the library for this source exists).
+    Returns {"path", "seconds", "built", "log"}; ``log`` holds ptxas's
+    register and shared-memory report when it built."""
+    out = _library_path()
+    if out.exists():
+        return {"path": str(out), "seconds": 0.0, "built": False, "log": ""}
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return {"path": str(out), "seconds": time.perf_counter() - t0,
+            "built": True, "log": proc.stderr}
+
+
+@functools.lru_cache(maxsize=None)
+def _load_library() -> ctypes.CDLL:
+    path = build_kernels()["path"]
+    lib = ctypes.CDLL(path)
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.dsql_segsum_fixedpoint.argtypes = [
+        vp, i64, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, vp, vp, vp]
+    lib.dsql_segsum_fixedpoint.restype = ctypes.c_int
+    return lib

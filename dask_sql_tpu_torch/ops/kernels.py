@@ -1,0 +1,141 @@
+"""Shared device primitives: key factorization, string-code unification,
+compaction, civil-date arithmetic.
+
+The counterpart of ``dask_sql_tpu/ops/kernels.py`` for what the first slice
+calls; the rest of that module (join key codes, trace-safe sort keys) waits
+for the join and compiled-tier slices.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from ..table import Column
+
+
+# ---------------------------------------------------------------------------
+# factorization: columns -> dense int codes
+# ---------------------------------------------------------------------------
+
+def unify_string_codes(cols: List[Column]) -> List[torch.Tensor]:
+    """Re-code string columns onto their sorted dictionary union, so that
+    equality and order of the returned int64 codes are string-correct."""
+    dicts = [c.dictionary.astype(str) for c in cols]
+    union = np.unique(np.concatenate(dicts))
+    out = []
+    for c, d in zip(cols, dicts):
+        remap = torch.from_numpy(np.searchsorted(union, d).astype(np.int64)
+                                 ).to(c.device)
+        out.append(remap[c.data.clamp(0, len(d) - 1).long()])
+    return out
+
+
+def comparable_data(col: Column) -> torch.Tensor:
+    """Numeric tensor whose order matches SQL ordering for this column."""
+    if col.stype.is_string:
+        return col.dict_ranks().data.to(torch.int64)
+    if col.data.dtype == torch.bool:
+        return col.data.to(torch.int64)
+    return col.data
+
+
+def factorize_columns(cols: List[Column]) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Multi-column factorize: rows -> dense codes 0..G-1 in ascending key
+    order, NULL first per column (SQL GROUP BY semantics: NULL keys form
+    their own groups).
+
+    Returns (codes int64, representative (first) row per group, G).
+    """
+    n = len(cols[0])
+    dev = cols[0].device
+    per_col_codes = []
+    for c in cols:
+        data = comparable_data(c)
+        if c.mask is not None:
+            fill = data.min() if n else 0
+            _, inv = torch.unique(torch.where(c.mask, data, fill),
+                                  sorted=True, return_inverse=True)
+            inv = torch.where(c.mask, inv + 1, 0)
+        else:
+            _, inv = torch.unique(data, sorted=True, return_inverse=True)
+            inv = inv + 1
+        per_col_codes.append(inv.reshape(-1).to(torch.int64))
+
+    combined = per_col_codes[0]
+    for c in per_col_codes[1:]:
+        m = int(c.max()) + 1 if n else 1
+        combined = combined * m + c
+
+    uniq_codes, codes = torch.unique(combined, sorted=True, return_inverse=True)
+    codes = codes.reshape(-1)
+    num_groups = int(uniq_codes.shape[0])
+    first = torch.full((num_groups,), n, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, codes, torch.arange(n, device=dev),
+                          reduce="amin", include_self=True)
+    return codes, first, num_groups
+
+
+# ---------------------------------------------------------------------------
+# compaction (filter -> gather indices)
+# ---------------------------------------------------------------------------
+
+def mask_to_indices(mask: torch.Tensor) -> torch.Tensor:
+    """Boolean mask -> row indices (host-synced size; eager execution)."""
+    return torch.nonzero(mask).reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# civil-date arithmetic (Howard Hinnant's algorithms, pure integer ops)
+# ---------------------------------------------------------------------------
+
+US_PER_DAY = 86_400_000_000
+
+
+def _fdiv(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def civil_from_days(z: torch.Tensor):
+    """days-since-epoch -> (year, month, day), vectorized integer math."""
+    z = z.to(torch.int64) + 719468
+    era = _fdiv(z, 146097)
+    doe = z - era * 146097
+    yoe = _fdiv(doe - _fdiv(doe, 1460) + _fdiv(doe, 36524) - _fdiv(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _fdiv(yoe, 4) - _fdiv(yoe, 100))
+    mp = _fdiv(5 * doy + 2, 153)
+    d = doy - _fdiv(153 * mp + 2, 5) + 1
+    m = mp + torch.where(mp < 10, 3, -9)
+    y = y + (m <= 2).to(torch.int64)
+    return y, m, d
+
+
+def days_from_civil(y: torch.Tensor, m: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    y = y.to(torch.int64) - (m <= 2).to(torch.int64)
+    era = _fdiv(y, 400)
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = _fdiv(153 * mp + 2, 5) + d - 1
+    doe = yoe * 365 + _fdiv(yoe, 4) - _fdiv(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
+def timestamp_to_days(us: torch.Tensor) -> torch.Tensor:
+    return _fdiv(us.to(torch.int64), US_PER_DAY)
+
+
+def timestamp_time_of_day_us(us: torch.Tensor) -> torch.Tensor:
+    return us.to(torch.int64) - timestamp_to_days(us) * US_PER_DAY
+
+
+def decimal_unscale(s_int: torch.Tensor, scale: int) -> torch.Tensor:
+    """Correctly-rounded ``s_int / 10**scale``: an exact integer quotient
+    plus a sub-unit remainder, as in the JAX package."""
+    if scale == 0:
+        return s_int.to(torch.float64)
+    f = 10 ** scale
+    q = _fdiv(s_int, f)
+    r = s_int - q * f
+    return q.to(torch.float64) + r.to(torch.float64) / float(f)

@@ -1,0 +1,70 @@
+"""REX evaluator: bound expression tree -> Column/Scalar over a Table.
+
+The counterpart of ``dask_sql_tpu/physical/rex/evaluate.py``: expression
+nodes dispatch through a Pluggable registry keyed on the node class name.
+Parameters, scalar subqueries and user-defined functions are not ported
+yet.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+from ...plan.nodes import RexCall, RexInputRef, RexLiteral, RexNode
+from ...table import Column, Scalar, Table
+from ...utils import Pluggable
+from .cast import cast_value
+from .ops import OPERATION_MAPPING
+
+
+class RexExecutor(Pluggable):
+    """Dispatches on rex node class name -- extension point for custom rex."""
+
+    @classmethod
+    def convert(cls, rex: RexNode, table: Table, executor) -> Union[Column, Scalar]:
+        name = type(rex).__name__
+        if not cls.has_plugin(name):
+            raise NotImplementedError(f"Expression {name} is not ported yet")
+        return cls.get_plugin(name)(rex, table, executor)
+
+
+def _eval_input_ref(rex: RexInputRef, table: Table, executor):
+    return table.columns[rex.index]
+
+
+def _eval_literal(rex: RexLiteral, table: Table, executor):
+    return Scalar(rex.value, rex.stype)
+
+
+def _eval_call(rex: RexCall, table: Table, executor):
+    if rex.op == "CAST":
+        v = RexExecutor.convert(rex.operands[0], table, executor)
+        return cast_value(v, rex.info)
+    args = [RexExecutor.convert(o, table, executor) for o in rex.operands]
+    try:
+        fn = OPERATION_MAPPING[rex.op]
+    except KeyError:
+        raise NotImplementedError(
+            f"Operation {rex.op} is not ported yet") from None
+    return fn(args, rex.stype, table)
+
+
+RexExecutor.add_plugin("RexInputRef", _eval_input_ref)
+RexExecutor.add_plugin("RexLiteral", _eval_literal)
+RexExecutor.add_plugin("RexCall", _eval_call)
+
+
+def evaluate_rex(rex: RexNode, table: Table, executor=None) -> Union[Column, Scalar]:
+    return RexExecutor.convert(rex, table, executor)
+
+
+def evaluate_predicate(rex: RexNode, table: Table, executor=None):
+    """A boolean rex as a row mask (NULL -> False), or a bool for a scalar."""
+    v = evaluate_rex(rex, table, executor)
+    if isinstance(v, Scalar):
+        return bool(v.value) if not v.is_null else False
+    data = v.data.to(torch.bool)
+    if v.mask is not None:
+        data = data & v.mask
+    return data

@@ -1,0 +1,1032 @@
+"""Rule-based heuristic optimizer.
+
+Reproduces the load-bearing effects of the reference's 17-rule HepPlanner
+program (upstream planner/.../RelationalAlgebraGenerator.java:198-224):
+FILTER_INTO_JOIN / JOIN_CONDITION_PUSH (filter pushdown through projects and
+into join sides), PROJECT_MERGE / FILTER_MERGE, and projection pruning down to
+table scans (the effect of ProjectableFilterableTable + PROJECT rules).
+AVG/DISTINCT decompositions are unnecessary here — the segment-reduction
+kernels implement those aggregates directly.
+
+Passes are applied to fixpoint in a bounded loop; every pass is a pure
+RelNode -> RelNode function, so user rules can be appended to ``PASSES``.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Set, Tuple
+
+from ..types import BOOLEAN
+from .nodes import (
+    AggCall, Field, LogicalAggregate, LogicalExcept, LogicalFilter,
+    LogicalIntersect, LogicalJoin, LogicalProject, LogicalSample, LogicalSort,
+    LogicalTableScan, LogicalUnion, LogicalValues, LogicalWindow, RelNode,
+    RexCall, RexInputRef, RexLiteral, RexNode, RexScalarSubquery, RexUdf,
+    SortCollation, WindowCall, remap_rex, rex_inputs,
+)
+
+
+# ---------------------------------------------------------------------------
+# generic helpers
+# ---------------------------------------------------------------------------
+
+def _split_conjuncts(rex: RexNode) -> List[RexNode]:
+    if isinstance(rex, RexCall) and rex.op == "AND":
+        return _split_conjuncts(rex.operands[0]) + _split_conjuncts(rex.operands[1])
+    return [rex]
+
+
+def _and_all(rexes: List[RexNode]) -> Optional[RexNode]:
+    if not rexes:
+        return None
+    out = rexes[0]
+    for r in rexes[1:]:
+        out = RexCall("AND", [out, r], BOOLEAN)
+    return out
+
+
+def _is_pure(rex: RexNode) -> bool:
+    """True if the expression is deterministic & side-effect free (safe to
+    push/duplicate)."""
+    if isinstance(rex, (RexInputRef, RexLiteral)):
+        return True
+    if isinstance(rex, RexScalarSubquery):
+        return False
+    if isinstance(rex, RexUdf):
+        return False
+    if isinstance(rex, RexCall):
+        if rex.op in ("RAND", "RANDOM", "RAND_INTEGER"):
+            return False
+        return all(_is_pure(o) for o in rex.operands)
+    return False
+
+
+# ---------------------------------------------------------------------------
+# pass: merge adjacent filters, drop TRUE filters
+# ---------------------------------------------------------------------------
+
+def merge_filters(rel: RelNode) -> RelNode:
+    rel = rel.with_inputs([merge_filters(i) for i in rel.inputs]) if rel.inputs else rel
+    if isinstance(rel, LogicalFilter):
+        if isinstance(rel.condition, RexLiteral) and rel.condition.value is True:
+            return rel.input
+        if isinstance(rel.input, LogicalFilter):
+            cond = RexCall("AND", [rel.input.condition, rel.condition], BOOLEAN)
+            return LogicalFilter(input=rel.input.input, condition=cond,
+                                 schema=rel.schema)
+    return rel
+
+
+# ---------------------------------------------------------------------------
+# pass: merge Project(Project) — PROJECT_MERGE
+# ---------------------------------------------------------------------------
+
+def _inline_rex(rex: RexNode, exprs: List[RexNode]) -> RexNode:
+    if isinstance(rex, RexInputRef):
+        return exprs[rex.index]
+    if isinstance(rex, RexCall):
+        return RexCall(rex.op, [_inline_rex(o, exprs) for o in rex.operands],
+                       rex.stype, rex.info)
+    if isinstance(rex, RexUdf):
+        return RexUdf(rex.name, rex.func, [_inline_rex(o, exprs) for o in rex.operands],
+                      rex.stype, rex.row_udf)
+    return rex
+
+
+def _rex_size(rex: RexNode) -> int:
+    if isinstance(rex, (RexCall, RexUdf)):
+        return 1 + sum(_rex_size(o) for o in rex.operands)
+    return 1
+
+
+def merge_projects(rel: RelNode) -> RelNode:
+    rel = rel.with_inputs([merge_projects(i) for i in rel.inputs]) if rel.inputs else rel
+    if isinstance(rel, LogicalProject) and isinstance(rel.input, LogicalProject):
+        inner = rel.input
+        if all(_is_pure(e) for e in inner.exprs):
+            new_exprs = [_inline_rex(e, inner.exprs) for e in rel.exprs]
+            # avoid exponential blowup from duplicating huge exprs
+            if sum(map(_rex_size, new_exprs)) <= 4 * (
+                sum(map(_rex_size, rel.exprs)) + sum(map(_rex_size, inner.exprs))
+            ):
+                return LogicalProject(input=inner.input, exprs=new_exprs,
+                                      schema=rel.schema)
+    return rel
+
+
+# ---------------------------------------------------------------------------
+# pass: push filters down — FILTER_INTO_JOIN / FILTER_PROJECT_TRANSPOSE /
+# FILTER_AGGREGATE_TRANSPOSE
+# ---------------------------------------------------------------------------
+
+def push_filters(rel: RelNode) -> RelNode:
+    if rel.inputs:
+        rel = rel.with_inputs([push_filters(i) for i in rel.inputs])
+    if not isinstance(rel, LogicalFilter):
+        return rel
+    child = rel.input
+    conjuncts = _split_conjuncts(rel.condition)
+
+    # -- through Project: rewrite refs via inlining (only pure exprs)
+    if isinstance(child, LogicalProject) and all(_is_pure(e) for e in child.exprs):
+        pushable = [c for c in conjuncts if _is_pure(c)]
+        stay = [c for c in conjuncts if not _is_pure(c)]
+        if pushable:
+            inner_cond = _and_all([_inline_rex(c, child.exprs) for c in pushable])
+            new_input = push_filters(LogicalFilter(
+                input=child.input, condition=inner_cond, schema=child.input.schema))
+            new_child = LogicalProject(input=new_input, exprs=child.exprs,
+                                       schema=child.schema)
+            if stay:
+                return LogicalFilter(input=new_child, condition=_and_all(stay),
+                                     schema=rel.schema)
+            return new_child
+
+    # -- into Join sides
+    if isinstance(child, LogicalJoin) and child.join_type in ("INNER", "LEFT", "RIGHT", "CROSS"):
+        nl = len(child.left.schema)
+        left_side, right_side, into_join, stay = [], [], [], []
+        for c in conjuncts:
+            refs = rex_inputs(c)
+            if not _is_pure(c):
+                stay.append(c)
+            elif all(r < nl for r in refs) and child.join_type in ("INNER", "LEFT", "CROSS"):
+                left_side.append(c)
+            elif all(r >= nl for r in refs) and child.join_type in ("INNER", "RIGHT", "CROSS"):
+                right_side.append(c)
+            elif child.join_type in ("INNER", "CROSS"):
+                # both-side conjunct becomes part of the join condition so the
+                # executor can extract equi keys (FILTER_INTO_JOIN,
+                # RelationalAlgebraGenerator.java:207-208)
+                into_join.append(c)
+            else:
+                stay.append(c)
+        if left_side or right_side or into_join:
+            new_left, new_right = child.left, child.right
+            if left_side:
+                new_left = push_filters(LogicalFilter(
+                    input=child.left, condition=_and_all(left_side),
+                    schema=child.left.schema))
+            if right_side:
+                shifted = [remap_rex(c, {i: i - nl for i in rex_inputs(c)})
+                           for c in right_side]
+                new_right = push_filters(LogicalFilter(
+                    input=child.right, condition=_and_all(shifted),
+                    schema=child.right.schema))
+            cond = child.condition
+            jt = child.join_type
+            if into_join:
+                pieces = ([] if cond is None or (
+                    isinstance(cond, RexLiteral) and cond.value is True) else [cond])
+                cond = _and_all(pieces + into_join)
+                jt = "INNER"
+            new_join = LogicalJoin(left=new_left, right=new_right,
+                                   join_type=jt, condition=cond,
+                                   schema=child.schema)
+            if stay:
+                return LogicalFilter(input=new_join, condition=_and_all(stay),
+                                     schema=rel.schema)
+            return new_join
+
+    # -- through SEMI/ANTI joins: their output IS the left input, so pure
+    # conjuncts always push into the left side (without this, a WHERE above
+    # a decorrelated IN/EXISTS keeps whole cross products unfiltered)
+    if isinstance(child, LogicalJoin) and child.join_type in ("SEMI", "ANTI"):
+        pushable = [c for c in conjuncts if _is_pure(c)]
+        stay = [c for c in conjuncts if not _is_pure(c)]
+        if pushable:
+            new_left = push_filters(LogicalFilter(
+                input=child.left, condition=_and_all(pushable),
+                schema=child.left.schema))
+            new_join = LogicalJoin(left=new_left, right=child.right,
+                                   join_type=child.join_type,
+                                   condition=child.condition,
+                                   schema=child.schema)
+            if hasattr(child, "null_aware"):
+                new_join.null_aware = child.null_aware  # type: ignore
+            if stay:
+                return LogicalFilter(input=new_join, condition=_and_all(stay),
+                                     schema=rel.schema)
+            return new_join
+
+    # -- through Aggregate: conjuncts that only touch group keys
+    if isinstance(child, LogicalAggregate):
+        n_keys = len(child.group_keys)
+        pushable, stay = [], []
+        for c in conjuncts:
+            refs = rex_inputs(c)
+            if _is_pure(c) and all(r < n_keys for r in refs):
+                pushable.append(c)
+            else:
+                stay.append(c)
+        if pushable:
+            mapping = {i: child.group_keys[i] for i in range(n_keys)}
+            inner = _and_all([remap_rex(c, mapping) for c in pushable])
+            new_input = push_filters(LogicalFilter(
+                input=child.input, condition=inner, schema=child.input.schema))
+            new_agg = LogicalAggregate(input=new_input, group_keys=child.group_keys,
+                                       aggs=child.aggs, schema=child.schema)
+            if stay:
+                return LogicalFilter(input=new_agg, condition=_and_all(stay),
+                                     schema=rel.schema)
+            return new_agg
+
+    return rel
+
+
+# ---------------------------------------------------------------------------
+# pass: connectivity-based join reordering
+# ---------------------------------------------------------------------------
+
+def reorder_joins(rel: RelNode) -> RelNode:
+    """Reorder INNER/CROSS join chains so every step has a join predicate.
+
+    The binder lowers a comma FROM list to a left-deep cross-product chain
+    and relies on filter pushdown to recover equi joins — which fails when
+    two FROM neighbours only connect through a later table (TPC-H Q9:
+    ``part, supplier, lineitem, ...`` — part and supplier both join
+    lineitem, not each other), leaving a true cross product. Calcite's
+    planner has the same weakness in the reference's rule list (no
+    JoinCommute/LoptOptimize there either), but its users write ANSI JOINs;
+    our oracle suite uses comma syntax heavily.
+
+    Only chains where the given order actually strands a step without a
+    connecting predicate are rewritten (greedy: next leaf in FROM order
+    connected to the joined prefix, equi predicates preferred); otherwise
+    the plan is left exactly as written.
+    """
+    # match Filter(chain) / bare chain BEFORE the generic recursion: the
+    # rewrite must see the filter's conjunct pool together with the intact
+    # chain (recursing first would rebuild the chain under a Project and
+    # hide it from the filter-level match); leaf subtrees are recursed
+    # through the rewritten node's inputs afterwards
+    out = None
+    if isinstance(rel, LogicalFilter) and isinstance(rel.input, LogicalJoin):
+        out = _reorder_chain(rel.input, _split_conjuncts(rel.condition))
+    elif isinstance(rel, LogicalJoin):
+        out = _reorder_chain(rel, [])
+    if out is not None:
+        chain, leftover = out
+        new: RelNode = chain
+        if leftover:
+            new = LogicalFilter(input=chain, condition=_and_all(leftover),
+                                schema=chain.schema)
+        return new.with_inputs([reorder_joins(i)
+                                for i in new.inputs])
+    if rel.inputs:
+        rel = rel.with_inputs([reorder_joins(i)
+                               for i in rel.inputs])
+    return rel
+
+
+def _reorder_chain(root: LogicalJoin, filt_conjuncts: List[RexNode]):
+    """Returns (new_rel, leftover_filter_conjuncts) or None to keep as-is.
+
+    The statistics-driven order of the JAX package (estimated
+    cardinality from ingest-time table statistics) is not ported yet:
+    the order here only chases connectivity."""
+    if root.join_type not in ("INNER", "CROSS"):
+        return None
+    leaves: List[Tuple[int, RelNode]] = []   # (global offset, leaf)
+    pool: List[RexNode] = []                 # conjuncts in global ordinals
+
+    def flat(j: RelNode, base: int) -> int:
+        if isinstance(j, LogicalJoin) and j.join_type in ("INNER", "CROSS"):
+            lw = flat(j.left, base)
+            rw = flat(j.right, base + lw)
+            if j.condition is not None and not (
+                    isinstance(j.condition, RexLiteral)
+                    and j.condition.value is True):
+                for cj in _split_conjuncts(j.condition):
+                    pool.append(remap_rex(
+                        cj, {i: base + i for i in rex_inputs(cj)}))
+            return lw + rw
+        leaves.append((base, j))
+        return len(j.schema)
+
+    total = flat(root, 0)
+    if len(leaves) < 3:
+        return None
+
+    leaf_of: Dict[int, int] = {}
+    for li, (off, leaf) in enumerate(leaves):
+        for o in range(off, off + len(leaf.schema)):
+            leaf_of[o] = li
+
+    def leafset(c: RexNode) -> Set[int]:
+        return {leaf_of[r] for r in rex_inputs(c)}
+
+    def is_equi(c: RexNode) -> bool:
+        return isinstance(c, RexCall) and c.op == "="
+
+    # connectors: pure multi-leaf conjuncts from join conditions AND the
+    # filter above; single-leaf/impure filter conjuncts stay behind for
+    # push_filters
+    cand = pool + [c for c in filt_conjuncts if _is_pure(c)]
+    connectors = [(c, leafset(c)) for c in cand if len(leafset(c)) >= 2]
+    if not connectors:
+        return None
+
+    def count_stranded(seq: List[int]) -> int:
+        joined: Set[int] = {seq[0]}
+        bad = 0
+        for li in seq[1:]:
+            if not any(li in ls and (ls - {li}) <= joined
+                       for _, ls in connectors):
+                bad += 1
+            joined.add(li)
+        return bad
+
+    # Stranded steps in the ORIGINAL plan are counted against its actual
+    # (possibly bushy) tree — a join node is a cross step only if no
+    # connector within its subtree spans its two children. Linearizing the
+    # original into a left-deep sequence would falsely count connected bushy
+    # joins as stranded and rewrite plans that need no help.
+    leaf_iter = iter(range(len(leaves)))
+
+    def tree_stranded(j: RelNode) -> Tuple[Set[int], int]:
+        if isinstance(j, LogicalJoin) and j.join_type in ("INNER", "CROSS"):
+            lset, lbad = tree_stranded(j.left)
+            rset, rbad = tree_stranded(j.right)
+            here = lset | rset
+            connected = any(ls & lset and ls & rset and ls <= here
+                            for _, ls in connectors)
+            return here, lbad + rbad + (0 if connected else 1)
+        return {next(leaf_iter)}, 0
+
+    orig_stranded = tree_stranded(root)[1]
+    if orig_stranded == 0:
+        return None
+
+    # greedy order: prefer an equi-connected leaf (FROM order), then
+    # any connected leaf, then fall back to a genuine cross step
+    order = [0]
+    joined = {0}
+    remaining = list(range(1, len(leaves)))
+    while remaining:
+        pick = None
+        for want_equi in (True, False):
+            for li in remaining:
+                for c, ls in connectors:
+                    if (li in ls and (ls - {li}) <= joined
+                            and (is_equi(c) or not want_equi)):
+                        pick = li
+                        break
+                if pick is not None:
+                    break
+            if pick is not None:
+                break
+        if pick is None:
+            pick = remaining[0]
+        order.append(pick)
+        joined.add(pick)
+        remaining.remove(pick)
+
+    # rewrite only on STRICT improvement: an equally-stranded reorder
+    # would re-trigger on its own output forever (a genuinely
+    # unconnected pair stays a cross join no matter the order)
+    if count_stranded(order) >= orig_stranded:
+        return None
+
+    # ordinal mapping old-global -> new-global
+    old_to_new: Dict[int, int] = {}
+    new_off = 0
+    for li in order:
+        off, leaf = leaves[li]
+        for k in range(len(leaf.schema)):
+            old_to_new[off + k] = new_off + k
+        new_off += len(leaf.schema)
+
+    # build the left-deep tree, attaching each connector at the first step
+    # where all its leaves are available
+    placed = [False] * len(connectors)
+    single = [c for c in pool if len(leafset(c)) < 2]
+    acc = leaves[order[0]][1]
+    covered = {order[0]}
+    for li in order[1:]:
+        covered.add(li)
+        conds = []
+        for ci, (c, ls) in enumerate(connectors):
+            if not placed[ci] and ls <= covered:
+                placed[ci] = True
+                conds.append(remap_rex(c, {o: old_to_new[o]
+                                           for o in rex_inputs(c)}))
+        leaf = leaves[li][1]
+        schema = list(acc.schema) + list(leaf.schema)
+        acc = LogicalJoin(left=acc, right=leaf,
+                          join_type="INNER" if conds else "CROSS",
+                          condition=_and_all(conds), schema=schema)
+
+    # restore the original column order for the parent
+    orig_fields: List[Field] = []
+    for off, leaf in leaves:
+        orig_fields.extend(leaf.schema)
+    exprs = [RexInputRef(old_to_new[o], orig_fields[o].stype)
+             for o in range(total)]
+    proj = LogicalProject(input=acc, exprs=exprs, schema=orig_fields)
+
+    # leftovers: consumed filter connectors disappear from the filter;
+    # single-leaf join-condition conjuncts rejoin the filter pool (they
+    # were inside join conditions, now remapped to the original ordinals
+    # the filter namespace uses — which ARE the original global ordinals)
+    used_filter = {id(c) for (c, ls), p in zip(connectors, placed)
+                   if p and any(c is fc for fc in filt_conjuncts)}
+    leftover = [c for c in filt_conjuncts
+                if id(c) not in used_filter]
+    leftover.extend(single)
+    return proj, leftover
+
+
+# ---------------------------------------------------------------------------
+# pass: extract equi conditions from join residuals into the condition
+# (JOIN_CONDITION_PUSH is implicit: our executor splits equi pairs itself)
+# ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# pass: column pruning down to TableScan
+# ---------------------------------------------------------------------------
+
+def prune_columns(rel: RelNode) -> RelNode:
+    new_rel, _ = _prune(rel, set(range(len(rel.schema))))
+    return new_rel
+
+
+def _identity_map(n: int) -> Dict[int, int]:
+    return {i: i for i in range(n)}
+
+
+def _prune(rel: RelNode, needed: Set[int]) -> Tuple[RelNode, Dict[int, int]]:
+    """Returns (new_rel, mapping old_ordinal -> new_ordinal).
+
+    ``needed`` are the output ordinals the parent requires; a node may keep
+    more.  Mapping covers at least ``needed``.
+    """
+    if isinstance(rel, LogicalTableScan):
+        keep = sorted(needed) if needed else list(range(min(1, len(rel.schema))))
+        if not keep:
+            keep = [0] if rel.schema else []
+        new_schema = [rel.schema[i] for i in keep]
+        mapping = {o: i for i, o in enumerate(keep)}
+        return LogicalTableScan(rel.schema_name, rel.table_name, new_schema), mapping
+
+    if isinstance(rel, LogicalProject):
+        keep = sorted(needed) if needed else ([0] if rel.exprs else [])
+        child_needed: Set[int] = set()
+        for i in keep:
+            child_needed.update(rex_inputs(rel.exprs[i]))
+        new_child, cmap = _prune(rel.input, child_needed)
+        new_exprs = [remap_rex(rel.exprs[i], cmap) for i in keep]
+        new_schema = [rel.schema[i] for i in keep]
+        mapping = {o: i for i, o in enumerate(keep)}
+        return LogicalProject(new_child, new_exprs, new_schema), mapping
+
+    if isinstance(rel, LogicalFilter):
+        child_needed = set(needed) | set(rex_inputs(rel.condition))
+        new_child, cmap = _prune(rel.input, child_needed)
+        cond = remap_rex(rel.condition, cmap)
+        keep = sorted(needed) if needed else sorted(cmap.keys())
+        exprs = [RexInputRef(cmap[i], rel.schema[i].stype) for i in keep]
+        new_schema = [rel.schema[i] for i in keep]
+        if sorted(cmap.keys()) == keep and all(cmap[k] == j for j, k in enumerate(keep)):
+            return LogicalFilter(new_child, cond, new_schema), {o: i for i, o in enumerate(keep)}
+        filt = LogicalFilter(new_child, cond, list(new_child.schema))
+        proj = LogicalProject(filt, exprs, new_schema)
+        return proj, {o: i for i, o in enumerate(keep)}
+
+    if isinstance(rel, LogicalAggregate):
+        n_keys = len(rel.group_keys)
+        used_aggs = sorted(i - n_keys for i in needed if i >= n_keys)
+        child_needed = set(rel.group_keys)
+        for ai in used_aggs:
+            child_needed.update(rel.aggs[ai].args)
+            if rel.aggs[ai].filter_arg is not None:
+                child_needed.add(rel.aggs[ai].filter_arg)
+        new_child, cmap = _prune(rel.input, child_needed)
+        new_keys = [cmap[k] for k in rel.group_keys]
+        new_aggs = []
+        for ai in used_aggs:
+            a = rel.aggs[ai]
+            new_aggs.append(AggCall(a.op, [cmap[x] for x in a.args], a.distinct,
+                                    a.stype, a.name,
+                                    cmap[a.filter_arg] if a.filter_arg is not None else None,
+                                    a.udaf))
+        new_schema = rel.schema[:n_keys] + [rel.schema[n_keys + ai] for ai in used_aggs]
+        mapping = {i: i for i in range(n_keys)}
+        for j, ai in enumerate(used_aggs):
+            mapping[n_keys + ai] = n_keys + j
+        return LogicalAggregate(new_child, new_keys, new_aggs, new_schema), mapping
+
+    if isinstance(rel, LogicalJoin):
+        nl = len(rel.left.schema)
+        cond_refs = set(rex_inputs(rel.condition)) if rel.condition is not None else set()
+        all_needed = set(needed) | cond_refs
+        left_needed = {i for i in all_needed if i < nl}
+        right_needed = {i - nl for i in all_needed if i >= nl}
+        new_left, lmap = _prune(rel.left, left_needed)
+        new_right, rmap = _prune(rel.right, right_needed)
+        new_nl = len(new_left.schema)
+        mapping = {}
+        for o, n in lmap.items():
+            mapping[o] = n
+        for o, n in rmap.items():
+            mapping[nl + o] = new_nl + n
+        cond = remap_rex(rel.condition, mapping) if rel.condition is not None else None
+        if rel.join_type in ("SEMI", "ANTI"):
+            new_schema = [rel.schema[i] for i in sorted(lmap.keys())]
+            # the right side is not part of the output: returning its
+            # phantom ordinals would corrupt the parent's schema accounting
+            out_mapping = dict(lmap)
+        else:
+            new_schema = ([rel.schema[i] for i in sorted(lmap.keys())] +
+                          [rel.schema[nl + i] for i in sorted(rmap.keys())])
+            out_mapping = mapping
+        out = LogicalJoin(new_left, new_right, rel.join_type, cond, new_schema)
+        if hasattr(rel, "null_aware"):
+            out.null_aware = rel.null_aware  # type: ignore[attr-defined]
+        return out, out_mapping
+
+    if isinstance(rel, LogicalSort):
+        child_needed = set(needed) | {c.index for c in rel.collation}
+        new_child, cmap = _prune(rel.input, child_needed)
+        coll = [SortCollation(cmap[c.index], c.ascending, c.nulls_first)
+                for c in rel.collation]
+        new_schema = [rel.schema[i] for i in sorted(cmap.keys())]
+        # schema must mirror child schema ordering
+        inv = sorted(cmap.keys())
+        new_schema = [rel.schema[i] for i in inv]
+        return LogicalSort(new_child, coll, rel.limit, rel.offset, new_schema), cmap
+
+    if isinstance(rel, LogicalWindow):
+        n_in = len(rel.input.schema)
+        used_calls = sorted(i - n_in for i in needed if i >= n_in)
+        child_needed = {i for i in needed if i < n_in}
+        for ci in used_calls:
+            c = rel.calls[ci]
+            child_needed.update(c.args)
+            child_needed.update(c.partition)
+            child_needed.update(k.index for k in c.order)
+        new_child, cmap = _prune(rel.input, child_needed)
+        new_calls = []
+        for ci in used_calls:
+            c = rel.calls[ci]
+            new_calls.append(WindowCall(
+                c.op, [cmap[a] for a in c.args], [cmap[p] for p in c.partition],
+                [SortCollation(cmap[k.index], k.ascending, k.nulls_first)
+                 for k in c.order], c.frame, c.stype, c.name))
+        new_schema = list(new_child.schema) + [rel.schema[n_in + ci] for ci in used_calls]
+        mapping = dict(cmap)
+        for j, ci in enumerate(used_calls):
+            mapping[n_in + ci] = len(new_child.schema) + j
+        return LogicalWindow(new_child, new_calls, new_schema), mapping
+
+    if isinstance(rel, (LogicalUnion, LogicalIntersect, LogicalExcept)):
+        # set ops need all columns (row identity)
+        new_inputs = []
+        for i in rel.inputs_:
+            ni, _ = _prune(i, set(range(len(i.schema))))
+            new_inputs.append(ni)
+        out = rel.with_inputs(new_inputs)
+        return out, _identity_map(len(rel.schema))
+
+    if isinstance(rel, LogicalSample):
+        new_child, cmap = _prune(rel.input, needed)
+        new_schema = [f for f in new_child.schema]
+        return LogicalSample(new_child, rel.method, rel.percentage, rel.seed,
+                             new_schema), cmap
+
+    # default: require everything below, identity above
+    if rel.inputs:
+        new_inputs = []
+        for i in rel.inputs:
+            ni, imap = _prune(i, set(range(len(i.schema))))
+            new_inputs.append(ni)
+        rel = rel.with_inputs(new_inputs)
+    return rel, _identity_map(len(rel.schema))
+
+
+# ---------------------------------------------------------------------------
+# pass pipeline
+# ---------------------------------------------------------------------------
+
+def _factor_or(rex: RexNode) -> RexNode:
+    """Pull conjuncts common to every OR branch out of the OR:
+    (a AND x) OR (a AND y) -> a AND (x OR y).
+
+    Equivalent under SQL three-valued logic for predicate positions (both
+    forms are non-true in exactly the same cases). Without it, TPC-H Q19's
+    OR-of-conjuncts hides its shared equi-join key and the executor falls
+    back to a full cross product.
+    """
+    if not isinstance(rex, RexCall):
+        return rex
+    rex = RexCall(rex.op, [_factor_or(o) for o in rex.operands],
+                  rex.stype, rex.info)
+    if rex.op != "OR":
+        return rex
+
+    def branches(r: RexNode) -> List[RexNode]:
+        if isinstance(r, RexCall) and r.op == "OR":
+            return branches(r.operands[0]) + branches(r.operands[1])
+        return [r]
+
+    brs = [(_split_conjuncts(b)) for b in branches(rex)]
+    common = [c for c in brs[0]
+              if _is_pure(c) and all(any(c == d for d in b) for b in brs[1:])]
+    if not common:
+        return rex
+    rest_branches = []
+    for b in brs:
+        rest = [c for c in b if not any(c == d for d in common)]
+        rest_branches.append(_and_all(rest) or RexLiteral(True, BOOLEAN))
+    rest_or = rest_branches[0]
+    for rb in rest_branches[1:]:
+        rest_or = RexCall("OR", [rest_or, rb], BOOLEAN)
+    return _and_all(common + [rest_or])
+
+
+def factor_or_predicates(rel: RelNode) -> RelNode:
+    if rel.inputs:
+        rel = rel.with_inputs([factor_or_predicates(i) for i in rel.inputs])
+    if isinstance(rel, LogicalFilter):
+        return LogicalFilter(input=rel.input,
+                             condition=_factor_or(rel.condition),
+                             schema=rel.schema)
+    if isinstance(rel, LogicalJoin) and rel.condition is not None:
+        out = LogicalJoin(left=rel.left, right=rel.right,
+                          join_type=rel.join_type,
+                          condition=_factor_or(rel.condition),
+                          schema=rel.schema)
+        if hasattr(rel, "null_aware"):
+            out.null_aware = rel.null_aware  # type: ignore[attr-defined]
+        return out
+    return rel
+
+
+# push_filters runs BEFORE reorder_joins: sinking filter equalities into
+# join conditions first both repairs chains that need no reordering (TPC-H
+# Q17: the equi predicate lives two filters above the non-equi join) and
+# feeds the reorder pass a complete connector pool via the join conditions
+# it flattens; a second push sinks the reorder's leftover conjuncts
+
+
+def push_join_side_conditions(rel: RelNode) -> RelNode:
+    """Move single-side ON-clause conjuncts into the side they reference.
+
+    For LEFT joins a build-side-only conjunct filters the build input before
+    the join (identical semantics: it can only knock out matches, never probe
+    rows); probe-side-only conjuncts must STAY in the ON clause (they void
+    matches without dropping probe rows). INNER joins push both directions.
+    """
+    if rel.inputs:
+        rel = rel.with_inputs([push_join_side_conditions(i)
+                               for i in rel.inputs])
+    if not (isinstance(rel, LogicalJoin)
+            and rel.join_type in ("INNER", "LEFT", "RIGHT")
+            and rel.condition is not None):
+        return rel
+    nl = len(rel.left.schema)
+    left_ok = rel.join_type in ("INNER", "RIGHT")
+    right_ok = rel.join_type in ("INNER", "LEFT")
+    stay, to_left, to_right = [], [], []
+    for cj in _split_conjuncts(rel.condition):
+        refs = rex_inputs(cj)
+        if not _is_pure(cj) or not refs:
+            stay.append(cj)
+        elif all(r < nl for r in refs) and left_ok:
+            to_left.append(cj)
+        elif all(r >= nl for r in refs) and right_ok:
+            to_right.append(cj)
+        else:
+            stay.append(cj)
+    if not to_left and not to_right:
+        return rel
+    new_left, new_right = rel.left, rel.right
+    if to_left:
+        new_left = LogicalFilter(input=rel.left,
+                                 condition=_and_all(to_left),
+                                 schema=rel.left.schema)
+    if to_right:
+        shifted = [remap_rex(cj, {i: i - nl for i in rex_inputs(cj)})
+                   for cj in to_right]
+        new_right = LogicalFilter(input=rel.right,
+                                  condition=_and_all(shifted),
+                                  schema=rel.right.schema)
+    cond = _and_all(stay) if stay else None
+    out = LogicalJoin(left=new_left, right=new_right,
+                      join_type=rel.join_type, condition=cond,
+                      schema=rel.schema)
+    if hasattr(rel, "null_aware"):
+        out.null_aware = rel.null_aware  # type: ignore[attr-defined]
+    return out
+
+
+def split_join_condition(rel: LogicalJoin):
+    """Split a join condition into equi-key pairs + residual rex
+    (reference: _split_join_condition join.py:245-284).  Shared by the
+    physical executors AND the optimizer's exist-test rewrite — one
+    decomposition, so heuristics and lowerings cannot drift."""
+    nl = len(rel.left.schema)
+    equi: List[tuple] = []
+    residual: List = []
+
+    def visit(rex):
+        if isinstance(rex, RexCall) and rex.op == "AND":
+            visit(rex.operands[0])
+            visit(rex.operands[1])
+            return
+        if isinstance(rex, RexCall) and rex.op == "=" and len(rex.operands) == 2:
+            a, b = rex.operands
+            if isinstance(a, RexInputRef) and isinstance(b, RexInputRef):
+                if a.index < nl <= b.index:
+                    equi.append((a.index, b.index - nl))
+                    return
+                if b.index < nl <= a.index:
+                    equi.append((b.index, a.index - nl))
+                    return
+        if isinstance(rex, RexLiteral) and rex.value is True:
+            return
+        residual.append(rex)
+
+    if rel.condition is not None:
+        visit(rel.condition)
+    return equi, residual
+
+
+def peel_root_epilogue(plan: RelNode):
+    """Split ``plan`` into (core, epilogue): the epilogue is the root
+    Project/Sort chain down to and including its DEEPEST Sort, returned in
+    application order (deepest first); Projects below that Sort stay in the
+    core.  No terminal Sort means no epilogue.
+
+    The SPMD backend (parallel/spmd.py) executes the core sharded and
+    applies the epilogue on the host over the compacted result — a global
+    ORDER BY inside a shard_map program would be a full repartition for
+    rows the host materializes anyway (the same reasoning as the compiled
+    executor's off-TPU host_sort peel)."""
+    chain: List[RelNode] = []
+    node = plan
+    while isinstance(node, (LogicalProject, LogicalSort)):
+        chain.append(node)
+        node = node.inputs[0]
+    last_sort = None
+    for i, nd in enumerate(chain):
+        if isinstance(nd, LogicalSort):
+            last_sort = i
+    if last_sort is None:
+        return plan, []
+    peeled = chain[:last_sort + 1]
+    return peeled[-1].inputs[0], list(reversed(peeled))
+
+
+_EXIST_TEST_OPS = {"<>", "<", "<=", ">", ">="}
+_EXIST_FLIP = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "<>": "<>"}
+
+
+def rewrite_exist_test_joins(rel: RelNode) -> RelNode:
+    """SEMI/ANTI with equi keys plus ONE build-vs-probe comparison residual
+    (TPC-H Q21's ``EXISTS(l2.orderkey = l1.orderkey AND l2.suppkey <>
+    l1.suppkey)``) — the compiled executor's in-join exist-test payload
+    formulation for this shape produces XLA:TPU programs so large the
+    remote compile helper is OOM-killed.  Algebraic equivalent: group the
+    build by the equi keys with COUNT(x)/MIN(x)/MAX(x), then
+        exists b.x <> y  <=>  cnt >= 1 AND (mn <> y OR mx <> y)
+        exists b.x <  y  <=>  cnt >= 1 AND mn < y       (etc. via min/max)
+    so the SEMI becomes a plain INNER equi join + filter, and the ANTI a
+    LEFT join + null-aware filter — both compile like ordinary joins.
+    Floats are excluded (NaN comparison semantics the min/max reduction
+    cannot reproduce), matching the exist-test path's own restriction."""
+    new_inputs = [rewrite_exist_test_joins(i) for i in rel.inputs]
+    if any(a is not b for a, b in zip(new_inputs, rel.inputs)):
+        rel = rel.with_inputs(new_inputs)
+    if not isinstance(rel, LogicalJoin) \
+            or rel.join_type not in ("SEMI", "ANTI") \
+            or getattr(rel, "null_aware", False) \
+            or rel.condition is None:
+        return rel
+    equi, residual = split_join_condition(rel)
+    if not equi or len(residual) != 1:
+        return rel
+    r = residual[0]
+    nl = len(rel.left.schema)
+    if not (isinstance(r, RexCall) and r.op in _EXIST_TEST_OPS
+            and len(r.operands) == 2
+            and all(isinstance(o, RexInputRef) for o in r.operands)):
+        return rel
+    a, b = r.operands
+    if a.index < nl <= b.index:
+        y_idx, x_idx, op = a.index, b.index - nl, _EXIST_FLIP[r.op]
+    elif b.index < nl <= a.index:
+        y_idx, x_idx, op = b.index, a.index - nl, r.op
+    else:
+        return rel
+    from ..types import BIGINT
+
+    right = rel.right
+    x_f = right.schema[x_idx]
+    y_f = rel.left.schema[y_idx]
+    if x_f.stype.is_floating or y_f.stype.is_floating:
+        return rel
+    gks = []
+    for _, bi in equi:
+        if bi not in gks:
+            gks.append(bi)
+    key_fields = [Field(right.schema[bi].name, right.schema[bi].stype)
+                  for bi in gks]
+    agg = LogicalAggregate(
+        input=right, group_keys=list(gks),
+        aggs=[AggCall("COUNT", [x_idx], False, BIGINT, "cnt$"),
+              AggCall("MIN", [x_idx], False, x_f.stype, "mn$"),
+              AggCall("MAX", [x_idx], False, x_f.stype, "mx$")],
+        schema=key_fields + [Field("cnt$", BIGINT),
+                             Field("mn$", x_f.stype),
+                             Field("mx$", x_f.stype)])
+    pos_of = {bi: i for i, bi in enumerate(gks)}
+    cond = None
+    for pi, bi in equi:
+        eq = RexCall("=", [RexInputRef(pi, rel.left.schema[pi].stype),
+                           RexInputRef(nl + pos_of[bi],
+                                       right.schema[bi].stype)], BOOLEAN)
+        cond = eq if cond is None else RexCall("AND", [cond, eq], BOOLEAN)
+    nk = len(gks)
+    joined = LogicalJoin(
+        left=rel.left, right=agg,
+        join_type="INNER" if rel.join_type == "SEMI" else "LEFT",
+        condition=cond, schema=list(rel.left.schema) + list(agg.schema))
+    y = RexInputRef(y_idx, y_f.stype)
+    cnt = RexInputRef(nl + nk, BIGINT)
+    mn = RexInputRef(nl + nk + 1, x_f.stype)
+    mx = RexInputRef(nl + nk + 2, x_f.stype)
+    if op == "<>":
+        pred = RexCall("OR", [RexCall("<>", [mn, y], BOOLEAN),
+                              RexCall("<>", [mx, y], BOOLEAN)], BOOLEAN)
+    elif op in ("<", "<="):
+        pred = RexCall(op, [mn, y], BOOLEAN)
+    else:
+        pred = RexCall(op, [mx, y], BOOLEAN)
+    cnt_pos = RexCall(">=", [RexCall("COALESCE",
+                                     [cnt, RexLiteral(0, BIGINT)], BIGINT),
+                             RexLiteral(1, BIGINT)], BOOLEAN)
+    exists_pred = RexCall("AND", [cnt_pos, pred], BOOLEAN)
+    if rel.join_type == "SEMI":
+        keep: RexNode = exists_pred
+    else:
+        # NOT EXISTS keeps the row when the group is absent, when the
+        # probe value is NULL (no comparison can succeed), or when no
+        # build value satisfies the comparison — 3VL-safe by construction
+        keep = RexCall("OR", [
+            RexCall("IS_NULL", [y], BOOLEAN),
+            RexCall("NOT", [exists_pred], BOOLEAN)], BOOLEAN)
+    filt = LogicalFilter(input=joined, condition=keep,
+                         schema=list(joined.schema))
+    return LogicalProject(
+        input=filt,
+        exprs=[RexInputRef(i, f.stype)
+               for i, f in enumerate(rel.left.schema)],
+        schema=list(rel.schema))
+
+
+_AGG_THROUGH_JOIN_OPS = {"COUNT", "SUM", "$SUM0", "MIN", "MAX"}
+
+
+def aggregate_through_join(rel: RelNode) -> RelNode:
+    """Pre-aggregate a join's right side when the aggregate only groups by
+    left-side columns and only aggregates right-side columns.
+
+    Turns the 1:N expansion of e.g. TPC-H Q13 (customer LEFT JOIN orders,
+    COUNT per customer) into a groupby on the N side + an N:1 join — which
+    the compiled executor's unique-build join handles, and which is
+    strictly less work everywhere (the join output never materializes the
+    multiplicity). Calcite ships the same family as
+    AggregateJoinTransposeRule; the reference's rule list only has the
+    REMOVE variant (RelationalAlgebraGenerator.java:206).
+    """
+    if rel.inputs:
+        rel = rel.with_inputs([aggregate_through_join(i) for i in rel.inputs])
+    if not isinstance(rel, LogicalAggregate):
+        return rel
+    join = rel.input
+    # look through a bare-ref projection (the binder's pre-projection)
+    remap: Optional[List[int]] = None
+    if (isinstance(join, LogicalProject)
+            and all(isinstance(e, RexInputRef) for e in join.exprs)):
+        remap = [e.index for e in join.exprs]
+        join = join.input
+    if not (isinstance(join, LogicalJoin)
+            and join.join_type in ("INNER", "LEFT")
+            and join.condition is not None):
+        return rel
+
+    def m(i: int) -> int:
+        return remap[i] if remap is not None else i
+
+    group_keys = [m(g) for g in rel.group_keys]
+    agg_args = [[m(a) for a in agg.args] for agg in rel.aggs]
+    nl = len(join.left.schema)
+    # equi keys must be bare column refs (they become the pre-agg group keys)
+    lkeys: List[int] = []
+    rkeys: List[int] = []
+    for cj in _split_conjuncts(join.condition):
+        if not (isinstance(cj, RexCall) and cj.op == "="
+                and len(cj.operands) == 2
+                and all(isinstance(o, RexInputRef) for o in cj.operands)):
+            return rel
+        a, b = cj.operands[0].index, cj.operands[1].index
+        if a < nl <= b:
+            lkeys.append(a); rkeys.append(b - nl)
+        elif b < nl <= a:
+            lkeys.append(b); rkeys.append(a - nl)
+        else:
+            return rel
+    if not lkeys:
+        return rel
+    if not all(g < nl for g in group_keys):
+        return rel
+    for agg, args in zip(rel.aggs, agg_args):
+        if (agg.op not in _AGG_THROUGH_JOIN_OPS or agg.distinct
+                or agg.udaf is not None or agg.filter_arg is not None
+                or not args or any(a < nl for a in args)):
+            return rel
+
+    # right pre-aggregate: group by the right join keys
+    pre_fields = [Field(f"$jk{i}", join.right.schema[k].stype)
+                  for i, k in enumerate(rkeys)]
+    pre_aggs: List[AggCall] = []
+    for i, (agg, args) in enumerate(zip(rel.aggs, agg_args)):
+        pre_aggs.append(AggCall(op=agg.op, args=[a - nl for a in args],
+                                distinct=False, stype=agg.stype,
+                                name=f"$pa{i}", filter_arg=None, udaf=None))
+        pre_fields.append(Field(f"$pa{i}", agg.stype))
+    pre = LogicalAggregate(input=join.right, group_keys=list(rkeys),
+                           aggs=pre_aggs, schema=pre_fields)
+
+    # rejoin: left columns keep their ordinals; right side is now the
+    # pre-aggregate (keys first, then one column per aggregate)
+    cond = None
+    for i, lk in enumerate(lkeys):
+        eq = RexCall("=", [RexInputRef(lk, join.left.schema[lk].stype),
+                           RexInputRef(nl + i, pre_fields[i].stype)],
+                     BOOLEAN)
+        cond = eq if cond is None else RexCall("AND", [cond, eq], BOOLEAN)
+    j_schema = list(join.left.schema) + pre_fields
+    j2 = LogicalJoin(left=join.left, right=pre, join_type=join.join_type,
+                     condition=cond, schema=j_schema)
+
+    # outer combine: COUNT -> $SUM0 of the (0-coalesced) partial counts,
+    # SUM/MIN/MAX recombine with themselves over the partials
+    out_aggs: List[AggCall] = []
+    for i, agg in enumerate(rel.aggs):
+        slot = nl + len(rkeys) + i
+        outer_op = "$SUM0" if agg.op == "COUNT" else agg.op
+        out_aggs.append(AggCall(op=outer_op, args=[slot], distinct=False,
+                                stype=agg.stype, name=agg.name,
+                                filter_arg=None, udaf=None))
+    agg2 = LogicalAggregate(input=j2, group_keys=list(group_keys),
+                            aggs=out_aggs, schema=rel.schema)
+    return agg2
+
+
+PASSES = [merge_filters, factor_or_predicates, push_filters, merge_filters,
+          reorder_joins, push_filters, merge_filters,
+          push_join_side_conditions, push_filters, merge_filters,
+          rewrite_exist_test_joins,
+          aggregate_through_join, merge_projects]
+
+
+def optimize_subplans(rel: RelNode) -> RelNode:
+    """Recursively optimize plans embedded in scalar-subquery expressions —
+    the tree passes only walk ``rel.inputs``, so a HAVING/WHERE subquery's
+    own join chain would otherwise reach the executor unoptimized (TPC-H
+    Q11: a 3-table comma list inside HAVING stays a cross product)."""
+
+    def walk_rex(r: RexNode) -> None:
+        if isinstance(r, RexScalarSubquery):
+            r.plan = optimize(r.plan)
+        elif isinstance(r, RexCall):
+            for o in r.operands:
+                walk_rex(o)
+
+    if rel.inputs:
+        rel = rel.with_inputs([optimize_subplans(i) for i in rel.inputs])
+    if isinstance(rel, LogicalProject):
+        for e in rel.exprs:
+            walk_rex(e)
+    elif isinstance(rel, LogicalFilter):
+        walk_rex(rel.condition)
+    elif isinstance(rel, LogicalJoin) and rel.condition is not None:
+        walk_rex(rel.condition)
+    return rel
+
+
+def optimize(plan: RelNode, enable_pruning: bool = True) -> RelNode:
+    """The Python rule pipeline (``PASSES``), then subplans and pruning.
+
+    The JAX package prefers its native C++ optimizer and runs a
+    statistics-driven join reorder as a post-pass; the port runs the
+    Python pipeline alone, which is the semantics reference the native
+    optimizer is tested against."""
+    for p in PASSES:
+        plan = p(plan)
+    plan = optimize_subplans(plan)
+    if enable_pruning:
+        plan = prune_columns(plan)
+        plan = merge_projects(plan)
+    return plan

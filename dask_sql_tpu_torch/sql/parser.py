@@ -1,0 +1,1309 @@
+"""Native SQL parser: tokens -> AST.
+
+Hand-written recursive-descent statement parser with a Pratt expression
+parser.  Covers the reference's SQL surface: the Calcite-core query grammar it
+relies on (SELECT/joins/GROUP BY/HAVING/window OVER/ORDER/LIMIT/UNION/VALUES/
+TABLESAMPLE) plus the custom statement grammar defined in
+upstream planner/src/main/codegen/includes/{create,model,show,utils}.ftl:
+CREATE TABLE/VIEW ... WITH kwargs | AS (query), CREATE/DROP/USE SCHEMA,
+DROP TABLE/MODEL, ANALYZE TABLE, SHOW SCHEMAS/TABLES/COLUMNS/MODELS,
+DESCRIBE [MODEL], CREATE MODEL/EXPERIMENT ... WITH kwargs AS (query),
+EXPORT MODEL, SELECT ... FROM PREDICT(MODEL name, query), and the
+``key = value`` kwargs dicts with ARRAY/MAP/nested-dict values.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+from ..utils import ParsingException
+from .ast import *  # noqa: F401,F403
+from .ast import (
+    AnalyzeTable, Between, Call, Case, Cast, ColumnRef, CreateExperiment,
+    CreateMaterializedView, CreateModel, CreateSchema, CreateTable,
+    CreateTableAs, DescribeModel, DescribeTable, DropMaterializedView,
+    DropModel, DropSchema, DropTable, ExplainStatement, ExportModel, Expr,
+    DeallocateStatement, ExecuteStatement, PrepareStatement,
+    InList, InsertInto, IntervalLiteral, IsBool, IsDistinctFrom, IsNull,
+    JoinRelation, Like, Literal, Param, PredictRelation, QueryStatement,
+    RefreshMaterializedView, Relation, Select, SelectLike, SetOp, ShowColumns,
+    ShowModels, ShowSchemas, ShowTables, SortKey, Star, Statement, Subquery,
+    SubqueryRelation, TableRef, UseSchema, ValuesQuery, WindowSpec,
+)
+from .lexer import LexError, Token, tokenize
+
+# Words that terminate expressions / cannot be bare identifiers in most spots.
+RESERVED = {
+    "SELECT", "FROM", "WHERE", "GROUP", "HAVING", "ORDER", "LIMIT", "OFFSET",
+    "UNION", "INTERSECT", "EXCEPT", "JOIN", "INNER", "LEFT", "RIGHT", "FULL",
+    "CROSS", "ON", "USING", "AS", "AND", "OR", "NOT", "CASE", "WHEN", "THEN",
+    "ELSE", "END", "IS", "NULL", "TRUE", "FALSE", "BETWEEN", "IN", "LIKE",
+    "ILIKE", "SIMILAR", "EXISTS", "DISTINCT", "ALL", "ANY", "SOME", "BY",
+    "ASC", "DESC", "NULLS", "FIRST", "LAST", "CAST", "INTERVAL", "CREATE",
+    "DROP", "SHOW", "DESCRIBE", "ANALYZE", "WITH", "VALUES", "OVER",
+    "PARTITION", "TABLESAMPLE", "FETCH", "FILTER", "THEN", "TO", "FOR",
+    "NATURAL",  # else the table-alias rule swallows it before join parsing
+}
+
+_COMPARISONS = {"=", "<>", "!=", "<", "<=", ">", ">="}
+
+_JOIN_TYPES = {"INNER", "LEFT", "RIGHT", "FULL", "CROSS"}
+
+
+class Parser:
+    def __init__(self, sql: str):
+        self.sql = sql
+        try:
+            self.tokens = tokenize(sql)
+        except LexError as e:
+            raise ParsingException(sql, str(e), e.line, e.col) from None
+        self.i = 0
+        # positional-parameter bookkeeping: ``?`` markers number
+        # left-to-right in token order; ``$n`` names an explicit 1-based
+        # slot.  num_params() reports how many values a statement needs.
+        self._param_seq = 0
+        self._param_max = 0
+
+    def num_params(self) -> int:
+        """Parameter slots referenced by everything parsed so far."""
+        return max(self._param_seq, self._param_max)
+
+    # ------------------------------------------------------------------ utils
+    @property
+    def cur(self) -> Token:
+        # clamped: the lexer always appends an EOF token, so running past the
+        # end keeps returning it instead of raising IndexError
+        return self.tokens[min(self.i, len(self.tokens) - 1)]
+
+    def peek(self, k: int = 0) -> Token:
+        j = min(self.i + k, len(self.tokens) - 1)
+        return self.tokens[j]
+
+    def at_kw(self, *words: str, k: int = 0) -> bool:
+        t = self.peek(k)
+        return t.kind == "IDENT" and t.upper in words
+
+    def at_op(self, *ops: str, k: int = 0) -> bool:
+        t = self.peek(k)
+        return t.kind == "OP" and t.text in ops
+
+    def eat_kw(self, *words: str) -> Optional[str]:
+        if self.at_kw(*words):
+            w = self.cur.upper
+            self.i += 1
+            return w
+        return None
+
+    def eat_op(self, *ops: str) -> Optional[str]:
+        if self.at_op(*ops):
+            op = self.cur.text
+            self.i += 1
+            return op
+        return None
+
+    def expect_kw(self, *words: str) -> str:
+        w = self.eat_kw(*words)
+        if w is None:
+            self.error(f"Expected {' or '.join(words)}")
+        return w
+
+    def expect_op(self, op: str) -> None:
+        if not self.eat_op(op):
+            self.error(f"Expected '{op}'")
+
+    def error(self, message: str, token: Optional[Token] = None):
+        t = token or self.cur
+        got = t.text if t.kind != "EOF" else "end of statement"
+        raise ParsingException(
+            self.sql, f"{message} (got {got!r})", t.line, t.col,
+            max(1, len(t.text)),
+        )
+
+    def identifier(self, what: str = "identifier") -> str:
+        t = self.cur
+        if t.kind == "QIDENT":
+            self.i += 1
+            return t.text
+        if t.kind == "IDENT" and t.upper not in RESERVED:
+            self.i += 1
+            return t.text
+        self.error(f"Expected {what}")
+
+    def any_identifier(self) -> str:
+        """Identifier where even reserved words are fine (e.g. after a dot)."""
+        t = self.cur
+        if t.kind in ("IDENT", "QIDENT"):
+            self.i += 1
+            return t.text
+        self.error("Expected identifier")
+
+    def compound_identifier(self) -> List[str]:
+        parts = [self.identifier()]
+        while self.eat_op("."):
+            parts.append(self.any_identifier())
+        return parts
+
+    # ------------------------------------------------------------- statements
+    def parse_statements(self) -> List[Statement]:
+        stmts = []
+        while self.cur.kind != "EOF":
+            stmts.append(self.parse_statement())
+            while self.eat_op(";"):
+                pass
+        return stmts
+
+    def parse_statement(self) -> Statement:
+        t = self.cur
+        if t.kind == "IDENT":
+            u = t.upper
+            if u == "CREATE":
+                return self._parse_create()
+            if u == "DROP":
+                return self._parse_drop()
+            if u == "SHOW":
+                return self._parse_show()
+            if u == "DESCRIBE" or u == "DESC":
+                return self._parse_describe()
+            if u == "ANALYZE":
+                return self._parse_analyze()
+            if u == "USE":
+                return self._parse_use()
+            if u == "EXPORT":
+                return self._parse_export()
+            if u == "INSERT":
+                return self._parse_insert()
+            if u == "REFRESH":
+                return self._parse_refresh()
+            if u == "PREPARE":
+                return self._parse_prepare()
+            if u == "EXECUTE":
+                return self._parse_execute()
+            if u == "DEALLOCATE":
+                return self._parse_deallocate()
+            if u == "EXPLAIN":
+                self.i += 1
+                analyze = bool(self.eat_kw("ANALYZE"))
+                profile = (False if analyze
+                           else bool(self.eat_kw("PROFILE")))
+                return ExplainStatement(query=self.parse_query(),
+                                        analyze=analyze, profile=profile,
+                                        pos=(t.line, t.col))
+        if t.kind == "IDENT" and t.upper in ("SELECT", "WITH", "VALUES") or self.at_op("("):
+            return QueryStatement(query=self.parse_query())
+        self.error("Expected a SQL statement")
+
+    # -- PREPARE / EXECUTE / DEALLOCATE ------------------------------------
+    def _parse_prepare(self) -> Statement:
+        pos = (self.cur.line, self.cur.col)
+        self.expect_kw("PREPARE")
+        name = self.identifier("prepared statement name")
+        self.expect_kw("AS")
+        before = self.num_params()
+        query = self._parse_parenthesized_or_plain_query()
+        return PrepareStatement(name=name, query=query, sql=self.sql,
+                                num_params=self.num_params() - before,
+                                pos=pos)
+
+    def _parse_execute(self) -> Statement:
+        pos = (self.cur.line, self.cur.col)
+        self.expect_kw("EXECUTE")
+        name = self.identifier("prepared statement name")
+        params: List = []
+        if self.eat_op("("):
+            if not self.at_op(")"):
+                params.append(self._parse_param_value())
+                while self.eat_op(","):
+                    params.append(self._parse_param_value())
+            self.expect_op(")")
+        return ExecuteStatement(name=name, params=params, pos=pos)
+
+    def _parse_deallocate(self) -> Statement:
+        pos = (self.cur.line, self.cur.col)
+        self.expect_kw("DEALLOCATE")
+        self.eat_kw("PREPARE")
+        if self.eat_kw("ALL"):
+            return DeallocateStatement(name=None, pos=pos)
+        return DeallocateStatement(
+            name=self.identifier("prepared statement name"), pos=pos)
+
+    def _parse_param_value(self):
+        """EXECUTE argument: a (possibly signed) literal python value."""
+        t = self.cur
+        sign = 1
+        while self.at_op("-", "+"):
+            if self.cur.text == "-":
+                sign = -sign
+            self.i += 1
+            t = self.cur
+        if t.kind == "NUMBER":
+            self.i += 1
+            return sign * _number_value(t.text)
+        if t.kind == "STRING":
+            self.i += 1
+            return t.text
+        if self.eat_kw("TRUE"):
+            return True
+        if self.eat_kw("FALSE"):
+            return False
+        if self.eat_kw("NULL"):
+            return None
+        self.error("Expected a literal EXECUTE argument")
+
+    # -- CREATE ------------------------------------------------------------
+    def _parse_create(self) -> Statement:
+        pos = (self.cur.line, self.cur.col)
+        self.expect_kw("CREATE")
+        or_replace = False
+        if self.eat_kw("OR"):
+            self.expect_kw("REPLACE")
+            or_replace = True
+        materialized = bool(self.eat_kw("MATERIALIZED"))
+        if materialized:
+            self.expect_kw("VIEW")
+            kind = "MATERIALIZED VIEW"
+        else:
+            kind = self.expect_kw("TABLE", "VIEW", "MODEL", "SCHEMA",
+                                  "EXPERIMENT")
+        if_not_exists = False
+        if self.eat_kw("IF"):
+            self.expect_kw("NOT")
+            self.expect_kw("EXISTS")
+            if_not_exists = True
+
+        if kind == "SCHEMA":
+            name = self.identifier("schema name")
+            return CreateSchema(name=name, if_not_exists=if_not_exists,
+                                or_replace=or_replace, pos=pos)
+
+        name = self.compound_identifier()
+
+        if kind == "MATERIALIZED VIEW":
+            self.expect_kw("AS")
+            query = self._parse_parenthesized_or_plain_query()
+            return CreateMaterializedView(
+                name=name, query=query, if_not_exists=if_not_exists,
+                or_replace=or_replace, pos=pos)
+
+        if kind in ("MODEL", "EXPERIMENT"):
+            kwargs = {}
+            if self.eat_kw("WITH"):
+                kwargs = self._parse_kwargs()
+            self.expect_kw("AS")
+            query = self._parse_parenthesized_or_plain_query()
+            cls = CreateModel if kind == "MODEL" else CreateExperiment
+            return cls(name=name, kwargs=kwargs, query=query,
+                       if_not_exists=if_not_exists, or_replace=or_replace, pos=pos)
+
+        # TABLE or VIEW
+        if self.eat_kw("WITH"):
+            kwargs = self._parse_kwargs()
+            return CreateTable(name=name, kwargs=kwargs,
+                               if_not_exists=if_not_exists,
+                               or_replace=or_replace, pos=pos)
+        self.expect_kw("AS")
+        query = self._parse_parenthesized_or_plain_query()
+        return CreateTableAs(name=name, query=query, if_not_exists=if_not_exists,
+                             or_replace=or_replace, view=(kind == "VIEW"), pos=pos)
+
+    def _parse_parenthesized_or_plain_query(self) -> SelectLike:
+        if self.at_op("(") :
+            self.expect_op("(")
+            q = self.parse_query()
+            self.expect_op(")")
+            return q
+        return self.parse_query()
+
+    def _parse_kwargs(self) -> dict:
+        self.expect_op("(")
+        kwargs = {}
+        if not self.at_op(")"):
+            while True:
+                key = self.any_identifier()
+                self.expect_op("=")
+                kwargs[key] = self._parse_kwarg_value()
+                if not self.eat_op(","):
+                    break
+        self.expect_op(")")
+        return kwargs
+
+    def _parse_kwarg_value(self):
+        t = self.cur
+        if self.at_op("("):
+            # nested dict (reference: MULTISET of key-values, utils.ftl:62-106)
+            return self._parse_kwargs()
+        if self.at_kw("ARRAY"):
+            self.i += 1
+            self.expect_op("[")
+            vals = []
+            if not self.at_op("]"):
+                while True:
+                    vals.append(self._parse_kwarg_value())
+                    if not self.eat_op(","):
+                        break
+            self.expect_op("]")
+            return vals
+        if self.at_kw("MAP"):
+            self.i += 1
+            self.expect_op("[")
+            items = []
+            if not self.at_op("]"):
+                while True:
+                    items.append(self._parse_kwarg_value())
+                    if not self.eat_op(","):
+                        break
+            self.expect_op("]")
+            return dict(zip(items[0::2], items[1::2]))
+        if t.kind == "STRING":
+            self.i += 1
+            return t.text
+        if t.kind == "NUMBER":
+            self.i += 1
+            return _number_value(t.text)
+        if self.eat_op("-"):
+            t = self.cur
+            if t.kind == "NUMBER":
+                self.i += 1
+                return -_number_value(t.text)
+            self.error("Expected number")
+        if t.kind == "IDENT":
+            u = t.upper
+            self.i += 1
+            if u == "TRUE":
+                return True
+            if u == "FALSE":
+                return False
+            if u == "NULL":
+                return None
+            return t.text  # bare identifier value, e.g. format = csv
+        self.error("Expected kwarg value")
+
+    # -- DROP / SHOW / DESCRIBE / ANALYZE / USE / EXPORT -------------------
+    def _parse_drop(self) -> Statement:
+        pos = (self.cur.line, self.cur.col)
+        self.expect_kw("DROP")
+        materialized = bool(self.eat_kw("MATERIALIZED"))
+        if materialized:
+            self.expect_kw("VIEW")
+            kind = "MATERIALIZED VIEW"
+        else:
+            kind = self.expect_kw("TABLE", "MODEL", "SCHEMA", "VIEW")
+        if_exists = False
+        if self.eat_kw("IF"):
+            self.expect_kw("EXISTS")
+            if_exists = True
+        if kind == "SCHEMA":
+            return DropSchema(name=self.identifier(), if_exists=if_exists, pos=pos)
+        name = self.compound_identifier()
+        if kind == "MODEL":
+            return DropModel(name=name, if_exists=if_exists, pos=pos)
+        if kind == "MATERIALIZED VIEW":
+            return DropMaterializedView(name=name, if_exists=if_exists,
+                                        pos=pos)
+        return DropTable(name=name, if_exists=if_exists, pos=pos)
+
+    def _parse_insert(self) -> Statement:
+        pos = (self.cur.line, self.cur.col)
+        self.expect_kw("INSERT")
+        self.expect_kw("INTO")
+        table = self.compound_identifier()
+        columns = None
+        # '(' here is ambiguous: a column list or a parenthesized query —
+        # a following SELECT/VALUES/WITH token decides
+        if self.at_op("(") and not self.at_kw("SELECT", "VALUES", "WITH",
+                                              k=1):
+            self.expect_op("(")
+            columns = [self.identifier("column name")]
+            while self.eat_op(","):
+                columns.append(self.identifier("column name"))
+            self.expect_op(")")
+        query = self.parse_query()
+        return InsertInto(table=table, columns=columns, query=query, pos=pos)
+
+    def _parse_refresh(self) -> Statement:
+        pos = (self.cur.line, self.cur.col)
+        self.expect_kw("REFRESH")
+        self.expect_kw("MATERIALIZED")
+        self.expect_kw("VIEW")
+        return RefreshMaterializedView(name=self.compound_identifier(),
+                                       pos=pos)
+
+    def _parse_show(self) -> Statement:
+        pos = (self.cur.line, self.cur.col)
+        self.expect_kw("SHOW")
+        kind = self.expect_kw("SCHEMAS", "TABLES", "COLUMNS", "MODELS")
+        if kind == "SCHEMAS":
+            like = None
+            if self.eat_kw("LIKE"):
+                if self.cur.kind != "STRING":
+                    self.error("Expected a string literal after LIKE")
+                like = self.cur.text
+                self.i += 1
+            return ShowSchemas(like=like, pos=pos)
+        if kind == "TABLES":
+            schema = None
+            if self.eat_kw("FROM", "IN"):
+                schema = self.identifier()
+            return ShowTables(schema=schema, pos=pos)
+        if kind == "COLUMNS":
+            self.expect_kw("FROM", "IN")
+            return ShowColumns(table=self.compound_identifier(), pos=pos)
+        return ShowModels(pos=pos)
+
+    def _parse_describe(self) -> Statement:
+        pos = (self.cur.line, self.cur.col)
+        self.i += 1  # DESCRIBE
+        if self.eat_kw("MODEL"):
+            return DescribeModel(name=self.compound_identifier(), pos=pos)
+        self.eat_kw("TABLE")
+        return DescribeTable(table=self.compound_identifier(), pos=pos)
+
+    def _parse_analyze(self) -> Statement:
+        pos = (self.cur.line, self.cur.col)
+        self.expect_kw("ANALYZE")
+        self.expect_kw("TABLE")
+        table = self.compound_identifier()
+        columns = None
+        self.expect_kw("COMPUTE")
+        self.expect_kw("STATISTICS")
+        if self.eat_kw("FOR"):
+            if self.eat_kw("ALL"):
+                self.expect_kw("COLUMNS")
+            else:
+                self.expect_kw("COLUMNS")
+                columns = [self.identifier()]
+                while self.eat_op(","):
+                    columns.append(self.identifier())
+        return AnalyzeTable(table=table, columns=columns, pos=pos)
+
+    def _parse_use(self) -> Statement:
+        pos = (self.cur.line, self.cur.col)
+        self.expect_kw("USE")
+        self.expect_kw("SCHEMA")
+        return UseSchema(name=self.identifier(), pos=pos)
+
+    def _parse_export(self) -> Statement:
+        pos = (self.cur.line, self.cur.col)
+        self.expect_kw("EXPORT")
+        self.expect_kw("MODEL")
+        name = self.compound_identifier()
+        kwargs = {}
+        if self.eat_kw("WITH"):
+            kwargs = self._parse_kwargs()
+        return ExportModel(name=name, kwargs=kwargs, pos=pos)
+
+    # ---------------------------------------------------------------- queries
+    def parse_query(self) -> SelectLike:
+        ctes: List[Tuple[str, SelectLike]] = []
+        if self.at_kw("WITH"):
+            self.i += 1
+            while True:
+                name = self.identifier("CTE name")
+                self.expect_kw("AS")
+                self.expect_op("(")
+                ctes.append((name, self.parse_query()))
+                self.expect_op(")")
+                if not self.eat_op(","):
+                    break
+        body = self._parse_set_expr()
+        order_by, limit, offset = self._parse_order_limit()
+        # A "raw" body (VALUES, or a parenthesized/nested-WITH query that
+        # already owns its ORDER BY/LIMIT) is opaque: outer clauses must wrap
+        # it in a Select over a subquery, never merge into it (they would
+        # apply twice).  Mirror of the native parser's parse_query_parts,
+        # where these bodies are kind=RAW.
+        raw = not isinstance(body, (Select, SetOp)) or \
+            getattr(body, "_raw_body", False)
+        if not raw and isinstance(body, Select) and not body.order_by:
+            body.ctes = ctes + body.ctes
+            body.order_by = order_by
+            body.limit = limit if body.limit is None else body.limit
+            body.offset = offset if body.offset is None else body.offset
+            return body
+        outer = bool(order_by) or limit is not None or offset is not None
+        needs_wrap = bool(ctes) or (raw and outer)
+        if isinstance(body, SetOp) and not raw and not needs_wrap:
+            body.order_by = order_by
+            body.limit = limit
+            body.offset = offset
+        if needs_wrap:
+            # wrap in a Select to carry CTEs and/or outer ORDER BY/LIMIT
+            sel = Select(projections=[(Star(), None)],
+                         from_=SubqueryRelation(query=body, alias="__cte_body__"))
+            sel.ctes = ctes
+            sel.order_by = order_by
+            sel.limit, sel.offset = limit, offset
+            return sel
+        return body
+
+    def _parse_order_limit(self):
+        order_by: List[SortKey] = []
+        limit = offset = None
+        if self.at_kw("ORDER"):
+            self.i += 1
+            self.expect_kw("BY")
+            while True:
+                order_by.append(self._parse_sort_key())
+                if not self.eat_op(","):
+                    break
+        if self.eat_kw("LIMIT"):
+            limit = self.parse_expr()
+        if self.eat_kw("OFFSET"):
+            offset = self.parse_expr()
+            self.eat_kw("ROWS", "ROW")
+        if self.eat_kw("FETCH"):
+            self.expect_kw("FIRST", "NEXT")
+            limit = self.parse_expr()
+            self.eat_kw("ROWS", "ROW")
+            self.expect_kw("ONLY")
+        return order_by, limit, offset
+
+    def _parse_sort_key(self) -> SortKey:
+        e = self.parse_expr()
+        asc = True
+        if self.eat_kw("DESC"):
+            asc = False
+        else:
+            self.eat_kw("ASC")
+        nulls_first = None
+        if self.eat_kw("NULLS"):
+            nulls_first = self.expect_kw("FIRST", "LAST") == "FIRST"
+        return SortKey(expr=e, ascending=asc, nulls_first=nulls_first)
+
+    def _parse_set_expr(self) -> SelectLike:
+        left = self._parse_select_core()
+        while True:
+            pos = (self.cur.line, self.cur.col)
+            op = self.eat_kw("UNION", "INTERSECT", "EXCEPT", "MINUS")
+            if op is None:
+                return left
+            if op == "MINUS":
+                op = "EXCEPT"
+            all_ = bool(self.eat_kw("ALL"))
+            if not all_:
+                self.eat_kw("DISTINCT")
+            right = self._parse_select_core()
+            left = SetOp(op=op, all=all_, left=left, right=right, pos=pos)
+
+    def _parse_select_core(self) -> SelectLike:
+        if self.at_op("("):
+            self.expect_op("(")
+            q = self.parse_query()
+            self.expect_op(")")
+            # a parenthesized query is opaque ("raw"): outer ORDER BY/LIMIT
+            # must wrap it, never merge into it (native parser kind=RAW)
+            q._raw_body = True
+            return q
+        pos = (self.cur.line, self.cur.col)
+        if self.at_kw("VALUES"):
+            self.i += 1
+            rows = []
+            while True:
+                self.expect_op("(")
+                row = [self.parse_expr()]
+                while self.eat_op(","):
+                    row.append(self.parse_expr())
+                self.expect_op(")")
+                rows.append(row)
+                if not self.eat_op(","):
+                    break
+            return ValuesQuery(rows=rows, pos=pos)
+        if self.at_kw("WITH"):
+            q = self.parse_query()
+            q._raw_body = True
+            return q
+        self.expect_kw("SELECT")
+        distinct = False
+        if self.eat_kw("DISTINCT"):
+            distinct = True
+        else:
+            self.eat_kw("ALL")
+        projections = []
+        while True:
+            proj_pos = (self.cur.line, self.cur.col)
+            if self.at_op("*"):
+                self.i += 1
+                projections.append((Star(pos=proj_pos), None))
+            else:
+                e = self.parse_expr()
+                # t.*
+                alias = None
+                if self.eat_kw("AS"):
+                    alias = self.any_identifier()
+                elif self.cur.kind == "QIDENT" or (
+                    self.cur.kind == "IDENT" and self.cur.upper not in RESERVED
+                ):
+                    alias = self.cur.text
+                    self.i += 1
+                projections.append((e, alias))
+            if not self.eat_op(","):
+                break
+        sel = Select(projections=projections, distinct=distinct, pos=pos)
+        if self.eat_kw("FROM"):
+            sel.from_ = self._parse_relation()
+        if self.eat_kw("WHERE"):
+            sel.where = self.parse_expr()
+        if self.at_kw("GROUP"):
+            self.i += 1
+            self.expect_kw("BY")
+            sel.group_by = []
+            if not self.at_op("("):
+                pass
+            while True:
+                if self.eat_op("("):
+                    # GROUP BY () — empty grouping set
+                    if not self.eat_op(")"):
+                        sel.group_by.append(self.parse_expr())
+                        while self.eat_op(","):
+                            sel.group_by.append(self.parse_expr())
+                        self.expect_op(")")
+                else:
+                    sel.group_by.append(self.parse_expr())
+                if not self.eat_op(","):
+                    break
+        if self.eat_kw("HAVING"):
+            sel.having = self.parse_expr()
+        return sel
+
+    # -------------------------------------------------------------- relations
+    def _parse_relation(self) -> Relation:
+        left = self._parse_table_factor()
+        while True:
+            pos = (self.cur.line, self.cur.col)
+            if self.eat_op(","):
+                right = self._parse_table_factor()
+                left = JoinRelation(left=left, right=right, join_type="CROSS", pos=pos)
+                continue
+            jt = None
+            natural = False
+            if self.at_kw("NATURAL"):
+                self.i += 1
+                natural = True
+            if self.at_kw("JOIN"):
+                jt = "INNER"
+                self.i += 1
+            elif self.at_kw(*_JOIN_TYPES):
+                jt = self.cur.upper
+                self.i += 1
+                self.eat_kw("OUTER")
+                self.expect_kw("JOIN")
+            else:
+                if natural:
+                    self.error("Expected JOIN after NATURAL")
+                return left
+            right = self._parse_table_factor()
+            cond = None
+            using = None
+            if jt != "CROSS" and not natural:
+                if self.eat_kw("ON"):
+                    cond = self.parse_expr()
+                elif self.eat_kw("USING"):
+                    self.expect_op("(")
+                    using = [self.identifier()]
+                    while self.eat_op(","):
+                        using.append(self.identifier())
+                    self.expect_op(")")
+                else:
+                    self.error("Expected ON or USING after JOIN")
+            if natural:
+                using = "NATURAL"  # resolved by binder against both schemas
+            left = JoinRelation(left=left, right=right, join_type=jt,
+                                condition=cond, using=using, pos=pos)
+
+    def _parse_table_factor(self) -> Relation:
+        pos = (self.cur.line, self.cur.col)
+        if self.at_op("("):
+            self.expect_op("(")
+            # could be (query) or (join relation)
+            if self.at_kw("SELECT", "WITH", "VALUES") or self.at_op("("):
+                q = self.parse_query()
+                self.expect_op(")")
+                alias, cols = self._parse_alias()
+                return SubqueryRelation(query=q, alias=alias, column_aliases=cols, pos=pos)
+            rel = self._parse_relation()
+            self.expect_op(")")
+            return rel
+        if self.at_kw("PREDICT"):
+            self.i += 1
+            self.expect_op("(")
+            self.expect_kw("MODEL")
+            model = self.compound_identifier()
+            self.expect_op(",")
+            q = self.parse_query()
+            self.expect_op(")")
+            alias, _ = self._parse_alias()
+            return PredictRelation(model=model, query=q, alias=alias, pos=pos)
+        parts = self.compound_identifier()
+        sample = None
+        if self.at_kw("TABLESAMPLE"):
+            self.i += 1
+            method = self.expect_kw("SYSTEM", "BERNOULLI")
+            self.expect_op("(")
+            pct_tok = self.cur
+            if pct_tok.kind != "NUMBER":
+                self.error("Expected sample percentage")
+            self.i += 1
+            self.expect_op(")")
+            seed = None
+            if self.eat_kw("REPEATABLE"):
+                self.expect_op("(")
+                seed = int(self.cur.text)
+                self.i += 1
+                self.expect_op(")")
+            sample = (method, float(pct_tok.text), seed)
+        alias, cols = self._parse_alias()
+        return TableRef(parts=parts, alias=alias, column_aliases=cols,
+                        sample=sample, pos=pos)
+
+    def _parse_alias(self):
+        alias = None
+        cols = None
+        if self.eat_kw("AS"):
+            alias = self.any_identifier()
+        elif self.cur.kind == "QIDENT" or (
+            self.cur.kind == "IDENT" and self.cur.upper not in RESERVED
+        ):
+            alias = self.cur.text
+            self.i += 1
+        if alias and self.at_op("("):
+            self.expect_op("(")
+            cols = [self.identifier()]
+            while self.eat_op(","):
+                cols.append(self.identifier())
+            self.expect_op(")")
+        return alias, cols
+
+    # ------------------------------------------------------------ expressions
+    def parse_expr(self) -> Expr:
+        return self._parse_or()
+
+    def _parse_or(self) -> Expr:
+        left = self._parse_and()
+        while self.at_kw("OR"):
+            pos = (self.cur.line, self.cur.col)
+            self.i += 1
+            right = self._parse_and()
+            left = Call(op="OR", args=[left, right], pos=pos)
+        return left
+
+    def _parse_and(self) -> Expr:
+        left = self._parse_not()
+        while self.at_kw("AND"):
+            pos = (self.cur.line, self.cur.col)
+            self.i += 1
+            right = self._parse_not()
+            left = Call(op="AND", args=[left, right], pos=pos)
+        return left
+
+    def _parse_not(self) -> Expr:
+        if self.at_kw("NOT"):
+            pos = (self.cur.line, self.cur.col)
+            self.i += 1
+            return Call(op="NOT", args=[self._parse_not()], pos=pos)
+        return self._parse_predicate()
+
+    def _parse_predicate(self) -> Expr:
+        left = self._parse_additive_chain()
+        while True:
+            pos = (self.cur.line, self.cur.col)
+            negated = False
+            save = self.i
+            if self.at_kw("NOT"):
+                self.i += 1
+                negated = True
+            if self.at_kw("BETWEEN"):
+                self.i += 1
+                self.eat_kw("ASYMMETRIC")
+                sym = bool(self.eat_kw("SYMMETRIC"))
+                low = self._parse_additive_chain()
+                self.expect_kw("AND")
+                high = self._parse_additive_chain()
+                left = Between(expr=left, low=low, high=high, negated=negated,
+                               symmetric=sym, pos=pos)
+                continue
+            if self.at_kw("IN"):
+                self.i += 1
+                self.expect_op("(")
+                if self.at_kw("SELECT", "WITH", "VALUES"):
+                    q = self.parse_query()
+                    self.expect_op(")")
+                    left = Subquery(query=q, kind="in", outer=left, negated=negated, pos=pos)
+                else:
+                    vals = [self.parse_expr()]
+                    while self.eat_op(","):
+                        vals.append(self.parse_expr())
+                    self.expect_op(")")
+                    left = InList(expr=left, values=vals, negated=negated, pos=pos)
+                continue
+            if self.at_kw("LIKE", "ILIKE"):
+                kind = self.cur.upper
+                self.i += 1
+                pattern = self._parse_additive_chain()
+                escape = None
+                if self.eat_kw("ESCAPE"):
+                    escape = self._parse_additive_chain()
+                left = Like(expr=left, pattern=pattern, escape=escape,
+                            negated=negated, kind=kind, pos=pos)
+                continue
+            if self.at_kw("SIMILAR"):
+                self.i += 1
+                self.expect_kw("TO")
+                pattern = self._parse_additive_chain()
+                escape = None
+                if self.eat_kw("ESCAPE"):
+                    escape = self._parse_additive_chain()
+                left = Like(expr=left, pattern=pattern, escape=escape,
+                            negated=negated, kind="SIMILAR", pos=pos)
+                continue
+            if negated:
+                self.i = save
+                return left
+            if self.at_kw("IS"):
+                self.i += 1
+                neg = bool(self.eat_kw("NOT"))
+                if self.eat_kw("NULL"):
+                    left = IsNull(expr=left, negated=neg, pos=pos)
+                elif self.eat_kw("TRUE"):
+                    left = IsBool(expr=left, value=True, negated=neg, pos=pos)
+                elif self.eat_kw("FALSE"):
+                    left = IsBool(expr=left, value=False, negated=neg, pos=pos)
+                elif self.eat_kw("UNKNOWN"):
+                    left = IsNull(expr=left, negated=neg, pos=pos)
+                elif self.eat_kw("DISTINCT"):
+                    self.expect_kw("FROM")
+                    right = self._parse_additive_chain()
+                    left = IsDistinctFrom(left=left, right=right, negated=neg, pos=pos)
+                else:
+                    self.error("Expected NULL/TRUE/FALSE/DISTINCT after IS")
+                continue
+            if self.cur.kind == "OP" and self.cur.text in _COMPARISONS:
+                op = self.cur.text
+                if op == "!=":
+                    op = "<>"
+                self.i += 1
+                if self.at_kw("ANY", "SOME", "ALL"):
+                    quant = self.cur.upper
+                    self.i += 1
+                    self.expect_op("(")
+                    q = self.parse_query()
+                    self.expect_op(")")
+                    left = Subquery(query=q, kind="all" if quant == "ALL" else "any",
+                                    outer=left, op=op, pos=pos)
+                else:
+                    right = self._parse_additive_chain()
+                    left = Call(op=op, args=[left, right], pos=pos)
+                continue
+            return left
+
+    def _parse_additive_chain(self) -> Expr:
+        # handles || + - * / % with precedence
+        return self._parse_concat()
+
+    def _parse_concat(self) -> Expr:
+        left = self._parse_add()
+        while self.at_op("||"):
+            pos = (self.cur.line, self.cur.col)
+            self.i += 1
+            right = self._parse_add()
+            left = Call(op="||", args=[left, right], pos=pos)
+        return left
+
+    def _parse_add(self) -> Expr:
+        left = self._parse_mul()
+        while self.at_op("+", "-"):
+            pos = (self.cur.line, self.cur.col)
+            op = self.cur.text
+            self.i += 1
+            right = self._parse_mul()
+            left = Call(op=op, args=[left, right], pos=pos)
+        return left
+
+    def _parse_mul(self) -> Expr:
+        left = self._parse_unary()
+        while self.at_op("*", "/", "%"):
+            pos = (self.cur.line, self.cur.col)
+            op = self.cur.text
+            self.i += 1
+            right = self._parse_unary()
+            left = Call(op=op, args=[left, right], pos=pos)
+        return left
+
+    def _parse_unary(self) -> Expr:
+        pos = (self.cur.line, self.cur.col)
+        if self.eat_op("-"):
+            return Call(op="NEGATE", args=[self._parse_unary()], pos=pos)
+        if self.eat_op("+"):
+            return self._parse_unary()
+        return self._parse_postfix()
+
+    def _parse_postfix(self) -> Expr:
+        e = self._parse_primary()
+        while self.at_op("::"):
+            pos = (self.cur.line, self.cur.col)
+            self.i += 1
+            tn, prec, scale = self._parse_type_name()
+            e = Cast(expr=e, type_name=tn, precision=prec, scale=scale, pos=pos)
+        return e
+
+    def _parse_type_name(self):
+        name = self.any_identifier().upper()
+        if name == "DOUBLE" and self.at_kw("PRECISION"):
+            self.i += 1
+            name = "DOUBLE"
+        prec = scale = None
+        if self.at_op("("):
+            self.i += 1
+            prec = self._type_param()
+            if self.eat_op(","):
+                scale = self._type_param()
+            self.expect_op(")")
+        return name, prec, scale
+
+    def _type_param(self) -> int:
+        if self.cur.kind != "NUMBER" or not self.cur.text.isdigit():
+            self.error("Expected an integer type parameter")
+        value = int(self.cur.text)
+        self.i += 1
+        return value
+
+    def _parse_primary(self) -> Expr:
+        t = self.cur
+        pos = (t.line, t.col)
+
+        if t.kind == "NUMBER":
+            self.i += 1
+            v = _number_value(t.text)
+            return Literal(value=v, type_name="DOUBLE" if isinstance(v, float) else "BIGINT", pos=pos)
+        if t.kind == "STRING":
+            self.i += 1
+            return Literal(value=t.text, type_name="VARCHAR", pos=pos)
+        if self.at_op("?"):
+            self.i += 1
+            idx = self._param_seq
+            self._param_seq += 1
+            return Param(index=idx, pos=pos)
+        if self.at_op("$"):
+            self.i += 1
+            if self.cur.kind != "NUMBER" or not self.cur.text.isdigit():
+                self.error("Expected a parameter number after '$'")
+            n = int(self.cur.text)
+            if n < 1:
+                self.error("Parameter numbers are 1-based")
+            self.i += 1
+            self._param_max = max(self._param_max, n)
+            return Param(index=n - 1, pos=pos)
+        if self.at_op("("):
+            self.i += 1
+            if self.at_kw("SELECT", "WITH", "VALUES"):
+                q = self.parse_query()
+                self.expect_op(")")
+                return Subquery(query=q, kind="scalar", pos=pos)
+            e = self.parse_expr()
+            if self.at_op(","):
+                # row constructor (a, b) — used by IN ((..)) etc.
+                items = [e]
+                while self.eat_op(","):
+                    items.append(self.parse_expr())
+                self.expect_op(")")
+                return Call(op="ROW", args=items, pos=pos)
+            self.expect_op(")")
+            return e
+
+        if t.kind == "QIDENT":
+            return self._parse_identifier_expr()
+
+        if t.kind != "IDENT":
+            self.error("Expected expression")
+
+        u = t.upper
+        # keyword-led primaries
+        if u == "CASE":
+            return self._parse_case()
+        if u == "CAST" or u == "TRY_CAST":
+            self.i += 1
+            self.expect_op("(")
+            e = self.parse_expr()
+            self.expect_kw("AS")
+            tn, prec, scale = self._parse_type_name()
+            self.expect_op(")")
+            return Cast(expr=e, type_name=tn, precision=prec, scale=scale, pos=pos)
+        if u == "EXISTS":
+            self.i += 1
+            self.expect_op("(")
+            q = self.parse_query()
+            self.expect_op(")")
+            return Subquery(query=q, kind="exists", pos=pos)
+        if u == "NOT":
+            self.i += 1
+            return Call(op="NOT", args=[self._parse_not()], pos=pos)
+        if u == "TRUE":
+            self.i += 1
+            return Literal(value=True, type_name="BOOLEAN", pos=pos)
+        if u == "FALSE":
+            self.i += 1
+            return Literal(value=False, type_name="BOOLEAN", pos=pos)
+        if u == "NULL":
+            self.i += 1
+            return Literal(value=None, type_name="NULL", pos=pos)
+        if u == "INTERVAL":
+            return self._parse_interval()
+        if u in ("DATE", "TIME", "TIMESTAMP") and self.peek(1).kind == "STRING":
+            self.i += 1
+            s = self.cur.text
+            self.i += 1
+            return Literal(value=s, type_name=u, pos=pos)
+        if u == "EXTRACT" and self.at_op("(", k=1):
+            self.i += 2
+            field_tok = self.any_identifier().upper()
+            self.expect_kw("FROM")
+            e = self.parse_expr()
+            self.expect_op(")")
+            return Call(op="EXTRACT", args=[Literal(value=field_tok, type_name="SYMBOL"), e], pos=pos)
+        if u == "SUBSTRING" and self.at_op("(", k=1):
+            self.i += 2
+            e = self.parse_expr()
+            if self.eat_kw("FROM"):
+                start = self.parse_expr()
+                length = None
+                if self.eat_kw("FOR"):
+                    length = self.parse_expr()
+            else:
+                self.expect_op(",")
+                start = self.parse_expr()
+                length = None
+                if self.eat_op(","):
+                    length = self.parse_expr()
+            self.expect_op(")")
+            args = [e, start] + ([length] if length is not None else [])
+            return Call(op="SUBSTRING", args=args, pos=pos)
+        if u == "TRIM" and self.at_op("(", k=1):
+            self.i += 2
+            side = "BOTH"
+            if self.at_kw("BOTH", "LEADING", "TRAILING"):
+                side = self.cur.upper
+                self.i += 1
+            chars = None
+            if not self.at_kw("FROM"):
+                chars = self.parse_expr()
+            if self.eat_kw("FROM"):
+                e = self.parse_expr()
+            else:
+                # TRIM(x) form
+                e = chars
+                chars = None
+            self.expect_op(")")
+            args = [Literal(value=side, type_name="SYMBOL"),
+                    chars if chars is not None else Literal(value=" ", type_name="VARCHAR"), e]
+            return Call(op="TRIM", args=args, pos=pos)
+        if u == "POSITION" and self.at_op("(", k=1):
+            self.i += 2
+            needle = self._parse_additive_chain()
+            self.expect_kw("IN")
+            hay = self.parse_expr()
+            self.expect_op(")")
+            return Call(op="POSITION", args=[needle, hay], pos=pos)
+        if u == "OVERLAY" and self.at_op("(", k=1):
+            self.i += 2
+            e = self.parse_expr()
+            self.expect_kw("PLACING")
+            repl = self.parse_expr()
+            self.expect_kw("FROM")
+            start = self.parse_expr()
+            length = None
+            if self.eat_kw("FOR"):
+                length = self.parse_expr()
+            self.expect_op(")")
+            args = [e, repl, start] + ([length] if length is not None else [])
+            return Call(op="OVERLAY", args=args, pos=pos)
+        if u in ("CEIL", "CEILING", "FLOOR") and self.at_op("(", k=1):
+            self.i += 2
+            e = self.parse_expr()
+            if self.eat_kw("TO"):
+                unit = self.any_identifier().upper()
+                self.expect_op(")")
+                return Call(op="CEIL" if u != "FLOOR" else "FLOOR",
+                            args=[e, Literal(value=unit, type_name="SYMBOL")], pos=pos)
+            self.expect_op(")")
+            return Call(op="CEIL" if u != "FLOOR" else "FLOOR", args=[e], pos=pos)
+        if u in ("CURRENT_DATE", "CURRENT_TIMESTAMP", "CURRENT_TIME", "LOCALTIME", "LOCALTIMESTAMP") and not self.at_op("(", k=1):
+            self.i += 1
+            return Call(op=u, args=[], pos=pos)
+        if u == "ROW" and self.at_op("(", k=1):
+            self.i += 2
+            items = [self.parse_expr()]
+            while self.eat_op(","):
+                items.append(self.parse_expr())
+            self.expect_op(")")
+            return Call(op="ROW", args=items, pos=pos)
+
+        return self._parse_identifier_expr()
+
+    def _parse_identifier_expr(self) -> Expr:
+        """Identifier, compound identifier, star-suffix, or function call."""
+        pos = (self.cur.line, self.cur.col)
+        first = self.cur
+        if first.kind == "IDENT" and first.upper in RESERVED and first.upper not in (
+            "LEFT", "RIGHT",  # also string functions LEFT(s,n)/RIGHT(s,n)
+        ):
+            self.error("Expected expression")
+        name = self.any_identifier()
+        # function call?
+        if self.at_op("(") and first.kind == "IDENT":
+            return self._parse_call(name, pos)
+        parts = [name]
+        while self.at_op("."):
+            if self.at_op("*", k=1):
+                self.i += 2
+                return Star(table=parts[-1], pos=pos)
+            self.i += 1
+            parts.append(self.any_identifier())
+        return ColumnRef(parts=parts, pos=pos)
+
+    def _parse_call(self, name: str, pos) -> Expr:
+        self.expect_op("(")
+        distinct = False
+        args: List[Expr] = []
+        if self.at_op("*") and self.peek(1).kind == "OP" and self.peek(1).text == ")":
+            self.i += 1
+            args = [Star()]
+        elif not self.at_op(")"):
+            if self.eat_kw("DISTINCT"):
+                distinct = True
+            else:
+                self.eat_kw("ALL")
+            args.append(self.parse_expr())
+            while self.eat_op(","):
+                args.append(self.parse_expr())
+        self.expect_op(")")
+        call = Call(op=name.upper(), args=args, distinct=distinct, pos=pos)
+        # preserve original case for UDF lookup (case-sensitive registration)
+        call.original_name = name  # type: ignore[attr-defined]
+        if self.eat_kw("FILTER"):
+            self.expect_op("(")
+            self.expect_kw("WHERE")
+            call.filter = self.parse_expr()
+            self.expect_op(")")
+        if self.eat_kw("WITHIN"):
+            self.expect_kw("GROUP")
+            self.expect_op("(")
+            self.expect_kw("ORDER")
+            self.expect_kw("BY")
+            self._parse_sort_key()
+            while self.eat_op(","):
+                self._parse_sort_key()
+            self.expect_op(")")
+        if self.eat_kw("OVER"):
+            call.over = self._parse_window_spec()
+        return call
+
+    def _parse_window_spec(self) -> WindowSpec:
+        self.expect_op("(")
+        spec = WindowSpec()
+        if self.eat_kw("PARTITION"):
+            self.expect_kw("BY")
+            spec.partition_by.append(self.parse_expr())
+            while self.eat_op(","):
+                spec.partition_by.append(self.parse_expr())
+        if self.at_kw("ORDER"):
+            self.i += 1
+            self.expect_kw("BY")
+            spec.order_by.append(self._parse_sort_key())
+            while self.eat_op(","):
+                spec.order_by.append(self._parse_sort_key())
+        if self.at_kw("ROWS", "RANGE"):
+            kind = self.cur.upper
+            self.i += 1
+            if self.eat_kw("BETWEEN"):
+                lo = self._parse_frame_bound()
+                self.expect_kw("AND")
+                hi = self._parse_frame_bound()
+            else:
+                lo = self._parse_frame_bound()
+                hi = ("CURRENT", None)
+            spec.frame = (kind, lo, hi)
+        self.expect_op(")")
+        return spec
+
+    def _parse_frame_bound(self):
+        if self.eat_kw("UNBOUNDED"):
+            which = self.expect_kw("PRECEDING", "FOLLOWING")
+            return (f"UNBOUNDED_{which}", None)
+        if self.eat_kw("CURRENT"):
+            self.expect_kw("ROW")
+            return ("CURRENT", None)
+        t = self.cur
+        if t.kind != "NUMBER":
+            self.error("Expected frame bound")
+        self.i += 1
+        n = int(t.text)
+        which = self.expect_kw("PRECEDING", "FOLLOWING")
+        return (which, n)
+
+    def _parse_case(self) -> Expr:
+        pos = (self.cur.line, self.cur.col)
+        self.expect_kw("CASE")
+        operand = None
+        if not self.at_kw("WHEN"):
+            operand = self.parse_expr()
+        whens = []
+        while self.eat_kw("WHEN"):
+            cond = self.parse_expr()
+            self.expect_kw("THEN")
+            val = self.parse_expr()
+            whens.append((cond, val))
+        else_ = None
+        if self.eat_kw("ELSE"):
+            else_ = self.parse_expr()
+        self.expect_kw("END")
+        return Case(operand=operand, whens=whens, else_=else_, pos=pos)
+
+    def _parse_interval(self) -> Expr:
+        pos = (self.cur.line, self.cur.col)
+        self.expect_kw("INTERVAL")
+        sign = 1
+        if self.eat_op("-"):
+            sign = -1
+        t = self.cur
+        if t.kind == "STRING":
+            self.i += 1
+            value = t.text
+        elif t.kind == "NUMBER":
+            self.i += 1
+            value = _number_value(t.text)
+        else:
+            self.error("Expected interval value")
+        unit = self.any_identifier().upper().rstrip("S")  # DAYS -> DAY
+        to_unit = None
+        if self.eat_kw("TO"):
+            to_unit = self.any_identifier().upper().rstrip("S")
+        if isinstance(value, str):
+            try:
+                value = int(value)
+            except ValueError:
+                try:
+                    value = float(value)
+                except ValueError:
+                    pass  # compound like '1-2' handled by binder
+        if isinstance(value, (int, float)):
+            value = sign * value
+        return IntervalLiteral(value=value, unit=unit, to_unit=to_unit, pos=pos)
+
+
+def _number_value(text: str):
+    if "." in text or "e" in text or "E" in text:
+        return float(text)
+    return int(text)
+
+
+def parse_sql(sql: str) -> List[Statement]:
+    """Parse SQL text into AST statements with the pure-Python parser.
+
+    The JAX package prefers its native C++ parser and keeps this parser as
+    the lockstep superset; the port uses this parser alone until the
+    native front end is ported."""
+    return Parser(sql).parse_statements()
+
+
+def parse_one(sql: str) -> Statement:
+    stmts = parse_sql(sql)
+    if len(stmts) != 1:
+        raise ParsingException(sql, f"Expected exactly one statement, got {len(stmts)}")
+    return stmts[0]

@@ -1,0 +1,498 @@
+"""Columnar device tables on torch tensors.
+
+The counterpart of ``dask_sql_tpu/table.py``: a table is an ordered list of
+``Column`` objects, each wrapping one torch tensor on an explicit device.
+Renames and projections are host-side list surgery.
+
+Null handling: every column may carry a boolean validity ``mask`` (True =
+valid) on the same device as its data.
+
+Strings are dictionary-encoded at ingestion: ``data`` holds int32 codes into
+a host-side numpy ``dictionary`` of unique values; string work runs on the
+(small) dictionary on the host and on codes on the device.  The dictionary
+order and the rank order (``dict_sort_order``) are the JAX package's, so
+static GROUP BY slots and output order agree between the two engines.
+
+pandas is imported only inside ``from_pandas`` / ``to_pandas`` and
+``host_encode_series``: the main path runs on dicts of numpy arrays.
+"""
+from __future__ import annotations
+
+import itertools
+from dataclasses import dataclass
+from typing import Any, Iterable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .types import (
+    SqlType,
+    DOUBLE,
+    INTEGER,
+    VARCHAR,
+    physical_dtype,
+    physical_to_python_value,
+    sql_type_from_numpy,
+    torch_dtype,
+)
+
+
+# ---------------------------------------------------------------------------
+# Scalar
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Scalar:
+    """A typed SQL scalar in physical representation. ``value is None`` = NULL."""
+
+    value: Any
+    stype: SqlType
+
+    @property
+    def is_null(self) -> bool:
+        return self.value is None
+
+
+# ---------------------------------------------------------------------------
+# Column
+# ---------------------------------------------------------------------------
+
+class Column:
+    """One device column: tensor data + optional validity mask + logical type."""
+
+    __slots__ = ("data", "mask", "stype", "dictionary")
+
+    def __init__(
+        self,
+        data: torch.Tensor,
+        stype: SqlType,
+        mask: Optional[torch.Tensor] = None,
+        dictionary: Optional[np.ndarray] = None,
+    ):
+        self.data = data
+        self.stype = stype
+        self.mask = mask
+        self.dictionary = dictionary
+        if stype.is_string and dictionary is None:
+            raise ValueError("string columns require a dictionary")
+
+    # -- constructors ------------------------------------------------------
+    @staticmethod
+    def from_numpy(values: np.ndarray, device: torch.device,
+                   stype: Optional[SqlType] = None,
+                   mask: Optional[np.ndarray] = None) -> "Column":
+        data, m, st, dictionary = host_encode_numpy(values, stype, mask)
+        return Column(_to_device(data, device), st, _as_mask(m, device),
+                      dictionary)
+
+    @staticmethod
+    def from_encoded(data: np.ndarray, stype: SqlType,
+                     mask: Optional[np.ndarray],
+                     dictionary: Optional[np.ndarray],
+                     device: torch.device) -> "Column":
+        """Upload already-encoded physical data (see ``convert.py``)."""
+        return Column(_to_device(np.asarray(data, physical_dtype(stype)),
+                                 device),
+                      stype, _as_mask(mask, device), dictionary)
+
+    @staticmethod
+    def _encode_strings(values: np.ndarray, mask: Optional[np.ndarray],
+                        device: torch.device) -> "Column":
+        data, m, st, dictionary = _host_encode_strings(values, mask)
+        return Column(_to_device(data, device), st, _as_mask(m, device),
+                      dictionary)
+
+    @staticmethod
+    def from_scalar(scalar: Scalar, length: int,
+                    device: torch.device) -> "Column":
+        stype = scalar.stype
+        if scalar.is_null:
+            if stype.name == "NULL":
+                stype = DOUBLE
+            null_mask = torch.zeros(length, dtype=torch.bool, device=device)
+            if stype.is_string:
+                return Column(torch.zeros(length, dtype=torch.int32,
+                                          device=device),
+                              stype, null_mask, np.array([""], dtype=object))
+            return Column(torch.zeros(length, dtype=torch_dtype(stype),
+                                      device=device), stype, null_mask)
+        if stype.is_string:
+            return Column(torch.zeros(length, dtype=torch.int32,
+                                      device=device), stype, None,
+                          np.array([scalar.value], dtype=object))
+        return Column(torch.full((length,), scalar.value,
+                                 dtype=torch_dtype(stype), device=device),
+                      stype, None)
+
+    # -- basics ------------------------------------------------------------
+    def __len__(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def valid_mask(self) -> torch.Tensor:
+        """Always-materialized validity mask."""
+        if self.mask is None:
+            return torch.ones(self.data.shape[0], dtype=torch.bool,
+                              device=self.data.device)
+        return self.mask
+
+    def null_count(self) -> int:
+        if self.mask is None:
+            return 0
+        return int((~self.mask).sum())
+
+    def take(self, indices: torch.Tensor) -> "Column":
+        """Gather rows by position (device gather)."""
+        data = self.data[indices]
+        mask = None if self.mask is None else self.mask[indices]
+        return Column(data, self.stype, mask, self.dictionary)
+
+    def slice(self, start: int, stop: int) -> "Column":
+        data = self.data[start:stop]
+        mask = None if self.mask is None else self.mask[start:stop]
+        return Column(data, self.stype, mask, self.dictionary)
+
+    # -- dictionary helpers ------------------------------------------------
+    def decode(self) -> np.ndarray:
+        """Host numpy array of python objects (strings/None) for a string column."""
+        if not self.stype.is_string:
+            raise TypeError(f"decode() needs a string column, got {self.stype}")
+        codes = self.data.cpu().numpy()
+        out = self.dictionary[np.clip(codes, 0, len(self.dictionary) - 1)]
+        if self.mask is not None:
+            out = out.copy()
+            out[~self.mask.cpu().numpy()] = None
+        return out
+
+    def dict_ranks(self) -> "Column":
+        """Codes mapped to sort-order ranks (``dict_sort_order``): the rank
+        array is built on the host (the dictionary is small) and gathered on
+        the device."""
+        if not self.stype.is_string:
+            raise TypeError(f"dict_ranks() needs a string column, got {self.stype}")
+        order = dict_sort_order(self.dictionary)
+        ranks = np.empty(len(order), dtype=np.int32)
+        ranks[order] = np.arange(len(order), dtype=np.int32)
+        ranks_t = torch.from_numpy(ranks).to(self.data.device)
+        data = ranks_t[self.data.clamp(0, len(ranks) - 1).long()]
+        return Column(data, INTEGER, self.mask)
+
+    # -- host conversion ---------------------------------------------------
+    def to_numpy(self) -> np.ndarray:
+        """Host representation with rich types; nulls become None/NaN/NaT."""
+        mask = None if self.mask is None else self.mask.cpu().numpy()
+        if mask is not None and mask.all():
+            mask = None
+        if self.stype.is_string:
+            return Column(self.data, self.stype, None if mask is None
+                          else self.mask, self.dictionary).decode()
+        return host_decode(self.data.cpu().numpy(), mask, self.stype)
+
+    def __repr__(self):
+        return f"Column({self.stype}, len={len(self)}, nulls={self.null_count()})"
+
+
+def host_decode(data: np.ndarray, mask: Optional[np.ndarray],
+                stype: SqlType) -> np.ndarray:
+    """Physical host data + mask -> rich numpy values (the JAX package's
+    ``Column.to_numpy`` rules: NaT for temporal nulls, NaN for float nulls,
+    None in an object array for int/bool nulls)."""
+    n = stype.name
+    if n == "DATE":
+        out = data.astype("datetime64[D]")
+        if mask is not None:
+            out[~mask] = np.datetime64("NaT")
+        return out
+    if n in ("TIMESTAMP", "TIMESTAMP_WITH_LOCAL_TIME_ZONE"):
+        out = data.astype("datetime64[us]")
+        if mask is not None:
+            out[~mask] = np.datetime64("NaT")
+        return out
+    if n == "INTERVAL_DAY_TIME":
+        out = data.astype("timedelta64[ms]")
+        if mask is not None:
+            out[~mask] = np.timedelta64("NaT")
+        return out
+    if n == "TIME":
+        vals = [physical_to_python_value(int(v), stype) for v in data.tolist()]
+        out = np.array(vals, dtype=object)
+        if mask is not None:
+            out[~mask] = None
+        return out
+    if mask is not None:
+        if data.dtype.kind == "f":
+            out = data.copy()
+            out[~mask] = np.nan
+            return out
+        out = data.astype(object)
+        out[~mask] = None
+        return out
+    return data
+
+
+def dict_sort_order(dictionary: np.ndarray) -> np.ndarray:
+    """Dictionary indices in string sort order: order[rank] = dict index.
+
+    The single source of truth for string collation — group ordering,
+    MIN/MAX, and static-domain key decoding must all agree on it.
+    """
+    return np.argsort(dictionary.astype(str), kind="stable")
+
+
+def _to_device(data: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A tensor on ``device`` that never shares memory with ``data``."""
+    data = np.ascontiguousarray(data)
+    if torch.device(device).type == "cpu" or not data.flags.writeable:
+        data = data.copy()
+    return torch.from_numpy(data).to(device)
+
+
+def _as_mask(mask, device: torch.device) -> Optional[torch.Tensor]:
+    if mask is None:
+        return None
+    mask = np.asarray(mask, dtype=bool)
+    if mask.all():
+        return None
+    return _to_device(mask, device)
+
+
+# ---------------------------------------------------------------------------
+# Table
+# ---------------------------------------------------------------------------
+
+class Table:
+    """An ordered, named collection of equal-length Columns."""
+
+    __slots__ = ("names", "columns", "uid")
+
+    _uid_counter = itertools.count()
+
+    def __init__(self, names: Sequence[str], columns: Sequence[Column]):
+        if len(names) != len(columns):
+            raise ValueError(f"{len(names)} names for {len(columns)} columns")
+        self.names = list(names)
+        self.columns = list(columns)
+        self.uid = next(Table._uid_counter)
+
+    # -- constructors ------------------------------------------------------
+    @staticmethod
+    def from_pandas(df, device: torch.device) -> "Table":
+        names, cols = [], []
+        for name in df.columns:
+            data, mask, stype, dictionary = host_encode_series(df[name])
+            names.append(str(name))
+            cols.append(Column(_to_device(data, device), stype,
+                               _as_mask(mask, device), dictionary))
+        return Table(names, cols)
+
+    @staticmethod
+    def from_pydict(data: dict, device: torch.device) -> "Table":
+        names, cols = [], []
+        for k, v in data.items():
+            names.append(k)
+            if isinstance(v, Column):
+                cols.append(v)
+            else:
+                arr = np.asarray(v) if not _has_none(v) else np.asarray(v, dtype=object)
+                if arr.dtype.kind == "O" and not _all_strings(arr):
+                    arr2, mask = _denull(v)
+                    cols.append(Column.from_numpy(arr2, device, mask=mask))
+                else:
+                    cols.append(Column.from_numpy(arr, device))
+        return Table(names, cols)
+
+    # -- basics ------------------------------------------------------------
+    @property
+    def num_rows(self) -> int:
+        if not self.columns:
+            return 0
+        return len(self.columns[0])
+
+    @property
+    def num_columns(self) -> int:
+        return len(self.columns)
+
+    def column(self, name: str) -> Column:
+        return self.columns[self.names.index(name)]
+
+    def limit_to(self, names: Iterable[str]) -> "Table":
+        names = list(names)
+        return Table(names, [self.column(n) for n in names])
+
+    def take(self, indices: torch.Tensor) -> "Table":
+        return Table(self.names, [c.take(indices) for c in self.columns])
+
+    def slice(self, start: int, stop: int) -> "Table":
+        return Table(self.names, [c.slice(start, stop) for c in self.columns])
+
+    def schema(self) -> list:
+        return list(zip(self.names, [c.stype for c in self.columns]))
+
+    # -- host conversion ---------------------------------------------------
+    def to_numpy(self) -> dict:
+        """{name: host numpy array} with the rich types of ``Column.to_numpy``."""
+        return {name: col.to_numpy() for name, col in zip(self.names, self.columns)}
+
+    def to_pandas(self):
+        import pandas as pd
+
+        return pd.DataFrame(self.to_numpy(), columns=list(self.names))
+
+    def __repr__(self):
+        parts = ", ".join(f"{n}: {c.stype}" for n, c in zip(self.names, self.columns))
+        return f"Table[{self.num_rows} rows]({parts})"
+
+
+# ---------------------------------------------------------------------------
+# host-side ingestion encoding (numpy; pandas only in host_encode_series)
+# ---------------------------------------------------------------------------
+
+_PANDAS_NULLABLE_NUMPY = {
+    "Int8": np.int8, "Int16": np.int16, "Int32": np.int32, "Int64": np.int64,
+    "UInt8": np.uint8, "UInt16": np.uint16, "UInt32": np.uint32, "UInt64": np.uint64,
+    "Float32": np.float32, "Float64": np.float64, "boolean": np.bool_,
+}
+
+
+def host_encode_numpy(values: np.ndarray, stype: Optional[SqlType] = None,
+                      mask: Optional[np.ndarray] = None):
+    """Ingestion encoding on HOST arrays: (data, mask, stype, dictionary),
+    by the JAX package's rules (``dask_sql_tpu.table.host_encode_numpy``)."""
+    values = np.asarray(values)
+    if values.dtype.kind == "O" and (stype is None or not stype.is_string):
+        import decimal as _decimal
+
+        isna = np.array([v is None or (isinstance(v, float)
+                                       and np.isnan(v)) for v in values])
+        present = values[~isna]
+        if len(present) and all(isinstance(v, _decimal.Decimal)
+                                and v.is_finite() for v in present):
+            # all-finite decimal.Decimal columns ingest as DECIMAL(p, s)
+            # with p measured from the data (types.exact_decimal_scale)
+            scale = 0
+            int_digits = 1
+            for v in present:
+                t = v.as_tuple()
+                scale = max(scale, -int(t.exponent))
+                int_digits = max(int_digits, len(t.digits) + int(t.exponent))
+            precision = int_digits + scale
+            data = np.array([0.0 if na else float(v)
+                             for v, na in zip(values, isna)], dtype=np.float64)
+            m = (~isna if mask is None
+                 else (np.asarray(mask, bool) & ~isna))
+            if m.all():
+                m = None
+            from .types import decimal as _mk_decimal
+            if scale > 9 or precision > 15:
+                return data, m, _mk_decimal(max(precision, 16), scale), None
+            return data, m, _mk_decimal(15, scale), None
+    if stype is None:
+        stype = sql_type_from_numpy(values.dtype)
+    if values.dtype.kind in ("O", "U", "S") or stype.is_string:
+        return _host_encode_strings(values, mask)
+    if values.dtype.kind == "M":
+        vals = values.astype("datetime64[us]").astype(np.int64)
+        na = np.isnat(values)
+        if na.any():
+            mask = ~na if mask is None else (mask & ~na)
+        return vals, mask, stype, None
+    if values.dtype.kind == "m":
+        vals = values.astype("timedelta64[ms]").astype(np.int64)
+        na = np.isnat(values)
+        if na.any():
+            mask = ~na if mask is None else (mask & ~na)
+        return vals, mask, stype, None
+    if values.dtype.kind == "f":
+        # NaN means NULL on ingestion (pandas semantics)
+        na = np.isnan(values)
+        if na.any():
+            mask = ~na if mask is None else (np.asarray(mask, bool) & ~na)
+            values = np.where(na, 0.0, values)
+    dtype = physical_dtype(stype)
+    return values.astype(dtype, copy=False), mask, stype, None
+
+
+def _decode_bytes_objects(values: np.ndarray) -> np.ndarray:
+    """bytes values become str via utf-8/surrogateescape so binary columns
+    behave as strings end to end."""
+    if any(isinstance(v, (bytes, bytearray)) for v in values):
+        values = np.array(
+            [v.decode("utf-8", "surrogateescape")
+             if isinstance(v, (bytes, bytearray)) else v for v in values],
+            dtype=object)
+    return values
+
+
+def _host_encode_strings(values: np.ndarray, mask: Optional[np.ndarray]):
+    if np.asarray(values).dtype.kind == "U":
+        # fixed-width unicode arrays hold no nulls: one vectorized unique
+        dictionary, codes = np.unique(np.asarray(values), return_inverse=True)
+        return (codes.astype(np.int32).reshape(-1), mask, VARCHAR,
+                dictionary.astype(object))
+    values = _decode_bytes_objects(np.asarray(values, dtype=object))
+    isna = np.array([v is None or (isinstance(v, float) and np.isnan(v))
+                     for v in values], dtype=bool)
+    safe = np.where(isna, "", values).astype(str)
+    dictionary, codes = np.unique(safe, return_inverse=True)
+    dictionary = dictionary.astype(object)
+    codes = codes.astype(np.int32).reshape(-1)
+    if isna.any():
+        m = ~isna if mask is None else (np.asarray(mask, bool) & ~isna)
+    else:
+        m = mask
+    return codes, m, VARCHAR, dictionary
+
+
+def host_encode_series(s):
+    """Host-side encoding of a pandas Series: (data, mask, stype, dict).
+
+    pandas 3 gives string columns ``StringDtype`` (``str``), on which
+    ``np.issubdtype`` raises: every extension dtype is converted here, at
+    the pandas boundary, before any numpy dtype test."""
+    import pandas as pd
+
+    dtype = s.dtype
+    if str(dtype) in _PANDAS_NULLABLE_NUMPY:
+        arr = s.array
+        mask = ~np.asarray(arr.isna())
+        vals = arr.to_numpy(dtype=_PANDAS_NULLABLE_NUMPY[str(dtype)], na_value=0)
+        return host_encode_numpy(vals, mask=mask if not mask.all() else None)
+    if isinstance(dtype, pd.StringDtype) or str(dtype) in ("string", "str"):
+        vals = s.to_numpy(dtype=object, na_value=None)
+        return host_encode_numpy(vals)
+    if isinstance(dtype, pd.CategoricalDtype):
+        cats = s.cat.categories.to_numpy(dtype=object)
+        codes = s.cat.codes.to_numpy().astype(np.int32)
+        mask = codes >= 0
+        if mask.all():
+            mask = None
+        return np.where(codes < 0, 0, codes).astype(np.int32), mask, VARCHAR, cats
+    if isinstance(dtype, pd.DatetimeTZDtype):
+        # tz-aware -> UTC naive
+        s = s.dt.tz_convert("UTC").dt.tz_localize(None)
+        return host_encode_numpy(s.to_numpy())
+    return host_encode_numpy(s.to_numpy())
+
+
+def _has_none(v) -> bool:
+    try:
+        return any(x is None for x in v)
+    except TypeError:
+        return False
+
+
+def _all_strings(arr) -> bool:
+    return all(isinstance(x, str) for x in arr.tolist())
+
+
+def _denull(v):
+    vals = list(v)
+    mask = np.array([x is not None for x in vals])
+    if all(isinstance(x, str) or x is None for x in vals):
+        arr = np.array(["" if x is None else x for x in vals], dtype=object)
+        return arr, mask
+    arr = np.array([0 if x is None else x for x in vals])
+    return arr, mask

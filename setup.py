@@ -15,8 +15,11 @@ setup(
     name="dask_sql_tpu",
     version="0.1.0",
     description="TPU-native distributed SQL query engine (dask-sql capability parity)",
-    packages=find_packages(include=["dask_sql_tpu", "dask_sql_tpu.*"]),
-    package_data={"dask_sql_tpu.native": ["*.so"]},
+    packages=find_packages(include=["dask_sql_tpu", "dask_sql_tpu.*",
+                                    "dask_sql_tpu_torch",
+                                    "dask_sql_tpu_torch.*"]),
+    package_data={"dask_sql_tpu.native": ["*.so"],
+                  "dask_sql_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -27,6 +30,9 @@ setup(
         "dev": ["pytest"],
         "ml": ["scikit-learn", "joblib"],
         "cli": ["prompt_toolkit", "pygments"],
+        # the PyTorch/CUDA port (dask_sql_tpu_torch); its kernels build
+        # with nvcc from csrc/ at first use
+        "torch": ["torch"],
     },
     entry_points={
         "console_scripts": [

@@ -1,0 +1,57 @@
+"""The port stands alone: importing it pulls in neither JAX nor any module
+of the JAX package, and its entry points run on the card unless asked
+otherwise."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import json, sys
+import dask_sql_tpu_torch
+import dask_sql_tpu_torch.context, dask_sql_tpu_torch.convert
+import dask_sql_tpu_torch.physical.rel.executor, dask_sql_tpu_torch.ops.gpu_kernels
+print(json.dumps(sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith("jax.")
+                        or m == "jaxlib" or m.startswith("jaxlib.")
+                        or m.startswith("dask_sql_tpu") and not (
+                            m == "dask_sql_tpu_torch"
+                            or m.startswith("dask_sql_tpu_torch."))
+                        or m == "pandas")))
+"""
+
+
+def test_import_pulls_in_no_jax_and_no_jax_package():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_context_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from dask_sql_tpu_torch import Context
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Context()
+    assert Context(device="cpu").device == torch.device("cpu")
+
+
+def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
+    """Without a card the smoke script fails and prints no result; alone in
+    a directory it fails too."""
+    for cwd in (ROOT, tmp_path):
+        script = ROOT / "chip_smoke.py"
+        if cwd == tmp_path:
+            script = tmp_path / "chip_smoke.py"
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=120,
+                             env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
