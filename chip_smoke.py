@@ -7,21 +7,40 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: compile every hand-written kernel from ``dask_sql_tpu_torch/csrc``
-   with nvcc (sm_90a) and report the build time;
-3. data: ``lineitem`` at ``--sf`` (SF 1 = 6.0 M rows, generated here from
-   ``--seed`` with the column set and distributions of
-   ``benchmarks/tpch.py``), registered on ``Context(device="cuda")``;
-4. kernels: each kernel against its plain PyTorch version on the card --
-   on the inputs Q1 hands it (captured from one Q1 run) and on edge cases
-   -- required bit-identical; then, on Q1's inputs, its time beside the
-   plain version's, one library call's, and the bound the data sheet
-   allows (3.35 TB/s HBM3, 34 TFLOP/s FP64);
-5. slice: TPC-H Q1 and Q6 through the Context: one cold and three warm
-   runs each (Q1's cold run is the capture run of phase 4), answers checked against a numpy oracle on the host (counts
-   exact, doubles to rtol 1e-12; per-group sums by ``math.fsum``), with
-   the launch counts set to 0 just before and every kernel of the path
-   required to have launched; then one more warm run of each under
-   ``torch.profiler`` (device time by kernel, device idle share).
+   with nvcc (sm_90a), one nvcc per source, all started together; report
+   the build times and ptxas's register report;
+3. data: the eight TPC-H tables at ``--sf`` (SF 1: 6.0 M lineitem rows),
+   generated here from ``--seed`` in numpy alone with the columns,
+   distributions and random stream of ``benchmarks/tpch.py``, registered
+   on ``Context(device="cuda")``;
+4. kernel 1 (segsum_fixedpoint) against its plain PyTorch version on the
+   card -- on the reduction Q1 hands it (captured from Q1's cold run) and on
+   edge cases -- required bit-identical; then, on Q1's inputs, its time
+   beside the plain version's, one library call's, and the bound the data
+   sheet allows (3.35 TB/s HBM3, 34 TFLOP/s FP64);
+5. kernel 2 (segsum_accumulate): its path -- Q1's reduction cast to float32
+   through the float32 branch of ``segmented_sums_dispatch`` -- driven once
+   with the launch counts at 0; then, on that input and on edge cases
+   (ragged n, 256 groups, NaN/+-Inf in their own groups, a masked NaN, all
+   rows masked, empty input, float64 input), kernel and plain version each
+   held to the float64 sum of the same values within
+   (1024 + ceil(n/1024)) * eps * sum|v| per (row, group), non-finite
+   results and empty groups exact, and the kernel run twice for identical
+   bits; then its time beside the plain version's, one float32
+   ``index_add_`` and the bound (3.35 TB/s, 67 TFLOP/s FP32);
+6. slice: TPC-H Q1-Q22 through the Context, one cold and three warm runs
+   each, the launch counts set to 0 before each query and read after it
+   (kernel 1 must launch); the host synchronisations of one more warm run
+   counted with ``torch.cuda.set_sync_debug_mode``; Q1 and Q6 checked
+   against a numpy oracle (counts exact, doubles rtol 1e-12, per-group sums
+   by ``math.fsum``), every query against the same query run by the port on
+   the CPU over the same tables (ints and strings exact, doubles rtol
+   1e-9); then one warm run of Q1, Q6 and Q5 under
+   ``torch.profiler`` (device time by kernel, device idle share);
+7. oracle: the 22 queries at SF 0.01 through a Context on the card
+   against the standard library's ``sqlite3`` (the rules of
+   ``tests/integration/test_tpch.py``: row count exact, doubles rtol 1e-6,
+   everything else as strings, unordered results sorted).
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -32,40 +51,19 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP64_OPS_PER_S = 34e12         # H100 SXM data sheet, FP64 outside tensor cores
-
-Q1 = """
-    SELECT l_returnflag, l_linestatus,
-           SUM(l_quantity) AS sum_qty,
-           SUM(l_extendedprice) AS sum_base_price,
-           SUM(l_extendedprice * (1 - l_discount)) AS sum_disc_price,
-           SUM(l_extendedprice * (1 - l_discount) * (1 + l_tax)) AS sum_charge,
-           AVG(l_quantity) AS avg_qty,
-           AVG(l_extendedprice) AS avg_price,
-           AVG(l_discount) AS avg_disc,
-           COUNT(*) AS count_order
-    FROM lineitem
-    WHERE l_shipdate <= DATE '1998-09-02'
-    GROUP BY l_returnflag, l_linestatus
-    ORDER BY l_returnflag, l_linestatus
-"""
-
-Q6 = """
-    SELECT SUM(l_extendedprice * l_discount) AS revenue
-    FROM lineitem
-    WHERE l_shipdate >= DATE '1994-01-01'
-      AND l_shipdate < DATE '1995-01-01'
-      AND l_discount BETWEEN 0.05 AND 0.07
-      AND l_quantity < 24
-"""
+FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, FP32 outside tensor cores
+ORACLE_SF = 0.01               # the sqlite oracle's scale: a few seconds in sqlite
 
 # Q1's static-domain reduction: the occupancy row, then (value, count) rows
 # for 4 SUMs and 3 AVGs over doubles, then COUNT(*)'s two count rows
@@ -78,54 +76,513 @@ def _days(s: str) -> int:
 
 
 # ---------------------------------------------------------------------------
-# data: TPC-H lineitem with the columns and distributions of
-# benchmarks/tpch.py (dbgen-shaped), in numpy only
+# data: the eight TPC-H tables of benchmarks/tpch.py (dbgen-shaped), in
+# numpy only -- the same columns, distributions and random stream
 # ---------------------------------------------------------------------------
 
+_REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
+_NATIONS = [
+    ("ALGERIA", 0), ("ARGENTINA", 1), ("BRAZIL", 1), ("CANADA", 1),
+    ("EGYPT", 4), ("ETHIOPIA", 0), ("FRANCE", 3), ("GERMANY", 3),
+    ("INDIA", 2), ("INDONESIA", 2), ("IRAN", 4), ("IRAQ", 4),
+    ("JAPAN", 2), ("JORDAN", 4), ("KENYA", 0), ("MOROCCO", 0),
+    ("MOZAMBIQUE", 0), ("PERU", 1), ("CHINA", 2), ("ROMANIA", 3),
+    ("SAUDI ARABIA", 4), ("VIETNAM", 2), ("RUSSIA", 3),
+    ("UNITED KINGDOM", 3), ("UNITED STATES", 1),
+]
+_SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
+_PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
 _SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
 _INSTRUCTS = ["DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN"]
+_TYPES = [f"{a} {b} {c}" for a in ("STANDARD", "SMALL", "MEDIUM", "LARGE",
+                                   "ECONOMY", "PROMO")
+          for b in ("ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED")
+          for c in ("TIN", "NICKEL", "BRASS", "STEEL", "COPPER")]
+_CONTAINERS = [f"{a} {b}" for a in ("SM", "LG", "MED", "JUMBO", "WRAP")
+               for b in ("CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM")]
 
 
-def generate_lineitem(sf: float, seed: int) -> dict:
+def _tag(prefix, nums: np.ndarray, width: int) -> np.ndarray:
+    """f"{prefix}{num:0{width}d}" (dbgen-style names); ``prefix`` may be an
+    array.  (numpy's ``char.zfill`` cuts longer numbers to ``width``.)"""
+    digits = np.array([f"{v:0{width}d}" for v in np.asarray(nums).tolist()],
+                      dtype=str)
+    return np.char.add(prefix, digits)
+
+
+def _blank(n: int) -> np.ndarray:
+    return np.full(n, "", dtype="<U1")
+
+
+def _dates(days: np.ndarray) -> np.ndarray:
+    return np.datetime64("1970-01-01", "D") + np.asarray(days).astype("timedelta64[D]")
+
+
+def generate_tpch(sf: float, seed: int) -> dict:
+    """{table: {column: numpy array}} for the eight TPC-H tables."""
     rng = np.random.RandomState(seed)
     n_part = max(int(200_000 * sf), 50)
     n_supp = max(int(10_000 * sf), 10)
+    n_cust = max(int(150_000 * sf), 30)
     n_ord = max(int(1_500_000 * sf), 150)
-    o_dates = rng.randint(_days("1992-01-01"), _days("1998-08-02"), n_ord)
-    lines = rng.randint(1, 8, n_ord)
-    n = int(lines.sum())
-    orderkey = np.repeat(np.arange(1, n_ord + 1) * 4, lines)
-    odate = np.repeat(o_dates, lines)
-    ship = odate + rng.randint(1, 122, n)
-    commit = odate + rng.randint(30, 91, n)
-    receipt = ship + rng.randint(1, 31, n)
-    cut = _days("1995-06-17")
-    partkey = rng.randint(1, n_part + 1, n)
-    step = max(n_supp // 4, 1)
-    day = np.timedelta64(1, "D")
-    epoch = np.datetime64("1970-01-01", "D")
-    return {
-        "l_orderkey": orderkey,
-        "l_partkey": partkey,
-        "l_suppkey": (partkey - 1 + rng.randint(0, 4, n) * step) % n_supp + 1,
-        "l_linenumber": np.arange(n) - np.repeat(np.cumsum(lines) - lines, lines) + 1,
-        "l_quantity": rng.randint(1, 51, n).astype(np.float64),
-        "l_extendedprice": np.round(rng.uniform(900.0, 105_000.0, n), 2),
-        "l_discount": np.round(rng.randint(0, 11, n) / 100.0, 2),
-        "l_tax": np.round(rng.randint(0, 9, n) / 100.0, 2),
-        "l_returnflag": np.where(receipt <= cut, rng.choice(["R", "A"], n), "N"),
-        "l_linestatus": np.where(ship > cut, "O", "F"),
-        "l_shipdate": (epoch + ship * day).astype("datetime64[s]"),
-        "l_commitdate": (epoch + commit * day).astype("datetime64[s]"),
-        "l_receiptdate": (epoch + receipt * day).astype("datetime64[s]"),
-        "l_shipinstruct": rng.choice(_INSTRUCTS, n),
-        "l_shipmode": rng.choice(_SHIPMODES, n),
-        "l_comment": np.full(n, "", dtype="<U1"),
+    n_nation = len(_NATIONS)
+    region = {"r_regionkey": np.arange(5), "r_name": np.array(_REGIONS),
+              "r_comment": _blank(5)}
+    nation = {"n_nationkey": np.arange(n_nation),
+              "n_name": np.array([n for n, _ in _NATIONS]),
+              "n_regionkey": np.array([r for _, r in _NATIONS]),
+              "n_comment": _blank(n_nation)}
+    supplier = {
+        "s_suppkey": np.arange(1, n_supp + 1),
+        "s_name": _tag("Supplier#", np.arange(1, n_supp + 1), 9),
+        "s_address": _tag("addr", np.arange(n_supp), 0),
+        "s_nationkey": rng.randint(0, n_nation, n_supp),
+        "s_phone": _tag("", np.arange(n_supp), 10),
+        "s_acctbal": np.round(rng.uniform(-999.99, 9999.99, n_supp), 2),
+        "s_comment": _blank(n_supp),
     }
+    pk = np.arange(1, n_part + 1)
+    part = {
+        "p_partkey": pk,
+        "p_name": rng.choice(["ivory blue", "green navy", "red linen",
+                              "metallic olive", "antique puff"], n_part),
+        "p_mfgr": _tag("Manufacturer#", np.arange(n_part) % 5 + 1, 0),
+        "p_brand": _tag("Brand#", (np.arange(n_part) % 5 + 1) * 10
+                        + (np.arange(n_part) // 5) % 5 + 1, 0),
+        "p_type": rng.choice(_TYPES, n_part),
+        "p_size": rng.randint(1, 51, n_part),
+        "p_container": rng.choice(_CONTAINERS, n_part),
+        "p_retailprice": np.round(900 + (pk % 1000) / 10.0 + 100 * (pk % 10), 2),
+        "p_comment": _blank(n_part),
+    }
+    n_ps = n_part * 4
+    ps_step = max(n_supp // 4, 1)
+
+    def psupp(partkey, i):
+        return (partkey - 1 + i * ps_step) % n_supp + 1
+
+    partsupp = {
+        "ps_partkey": np.repeat(pk, 4),
+        "ps_suppkey": psupp(np.repeat(pk, 4), np.tile(np.arange(4), n_part)),
+        "ps_availqty": rng.randint(1, 10_000, n_ps),
+        "ps_supplycost": np.round(rng.uniform(1.0, 1000.0, n_ps), 2),
+        "ps_comment": _blank(n_ps),
+    }
+    c_nationkey = rng.randint(0, n_nation, n_cust)
+    customer = {
+        "c_custkey": np.arange(1, n_cust + 1),
+        "c_name": _tag("Customer#", np.arange(1, n_cust + 1), 9),
+        "c_address": _tag("addr", np.arange(n_cust), 0),
+        "c_nationkey": c_nationkey,
+        "c_phone": _tag(np.char.add((c_nationkey + 10).astype(str), "-"),
+                        np.arange(n_cust), 8),
+        "c_acctbal": np.round(rng.uniform(-999.99, 9999.99, n_cust), 2),
+        "c_mktsegment": rng.choice(_SEGMENTS, n_cust),
+        "c_comment": _blank(n_cust),
+    }
+    o_dates = rng.randint(_days("1992-01-01"), _days("1998-08-02"), n_ord)
+    o_custkey = rng.randint(1, n_cust + 1, n_ord)
+    o_custkey = o_custkey + (o_custkey % 3 == 0)
+    o_custkey = np.where(o_custkey > n_cust, 1, o_custkey)
+    orders = {
+        "o_orderkey": np.arange(1, n_ord + 1) * 4,
+        "o_custkey": o_custkey,
+        "o_orderstatus": rng.choice(["F", "O", "P"], n_ord, p=[0.49, 0.49, 0.02]),
+        "o_totalprice": np.round(rng.uniform(800.0, 600_000.0, n_ord), 2),
+        "o_orderdate": _dates(o_dates),
+        "o_orderpriority": rng.choice(_PRIORITIES, n_ord),
+        "o_clerk": _tag("Clerk#", np.arange(n_ord) % 1000, 9),
+        "o_shippriority": np.zeros(n_ord, dtype=np.int64),
+        "o_comment": _blank(n_ord),
+    }
+    lines = rng.randint(1, 8, n_ord)
+    n_li = int(lines.sum())
+    odate = np.repeat(o_dates, lines)
+    ship = odate + rng.randint(1, 122, n_li)
+    commit = odate + rng.randint(30, 91, n_li)
+    receipt = ship + rng.randint(1, 31, n_li)
+    returnflag = np.where(receipt <= _days("1995-06-17"),
+                          rng.choice(["R", "A"], n_li), "N")
+    li_partkey = rng.randint(1, n_part + 1, n_li)
+    lineitem = {
+        "l_orderkey": np.repeat(orders["o_orderkey"], lines),
+        "l_partkey": li_partkey,
+        "l_suppkey": psupp(li_partkey, rng.randint(0, 4, n_li)),
+        "l_linenumber": np.arange(n_li) - np.repeat(np.cumsum(lines) - lines,
+                                                    lines) + 1,
+        "l_quantity": rng.randint(1, 51, n_li).astype(np.float64),
+        "l_extendedprice": np.round(rng.uniform(900.0, 105_000.0, n_li), 2),
+        "l_discount": np.round(rng.randint(0, 11, n_li) / 100.0, 2),
+        "l_tax": np.round(rng.randint(0, 9, n_li) / 100.0, 2),
+        "l_returnflag": returnflag,
+        "l_linestatus": np.where(ship > _days("1995-06-17"), "O", "F"),
+        "l_shipdate": _dates(ship),
+        "l_commitdate": _dates(commit),
+        "l_receiptdate": _dates(receipt),
+        "l_shipinstruct": rng.choice(_INSTRUCTS, n_li),
+        "l_shipmode": rng.choice(_SHIPMODES, n_li),
+        "l_comment": _blank(n_li),
+    }
+    return {"region": region, "nation": nation, "supplier": supplier,
+            "part": part, "partsupp": partsupp, "customer": customer,
+            "orders": orders, "lineitem": lineitem}
+
+
+# The TPC-H query texts of benchmarks/tpch.py (a copy: that module needs
+# pandas, which the card's machine does not have)
+QUERIES = {
+    1: """
+        SELECT l_returnflag, l_linestatus,
+               SUM(l_quantity) AS sum_qty,
+               SUM(l_extendedprice) AS sum_base_price,
+               SUM(l_extendedprice * (1 - l_discount)) AS sum_disc_price,
+               SUM(l_extendedprice * (1 - l_discount) * (1 + l_tax)) AS sum_charge,
+               AVG(l_quantity) AS avg_qty,
+               AVG(l_extendedprice) AS avg_price,
+               AVG(l_discount) AS avg_disc,
+               COUNT(*) AS count_order
+        FROM lineitem
+        WHERE l_shipdate <= DATE '1998-09-02'
+        GROUP BY l_returnflag, l_linestatus
+        ORDER BY l_returnflag, l_linestatus
+    """,
+    3: """
+        SELECT l_orderkey,
+               SUM(l_extendedprice * (1 - l_discount)) AS revenue,
+               o_orderdate, o_shippriority
+        FROM customer, orders, lineitem
+        WHERE c_mktsegment = 'BUILDING'
+          AND c_custkey = o_custkey
+          AND l_orderkey = o_orderkey
+          AND o_orderdate < DATE '1995-03-15'
+          AND l_shipdate > DATE '1995-03-15'
+        GROUP BY l_orderkey, o_orderdate, o_shippriority
+        ORDER BY revenue DESC, o_orderdate
+        LIMIT 10
+    """,
+    5: """
+        SELECT n_name,
+               SUM(l_extendedprice * (1 - l_discount)) AS revenue
+        FROM customer, orders, lineitem, supplier, nation, region
+        WHERE c_custkey = o_custkey
+          AND l_orderkey = o_orderkey
+          AND l_suppkey = s_suppkey
+          AND c_nationkey = s_nationkey
+          AND s_nationkey = n_nationkey
+          AND n_regionkey = r_regionkey
+          AND r_name = 'ASIA'
+          AND o_orderdate >= DATE '1994-01-01'
+          AND o_orderdate < DATE '1995-01-01'
+        GROUP BY n_name
+        ORDER BY revenue DESC
+    """,
+    6: """
+        SELECT SUM(l_extendedprice * l_discount) AS revenue
+        FROM lineitem
+        WHERE l_shipdate >= DATE '1994-01-01'
+          AND l_shipdate < DATE '1995-01-01'
+          AND l_discount BETWEEN 0.05 AND 0.07
+          AND l_quantity < 24
+    """,
+    9: """
+        SELECT nation, o_year, SUM(amount) AS sum_profit
+        FROM (
+            SELECT n_name AS nation,
+                   EXTRACT(YEAR FROM o_orderdate) AS o_year,
+                   l_extendedprice * (1 - l_discount)
+                     - ps_supplycost * l_quantity AS amount
+            FROM part, supplier, lineitem, partsupp, orders, nation
+            WHERE s_suppkey = l_suppkey
+              AND ps_suppkey = l_suppkey
+              AND ps_partkey = l_partkey
+              AND p_partkey = l_partkey
+              AND o_orderkey = l_orderkey
+              AND s_nationkey = n_nationkey
+              AND p_name LIKE '%green%'
+        ) AS profit
+        GROUP BY nation, o_year
+        ORDER BY nation, o_year DESC
+    """,
+    10: """
+        SELECT c_custkey, c_name,
+               SUM(l_extendedprice * (1 - l_discount)) AS revenue,
+               c_acctbal, n_name, c_address, c_phone, c_comment
+        FROM customer, orders, lineitem, nation
+        WHERE c_custkey = o_custkey
+          AND l_orderkey = o_orderkey
+          AND o_orderdate >= DATE '1993-10-01'
+          AND o_orderdate < DATE '1994-01-01'
+          AND l_returnflag = 'R'
+          AND c_nationkey = n_nationkey
+        GROUP BY c_custkey, c_name, c_acctbal, c_phone, n_name, c_address, c_comment
+        ORDER BY revenue DESC
+        LIMIT 20
+    """,
+    12: """
+        SELECT l_shipmode,
+               SUM(CASE WHEN o_orderpriority = '1-URGENT'
+                         OR o_orderpriority = '2-HIGH' THEN 1 ELSE 0 END) AS high_line_count,
+               SUM(CASE WHEN o_orderpriority <> '1-URGENT'
+                        AND o_orderpriority <> '2-HIGH' THEN 1 ELSE 0 END) AS low_line_count
+        FROM orders, lineitem
+        WHERE o_orderkey = l_orderkey
+          AND l_shipmode IN ('MAIL', 'SHIP')
+          AND l_commitdate < l_receiptdate
+          AND l_shipdate < l_commitdate
+          AND l_receiptdate >= DATE '1994-01-01'
+          AND l_receiptdate < DATE '1995-01-01'
+        GROUP BY l_shipmode
+        ORDER BY l_shipmode
+    """,
+    14: """
+        SELECT 100.00 * SUM(CASE WHEN p_type LIKE 'PROMO%'
+                                 THEN l_extendedprice * (1 - l_discount)
+                                 ELSE 0 END) / SUM(l_extendedprice * (1 - l_discount)) AS promo_revenue
+        FROM lineitem, part
+        WHERE l_partkey = p_partkey
+          AND l_shipdate >= DATE '1995-09-01'
+          AND l_shipdate < DATE '1995-10-01'
+    """,
+    2: """
+        SELECT s_acctbal, s_name, n_name, p_partkey, p_mfgr, s_address,
+               s_phone, s_comment
+        FROM part, supplier, partsupp, nation, region
+        WHERE p_partkey = ps_partkey
+          AND s_suppkey = ps_suppkey
+          AND p_size = 15
+          AND p_type LIKE '%BRASS'
+          AND s_nationkey = n_nationkey
+          AND n_regionkey = r_regionkey
+          AND r_name = 'EUROPE'
+          AND ps_supplycost = (
+                SELECT MIN(ps_supplycost)
+                FROM partsupp, supplier, nation, region
+                WHERE p_partkey = ps_partkey
+                  AND s_suppkey = ps_suppkey
+                  AND s_nationkey = n_nationkey
+                  AND n_regionkey = r_regionkey
+                  AND r_name = 'EUROPE')
+        ORDER BY s_acctbal DESC, n_name, s_name, p_partkey
+        LIMIT 100
+    """,
+    4: """
+        SELECT o_orderpriority, COUNT(*) AS order_count
+        FROM orders
+        WHERE o_orderdate >= DATE '1993-07-01'
+          AND o_orderdate < DATE '1993-10-01'
+          AND EXISTS (
+                SELECT * FROM lineitem
+                WHERE l_orderkey = o_orderkey
+                  AND l_commitdate < l_receiptdate)
+        GROUP BY o_orderpriority
+        ORDER BY o_orderpriority
+    """,
+    7: """
+        SELECT supp_nation, cust_nation, l_year, SUM(volume) AS revenue
+        FROM (
+            SELECT n1.n_name AS supp_nation, n2.n_name AS cust_nation,
+                   EXTRACT(YEAR FROM l_shipdate) AS l_year,
+                   l_extendedprice * (1 - l_discount) AS volume
+            FROM supplier, lineitem, orders, customer, nation n1, nation n2
+            WHERE s_suppkey = l_suppkey
+              AND o_orderkey = l_orderkey
+              AND c_custkey = o_custkey
+              AND s_nationkey = n1.n_nationkey
+              AND c_nationkey = n2.n_nationkey
+              AND ((n1.n_name = 'FRANCE' AND n2.n_name = 'GERMANY')
+                OR (n1.n_name = 'GERMANY' AND n2.n_name = 'FRANCE'))
+              AND l_shipdate BETWEEN DATE '1995-01-01' AND DATE '1996-12-31'
+        ) AS shipping
+        GROUP BY supp_nation, cust_nation, l_year
+        ORDER BY supp_nation, cust_nation, l_year
+    """,
+    8: """
+        SELECT o_year,
+               SUM(CASE WHEN nation = 'BRAZIL' THEN volume ELSE 0 END)
+                 / SUM(volume) AS mkt_share
+        FROM (
+            SELECT EXTRACT(YEAR FROM o_orderdate) AS o_year,
+                   l_extendedprice * (1 - l_discount) AS volume,
+                   n2.n_name AS nation
+            FROM part, supplier, lineitem, orders, customer,
+                 nation n1, nation n2, region
+            WHERE p_partkey = l_partkey
+              AND s_suppkey = l_suppkey
+              AND l_orderkey = o_orderkey
+              AND o_custkey = c_custkey
+              AND c_nationkey = n1.n_nationkey
+              AND n1.n_regionkey = r_regionkey
+              AND r_name = 'AMERICA'
+              AND s_nationkey = n2.n_nationkey
+              AND o_orderdate BETWEEN DATE '1995-01-01' AND DATE '1996-12-31'
+              AND p_type = 'ECONOMY ANODIZED STEEL'
+        ) AS all_nations
+        GROUP BY o_year
+        ORDER BY o_year
+    """,
+    11: """
+        SELECT ps_partkey, SUM(ps_supplycost * ps_availqty) AS value
+        FROM partsupp, supplier, nation
+        WHERE ps_suppkey = s_suppkey
+          AND s_nationkey = n_nationkey
+          AND n_name = 'GERMANY'
+        GROUP BY ps_partkey
+        HAVING SUM(ps_supplycost * ps_availqty) > (
+                SELECT SUM(ps_supplycost * ps_availqty) * 0.0001
+                FROM partsupp, supplier, nation
+                WHERE ps_suppkey = s_suppkey
+                  AND s_nationkey = n_nationkey
+                  AND n_name = 'GERMANY')
+        ORDER BY value DESC
+    """,
+    13: """
+        SELECT c_count, COUNT(*) AS custdist
+        FROM (
+            SELECT c_custkey, COUNT(o_orderkey) AS c_count
+            FROM customer LEFT OUTER JOIN orders
+              ON c_custkey = o_custkey AND o_comment NOT LIKE '%special%requests%'
+            GROUP BY c_custkey
+        ) AS c_orders
+        GROUP BY c_count
+        ORDER BY custdist DESC, c_count DESC
+    """,
+    15: """
+        WITH revenue0 AS (
+            SELECT l_suppkey AS supplier_no,
+                   SUM(l_extendedprice * (1 - l_discount)) AS total_revenue
+            FROM lineitem
+            WHERE l_shipdate >= DATE '1996-01-01'
+              AND l_shipdate < DATE '1996-04-01'
+            GROUP BY l_suppkey
+        )
+        SELECT s_suppkey, s_name, s_address, s_phone, total_revenue
+        FROM supplier, revenue0
+        WHERE s_suppkey = supplier_no
+          AND total_revenue = (SELECT MAX(total_revenue) FROM revenue0)
+        ORDER BY s_suppkey
+    """,
+    16: """
+        SELECT p_brand, p_type, p_size, COUNT(DISTINCT ps_suppkey) AS supplier_cnt
+        FROM partsupp, part
+        WHERE p_partkey = ps_partkey
+          AND p_brand <> 'Brand#45'
+          AND p_type NOT LIKE 'MEDIUM POLISHED%'
+          AND p_size IN (49, 14, 23, 45, 19, 3, 36, 9)
+          AND ps_suppkey NOT IN (
+                SELECT s_suppkey FROM supplier
+                WHERE s_comment LIKE '%Customer%Complaints%')
+        GROUP BY p_brand, p_type, p_size
+        ORDER BY supplier_cnt DESC, p_brand, p_type, p_size
+    """,
+    17: """
+        SELECT SUM(l_extendedprice) / 7.0 AS avg_yearly
+        FROM lineitem, part
+        WHERE p_partkey = l_partkey
+          AND p_brand = 'Brand#23'
+          AND p_container = 'MED BOX'
+          AND l_quantity < (
+                SELECT 0.2 * AVG(l_quantity)
+                FROM lineitem
+                WHERE l_partkey = p_partkey)
+    """,
+    19: """
+        SELECT SUM(l_extendedprice * (1 - l_discount)) AS revenue
+        FROM lineitem, part
+        WHERE (p_partkey = l_partkey AND p_brand = 'Brand#12'
+               AND p_container IN ('SM CASE', 'SM BOX', 'SM PACK', 'SM PKG')
+               AND l_quantity >= 1 AND l_quantity <= 11
+               AND p_size BETWEEN 1 AND 5
+               AND l_shipmode IN ('AIR', 'AIR REG')
+               AND l_shipinstruct = 'DELIVER IN PERSON')
+           OR (p_partkey = l_partkey AND p_brand = 'Brand#23'
+               AND p_container IN ('MED BAG', 'MED BOX', 'MED PKG', 'MED PACK')
+               AND l_quantity >= 10 AND l_quantity <= 20
+               AND p_size BETWEEN 1 AND 10
+               AND l_shipmode IN ('AIR', 'AIR REG')
+               AND l_shipinstruct = 'DELIVER IN PERSON')
+           OR (p_partkey = l_partkey AND p_brand = 'Brand#34'
+               AND p_container IN ('LG CASE', 'LG BOX', 'LG PACK', 'LG PKG')
+               AND l_quantity >= 20 AND l_quantity <= 30
+               AND p_size BETWEEN 1 AND 15
+               AND l_shipmode IN ('AIR', 'AIR REG')
+               AND l_shipinstruct = 'DELIVER IN PERSON')
+    """,
+    20: """
+        SELECT s_name, s_address
+        FROM supplier, nation
+        WHERE s_suppkey IN (
+                SELECT ps_suppkey FROM partsupp
+                WHERE ps_partkey IN (
+                        SELECT p_partkey FROM part WHERE p_name LIKE 'ivory%')
+                  AND ps_availqty > (
+                        SELECT 0.5 * SUM(l_quantity)
+                        FROM lineitem
+                        WHERE l_partkey = ps_partkey
+                          AND l_suppkey = ps_suppkey
+                          AND l_shipdate >= DATE '1994-01-01'
+                          AND l_shipdate < DATE '1995-01-01'))
+          AND s_nationkey = n_nationkey
+          AND n_name = 'CANADA'
+        ORDER BY s_name
+    """,
+    21: """
+        SELECT s_name, COUNT(*) AS numwait
+        FROM supplier, lineitem l1, orders, nation
+        WHERE s_suppkey = l1.l_suppkey
+          AND o_orderkey = l1.l_orderkey
+          AND o_orderstatus = 'F'
+          AND l1.l_receiptdate > l1.l_commitdate
+          AND EXISTS (
+                SELECT * FROM lineitem l2
+                WHERE l2.l_orderkey = l1.l_orderkey
+                  AND l2.l_suppkey <> l1.l_suppkey)
+          AND NOT EXISTS (
+                SELECT * FROM lineitem l3
+                WHERE l3.l_orderkey = l1.l_orderkey
+                  AND l3.l_suppkey <> l1.l_suppkey
+                  AND l3.l_receiptdate > l3.l_commitdate)
+          AND s_nationkey = n_nationkey
+          AND n_name = 'SAUDI ARABIA'
+        GROUP BY s_name
+        ORDER BY numwait DESC, s_name
+        LIMIT 100
+    """,
+    22: """
+        SELECT cntrycode, COUNT(*) AS numcust, SUM(c_acctbal) AS totacctbal
+        FROM (
+            SELECT SUBSTRING(c_phone FROM 1 FOR 2) AS cntrycode, c_acctbal
+            FROM customer
+            WHERE SUBSTRING(c_phone FROM 1 FOR 2) IN
+                    ('13', '31', '23', '29', '30', '18', '17')
+              AND c_acctbal > (
+                    SELECT AVG(c_acctbal) FROM customer
+                    WHERE c_acctbal > 0.00
+                      AND SUBSTRING(c_phone FROM 1 FOR 2) IN
+                            ('13', '31', '23', '29', '30', '18', '17'))
+              AND NOT EXISTS (
+                    SELECT * FROM orders WHERE o_custkey = c_custkey)
+        ) AS custsale
+        GROUP BY cntrycode
+        ORDER BY cntrycode
+    """,
+    18: """
+        SELECT c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice,
+               SUM(l_quantity) AS total_qty
+        FROM customer, orders, lineitem
+        WHERE o_orderkey IN (
+                SELECT l_orderkey FROM lineitem
+                GROUP BY l_orderkey HAVING SUM(l_quantity) > 300)
+          AND c_custkey = o_custkey
+          AND o_orderkey = l_orderkey
+        GROUP BY c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
+        ORDER BY o_totalprice DESC, o_orderdate
+        LIMIT 100
+    """,
+}
 
 
 # ---------------------------------------------------------------------------
-# numpy oracles
+# answers: numpy oracles for Q1 and Q6, the CPU run, sqlite
 # ---------------------------------------------------------------------------
 
 def oracle_q1(li: dict) -> dict:
@@ -181,6 +638,88 @@ def check_answer(name: str, got: dict, want: dict) -> None:
                                        err_msg=f"{name}.{col}")
 
 
+def check_same_result(name: str, got, want, rtol: float) -> None:
+    """Two port results of one query: same columns and rows; doubles to
+    rtol, everything else exact."""
+    if got.names != want.names or got.num_rows != want.num_rows:
+        raise AssertionError(f"{name}: {got} != {want}")
+    for col, g, w in zip(want.names, got.columns, want.columns):
+        gv, wv = g.to_numpy(), w.to_numpy()
+        if wv.dtype.kind == "f":
+            np.testing.assert_allclose(gv.astype(np.float64), wv, rtol=rtol,
+                                       equal_nan=True, err_msg=f"{name}.{col}")
+        elif gv.tolist() != wv.tolist():
+            raise AssertionError(f"{name}.{col} differs")
+
+
+def to_sqlite(q: str) -> str:
+    """The dialect rewrites of tests/integration/test_tpch.py."""
+    q = q.replace("DATE '", "'")
+    q = re.sub(r"SUBSTRING\(\s*(\w+)\s+FROM\s+(\d+)\s+FOR\s+(\d+)\s*\)",
+               r"substr(\1, \2, \3)", q)
+    q = re.sub(r"EXTRACT\(\s*YEAR\s+FROM\s+(\w+)\s*\)",
+               r"CAST(strftime('%Y', \1) AS INTEGER)", q)
+    return q
+
+
+def load_sqlite(tables: dict):
+    """An in-memory sqlite database of the tables: dates as ISO strings,
+    int columns INTEGER, floats REAL, strings TEXT (as pandas' to_sql), and
+    an index on every key column (it changes no answer; without it sqlite
+    runs Q21's correlated EXISTS as nested scans for minutes)."""
+    import sqlite3
+
+    conn = sqlite3.connect(":memory:")
+    for name, cols in tables.items():
+        decl, values = [], []
+        for col, arr in cols.items():
+            kind = arr.dtype.kind
+            if kind == "M":
+                values.append(np.datetime_as_string(arr, unit="D").tolist())
+                decl.append(f"{col} TEXT")
+            else:
+                values.append(arr.tolist())
+                decl.append(f"{col} " + {"i": "INTEGER", "f": "REAL"}.get(kind, "TEXT"))
+        conn.execute(f"CREATE TABLE {name} ({', '.join(decl)})")
+        conn.executemany(f"INSERT INTO {name} VALUES ({', '.join('?' * len(cols))})",
+                         zip(*values))
+        for col in cols:
+            if col.endswith("key"):
+                conn.execute(f"CREATE INDEX {col}_idx ON {name} ({col})")
+    return conn
+
+
+def _cell(v) -> str:
+    if isinstance(v, np.datetime64):
+        return np.datetime_as_string(v.astype("datetime64[D]"))
+    if v is None or (isinstance(v, float) and math.isnan(v)):
+        return "None"
+    return str(v)
+
+
+def check_sqlite(name: str, result, cur, ordered: bool) -> None:
+    """The comparison rules of tests/integration/test_tpch.py."""
+    want_rows = cur.fetchall()
+    cols = [c.to_numpy() for c in result.columns]
+    got_rows = [tuple(c[i] for c in cols) for i in range(result.num_rows)]
+    if len(got_rows) != len(want_rows):
+        raise AssertionError(f"{name}: {len(got_rows)} rows vs sqlite "
+                             f"{len(want_rows)}")
+    if not ordered:
+        key = lambda r: [_cell(v) for v in r]  # noqa: E731
+        got_rows, want_rows = sorted(got_rows, key=key), sorted(want_rows, key=key)
+    for j in range(len(cols)):
+        g = [r[j] for r in got_rows]
+        w = [r[j] for r in want_rows]
+        if cols[j].dtype.kind in "fc" or any(isinstance(v, float) for v in w):
+            np.testing.assert_allclose(
+                np.array([np.nan if v is None else float(v) for v in g]),
+                np.array([np.nan if v is None else float(v) for v in w]),
+                rtol=1e-6, err_msg=f"{name} column {result.names[j]}")
+        elif [_cell(v) for v in g] != [_cell(v) for v in w]:
+            raise AssertionError(f"{name} column {result.names[j]} differs")
+
+
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
@@ -208,6 +747,21 @@ def wall_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def count_syncs(fn) -> int:
+    """Host synchronisations of one run of fn(), as reported by
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -226,18 +780,21 @@ def phase_environment() -> str:
 def phase_build() -> None:
     from dask_sql_tpu_torch.ops import gpu_kernels as gk
 
-    info = gk.build_kernels()
-    print(f"build: segsum_fixedpoint {'built' if info['built'] else 'cached'} "
-          f"in {info['seconds']:.1f} s -> {info['path']}")
-    for line in str(info["log"]).splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    for name, info in gk.build_kernels().items():
+        print(f"build: {name} {'built' if info['built'] else 'cached'} in "
+              f"{info['seconds']:.1f} s -> {info['path']}")
+        for line in str(info["log"]).splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+    print(f"build: {time.perf_counter() - t0:.1f} s in all")
 
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return (a.shape == b.shape and a.dtype == b.dtype
-            and bool(torch.equal(a.contiguous().view(torch.int64),
-                                 b.contiguous().view(torch.int64))))
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = torch.int64 if a.element_size() == 8 else torch.int32
+    return bool(torch.equal(a.contiguous().view(view), b.contiguous().view(view)))
 
 
 def _segsum_case(rng, n: int, g: int, classes) -> tuple:
@@ -256,10 +813,11 @@ def _segsum_case(rng, n: int, g: int, classes) -> tuple:
 
 
 def capture_q1_reduction(ctx) -> tuple:
-    """Run Q1 once -- its cold run, the first in the process -- with a spy on
-    the executor's static-domain reduction.  Returns the inputs the main
-    path hands the kernel, (values, codes, mask, groups, row classes), and
-    the run's wall time in ms."""
+    """Run Q1 once -- its cold run, the first query in the process -- with a
+    spy on the executor's static-domain reduction.  Returns the inputs the
+    main path hands the kernel, (values, codes, mask, groups, row classes),
+    the run's wall time in ms, and the launch counts of the run."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
     from dask_sql_tpu_torch.physical.rel import executor as ex
 
     real = ex.segmented_sums_dispatch
@@ -270,14 +828,15 @@ def capture_q1_reduction(ctx) -> tuple:
         return real(vals, codes, mask, num_groups, row_classes=row_classes)
 
     ex.segmented_sums_dispatch = spy
+    gk.reset_launch_counts()
     try:
-        cold_ms = wall_ms(lambda: ctx.sql(Q1))
+        cold_ms = wall_ms(lambda: box.update(r=ctx.sql(QUERIES[1])))
     finally:
         ex.segmented_sums_dispatch = real
-    return box["args"], cold_ms
+    return box["args"], cold_ms, dict(gk.LAUNCHES), box["r"]
 
 
-def phase_kernels(dev, q1_args: tuple) -> dict:
+def phase_kernel1(dev, q1_args: tuple) -> dict:
     """segsum_fixedpoint against its plain version: bit-identical on Q1's
     own reduction and on edge cases; timed on Q1's reduction."""
     from dask_sql_tpu_torch.ops import gpu_kernels as gk
@@ -316,9 +875,9 @@ def phase_kernels(dev, q1_args: tuple) -> dict:
         diff = ((got - plain).nan_to_num(0.0).abs().max().item()
                 if got.numel() else 0.0)
         if not _bits_equal(got, plain):
-            raise AssertionError(f"kernel vs plain differ on {name}: max {diff}")
+            raise AssertionError(f"kernel 1 vs plain differ on {name}: max {diff}")
         max_err = max(max_err, diff)
-        print(f"kernel case {name}: {tuple(vals.shape)} x {g} groups, "
+        print(f"kernel 1 case {name}: {tuple(vals.shape)} x {g} groups, "
               f"{len(cls)} row classes: bit-identical")
 
     # timing on Q1's own reduction: the kernel's function (limb totals)
@@ -353,9 +912,136 @@ def phase_kernels(dev, q1_args: tuple) -> dict:
             "library_ms": library_ms}
 
 
+def _accumulate_check(name: str, vals, codes, mask, g, got) -> float:
+    """Hold a kernel-2 result to the float64 sum of the same values:
+    |got - want| <= (1024 + ceil(n/1024)) * eps * sum|v| per (row, group);
+    NaN where the float64 sum is NaN, the same infinities, 0.0 for a group
+    with no rows.  Returns the largest |got - want| over finite entries."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    n = vals.shape[1]
+    v64 = vals.to(torch.float64)
+    want = gk.reference_segmented_sums(v64, codes, mask, g)
+    abs_sum = gk.reference_segmented_sums(
+        v64.nan_to_num(0.0, 0.0, 0.0).abs(), codes, mask, g)
+    eps = 2.0 ** -24 if vals.dtype == torch.float32 else 2.0 ** -53
+    bound = (1024 + -(-n // 1024)) * eps * abs_sum
+    fin = torch.isfinite(want)
+    err = (got.to(torch.float64) - want).abs()
+    ok = (got.dtype == vals.dtype
+          and torch.equal(torch.isnan(got), torch.isnan(want))
+          and torch.equal(got[~fin & ~torch.isnan(want)].to(torch.float64),
+                          want[~fin & ~torch.isnan(want)])
+          and bool((err[fin] <= bound[fin]).all())
+          and bool((got[fin & (abs_sum == 0)] == 0).all()))
+    if not ok:
+        raise AssertionError(f"kernel 2 case {name}: outside the bound "
+                             f"(max err {err[fin].max().item() if fin.any() else 0})")
+    return err[fin].max().item() if bool(fin.any()) else 0.0
+
+
+def phase_kernel2(dev, q1_args: tuple) -> dict:
+    """segsum_accumulate: its path (Q1's reduction in float32 through the
+    float32 branch of segmented_sums_dispatch) with the counts at 0, then
+    kernel and plain version held to the float64 sum on that input and on
+    edge cases, the kernel twice for identical bits; then timed."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    vals, codes, mask, g, _ = q1_args
+    vals32 = vals.to(torch.float32).contiguous()
+    gk.reset_launch_counts()
+    path_out = gk.segmented_sums_dispatch(vals32, codes, mask, g)
+    torch.cuda.synchronize()
+    launches = gk.LAUNCHES["segsum_accumulate"]
+    if launches < 1 or gk.LAUNCHES["segsum_fixedpoint"]:
+        raise AssertionError(f"the float32 dispatch did not take kernel 2: "
+                             f"{dict(gk.LAUNCHES)}")
+    print(f"kernel 2 path: segmented_sums_dispatch on Q1's reduction in "
+          f"float32 {tuple(vals32.shape)} x {g} groups -> {dict(gk.LAUNCHES)}")
+
+    rng = np.random.RandomState(2)
+    cases = {"q1_float32": (vals32, codes, mask, g)}
+
+    def put(name, v, c, m, groups):
+        cases[name] = (torch.from_numpy(v).to(dev), torch.from_numpy(c).to(dev),
+                       torch.from_numpy(m).to(dev), groups)
+
+    v, c, m = _segsum_case(rng, 1_000_003, 6, ["float", "int", "unit"])
+    put("ragged_n", v.astype(np.float32), c, m, 6)
+    v, c, m = _segsum_case(rng, 500_000, 256, ["float"] * 5)
+    put("domain_256", v.astype(np.float32), c, m, 256)
+    v, c, m = _segsum_case(rng, 200_000, 8, ["float", "float"])
+    c[:6] = [5, 6, 7, 5, 6, 7]
+    m[:6] = True
+    v[:, :6] = [[np.nan, np.inf, -np.inf, 1.0, 2.0, 3.0]] * 2
+    c[6:] = np.where(np.isin(c[6:], [5, 6, 7]), 0, c[6:])
+    put("nonfinite_groups", v.astype(np.float32), c, m, 8)
+    v, c, m = _segsum_case(rng, 100_000, 3, ["float"])
+    v[0, 17], m[17] = np.nan, False
+    put("masked_nan", v.astype(np.float32), c, m, 3)
+    v, c, m = _segsum_case(rng, 50_000, 4, ["float", "float"])
+    put("all_masked", v.astype(np.float32), c, np.zeros_like(m), 4)
+    put("empty", np.zeros((3, 0), np.float32), np.zeros(0, np.int64),
+        np.ones(0, bool), 3)
+    v, c, m = _segsum_case(rng, 300_007, 7, ["float", "int", "unit"])
+    put("float64", v, c, m, 7)
+
+    max_err = 0.0
+    for name, (v, c, m, groups) in cases.items():
+        run = (gk.segmented_sums_dispatch if v.dtype == torch.float32
+               else gk.segmented_sums)
+        got = run(v, c, m, groups)
+        again = run(v, c, m, groups)
+        plain = gk.segmented_sums(v, c, m, groups,
+                                  accumulate=gk.segsum_accumulate_plain)
+        torch.cuda.synchronize()
+        if not _bits_equal(got, again):
+            raise AssertionError(f"kernel 2 case {name}: two runs differ")
+        if name == "q1_float32" and not _bits_equal(got, path_out):
+            raise AssertionError("kernel 2: the path run differs from the check")
+        err = _accumulate_check(name, v, c, m, groups, got)
+        perr = _accumulate_check(name + " (plain)", v, c, m, groups, plain)
+        diff = ((got - plain).to(torch.float64).nan_to_num(0.0).abs().max().item()
+                if got.numel() else 0.0)
+        max_err = max(max_err, diff)
+        print(f"kernel 2 case {name}: {tuple(v.shape)} {str(v.dtype)[6:]} x "
+              f"{groups} groups: within the bound (kernel {err:.3g}, plain "
+              f"{perr:.3g} from the float64 sum; |kernel - plain| {diff:.3g}), "
+              f"deterministic")
+
+    a, n = vals32.shape
+    codes32 = codes.to(torch.int32).contiguous()
+    mask_u8 = mask.to(torch.uint8).contiguous()
+    ms = cuda_ms(lambda: gk.segsum_accumulate_cuda(vals32, codes32, mask_u8, g),
+                 reps=20)
+    plain_ms = cuda_ms(lambda: gk.segsum_accumulate_plain(vals32, codes32,
+                                                          mask_u8, g), reps=5)
+    codes64 = codes.to(torch.int64)
+    library_ms = cuda_ms(lambda: torch.zeros(
+        (a, g), dtype=torch.float32, device=dev).index_add_(
+        1, codes64, torch.where(mask, vals32, 0.0)), reps=20)
+    full_ms = cuda_ms(lambda: gk.segmented_sums(vals32, codes, mask, g), reps=10)
+    moved = a * n * 4 + n * 4 + n * 1 + a * g * 4 + 3 * a * g * 8
+    ops = a * n
+    bound_ms = max(moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+    bound_by = "bytes" if moved / HBM_BYTES_PER_S >= ops / FP32_OPS_PER_S \
+        else "operations"
+    print(f"segsum_accumulate on Q1's reduction in float32 ({a} x {n}, {g} "
+          f"groups): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, float32 "
+          f"index_add_ {library_ms:.3f} ms, full segmented_sums {full_ms:.3f} "
+          f"ms, bound {bound_ms:.3f} ms ({bound_by}: {moved / 1e9:.3f} GB)")
+    return {"name": "segsum_accumulate", "route": "cuda",
+            "source": "dask_sql_tpu_torch/csrc/segsum_accumulate.cu",
+            "replaces": "dask_sql_tpu/ops/pallas_kernels.py:81",
+            "launches": launches, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def profile_query(ctx, name: str, text: str) -> None:
     """One warm run under torch.profiler: device time by kernel, and the
     device's busy share of the host wall time (profiler on)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -364,8 +1050,6 @@ def profile_query(ctx, name: str, text: str) -> None:
         ctx.sql(text)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    from torch.autograd import DeviceType
-
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in events) / 1e3
@@ -375,55 +1059,113 @@ def profile_query(ctx, name: str, text: str) -> None:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
-def phase_data(dev, sf: float, seed: int):
-    """Generate lineitem and register it on a Context on the card."""
+def register(dev, tables: dict):
+    """A Context on ``dev`` with the tables; returns it and the seconds."""
     from dask_sql_tpu_torch import Context
 
     t0 = time.perf_counter()
-    li = generate_lineitem(sf, seed)
-    print(f"lineitem: {len(li['l_orderkey'])} rows at SF {sf} "
-          f"(generated in {time.perf_counter() - t0:.1f} s)")
-    t0 = time.perf_counter()
     ctx = Context(device=dev)
-    ctx.create_table("lineitem", li)
-    torch.cuda.synchronize()
-    table = ctx.schema["root"].tables["lineitem"].table
-    nbytes = sum(c.data.numel() * c.data.element_size() for c in table.columns)
-    print(f"create_table: {time.perf_counter() - t0:.1f} s, "
-          f"{nbytes / 1e9:.3f} GB on {dev}")
-    return ctx, li
+    for name, cols in tables.items():
+        ctx.create_table(name, cols)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return ctx, time.perf_counter() - t0
 
 
-def phase_slice(ctx, li: dict, q1_cold_ms: float) -> dict:
-    """Q1 and Q6 through the Context, checked against the numpy oracle:
-    Q6 cold and three warm runs, Q1 three warm runs (its cold run was the
-    kernel phase's capture run).  Returns the kernels' launches."""
+def _table_bytes(ctx) -> int:
+    total = 0
+    for entry in ctx.schema["root"].tables.values():
+        for c in entry.table.columns:
+            total += c.data.numel() * c.data.element_size()
+            if c.mask is not None:
+                total += c.mask.numel()
+    return total
+
+
+def phase_data(dev, sf: float, seed: int):
+    t0 = time.perf_counter()
+    tables = generate_tpch(sf, seed)
+    rows = {k: len(next(iter(v.values()))) for k, v in tables.items()}
+    print(f"TPC-H SF {sf}: {rows} (generated in {time.perf_counter() - t0:.1f} s)")
+    ctx, seconds = register(dev, tables)
+    print(f"create_table: {seconds:.1f} s, {_table_bytes(ctx) / 1e9:.3f} GB on {dev}")
+    return ctx, tables
+
+
+def phase_slice(ctx, tables: dict, q1_cold: tuple, cpu_ctx) -> dict:
+    """The 22 queries through the Context: cold + 3 warm runs each (Q1's
+    cold run was the capture run), the launch counts set to 0 before each
+    query and read after it, the host synchronisations of one more warm
+    run, and the answers checked.  Returns the launches of all runs."""
     from dask_sql_tpu_torch.ops import gpu_kernels as gk
 
-    want = {"Q1": oracle_q1(li), "Q6": oracle_q6(li)}
-    gk.reset_launch_counts()
-    launches_q1 = 0
-    for name, text in (("Q1", Q1), ("Q6", Q6)):
-        times = [q1_cold_ms] if name == "Q1" else []
-        result = None
+    want = {1: oracle_q1(tables["lineitem"]), 6: oracle_q6(tables["lineitem"])}
+    total = {k: 0 for k in gk.LAUNCHES}
+    static_queries = []
+    rows = []
+    for qid in sorted(QUERIES):
+        text = QUERIES[qid]
+        times, runs = [], []
+        if qid == 1:
+            times.append(q1_cold[0])
+            runs.append(q1_cold[1])
+            result = q1_cold[2]
         while len(times) < 4:
-            before = gk.LAUNCHES["segsum_fixedpoint"]
+            gk.reset_launch_counts()
             box = {}
             times.append(wall_ms(lambda: box.update(r=ctx.sql(text))))
+            runs.append(dict(gk.LAUNCHES))
             result = box["r"]
-            if name == "Q1":
-                launches_q1 += gk.LAUNCHES["segsum_fixedpoint"] - before
-        got = {k: v.tolist() for k, v in result.to_numpy().items()}
-        check_answer(name, got, want[name])
-        print(f"{name}: cold {times[0]:.1f} ms, warm "
+        syncs = count_syncs(lambda: ctx.sql(text))
+        for launches in runs:
+            for k, v in launches.items():
+                total[k] += v
+        launched = {k: v for k, v in runs[-1].items() if v}
+        if launched.get("segsum_fixedpoint"):
+            static_queries.append(qid)
+        checks = []
+        if qid in want:
+            got = {k: v.tolist() for k, v in result.to_numpy().items()}
+            check_answer(f"Q{qid}", got, want[qid])
+            checks.append("numpy oracle")
+        checks.append(cross_check(qid, text, result, cpu_ctx))
+        rows.append((qid, times, launched, syncs, result.num_rows))
+        print(f"Q{qid}: cold {times[0]:.1f} ms, warm "
               + ", ".join(f"{t:.1f}" for t in times[1:])
-              + f" ms; {result.num_rows} rows match the numpy oracle")
-    launches = dict(gk.LAUNCHES)
-    if launches_q1 < 1 or launches["segsum_fixedpoint"] < 1:
-        raise AssertionError(f"Q1 did not launch segsum_fixedpoint: {launches}")
-    profile_query(ctx, "Q1", Q1)
-    profile_query(ctx, "Q6", Q6)
-    return launches
+              + f" ms; {result.num_rows} rows; launched {launched or 'none'}; "
+              f"{syncs} host syncs; checked against {', '.join(checks) or '-'}")
+    if total["segsum_fixedpoint"] < 1:
+        raise AssertionError(f"no query launched segsum_fixedpoint: {total}")
+    print(f"queries that launched segsum_fixedpoint: {static_queries}")
+    print("slice table: " + json.dumps(
+        [{"q": q, "cold_ms": t[0], "warm_ms": t[1:], "launched": lch,
+          "syncs": s, "rows": r} for q, t, lch, s, r in rows]))
+    return total
+
+
+def cross_check(qid: int, text: str, result, cpu_ctx) -> str:
+    """The query's answer on the card against the port's run on the CPU
+    over the same tables."""
+    t0 = time.perf_counter()
+    check_same_result(f"Q{qid}", result, cpu_ctx.sql(text), rtol=1e-9)
+    return f"the CPU run ({time.perf_counter() - t0:.1f} s)"
+
+
+def phase_oracle(dev, sf: float, seed: int) -> None:
+    """The 22 queries at ``sf`` on the card against sqlite."""
+    tables = generate_tpch(sf, seed)
+    ctx, _ = register(dev, tables)
+    t0 = time.perf_counter()
+    conn = load_sqlite(tables)
+    print(f"sqlite oracle at SF {sf}: loaded in {time.perf_counter() - t0:.1f} s")
+    for qid in sorted(QUERIES):
+        t0 = time.perf_counter()
+        result = ctx.sql(QUERIES[qid])
+        check_sqlite(f"Q{qid}", result, conn.execute(to_sqlite(QUERIES[qid])),
+                     "ORDER BY" in QUERIES[qid])
+        print(f"oracle Q{qid}: {result.num_rows} rows match sqlite "
+              f"({time.perf_counter() - t0:.1f} s)")
+    conn.close()
 
 
 def main(argv=None) -> int:
@@ -439,16 +1181,30 @@ def main(argv=None) -> int:
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable: {exc}", file=sys.stderr)
         return 3
+    from dask_sql_tpu_torch import Context
+
     dev = torch.device("cuda")
     card = phase_environment()
     phase_build()
-    ctx, li = phase_data(dev, args.sf, args.seed)
-    q1_args, q1_cold_ms = capture_q1_reduction(ctx)
-    kernel = phase_kernels(dev, q1_args)
-    launches = phase_slice(ctx, li, q1_cold_ms)
-    kernel["launches"] = launches[kernel["name"]]
+    ctx, tables = phase_data(dev, args.sf, args.seed)
+    q1_args, q1_cold_ms, q1_launches, q1_result = capture_q1_reduction(ctx)
+    kernel1 = phase_kernel1(dev, q1_args)
+    kernel2 = phase_kernel2(dev, q1_args)
+    # the card's tables, copied to the CPU as they are encoded
+    cpu_ctx = Context(device=torch.device("cpu"))
+    for name, entry in ctx.schema["root"].tables.items():
+        cpu_ctx.create_table(name, entry.table)
+    launches = phase_slice(ctx, tables, (q1_cold_ms, q1_launches, q1_result),
+                           cpu_ctx)
+    del cpu_ctx
+    profile_query(ctx, "Q1", QUERIES[1])
+    profile_query(ctx, "Q6", QUERIES[6])
+    profile_query(ctx, "Q5", QUERIES[5])
+    profile_query(ctx, "Q9", QUERIES[9])
+    phase_oracle(dev, ORACLE_SF, args.seed)
+    kernel1["launches"] = launches["segsum_fixedpoint"]
     print(f"card: {card}")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel1, kernel2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

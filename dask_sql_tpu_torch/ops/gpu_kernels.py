@@ -1,5 +1,10 @@
-"""The static-domain segmented sum: a hand-written Hopper kernel and its
-plain PyTorch version.
+"""The segmented sums: two hand-written Hopper kernels and their plain
+PyTorch versions.
+
+Kernel 1, ``segsum_fixedpoint`` (below), carries the static-domain GROUP BY
+of the engine.  Kernel 2, ``segsum_accumulate`` (after it), is the sum
+accumulated in the input precision behind ``segmented_sums`` and the
+float32 branch of ``segmented_sums_dispatch``.
 
 ``SELECT agg(x) ... GROUP BY k`` over a small static key domain (the TPC-H
 Q1 shape) reduces to masked per-group sums of A value rows:
@@ -20,7 +25,7 @@ the grid to suit the card (see ``csrc/segsum_fixedpoint.cu``):
 - the totals recombine with exact power-of-two weights and Neumaier
   compensation, and NaN/+Inf/-Inf counts restore IEEE semantics.
 
-Unit and int rows are therefore bit-exact whenever sum(|v|) <= 2**53, as in
+Unit and int rows of kernel 1 are therefore bit-exact whenever sum(|v|) <= 2**53, as in
 the JAX package; float rows are within one unit of 2**(e-84) per value,
 where 2**e bounds the row's masked abs-max.
 
@@ -39,6 +44,7 @@ import os
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -59,9 +65,10 @@ MAX_ROWS = 1 << 32
 SMEM_BUDGET = 200 * 1024
 
 #: launches of each hand-written kernel; only the kernel wrappers add to it
-LAUNCHES: Dict[str, int] = {"segsum_fixedpoint": 0}
+LAUNCHES: Dict[str, int] = {"segsum_fixedpoint": 0, "segsum_accumulate": 0}
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "segsum_fixedpoint.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCES = {name: _CSRC / f"{name}.cu" for name in LAUNCHES}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -226,7 +233,7 @@ def segsum_limb_totals_cuda(vals: torch.Tensor, codes: torch.Tensor,
         return out_limbs, out_nonfinite
     meta = [torch.tensor(x, dtype=torch.int32, device=dev)
             for x in (limbs, signed, out0, tiles)]
-    lib = _load_library()
+    lib = _load_library("segsum_fixedpoint")
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.dsql_segsum_fixedpoint(
         vals.data_ptr(), n, a, codes.data_ptr(), mask.data_ptr(),
@@ -330,11 +337,148 @@ def segmented_sums_exact(vals: torch.Tensor, codes: torch.Tensor,
 def segmented_sums_dispatch(vals: torch.Tensor, codes: torch.Tensor,
                             mask: torch.Tensor, num_groups: int,
                             row_classes=None) -> torch.Tensor:
-    """The static-domain GROUP BY reduction: the fixed-point sums, through
-    the kernel for a CUDA tensor (it launches or raises) and the plain
-    version for a CPU tensor."""
+    """The segmented-sum policy of the JAX package, with the card in the
+    TPU's place: a float32 stack on the card goes to kernel 2 (sums
+    accumulated in float32); any other stack to the fixed-point sums
+    (kernel 1 on the card, its plain version on the CPU).  The engine's
+    static-domain route always stacks float64."""
+    if vals.device.type == "cuda" and vals.dtype == torch.float32:
+        return segmented_sums(vals, codes, mask, num_groups)
     return segmented_sums_fixedpoint(vals, codes, mask, num_groups,
                                      row_classes=row_classes)
+
+
+# ---------------------------------------------------------------------------
+# kernel 2: sums accumulated in the input precision
+# ---------------------------------------------------------------------------
+
+#: rows per tile of kernel 2 (the TPU kernel's BLOCK)
+ACC_TILE = 1024
+# warps per block of kernel 2: each keeps its own accumulators
+_ACC_WARPS = 8
+
+
+def segsum_accumulate_plain(vals: torch.Tensor, codes: torch.Tensor,
+                            mask: torch.Tensor, num_groups: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``csrc/segsum_accumulate.cu``, on any device.
+
+    vals (A, n) float32 or float64, codes (n,) ints, mask (n,) bool/uint8.
+    Returns (sums (A, G) in the dtype of ``vals`` over the finite values,
+    non-finite counts (3*A, G) int64: NaN rows, then +Inf, then -Inf).
+    Rows that are masked out or whose code is outside [0, G) contribute
+    nothing.  The sums are taken as the kernel takes them, per 1024-row
+    tile and then over the tiles; within a tile the order is index_add_'s.
+    """
+    a, n = vals.shape
+    g = num_groups
+    dev = vals.device
+    keep = (mask != 0) & (codes >= 0) & (codes < g)
+    index = codes.long().clamp(0, max(g - 1, 0))
+    kinds = (torch.isnan(vals), torch.isposinf(vals), torch.isneginf(vals))
+    finite = ~(kinds[0] | kinds[1] | kinds[2])
+    clean = torch.where(keep & finite, vals, 0.0)
+    tiles = -(-n // ACC_TILE)
+    slot = torch.div(torch.arange(n, device=dev), ACC_TILE,
+                     rounding_mode="floor") * g + index
+    partial = torch.zeros((a, tiles * g), dtype=vals.dtype, device=dev)
+    partial.index_add_(1, slot, clean)
+    sums = partial.view(a, tiles, g).sum(dim=1)
+    counts = torch.zeros((3 * a, g), dtype=torch.int64, device=dev)
+    for k, kind in enumerate(kinds):
+        counts[k * a:(k + 1) * a].index_add_(1, index, (kind & keep).long())
+    return sums, counts
+
+
+def _acc_rows_per_block(dtype: torch.dtype, num_groups: int) -> int:
+    """Value rows one block of kernel 2 takes: its accumulators (8 warps of
+    (rows, G) sums plus 3 (rows, G) uint32 counts) must fit SMEM_BUDGET."""
+    itemsize = torch.finfo(dtype).bits // 8
+    per_row = num_groups * (_ACC_WARPS * itemsize + 3 * 4)
+    if per_row > SMEM_BUDGET:
+        limit = SMEM_BUDGET // (_ACC_WARPS * itemsize + 3 * 4)
+        raise ValueError(
+            f"segsum_accumulate: {num_groups} groups need {per_row} bytes of "
+            f"shared memory for one {dtype} row (budget {SMEM_BUDGET}: at "
+            f"most {limit} groups)")
+    return SMEM_BUDGET // per_row
+
+
+def segsum_accumulate_cuda(vals: torch.Tensor, codes: torch.Tensor,
+                           mask: torch.Tensor, num_groups: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/segsum_accumulate.cu`` on the tensors' CUDA device.
+
+    Same results as ``segsum_accumulate_plain``; codes must be int32 and the
+    mask uint8.  Raises on any input the kernel does not take, and when the
+    launch fails."""
+    a, n = vals.shape
+    dev = vals.device
+    if dev.type != "cuda":
+        raise ValueError(f"segsum_accumulate kernel needs CUDA tensors, got {dev}")
+    if vals.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"segsum_accumulate: vals must be float32 or float64, "
+                        f"got {vals.dtype}")
+    for name, t, dtype, shape in (("vals", vals, vals.dtype, (a, n)),
+                                  ("codes", codes, torch.int32, (n,)),
+                                  ("mask", mask, torch.uint8, (n,))):
+        if t.device != dev:
+            raise ValueError(f"segsum_accumulate: {name} on {t.device}, vals on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"segsum_accumulate: {name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"segsum_accumulate: {name} shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"segsum_accumulate: {name} must be contiguous")
+    rows = _acc_rows_per_block(vals.dtype, num_groups)
+    out = torch.zeros((a, num_groups), dtype=vals.dtype, device=dev)
+    nonfinite = torch.zeros((3 * a, num_groups), dtype=torch.int64, device=dev)
+    if n == 0 or a == 0 or num_groups == 0:
+        return out, nonfinite
+    tiles = -(-n // ACC_TILE)
+    partial = torch.empty((tiles, a, num_groups), dtype=vals.dtype, device=dev)
+    lib = _load_library("segsum_accumulate")
+    fn = (lib.dsql_segsum_accumulate_f32 if vals.dtype == torch.float32
+          else lib.dsql_segsum_accumulate_f64)
+    rc = fn(vals.data_ptr(), n, a, codes.data_ptr(), mask.data_ptr(),
+            num_groups, rows, partial.data_ptr(), nonfinite.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"segsum_accumulate launch failed: CUDA error {rc}")
+    LAUNCHES["segsum_accumulate"] += 1
+    return out, nonfinite
+
+
+def segsum_accumulate(vals, codes, mask, num_groups):
+    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if vals.device.type == "cuda":
+        return segsum_accumulate_cuda(vals, codes, mask, num_groups)
+    if vals.device.type == "cpu":
+        return segsum_accumulate_plain(vals, codes, mask, num_groups)
+    raise ValueError(f"segsum_accumulate: no kernel for device {vals.device}")
+
+
+def segmented_sums(vals: torch.Tensor, codes: torch.Tensor, mask: torch.Tensor,
+                   num_groups: int, *, accumulate=segsum_accumulate
+                   ) -> torch.Tensor:
+    """Masked segmented sums (A, num_groups) of ``vals`` (A, n) over
+    ``codes`` (n,) and ``mask`` (n,), accumulated in the dtype of ``vals``
+    (float64 for integer values), with IEEE NaN/+-Inf semantics.
+
+    The counterpart of the JAX package's ``segmented_sums``.
+    ``accumulate`` is the function that sums: by default the kernel on the
+    card and the plain version on the CPU; ``segsum_accumulate_plain`` runs
+    the plain version on any device."""
+    if not vals.dtype.is_floating_point:
+        vals = vals.to(torch.float64)
+    elif vals.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"segmented_sums: no accumulation in {vals.dtype}")
+    a = vals.shape[0]
+    sums, nonfinite = accumulate(vals.contiguous(), codes.to(torch.int32).contiguous(),
+                                 mask.to(torch.uint8).contiguous(), num_groups)
+    return ieee_reassemble(sums, nonfinite[:a], nonfinite[a:2 * a],
+                           nonfinite[2 * a:])
 
 
 def reference_segmented_sums(vals: torch.Tensor, codes: torch.Tensor,
@@ -355,10 +499,10 @@ def _build_dir() -> Path:
     return Path(__file__).resolve().parents[2] / "build" / "dask_sql_tpu_torch"
 
 
-def _library_path() -> Path:
-    digest = hashlib.sha256(_SOURCE.read_bytes()
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256(_SOURCES[name].read_bytes()
                             + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _build_dir() / f"libsegsum_fixedpoint-{digest}.so"
+    return _build_dir() / f"lib{name}-{digest}.so"
 
 
 def _nvcc() -> str:
@@ -370,12 +514,8 @@ def _nvcc() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
-def build_kernels() -> Dict[str, object]:
-    """Compile ``csrc/segsum_fixedpoint.cu`` with nvcc for sm_90a into the
-    build directory (skipped when the library for this source exists).
-    Returns {"path", "seconds", "built", "log"}; ``log`` holds ptxas's
-    register and shared-memory report when it built."""
-    out = _library_path()
+def _build_one(name: str) -> Dict[str, object]:
+    out = _library_path(name)
     if out.exists():
         return {"path": str(out), "seconds": 0.0, "built": False, "log": ""}
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -383,10 +523,12 @@ def build_kernels() -> Dict[str, object]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
+        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp,
+                               str(_SOURCES[name])],
                               capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+            raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):\n"
+                               f"{proc.stderr}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -395,12 +537,31 @@ def build_kernels() -> Dict[str, object]:
             "built": True, "log": proc.stderr}
 
 
+def build_kernels() -> Dict[str, Dict[str, object]]:
+    """Compile every ``csrc/*.cu`` with nvcc for sm_90a into the build
+    directory, one nvcc per source, all started together (a source whose
+    library exists is skipped).  Returns, per kernel, {"path", "seconds",
+    "built", "log"}; ``log`` holds ptxas's register and shared-memory
+    report when it built."""
+    with ThreadPoolExecutor(len(_SOURCES)) as pool:
+        results = dict(zip(_SOURCES, pool.map(_build_one, _SOURCES)))
+    return results
+
+
+# the C entry points' arguments: P pointer (or stream), l int64, i int32
+_ARGTYPES = {
+    "segsum_fixedpoint": {"dsql_segsum_fixedpoint": "PliPPPPPPPiiiPPP"},
+    "segsum_accumulate": {"dsql_segsum_accumulate_f32": "PliPPiiPPPP",
+                          "dsql_segsum_accumulate_f64": "PliPPiiPPPP"},
+}
+_CTYPES = {"P": ctypes.c_void_p, "l": ctypes.c_longlong, "i": ctypes.c_int}
+
+
 @functools.lru_cache(maxsize=None)
-def _load_library() -> ctypes.CDLL:
-    path = build_kernels()["path"]
-    lib = ctypes.CDLL(path)
-    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.dsql_segsum_fixedpoint.argtypes = [
-        vp, i64, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, vp, vp, vp]
-    lib.dsql_segsum_fixedpoint.restype = ctypes.c_int
+def _load_library(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(_build_one(name)["path"])
+    for fn_name, sig in _ARGTYPES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = [_CTYPES[c] for c in sig]
+        fn.restype = ctypes.c_int
     return lib

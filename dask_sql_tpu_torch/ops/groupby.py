@@ -4,7 +4,9 @@ The counterpart of ``dask_sql_tpu/ops/groupby.py``: keys factorize to dense
 codes (NULLs form their own group), then every aggregate is a segment
 reduction (``index_add_`` / ``scatter_reduce_``).  Ported here: the hash
 variant of ``group_codes``, ``segment_aggregate`` and
-``whole_table_aggregate``; the dense and sorted code variants wait.
+``whole_table_aggregate``, and the row selections behind DISTINCT
+(``distinct_rows``, ``dedup_for_distinct_agg``); the dense and sorted code
+variants wait.
 """
 from __future__ import annotations
 
@@ -25,6 +27,33 @@ def group_codes(key_cols: List[Column]):
     return factorize_columns(key_cols)
 
 
+def distinct_rows(cols: List[Column]) -> torch.Tensor:
+    """Row indices of the first occurrence of each distinct key combination,
+    in row order."""
+    return torch.sort(factorize_columns(cols)[1]).values
+
+
+def dedup_for_distinct_agg(group_codes_arr: torch.Tensor, value_col: Column,
+                           filter_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Rows to aggregate for a DISTINCT aggregate: the first row of each
+    (group, value) pair among the valid (and FILTER-passing) rows, in row
+    order."""
+    vals_codes = factorize_columns([value_col])[0]
+    n = vals_codes.shape[0]
+    m = int(vals_codes.max()) + 1 if n else 1
+    pair = group_codes_arr * m + vals_codes
+    keep = value_col.valid_mask()
+    if filter_mask is not None:
+        keep = keep & filter_mask
+    # dropped rows get unique negative pairs, so they never merge
+    pair = torch.where(keep, pair, -1 - torch.arange(n, device=pair.device))
+    uniq, inv = torch.unique(pair, sorted=True, return_inverse=True)
+    first = torch.full((uniq.shape[0],), n, dtype=torch.int64, device=pair.device)
+    first.scatter_reduce_(0, inv.reshape(-1), torch.arange(n, device=pair.device),
+                          reduce="amin", include_self=True)
+    return torch.sort(first[uniq >= 0]).values
+
+
 def _masked(col: Column, extra_mask: Optional[torch.Tensor]):
     valid = col.valid_mask()
     if extra_mask is not None:
@@ -34,7 +63,16 @@ def _masked(col: Column, extra_mask: Optional[torch.Tensor]):
 
 def _segment_sum(values: torch.Tensor, codes: torch.Tensor,
                  num_groups: int) -> torch.Tensor:
+    """Per-group sums, the same bits on every run.  On the card a float
+    ``index_add_`` adds with atomics in a varying order, so two runs of one
+    SUM can differ in the last bit (and TPC-H Q15's ``total_revenue =
+    (SELECT MAX(total_revenue) ...)`` then matches nothing); there float
+    sums go through ``index_put_(accumulate=True)``, which sorts the codes
+    and adds each group's values in row order.  Integer sums are exact in
+    any order, and the CPU's ``index_add_`` adds in row order."""
     out = torch.zeros(num_groups, dtype=values.dtype, device=values.device)
+    if values.is_cuda and values.dtype.is_floating_point:
+        return out.index_put_((codes,), values, accumulate=True)
     return out.index_add_(0, codes, values)
 
 

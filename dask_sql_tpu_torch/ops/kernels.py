@@ -1,13 +1,14 @@
 """Shared device primitives: key factorization, string-code unification,
 compaction, civil-date arithmetic.
 
-The counterpart of ``dask_sql_tpu/ops/kernels.py`` for what the first slice
-calls; the rest of that module (join key codes, trace-safe sort keys) waits
-for the join and compiled-tier slices.
+The counterpart of ``dask_sql_tpu/ops/kernels.py`` for what the eager
+executor calls: factorization, the hash variant of the join key codes,
+compaction, civil dates and EXTRACT.  The stats-driven dense join codes and
+the trace-safe sort keys wait for the statistics and compiled-tier slices.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,6 +78,40 @@ def factorize_columns(cols: List[Column]) -> Tuple[torch.Tensor, torch.Tensor, i
     return codes, first, num_groups
 
 
+def join_key_codes(left: List[Column], right: List[Column],
+                   null_equal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Factorize left+right key columns on a shared domain (the JAX
+    package's hash variant).
+
+    Returns int64 codes for each side; -1 marks rows with a NULL key, which
+    never match.  ``null_equal=True`` is set-operation equality (IS NOT
+    DISTINCT FROM): NULL gets its own shared code and matches NULL."""
+    nl = len(left[0]) if left else 0
+    per = []
+    for lc, rc in zip(left, right):
+        if lc.stype.is_string or rc.stype.is_string:
+            data = torch.cat(unify_string_codes([lc, rc]))
+        else:
+            dt = torch.promote_types(lc.data.dtype, rc.data.dtype)
+            data = torch.cat([lc.data.to(dt), rc.data.to(dt)])
+        _, inv = torch.unique(data, sorted=True, return_inverse=True)
+        inv = inv.reshape(-1).to(torch.int64)
+        if lc.mask is not None or rc.mask is not None:
+            mask = torch.cat([lc.valid_mask(), rc.valid_mask()])
+            inv = torch.where(mask, inv + 1, 0) if null_equal \
+                else torch.where(mask, inv, -1)
+        per.append(inv)
+
+    combined = per[0]
+    bad = per[0] < 0
+    for c in per[1:]:
+        m = max(int(c.max()) + 1 if c.shape[0] else 1, 1)
+        combined = combined * m + c.clamp_min(0)
+        bad = bad | (c < 0)
+    combined = torch.where(bad, -1, combined)
+    return combined[:nl], combined[nl:]
+
+
 # ---------------------------------------------------------------------------
 # compaction (filter -> gather indices)
 # ---------------------------------------------------------------------------
@@ -128,6 +163,60 @@ def timestamp_to_days(us: torch.Tensor) -> torch.Tensor:
 
 def timestamp_time_of_day_us(us: torch.Tensor) -> torch.Tensor:
     return us.to(torch.int64) - timestamp_to_days(us) * US_PER_DAY
+
+
+def extract_field(field: str, days: torch.Tensor,
+                  tod_us: Optional[torch.Tensor]) -> torch.Tensor:
+    """EXTRACT over a (days, time-of-day microseconds) pair; ``tod_us`` is
+    None for DATE columns.  Field names follow Calcite/PostgreSQL."""
+    y, m, d = civil_from_days(days)
+    f = field.upper()
+    if f == "YEAR":
+        return y
+    if f == "MONTH":
+        return m
+    if f in ("DAY", "DAYOFMONTH"):
+        return d
+    if f == "QUARTER":
+        return _fdiv(m - 1, 3) + 1
+    if f == "DECADE":
+        return _fdiv(y, 10)
+    if f == "CENTURY":
+        return _fdiv(y + 99, 100)
+    if f == "MILLENNIUM":
+        return _fdiv(y + 999, 1000)
+    days = days.to(torch.int64)
+    if f in ("DOW", "DAYOFWEEK"):
+        # PostgreSQL DOW: 0 = Sunday; epoch day 0 was a Thursday
+        return torch.remainder(days + 4, 7)
+    if f == "ISODOW":
+        return torch.remainder(days + 3, 7) + 1
+    if f in ("DOY", "DAYOFYEAR"):
+        return days - days_from_civil(y, torch.ones_like(m), torch.ones_like(d)) + 1
+    if f == "WEEK":
+        # ISO week number
+        thursday = days - (torch.remainder(days + 3, 7) + 1) + 4
+        ty, _, _ = civil_from_days(thursday)
+        jan1 = days_from_civil(ty, torch.ones_like(m), torch.ones_like(d))
+        return _fdiv(thursday - jan1, 7) + 1
+    if f == "EPOCH":
+        base = days * 86400
+        if tod_us is not None:
+            base = base + _fdiv(tod_us, 1_000_000)
+        return base
+    if tod_us is None:
+        tod_us = torch.zeros_like(days)
+    if f == "HOUR":
+        return _fdiv(tod_us, 3_600_000_000)
+    if f == "MINUTE":
+        return _fdiv(tod_us, 60_000_000) % 60
+    if f == "SECOND":
+        return _fdiv(tod_us, 1_000_000) % 60
+    if f == "MILLISECOND":
+        return _fdiv(tod_us, 1000) % 60_000
+    if f == "MICROSECOND":
+        return tod_us % 60_000_000
+    raise NotImplementedError(f"EXTRACT field {field}")
 
 
 def decimal_unscale(s_int: torch.Tensor, scale: int) -> torch.Tensor:

@@ -4,8 +4,14 @@ The counterpart of the JAX package's eager executor
 (``dask_sql_tpu/physical/rel/executor.py``): each plan-node class name maps
 to a plugin ``plugin(node, executor)``; PyTorch runs eagerly, so each
 plugin computes its result directly.  Ported: TableScan, Project, Filter,
-Values, Aggregate and Sort (with OFFSET/LIMIT).  Any other node raises
+Values, Aggregate (DISTINCT aggregates included), Sort (with OFFSET/LIMIT),
+Join (every join type, equi keys plus a residual condition) and the set
+operations Union, Intersect and Except.  Any other node raises
 ``NotImplementedError``.
+
+Joins always take the hash key coding (``ops/kernels.join_key_codes``):
+the JAX package answers "hash" too whenever it has no table statistics,
+and the statistics-driven variants wait for their own slice.
 
 The aggregate plugin carries the static-domain route that the JAX package
 keeps in its compiled tier (``physical/compiled.py``: ``_try_static_codes``,
@@ -23,16 +29,20 @@ import numpy as np
 import torch
 
 from ...ops import groupby as G
+from ...ops import join as J
 from ...ops import sort as S
 from ...ops.gpu_kernels import segmented_sums_dispatch
-from ...ops.kernels import decimal_unscale, mask_to_indices
+from ...ops.kernels import decimal_unscale, join_key_codes, mask_to_indices
 from ...plan.nodes import (
-    LogicalAggregate, LogicalFilter, LogicalProject, LogicalSort,
-    LogicalTableScan, LogicalValues, RelNode,
+    LogicalAggregate, LogicalExcept, LogicalFilter, LogicalIntersect,
+    LogicalJoin, LogicalProject, LogicalSort, LogicalTableScan, LogicalUnion,
+    LogicalValues, RelNode, RexCall,
 )
+from ...plan.optimizer import split_join_condition
 from ...table import Column, Scalar, Table, dict_sort_order
-from ...types import exact_decimal_scale, physical_dtype, torch_dtype
+from ...types import BOOLEAN, exact_decimal_scale, physical_dtype, torch_dtype
 from ...utils import Pluggable
+from ..rex.cast import cast_column
 from ..rex.evaluate import evaluate_predicate, evaluate_rex
 
 
@@ -129,11 +139,14 @@ def _aggregate(rel: LogicalAggregate, ex: RelExecutor) -> Table:
         out_cols = []
         for j, agg in enumerate(rel.aggs):
             f = rel.schema[j]
-            if agg.distinct:
-                raise NotImplementedError("DISTINCT aggregates are not ported yet")
             col = src.columns[agg.args[0]] if agg.args else None
+            fmask, rows = _agg_filter(agg, src), n
+            if agg.distinct and col is not None:
+                zeros = torch.zeros(n, dtype=torch.int64, device=ex.device)
+                keep = G.dedup_for_distinct_agg(zeros, col, fmask)
+                col, fmask, rows = col.take(keep), None, int(keep.shape[0])
             out_cols.append(G.whole_table_aggregate(
-                agg.op, col, _agg_filter(agg, src), f.stype, n, ex.device))
+                agg.op, col, fmask, f.stype, rows, ex.device))
         return Table(out_names, out_cols)
 
     static = _static_domain_aggregate(rel, src, key_cols, ex.device)
@@ -144,12 +157,128 @@ def _aggregate(rel: LogicalAggregate, ex: RelExecutor) -> Table:
     out_cols = [c.take(first) for c in key_cols]
     for j, agg in enumerate(rel.aggs):
         f = rel.schema[len(rel.group_keys) + j]
-        if agg.distinct:
-            raise NotImplementedError("DISTINCT aggregates are not ported yet")
         col = src.columns[agg.args[0]] if agg.args else None
-        out_cols.append(G.segment_aggregate(
-            agg.op, col, codes, num_groups, f.stype, _agg_filter(agg, src), n))
+        if agg.distinct and col is not None:
+            keep = G.dedup_for_distinct_agg(codes, col, _agg_filter(agg, src))
+            out_cols.append(G.segment_aggregate(
+                agg.op, col.take(keep), codes[keep], num_groups, f.stype, None,
+                int(keep.shape[0])))
+        else:
+            out_cols.append(G.segment_aggregate(
+                agg.op, col, codes, num_groups, f.stype, _agg_filter(agg, src), n))
     return Table(out_names, out_cols)
+
+
+# ---------------------------------------------------------------------------
+# joins and set operations
+# ---------------------------------------------------------------------------
+
+def _join(rel: LogicalJoin, ex: RelExecutor) -> Table:
+    left = ex.execute(rel.left)
+    right = ex.execute(rel.right)
+    equi, residual = split_join_condition(rel)
+    jt = rel.join_type
+    out_names = [f.name for f in rel.schema]
+    lk = [k for k, _ in equi]
+    rk = [k for _, k in equi]
+
+    def pair_codes():
+        return join_key_codes([left.columns[i] for i in lk],
+                              [right.columns[i] for i in rk])
+
+    if jt in ("SEMI", "ANTI"):
+        if not equi and residual:
+            # correlated EXISTS with only non-equi predicates
+            li, ri = J.cross_join_pairs(left.num_rows, right.num_rows, ex.device)
+            return _semi_anti_pairs(ex, left, right, li, ri, residual, jt)
+        if not equi:
+            # EXISTS: all rows if the right side has any, else none
+            return left if (right.num_rows > 0) == (jt == "SEMI") \
+                else left.slice(0, 0)
+        if residual:
+            # equi + residual (a decorrelated EXISTS with an inequality):
+            # expand the equi matches, apply the residual, keep existence
+            li, ri, _ = J._expand_matches(*pair_codes())
+            return _semi_anti_pairs(ex, left, right, li, ri, residual, jt)
+        return J.join_tables(left, right, lk, rk, jt,
+                             getattr(rel, "null_aware", False))[0]
+
+    if not equi:
+        # cross join or pure non-equi: pair expansion + residual filter
+        li, ri = J.cross_join_pairs(left.num_rows, right.num_rows, ex.device)
+    elif not residual:
+        return J.join_tables(left, right, lk, rk, jt)[0].with_names(out_names)
+    else:
+        li, ri, _ = J._expand_matches(*pair_codes())
+    lt, rt = left.take(li), right.take(ri)
+    pairs = Table(out_names, lt.columns + rt.columns)
+    if not residual:
+        return pairs
+    keep = _pair_mask(ex, pairs, residual)
+    if jt in ("INNER", "CROSS"):
+        return pairs.take(mask_to_indices(keep))
+    return J.rejoin_outer(left, right, pairs, keep, li, ri, jt
+                          ).with_names(out_names)
+
+
+def _pair_mask(ex: RelExecutor, pairs: Table, residual) -> torch.Tensor:
+    keep = evaluate_predicate(_and_rex(residual), pairs, ex)
+    if isinstance(keep, bool):
+        keep = torch.full((pairs.num_rows,), keep, device=ex.device)
+    return keep
+
+
+def _semi_anti_pairs(ex: RelExecutor, left: Table, right: Table, li, ri,
+                     residual, jt: str) -> Table:
+    """SEMI/ANTI with residual predicates: evaluate the condition over the
+    candidate (left, right) row pairs, then keep the left rows with (SEMI)
+    or without (ANTI) a surviving match.  The keep-mask stays on the
+    device."""
+    lt, rt = left.take(li), right.take(ri)
+    pairs = Table([f"l{i}" for i in range(len(lt.names))]
+                  + [f"r{i}" for i in range(len(rt.names))],
+                  lt.columns + rt.columns)
+    keep = _pair_mask(ex, pairs, residual)
+    matched = torch.zeros(left.num_rows, dtype=torch.bool, device=ex.device)
+    matched[li[keep]] = True
+    return left.take(mask_to_indices(matched if jt == "SEMI" else ~matched))
+
+
+def _and_rex(rexes):
+    out = rexes[0]
+    for r in rexes[1:]:
+        out = RexCall("AND", [out, r], BOOLEAN)
+    return out
+
+
+def _union(rel: LogicalUnion, ex: RelExecutor) -> Table:
+    out_names = [f.name for f in rel.schema]
+    aligned = []
+    for t in (ex.execute(i) for i in rel.inputs_):
+        cols = [c if c.stype.name == f.stype.name else cast_column(c, f.stype)
+                for c, f in zip(t.columns, rel.schema)]
+        aligned.append(Table(out_names, cols))
+    out = J.concat_tables(aligned)
+    return out if rel.all else out.take(G.distinct_rows(out.columns))
+
+
+def _set_semi_anti(rel, ex: RelExecutor, jt: str) -> Table:
+    """INTERSECT / EXCEPT: distinct left rows with (SEMI) or without (ANTI)
+    an equal right row, where NULL equals NULL (IS NOT DISTINCT FROM)."""
+    a = ex.execute(rel.inputs_[0])
+    b = ex.execute(rel.inputs_[1])
+    a = a.take(G.distinct_rows(a.columns))
+    keys = list(range(a.num_columns))
+    out, _ = J.join_tables(a, b, keys, keys, jt, null_equal=True)
+    return out.with_names([f.name for f in rel.schema])
+
+
+def _intersect(rel: LogicalIntersect, ex: RelExecutor) -> Table:
+    return _set_semi_anti(rel, ex, "SEMI")
+
+
+def _except(rel: LogicalExcept, ex: RelExecutor) -> Table:
+    return _set_semi_anti(rel, ex, "ANTI")
 
 
 STATIC_DOMAIN_CAP = 4096
@@ -314,3 +443,7 @@ RelExecutor.add_plugin("LogicalFilter", _filter)
 RelExecutor.add_plugin("LogicalValues", _values)
 RelExecutor.add_plugin("LogicalAggregate", _aggregate)
 RelExecutor.add_plugin("LogicalSort", _sort)
+RelExecutor.add_plugin("LogicalJoin", _join)
+RelExecutor.add_plugin("LogicalUnion", _union)
+RelExecutor.add_plugin("LogicalIntersect", _intersect)
+RelExecutor.add_plugin("LogicalExcept", _except)

@@ -2,17 +2,21 @@
 
 The counterpart of ``dask_sql_tpu/physical/rex/evaluate.py``: expression
 nodes dispatch through a Pluggable registry keyed on the node class name.
-Parameters, scalar subqueries and user-defined functions are not ported
-yet.
+An uncorrelated scalar subquery runs its plan once and becomes a Scalar.
+Parameters and user-defined functions are not ported yet.
 """
 from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
-from ...plan.nodes import RexCall, RexInputRef, RexLiteral, RexNode
+from ...plan.nodes import (
+    RexCall, RexInputRef, RexLiteral, RexNode, RexScalarSubquery,
+)
 from ...table import Column, Scalar, Table
+from ...types import python_value_to_physical
 from ...utils import Pluggable
 from .cast import cast_value
 from .ops import OPERATION_MAPPING
@@ -50,9 +54,22 @@ def _eval_call(rex: RexCall, table: Table, executor):
     return fn(args, rex.stype, table)
 
 
+def _eval_scalar_subquery(rex: RexScalarSubquery, table: Table, executor):
+    sub = executor.execute(rex.plan)
+    if sub.num_rows == 0:
+        return Scalar(None, rex.stype)
+    if sub.num_rows > 1:
+        raise RuntimeError("Scalar subquery returned more than one row")
+    v = sub.columns[0].to_numpy().tolist()[0]
+    if v is None or (isinstance(v, float) and np.isnan(v)):
+        return Scalar(None, rex.stype)
+    return Scalar(python_value_to_physical(v, rex.stype), rex.stype)
+
+
 RexExecutor.add_plugin("RexInputRef", _eval_input_ref)
 RexExecutor.add_plugin("RexLiteral", _eval_literal)
 RexExecutor.add_plugin("RexCall", _eval_call)
+RexExecutor.add_plugin("RexScalarSubquery", _eval_scalar_subquery)
 
 
 def evaluate_rex(rex: RexNode, table: Table, executor=None) -> Union[Column, Scalar]:

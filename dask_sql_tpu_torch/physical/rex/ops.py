@@ -1,10 +1,16 @@
 """Scalar operation library: REX op name -> device function.
 
 The counterpart of ``dask_sql_tpu/physical/rex/ops.py`` for the operators
-the first slice reaches: arithmetic, comparisons (string-aware), three-valued
-AND/OR/NOT, IS [NOT] NULL, CASE, and DATE /
-TIMESTAMP arithmetic and comparisons.  Any other operator raises
-``NotImplementedError`` naming it (see ``OPERATION_MAPPING``).
+TPC-H Q1-Q22 reach: arithmetic, comparisons (string-aware), three-valued
+AND/OR/NOT, IS [NOT] NULL, CASE, COALESCE, IN lists, LIKE / ILIKE,
+SUBSTRING, EXTRACT, and DATE / TIMESTAMP arithmetic and comparisons.
+Any other operator raises ``NotImplementedError`` naming it (see
+``OPERATION_MAPPING``).
+
+String functions run once per dictionary entry on the host and map back
+to the rows by a gather on the device (``map_dictionary``); only an
+operator over several string columns at once, or a per-row LIKE pattern,
+decodes rows on the host.
 
 Value model: every op takes a list of Column/Scalar args plus the
 binder-inferred result type and returns Column or Scalar.  Python float
@@ -15,17 +21,18 @@ would otherwise take a Python float as float32).
 from __future__ import annotations
 
 import math
+import re
 from typing import Callable, List, Optional, Union
 
 import numpy as np
 import torch
 
 from ...ops.kernels import (
-    US_PER_DAY, civil_from_days, days_from_civil, timestamp_time_of_day_us,
-    timestamp_to_days, unify_string_codes,
+    US_PER_DAY, civil_from_days, days_from_civil, extract_field,
+    timestamp_time_of_day_us, timestamp_to_days, unify_string_codes,
 )
 from ...table import Column, Scalar
-from ...types import BOOLEAN, SqlType, torch_dtype
+from ...types import BOOLEAN, VARCHAR, SqlType, physical_dtype, torch_dtype
 
 Value = Union[Column, Scalar]
 
@@ -103,13 +110,23 @@ def numeric_op(fn: Callable, py_fn: Optional[Callable] = None):
     return op
 
 
+def _tensors(a, b):
+    """Both operands as tensors on the column's device (a Python int
+    scalar becomes a 0-dim tensor, which does not widen the column)."""
+    dev = (a if isinstance(a, torch.Tensor) else b).device
+    return torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+
+
 def sql_div(a, b):
-    """SQL division: truncates toward zero for integers."""
-    ta = a if isinstance(a, torch.Tensor) else torch.tensor(a)
-    tb = b if isinstance(b, torch.Tensor) else torch.tensor(b)
-    if not ta.dtype.is_floating_point and not tb.dtype.is_floating_point:
-        return torch.div(a, b, rounding_mode="trunc")
-    return a / b
+    """SQL division: truncates toward zero for integers, and an integer
+    divided by zero gives 0, as in the JAX package
+    (``sign(a) * sign(b) * (|a| // |b|)``).  Floats keep IEEE results."""
+    ta, tb = _tensors(a, b)
+    if ta.dtype.is_floating_point or tb.dtype.is_floating_point:
+        return ta / tb
+    bb = tb.abs()
+    q = torch.div(ta.abs(), torch.where(bb == 0, 1, bb), rounding_mode="floor")
+    return torch.sign(ta) * torch.sign(tb) * q
 
 
 def _py_div(a, b):
@@ -122,7 +139,14 @@ def _py_div(a, b):
 
 
 def _sql_mod(a, b):
-    return torch.sign(a) * torch.remainder(torch.abs(a), torch.abs(b))
+    """``sign(a) * (|a| % |b|)``, a scalar on either side; an integer
+    modulo zero gives 0, as in the JAX package."""
+    ta, tb = _tensors(a, b)
+    aa, bb = ta.abs(), tb.abs()
+    if ta.dtype.is_floating_point or tb.dtype.is_floating_point:
+        return torch.sign(ta) * torch.remainder(aa, bb)
+    r = torch.remainder(aa, torch.where(bb == 0, 1, bb))
+    return torch.sign(ta) * torch.where(bb == 0, 0, r)
 
 
 def _py_mod(a, b):
@@ -415,6 +439,263 @@ def _string_case(pairs, else_v, n, dev):
 
 
 # ---------------------------------------------------------------------------
+# COALESCE, IN lists
+# ---------------------------------------------------------------------------
+
+def _length(args: List[Value]) -> Optional[int]:
+    col = _column_of(args)
+    return None if col is None else len(col)
+
+
+def coalesce_op(args: List[Value], stype: SqlType, ctx) -> Value:
+    col = _column_of(args)
+    if col is None:
+        for a in args:
+            if not a.is_null:
+                return _cast_value_to(a, stype)
+        return Scalar(None, stype)
+    n, dev = len(col), col.device
+    if stype.is_string:
+        out = np.array([None] * n, dtype=object)
+        filled = np.zeros(n, bool)
+        for a in args:
+            vals = _decode_value(a, n)
+            avail = np.array([v is not None for v in vals], dtype=bool) & ~filled
+            out[avail] = vals[avail]
+            filled |= avail
+        return Column._encode_strings(np.where(filled, out, ""),
+                                      None if filled.all() else filled, dev)
+    cols = [_as_col(_cast_value_to(a, stype), n, dev) for a in args]
+    out, valid = cols[0].data, cols[0].valid_mask()
+    for c in cols[1:]:
+        out = torch.where(valid, out, c.data)
+        valid = valid | c.valid_mask()
+    return Column(out, stype, valid)
+
+
+def in_list_op(args: List[Value], stype: SqlType, ctx) -> Value:
+    """x IN (v1, v2, ...) as an OR of equalities (three-valued)."""
+    expr, *values = args
+    out = None
+    for v in values:
+        eq = comparison("=")([expr, v], BOOLEAN, ctx)
+        out = eq if out is None else logical_or([out, eq], BOOLEAN, ctx)
+    return Scalar(False, BOOLEAN) if out is None else out
+
+
+# ---------------------------------------------------------------------------
+# LIKE / ILIKE
+# ---------------------------------------------------------------------------
+
+def sql_like_to_regex(pattern: str, escape: Optional[str] = None) -> str:
+    out = []
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if escape and c == escape and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        out.append(".*" if c == "%" else "." if c == "_" else re.escape(c))
+        i += 1
+    return "^" + "".join(out) + "$"
+
+
+def _like_regex(kind: str, pattern: str, escape: Optional[str]):
+    return re.compile(sql_like_to_regex(pattern, escape),
+                      re.IGNORECASE if kind == "ILIKE" else 0)
+
+
+def like_op(kind: str):
+    """LIKE over a dictionary column: the pattern runs once per dictionary
+    entry on the host and the codes gather the bitmap on the device."""
+
+    def op(args: List[Value], stype: SqlType, ctx) -> Value:
+        expr, pattern, *rest = args
+        escape = rest[0].value if rest else None
+        if isinstance(pattern, Column):
+            # per-row patterns: host path
+            n = len(pattern)
+            vals, pats = _decode_value(expr, n), _decode_value(pattern, n)
+            out = np.zeros(n, bool)
+            mask = np.ones(n, bool)
+            for i, (v, p) in enumerate(zip(vals, pats)):
+                if v is None or p is None:
+                    mask[i] = False
+                    continue
+                out[i] = _like_regex(kind, p, escape).match(str(v)) is not None
+            dev = pattern.device
+            return Column(torch.from_numpy(out).to(dev), BOOLEAN,
+                          None if mask.all() else torch.from_numpy(mask).to(dev))
+        if pattern.is_null or (isinstance(expr, Scalar) and expr.is_null):
+            n = _length(args)
+            return (Scalar(None, BOOLEAN) if n is None
+                    else all_null_column(n, BOOLEAN, expr.device))
+        rx = _like_regex(kind, str(pattern.value), escape)
+        if isinstance(expr, Scalar):
+            return Scalar(rx.match(str(expr.value)) is not None, BOOLEAN)
+        if expr.stype.is_string:
+            return map_dictionary(
+                expr, lambda d: np.array([rx.match(x) is not None for x in d],
+                                         dtype=bool), BOOLEAN)
+        d = expr.to_numpy().astype(str)
+        per = np.array([rx.match(x) is not None for x in d], dtype=bool)
+        return Column(torch.from_numpy(per).to(expr.device), BOOLEAN, expr.mask)
+
+    return op
+
+
+# ---------------------------------------------------------------------------
+# string functions (dictionary path)
+# ---------------------------------------------------------------------------
+
+def map_dictionary(col: Column, fn: Callable[[np.ndarray], np.ndarray],
+                   stype: SqlType) -> Column:
+    """Apply ``fn`` over the dictionary on the host, map back to the rows
+    with a gather on the device."""
+    d = col.dictionary.astype(str)
+    res = fn(d)
+    idx = col.data.clamp(0, max(len(d) - 1, 0)).long()
+    if stype.is_string:
+        newdict, newcodes = np.unique(np.asarray(res).astype(str),
+                                      return_inverse=True)
+        table = torch.from_numpy(newcodes.reshape(-1).astype(np.int32))
+        return Column(table.to(col.device)[idx], VARCHAR, col.mask,
+                      newdict.astype(object))
+    table = torch.from_numpy(np.asarray(res).astype(physical_dtype(stype)))
+    return Column(table.to(col.device)[idx], stype, col.mask)
+
+
+def string_nary(fn_row: Callable[..., object]):
+    """N-ary string function: with one string column and scalar extras it
+    runs per dictionary entry; any other mix of columns decodes rows on the
+    host."""
+
+    def op(args: List[Value], stype: SqlType, ctx) -> Value:
+        n = _length(args)
+        if _any_null_scalar(args):
+            return (Scalar(None, stype) if n is None
+                    else all_null_column(n, stype, _column_of(args).device))
+        if n is None:
+            return Scalar(fn_row(*[a.value for a in args]), stype)
+        cols = [i for i, a in enumerate(args) if isinstance(a, Column)]
+        if len(cols) == 1 and args[cols[0]].stype.is_string:
+            pos = cols[0]
+            fixed = [a.value if isinstance(a, Scalar) else None for a in args]
+
+            def apply_dict(d):
+                out = []
+                for x in d:
+                    fixed[pos] = x
+                    out.append(fn_row(*fixed))
+                return np.array(out, dtype=object)
+
+            return map_dictionary(args[pos], apply_dict, stype)
+        dev = args[cols[0]].device
+        host = [_decode_value(a, n) for a in args]
+        out = []
+        mask = np.ones(n, bool)
+        for i in range(n):
+            row = [h[i] for h in host]
+            if any(v is None for v in row):
+                mask[i] = False
+                out.append(None)
+            else:
+                out.append(fn_row(*row))
+        if stype.is_string:
+            return Column._encode_strings(
+                np.array([o if o is not None else "" for o in out], dtype=object),
+                None if mask.all() else mask, dev)
+        arr = np.array([o if o is not None else 0 for o in out])
+        return Column.from_encoded(arr.astype(physical_dtype(stype)), stype,
+                                   None if mask.all() else mask, None, dev)
+
+    return op
+
+
+def _substring(s, start, length=None):
+    """SQL SUBSTRING(s FROM start [FOR length]): positions count from 1; a
+    start at or below 0 shortens the window."""
+    start = int(start)
+    begin = max(start - 1, 0)
+    if start <= 0:
+        begin = 0
+        if length is not None:
+            length = length + (start - 1)
+            if length <= 0:
+                return ""
+    if length is None:
+        return s[begin:]
+    return s[begin: begin + max(int(length), 0)]
+
+
+def substring_dict(d: np.ndarray, start: int, length=None):
+    """``_substring`` over a whole ``<U`` dictionary at once for start >= 1
+    and length >= 0: the characters are UCS-4 code points, so the slice is
+    a column slice of the (entries, width) uint32 view.  None otherwise."""
+    if start < 1 or (length is not None and length < 0) or d.dtype.kind != "U":
+        return None
+    width = d.dtype.itemsize // 4
+    begin = start - 1
+    end = width if length is None else min(width, begin + int(length))
+    if end <= begin:
+        return np.full(len(d), "", dtype="<U1")
+    chars = d.view(np.uint32).reshape(len(d), width)[:, begin:end]
+    return np.ascontiguousarray(chars).view(f"<U{end - begin}").reshape(-1)
+
+
+def substring_op(args: List[Value], stype: SqlType, ctx) -> Value:
+    """SUBSTRING(s FROM start [FOR length]): on a dictionary column with
+    literal bounds, one vectorized slice of the dictionary; any other form
+    runs ``_substring`` per entry or per row (``string_nary``)."""
+    col, *bounds = args
+    if (isinstance(col, Column) and col.stype.is_string
+            and all(isinstance(b, Scalar) and isinstance(b.value, int)
+                    for b in bounds)):
+        fast = substring_dict(col.dictionary.astype(str),
+                              *[b.value for b in bounds])
+        if fast is not None:
+            return map_dictionary(col, lambda d: fast, stype)
+    return string_nary(_substring)(args, stype, ctx)
+
+
+# ---------------------------------------------------------------------------
+# EXTRACT
+# ---------------------------------------------------------------------------
+
+def extract_op(args: List[Value], stype: SqlType, ctx) -> Value:
+    field_v, src = args
+    field = str(field_v.value)
+    if isinstance(src, Scalar):
+        if src.is_null:
+            return Scalar(None, stype)
+        one = Column(torch.as_tensor([src.value]), src.stype)
+        return Scalar(int(extract_op([field_v, one], stype, ctx).data[0]), stype)
+    if src.stype.name == "DATE":
+        days, tod = src.data.to(torch.int64), None
+    elif src.stype.is_temporal:
+        days, tod = timestamp_to_days(src.data), timestamp_time_of_day_us(src.data)
+    elif src.stype.is_interval:
+        ms = src.data.to(torch.int64)
+        f = field.upper()
+        parts = {"DAY": lambda: _fdiv(ms, 86_400_000),
+                 "HOUR": lambda: _fdiv(ms, 3_600_000) % 24,
+                 "MINUTE": lambda: _fdiv(ms, 60_000) % 60,
+                 "SECOND": lambda: _fdiv(ms, 1000) % 60,
+                 "EPOCH": lambda: _fdiv(ms, 1000)}
+        if f not in parts:
+            raise NotImplementedError(f"EXTRACT {field} from interval")
+        return Column(parts[f](), stype, src.mask)
+    else:
+        raise TypeError(f"EXTRACT from {src.stype}")
+    return Column(extract_field(field, days, tod).to(torch.int64), stype, src.mask)
+
+
+def _fdiv(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+# ---------------------------------------------------------------------------
 # THE MAPPING (the ported subset of the JAX package's OPERATION_MAPPING)
 # ---------------------------------------------------------------------------
 
@@ -438,4 +719,10 @@ OPERATION_MAPPING = {
     "IS_NULL": is_null,
     "IS_NOT_NULL": is_not_null,
     "CASE": case_op,
+    "COALESCE": coalesce_op,
+    "IN_LIST": in_list_op,
+    "LIKE": like_op("LIKE"),
+    "ILIKE": like_op("ILIKE"),
+    "SUBSTRING": substring_op,
+    "EXTRACT": extract_op,
 }

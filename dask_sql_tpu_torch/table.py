@@ -318,6 +318,9 @@ class Table:
     def column(self, name: str) -> Column:
         return self.columns[self.names.index(name)]
 
+    def with_names(self, names: Sequence[str]) -> "Table":
+        return Table(list(names), self.columns)
+
     def limit_to(self, names: Iterable[str]) -> "Table":
         names = list(names)
         return Table(names, [self.column(n) for n in names])

@@ -79,3 +79,98 @@ def test_static_group_by_on_card_matches_cpu(cuda_device):
     gpu, cpu = results
     for col in gpu:
         assert gpu[col].tolist() == cpu[col].tolist(), col
+
+
+@pytest.mark.gpu
+def test_accumulate_kernel_within_bound_and_deterministic(cuda_device):
+    """Kernel 2 through the float32 branch of segmented_sums_dispatch: held
+    to the float64 sum within (1024 + ceil(n/1024)) * 2**-24 * sum|v| per
+    (row, group), non-finite results exact, the same bits on a second run,
+    and its plain version within the same bound."""
+    rng = np.random.RandomState(6)
+    n, g = 200_003, 9
+    vals = torch.from_numpy((rng.randn(4, n) * 1e3).astype(np.float32))
+    vals[0, 10], vals[1, 20], vals[2, 30] = np.nan, np.inf, -np.inf
+    codes = torch.from_numpy(rng.randint(0, g, n))
+    mask = torch.from_numpy(rng.rand(n) > 0.2)
+    args = [t.to(cuda_device) for t in (vals, codes, mask)]
+    gk.reset_launch_counts()
+    got = gk.segmented_sums_dispatch(*args, g)
+    assert gk.LAUNCHES == {"segsum_fixedpoint": 0, "segsum_accumulate": 1}
+    again = gk.segmented_sums_dispatch(*args, g)
+    plain = gk.segmented_sums(*args, g, accumulate=gk.segsum_accumulate_plain)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert torch.equal(got.cpu().view(torch.int32), again.cpu().view(torch.int32))
+    want = gk.reference_segmented_sums(vals.double(), codes, mask, g)
+    abs_sum = gk.reference_segmented_sums(
+        vals.double().nan_to_num(0.0, 0.0, 0.0).abs(), codes, mask, g)
+    bound = (1024 + -(-n // 1024)) * 2.0 ** -24 * abs_sum
+    fin = torch.isfinite(want)
+    for out in (got.cpu(), plain.cpu()):
+        assert torch.equal(torch.isnan(out), torch.isnan(want))
+        assert torch.equal(out[~fin & ~torch.isnan(want)].double(),
+                           want[~fin & ~torch.isnan(want)])
+        assert bool(((out.double() - want).abs()[fin] <= bound[fin]).all())
+
+
+@pytest.mark.gpu
+def test_accumulate_wrapper_rejects_bad_inputs(cuda_device):
+    vals = torch.zeros((2, 8), dtype=torch.float32, device=cuda_device)
+    codes = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    mask = torch.ones(8, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(TypeError, match="codes"):
+        gk.segsum_accumulate_cuda(vals, codes.long(), mask, 3)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        gk.segsum_accumulate_cuda(vals.half(), codes, mask, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.segsum_accumulate_cuda(vals.t().contiguous().t(), codes, mask, 3)
+
+
+@pytest.mark.gpu
+def test_join_queries_on_card_match_cpu(cuda_device):
+    rng = np.random.RandomState(1)
+    n = 20_000
+    fact = {"k": rng.randint(0, 500, n), "v": rng.rand(n),
+            "s": rng.choice(["a", "b", "c"], n)}
+    dim = {"k2": np.arange(400), "name": np.char.add("n", np.arange(400).astype(str)),
+           "grp": rng.choice(["x", "y"], 400)}
+    sqls = ["SELECT grp, s, SUM(v) AS t, COUNT(*) AS c FROM fact, dim "
+            "WHERE k = k2 GROUP BY grp, s ORDER BY grp, s",
+            "SELECT COUNT(*) AS c FROM fact WHERE k NOT IN (SELECT k2 FROM dim)",
+            "SELECT name, COUNT(v) AS c FROM dim LEFT JOIN fact ON k = k2 "
+            "AND v > 0.5 GROUP BY name ORDER BY c DESC, name LIMIT 5"]
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ctx = Context(device=dev)
+        ctx.create_table("fact", fact)
+        ctx.create_table("dim", dim)
+        results.append([ctx.sql(q).to_numpy() for q in sqls])
+    for gpu, cpu in zip(*results):
+        for col in gpu:
+            if gpu[col].dtype.kind == "f":
+                np.testing.assert_allclose(gpu[col], cpu[col], rtol=1e-12)
+            else:
+                assert gpu[col].tolist() == cpu[col].tolist(), col
+
+
+@pytest.mark.gpu
+def test_float_group_sums_are_deterministic_on_card(cuda_device):
+    """A float SUM ... GROUP BY gives the same bits on every run, so a
+    TPC-H Q15-shaped query (a sum compared with the MAX of the same sums,
+    computed again in a subquery) finds its row."""
+    rng = np.random.RandomState(2)
+    n = 2_000_000
+    ctx = Context(device=cuda_device)
+    ctx.create_table("f", {"k": rng.randint(0, 1000, n),
+                           "v": np.round(rng.uniform(900.0, 105_000.0, n), 2)})
+    sums = [ctx.sql("SELECT k, SUM(v) AS t, AVG(v) AS a FROM f GROUP BY k")
+            .to_numpy() for _ in range(3)]
+    for other in sums[1:]:
+        for col in ("t", "a"):
+            assert other[col].view(np.int64).tolist() == \
+                sums[0][col].view(np.int64).tolist()
+    q15 = ("WITH r AS (SELECT k, SUM(v) AS t FROM f GROUP BY k) "
+           "SELECT k, t FROM r WHERE t = (SELECT MAX(t) FROM r)")
+    for _ in range(5):
+        assert ctx.sql(q15).num_rows == 1

@@ -13,10 +13,11 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = """
-import json, sys
+import importlib, json, pkgutil, sys
 import dask_sql_tpu_torch
-import dask_sql_tpu_torch.context, dask_sql_tpu_torch.convert
-import dask_sql_tpu_torch.physical.rel.executor, dask_sql_tpu_torch.ops.gpu_kernels
+for info in pkgutil.walk_packages(dask_sql_tpu_torch.__path__, "dask_sql_tpu_torch."):
+    importlib.import_module(info.name)
+import chip_smoke
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "jaxlib" or m.startswith("jaxlib.")
