@@ -14,19 +14,26 @@ Phases, in order; any failure exits non-zero before the last line:
    distributions and random stream of ``benchmarks/tpch.py``, registered
    on ``Context(device="cuda")``;
 4. kernel 1 (segsum_fixedpoint) against its plain PyTorch version on the
-   card -- on the reduction Q1 hands it (captured from Q1's cold run) and on
-   edge cases -- required bit-identical; then, on Q1's inputs, its time
-   beside the plain version's, one library call's, and the bound the data
-   sheet allows (3.35 TB/s HBM3, 34 TFLOP/s FP64);
+   card -- on the reduction Q1 hands it (captured from Q1's cold run), on
+   edge cases and on its warp schedules (one group in every row, both signs
+   in every warp, n off every chunk and range boundary, 256 groups with
+   block-shared accumulators) -- required bit-identical; then, on Q1's
+   inputs, its time (the kernel's own device time from torch.profiler,
+   beside the CUDA-event mean over back-to-back calls, which also counts the
+   host's gaps between them) beside the plain version's, one library
+   call's, and the bound the data sheet allows (3.35 TB/s HBM3, 34 TFLOP/s
+   FP64);
 5. kernel 2 (segsum_accumulate): its path -- Q1's reduction cast to float32
    through the float32 branch of ``segmented_sums_dispatch`` -- driven once
    with the launch counts at 0; then, on that input and on edge cases
    (ragged n, 256 groups, NaN/+-Inf in their own groups, a masked NaN, all
-   rows masked, empty input, float64 input), kernel and plain version each
+   rows masked, empty input, float64 input, one group in every row, 40
+   groups, n >= 8 M), kernel and plain version each
    held to the float64 sum of the same values within
    (1024 + ceil(n/1024)) * eps * sum|v| per (row, group), non-finite
    results and empty groups exact, and the kernel run twice for identical
-   bits; then its time beside the plain version's, one float32
+   bits; then its time (profiler and event mean, as for kernel 1) beside
+   the plain version's, one float32
    ``index_add_`` and the bound (3.35 TB/s, 67 TFLOP/s FP32);
 6. slice: TPC-H Q1-Q22 through the Context, one cold and three warm runs
    each, the launch counts set to 0 before each query and read after it
@@ -35,7 +42,7 @@ Phases, in order; any failure exits non-zero before the last line:
    against a numpy oracle (counts exact, doubles rtol 1e-12, per-group sums
    by ``math.fsum``), every query against the same query run by the port on
    the CPU over the same tables (ints and strings exact, doubles rtol
-   1e-9); then one warm run of Q1, Q6 and Q5 under
+   1e-9); then one warm run of Q1, Q4, Q5, Q6 and Q9 under
    ``torch.profiler`` (device time by kernel, device idle share);
 7. oracle: the 22 queries at SF 0.01 through a Context on the card
    against the standard library's ``sqlite3`` (the rules of
@@ -739,6 +746,32 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def profiled_ms(fn, kernel: str, reps: int, fallback: float) -> tuple:
+    """(ms, source): the device time per run of fn() of the CUDA kernels
+    whose names contain ``kernel`` (the hand-written kernel itself, without
+    the wrapper's zeroing or the host's gaps between launches), from
+    torch.profiler over ``reps`` runs, and "profiler"; or ``fallback`` and
+    "events" if the profiler sees no such kernel in three tries (it now and
+    then returns no device events at all)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and kernel in e.key)
+        if total > 0:
+            return total / 1e3 / reps, "profiler"
+    print(f"profiler: no device time for {kernel}; using CUDA events")
+    return fallback, "events"
+
+
 def wall_ms(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -861,6 +894,20 @@ def phase_kernel1(dev, q1_args: tuple) -> dict:
     cases["int_near_2_53"] = (v, c, m, 3, ["int", "int"])
     cases["empty"] = (np.zeros((3, 0)), np.zeros(0, np.int64), np.ones(0, bool),
                       3, ["float", "int", "unit"])
+    # the warp schedules: one group in every row (the old worst case), both
+    # signs in every warp, n off every chunk and block range, and 256 groups
+    # (block-shared accumulators) with both signs
+    v, c, m = _segsum_case(rng, 1_000_000, 6, Q1_CLASSES)
+    cases["one_group"] = (v, np.full_like(c, 2), m, 6, Q1_CLASSES)
+    mixed = ["unit", "float", "unit", "int", "float"]
+    v, c, m = _segsum_case(rng, 1_000_000, 6, mixed)
+    v[[1, 3, 4]] *= np.where(rng.rand(3, v.shape[1]) > 0.5, 1.0, -1.0)
+    cases["mixed_signs"] = (v, c, m, 6, mixed)
+    v, c, m = _segsum_case(rng, 32 * 100_003 + 5, 6, Q1_CLASSES)
+    cases["ragged_boundary"] = (v, c, m, 6, Q1_CLASSES)
+    v, c, m = _segsum_case(rng, 500_000, 256, mixed)
+    v[[1, 3, 4]] *= np.where(rng.rand(3, v.shape[1]) > 0.5, 1.0, -1.0)
+    cases["domain_256_mixed_signs"] = (v, c, m, 256, mixed)
     tensors = {"q1_main_path": q1_args}
     for name, (v, c, m, g, cls) in cases.items():
         tensors[name] = (torch.from_numpy(v).to(dev), torch.from_numpy(c).to(dev),
@@ -886,7 +933,10 @@ def phase_kernel1(dev, q1_args: tuple) -> dict:
     mask_u8 = mask.to(torch.uint8).contiguous()
     scale = gk._pow2(gk._grid_exponents(vals, mask_u8, cls))
     args = (vals, codes32, mask_u8, scale, cls, g)
-    ms = cuda_ms(lambda: gk.segsum_limb_totals_cuda(*args), reps=20)
+    event_ms = cuda_ms(lambda: gk.segsum_limb_totals_cuda(*args), reps=20)
+    ms, ms_source = profiled_ms(lambda: gk.segsum_limb_totals_cuda(*args),
+                                "segsum_fixedpoint_kernel", reps=20,
+                                fallback=event_ms)
     plain_ms = cuda_ms(lambda: gk.segsum_limb_totals_plain(*args), reps=3)
     library_ms = cuda_ms(
         lambda: gk.reference_segmented_sums(vals, codes, mask, g), reps=20)
@@ -901,7 +951,9 @@ def phase_kernel1(dev, q1_args: tuple) -> dict:
     bound_by = "bytes" if moved / HBM_BYTES_PER_S >= ops / FP64_OPS_PER_S \
         else "operations"
     print(f"segsum_fixedpoint on Q1's reduction ({a} x {n}, {g} groups): "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, index_add_ "
+          f"kernel {ms:.3f} ms ({ms_source}: device time of the kernel; event mean "
+          f"over back-to-back calls {event_ms:.3f} ms), plain {plain_ms:.3f} ms, "
+          f"index_add_ "
           f"{library_ms:.3f} ms, full fixed-point sums {full_ms:.3f} ms, "
           f"bound {bound_ms:.3f} ms ({bound_by}: {moved / 1e9:.3f} GB)")
     return {"name": "segsum_fixedpoint", "route": "cuda",
@@ -909,7 +961,8 @@ def phase_kernel1(dev, q1_args: tuple) -> dict:
             "replaces": "dask_sql_tpu/ops/pallas_kernels.py:103",
             "launches": 0, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "event_ms": event_ms,
+            "ms_source": ms_source}
 
 
 def _accumulate_check(name: str, vals, codes, mask, g, got) -> float:
@@ -985,6 +1038,19 @@ def phase_kernel2(dev, q1_args: tuple) -> dict:
         np.ones(0, bool), 3)
     v, c, m = _segsum_case(rng, 300_007, 7, ["float", "int", "unit"])
     put("float64", v, c, m, 7)
+    # the schedules: one group in every row, 40 groups (more than a lane
+    # folds at once), n >= 8 M (ranges capped at ACC_STAGE, many blocks),
+    # and 4,000 / 2,600 groups (many group slices over blockIdx.y)
+    v, c, m = _segsum_case(rng, 1_000_003, 6, ["float", "int", "unit"])
+    put("one_group", v.astype(np.float32), np.full_like(c, 4), m, 6)
+    v, c, m = _segsum_case(rng, 1_000_003, 40, ["float", "float", "unit"])
+    put("groups_40", v.astype(np.float32), c, m, 40)
+    v, c, m = _segsum_case(rng, 8_400_001, 6, ["float", "unit"])
+    put("n_8m", v.astype(np.float32), c, m, 6)
+    v, c, m = _segsum_case(rng, 1_000_003, 4000, ["float", "float", "unit"])
+    put("groups_4000", v.astype(np.float32), c, m, 4000)
+    v, c, m = _segsum_case(rng, 1_000_003, 2600, ["float", "int", "unit"])
+    put("groups_2600_f64", v, c, m, 2600)
 
     max_err = 0.0
     for name, (v, c, m, groups) in cases.items():
@@ -1012,8 +1078,11 @@ def phase_kernel2(dev, q1_args: tuple) -> dict:
     a, n = vals32.shape
     codes32 = codes.to(torch.int32).contiguous()
     mask_u8 = mask.to(torch.uint8).contiguous()
-    ms = cuda_ms(lambda: gk.segsum_accumulate_cuda(vals32, codes32, mask_u8, g),
-                 reps=20)
+    event_ms = cuda_ms(lambda: gk.segsum_accumulate_cuda(vals32, codes32, mask_u8, g),
+                       reps=20)
+    ms, ms_source = profiled_ms(
+        lambda: gk.segsum_accumulate_cuda(vals32, codes32, mask_u8, g),
+        "segsum_", reps=20, fallback=event_ms)
     plain_ms = cuda_ms(lambda: gk.segsum_accumulate_plain(vals32, codes32,
                                                           mask_u8, g), reps=5)
     codes64 = codes.to(torch.int64)
@@ -1027,7 +1096,9 @@ def phase_kernel2(dev, q1_args: tuple) -> dict:
     bound_by = "bytes" if moved / HBM_BYTES_PER_S >= ops / FP32_OPS_PER_S \
         else "operations"
     print(f"segsum_accumulate on Q1's reduction in float32 ({a} x {n}, {g} "
-          f"groups): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, float32 "
+          f"groups): kernel {ms:.3f} ms ({ms_source}: device time of both passes; "
+          f"event mean over back-to-back calls {event_ms:.3f} ms), plain "
+          f"{plain_ms:.3f} ms, float32 "
           f"index_add_ {library_ms:.3f} ms, full segmented_sums {full_ms:.3f} "
           f"ms, bound {bound_ms:.3f} ms ({bound_by}: {moved / 1e9:.3f} GB)")
     return {"name": "segsum_accumulate", "route": "cuda",
@@ -1035,7 +1106,8 @@ def phase_kernel2(dev, q1_args: tuple) -> dict:
             "replaces": "dask_sql_tpu/ops/pallas_kernels.py:81",
             "launches": launches, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "event_ms": event_ms,
+            "ms_source": ms_source}
 
 
 def profile_query(ctx, name: str, text: str) -> None:
@@ -1198,8 +1270,9 @@ def main(argv=None) -> int:
                            cpu_ctx)
     del cpu_ctx
     profile_query(ctx, "Q1", QUERIES[1])
-    profile_query(ctx, "Q6", QUERIES[6])
+    profile_query(ctx, "Q4", QUERIES[4])
     profile_query(ctx, "Q5", QUERIES[5])
+    profile_query(ctx, "Q6", QUERIES[6])
     profile_query(ctx, "Q9", QUERIES[9])
     phase_oracle(dev, ORACLE_SF, args.seed)
     kernel1["launches"] = launches["segsum_fixedpoint"]

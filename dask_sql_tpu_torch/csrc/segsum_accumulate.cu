@@ -14,162 +14,230 @@
 // its order, so the design fixes the order everywhere and uses no float
 // atomics:
 //
-// - pass 1, one block per 1024-row tile (the TPU's BLOCK) and per tile of
-//   value rows: each warp takes 32-row chunks of the tile in a fixed order.
-//   The lanes of a chunk that share a group code find each other with
-//   __match_any_sync; each lane adds its peers' values in lane order, and
-//   the lowest lane of the group adds that chunk sum into the warp's own
-//   shared-memory accumulator for (row, group) -- one writer, fixed order.
-//   The block then adds its 8 warp accumulators in warp order and writes
-//   the tile's partial sums to a (tiles, A, G) buffer.  A non-finite value
-//   is counted in shared memory (integer atomics: exact in any order) and
-//   summed as 0, so no indicator rows are stacked; the counts go to a
-//   (3, A, G) int64 output once per block.
-// - pass 2 adds the partials of each (row, group) in tile order.
+// - pass 1: the grid holds as many blocks as the SMs keep resident, and
+//   each takes one contiguous range of rows (at most `stage_rows`) and one
+//   slice of the groups (over blockIdx.y: as many groups as 8 warps of
+//   lane-private sums fit in shared memory; one slice for small G).  The
+//   block stages the range's group codes once, as int16 in shared memory
+//   (the code within the slice, -1 where the row is masked out or its code
+//   is outside the slice), and then walks the value rows one at a time.
+//   Each lane adds its own rows, in row order, into LANE-PRIVATE
+//   accumulators in shared memory laid out [warp][group][lane ^ (group &
+//   31)]: the lanes never share an accumulator, need no atomics, and
+//   (without the swizzle) never share a bank while adding; the swizzle keeps
+//   the fold below free of conflicts.  A lane issues the loads of kUnroll
+//   rows before it adds any of them.  At the end of a value row one lane per
+//   group adds the 32 lane sums in lane order, then the warps are added in
+//   warp order, and the block writes one partial per (row, group) to a
+//   (A, G, blocks) buffer.  A non-finite value is counted in shared memory
+//   (integer atomics: exact in any order) and summed as 0, so no indicator
+//   rows are stacked; the counts go to a (3, A, G) int64 output once per
+//   block and row.
+// - pass 2: one warp per (row, group); lane l adds the partials of blocks
+//   l, l + 32, ... in block order, then a fixed shuffle tree adds the lanes.
 //
-// Every value thus goes through at most 32 + 4 + 8 + tiles sequential
-// additions, inside the two-level bound (1024 + tiles) * eps * sum|v| that
-// the callers hold it to, and two runs on the same inputs give the same
-// bits.  The plain PyTorch version is `segsum_accumulate_plain` in
-// ops/gpu_kernels.py.
+// The longest chain of additions a value goes through is
+//   rows per lane (<= stage_rows / 256 = 32) + 32 (lane fold) + 8 (warps)
+//   + ceil(blocks / 32) + 5 (pass 2),
+// where blocks <= max(resident blocks, ceil(n / stage_rows)).  At TPC-H Q1,
+// SF 1 on an H100 (5,922,285 rows, 132 SMs x 8 resident blocks): ranges of
+// 5,632 rows, 1,052 blocks, so 22 + 32 + 8 + 33 + 5 = 100 additions.  For
+// every n the chain stays below the (1024 + ceil(n/1024)) * eps * sum|v|
+// bound the callers hold it to.  Two runs on the same inputs and card give
+// the same bits (the grid depends only on n, G and the card).  The plain
+// PyTorch version is `segsum_accumulate_plain` in ops/gpu_kernels.py.
 //
 // What bounds it on an H100: reading the values once -- at TPC-H Q1, SF 1
 // cast to float32 (17 rows x 5.9 M, int32 codes, uint8 mask) about 0.43 GB,
-// 0.13 ms at the data sheet's 3.35 TB/s.  The design reads each value once,
-// coalesced.  What it does not yet do is avoid the 32 shuffles per value
-// that the lane-order sum costs; a faster version would start there
-// (a segmented shuffle tree, or sorting each chunk by code).
+// 0.13 ms at the data sheet's 3.35 TB/s.  The design reads each value once
+// per group slice, coalesced, with kUnroll loads in flight per lane, a
+// handful of instructions per value and no shuffles, at full occupancy:
+// without the minimum of blocks in __launch_bounds__, ptxas gives the
+// float32 kernel more registers, fewer blocks fit on an SM, and it is
+// slower on the H100.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 1024;        // rows per block (the TPU's BLOCK)
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int kUnroll = 8;      // loads a lane issues together
+
+// Blocks per SM asked of __launch_bounds__: all 8 that the threads allow
+// in float32 (32 registers); float64 takes 6 (40 registers) rather than
+// spill.
+template <typename T>
+constexpr int kMinBlocks = sizeof(T) == 4 ? 8 : 6;
 constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) segsum_tile_kernel(
-    const T* __restrict__ vals, long long n, int A,
-    const int* __restrict__ codes, const unsigned char* __restrict__ mask,
-    int G, int rows_per_block, T* __restrict__ partial,
-    unsigned long long* __restrict__ nonfinite) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int a0 = blockIdx.y * rows_per_block;
-  const int a1 = min(A, a0 + rows_per_block);
-  const int at = a1 - a0;
-  const int per_warp = at * G;
-  T* acc = reinterpret_cast<T*>(smem);                       // [warp][row][g]
-  unsigned* cnt = reinterpret_cast<unsigned*>(acc + kWarps * per_warp);  // [kind][row][g]
-  for (int j = threadIdx.x; j < kWarps * per_warp; j += kThreads) acc[j] = T(0);
-  for (int j = threadIdx.x; j < 3 * per_warp; j += kThreads) cnt[j] = 0u;
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long tile = blockIdx.x;
-  T* my_acc = acc + warp * per_warp;
-  for (int chunk = warp; chunk < kTile / 32; chunk += kWarps) {
-    const long long i = tile * kTile + chunk * 32 + lane;
-    int g = -1;
-    if (i < n && mask[i]) {
-      const int c = codes[i];
-      if (c >= 0 && c < G) g = c;
-    }
-    if (__ballot_sync(kFull, g >= 0) == 0u) continue;
-    const unsigned peers = __match_any_sync(kFull, g);
-    const bool leader = g >= 0 && lane == __ffs(peers) - 1;
-    for (int a = a0; a < a1; ++a) {
-      T v = T(0);
-      if (g >= 0) {
-        v = vals[(long long)a * n + i];
-        if (!isfinite(v)) {
-          const int kind = isnan(v) ? 0 : (v > T(0) ? 1 : 2);
-          atomicAdd(cnt + (kind * at + (a - a0)) * G + g, 1u);
-          v = T(0);
-        }
-      }
-      T s = T(0);
+__device__ __forceinline__ T tree_sum(T s) {
 #pragma unroll
-      for (int k = 0; k < 32; ++k) {
-        const T x = __shfl_sync(kFull, v, k);
-        if ((peers >> k) & 1u) s += x;
-      }
-      if (leader) my_acc[(a - a0) * G + g] += s;
-    }
-    __syncwarp();   // the next chunk's leaders read what these wrote
-  }
-  __syncthreads();
-
-  for (int j = threadIdx.x; j < per_warp; j += kThreads) {
-    T s = T(0);
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += acc[w * per_warp + j];
-    const int r = j / G;
-    partial[(tile * A + a0 + r) * G + (j - r * G)] = s;
-  }
-  for (int j = threadIdx.x; j < 3 * per_warp; j += kThreads) {
-    const unsigned c = cnt[j];
-    if (c == 0u) continue;
-    const int kind = j / per_warp;
-    const int rest = j - kind * per_warp;
-    const int r = rest / G;
-    atomicAdd(nonfinite + ((long long)kind * A + a0 + r) * G + (rest - r * G),
-              (unsigned long long)c);
-  }
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(kFull, s, off);
+  return s;   // in lane 0
 }
 
 template <typename T>
-__global__ void segsum_reduce_tiles(const T* __restrict__ partial,
-                                    long long tiles, int AG,
-                                    T* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= AG) return;
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>) segsum_range_kernel(
+    const T* __restrict__ vals, long long n, int A,
+    const int* __restrict__ codes, const unsigned char* __restrict__ mask,
+    int G, int width, int range, T* __restrict__ partial,
+    unsigned long long* __restrict__ nonfinite) {
+  // [warp][g] warp sums; [warp][g][lane] lane sums; [kind][g] u32 counts;
+  // [row of the range] int16 group codes within the slice
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g0 = blockIdx.y * width;
+  const int gs = min(width, G - g0);
+  T* wsum = reinterpret_cast<T*>(smem);
+  T* lacc = wsum + kWarps * gs;
+  unsigned* cnt = reinterpret_cast<unsigned*>(lacc + (size_t)kWarps * gs * 32);
+  short* gcode = reinterpret_cast<short*>(cnt + 3 * gs);
+
+  const long long start = (long long)blockIdx.x * range;
+  const int rows = (int)min((long long)range, n - start);
+  for (int j = threadIdx.x; j < rows; j += kThreads) {
+    const long long i = start + j;
+    int g = -1;
+    if (mask[i]) {
+      const int c = codes[i];
+      if (c >= g0 && c - g0 < gs) g = c - g0;
+    }
+    gcode[j] = (short)g;
+  }
+  for (int j = threadIdx.x; j < 3 * gs; j += kThreads) cnt[j] = 0u;
+  __syncthreads();
+
+  T* mine = lacc + (size_t)warp * gs * 32;
+  for (int a = 0; a < A; ++a) {
+    const T* row = vals + (long long)a * n + start;
+    for (int g = 0; g < gs; ++g) mine[g * 32 + (lane ^ (g & 31))] = T(0);
+    for (int j0 = warp * 32 + lane; j0 < rows; j0 += kThreads * kUnroll) {
+      T v[kUnroll];
+      int gg[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int j = j0 + u * kThreads;
+        v[u] = j < rows ? row[j] : T(0);
+        gg[u] = j < rows ? gcode[j] : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int g = gg[u];
+        if (g < 0) continue;
+        const T x = v[u];
+        if (!isfinite(x)) {
+          const int kind = isnan(x) ? 0 : (x > T(0) ? 1 : 2);
+          atomicAdd(cnt + kind * gs + g, 1u);
+          continue;
+        }
+        mine[g * 32 + (lane ^ (g & 31))] += x;
+      }
+    }
+    __syncwarp();
+    for (int g = lane; g < gs; g += 32) {
+      T s = T(0);
+      for (int l = 0; l < 32; ++l) s += mine[g * 32 + (l ^ (g & 31))];
+      wsum[warp * gs + g] = s;
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < gs; t += kThreads) {
+      T s = T(0);
+      for (int w = 0; w < kWarps; ++w) s += wsum[w * gs + t];
+      partial[((size_t)a * G + g0 + t) * gridDim.x + blockIdx.x] = s;
+    }
+    for (int t = threadIdx.x; t < 3 * gs; t += kThreads) {
+      const unsigned c = cnt[t];
+      if (c == 0u) continue;
+      const int kind = t / gs;
+      atomicAdd(nonfinite + ((long long)kind * A + a) * G + g0 + (t - kind * gs),
+                (unsigned long long)c);
+      cnt[t] = 0u;
+    }
+    __syncthreads();
+  }
+}
+
+// One warp per (row, group): the partials of the blocks in block order per
+// lane, then a fixed tree over the lanes.
+template <typename T>
+__global__ void segsum_reduce_blocks(const T* __restrict__ partial,
+                                     int blocks, int AG, T* __restrict__ out) {
+  const int w = (int)((blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (w >= AG) return;
+  const T* p = partial + (size_t)w * blocks;
   T s = T(0);
-  for (long long t = 0; t < tiles; ++t) s += partial[t * AG + j];
-  out[j] = s;
+  for (int b = lane; b < blocks; b += 32) s += p[b];
+  s = tree_sum(s);
+  if (lane == 0) out[w] = s;
 }
 
 template <typename T>
 int launch(const T* vals, long long n, int A, const int* codes,
-           const unsigned char* mask, int G, int rows_per_block,
-           T* partial, unsigned long long* nonfinite, T* out, void* stream) {
+           const unsigned char* mask, int G, int width, int stage_rows,
+           int smem, T* partial, long long capacity,
+           unsigned long long* nonfinite, T* out, void* stream) {
   if (n <= 0 || A <= 0 || G <= 0) return 0;
-  const int at = rows_per_block < A ? rows_per_block : A;
-  const int smem = kWarps * at * G * (int)sizeof(T) + 3 * at * G * 4;
+  if (width <= 0 || stage_rows < kThreads) return (int)cudaErrorInvalidValue;
+  auto kernel = segsum_range_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
-      segsum_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (n + kTile - 1) / kTile;
-  const dim3 grid((unsigned)tiles, (unsigned)((A + at - 1) / at));
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) per_sm = 1;
+  // equal ranges for the resident blocks (shared among the group slices),
+  // whole warps of rows, at most the staged rows per block
+  const long long slices = (G + width - 1) / width;
+  long long resident = (long long)sms * per_sm / slices;
+  if (resident < 1) resident = 1;
+  long long range = (n + resident - 1) / resident;
+  range = (range + kThreads - 1) / kThreads * kThreads;
+  if (range > stage_rows) range = stage_rows;
+  const long long blocks = (n + range - 1) / range;
+  if (blocks * A * G > capacity) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  segsum_tile_kernel<T><<<grid, kThreads, smem, s>>>(
-      vals, n, A, codes, mask, G, at, partial, nonfinite);
+  const dim3 grid((unsigned)blocks, (unsigned)slices);
+  kernel<<<grid, kThreads, smem, s>>>(vals, n, A, codes, mask, G, width,
+                                      (int)range, partial, nonfinite);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int AG = A * G;
-  segsum_reduce_tiles<T><<<(AG + 127) / 128, 128, 0, s>>>(partial, tiles, AG, out);
+  segsum_reduce_blocks<T><<<(AG + 7) / 8, 256, 0, s>>>(partial, (int)blocks,
+                                                       AG, out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Every pointer is device memory:
-// vals (A x n), codes (n), mask (n), partial (ceil(n/1024) x A x G) scratch,
-// nonfinite (3 x A x G, zeroed), out (A x G).  Returns cudaGetLastError()
+// vals (A x n), codes (n), mask (n), partial scratch of `capacity` elements
+// (at least A * G * blocks), nonfinite (3 x A x G, zeroed), out (A x G).
+// The wrapper plans the groups per slice (`width`), the staged rows per
+// block and the shared memory.  Returns cudaGetLastError()
 // after the launches (0 = launched).
 extern "C" int dsql_segsum_accumulate_f32(
     const float* vals, long long n, int A, const int* codes,
-    const unsigned char* mask, int G, int rows_per_block, float* partial,
-    unsigned long long* nonfinite, float* out, void* stream) {
-  return launch<float>(vals, n, A, codes, mask, G, rows_per_block, partial,
-                       nonfinite, out, stream);
+    const unsigned char* mask, int G, int width, int stage_rows, int smem,
+    float* partial, long long capacity, unsigned long long* nonfinite,
+    float* out, void* stream) {
+  return launch<float>(vals, n, A, codes, mask, G, width, stage_rows, smem,
+                       partial, capacity, nonfinite, out, stream);
 }
 
 extern "C" int dsql_segsum_accumulate_f64(
     const double* vals, long long n, int A, const int* codes,
-    const unsigned char* mask, int G, int rows_per_block, double* partial,
-    unsigned long long* nonfinite, double* out, void* stream) {
-  return launch<double>(vals, n, A, codes, mask, G, rows_per_block, partial,
-                        nonfinite, out, stream);
+    const unsigned char* mask, int G, int width, int stage_rows, int smem,
+    double* partial, long long capacity, unsigned long long* nonfinite,
+    double* out, void* stream) {
+  return launch<double>(vals, n, A, codes, mask, G, width, stage_rows, smem,
+                        partial, capacity, nonfinite, out, stream);
 }

@@ -46,7 +46,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -63,6 +63,10 @@ CLASS_LIMBS = {"unit": 1, "int": 3, "float": GRID_BITS // LIMB_BITS}
 MAX_ROWS = 1 << 32
 # shared memory one block of the kernel may use for its accumulators
 SMEM_BUDGET = 200 * 1024
+# kernel 1 gives each warp its own accumulators when a row's share fits this
+# (kept small so that several blocks stay resident on an SM)
+PRIVATE_BUDGET = 64 * 1024
+_K1_WARPS = 8
 
 #: launches of each hand-written kernel; only the kernel wrappers add to it
 LAUNCHES: Dict[str, int] = {"segsum_fixedpoint": 0, "segsum_accumulate": 0}
@@ -100,10 +104,9 @@ def _grid_exponents(vals: torch.Tensor, mask: torch.Tensor,
     """
     a = vals.shape[0]
     k = torch.zeros(a, dtype=torch.int64, device=vals.device)
-    float_rows = [i for i, c in enumerate(row_classes) if c == "float"]
-    if not float_rows:
+    idx = _row_layout(tuple(row_classes), vals.device).float_rows
+    if idx is None:
         return k
-    idx = torch.tensor(float_rows, dtype=torch.int64, device=vals.device)
     fv = vals.index_select(0, idx)
     keep = mask.bool()[None, :] & torch.isfinite(fv)
     absmax = torch.where(keep, fv.abs(), 0.0).amax(dim=1)
@@ -176,24 +179,88 @@ def segsum_limb_totals_plain(vals: torch.Tensor, codes: torch.Tensor,
 
 
 def _kernel_tiles(row_classes: Sequence[str], num_groups: int
-                  ) -> Tuple[List[int], int]:
-    """Split the value rows into tiles whose accumulators fit SMEM_BUDGET.
-    Returns (tile start rows + the end row, the largest tile's bytes)."""
+                  ) -> Tuple[List[int], int, bool]:
+    """Plan the kernel's shared memory: (tile start rows + the end row, the
+    largest tile's bytes, whether each warp owns its accumulators).
+
+    A warp owns its accumulators when every row's share of them (8 warps of
+    u64 limb totals) fits PRIVATE_BUDGET; otherwise the block shares one set
+    under SMEM_BUDGET.  Either way each row also takes 3 u32 non-finite
+    counts per group and 16 bytes of metadata, and the value rows are split
+    into tiles (over ``blockIdx.y``) whose shared memory fits the budget."""
+    def need(c: str, warps: int) -> int:
+        limb_rows = CLASS_LIMBS[c] * (2 if c != "unit" else 1)
+        return limb_rows * num_groups * 8 * warps + 3 * num_groups * 4 + 16
+
+    private = all(need(c, _K1_WARPS) <= PRIVATE_BUDGET for c in row_classes)
+    budget, warps = (PRIVATE_BUDGET, _K1_WARPS) if private else (SMEM_BUDGET, 1)
     starts, largest, used = [0], 0, 0
     for i, c in enumerate(row_classes):
-        rows = CLASS_LIMBS[c] * (2 if c != "unit" else 1) + 3
-        need = rows * num_groups * 8
-        if need > SMEM_BUDGET:
+        row_bytes = need(c, warps)
+        if row_bytes > budget:
             raise ValueError(
-                f"segsum_fixedpoint: {num_groups} groups need {need} bytes of "
-                f"shared memory for one {c} row (budget {SMEM_BUDGET})")
-        if used + need > SMEM_BUDGET:
+                f"segsum_fixedpoint: {num_groups} groups need {row_bytes} bytes "
+                f"of shared memory for one {c} row (budget {budget})")
+        if used + row_bytes > budget:
             starts.append(i)
             used = 0
-        used += need
+        used += row_bytes
         largest = max(largest, used)
     starts.append(len(row_classes))
-    return starts, largest
+    return starts, largest, private
+
+
+class _RowLayout(NamedTuple):
+    """A row-class layout's index tensors on one device: the float rows
+    (None without any), and the recombination's gather index, limb index and
+    sign, each (A, width)."""
+    float_rows: Optional[torch.Tensor]
+    src: torch.Tensor
+    limb: torch.Tensor
+    sign: torch.Tensor
+
+
+class _KernelPlan(NamedTuple):
+    """The kernel's int32 metadata on the device and its launch plan."""
+    meta: torch.Tensor
+    n_tiles: int
+    smem: int
+    private: bool
+
+
+# Both are built once per key and shared between calls (never written), so
+# that a warm call copies nothing from the host: each ``torch.tensor`` on a
+# card is a synchronising copy.
+
+@functools.lru_cache(maxsize=256)
+def _row_layout(row_classes: Tuple[str, ...], device: torch.device) -> _RowLayout:
+    a = len(row_classes)
+    float_rows = [i for i, c in enumerate(row_classes) if c == "float"]
+    limbs, signed, out0 = limb_layout(row_classes)
+    width = max((limbs[i] * (1 + signed[i]) for i in range(a)), default=0)
+    src = [[out0[-1]] * width for _ in range(a)]   # out0[-1]: the zero row
+    lk = [[0] * width for _ in range(a)]
+    sign = [[0.0] * width for _ in range(a)]
+    for i in range(a):
+        for j in range(limbs[i] * (1 + signed[i])):
+            src[i][j] = out0[i] + j
+            lk[i][j] = j % limbs[i]
+            sign[i][j] = 1.0 if j < limbs[i] else -1.0
+    return _RowLayout(
+        torch.tensor(float_rows, dtype=torch.int64, device=device)
+        if float_rows else None,
+        torch.tensor(src, dtype=torch.int64, device=device).reshape(a, width),
+        torch.tensor(lk, dtype=torch.int64, device=device).reshape(a, width),
+        torch.tensor(sign, dtype=torch.float64, device=device).reshape(a, width))
+
+
+@functools.lru_cache(maxsize=256)
+def _kernel_plan(row_classes: Tuple[str, ...], num_groups: int,
+                 device: torch.device) -> _KernelPlan:
+    limbs, _, out0 = limb_layout(row_classes)
+    tiles, smem, private = _kernel_tiles(row_classes, num_groups)
+    meta = torch.tensor(limbs + out0 + tiles, dtype=torch.int32, device=device)
+    return _KernelPlan(meta, len(tiles) - 1, smem, private)
 
 
 def segsum_limb_totals_cuda(vals: torch.Tensor, codes: torch.Tensor,
@@ -225,21 +292,19 @@ def segsum_limb_totals_cuda(vals: torch.Tensor, codes: torch.Tensor,
         raise ValueError(f"{len(row_classes)} row classes for {a} rows")
     if n >= MAX_ROWS:
         raise ValueError(f"segsum_fixedpoint: {n} rows, limit {MAX_ROWS - 1}")
-    limbs, signed, out0 = limb_layout(row_classes)
-    tiles, smem = _kernel_tiles(row_classes, num_groups)
+    out0 = limb_layout(row_classes)[2]
     out_limbs = torch.zeros((out0[-1], num_groups), dtype=torch.int64, device=dev)
     out_nonfinite = torch.zeros((3 * a, num_groups), dtype=torch.int64, device=dev)
     if n == 0 or a == 0:
         return out_limbs, out_nonfinite
-    meta = [torch.tensor(x, dtype=torch.int32, device=dev)
-            for x in (limbs, signed, out0, tiles)]
+    plan = _kernel_plan(tuple(row_classes), num_groups, dev)
     lib = _load_library("segsum_fixedpoint")
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.dsql_segsum_fixedpoint(
         vals.data_ptr(), n, a, codes.data_ptr(), mask.data_ptr(),
-        scale.data_ptr(), meta[0].data_ptr(), meta[1].data_ptr(),
-        meta[2].data_ptr(), meta[3].data_ptr(), len(tiles) - 1, num_groups,
-        smem, out_limbs.data_ptr(), out_nonfinite.data_ptr(), stream)
+        scale.data_ptr(), plan.meta.data_ptr(), plan.n_tiles, num_groups,
+        int(plan.private), plan.smem, out_limbs.data_ptr(),
+        out_nonfinite.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"segsum_fixedpoint launch failed: CUDA error {rc}")
     LAUNCHES["segsum_fixedpoint"] += 1
@@ -266,25 +331,13 @@ def _recombine(totals: torch.Tensor, row_classes: Sequence[str],
     """(A, G) f64 sums from (L, G) int64 limb totals: limb total * +-2**(21*lk
     - k[row]) -- every product exact -- added per row in layout order with
     Neumaier compensation, all rows at once."""
-    a = len(row_classes)
     g = totals.shape[1]
     dev = totals.device
-    limbs, signed, out0 = limb_layout(row_classes)
-    width = max((limbs[i] * (1 + signed[i]) for i in range(a)), default=0)
-    src = [[out0[-1]] * width for _ in range(a)]   # out0[-1]: the zero row
-    lk = [[0] * width for _ in range(a)]
-    sign = [[0.0] * width for _ in range(a)]
-    for i in range(a):
-        for j in range(limbs[i] * (1 + signed[i])):
-            src[i][j] = out0[i] + j
-            lk[i][j] = j % limbs[i]
-            sign[i][j] = 1.0 if j < limbs[i] else -1.0
+    lay = _row_layout(tuple(row_classes), dev)
+    a, width = lay.src.shape
     ext = torch.cat([totals, torch.zeros((1, g), dtype=totals.dtype, device=dev)])
-    src_t = torch.tensor(src, dtype=torch.int64, device=dev).reshape(a, width)
-    lk_t = torch.tensor(lk, dtype=torch.int64, device=dev).reshape(a, width)
-    sign_t = torch.tensor(sign, dtype=torch.float64, device=dev).reshape(a, width)
-    weight = _pow2(LIMB_BITS * lk_t - k[:, None]) * sign_t
-    terms = ext[src_t].double() * weight[:, :, None]         # (A, width, G)
+    weight = _pow2(LIMB_BITS * lay.limb - k[:, None]) * lay.sign
+    terms = ext[lay.src].double() * weight[:, :, None]         # (A, width, G)
     s = torch.zeros((a, g), dtype=torch.float64, device=dev)
     c = torch.zeros_like(s)
     for j in range(width):
@@ -352,10 +405,13 @@ def segmented_sums_dispatch(vals: torch.Tensor, codes: torch.Tensor,
 # kernel 2: sums accumulated in the input precision
 # ---------------------------------------------------------------------------
 
-#: rows per tile of kernel 2 (the TPU kernel's BLOCK)
+#: rows per tile of kernel 2's plain version (the TPU kernel's BLOCK)
 ACC_TILE = 1024
-# warps per block of kernel 2: each keeps its own accumulators
+#: rows of group codes one block of kernel 2 stages in shared memory
+ACC_STAGE = 8192
 _ACC_WARPS = 8
+# blocks of kernel 2 take group slices over ``blockIdx.y``, at most 65535
+_MAX_GRID_Y = 65535
 
 
 def segsum_accumulate_plain(vals: torch.Tensor, codes: torch.Tensor,
@@ -367,8 +423,9 @@ def segsum_accumulate_plain(vals: torch.Tensor, codes: torch.Tensor,
     Returns (sums (A, G) in the dtype of ``vals`` over the finite values,
     non-finite counts (3*A, G) int64: NaN rows, then +Inf, then -Inf).
     Rows that are masked out or whose code is outside [0, G) contribute
-    nothing.  The sums are taken as the kernel takes them, per 1024-row
-    tile and then over the tiles; within a tile the order is index_add_'s.
+    nothing.  The sums are taken per 1024-row tile (the TPU kernel's block)
+    and then over the tiles; within a tile the order is index_add_'s.  The
+    kernel takes another fixed order, within the same error bound.
     """
     a, n = vals.shape
     g = num_groups
@@ -390,18 +447,22 @@ def segsum_accumulate_plain(vals: torch.Tensor, codes: torch.Tensor,
     return sums, counts
 
 
-def _acc_rows_per_block(dtype: torch.dtype, num_groups: int) -> int:
-    """Value rows one block of kernel 2 takes: its accumulators (8 warps of
-    (rows, G) sums plus 3 (rows, G) uint32 counts) must fit SMEM_BUDGET."""
+def _acc_plan(dtype: torch.dtype, num_groups: int) -> Tuple[int, int]:
+    """Kernel 2's launch plan: (groups per slice, shared-memory bytes).  Each of a block's 8 warps keeps 32 lane sums and one warp sum
+    per group in shared memory, beside ACC_STAGE staged int16 codes and 3
+    u32 non-finite counts per group; the groups are cut into equal slices
+    (over ``blockIdx.y``) that fit SMEM_BUDGET.  Raises when the slices
+    would not fit the grid."""
     itemsize = torch.finfo(dtype).bits // 8
-    per_row = num_groups * (_ACC_WARPS * itemsize + 3 * 4)
-    if per_row > SMEM_BUDGET:
-        limit = SMEM_BUDGET // (_ACC_WARPS * itemsize + 3 * 4)
+    per_group = _ACC_WARPS * 33 * itemsize + 3 * 4
+    most = (SMEM_BUDGET - 2 * ACC_STAGE) // per_group
+    slices = max(1, -(-num_groups // most))
+    if slices > _MAX_GRID_Y:
         raise ValueError(
-            f"segsum_accumulate: {num_groups} groups need {per_row} bytes of "
-            f"shared memory for one {dtype} row (budget {SMEM_BUDGET}: at "
-            f"most {limit} groups)")
-    return SMEM_BUDGET // per_row
+            f"segsum_accumulate: {num_groups} groups need {slices} slices of "
+            f"{most} {dtype} groups (at most {_MAX_GRID_Y * most} groups)")
+    width = max(1, -(-num_groups // slices))
+    return width, width * per_group + 2 * ACC_STAGE
 
 
 def segsum_accumulate_cuda(vals: torch.Tensor, codes: torch.Tensor,
@@ -431,19 +492,24 @@ def segsum_accumulate_cuda(vals: torch.Tensor, codes: torch.Tensor,
                              f"expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"segsum_accumulate: {name} must be contiguous")
-    rows = _acc_rows_per_block(vals.dtype, num_groups)
+    width, smem = _acc_plan(vals.dtype, num_groups)
     out = torch.zeros((a, num_groups), dtype=vals.dtype, device=dev)
     nonfinite = torch.zeros((3 * a, num_groups), dtype=torch.int64, device=dev)
     if n == 0 or a == 0 or num_groups == 0:
         return out, nonfinite
-    tiles = -(-n // ACC_TILE)
-    partial = torch.empty((tiles, a, num_groups), dtype=vals.dtype, device=dev)
+    # the kernel fills the card with ranges of at most ACC_STAGE rows: no
+    # more blocks per slice than stay resident (2,048 threads per SM), or
+    # n / ACC_STAGE
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = max(sms * (2048 // (32 * _ACC_WARPS)), -(-n // ACC_STAGE))
+    partial = torch.empty(blocks * a * num_groups, dtype=vals.dtype, device=dev)
     lib = _load_library("segsum_accumulate")
     fn = (lib.dsql_segsum_accumulate_f32 if vals.dtype == torch.float32
           else lib.dsql_segsum_accumulate_f64)
     rc = fn(vals.data_ptr(), n, a, codes.data_ptr(), mask.data_ptr(),
-            num_groups, rows, partial.data_ptr(), nonfinite.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            num_groups, width, ACC_STAGE, smem, partial.data_ptr(),
+            partial.numel(), nonfinite.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segsum_accumulate launch failed: CUDA error {rc}")
     LAUNCHES["segsum_accumulate"] += 1
@@ -550,9 +616,9 @@ def build_kernels() -> Dict[str, Dict[str, object]]:
 
 # the C entry points' arguments: P pointer (or stream), l int64, i int32
 _ARGTYPES = {
-    "segsum_fixedpoint": {"dsql_segsum_fixedpoint": "PliPPPPPPPiiiPPP"},
-    "segsum_accumulate": {"dsql_segsum_accumulate_f32": "PliPPiiPPPP",
-                          "dsql_segsum_accumulate_f64": "PliPPiiPPPP"},
+    "segsum_fixedpoint": {"dsql_segsum_fixedpoint": "PliPPPPiiiiPPP"},
+    "segsum_accumulate": {"dsql_segsum_accumulate_f32": "PliPPiiiiPlPPP",
+                          "dsql_segsum_accumulate_f64": "PliPPiiiiPlPPP"},
 }
 _CTYPES = {"P": ctypes.c_void_p, "l": ctypes.c_longlong, "i": ctypes.c_int}
 

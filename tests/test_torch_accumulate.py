@@ -137,4 +137,25 @@ def test_wrapper_raises_off_the_card():
     with pytest.raises(TypeError, match="accumulation"):
         gk.segmented_sums(vals.half(), codes, mask, 2)
     with pytest.raises(ValueError, match="groups"):
-        gk._acc_rows_per_block(torch.float64, 100_000)
+        gk._acc_plan(torch.float64, 10**7)
+
+
+@pytest.mark.parametrize("dtype,g,width,slices", [
+    (torch.float32, 6, 6, 1),
+    (torch.float64, 8, 8, 1),
+    (torch.float32, 40, 40, 1),
+    (torch.float32, 256, 128, 2),
+    (torch.float64, 256, 86, 3),
+    (torch.float32, 4000, 174, 23),
+    (torch.float64, 2600, 87, 30),
+])
+def test_accumulate_plan_fits_shared_memory(dtype, g, width, slices):
+    """Kernel 2 keeps 32 lane sums per group and warp in shared memory, and
+    cuts the groups into equal slices over blockIdx.y as G grows."""
+    w, smem = gk._acc_plan(dtype, g)
+    n_slices = -(-g // w)
+    assert (w, n_slices) == (width, slices)
+    assert (w - 1) * n_slices < g
+    assert smem <= gk.SMEM_BUDGET
+    # rows per lane stay far inside the (1024 + ceil(n/1024)) chain bound
+    assert gk.ACC_STAGE // (32 * 8) + 32 + 8 <= 512

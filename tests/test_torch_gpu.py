@@ -48,6 +48,60 @@ def test_kernel_bitwise_matches_plain_on_card(cuda_device):
     assert _same_bits(got, cpu)
 
 
+def _fixedpoint_case(name, rng):
+    """(vals, codes, mask, groups, row classes) for the kernel's schedules:
+    one group for every row, both signs in every warp, n off every chunk
+    and range boundary, and 256 groups (block-shared accumulators)."""
+    classes = ["unit", "float", "unit", "int", "unit"]
+    n, g = 300_001, 6
+    if name == "ragged_boundary":
+        n = 32 * 4099 + 17
+    vals = np.vstack([rng.rand(n) > 0.2, rng.uniform(900.0, 105_000.0, n),
+                      rng.rand(n) > 0.5, rng.randint(0, 10**9, n),
+                      np.ones(n)]).astype(np.float64)
+    codes = rng.randint(0, g, n)
+    if name == "one_group":
+        codes[:] = 3
+    elif name == "mixed_signs":
+        vals[1] *= np.where(rng.rand(n) > 0.5, 1.0, -1.0)
+        vals[3] -= 5 * 10**8
+    elif name == "domain_256":
+        g = 256
+        codes = rng.randint(0, g, n)
+    return vals, codes, rng.rand(n) > 0.05, g, classes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["one_group", "mixed_signs", "ragged_boundary",
+                                  "domain_256"])
+def test_kernel_schedules_bitwise_match_plain(cuda_device, name):
+    vals, codes, mask, g, classes = _fixedpoint_case(name, np.random.RandomState(8))
+    args = [torch.from_numpy(x).to(cuda_device) for x in (vals, codes, mask)]
+    got = gk.segmented_sums_fixedpoint(*args, g, row_classes=classes)
+    plain = gk.segmented_sums_fixedpoint(
+        *args, g, row_classes=classes, limb_totals=gk.segsum_limb_totals_plain)
+    torch.cuda.synchronize()
+    assert _same_bits(got, plain)
+
+
+@pytest.mark.gpu
+def test_fixedpoint_warm_call_makes_no_host_sync(cuda_device):
+    """A call on a layout seen before copies nothing from the host: every
+    index tensor of the route is cached on the card."""
+    vals, codes, mask, g, classes = _fixedpoint_case("mixed_signs",
+                                                     np.random.RandomState(9))
+    args = [torch.from_numpy(x).to(cuda_device) for x in (vals, codes, mask)]
+    first = gk.segmented_sums_fixedpoint(*args, g, row_classes=classes)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        warm = gk.segmented_sums_fixedpoint(*args, g, row_classes=classes)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert _same_bits(first, warm)
+
+
 @pytest.mark.gpu
 def test_kernel_wrapper_rejects_bad_inputs(cuda_device):
     vals = torch.zeros((2, 8), dtype=torch.float64, device=cuda_device)
@@ -112,6 +166,31 @@ def test_accumulate_kernel_within_bound_and_deterministic(cuda_device):
         assert torch.equal(out[~fin & ~torch.isnan(want)].double(),
                            want[~fin & ~torch.isnan(want)])
         assert bool(((out.double() - want).abs()[fin] <= bound[fin]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n,g", [("one_group", 1_000_003, 1),
+                                      ("groups_40", 1_000_003, 40),
+                                      ("domain_256_f64", 300_007, 256),
+                                      ("groups_4000", 300_007, 4000),
+                                      ("groups_2600_f64", 300_007, 2600)])
+def test_accumulate_schedules_within_bound(cuda_device, name, n, g):
+    rng = np.random.RandomState(7)
+    dtype = np.float64 if name.endswith("f64") else np.float32
+    vals = torch.from_numpy((rng.randn(3, n) * 1e3).astype(dtype))
+    codes = torch.from_numpy(rng.randint(0, g, n))
+    mask = torch.from_numpy(rng.rand(n) > 0.1)
+    args = [t.to(cuda_device) for t in (vals, codes, mask)]
+    got = gk.segmented_sums(*args, g)
+    again = gk.segmented_sums(*args, g)
+    torch.cuda.synchronize()
+    view = torch.int32 if dtype == np.float32 else torch.int64
+    assert torch.equal(got.cpu().view(view), again.cpu().view(view))
+    want = gk.reference_segmented_sums(vals.double(), codes, mask, g)
+    abs_sum = gk.reference_segmented_sums(vals.double().abs(), codes, mask, g)
+    eps = 2.0 ** -24 if dtype == np.float32 else 2.0 ** -53
+    bound = (1024 + -(-n // 1024)) * eps * abs_sum
+    assert bool(((got.cpu().double() - want).abs() <= bound).all())
 
 
 @pytest.mark.gpu

@@ -222,17 +222,51 @@ def test_limb_totals_plain_matches_int_oracle():
     assert nonfinite.abs().sum() == 0
 
 
-@pytest.mark.parametrize("classes,g,tiles", [
-    (["unit"] + ["float", "unit"] * 8, 6, 1),
-    (["unit"] + ["float", "unit"] * 8, 256, 2),
-    (["float"] * 20, 256, 3),
+@pytest.mark.parametrize("classes,g,tiles,private", [
+    (["unit"] + ["float", "unit"] * 8, 6, 1, True),
+    (["unit"] + ["float", "unit"] * 8, 256, 1, False),
+    (["float"] * 20, 256, 2, False),
+    (["float"] * 40, 6, 2, True),
 ])
-def test_kernel_tiles_fit_shared_memory(classes, g, tiles):
-    starts, largest = gk._kernel_tiles(classes, g)
+def test_kernel_tiles_fit_shared_memory(classes, g, tiles, private):
+    """Per-warp accumulators while a row's share fits PRIVATE_BUDGET (Q1's
+    6 slots), block-shared ones under SMEM_BUDGET above it (256 slots)."""
+    starts, largest, is_private = gk._kernel_tiles(classes, g)
     assert len(starts) - 1 == tiles and starts[-1] == len(classes)
-    assert largest <= gk.SMEM_BUDGET
+    assert is_private == private
+    assert largest <= (gk.PRIVATE_BUDGET if private else gk.SMEM_BUDGET)
 
 
 def test_kernel_tiles_reject_oversized_row():
     with pytest.raises(ValueError, match="shared memory"):
         gk._kernel_tiles(["float"], 4096)
+
+
+def test_layout_cache_reuses_tensors_per_key():
+    """The per-layout index tensors are built once per (row classes, groups,
+    device): the same key gives the same tensors, another layout others, and
+    the sums do not change when the cache is warm or cleared."""
+    cpu = torch.device("cpu")
+    q1 = ("unit", "float", "unit", "int")
+    lay = gk._row_layout(q1, cpu)
+    assert gk._row_layout(q1, cpu) is lay
+    other = gk._row_layout(("unit", "float"), cpu)
+    assert other is not lay and other.src.shape != lay.src.shape
+    plan = gk._kernel_plan(q1, 6, cpu)
+    assert gk._kernel_plan(q1, 6, cpu) is plan
+    assert gk._kernel_plan(q1, 7, cpu) is not plan
+    limbs, _, out0 = gk.limb_layout(q1)
+    assert plan.meta.tolist() == limbs + out0 + [0, len(q1)]
+    assert lay.float_rows.tolist() == [1]
+
+    rng = np.random.RandomState(4)
+    n = 3000
+    vals = np.vstack([rng.rand(n) > 0.5, rng.randn(n) * 1e3, rng.rand(n) > 0.5,
+                      rng.randint(-10**6, 10**6, n)]).astype(np.float64)
+    codes, mask = rng.randint(0, 6, n), rng.rand(n) > 0.1
+    warm = _port(vals, codes, mask, 6, list(q1))
+    gk._row_layout.cache_clear()
+    gk._kernel_plan.cache_clear()
+    cold = _port(vals, codes, mask, 6, list(q1))
+    assert _same_bits(warm, cold)
+    assert _same_bits(warm, _port(vals, codes, mask, 6, list(q1)))
