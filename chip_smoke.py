@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero before the last line:
 3. data: the eight TPC-H tables at ``--sf`` (SF 1: 6.0 M lineitem rows),
    generated here from ``--seed`` in numpy alone with the columns,
    distributions and random stream of ``benchmarks/tpch.py``, registered
-   on ``Context(device="cuda")``;
+   on ``Context(device="cuda")``; ``create_table`` collects each table's
+   statistics on the card (``runtime/statistics.py``), and the seconds
+   include them;
 4. kernel 1 (segsum_fixedpoint) against its plain PyTorch version on the
    card -- on the reduction Q1 hands it (captured from Q1's cold run), on
    edge cases and on its warp schedules (one group in every row, both signs
@@ -35,16 +37,35 @@ Phases, in order; any failure exits non-zero before the last line:
    bits; then its time (profiler and event mean, as for kernel 1) beside
    the plain version's, one float32
    ``index_add_`` and the bound (3.35 TB/s, 67 TFLOP/s FP32);
-6. slice: TPC-H Q1-Q22 through the Context, one cold and three warm runs
-   each, the launch counts set to 0 before each query and read after it
-   (kernel 1 must launch); the host synchronisations of one more warm run
-   counted with ``torch.cuda.set_sync_debug_mode``; Q1 and Q6 checked
-   against a numpy oracle (counts exact, doubles rtol 1e-12, per-group sums
-   by ``math.fsum``), every query against the same query run by the port on
-   the CPU over the same tables (ints and strings exact, doubles rtol
-   1e-9); then one warm run of Q1, Q4, Q5, Q6 and Q9 under
-   ``torch.profiler`` (device time by kernel, device idle share);
-7. oracle: the 22 queries at SF 0.01 through a Context on the card
+6. stats: the tables copied to a Context on the CPU, whose statistics
+   (collected there) must equal the card's field for field;
+7. slice, the main path, with the statistics-driven dispatch on (the
+   default): TPC-H Q1-Q22 through the Context, one cold and three warm
+   runs each, the launch counts set to 0 before each query and read after
+   it (kernel 1 must launch); the host synchronisations of one more warm
+   run counted with ``torch.cuda.set_sync_debug_mode``; the GROUP BY and
+   join variants the run took, from the telemetry counters of its
+   ``QueryReport``; Q1 and Q6 checked against a numpy oracle (counts
+   exact, doubles rtol 1e-12, per-group sums by ``math.fsum``), every
+   query against the same query run by the port on the CPU over the same
+   tables (ints and strings exact, doubles rtol 1e-9); then one warm run
+   of Q1, Q4, Q5, Q6 and Q9 under ``torch.profiler`` (device time by
+   kernel, device idle share);
+8. adaptive: the 22 queries with the dispatch on and with
+   ``DSQL_ADAPTIVE=0`` (the statistics-free dispatch and join order), the
+   two modes in turns so that both meet the same host state: per mode one
+   cold and three warm runs (wall and planning time), launch counts,
+   syncs and variants, each answer with the dispatch off equal to phase
+   7's (ints and strings exact, doubles rtol 1e-9: a changed join order
+   may add floats in another order); Q5, Q9 and Q10 under
+   ``torch.profiler`` in both modes; each query's host time in both modes
+   split into planning, execution, the dispatch decisions inside it and
+   (Q9, Q10) each plan node (``host breakdown:``); then Q1 and Q3 under
+   ``DSQL_FORCE_GROUPBY`` set to ``hash``, ``sorted`` and ``dense``,
+   answers equal to phase 7's, Q1
+   still on the static-domain route with one kernel-1 launch (the
+   variable pins only the other GROUP BYs' codes), Q3 on the forced codes;
+9. oracle: the 22 queries at SF 0.01 through a Context on the card
    against the standard library's ``sqlite3`` (the rules of
    ``tests/integration/test_tpch.py``: row count exact, doubles rtol 1e-6,
    everything else as strings, unordered results sorted).
@@ -58,6 +79,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -863,10 +885,10 @@ def capture_q1_reduction(ctx) -> tuple:
     ex.segmented_sums_dispatch = spy
     gk.reset_launch_counts()
     try:
-        cold_ms = wall_ms(lambda: box.update(r=ctx.sql(QUERIES[1])))
+        cold_ms = wall_ms(lambda: ctx.sql(QUERIES[1]))
     finally:
         ex.segmented_sums_dispatch = real
-    return box["args"], cold_ms, dict(gk.LAUNCHES), box["r"]
+    return box["args"], cold_ms, dict(gk.LAUNCHES)
 
 
 def phase_kernel1(dev, q1_args: tuple) -> dict:
@@ -1110,7 +1132,7 @@ def phase_kernel2(dev, q1_args: tuple) -> dict:
             "ms_source": ms_source}
 
 
-def profile_query(ctx, name: str, text: str) -> None:
+def profile_query(ctx, name: str, text: str) -> dict:
     """One warm run under torch.profiler: device time by kernel, and the
     device's busy share of the host wall time (profiler on)."""
     from torch.autograd import DeviceType
@@ -1129,6 +1151,69 @@ def profile_query(ctx, name: str, text: str) -> None:
           f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
     for e in events[:10]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall}
+
+
+def host_breakdown(ctx, text: str, reps: int = 3) -> dict:
+    """Where one warm query's host time goes, from the median (by wall) of
+    ``reps`` runs: the report's planning and execution ms, the ms spent at
+    execution time inside the statistics' dispatch decisions
+    (``groupby_decision``, ``join_decision``: the latter estimates both
+    join inputs' rows), and each plan node's exclusive host ms (its own
+    work and the syncs it waits on, its inputs' time excluded) with its
+    output rows."""
+    from dask_sql_tpu_torch.physical.rel import executor as ex_mod
+    from dask_sql_tpu_torch.runtime import statistics as st
+
+    run_node = ex_mod.RelExecutor.execute
+    decisions = {n: getattr(st, n) for n in ("groupby_decision",
+                                             "join_decision")}
+    cur: dict = {}
+
+    def timed_node(self, rel):
+        t0 = time.perf_counter()
+        cur["stack"].append(0.0)
+        try:
+            out = run_node(self, rel)
+        finally:
+            total = (time.perf_counter() - t0) * 1e3
+            inner = cur["stack"].pop()
+            if cur["stack"]:
+                cur["stack"][-1] += total
+        label = type(rel).__name__.replace("Logical", "")
+        if getattr(rel, "join_type", None):
+            label += f"({rel.join_type})"
+        cur["nodes"].append([label, round(total - inner, 3), out.num_rows])
+        return out
+
+    def timed_decision(fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                cur["decide_ms"] += (time.perf_counter() - t0) * 1e3
+        return wrapper
+
+    runs = []
+    ex_mod.RelExecutor.execute = timed_node
+    for name, fn in decisions.items():
+        setattr(st, name, timed_decision(fn))
+    try:
+        for _ in range(reps):
+            cur.update(stack=[], nodes=[], decide_ms=0.0)
+            wall = wall_ms(lambda: ctx.sql(text))
+            phases = ctx.last_report.phases
+            runs.append({"wall_ms": wall, "plan_ms": phases["plan"],
+                         "execute_ms": phases["execute"],
+                         "decide_ms": cur["decide_ms"],
+                         "nodes": cur["nodes"]})
+    finally:
+        ex_mod.RelExecutor.execute = run_node
+        for name, fn in decisions.items():
+            setattr(st, name, fn)
+    runs.sort(key=lambda r: r["wall_ms"])
+    return runs[len(runs) // 2]
 
 
 def register(dev, tables: dict):
@@ -1164,31 +1249,56 @@ def phase_data(dev, sf: float, seed: int):
     return ctx, tables
 
 
-def phase_slice(ctx, tables: dict, q1_cold: tuple, cpu_ctx) -> dict:
+def variants(ctx) -> dict:
+    """The GROUP BY and join variants the context's last query took, from
+    its report's telemetry counters: {"join=dense": 4, ...}."""
+    prefix = "operator_choice_"
+    out = {}
+    for key, n in sorted(ctx.last_report.counters.items()):
+        if key.startswith(prefix):
+            op, _, variant = key[len(prefix):].rpartition("_")
+            out[f"{op}={variant}"] = n
+    return out
+
+
+def run_query(ctx, text: str, times: list, runs: list) -> tuple:
+    """Runs of ``text`` until ``times`` holds 4 walls (the first cold),
+    the launch counts set to 0 before each run and read after it; then the
+    variants of the last run and the syncs of one more.  Returns (the last
+    run's result, variants, syncs)."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    while len(times) < 4:
+        gk.reset_launch_counts()
+        box = {}
+        times.append(wall_ms(lambda: box.update(r=ctx.sql(text))))
+        runs.append(dict(gk.LAUNCHES))
+        result = box["r"]
+    taken = variants(ctx)
+    return result, taken, count_syncs(lambda: ctx.sql(text))
+
+
+def phase_slice(ctx, tables: dict, q1_cold: tuple, cpu_ctx) -> tuple:
     """The 22 queries through the Context: cold + 3 warm runs each (Q1's
     cold run was the capture run), the launch counts set to 0 before each
-    query and read after it, the host synchronisations of one more warm
-    run, and the answers checked.  Returns the launches of all runs."""
+    query and read after it, the variants taken, the host synchronisations
+    of one more warm run, and the answers checked.  Returns the launches of
+    all runs, the per-query rows and the results."""
     from dask_sql_tpu_torch.ops import gpu_kernels as gk
 
     want = {1: oracle_q1(tables["lineitem"]), 6: oracle_q6(tables["lineitem"])}
     total = {k: 0 for k in gk.LAUNCHES}
     static_queries = []
     rows = []
+    results = {}
     for qid in sorted(QUERIES):
         text = QUERIES[qid]
         times, runs = [], []
         if qid == 1:
             times.append(q1_cold[0])
             runs.append(q1_cold[1])
-            result = q1_cold[2]
-        while len(times) < 4:
-            gk.reset_launch_counts()
-            box = {}
-            times.append(wall_ms(lambda: box.update(r=ctx.sql(text))))
-            runs.append(dict(gk.LAUNCHES))
-            result = box["r"]
-        syncs = count_syncs(lambda: ctx.sql(text))
+        result, taken, syncs = run_query(ctx, text, times, runs)
+        results[qid] = result
         for launches in runs:
             for k, v in launches.items():
                 total[k] += v
@@ -1201,17 +1311,164 @@ def phase_slice(ctx, tables: dict, q1_cold: tuple, cpu_ctx) -> dict:
             check_answer(f"Q{qid}", got, want[qid])
             checks.append("numpy oracle")
         checks.append(cross_check(qid, text, result, cpu_ctx))
-        rows.append((qid, times, launched, syncs, result.num_rows))
+        rows.append({"q": qid, "cold_ms": times[0], "warm_ms": times[1:],
+                     "launched": launched, "syncs": syncs,
+                     "variants": taken, "rows": result.num_rows})
         print(f"Q{qid}: cold {times[0]:.1f} ms, warm "
               + ", ".join(f"{t:.1f}" for t in times[1:])
               + f" ms; {result.num_rows} rows; launched {launched or 'none'}; "
-              f"{syncs} host syncs; checked against {', '.join(checks) or '-'}")
+              f"{syncs} host syncs; variants {taken or '-'}; checked against "
+              f"{', '.join(checks) or '-'}")
     if total["segsum_fixedpoint"] < 1:
         raise AssertionError(f"no query launched segsum_fixedpoint: {total}")
     print(f"queries that launched segsum_fixedpoint: {static_queries}")
-    print("slice table: " + json.dumps(
-        [{"q": q, "cold_ms": t[0], "warm_ms": t[1:], "launched": lch,
-          "syncs": s, "rows": r} for q, t, lch, s, r in rows]))
+    print("slice table: " + json.dumps(rows))
+    return total, results
+
+
+def phase_stats(ctx, cpu_ctx) -> None:
+    """The statistics collected on the card equal those the CPU collects
+    from the same tables, field for field."""
+    for name, entry in ctx.schema["root"].tables.items():
+        gpu, cpu = entry.stats, cpu_ctx.schema["root"].tables[name].stats
+        if gpu is None or cpu is None:
+            raise AssertionError(f"stats of {name}: card {gpu}, CPU {cpu}")
+        if gpu.rows != cpu.rows or gpu.cols != cpu.cols:
+            diff = [c for c in cpu.cols if gpu.cols.get(c) != cpu.cols[c]]
+            raise AssertionError(f"stats of {name} differ in {diff}")
+        print(f"stats {name}: {gpu.rows} rows, {len(gpu.cols)} columns, "
+              f"{gpu.collected_ms:.1f} ms on the card, {cpu.collected_ms:.1f} "
+              f"ms on the CPU; equal")
+    li = ctx.schema["root"].tables["lineitem"].stats
+    print("stats lineitem: " + json.dumps(
+        {c: cs.to_row() for c, cs in li.cols.items()}))
+
+
+def _median(xs: list) -> float:
+    return float(np.median(xs))
+
+
+def phase_adaptive(ctx, on_results: dict) -> dict:
+    """The 22 queries with the statistics-driven dispatch on (the default)
+    and off (``DSQL_ADAPTIVE=0``), the two modes in turns (on, off, on,
+    off, ...) so that both meet the same state of the host: per mode a
+    cold run and three warm ones (walls, planning ms from the query's
+    report), the launch counts of each run, the variants taken and the
+    syncs of one more run; each answer with the dispatch off equal to the
+    main path's.  Then Q5, Q9 and Q10 profiled in both modes, each
+    query's host time split (``host_breakdown``) in both modes, and Q1 and
+    Q3 under each forced GROUP BY variant.  Returns the launches of all runs
+    with the dispatch off or forced."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    modes = {"on": None, "off": "0"}
+
+    def set_mode(value):
+        if value is None:
+            os.environ.pop("DSQL_ADAPTIVE", None)
+        else:
+            os.environ["DSQL_ADAPTIVE"] = value
+
+    total = {k: 0 for k in gk.LAUNCHES}
+    table = []
+    try:
+        for qid in sorted(QUERIES):
+            text = QUERIES[qid]
+            row = {"q": qid}
+            got = {m: {"walls": [], "plan_ms": [], "launched": {}}
+                   for m in modes}
+            for _ in range(4):
+                for mode, value in modes.items():
+                    set_mode(value)
+                    gk.reset_launch_counts()
+                    box = {}
+                    got[mode]["walls"].append(
+                        wall_ms(lambda: box.update(r=ctx.sql(text))))
+                    got[mode]["plan_ms"].append(ctx.last_report.phases["plan"])
+                    got[mode]["launched"] = {k: v for k, v in
+                                             gk.LAUNCHES.items() if v}
+                    got[mode]["result"] = box["r"]
+                    got[mode]["variants"] = variants(ctx)
+                    if mode == "off":
+                        for k, v in gk.LAUNCHES.items():
+                            total[k] += v
+            for mode, value in modes.items():
+                set_mode(value)
+                g = got[mode]
+                row[mode] = {"cold_ms": g["walls"][0], "warm_ms": g["walls"][1:],
+                             "warm_median_ms": _median(g["walls"][1:]),
+                             "plan_median_ms": _median(g["plan_ms"][1:]),
+                             "syncs": count_syncs(lambda: ctx.sql(text)),
+                             "variants": g["variants"],
+                             "launched": g["launched"]}
+            check_same_result(f"Q{qid} adaptive off", got["off"]["result"],
+                              on_results[qid], rtol=1e-9)
+            table.append(row)
+            print(f"Q{qid}: warm median on {row['on']['warm_median_ms']:.1f} "
+                  f"ms (plan {row['on']['plan_median_ms']:.2f}), off "
+                  f"{row['off']['warm_median_ms']:.1f} ms (plan "
+                  f"{row['off']['plan_median_ms']:.2f}); syncs on "
+                  f"{row['on']['syncs']}, off {row['off']['syncs']}; variants "
+                  f"on {row['on']['variants'] or '-'}, off "
+                  f"{row['off']['variants'] or '-'}; launched on "
+                  f"{row['on']['launched'] or 'none'}, off "
+                  f"{row['off']['launched'] or 'none'}; answers equal")
+        profiles = {}
+        for mode, value in modes.items():
+            set_mode(value)
+            for q in (5, 9, 10):
+                profiles[f"Q{q} {mode}"] = profile_query(
+                    ctx, f"Q{q} adaptive {mode}", QUERIES[q])
+        breakdown = {}
+        for qid in sorted(QUERIES):
+            breakdown[qid] = {}
+            for mode, value in modes.items():
+                set_mode(value)
+                b = host_breakdown(ctx, QUERIES[qid])
+                if qid not in (9, 10):
+                    del b["nodes"]
+                breakdown[qid][mode] = b
+            on, off = breakdown[qid]["on"], breakdown[qid]["off"]
+            print(f"host Q{qid}: on / off wall {on['wall_ms']:.2f} / "
+                  f"{off['wall_ms']:.2f} ms, plan {on['plan_ms']:.2f} / "
+                  f"{off['plan_ms']:.2f}, execute {on['execute_ms']:.2f} / "
+                  f"{off['execute_ms']:.2f}, of it in the dispatch "
+                  f"decisions {on['decide_ms']:.3f} / {off['decide_ms']:.3f}")
+    finally:
+        set_mode(None)
+    print("adaptive table: " + json.dumps(table))
+    print("adaptive profiles: " + json.dumps(profiles))
+    print("host breakdown: " + json.dumps(breakdown))
+    for qid in (1, 3):
+        for forced in ("hash", "sorted", "dense"):
+            os.environ["DSQL_FORCE_GROUPBY"] = forced
+            try:
+                gk.reset_launch_counts()
+                result = ctx.sql(QUERIES[qid])
+                launched = {k: v for k, v in gk.LAUNCHES.items() if v}
+                taken = variants(ctx)
+            finally:
+                del os.environ["DSQL_FORCE_GROUPBY"]
+            for k, v in launched.items():
+                total[k] += v
+            check_same_result(f"Q{qid} forced {forced}", result,
+                              on_results[qid], rtol=1e-9)
+            groupbys = {k: v for k, v in taken.items()
+                        if k.startswith("groupby=")}
+            # Q1's GROUP BY stays on the static-domain route (kernel 1)
+            # whatever is forced; Q3's multi-column keys take the forced
+            # codes, "dense" falling through to "sorted"
+            want = ({"groupby=static": 1} if qid == 1 else
+                    {f"groupby={'sorted' if forced == 'dense' else forced}": 1})
+            if groupbys != want or (qid == 1 and launched.get(
+                    "segsum_fixedpoint") != 1):
+                raise AssertionError(
+                    f"Q{qid} with DSQL_FORCE_GROUPBY={forced}: variants "
+                    f"{taken}, launched {launched}; expected {want}"
+                    + (" and one kernel-1 launch" if qid == 1 else ""))
+            print(f"Q{qid} with DSQL_FORCE_GROUPBY={forced}: variants "
+                  f"{taken}; launched {launched or 'none'}; equal to the "
+                  f"main path's answer")
     return total
 
 
@@ -1255,25 +1512,30 @@ def main(argv=None) -> int:
         return 3
     from dask_sql_tpu_torch import Context
 
+    # the production default: statistics-driven dispatch, nothing forced
+    os.environ.pop("DSQL_ADAPTIVE", None)
+    os.environ.pop("DSQL_FORCE_GROUPBY", None)
     dev = torch.device("cuda")
     card = phase_environment()
     phase_build()
     ctx, tables = phase_data(dev, args.sf, args.seed)
-    q1_args, q1_cold_ms, q1_launches, q1_result = capture_q1_reduction(ctx)
+    q1_args, q1_cold_ms, q1_launches = capture_q1_reduction(ctx)
     kernel1 = phase_kernel1(dev, q1_args)
     kernel2 = phase_kernel2(dev, q1_args)
     # the card's tables, copied to the CPU as they are encoded
     cpu_ctx = Context(device=torch.device("cpu"))
     for name, entry in ctx.schema["root"].tables.items():
         cpu_ctx.create_table(name, entry.table)
-    launches = phase_slice(ctx, tables, (q1_cold_ms, q1_launches, q1_result),
-                           cpu_ctx)
+    phase_stats(ctx, cpu_ctx)
+    launches, on_results = phase_slice(
+        ctx, tables, (q1_cold_ms, q1_launches), cpu_ctx)
     del cpu_ctx
-    profile_query(ctx, "Q1", QUERIES[1])
-    profile_query(ctx, "Q4", QUERIES[4])
-    profile_query(ctx, "Q5", QUERIES[5])
-    profile_query(ctx, "Q6", QUERIES[6])
-    profile_query(ctx, "Q9", QUERIES[9])
+    profiles = {q: profile_query(ctx, f"Q{q}", QUERIES[q])
+                for q in (1, 4, 5, 6, 9)}
+    print("profiles: " + json.dumps(profiles))
+    off_launches = phase_adaptive(ctx, on_results)
+    print(f"launches: main path (adaptive on) {launches}, adaptive off and "
+          f"forced {off_launches}")
     phase_oracle(dev, ORACLE_SF, args.seed)
     kernel1["launches"] = launches["segsum_fixedpoint"]
     print(f"card: {card}")

@@ -1,10 +1,13 @@
 """Context: the user-facing catalog and SQL entry point of the port.
 
-The counterpart of ``dask_sql_tpu.Context``, minimal for the first slice:
-``create_table`` (a dict of numpy arrays, a ``Table``, or a pandas frame),
-``drop_table``, ``sql`` and ``explain``.  The planner is the JAX package's
-Python parser, binder and optimizer, copied; execution is the eager
-executor (``physical/rel/executor.py``).
+The counterpart of ``dask_sql_tpu.Context``: ``create_table`` (a dict of
+numpy arrays, a ``Table``, or a pandas frame; it collects the table's
+statistics, ``runtime/statistics.py``), ``drop_table``, ``sql`` (queries
+and plain ``EXPLAIN``) and ``explain``.  The planner is the JAX package's
+Python parser, binder and optimizer, copied, with the statistics-driven
+join order; execution is the eager executor (``physical/rel/executor.py``).
+Each ``sql`` call runs in a telemetry trace whose ``QueryReport`` is kept
+as ``last_report``.
 
 Queries run on the card unless the caller asks for another device:
 ``Context()`` means ``device="cuda"`` and raises when CUDA is unavailable;
@@ -16,10 +19,14 @@ from typing import Any, List, Optional, Union
 
 import torch
 
+import numpy as np
+
 from .datacontainer import SchemaContainer, TableEntry
 from .plan.binder import Binder
 from .plan.nodes import Field, RelNode
 from .plan.optimizer import optimize
+from .runtime import statistics as _stats
+from .runtime import telemetry as _tel
 from .sql import ast as A
 from .sql.parser import parse_sql
 from .table import Table
@@ -46,6 +53,7 @@ class Context:
         self.schema_name = self.DEFAULT_SCHEMA_NAME
         self.schema = {self.DEFAULT_SCHEMA_NAME:
                        SchemaContainer(self.DEFAULT_SCHEMA_NAME)}
+        self.last_report: Optional[_tel.QueryReport] = None
 
     # -------------------------------------------------------------- tables
     def create_table(self, table_name: str, input_table: Any,
@@ -63,7 +71,8 @@ class Context:
             raise TypeError(
                 f"create_table: unsupported input {type(input_table).__name__}")
         schema_name = schema_name or self.schema_name
-        self.schema[schema_name].tables[table_name.lower()] = TableEntry(table=table)
+        self.schema[schema_name].tables[table_name.lower()] = TableEntry(
+            table=table, stats=_stats.collect_table_stats(table))
 
     def drop_table(self, table_name: str, schema_name: Optional[str] = None):
         schema_name = schema_name or self.schema_name
@@ -71,24 +80,57 @@ class Context:
 
     # ----------------------------------------------------------------- sql
     def sql(self, sql: str, return_futures: bool = True):
-        """Parse, plan, optimize and execute one query.
+        """Parse, plan, optimize and execute one query, or answer a plain
+        ``EXPLAIN`` with a one-column ``PLAN`` table.
 
         Returns a device ``Table`` (``return_futures=True``) or a pandas
-        DataFrame (``return_futures=False``)."""
+        DataFrame (``return_futures=False``).  The call's telemetry report
+        is kept as ``self.last_report``."""
+        trace = None
+        try:
+            with _tel.trace_scope(sql) as trace:
+                with _tel.span("parse"):
+                    stmts = parse_sql(sql)
+                result = None
+                for stmt in stmts:
+                    result = self._execute_statement(stmt, sql)
+                if result is None:
+                    result = Table([], [])
+                if trace is not None:
+                    trace.root.attrs["rows_out"] = result.num_rows
+                if return_futures:
+                    return result
+                with _tel.span("fetch"):
+                    return result.to_pandas()
+        finally:
+            if trace is not None and trace.report is not None:
+                self.last_report = trace.report
+
+    def _execute_statement(self, stmt: A.Statement, sql: str) -> Table:
         from .physical.rel.executor import RelExecutor
 
-        result = None
-        for stmt in parse_sql(sql):
-            if not isinstance(stmt, A.QueryStatement):
+        if isinstance(stmt, A.ExplainStatement):
+            if stmt.analyze or stmt.profile:
                 raise NotImplementedError(
-                    f"Statement {type(stmt).__name__} is not ported yet")
-            result = RelExecutor(self).execute(self._get_plan(stmt.query, sql))
-        if result is None:
-            result = Table([], [])
-        return result if return_futures else result.to_pandas()
+                    "EXPLAIN ANALYZE and EXPLAIN PROFILE are not ported yet")
+            with _tel.span("plan"):
+                plan = self._get_plan(stmt.query, sql)
+            # the plan, then the operator variants the statistics predict
+            lines = plan.explain().splitlines() + _stats.explain_lines(plan,
+                                                                       self)
+            return Table.from_pydict({"PLAN": np.array(lines, dtype=object)},
+                                     self.device)
+        if not isinstance(stmt, A.QueryStatement):
+            raise NotImplementedError(
+                f"Statement {type(stmt).__name__} is not ported yet")
+        with _tel.span("plan"):
+            plan = self._get_plan(stmt.query, sql)
+        with _tel.span("execute"):
+            return RelExecutor(self).execute(plan)
 
     def _get_plan(self, query: A.SelectLike, sql: str = "") -> RelNode:
-        return optimize(Binder(self, sql).bind(query))
+        # the context lets the optimizer order join chains by statistics
+        return optimize(Binder(self, sql).bind(query), context=self)
 
     def explain(self, sql: str) -> str:
         """The optimized plan as text."""

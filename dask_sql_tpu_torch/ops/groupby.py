@@ -1,12 +1,12 @@
 """Segmented aggregation: SQL GROUP BY on the device.
 
-The counterpart of ``dask_sql_tpu/ops/groupby.py``: keys factorize to dense
-codes (NULLs form their own group), then every aggregate is a segment
-reduction (``index_add_`` / ``scatter_reduce_``).  Ported here: the hash
-variant of ``group_codes``, ``segment_aggregate`` and
-``whole_table_aggregate``, and the row selections behind DISTINCT
-(``distinct_rows``, ``dedup_for_distinct_agg``); the dense and sorted code
-variants wait.
+The counterpart of ``dask_sql_tpu/ops/groupby.py``: keys become dense group
+codes (NULLs form their own group) by one of three variants the statistics
+choose between (``group_codes``: ``hash``, ``sorted``, ``dense``), then
+every aggregate is a segment reduction (``index_add_`` /
+``scatter_reduce_``) in ``segment_aggregate``, or a plain reduction in
+``whole_table_aggregate``; ``distinct_rows`` and ``dedup_for_distinct_agg``
+select the rows behind DISTINCT.
 """
 from __future__ import annotations
 
@@ -17,14 +17,137 @@ import numpy as np
 import torch
 
 from ..table import dict_sort_order, Column
-from ..types import SqlType, exact_decimal_scale, torch_dtype
-from .kernels import decimal_unscale, factorize_columns
+from ..types import SqlType, exact_decimal_scale, is_int_dtype, torch_dtype
+from .kernels import comparable_data, decimal_unscale, factorize_columns
 
 
-def group_codes(key_cols: List[Column]):
-    """Factorize group keys into dense codes 0..G-1 (ascending key order,
-    NULL groups first).  Returns (codes, first_row_per_group, G)."""
-    return factorize_columns(key_cols)
+def group_codes(key_cols: List[Column], variant: str = "hash",
+                dense_hint=None):
+    """Dense group codes 0..G-1 of the key columns.
+
+    Returns (codes, first_row_per_group, G, used_variant).  ``variant``
+    comes from the statistics (``runtime/statistics.groupby_decision``):
+    ``hash`` factorizes with ``torch.unique``; ``sorted`` is one stable
+    lexsort and a boundary scan; ``dense`` indexes a single integer key
+    directly (``slot = key - lo``).  All three number the groups alike
+    (ascending key order, the NULL group first) and pick the same first
+    rows, so the choice never changes an answer.  A variant that does not
+    apply falls through: ``dense`` to ``sorted`` (which needs no float
+    key) to ``hash``."""
+    if not key_cols:
+        return None, None, 1, "none"
+    if variant == "dense":
+        out = _dense_group_codes(key_cols, dense_hint)
+        if out is not None:
+            return (*out, "dense")
+        variant = "sorted"
+    if variant == "sorted":
+        out = _sorted_group_codes(key_cols)
+        if out is not None:
+            return (*out, "sorted")
+    return (*factorize_columns(key_cols, null_as_group=True), "hash")
+
+
+#: most direct-index slots ``dense`` allocates, even when forced
+_DENSE_HARD_CAP = 1 << 22
+_I64 = torch.iinfo(torch.int64)
+
+
+def _dense_group_codes(key_cols: List[Column], dense_hint=None):
+    """Direct-index codes of ONE integer key: slot = key - lo (+1 when the
+    key has NULLs, which take slot 0: the NULL group first), occupied slots
+    numbered in slot order by a cumulative sum.  The valid rows' min and
+    max (and whether there are valid and NULL rows) reach the host in one
+    synchronisation, the group count in a second; occupancy is a scatter
+    of flags (``torch.bincount`` would read its input's max on the card,
+    another synchronisation).  None where it does not apply."""
+    if len(key_cols) != 1:
+        return None
+    c = key_cols[0]
+    if c.stype.is_string or not is_int_dtype(c.data.dtype):
+        return None
+    n = len(c)
+    if n == 0:
+        return None
+    data = c.data.to(torch.int64)
+    if c.mask is not None:
+        # data under NULL rows is garbage: min and max of valid rows only
+        probe = torch.stack([
+            c.mask.any().to(torch.int64), (~c.mask).any().to(torch.int64),
+            torch.where(c.mask, data, _I64.max).min(),
+            torch.where(c.mask, data, _I64.min).max()])
+        any_valid, has_null, vlo, vhi = probe.tolist()
+        if not any_valid:
+            return None
+    else:
+        vlo, vhi = torch.stack([data.min(), data.max()]).tolist()
+        has_null = 0
+    lo, hi = vlo, vhi
+    if dense_hint is not None:
+        lo, hi = int(dense_hint[0]), int(dense_hint[1])
+        # stale statistics: rows outside the hinted domain void the hint
+        if vlo < lo or vhi > hi:
+            lo, hi = vlo, vhi
+    domain = hi - lo + 1
+    if domain <= 0 or domain > _DENSE_HARD_CAP:
+        return None
+    shift = 1 if has_null else 0
+    slots = (data - lo).clamp(0, domain - 1) + shift
+    if has_null:
+        slots = torch.where(c.mask, slots, 0)
+    # index_fill_ takes the scalar as it is; ``present[slots] = True``
+    # would copy it to the card and synchronise
+    present = torch.zeros(domain + shift, dtype=torch.bool,
+                          device=data.device).index_fill_(0, slots, True)
+    # occupied slot k -> its rank: ascending slot order IS ascending key
+    # order with the NULL slot first, the numbering of factorize
+    remap = torch.cumsum(present.to(torch.int64), 0) - 1
+    num_groups = int(remap[-1]) + 1
+    codes = remap[slots]
+    first = torch.full((num_groups,), n, dtype=torch.int64, device=data.device)
+    first.scatter_reduce_(0, codes, torch.arange(n, device=data.device),
+                          reduce="amin", include_self=True)
+    return codes, first, num_groups
+
+
+def _sorted_group_codes(key_cols: List[Column]):
+    """Sort-based codes: ONE stable lexsort over the keys (chained stable
+    sorts, least significant first, as in ``ops/sort.py``), then group
+    boundaries from adjacent-row comparisons.  Per column the order is
+    (null flag, comparable value) with NULL first, so the numbering is
+    factorize's, and the stable sort makes each group's first sorted row
+    its smallest row index.  One synchronisation (the boundary count).
+    None for float keys (NaN != NaN would split NaN groups that
+    ``torch.unique``'s order keeps together): the caller takes ``hash``."""
+    n = len(key_cols[0])
+    if n == 0:
+        return None
+    keys = []  # significance order: col0 flag, col0 value, col1 flag, ...
+    for c in key_cols:
+        data = comparable_data(c)
+        if data.dtype.is_floating_point:
+            return None
+        data = data.to(torch.int64)
+        if c.mask is not None:
+            keys.append(c.mask.to(torch.int64))    # NULL (0) first
+            keys.append(torch.where(c.mask, data, data[0]))
+        else:
+            keys.append(data)
+    order = torch.arange(n, device=keys[0].device)
+    for k in reversed(keys):
+        order = order[torch.sort(k[order], stable=True).indices]
+    diff = torch.zeros(n - 1, dtype=torch.bool, device=order.device)
+    for k in keys:
+        ks = k[order]
+        diff = diff | (ks[1:] != ks[:-1])
+    boundary = torch.cat([torch.ones(1, dtype=torch.bool, device=order.device),
+                          diff])
+    starts = torch.nonzero(boundary).reshape(-1)
+    num_groups = int(starts.shape[0])
+    codes_sorted = torch.cumsum(boundary.to(torch.int64), 0) - 1
+    codes = torch.empty(n, dtype=torch.int64, device=order.device)
+    codes[order] = codes_sorted
+    return codes, order[starts], num_groups
 
 
 def distinct_rows(cols: List[Column]) -> torch.Tensor:
@@ -198,7 +321,94 @@ def segment_aggregate(op: str, col: Optional[Column],
                               op, sent)
         return Column(out.to(torch_dtype(out_type)), out_type, has_any)
 
+    if op in ("EVERY", "BOOL_AND", "BOOL_OR", "ANY"):
+        every = op in ("EVERY", "BOOL_AND")
+        work = torch.where(valid, data.to(torch.bool), every).to(torch.int32)
+        sent = _minmax_sentinel(torch.int32, "MIN" if every else "MAX")
+        out = _segment_minmax(work, codes, num_groups,
+                              "MIN" if every else "MAX", sent) > 0
+        return Column(out, out_type, has_any)
+
+    if op in _PICK_FAMILY:
+        n = codes.shape[0]
+        idx = torch.arange(n, device=dev)
+        if op == "LAST_VALUE":
+            pick = _segment_minmax(torch.where(valid, idx, -1), codes,
+                                   num_groups, "MAX", -1)
+        else:
+            pick = _segment_minmax(torch.where(valid, idx, n), codes,
+                                   num_groups, "MIN", n)
+        return _picked(col, pick, has_any, n)
+
+    if op in _BIT_OPS:
+        return _segment_bits(op, data, valid, codes, num_groups, count,
+                             has_any, out_type)
+
+    if op == "LISTAGG":
+        return _listagg(col, valid, codes, num_groups)
+
     raise NotImplementedError(f"Aggregate {op} is not ported yet")
+
+
+_PICK_FAMILY = ("ANY_VALUE", "SINGLE_VALUE", "FIRST_VALUE", "LAST_VALUE")
+_BIT_OPS = ("BIT_AND", "BIT_OR", "BIT_XOR")
+
+
+def _picked(col: Column, pick: torch.Tensor, has_any: torch.Tensor,
+            n: int) -> Column:
+    """The rows ``pick`` of ``col``, NULL where a group has no valid row."""
+    if n == 0:
+        # no row to gather: every group is empty, every value NULL
+        dictionary = col.dictionary
+        if dictionary is not None and not len(dictionary):
+            dictionary = np.array([""], dtype=object)
+        return Column(torch.zeros_like(pick, dtype=col.data.dtype), col.stype,
+                      torch.zeros_like(has_any), dictionary)
+    out = col.take(pick.clamp(0, n - 1))
+    return Column(out.data, out.stype, out.valid_mask() & has_any,
+                  out.dictionary)
+
+
+def _segment_bits(op: str, data: torch.Tensor, valid: torch.Tensor,
+                  codes: torch.Tensor, num_groups: int, count: torch.Tensor,
+                  has_any: torch.Tensor, out_type: SqlType) -> Column:
+    """BIT_AND / BIT_OR / BIT_XOR per group, on the device: one integer
+    segment sum per bit counts the valid rows with that bit set; the bit
+    is set in the result where that count equals the group's valid count
+    (AND), is positive (OR) or is odd (XOR).  An empty group gets the
+    identity (all ones for AND, zero otherwise), as in the JAX package's
+    host reduction; it is NULL all the same.  No NULL mask when every
+    group has a row."""
+    bits = data.element_size() * 8
+    out = torch.zeros(num_groups, dtype=data.dtype, device=data.device)
+    one = torch.ones((), dtype=data.dtype, device=data.device)
+    for b in range(bits):
+        bit = torch.where(valid, (data >> b) & 1, 0).to(torch.int64)
+        set_rows = _segment_sum(bit, codes, num_groups)
+        if op == "BIT_AND":
+            on = set_rows == count
+        elif op == "BIT_OR":
+            on = set_rows > 0
+        else:
+            on = (set_rows & 1) == 1
+        out = out | torch.where(on, one << b, 0).to(data.dtype)
+    mask = None if bool(has_any.all()) else has_any
+    return Column(out.to(torch_dtype(out_type)), out_type, mask)
+
+
+def _listagg(col: Column, valid: torch.Tensor, codes: torch.Tensor,
+             num_groups: int) -> Column:
+    """LISTAGG: each group's valid values as text, joined by ',' in row
+    order; NULL for a group without one.  A host loop over the values, as
+    in the JAX package (strings live on the host)."""
+    vals = col.decode() if col.stype.is_string \
+        else col.to_numpy().astype(object)
+    outs = [[] for _ in range(num_groups)]
+    for c, v, ok in zip(codes.tolist(), vals, valid.tolist()):
+        if ok:
+            outs[c].append(str(v))
+    strs = np.array([",".join(o) if o else None for o in outs], dtype=object)
+    return Column._encode_strings(strs, None, codes.device)
 
 
 def _ranks_to_codes(out_ranks: torch.Tensor, col: Column, out_type: SqlType,
@@ -264,5 +474,27 @@ def whole_table_aggregate(op: str, col: Optional[Column],
         else:
             out = reduce(torch.where(valid, data, sent)).reshape(1)
         return Column(out.to(torch_dtype(out_type)), out_type, has_any)
+
+    if op in ("EVERY", "BOOL_AND"):
+        out = torch.where(valid, data.to(torch.bool), True).all().reshape(1)
+        return Column(out, out_type, has_any)
+    if op in ("BOOL_OR", "ANY"):
+        out = torch.where(valid, data.to(torch.bool), False).any().reshape(1)
+        return Column(out, out_type, has_any)
+
+    if op in _PICK_FAMILY:
+        idx = torch.arange(n_rows, dtype=torch.int64, device=device)
+        if n_rows == 0:
+            pos = idx.new_zeros(1)
+        elif op == "LAST_VALUE":
+            pos = torch.where(valid, idx, -1).max().reshape(1)
+        else:
+            pos = torch.where(valid, idx, n_rows).min().reshape(1)
+        return _picked(col, pos, has_any, n_rows)
+
+    if op in _BIT_OPS or op == "LISTAGG":
+        # the segment forms over one group
+        zeros = torch.zeros(n_rows, dtype=torch.int64, device=device)
+        return segment_aggregate(op, col, zeros, 1, out_type, fmask, n_rows)
 
     raise NotImplementedError(f"Whole-table aggregate {op} is not ported yet")

@@ -1,7 +1,9 @@
 """Equi-join kernels: sort-probe pair expansion on the device.
 
-The counterpart of ``dask_sql_tpu/ops/join.py``: keys factorize onto a
-shared domain (``kernels.join_key_codes``), the build side is sorted by code
+The counterpart of ``dask_sql_tpu/ops/join.py``: keys get codes on a shared
+domain (``kernels.join_key_codes``, by the ``hash`` or the statistics'
+``dense`` variant, which give equal keys equal codes in the same order),
+the build side is sorted by code
 (stable), probes binary-search their run, and the matched pairs are
 materialized with a cumsum expansion -- all plain torch ops.  The pair order
 is the JAX package's: left rows in order, and for each left row its right
@@ -49,18 +51,21 @@ def _expand_matches(lcodes: torch.Tensor, rcodes: torch.Tensor
 def join_tables(left: Table, right: Table, left_keys: List[int],
                 right_keys: List[int], join_type: str,
                 null_aware_anti: bool = False,
-                null_equal: bool = False) -> Tuple[Table, None]:
+                null_equal: bool = False,
+                variant: str = "hash") -> Tuple[Table, None]:
     """Equi-join two tables.
 
     Returns (joined table, None): left columns then right columns, or only
     the left columns for SEMI/ANTI.  Outer-join unmatched rows follow the
-    matched pairs, with NULLs on the other side."""
+    matched pairs, with NULLs on the other side.  ``variant`` is the key
+    coding (``kernels.join_key_codes``)."""
     nl, nr = left.num_rows, right.num_rows
     dev = left.columns[0].device if left.columns else torch.device("cpu")
     if left_keys:
         lcodes, rcodes = join_key_codes(
             [left.columns[i] for i in left_keys],
-            [right.columns[i] for i in right_keys], null_equal=null_equal)
+            [right.columns[i] for i in right_keys], null_equal=null_equal,
+            variant=variant)
     else:
         # cross join: all pairs
         lcodes = torch.zeros(nl, dtype=torch.int64, device=dev)

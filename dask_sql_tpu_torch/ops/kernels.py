@@ -2,9 +2,9 @@
 compaction, civil-date arithmetic.
 
 The counterpart of ``dask_sql_tpu/ops/kernels.py`` for what the eager
-executor calls: factorization, the hash variant of the join key codes,
-compaction, civil dates and EXTRACT.  The stats-driven dense join codes and
-the trace-safe sort keys wait for the statistics and compiled-tier slices.
+executor calls: factorization, the join key codes (the shared ``hash``
+factorize and the statistics-driven ``dense`` coding), compaction, civil
+dates and EXTRACT.  The trace-safe sort keys wait for the compiled tier.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..table import Column
+from ..types import is_int_dtype
 
 
 # ---------------------------------------------------------------------------
@@ -42,12 +43,15 @@ def comparable_data(col: Column) -> torch.Tensor:
     return col.data
 
 
-def factorize_columns(cols: List[Column]) -> Tuple[torch.Tensor, torch.Tensor, int]:
+def factorize_columns(cols: List[Column], *, null_as_group: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Multi-column factorize: rows -> dense codes 0..G-1 in ascending key
-    order, NULL first per column (SQL GROUP BY semantics: NULL keys form
-    their own groups).
+    order, NULL first per column.
 
-    Returns (codes int64, representative (first) row per group, G).
+    Returns (codes int64, representative (first) row per group, G).  Rows
+    with a NULL key form their own groups by null pattern
+    (``null_as_group=True``, GROUP BY semantics) or get code -1 (join-key
+    semantics, where NULL never matches).
     """
     n = len(cols[0])
     dev = cols[0].device
@@ -72,20 +76,42 @@ def factorize_columns(cols: List[Column]) -> Tuple[torch.Tensor, torch.Tensor, i
     uniq_codes, codes = torch.unique(combined, sorted=True, return_inverse=True)
     codes = codes.reshape(-1)
     num_groups = int(uniq_codes.shape[0])
+    rows = torch.arange(n, device=dev)
     first = torch.full((num_groups,), n, dtype=torch.int64, device=dev)
-    first.scatter_reduce_(0, codes, torch.arange(n, device=dev),
-                          reduce="amin", include_self=True)
+    if null_as_group:
+        first.scatter_reduce_(0, codes, rows, reduce="amin", include_self=True)
+        return codes, first, num_groups
+    any_null = torch.zeros(n, dtype=torch.bool, device=dev)
+    for c in cols:
+        if c.mask is not None:
+            any_null = any_null | ~c.mask
+    codes = torch.where(any_null, -1, codes)
+    valid = codes >= 0
+    first.scatter_reduce_(0, torch.where(valid, codes, 0),
+                          torch.where(valid, rows, n), reduce="amin",
+                          include_self=True)
     return codes, first, num_groups
 
 
 def join_key_codes(left: List[Column], right: List[Column],
-                   null_equal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Factorize left+right key columns on a shared domain (the JAX
-    package's hash variant).
+                   null_equal: bool = False, variant: str = "hash"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Codes of left+right key columns on a shared domain.
 
     Returns int64 codes for each side; -1 marks rows with a NULL key, which
     never match.  ``null_equal=True`` is set-operation equality (IS NOT
-    DISTINCT FROM): NULL gets its own shared code and matches NULL."""
+    DISTINCT FROM): NULL gets its own shared code and matches NULL.
+
+    ``variant="hash"`` factorizes both sides together (``torch.unique``
+    over the concatenated keys).  ``variant="dense"`` (the statistics'
+    choice for one integer key pair) codes ``key - lo`` with no unique and
+    no sort, and falls back to ``hash`` where it does not apply.  Both
+    give equal codes to equal keys in key order, so joins pair the same
+    rows in the same order under either."""
+    if variant == "dense":
+        out = _dense_join_codes(left, right, null_equal)
+        if out is not None:
+            return out
     nl = len(left[0]) if left else 0
     per = []
     for lc, rc in zip(left, right):
@@ -110,6 +136,55 @@ def join_key_codes(left: List[Column], right: List[Column],
         bad = bad | (c < 0)
     combined = torch.where(bad, -1, combined)
     return combined[:nl], combined[nl:]
+
+
+_I64_MAX = torch.iinfo(torch.int64).max
+_I64_MIN = torch.iinfo(torch.int64).min
+
+
+def _dense_join_codes(left: List[Column], right: List[Column],
+                      null_equal: bool):
+    """Direct shared coding of one integer key pair: ``code = key - lo``
+    (``+1``, with NULL as the shared code 0, under ``null_equal``), where
+    ``lo`` is the smallest valid key of either side.  No unique and no
+    sort: the four masked min/max reductions are read to the host in one
+    synchronisation, the only one.  None where it does not apply
+    (several key columns, strings, floats, no rows, every key NULL, or a
+    spread of 2**62 or more that ``key - lo`` could overflow)."""
+    if len(left) != 1 or len(right) != 1:
+        return None
+    lc, rc = left[0], right[0]
+    for c in (lc, rc):
+        if c.stype.is_string or not is_int_dtype(c.data.dtype):
+            return None
+    if len(lc) + len(rc) == 0:
+        return None
+    bounds = []
+    for c in (lc, rc):
+        if not len(c):
+            continue
+        data = c.data.to(torch.int64)
+        if c.mask is not None:
+            bounds += [torch.where(c.mask, data, _I64_MAX).min(),
+                       torch.where(c.mask, data, _I64_MIN).max()]
+        else:
+            bounds += [data.min(), data.max()]
+    got = torch.stack(bounds).tolist()
+    los = [v for v in got[0::2] if v != _I64_MAX]
+    his = [v for v in got[1::2] if v != _I64_MIN]
+    if not los or not his:
+        return None  # every key NULL on both sides
+    lo, hi = min(los), max(his)
+    if hi - lo >= 2 ** 62:
+        return None
+    shift = 1 if null_equal else 0
+    out = []
+    for c in (lc, rc):
+        codes = c.data.to(torch.int64) - lo + shift
+        if c.mask is not None:
+            codes = torch.where(c.mask, codes, 0 if null_equal else -1)
+        out.append(codes)
+    return out[0], out[1]
 
 
 # ---------------------------------------------------------------------------

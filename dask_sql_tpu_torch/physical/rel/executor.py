@@ -9,16 +9,22 @@ Join (every join type, equi keys plus a residual condition) and the set
 operations Union, Intersect and Except.  Any other node raises
 ``NotImplementedError``.
 
-Joins always take the hash key coding (``ops/kernels.join_key_codes``):
-the JAX package answers "hash" too whenever it has no table statistics,
-and the statistics-driven variants wait for their own slice.
+The statistics choose the operators, as in the JAX package
+(``runtime/statistics.py``): ``groupby_decision`` picks the GROUP BY codes
+(``hash``, ``sorted`` or ``dense``) and ``join_decision`` the join key
+codes (``hash`` or ``dense``) of every join that builds them, the set
+operations included.  Each choice that ran is recorded
+(``record_choice``: a counter, and a line on the query's span).
 
-The aggregate plugin carries the static-domain route that the JAX package
-keeps in its compiled tier (``physical/compiled.py``: ``_try_static_codes``,
-``_decode_static_keys``, ``_static_domain_aggregate``): GROUP BY keys with a
-statically enumerable domain of at most 256 slots (dictionary-encoded
-strings, booleans) and only SUM/$SUM0/AVG/COUNT aggregates reduce through
-the fixed-point segmented-sum kernel (``ops/gpu_kernels.py``).
+The aggregate plugin first tries the static-domain route that the JAX
+package keeps in its compiled tier (``physical/compiled.py``:
+``_try_static_codes``, ``_decode_static_keys``,
+``_static_domain_aggregate``): GROUP BY keys with a statically enumerable
+domain of at most 256 slots (dictionary-encoded strings, booleans) and only
+SUM/$SUM0/AVG/COUNT aggregates reduce through the fixed-point
+segmented-sum kernel (``ops/gpu_kernels.py``); it is recorded as
+``groupby=static``.  ``DSQL_FORCE_GROUPBY`` bypasses it, so that a forced
+variant is the one that runs.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ from ...plan.nodes import (
     LogicalValues, RelNode, RexCall,
 )
 from ...plan.optimizer import split_join_condition
+from ...runtime import statistics as _stats
 from ...table import Column, Scalar, Table, dict_sort_order
 from ...types import BOOLEAN, exact_decimal_scale, physical_dtype, torch_dtype
 from ...utils import Pluggable
@@ -151,9 +158,15 @@ def _aggregate(rel: LogicalAggregate, ex: RelExecutor) -> Table:
 
     static = _static_domain_aggregate(rel, src, key_cols, ex.device)
     if static is not None:
+        _stats.record_choice("groupby", "static")
         return static
 
-    codes, first, num_groups = G.group_codes(key_cols)
+    variant, info = _stats.groupby_decision(rel, ex.context)
+    hint = (info["lo"], info["hi"]) if "lo" in info else None
+    codes, first, num_groups, used = G.group_codes(key_cols, variant, hint)
+    if used != "hash" or info:
+        _stats.record_choice("groupby", used, **{
+            k: v for k, v in info.items() if k not in ("lo", "hi")})
     out_cols = [c.take(first) for c in key_cols]
     for j, agg in enumerate(rel.aggs):
         f = rel.schema[len(rel.group_keys) + j]
@@ -182,9 +195,14 @@ def _join(rel: LogicalJoin, ex: RelExecutor) -> Table:
     lk = [k for k, _ in equi]
     rk = [k for _, k in equi]
 
+    def key_variant() -> str:
+        return _join_variant(rel, [left.columns[i] for i in lk],
+                             [right.columns[i] for i in rk], ex)
+
     def pair_codes():
         return join_key_codes([left.columns[i] for i in lk],
-                              [right.columns[i] for i in rk])
+                              [right.columns[i] for i in rk],
+                              variant=key_variant())
 
     if jt in ("SEMI", "ANTI"):
         if not equi and residual:
@@ -201,13 +219,15 @@ def _join(rel: LogicalJoin, ex: RelExecutor) -> Table:
             li, ri, _ = J._expand_matches(*pair_codes())
             return _semi_anti_pairs(ex, left, right, li, ri, residual, jt)
         return J.join_tables(left, right, lk, rk, jt,
-                             getattr(rel, "null_aware", False))[0]
+                             getattr(rel, "null_aware", False),
+                             variant=key_variant())[0]
 
     if not equi:
         # cross join or pure non-equi: pair expansion + residual filter
         li, ri = J.cross_join_pairs(left.num_rows, right.num_rows, ex.device)
     elif not residual:
-        return J.join_tables(left, right, lk, rk, jt)[0].with_names(out_names)
+        return J.join_tables(left, right, lk, rk, jt, variant=key_variant()
+                             )[0].with_names(out_names)
     else:
         li, ri, _ = J._expand_matches(*pair_codes())
     lt, rt = left.take(li), right.take(ri)
@@ -219,6 +239,17 @@ def _join(rel: LogicalJoin, ex: RelExecutor) -> Table:
         return pairs.take(mask_to_indices(keep))
     return J.rejoin_outer(left, right, pairs, keep, li, ri, jt
                           ).with_names(out_names)
+
+
+def _join_variant(rel, left_cols: List[Column], right_cols: List[Column],
+                  ex: RelExecutor) -> str:
+    """The statistics' key coding for one join (``rel`` None for a set
+    operation), recorded when it is not the statistics-free default."""
+    variant, info = _stats.join_decision(rel, left_cols, right_cols,
+                                         ex.context)
+    if variant != "hash" or info:
+        _stats.record_choice("join", variant, **info)
+    return variant
 
 
 def _pair_mask(ex: RelExecutor, pairs: Table, residual) -> torch.Tensor:
@@ -269,7 +300,9 @@ def _set_semi_anti(rel, ex: RelExecutor, jt: str) -> Table:
     b = ex.execute(rel.inputs_[1])
     a = a.take(G.distinct_rows(a.columns))
     keys = list(range(a.num_columns))
-    out, _ = J.join_tables(a, b, keys, keys, jt, null_equal=True)
+    variant = _join_variant(None, a.columns, b.columns, ex)
+    out, _ = J.join_tables(a, b, keys, keys, jt, null_equal=True,
+                           variant=variant)
     return out.with_names([f.name for f in rel.schema])
 
 

@@ -13,6 +13,7 @@ RelNode -> RelNode function, so user rules can be appended to ``PASSES``.
 """
 from __future__ import annotations
 
+import logging
 from typing import Dict, List, Optional, Set, Tuple
 
 from ..types import BOOLEAN
@@ -23,6 +24,8 @@ from .nodes import (
     RexCall, RexInputRef, RexLiteral, RexNode, RexScalarSubquery, RexUdf,
     SortCollation, WindowCall, remap_rex, rex_inputs,
 )
+
+logger = logging.getLogger(__name__)
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +240,7 @@ def push_filters(rel: RelNode) -> RelNode:
 # pass: connectivity-based join reordering
 # ---------------------------------------------------------------------------
 
-def reorder_joins(rel: RelNode) -> RelNode:
+def reorder_joins(rel: RelNode, context=None) -> RelNode:
     """Reorder INNER/CROSS join chains so every step has a join predicate.
 
     The binder lowers a comma FROM list to a left-deep cross-product chain
@@ -261,29 +264,54 @@ def reorder_joins(rel: RelNode) -> RelNode:
     # through the rewritten node's inputs afterwards
     out = None
     if isinstance(rel, LogicalFilter) and isinstance(rel.input, LogicalJoin):
-        out = _reorder_chain(rel.input, _split_conjuncts(rel.condition))
+        out = _reorder_chain(rel.input, _split_conjuncts(rel.condition),
+                             context)
     elif isinstance(rel, LogicalJoin):
-        out = _reorder_chain(rel, [])
+        out = _reorder_chain(rel, [], context)
     if out is not None:
         chain, leftover = out
         new: RelNode = chain
         if leftover:
             new = LogicalFilter(input=chain, condition=_and_all(leftover),
                                 schema=chain.schema)
-        return new.with_inputs([reorder_joins(i)
+        return new.with_inputs([reorder_joins(i, context)
                                 for i in new.inputs])
     if rel.inputs:
-        rel = rel.with_inputs([reorder_joins(i)
+        rel = rel.with_inputs([reorder_joins(i, context)
                                for i in rel.inputs])
     return rel
 
 
-def _reorder_chain(root: LogicalJoin, filt_conjuncts: List[RexNode]):
+def reorder_joins_stats(rel: RelNode, context) -> RelNode:
+    """Statistics-driven join ordering (runtime/statistics.py): rank join
+    orders by estimated output cardinality — NDV-based equi-join
+    selectivity over ingest stats — instead of the stranded-conjunct count
+    alone.  Runs as a POST-pass after the rule pipeline (which leaves
+    semantics-preserving INNER/CROSS chains), rewrites only on a
+    clear estimated-cost win that never increases stranded steps, and is
+    a no-op without stats or with DSQL_ADAPTIVE=0."""
+    from ..runtime import statistics as _stats
+
+    if context is None or not _stats.adaptive_enabled():
+        return rel
+    try:
+        return reorder_joins(rel, context)
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except Exception:
+        logger.debug("stats join reorder failed; keeping plan",
+                     exc_info=True)
+        return rel
+
+
+def _reorder_chain(root: LogicalJoin, filt_conjuncts: List[RexNode],
+                   context=None):
     """Returns (new_rel, leftover_filter_conjuncts) or None to keep as-is.
 
-    The statistics-driven order of the JAX package (estimated
-    cardinality from ingest-time table statistics) is not ported yet:
-    the order here only chases connectivity."""
+    With ``context`` (stats mode) the greedy order minimizes ESTIMATED
+    intermediate cardinality instead of just chasing connectivity, and
+    the rewrite guard becomes "clearly cheaper and never more stranded"
+    instead of "strictly fewer stranded steps"."""
     if root.join_type not in ("INNER", "CROSS"):
         return None
     leaves: List[Tuple[int, RelNode]] = []   # (global offset, leaf)
@@ -354,38 +382,47 @@ def _reorder_chain(root: LogicalJoin, filt_conjuncts: List[RexNode]):
         return {next(leaf_iter)}, 0
 
     orig_stranded = tree_stranded(root)[1]
-    if orig_stranded == 0:
+    if orig_stranded == 0 and context is None:
         return None
 
-    # greedy order: prefer an equi-connected leaf (FROM order), then
-    # any connected leaf, then fall back to a genuine cross step
-    order = [0]
-    joined = {0}
-    remaining = list(range(1, len(leaves)))
-    while remaining:
-        pick = None
-        for want_equi in (True, False):
-            for li in remaining:
-                for c, ls in connectors:
-                    if (li in ls and (ls - {li}) <= joined
-                            and (is_equi(c) or not want_equi)):
-                        pick = li
+    if context is not None:
+        order = _stats_order(leaves, leaf_of, connectors, is_equi, context)
+        # never trade estimated cost for MORE stranded (cross) steps, and
+        # only rewrite when the order actually changed — an equal order
+        # would re-trigger on its own output every optimize() call
+        if (order is None or order == list(range(len(leaves)))
+                or count_stranded(order) > orig_stranded):
+            return None
+    else:
+        # greedy order: prefer an equi-connected leaf (FROM order), then
+        # any connected leaf, then fall back to a genuine cross step
+        order = [0]
+        joined = {0}
+        remaining = list(range(1, len(leaves)))
+        while remaining:
+            pick = None
+            for want_equi in (True, False):
+                for li in remaining:
+                    for c, ls in connectors:
+                        if (li in ls and (ls - {li}) <= joined
+                                and (is_equi(c) or not want_equi)):
+                            pick = li
+                            break
+                    if pick is not None:
                         break
                 if pick is not None:
                     break
-            if pick is not None:
-                break
-        if pick is None:
-            pick = remaining[0]
-        order.append(pick)
-        joined.add(pick)
-        remaining.remove(pick)
+            if pick is None:
+                pick = remaining[0]
+            order.append(pick)
+            joined.add(pick)
+            remaining.remove(pick)
 
-    # rewrite only on STRICT improvement: an equally-stranded reorder
-    # would re-trigger on its own output forever (a genuinely
-    # unconnected pair stays a cross join no matter the order)
-    if count_stranded(order) >= orig_stranded:
-        return None
+        # rewrite only on STRICT improvement: an equally-stranded reorder
+        # would re-trigger on its own output forever (a genuinely
+        # unconnected pair stays a cross join no matter the order)
+        if count_stranded(order) >= orig_stranded:
+            return None
 
     # ordinal mapping old-global -> new-global
     old_to_new: Dict[int, int] = {}
@@ -434,6 +471,157 @@ def _reorder_chain(root: LogicalJoin, filt_conjuncts: List[RexNode]):
                 if id(c) not in used_filter]
     leftover.extend(single)
     return proj, leftover
+
+
+def _stats_order(leaves, leaf_of, connectors, is_equi, context):
+    """Greedy minimum-estimated-cardinality join order (System-R style,
+    left-deep, no DP — chains are short).  Returns the leaf order or None
+    when any leaf is inestimable or no order clearly beats the written
+    one (10% hysteresis so borderline estimates don't flap plans)."""
+    from ..runtime import statistics as _stats
+
+    leaf_rows = []
+    for _, leaf in leaves:
+        r = _stats.estimate_rows(leaf, context)
+        if r is None:
+            return None
+        leaf_rows.append(max(float(r), 1.0))
+
+    # the greedy below asks the same questions many times over (every
+    # start, every step): each connector's inputs and kind, and each
+    # ordinal's NDV, are worked out once
+    inputs_of = {id(c): rex_inputs(c) for c, _ in connectors}
+    equi_of = {id(c): is_equi(c) for c, _ in connectors}
+    ndv_cache: Dict[int, Optional[int]] = {}
+
+    def ordinal_ndv(o):
+        if o not in ndv_cache:
+            li = leaf_of[o]
+            cs = _stats.column_stats_for(
+                leaves[li][1], o - leaves[li][0], context)
+            ndv_cache[o] = cs.ndv if cs is not None and cs.ndv else None
+        return ndv_cache[o]
+
+    def step(cur, joined, li):
+        """Estimated rows after joining leaf ``li`` onto the prefix."""
+        est = cur * leaf_rows[li]
+        connected = False
+        for c, ls in connectors:
+            if li in ls and (ls - {li}) <= joined:
+                connected = True
+                if equi_of[id(c)]:
+                    ndvs = [v for v in (ordinal_ndv(o)
+                                        for o in inputs_of[id(c)]) if v]
+                    est /= max(max(ndvs) if ndvs else 10.0, 10.0)
+                else:
+                    est *= 0.5
+        return max(est, 1.0), connected
+
+    # The JAX package's compiled equi join builds a hash table on its
+    # smaller side and requires a UNIQUE build key (a duplicate build drops
+    # the plan to its eager tier); the port keeps the rule so that both
+    # packages choose the same order from the same statistics.  An attach step
+    # is "risky" when NEITHER side of its equi key can be proven unique
+    # from stats; the greedy avoids risky steps and an order that is
+    # riskier than the written one is rejected outright — a cardinality
+    # win is worthless if it costs the compiled path.
+    unique_cache: Dict[int, Set[int]] = {}
+
+    def leaf_unique_ords(li):
+        got = unique_cache.get(li)
+        if got is None:
+            off, leaf = leaves[li]
+            got = set()
+            for k in range(len(leaf.schema)):
+                cs = _stats.column_stats_for(leaf, k, context)
+                if (cs is not None and cs.ndv
+                        and cs.ndv >= 0.95 * leaf_rows[li]):
+                    got.add(off + k)
+            unique_cache[li] = got
+        return got
+
+    def attach(uniq, joined, li):
+        """(risky, new_uniq) for attaching ``li`` to the prefix.  ``uniq``
+        is the set of ordinals the prefix is provably unique on; it
+        survives a step only through the side whose key IS unique (the
+        other side's rows may fan out)."""
+        leaf_ords, int_ords = set(), set()
+        for c, ls in connectors:
+            if li in ls and (ls - {li}) <= joined and equi_of[id(c)]:
+                for o in inputs_of[id(c)]:
+                    (leaf_ords if leaf_of[o] == li else int_ords).add(o)
+        if not leaf_ords:  # cross or pure non-equi step: no hash build
+            return False, set()
+        leaf_u = leaf_unique_ords(li)
+        leaf_ok = bool(leaf_ords & leaf_u)
+        int_ok = bool(int_ords & uniq)
+        new: Set[int] = set()
+        if leaf_ok:
+            new |= uniq
+        if int_ok:
+            new |= leaf_u
+        return not (leaf_ok or int_ok), new
+
+    def seq_cost(seq):
+        cur = leaf_rows[seq[0]]
+        joined = {seq[0]}
+        cost = 0.0
+        for li in seq[1:]:
+            cur, _ = step(cur, joined, li)
+            joined.add(li)
+            cost += cur
+        return cost
+
+    def seq_risk(seq):
+        joined = {seq[0]}
+        uniq = leaf_unique_ords(seq[0])
+        risk = 0
+        for li in seq[1:]:
+            risky, uniq = attach(uniq, joined, li)
+            risk += risky
+            joined.add(li)
+        return risk
+
+    def greedy(start):
+        order = [start]
+        joined = {start}
+        uniq = leaf_unique_ords(start)
+        cur = leaf_rows[start]
+        cost = 0.0
+        risk = 0
+        remaining = [i for i in range(len(leaves)) if i != start]
+        while remaining:
+            best = None
+            for li in remaining:
+                est, connected = step(cur, joined, li)
+                risky, _ = attach(uniq, joined, li)
+                key = (0 if connected else 1, 1 if risky else 0, est, li)
+                if best is None or key < best[0]:
+                    best = (key, li, est)
+            _, li, est = best
+            risky, uniq = attach(uniq, joined, li)
+            risk += risky
+            order.append(li)
+            joined.add(li)
+            remaining.remove(li)
+            cur = est
+            cost += est
+        return order, cost, risk
+
+    best_order, best_cost, best_risk = None, None, 0
+    for start in range(len(leaves)):
+        order, cost, risk = greedy(start)
+        if best_cost is None or (risk, cost) < (best_risk, best_cost):
+            best_order, best_cost, best_risk = order, cost, risk
+
+    base_cost = seq_cost(list(range(len(leaves))))
+    if (best_order == list(range(len(leaves)))
+            or best_cost >= 0.9 * base_cost
+            or best_risk > seq_risk(list(range(len(leaves))))):
+        return None
+    _stats.record_choice("join_order", "stats", leaves=len(leaves),
+                         est=int(best_cost), base=int(base_cost))
+    return best_order
 
 
 # ---------------------------------------------------------------------------
@@ -1016,17 +1204,20 @@ def optimize_subplans(rel: RelNode) -> RelNode:
     return rel
 
 
-def optimize(plan: RelNode, enable_pruning: bool = True) -> RelNode:
-    """The Python rule pipeline (``PASSES``), then subplans and pruning.
+def optimize(plan: RelNode, enable_pruning: bool = True,
+             context=None) -> RelNode:
+    """The Python rule pipeline (``PASSES``), then subplans and pruning,
+    then the statistics-driven join order (``reorder_joins_stats``).
 
-    The JAX package prefers its native C++ optimizer and runs a
-    statistics-driven join reorder as a post-pass; the port runs the
-    Python pipeline alone, which is the semantics reference the native
-    optimizer is tested against."""
+    The JAX package prefers its native C++ optimizer, a lockstep copy of
+    these passes, and runs the same statistics post-pass after either
+    pipeline; the port runs the Python pipeline, the semantics reference
+    the native one is tested against.  Without a ``context`` (or with
+    ``DSQL_ADAPTIVE=0``) the post-pass leaves the plan as it is."""
     for p in PASSES:
         plan = p(plan)
     plan = optimize_subplans(plan)
     if enable_pruning:
         plan = prune_columns(plan)
         plan = merge_projects(plan)
-    return plan
+    return reorder_joins_stats(plan, context)

@@ -1,0 +1,199 @@
+"""Query-lifecycle telemetry: counters, spans and a per-query report.
+
+The counterpart of ``dask_sql_tpu/runtime/telemetry.py``, cut to what the
+statistics module and ``Context.sql`` use:
+
+- ``REGISTRY`` (a ``MetricsRegistry``): process-global thread-safe
+  counters; ``inc`` bumps one, ``counters()`` snapshots them.  The
+  adaptive dispatch counts each choice as ``operator_choice_<op>_<variant>``.
+- Spans: ``trace_scope(sql)`` opens one trace per outermost query on this
+  thread, ``span(name)`` nests a timed child under the current span,
+  ``current_span`` returns it.
+- ``QueryReport``: built when the trace closes -- phase walls (parse,
+  plan, execute, fetch), the counter deltas of the query, the operator
+  choices recorded on its spans, and the span tree.  ``Context.sql`` keeps
+  it as ``context.last_report``.
+
+The JAX package's environment-armed hooks (fleet, flight recorder, device
+profiler, event bus, autopilot, chrome-trace export, slow-query log),
+histograms, gauges, the Prometheus rendering and the report's text and
+dict renderings are not part of the port.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from contextlib import contextmanager
+from typing import Any, Dict, List, Optional
+
+
+class MetricsRegistry:
+    """Process-global thread-safe counters."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counters: Dict[str, int] = {}
+
+    def inc(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0) + n
+
+    def counters(self) -> Dict[str, int]:
+        """A snapshot of every counter."""
+        with self._lock:
+            return dict(self._counters)
+
+
+REGISTRY = MetricsRegistry()
+
+
+def inc(name: str, n: int = 1) -> None:
+    """Atomic increment of one counter of the global registry."""
+    REGISTRY.inc(name, n)
+
+
+# ---------------------------------------------------------------------------
+# spans
+# ---------------------------------------------------------------------------
+
+class Span:
+    """One timed node of a query's span tree."""
+
+    __slots__ = ("name", "t0", "t1", "attrs", "children")
+
+    def __init__(self, name: str, attrs: Optional[dict] = None):
+        self.name = name
+        self.t0 = time.perf_counter()
+        self.t1: Optional[float] = None
+        self.attrs: Dict[str, Any] = dict(attrs) if attrs else {}
+        self.children: List["Span"] = []
+
+    @property
+    def wall_ms(self) -> float:
+        end = self.t1 if self.t1 is not None else time.perf_counter()
+        return (end - self.t0) * 1e3
+
+    def walk(self):
+        yield self
+        for c in list(self.children):
+            yield from c.walk()
+
+
+class QueryTrace:
+    """One query's span tree and the counters at its start."""
+
+    __slots__ = ("query", "root", "lock", "counters0", "report")
+
+    def __init__(self, query: str = ""):
+        self.query = query
+        self.root = Span("query")
+        self.lock = threading.Lock()
+        self.counters0 = REGISTRY.counters()
+        self.report: Optional["QueryReport"] = None
+
+
+class _Tls(threading.local):
+    trace: Optional[QueryTrace] = None
+    span: Optional[Span] = None
+
+
+_tls = _Tls()
+
+
+def current_span() -> Optional[Span]:
+    return _tls.span
+
+
+@contextmanager
+def span(name: str, **attrs):
+    """Open a child span under the current one; no-op outside a trace.  An
+    escaping exception stamps ``error=<type name>`` on the span."""
+    trace = _tls.trace
+    parent = _tls.span
+    if trace is None or parent is None:
+        yield None
+        return
+    s = Span(name, attrs)
+    with trace.lock:
+        parent.children.append(s)
+    _tls.span = s
+    try:
+        yield s
+    except BaseException as e:
+        s.attrs["error"] = type(e).__name__
+        raise
+    finally:
+        s.t1 = time.perf_counter()
+        _tls.span = parent
+
+
+# ---------------------------------------------------------------------------
+# reports
+# ---------------------------------------------------------------------------
+
+#: span names that sum into the phase breakdown
+_PHASE_SPANS = ("parse", "plan", "execute", "fetch")
+
+
+class QueryReport:
+    """What one ``Context.sql`` call did.
+
+    ``phases``: wall ms per span name; ``counters``: registry deltas
+    between the trace's open and close (exact when queries do not
+    overlap); ``operators``: the adaptive dispatch choices recorded on the
+    spans, in span order; ``root``: the span tree."""
+
+    __slots__ = ("query", "wall_ms", "phases", "counters", "root",
+                 "rows_out", "operators")
+
+    def __init__(self, trace: QueryTrace):
+        root = trace.root
+        self.query = trace.query
+        self.wall_ms = root.wall_ms
+        self.root = root
+        self.rows_out = int(root.attrs.get("rows_out", 0))
+        phases: Dict[str, float] = {}
+        operators: List[str] = []
+        for s in root.walk():
+            if s is not root and s.name in _PHASE_SPANS:
+                phases[s.name] = phases.get(s.name, 0.0) + s.wall_ms
+            operators.extend(str(o) for o in s.attrs.get("operators", ()))
+        self.phases = phases
+        self.operators = operators
+        now = REGISTRY.counters()
+        self.counters = {k: now[k] - trace.counters0.get(k, 0)
+                         for k in now if now[k] != trace.counters0.get(k, 0)}
+
+
+def _close_trace(trace: QueryTrace, error: Optional[BaseException]) -> None:
+    trace.root.t1 = time.perf_counter()
+    if error is not None:
+        trace.root.attrs["error"] = type(error).__name__
+        REGISTRY.inc("query_errors")
+    trace.report = QueryReport(trace)
+    REGISTRY.inc("queries")
+
+
+@contextmanager
+def trace_scope(query: str = ""):
+    """Open the per-query trace on this thread; yields the QueryTrace.
+
+    A nested call (a query issued while another runs on this thread)
+    yields None and rides the enclosing trace: one trace and one report
+    per outermost ``Context.sql``."""
+    if _tls.trace is not None:
+        yield None
+        return
+    trace = QueryTrace(query)
+    _tls.trace = trace
+    _tls.span = trace.root
+    err: Optional[BaseException] = None
+    try:
+        yield trace
+    except BaseException as e:
+        err = e
+        raise
+    finally:
+        _tls.trace = None
+        _tls.span = None
+        _close_trace(trace, err)

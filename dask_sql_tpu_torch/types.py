@@ -165,6 +165,14 @@ _NUMPY_TO_TORCH: dict[np.dtype, torch.dtype] = {
 }
 
 
+_INT_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64, torch.uint8)
+
+
+def is_int_dtype(dtype: torch.dtype) -> bool:
+    """Integer dtype, bool excluded (numpy's ``issubdtype(.., integer)``)."""
+    return dtype in _INT_DTYPES
+
+
 def torch_dtype(stype: SqlType) -> torch.dtype:
     """Device dtype of a logical type: ``physical_dtype`` as a torch dtype."""
     return _NUMPY_TO_TORCH[_PHYSICAL[stype.name]]

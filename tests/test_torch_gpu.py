@@ -253,3 +253,120 @@ def test_float_group_sums_are_deterministic_on_card(cuda_device):
            "SELECT k, t FROM r WHERE t = (SELECT MAX(t) FROM r)")
     for _ in range(5):
         assert ctx.sql(q15).num_rows == 1
+
+
+def _count_syncs(fn):
+    """(fn()'s result, its host synchronisations as counted by
+    ``torch.cuda.set_sync_debug_mode("warn")``)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _stats_tables(rng, n=300_000):
+    f = rng.randn(n)
+    f[::1001] = np.nan
+    return {"t": {
+        "k": rng.randint(0, 5000, n),
+        "wide": rng.randint(-2**40, 2**40, n),
+        "neg": rng.randint(-3000, -1000, n).astype(np.int32),
+        "x": f,                                  # NaN ingests as NULL
+        "b": rng.rand(n) < 0.3,
+        "s": rng.choice(["a", "bb", "ccc"], n),
+        "d": np.datetime64("1992-01-01") + rng.randint(0, 2500, n)
+        .astype("timedelta64[D]"),
+    }}
+
+
+@pytest.mark.gpu
+def test_ingest_stats_on_card_match_cpu(cuda_device):
+    tables = _stats_tables(np.random.RandomState(4))
+    stats = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ctx = Context(device=dev)
+        ctx.create_table("t", tables["t"])
+        stats.append(ctx.schema["root"].tables["t"].stats)
+    gpu, cpu = stats
+    assert gpu.rows == cpu.rows and list(gpu.cols) == list(cpu.cols)
+    for name in cpu.cols:
+        assert gpu.cols[name] == cpu.cols[name], name
+    assert cpu.cols["wide"].domain > 2 ** 20 and cpu.cols["x"].null_frac > 0
+
+
+@pytest.mark.gpu
+def test_dense_codes_on_card_bit_equal_cpu(cuda_device):
+    from dask_sql_tpu_torch.ops import groupby as G
+    from dask_sql_tpu_torch.ops import kernels as K
+    from dask_sql_tpu_torch.table import Column
+    from dask_sql_tpu_torch.types import BIGINT
+
+    rng = np.random.RandomState(6)
+    n = 1_000_003
+    data = torch.from_numpy(rng.randint(-700, 3000, n))
+    mask = torch.from_numpy(rng.rand(n) < 0.95)
+    other = torch.from_numpy(rng.randint(-100, 5000, n // 3))
+    for hint in (None, (-700, 2999), (0, 10)):
+        for m in (None, mask):
+            outs = [G._dense_group_codes(
+                [Column(data.to(dev), BIGINT, None if m is None else m.to(dev))],
+                hint) for dev in (cuda_device, torch.device("cpu"))]
+            assert outs[0][2] == outs[1][2]
+            for a, b in zip(outs[0][:2], outs[1][:2]):
+                assert torch.equal(a.cpu(), b)
+    for null_equal in (False, True):
+        outs = [K._dense_join_codes(
+            [Column(data.to(dev), BIGINT, mask.to(dev))],
+            [Column(other.to(dev), BIGINT, None)], null_equal)
+            for dev in (cuda_device, torch.device("cpu"))]
+        for a, b in zip(*outs):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_dense_paths_make_only_their_named_syncs(cuda_device):
+    """The dense join codes read their four bounds in one synchronisation
+    (and under ``set_sync_debug_mode("error")`` that read is where they
+    stop); the dense group codes make two (the bounds, the group count).
+    A whole dense inner join makes no more syncs than the hash one."""
+    import traceback
+
+    from dask_sql_tpu_torch.ops import groupby as G
+    from dask_sql_tpu_torch.ops import join as J
+    from dask_sql_tpu_torch.ops import kernels as K
+    from dask_sql_tpu_torch.table import Column, Table
+    from dask_sql_tpu_torch.types import BIGINT
+
+    rng = np.random.RandomState(8)
+    n = 2_000_000
+    left = Column(torch.from_numpy(rng.randint(0, 100_000, n)).to(cuda_device),
+                  BIGINT, torch.from_numpy(rng.rand(n) < 0.9).to(cuda_device))
+    right = Column(torch.arange(100_000, device=cuda_device), BIGINT, None)
+    K._dense_join_codes([left], [right], False)        # warm-up
+    _, syncs = _count_syncs(lambda: K._dense_join_codes([left], [right], False))
+    assert syncs == 1
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError) as err:
+            K._dense_join_codes([left], [right], False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    frames = traceback.extract_tb(err.value.__traceback__)
+    assert any(f.filename.endswith("kernels.py") and "tolist" in (f.line or "")
+               for f in frames)
+    _, syncs = _count_syncs(lambda: G._dense_group_codes([left], None))
+    assert syncs == 2
+    lt, rt = Table(["k"], [left]), Table(["k2"], [right])
+    counts = {}
+    for variant in ("hash", "dense"):
+        _, counts[variant] = _count_syncs(
+            lambda: J.join_tables(lt, rt, [0], [0], "INNER", variant=variant))
+    assert counts["dense"] <= counts["hash"]
