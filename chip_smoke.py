@@ -68,7 +68,30 @@ Phases, in order; any failure exits non-zero before the last line:
 9. oracle: the 22 queries at SF 0.01 through a Context on the card
    against the standard library's ``sqlite3`` (the rules of
    ``tests/integration/test_tpch.py``: row count exact, doubles rtol 1e-6,
-   everything else as strings, unordered results sorted).
+   everything else as strings, unordered results sorted), then phase 10's
+   W1-W3 and the part of F1 that sqlite has (no math, date or padding
+   functions);
+10. surface, the SQL beyond TPC-H's operators: every key of the port's
+   ``OPERATION_MAPPING`` through ``Context.sql`` on the card over 100,000
+   rows against the CPU run (RAND, RANDOM and RAND_INTEGER by range and
+   seed only: the card draws another stream; SEARCH from its RexCall);
+   then, at ``--sf``, window queries
+   over lineitem (W1: ROW_NUMBER, RANK, DENSE_RANK, NTILE; W2: ROWS-frame
+   SUM, bounded MIN/MAX, AVG, LAG, LEAD; W3: a RANGE-offset SUM,
+   FIRST_VALUE / LAST_VALUE of a string, CUME_DIST, a whole-partition
+   COUNT) and F1, a static GROUP BY over the math, date, conditional and
+   string functions (through joins to orders, customer and part), each a
+   cold and three warm runs with launch counts, syncs and the answer held
+   to the port's CPU run over the same tables (ints and strings exact,
+   doubles rtol 1e-9, window sums within 1e-9 of their absolute prefix as
+   well; F1 must launch kernel 1 once per run); then S1, LIKE over
+   2,000,000 rows of 1,000,000 distinct comments: four patterns by the
+   default route (the device bitmap, or regex for a ``_`` pattern, counted
+   in ``strings_fast.stats``), each count equal to numpy over the regex
+   bitmap and the device bitmap equal to it bit for bit, NOT LIKE's warm
+   wall under each strategy forced, the bytes matrix's size; W2 and S1
+   profiled once (device busy and idle).  One ``surface table:`` JSON line
+   per query.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -720,31 +743,45 @@ def load_sqlite(tables: dict):
 
 def _cell(v) -> str:
     if isinstance(v, np.datetime64):
+        if np.isnat(v):
+            return "None"
         return np.datetime_as_string(v.astype("datetime64[D]"))
     if v is None or (isinstance(v, float) and math.isnan(v)):
         return "None"
     return str(v)
 
 
-def check_sqlite(name: str, result, cur, ordered: bool) -> None:
-    """The comparison rules of tests/integration/test_tpch.py."""
+def check_sqlite(name: str, result, cur, ordered: bool, atol=None) -> None:
+    """The comparison rules of tests/integration/test_tpch.py; ``atol``
+    ({column: per-row array in the result's row order}) widens a double
+    column by an absolute bound as well."""
     want_rows = cur.fetchall()
     cols = [c.to_numpy() for c in result.columns]
     got_rows = [tuple(c[i] for c in cols) for i in range(result.num_rows)]
     if len(got_rows) != len(want_rows):
         raise AssertionError(f"{name}: {len(got_rows)} rows vs sqlite "
                              f"{len(want_rows)}")
+    order = list(range(len(got_rows)))
     if not ordered:
         key = lambda r: [_cell(v) for v in r]  # noqa: E731
-        got_rows, want_rows = sorted(got_rows, key=key), sorted(want_rows, key=key)
+        order.sort(key=lambda i: key(got_rows[i]))
+        got_rows, want_rows = [got_rows[i] for i in order], sorted(want_rows, key=key)
     for j in range(len(cols)):
         g = [r[j] for r in got_rows]
         w = [r[j] for r in want_rows]
         if cols[j].dtype.kind in "fc" or any(isinstance(v, float) for v in w):
-            np.testing.assert_allclose(
-                np.array([np.nan if v is None else float(v) for v in g]),
-                np.array([np.nan if v is None else float(v) for v in w]),
-                rtol=1e-6, err_msg=f"{name} column {result.names[j]}")
+            gv = np.array([np.nan if v is None else float(v) for v in g])
+            wv = np.array([np.nan if v is None else float(v) for v in w])
+            tol = 1e-6 * np.abs(wv)
+            if atol and result.names[j] in atol:
+                tol = tol + np.asarray(atol[result.names[j]])[order]
+            bad = ~((np.abs(gv - wv) <= tol) | (gv == wv)
+                    | (np.isnan(gv) & np.isnan(wv)))
+            if bad.any():
+                i = int(np.flatnonzero(bad)[0])
+                raise AssertionError(
+                    f"{name} column {result.names[j]}: {int(bad.sum())} rows "
+                    f"differ, first {gv[i]!r} vs sqlite {wv[i]!r}")
         elif [_cell(v) for v in g] != [_cell(v) for v in w]:
             raise AssertionError(f"{name} column {result.names[j]} differs")
 
@@ -1481,7 +1518,8 @@ def cross_check(qid: int, text: str, result, cpu_ctx) -> str:
 
 
 def phase_oracle(dev, sf: float, seed: int) -> None:
-    """The 22 queries at ``sf`` on the card against sqlite."""
+    """The 22 queries, W1-W3 and the part of F1 that sqlite has, at ``sf``
+    on the card against sqlite."""
     tables = generate_tpch(sf, seed)
     ctx, _ = register(dev, tables)
     t0 = time.perf_counter()
@@ -1494,7 +1532,425 @@ def phase_oracle(dev, sf: float, seed: int) -> None:
                      "ORDER BY" in QUERIES[qid])
         print(f"oracle Q{qid}: {result.num_rows} rows match sqlite "
               f"({time.perf_counter() - t0:.1f} s)")
+    # window sums and averages are differences of one global prefix sum,
+    # whose rounding on the card follows its scan order: they are held to
+    # 1e-9 of the absolute prefix as well (an average of zeros may be 2e-13)
+    li = tables["lineitem"]
+    rn = ctx.sql(SURFACE["W1"]).columns[2].data.cpu().numpy()
+    window_atol = {
+        "W2": {"sq": 1e-9 * _abs_prefix_bound(li, "l_quantity"),
+               "ad": 1e-9 * _abs_prefix_bound(li, "l_discount", rn)},
+        "W3": {"rs": 1e-9 * _abs_prefix_bound(li, "l_extendedprice")}}
+    surface = {name: (SURFACE[name], SURFACE[name], False)
+               for name in ("W1", "W2", "W3")}
+    surface["F1 (sqlite's part)"] = (F1_SQLITE_PORT, F1_SQLITE_SQLITE, True)
+    for name, (ours, theirs, ordered) in surface.items():
+        t0 = time.perf_counter()
+        result = ctx.sql(ours)
+        check_sqlite(name, result, conn.execute(theirs), ordered,
+                     window_atol.get(name))
+        print(f"oracle {name}: {result.num_rows} rows match sqlite "
+              f"({time.perf_counter() - t0:.1f} s)")
     conn.close()
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the SQL surface beyond TPC-H's operators
+# ---------------------------------------------------------------------------
+
+_OVER = "PARTITION BY l_suppkey ORDER BY l_shipdate, l_orderkey, l_linenumber"
+_BY_KEY = "PARTITION BY l_suppkey ORDER BY l_orderkey, l_linenumber"
+SURFACE = {
+    "W1": f"SELECT l_orderkey, l_linenumber, ROW_NUMBER() OVER ({_OVER}) AS rn, "
+          f"RANK() OVER ({_OVER}) AS rk, DENSE_RANK() OVER ({_OVER}) AS dr, "
+          f"NTILE(4) OVER ({_OVER}) AS nt FROM lineitem",
+    "W2": f"SELECT l_orderkey, l_linenumber, SUM(l_quantity) OVER ({_OVER} ROWS "
+          f"BETWEEN 6 PRECEDING AND CURRENT ROW) AS sq, MIN(l_extendedprice) OVER "
+          f"({_OVER} ROWS BETWEEN 3 PRECEDING AND 3 FOLLOWING) AS mn, "
+          f"MAX(l_extendedprice) OVER ({_OVER} ROWS BETWEEN 3 PRECEDING AND 3 "
+          f"FOLLOWING) AS mx, AVG(l_discount) OVER ({_OVER}) AS ad, "
+          f"LAG(l_extendedprice, 2) OVER ({_OVER}) AS lg, LEAD(l_shipdate) OVER "
+          f"({_OVER}) AS ld FROM lineitem",
+    "W3": "SELECT l_orderkey, l_linenumber, SUM(l_extendedprice) OVER (PARTITION "
+          "BY l_suppkey ORDER BY l_orderkey RANGE BETWEEN 1000 PRECEDING AND "
+          f"CURRENT ROW) AS rs, FIRST_VALUE(l_shipmode) OVER ({_BY_KEY}) AS fv, "
+          f"LAST_VALUE(l_shipmode) OVER ({_BY_KEY}) AS lv, CUME_DIST() OVER "
+          f"({_BY_KEY}) AS cd, COUNT(*) OVER (PARTITION BY l_returnflag) AS nrf "
+          "FROM lineitem",
+    "F1": "SELECT l_returnflag, l_linestatus, "
+          "SUM(ROUND(l_extendedprice * (1 - l_discount), 2)) AS sum_round, "
+          "SUM(SQRT(l_extendedprice)) AS sum_sqrt, AVG(LN(l_quantity)) AS avg_ln, "
+          "SUM(POWER(l_quantity, 2)) AS sum_pow, "
+          "SUM(SIGN(l_discount - 0.05)) AS sum_sign, "
+          "SUM(FLOOR(l_tax * 100) + CEIL(l_discount * 100)) AS sum_floor_ceil, "
+          "SUM(EXTRACT(DAY FROM l_shipdate - FLOOR(l_shipdate TO MONTH))) "
+          "AS sum_days_in_month, "
+          "SUM(GREATEST(l_quantity, 25) - LEAST(l_tax * 100, 4)) AS sum_greatest_least, "
+          "AVG(NULLIF(l_discount, 0)) AS avg_nullif, "
+          "SUM(CASE WHEN l_shipmode IS DISTINCT FROM 'AIR' THEN 1 ELSE 0 END) "
+          "AS n_not_air, "
+          "SUM(CHAR_LENGTH(UPPER(c_name) || '-x')) AS len_concat, "
+          "SUM(CHAR_LENGTH(LOWER(p_name))) AS len_lower, "
+          "SUM(POSITION('BLUE' IN UPPER(p_name))) AS pos_blue, "
+          "SUM(CHAR_LENGTH(TRIM(p_name))) AS len_trim, "
+          "SUM(CHAR_LENGTH(REPLACE(c_phone, '-', ''))) AS len_replace, "
+          "SUM(CHAR_LENGTH(LPAD(p_name, 20, '*'))) AS len_lpad, "
+          "SUM(CAST(SPLIT_PART(c_phone, '-', 1) AS INTEGER)) AS sum_country, "
+          "COUNT(*) AS n "
+          "FROM lineitem, orders, customer, part WHERE l_orderkey = o_orderkey "
+          "AND o_custkey = c_custkey AND l_partkey = p_partkey "
+          "GROUP BY l_returnflag, l_linestatus ORDER BY l_returnflag, l_linestatus",
+}
+# the part of F1 that sqlite has (no math functions, dates or padding), as
+# the port reads it and as sqlite does
+F1_SQLITE = (
+    "SELECT l_returnflag, l_linestatus, "
+    "SUM(ROUND(l_extendedprice * (1 - l_discount), 2)) AS sum_round, "
+    "SUM({greatest}(l_quantity, 25) - {least}(l_tax * 100, 4)) AS sum_greatest_least, "
+    "AVG(NULLIF(l_discount, 0)) AS avg_nullif, "
+    "SUM(CASE WHEN l_shipmode {distinct} 'AIR' THEN 1 ELSE 0 END) AS n_not_air, "
+    "SUM({length}(UPPER(c_name) || '-x')) AS len_concat, "
+    "SUM({length}(LOWER(p_name))) AS len_lower, "
+    "SUM({position}) AS pos_blue, "
+    "SUM({length}(TRIM(p_name))) AS len_trim, "
+    "SUM({length}(REPLACE(c_phone, '-', ''))) AS len_replace, COUNT(*) AS n "
+    "FROM lineitem, orders, customer, part WHERE l_orderkey = o_orderkey "
+    "AND o_custkey = c_custkey AND l_partkey = p_partkey "
+    "GROUP BY l_returnflag, l_linestatus ORDER BY l_returnflag, l_linestatus")
+F1_SQLITE_PORT = F1_SQLITE.format(
+    greatest="GREATEST", least="LEAST", distinct="IS DISTINCT FROM",
+    length="CHAR_LENGTH", position="POSITION('BLUE' IN UPPER(p_name))")
+F1_SQLITE_SQLITE = F1_SQLITE.format(
+    greatest="MAX", least="MIN", distinct="IS NOT", length="LENGTH",
+    position="INSTR(UPPER(p_name), 'BLUE')")
+
+# one SQL expression per key of OPERATION_MAPPING, over the table FX_ROWS
+# builds (SEARCH, which only the native optimizer emits, is evaluated from
+# its RexCall)
+FUNCTION_SQL = {
+    "AND": "b AND (i > 0)", "OR": "b OR (i > 0)", "NOT": "NOT b",
+    "=": "i = k", "<>": "s <> 'date'", "<": "f < 1.5",
+    "<=": "CAST(ts AS DATE) <= DATE '1997-01-01'", ">": "s > 'c'", ">=": "ts >= d",
+    "+": "i + k", "-": "ts - INTERVAL '1' DAY", "*": "f * 2.5", "/": "i / k",
+    "%": "i % 3", "MOD": "MOD(i, k)", "NEGATE": "-f",
+    "IS_NULL": "s IS NULL", "IS_NOT_NULL": "i IS NOT NULL",
+    "IS_TRUE": "b IS TRUE", "IS_NOT_TRUE": "b IS NOT TRUE",
+    "IS_FALSE": "b IS FALSE", "IS_NOT_FALSE": "b IS NOT FALSE",
+    "IS_DISTINCT_FROM": "i IS DISTINCT FROM k",
+    "IS_NOT_DISTINCT_FROM": "s IS NOT DISTINCT FROM 'date'",
+    "CASE": "CASE WHEN f > 0 THEN 'pos' WHEN f < 0 THEN 'neg' END",
+    "COALESCE": "COALESCE(i, k, 0)", "IFNULL": "IFNULL(f, 0.0)",
+    "NVL": "NVL(s, 'none')", "NULLIF": "NULLIF(i, 0)",
+    "GREATEST": "GREATEST(i, k, 0)", "LEAST": "LEAST(s, 'm')",
+    "IN_LIST": "k IN (1, 3, 5)",
+    "LIKE": "s LIKE '%a%'", "ILIKE": "s ILIKE 'A%'",
+    "SIMILAR": "s SIMILAR TO '(a|d)%'",
+    "ABS": "ABS(i)", "SQRT": "SQRT(p)", "EXP": "EXP(u)", "LN": "LN(p)",
+    "LOG10": "LOG10(p)", "LOG": "LOG(2.0, p)", "POWER": "POWER(i, k)",
+    "POW": "POW(p, 0.5)", "SIN": "SIN(f)", "COS": "COS(f)", "TAN": "TAN(f)",
+    "ASIN": "ASIN(u)", "ACOS": "ACOS(u)", "ATAN": "ATAN(f)",
+    "ATAN2": "ATAN2(f, p)", "SINH": "SINH(u)", "COSH": "COSH(u)",
+    "TANH": "TANH(f)", "COT": "COT(p)", "DEGREES": "DEGREES(f)",
+    "RADIANS": "RADIANS(f)", "SIGN": "SIGN(f)", "CBRT": "CBRT(f)",
+    "ROUND": "ROUND(f, 1)", "TRUNCATE": "TRUNCATE(f, 1)", "PI": "PI()",
+    "FLOOR": "FLOOR(ts TO MONTH)", "CEIL": "CEIL(f)",
+    "CEILING": "CEILING(CAST(ts AS DATE) TO YEAR)",
+    "RAND": "RAND(7)", "RANDOM": "RANDOM()", "RAND_INTEGER": "RAND_INTEGER(7, 10)",
+    "||": "s || '!'", "CONCAT": "CONCAT(s, '-', s)", "UPPER": "UPPER(s)",
+    "LOWER": "LOWER(s)", "INITCAP": "INITCAP(s)", "REVERSE": "REVERSE(s)",
+    "CHAR_LENGTH": "CHAR_LENGTH(s)", "CHARACTER_LENGTH": "CHARACTER_LENGTH(s)",
+    "LENGTH": "LENGTH(s)", "OCTET_LENGTH": "OCTET_LENGTH(s)", "ASCII": "ASCII(s)",
+    "CHR": "CHR(k + 65)", "SUBSTRING": "SUBSTRING(s FROM 2 FOR 3)",
+    "SUBSTR": "SUBSTR(s, 2)", "TRIM": "TRIM(BOTH 'a' FROM s)",
+    "LTRIM": "LTRIM(s)", "RTRIM": "RTRIM(s)", "BTRIM": "BTRIM(s, 'a')",
+    "POSITION": "POSITION('a' IN s)", "STRPOS": "STRPOS(s, 'e')",
+    "OVERLAY": "OVERLAY(s PLACING 'XY' FROM 2 FOR 1)",
+    "REPLACE": "REPLACE(s, 'a', 'o')", "REPEAT": "REPEAT(s, 2)",
+    "LEFT": "LEFT(s, 3)", "RIGHT": "RIGHT(s, 2)", "LPAD": "LPAD(s, 8, '*')",
+    "RPAD": "RPAD(s, 8, '*')", "SPLIT_PART": "SPLIT_PART(s, ' ', 1)",
+    "TRANSLATE": "TRANSLATE(s, 'ae', 'AE')",
+    "REGEXP_REPLACE": "REGEXP_REPLACE(s, 'a+', '_')",
+    "EXTRACT": "EXTRACT(DOY FROM ts)", "YEAR": "YEAR(ts)", "MONTH": "MONTH(ts)",
+    "DAY": "DAY(ts)", "HOUR": "HOUR(ts)", "MINUTE": "MINUTE(ts)",
+    "SECOND": "SECOND(ts)", "QUARTER": "QUARTER(ts)", "DAYOFWEEK": "DAYOFWEEK(ts)",
+    "DAYOFMONTH": "DAYOFMONTH(ts)", "DAYOFYEAR": "DAYOFYEAR(ts)", "WEEK": "WEEK(ts)",
+}
+FX_ROWS = 100_000
+RANDOM_KEYS = ("RAND", "RANDOM", "RAND_INTEGER")
+
+
+def function_table(n: int, seed: int) -> dict:
+    """The columns FUNCTION_SQL reads: ints, doubles, a boolean, strings
+    and timestamps, NULLs in i, f, b and s."""
+    rng = np.random.RandomState(seed)
+
+    def nulls(values, share):
+        out = values.astype(object)
+        out[rng.rand(n) < share] = None
+        return out
+
+    words = np.array(["apple pie", "Banana", "  cherry  ", "date", "",
+                      "a%b c", "x_y z", "Éclair", "dark ale"], dtype=object)
+    days = rng.randint(9000, 11000, n)
+    return {
+        "i": nulls(rng.randint(-20, 20, n), 0.1), "k": rng.randint(-3, 6, n),
+        "f": nulls(np.round(rng.randn(n) * 10, 3), 0.1),
+        "p": np.abs(rng.randn(n)) * 5 + 0.1, "u": rng.uniform(-0.99, 0.99, n),
+        "b": nulls(rng.rand(n) < 0.5, 0.1), "s": nulls(rng.choice(words, n), 0.1),
+        "ts": _dates(days) + rng.randint(0, 86_400, n).astype("timedelta64[s]"),
+        "d": _dates(days + rng.randint(-5, 5, n)),
+    }
+
+
+def phase_functions(dev, seed: int) -> dict:
+    """Every key of OPERATION_MAPPING through Context.sql on the card over
+    FX_ROWS rows, each answer held to the port's CPU run over the same
+    table (ints, booleans, dates and strings exact, doubles rtol 1e-13: the
+    card's and the CPU's math libraries differ by an ulp or two).  RAND,
+    RANDOM and RAND_INTEGER are left out of the CPU cross-check (the card's
+    generator draws another stream): they are held to their range, and a
+    seed to its own values on a second run.  SEARCH, which only the native
+    optimizer emits, is evaluated from its RexCall.  Returns the keys'
+    warm ms on the card."""
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.physical.rex.evaluate import evaluate_rex
+    from dask_sql_tpu_torch.plan.nodes import RexCall, RexInputRef, RexLiteral
+    from dask_sql_tpu_torch.types import BOOLEAN, SqlType
+
+    data = function_table(FX_ROWS, seed)
+    card, cpu = Context(device=dev), Context(device=torch.device("cpu"))
+    for c in (card, cpu):
+        c.create_table("fx", data)
+    walls = {}
+    for key, expr in FUNCTION_SQL.items():
+        text = f"SELECT {expr} AS r FROM fx"
+        got = card.sql(text)
+        walls[key] = wall_ms(lambda: card.sql(text))
+        if key in RANDOM_KEYS:
+            vals = got.columns[0].data
+            hi = 10 if key == "RAND_INTEGER" else 1.0
+            if not (bool((vals >= 0).all()) and bool((vals < hi).all())):
+                raise AssertionError(f"{key}: values outside [0, {hi})")
+            if "7" in expr and not torch.equal(vals, card.sql(text).columns[0].data):
+                raise AssertionError(f"{key}: a seed drew two streams")
+            continue
+        check_tensors(key, got, cpu.sql(text), 1e-13)
+    ranges = [(0, False, 5, True), (10, True, None, False)]
+    search = RexCall("SEARCH", [RexInputRef(0, SqlType("BIGINT")),
+                                RexLiteral(ranges, SqlType("ANY"))], BOOLEAN)
+    tables = [c.schema["root"].tables["fx"].table for c in (card, cpu)]
+    got, want = (evaluate_rex(search, t.limit_to(["i"])) for t in tables)
+    if not torch.equal(got.data.cpu() & got.valid_mask().cpu(),
+                       want.data & want.valid_mask()):
+        raise AssertionError("SEARCH differs")
+    print(f"functions: {len(FUNCTION_SQL) + 1} keys on the card over {FX_ROWS} "
+          f"rows, equal to the CPU run (RAND, RANDOM, RAND_INTEGER by their "
+          f"range and seed); warm ms per key " + json.dumps(walls))
+    return walls
+
+
+CLIFF_ROWS, CLIFF_DISTINCT = 2_000_000, 1_000_000
+CLIFF = {
+    "S1_not_like": ("LIKE", "%special%requests%", True),
+    "S1_ilike": ("ILIKE", "%SPECIAL%", False),
+    "S1_prefix": ("LIKE", "special%", False),
+    "S1_underscore": ("LIKE", "special _equests%", False),
+}
+
+
+def _make_comments(n_rows: int, n_distinct: int, seed: int = 0) -> np.ndarray:
+    """The comment column of ``benchmarks/string_cliff.py`` (a copy: that
+    module's ``main`` imports the JAX package)."""
+    rng = np.random.RandomState(seed)
+    words = np.array(["special", "requests", "pending", "furious", "ironic",
+                      "deposits", "accounts", "packages", "theodolites"])
+    parts = words[rng.randint(0, len(words), (n_distinct, 4))]
+    distinct = np.array([" ".join(row) + f" #{i}"
+                         for i, row in enumerate(parts)], dtype=object)
+    return distinct[rng.randint(0, n_distinct, n_rows)]
+
+
+def _abs_prefix_bound(li: dict, col: str, counts=None) -> np.ndarray:
+    """Per row, the magnitude a window SUM over ``PARTITION BY l_suppkey``
+    is rounded at: the one global prefix sum of |x| (partitions in key
+    order) at the end of the row's partition, divided by the frame's row
+    count for an average."""
+    supp = li["l_suppkey"]
+    totals = np.bincount(supp, weights=np.abs(li[col]))
+    bound = np.cumsum(totals)[supp]
+    return bound if counts is None else bound / counts
+
+
+def check_tensors(name: str, got, want, rtol: float, atol=None) -> None:
+    """Two results of one query compared as tensors: names, rows and NULLs
+    equal; strings by their codes when both use one dictionary; ints,
+    booleans and dates exact; doubles within ``rtol`` of the value plus a
+    per-row ``atol`` (a float array, or {column: array})."""
+    if got.names != want.names or got.num_rows != want.num_rows:
+        raise AssertionError(f"{name}: {got} != {want}")
+    for col, g, w in zip(want.names, got.columns, want.columns):
+        gm, wm = g.valid_mask().cpu(), w.valid_mask().cpu()
+        if not torch.equal(gm, wm):
+            raise AssertionError(f"{name}.{col}: NULLs differ")
+        gd, wd = g.data.cpu()[wm], w.data.cpu()[wm]
+        if g.stype.is_string:
+            same = (torch.equal(gd, wd) if g.dictionary is w.dictionary
+                    else g.to_numpy().tolist() == w.to_numpy().tolist())
+            if not same:
+                raise AssertionError(f"{name}.{col}: strings differ")
+        elif wd.dtype.is_floating_point:
+            extra = 0.0
+            if isinstance(atol, dict) and col in atol:
+                extra = torch.from_numpy(np.asarray(atol[col]))[wm]
+            tol = rtol * wd.abs() + extra
+            bad = ~(((gd - wd).abs() <= tol) | (gd == wd)
+                    | (gd.isnan() & wd.isnan()))
+            if bool(bad.any()):
+                i = int(bad.nonzero()[0])
+                raise AssertionError(f"{name}.{col}: {float(gd[i])} != "
+                                     f"{float(wd[i])} (tolerance {float(tol[i])})")
+        elif not torch.equal(gd, wd):
+            raise AssertionError(f"{name}.{col} differs")
+
+
+def phase_surface(ctx, tables: dict) -> list:
+    """W1-W3 and F1 through the Context on the card: a cold and three warm
+    runs, the launch counts set to 0 before each run and read after it, the
+    host synchronisations of one more run, and the answer held to the same
+    query run by the port on the CPU over the same tables (ints and strings
+    exact, doubles rtol 1e-9; window sums and averages within 1e-9 of the
+    absolute prefix they are rounded at, as well).  F1 must take the static
+    route with one kernel-1 launch per run.  W2 is profiled once, and F1's
+    host time split by plan node."""
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    cpu_ctx = Context(device=torch.device("cpu"))
+    for name in ("lineitem", "orders", "customer", "part"):
+        cpu_ctx.create_table(name, ctx.schema["root"].tables[name].table)
+    li = tables["lineitem"]
+    rows, cpu_results = [], {}
+    for name, text in SURFACE.items():
+        times, runs = [], []
+        result, taken, syncs = run_query(ctx, text, times, runs)
+        t0 = time.perf_counter()
+        want = cpu_ctx.sql(text)
+        cpu_s = time.perf_counter() - t0
+        cpu_results[name] = want
+        atol = None
+        if name == "W2":
+            rn = cpu_results["W1"].columns[2].data.numpy()
+            atol = {"sq": 1e-9 * _abs_prefix_bound(li, "l_quantity"),
+                    "ad": 1e-9 * _abs_prefix_bound(li, "l_discount", rn)}
+        elif name == "W3":
+            atol = {"rs": 1e-9 * _abs_prefix_bound(li, "l_extendedprice")}
+        check_tensors(name, result, want, 1e-9, atol)
+        launched = [{k: v for k, v in r.items() if v} for r in runs]
+        if name == "F1" and any(r != {"segsum_fixedpoint": 1} for r in launched):
+            raise AssertionError(f"F1 must launch kernel 1 once per run: {launched}")
+        row = {"query": name, "cold_ms": times[0], "warm_ms": times[1:],
+               "syncs": syncs, "rows": result.num_rows,
+               "launched": launched[-1], "variants": taken,
+               "cpu_rerun_s": cpu_s}
+        if name == "W2":
+            prof = profile_query(ctx, "W2", text)
+            row["device_busy_ms"], row["device_idle"] = prof["busy_ms"], prof["idle"]
+        if name == "F1":
+            # the host's per-dictionary-entry string work sits in Project
+            row["host"] = host_breakdown(ctx, text)
+            print("host F1: " + json.dumps(row["host"]))
+        rows.append(row)
+        print(f"{name}: cold {times[0]:.1f} ms, warm "
+              + ", ".join(f"{t:.1f}" for t in times[1:])
+              + f" ms; {result.num_rows} rows; {syncs} host syncs; launched "
+              f"{launched[-1] or 'none'}; equal to the CPU run ({cpu_s:.1f} s)")
+    return rows
+
+
+def _regex_entries(kind: str, pattern: str, d: np.ndarray) -> np.ndarray:
+    from dask_sql_tpu_torch.physical.rex.ops import sql_like_to_regex
+
+    rx = re.compile(sql_like_to_regex(pattern),
+                    re.IGNORECASE if kind == "ILIKE" else 0)
+    return np.array([rx.match(x) is not None for x in d.tolist()], dtype=bool)
+
+
+def phase_cliff(dev, seed: int) -> list:
+    """S1, LIKE over a large dictionary: 2,000,000 rows of 1,000,000
+    distinct comments (``benchmarks/string_cliff.py``'s column).  Each query
+    a cold and three warm runs by the default route (the device bitmap, or
+    regex for a ``_`` pattern; ``stats`` counts each), its answer equal to a
+    numpy count over the regex bitmap, and the device bitmap equal to the
+    regex bitmap bit for bit; then NOT LIKE's warm wall under each strategy
+    forced (device, vectorized, regex) and one profiled run."""
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.ops import strings_fast as sf
+
+    t0 = time.perf_counter()
+    comments = _make_comments(CLIFF_ROWS, CLIFF_DISTINCT, seed)
+    ctx = Context(device=dev)
+    ctx.create_table("t", {"c": comments})
+    col = ctx.schema["root"].tables["t"].table.columns[0]
+    dct, codes = col.dictionary, col.data.cpu().numpy()
+    print(f"S1: {CLIFF_ROWS} rows, {len(dct)} distinct comments "
+          f"(threshold {sf.DEVICE_STRING_THRESHOLD}); built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rows = []
+    for name, (kind, pattern, negated) in CLIFF.items():
+        text = (f"SELECT COUNT(*) AS n FROM t WHERE c {'NOT ' if negated else ''}"
+                f"{kind} '{pattern}'")
+        entries = _regex_entries(kind, pattern, dct.astype(str))
+        want = int((entries[codes] != negated).sum())
+        before = dict(sf.stats)
+        times, runs = [], []
+        result, _, syncs = run_query(ctx, text, times, runs)
+        counted = {k: sf.stats[k] - before[k] for k in sf.stats}
+        got = int(result.columns[0].data[0])
+        if got != want:
+            raise AssertionError(f"{name}: {got} rows, numpy over regex {want}")
+        route = "regex_bitmaps" if "_" in pattern else "device_bitmaps"
+        if counted[route] != 5 or sum(counted.values()) != 5:
+            raise AssertionError(f"{name}: strategies counted {counted}")
+        row = {"query": name, "cold_ms": times[0], "warm_ms": times[1:],
+               "syncs": syncs, "rows": CLIFF_ROWS, "answer": got,
+               "route": route, "launched": {k: v for k, v in runs[-1].items() if v}}
+        if route == "device_bitmaps":
+            bitmap = sf.device_like_bitmap(dct, pattern, None, kind, dev)
+            if not np.array_equal(bitmap.cpu().numpy(), entries):
+                raise AssertionError(f"{name}: device bitmap != regex bitmap")
+        else:
+            if sf.device_like_bitmap(dct, pattern, None, kind, dev) is not None:
+                raise AssertionError(f"{name}: the device took a '_' pattern")
+        rows.append(row)
+        print(f"{name}: {got} rows match; cold {times[0]:.1f} ms, warm "
+              + ", ".join(f"{t:.1f}" for t in times[1:])
+              + f" ms; {syncs} host syncs; by {route}")
+    mat, lens, _ = sf._bytes_matrix(dct, dev)
+    matrix_bytes = mat.numel() * mat.element_size() + lens.numel() * 4
+    text = ("SELECT COUNT(*) AS n FROM t WHERE c NOT LIKE '%special%requests%'")
+    saved = (sf.DEVICE_STRING_THRESHOLD, sf.like_bitmap_vectorized)
+    strategies = {}
+    try:
+        for strategy in ("device", "vectorized", "regex"):
+            sf.DEVICE_STRING_THRESHOLD = 0 if strategy == "device" else 1 << 62
+            if strategy == "regex":
+                sf.like_bitmap_vectorized = lambda *a: None
+            ctx.sql(text)
+            walls = [wall_ms(lambda: ctx.sql(text)) for _ in range(3)]
+            strategies[strategy] = {"warm_ms": walls,
+                                    "warm_median_ms": _median(walls)}
+            sf.DEVICE_STRING_THRESHOLD, sf.like_bitmap_vectorized = saved
+    finally:
+        sf.DEVICE_STRING_THRESHOLD, sf.like_bitmap_vectorized = saved
+    prof = profile_query(ctx, "S1_not_like", text)
+    rows[0].update(strategies=strategies, matrix_bytes=matrix_bytes,
+                   device_busy_ms=prof["busy_ms"], device_idle=prof["idle"])
+    print(f"S1 strategies (NOT LIKE, warm medians): "
+          + ", ".join(f"{k} {v['warm_median_ms']:.1f} ms"
+                      for k, v in strategies.items())
+          + f"; bytes matrix {mat.shape[0]} x {mat.shape[1]} on the card "
+          f"({matrix_bytes / 1e6:.1f} MB)")
+    return rows
 
 
 def main(argv=None) -> int:
@@ -1537,6 +1993,10 @@ def main(argv=None) -> int:
     print(f"launches: main path (adaptive on) {launches}, adaptive off and "
           f"forced {off_launches}")
     phase_oracle(dev, ORACLE_SF, args.seed)
+    phase_functions(dev, args.seed)
+    surface = phase_surface(ctx, tables) + phase_cliff(dev, args.seed)
+    for row in surface:
+        print("surface table: " + json.dumps(row))
     kernel1["launches"] = launches["segsum_fixedpoint"]
     print(f"card: {card}")
     print(json.dumps({"kernels": [kernel1, kernel2]}))

@@ -3,11 +3,11 @@
 The counterpart of ``dask_sql_tpu.Context``: ``create_table`` (a dict of
 numpy arrays, a ``Table``, or a pandas frame; it collects the table's
 statistics, ``runtime/statistics.py``), ``drop_table``, ``sql`` (queries
-and plain ``EXPLAIN``) and ``explain``.  The planner is the JAX package's
-Python parser, binder and optimizer, copied, with the statistics-driven
-join order; execution is the eager executor (``physical/rel/executor.py``).
-Each ``sql`` call runs in a telemetry trace whose ``QueryReport`` is kept
-as ``last_report``.
+and plain ``EXPLAIN``), ``explain`` and ``register_function`` (column
+UDFs).  The planner is the JAX package's Python parser, binder and
+optimizer, copied, with the statistics-driven join order; execution is
+the eager executor (``physical/rel/executor.py``).  Each ``sql`` call runs
+in a telemetry trace whose ``QueryReport`` is kept as ``last_report``.
 
 Queries run on the card unless the caller asks for another device:
 ``Context()`` means ``device="cuda"`` and raises when CUDA is unavailable;
@@ -15,13 +15,13 @@ the tests pass ``device="cpu"``.
 """
 from __future__ import annotations
 
-from typing import Any, List, Optional, Union
+from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
 
 import numpy as np
 
-from .datacontainer import SchemaContainer, TableEntry
+from .datacontainer import FunctionDescription, SchemaContainer, TableEntry
 from .plan.binder import Binder
 from .plan.nodes import Field, RelNode
 from .plan.optimizer import optimize
@@ -30,6 +30,7 @@ from .runtime import telemetry as _tel
 from .sql import ast as A
 from .sql.parser import parse_sql
 from .table import Table
+from .types import SqlType, parse_type_name, sql_type_from_numpy
 
 
 class Context:
@@ -77,6 +78,31 @@ class Context:
     def drop_table(self, table_name: str, schema_name: Optional[str] = None):
         schema_name = schema_name or self.schema_name
         del self.schema[schema_name].tables[table_name.lower()]
+
+    # ----------------------------------------------------------- functions
+    def register_function(self, f: Callable, name: str,
+                          parameters: List[Tuple[str, Any]] = None,
+                          return_type: Any = None, replace: bool = False,
+                          schema_name: Optional[str] = None,
+                          row_udf: bool = False):
+        """Register a scalar UDF.  ``parameters`` / ``return_type`` take
+        numpy dtypes, Python types or SQL type names; the result is DOUBLE
+        unless said otherwise.  A column UDF gets each argument as a numpy
+        array; a row UDF (``row_udf=True``) is accepted here and raises
+        ``NotImplementedError`` when a query calls it."""
+        schema_name = schema_name or self.schema_name
+        params = [(pname, _to_sql_type(t)) for pname, t in (parameters or [])]
+        rt = (SqlType("DOUBLE") if return_type is None
+              else _to_sql_type(return_type))
+        fd = FunctionDescription(name=name, parameters=params, return_type=rt,
+                                 aggregation=False, func=f, row_udf=row_udf)
+        schema = self.schema[schema_name]
+        lower = name.lower()
+        if not replace and lower in schema.functions and \
+                schema.functions[lower].func is not f:
+            raise ValueError(f"Function {name} is already registered")
+        schema.functions[lower] = fd
+        schema.function_lists.append(fd)
 
     # ----------------------------------------------------------------- sql
     def sql(self, sql: str, return_futures: bool = True):
@@ -159,11 +185,27 @@ class Context:
                 return schema_name, table_name.lower(), fields, None
         return None
 
-    def get_function(self, name: str):
+    def get_function(self, name: str) -> Optional[FunctionDescription]:
+        """Binder hook: the registered function of that name, or None."""
+        for schema_name in (self.schema_name, self.DEFAULT_SCHEMA_NAME):
+            schema = self.schema.get(schema_name)
+            if schema is not None and name.lower() in schema.functions:
+                return schema.functions[name.lower()]
         return None
 
     def resolve_model(self, parts: List[str]):
         return None
+
+
+def _to_sql_type(t) -> SqlType:
+    if isinstance(t, SqlType):
+        return t
+    if isinstance(t, str):
+        return parse_type_name(t)
+    python = {int: "BIGINT", float: "DOUBLE", str: "VARCHAR", bool: "BOOLEAN"}
+    if t in python:
+        return SqlType(python[t])
+    return sql_type_from_numpy(t)
 
 
 def _to(col, device):

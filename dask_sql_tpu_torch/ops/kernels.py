@@ -4,7 +4,9 @@ compaction, civil-date arithmetic.
 The counterpart of ``dask_sql_tpu/ops/kernels.py`` for what the eager
 executor calls: factorization, the join key codes (the shared ``hash``
 factorize and the statistics-driven ``dense`` coding), compaction, civil
-dates and EXTRACT.  The trace-safe sort keys wait for the compiled tier.
+dates, EXTRACT and FLOOR/CEIL's ``trunc_date``, and the total-order key
+parts (``key_parts``, ``append_lexsort_operands``) the window operator
+sorts by.
 """
 from __future__ import annotations
 
@@ -303,3 +305,92 @@ def decimal_unscale(s_int: torch.Tensor, scale: int) -> torch.Tensor:
     q = _fdiv(s_int, f)
     r = s_int - q * f
     return q.to(torch.float64) + r.to(torch.float64) / float(f)
+
+
+def trunc_date(unit: str, days: torch.Tensor, tod_us: Optional[torch.Tensor]):
+    """FLOOR(ts TO unit): returns (days, tod_us); ``tod_us`` is None for a
+    DATE and stays None."""
+    u = unit.upper()
+    y, m, d = civil_from_days(days)
+    one = torch.ones_like(m)
+    zeros = None if tod_us is None else torch.zeros_like(tod_us)
+    if u == "YEAR":
+        return days_from_civil(y, one, one), zeros
+    if u == "QUARTER":
+        return days_from_civil(y, _fdiv(m - 1, 3) * 3 + 1, one), zeros
+    if u == "MONTH":
+        return days_from_civil(y, m, one), zeros
+    if u == "WEEK":
+        isodow = torch.remainder(days + 3, 7) + 1
+        return days - (isodow - 1), zeros
+    if u == "DAY":
+        return days, zeros
+    if tod_us is None:
+        return days, None
+    step = {"HOUR": 3_600_000_000, "MINUTE": 60_000_000, "SECOND": 1_000_000,
+            "MILLISECOND": 1000}.get(u)
+    if step is None:
+        raise NotImplementedError(f"FLOOR unit {unit}")
+    return days, _fdiv(tod_us, step) * step
+
+
+# ---------------------------------------------------------------------------
+# total-order keys (windows): floats stay f64 with NULL/NaN class flags
+# ---------------------------------------------------------------------------
+
+def float_class(x: torch.Tensor, null: Optional[torch.Tensor]) -> torch.Tensor:
+    """0 = NULL (first), 1 = ordinary value, 2 = NaN (last)."""
+    cls = torch.where(torch.isnan(x), 2, 1).to(torch.int8)
+    if null is not None:
+        cls = torch.where(null, 0, cls).to(torch.int8)
+    return cls
+
+
+def canon_f64(x: torch.Tensor) -> torch.Tensor:
+    """Canonical f64 sort/equality key: -0.0 -> +0.0, NaN -> 0 (the class
+    flag tells NaN apart)."""
+    x = x.to(torch.float64) + 0.0
+    return torch.where(torch.isnan(x), 0.0, x)
+
+
+def orderable_int64(x: torch.Tensor) -> torch.Tensor:
+    """int64 key for non-float comparable data (ints, bools, dictionary
+    ranks, dates): ``comparable_data`` already made the order numeric."""
+    return x.to(torch.int64)
+
+
+def key_parts(cols: List[Column]
+              ) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    """(data, optional class flag) per key column.
+
+    ``data`` is canonical f64 for float columns, or int64 with a NULL
+    sentinel otherwise; the int8 flag orders NULL(0) < values(1) < NaN(2)
+    and tells a sentinel from a value.  The flag is None for a key with no
+    NULLs that is not a float.  Equality of (data, flag) is SQL group
+    equality (-0.0 == +0.0, NaNs together, NULLs together)."""
+    out = []
+    for c in cols:
+        raw = comparable_data(c)
+        null = None if c.mask is None else ~c.mask
+        if raw.dtype.is_floating_point:
+            d = canon_f64(raw)
+            flag = float_class(raw, null)
+            if null is not None:
+                d = torch.where(null, 0.0, d)
+        else:
+            d = orderable_int64(raw)
+            flag = None
+            if null is not None:
+                d = torch.where(null, _I64_MIN, d)
+                flag = torch.where(null, 0, 1).to(torch.int8)
+        out.append((d, flag))
+    return out
+
+
+def append_lexsort_operands(arrays: list, parts) -> None:
+    """Append key-part sort operands (data, then its class flag) to
+    ``arrays``, least significant first (``lexsort`` order)."""
+    for d, flag in reversed(parts):
+        arrays.append(d)
+        if flag is not None:
+            arrays.append(flag)

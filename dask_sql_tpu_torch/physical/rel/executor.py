@@ -5,9 +5,10 @@ The counterpart of the JAX package's eager executor
 to a plugin ``plugin(node, executor)``; PyTorch runs eagerly, so each
 plugin computes its result directly.  Ported: TableScan, Project, Filter,
 Values, Aggregate (DISTINCT aggregates included), Sort (with OFFSET/LIMIT),
-Join (every join type, equi keys plus a residual condition) and the set
-operations Union, Intersect and Except.  Any other node raises
-``NotImplementedError``.
+Join (every join type, equi keys plus a residual condition), the set
+operations Union, Intersect and Except, Window (``ops/window.py``) and
+Sample (TABLESAMPLE BERNOULLI / SYSTEM, seeded by REPEATABLE on the table's
+device).  Any other node (PREDICT) raises ``NotImplementedError``.
 
 The statistics choose the operators, as in the JAX package
 (``runtime/statistics.py``): ``groupby_decision`` picks the GROUP BY codes
@@ -37,12 +38,13 @@ import torch
 from ...ops import groupby as G
 from ...ops import join as J
 from ...ops import sort as S
+from ...ops import window as W
 from ...ops.gpu_kernels import segmented_sums_dispatch
 from ...ops.kernels import decimal_unscale, join_key_codes, mask_to_indices
 from ...plan.nodes import (
     LogicalAggregate, LogicalExcept, LogicalFilter, LogicalIntersect,
-    LogicalJoin, LogicalProject, LogicalSort, LogicalTableScan, LogicalUnion,
-    LogicalValues, RelNode, RexCall,
+    LogicalJoin, LogicalProject, LogicalSample, LogicalSort, LogicalTableScan,
+    LogicalUnion, LogicalValues, LogicalWindow, RelNode, RexCall,
 )
 from ...plan.optimizer import split_join_condition
 from ...runtime import statistics as _stats
@@ -314,6 +316,34 @@ def _except(rel: LogicalExcept, ex: RelExecutor) -> Table:
     return _set_semi_anti(rel, ex, "ANTI")
 
 
+def _window(rel: LogicalWindow, ex: RelExecutor) -> Table:
+    src = ex.execute(rel.input)
+    names, cols = list(src.names), list(src.columns)
+    for call in rel.calls:
+        order = [(c.index, c.ascending, c.effective_nulls_first)
+                 for c in call.order]
+        cols.append(W.compute_window(src, call.op, call.args, call.partition,
+                                     order, call.frame, call.stype))
+        names.append(call.name)
+    return Table(names, cols)
+
+
+def _sample(rel: LogicalSample, ex: RelExecutor) -> Table:
+    """TABLESAMPLE: each row kept with probability percentage / 100, from a
+    generator on the table's device seeded by REPEATABLE (else from fresh
+    entropy).  On one device SYSTEM (block sampling) equals BERNOULLI, as
+    in the JAX package."""
+    src = ex.execute(rel.input)
+    g = torch.Generator(device=ex.device)
+    if rel.seed is None:
+        g.seed()
+    else:
+        g.manual_seed(int(rel.seed))
+    u = torch.rand(src.num_rows, generator=g, dtype=torch.float64,
+                   device=ex.device)
+    return src.take(mask_to_indices(u < rel.percentage / 100.0))
+
+
 STATIC_DOMAIN_CAP = 4096
 STATIC_DOMAIN_MAX = 256
 
@@ -480,3 +510,5 @@ RelExecutor.add_plugin("LogicalJoin", _join)
 RelExecutor.add_plugin("LogicalUnion", _union)
 RelExecutor.add_plugin("LogicalIntersect", _intersect)
 RelExecutor.add_plugin("LogicalExcept", _except)
+RelExecutor.add_plugin("LogicalWindow", _window)
+RelExecutor.add_plugin("LogicalSample", _sample)

@@ -2,8 +2,12 @@
 
 The counterpart of ``dask_sql_tpu/physical/rex/evaluate.py``: expression
 nodes dispatch through a Pluggable registry keyed on the node class name.
-An uncorrelated scalar subquery runs its plan once and becomes a Scalar.
-Parameters and user-defined functions are not ported yet.
+An uncorrelated scalar subquery runs its plan once and becomes a Scalar;
+a parameter reads its node's value (the port has no compiled tier to pass
+it as an argument); a column UDF (``Context.register_function``) runs on
+the host over numpy arrays.  A row UDF, which the JAX package feeds a
+pandas row at a time, raises ``NotImplementedError``: the card's machine
+has no pandas.
 """
 from __future__ import annotations
 
@@ -13,10 +17,11 @@ import numpy as np
 import torch
 
 from ...plan.nodes import (
-    RexCall, RexInputRef, RexLiteral, RexNode, RexScalarSubquery,
+    RexCall, RexInputRef, RexLiteral, RexNode, RexParam, RexScalarSubquery,
+    RexUdf,
 )
 from ...table import Column, Scalar, Table
-from ...types import python_value_to_physical
+from ...types import physical_to_python_value, python_value_to_physical
 from ...utils import Pluggable
 from .cast import cast_value
 from .ops import OPERATION_MAPPING
@@ -38,6 +43,10 @@ def _eval_input_ref(rex: RexInputRef, table: Table, executor):
 
 
 def _eval_literal(rex: RexLiteral, table: Table, executor):
+    return Scalar(rex.value, rex.stype)
+
+
+def _eval_param(rex: RexParam, table: Table, executor):
     return Scalar(rex.value, rex.stype)
 
 
@@ -66,10 +75,35 @@ def _eval_scalar_subquery(rex: RexScalarSubquery, table: Table, executor):
     return Scalar(python_value_to_physical(v, rex.stype), rex.stype)
 
 
+def _eval_udf(rex: RexUdf, table: Table, executor):
+    """A column UDF: called once with each argument as a host numpy array
+    (NULLs as NaN / None / NaT) or a Python scalar; a returned array (or
+    tensor) becomes a column of the UDF's return type on the table's
+    device, a scalar a Scalar."""
+    if rex.row_udf:
+        raise NotImplementedError(
+            f"Row UDF {rex.name} is not ported yet (it needs pandas)")
+    args = [RexExecutor.convert(o, table, executor) for o in rex.operands]
+    host_args = [a.to_numpy() if isinstance(a, Column)
+                 else physical_to_python_value(a.value, a.stype)
+                 for a in args]
+    out = rex.func(*host_args)
+    if isinstance(out, torch.Tensor):
+        out = out.cpu().numpy()
+    out = np.asarray(out)
+    if out.ndim == 0:
+        return Scalar(python_value_to_physical(out.item(), rex.stype),
+                      rex.stype)
+    device = executor.device if executor is not None else table.columns[0].device
+    return cast_value(Column.from_numpy(out, device), rex.stype)
+
+
 RexExecutor.add_plugin("RexInputRef", _eval_input_ref)
 RexExecutor.add_plugin("RexLiteral", _eval_literal)
+RexExecutor.add_plugin("RexParam", _eval_param)
 RexExecutor.add_plugin("RexCall", _eval_call)
 RexExecutor.add_plugin("RexScalarSubquery", _eval_scalar_subquery)
+RexExecutor.add_plugin("RexUdf", _eval_udf)
 
 
 def evaluate_rex(rex: RexNode, table: Table, executor=None) -> Union[Column, Scalar]:

@@ -1,22 +1,31 @@
 """Scalar operation library: REX op name -> device function.
 
-The counterpart of ``dask_sql_tpu/physical/rex/ops.py`` for the operators
-TPC-H Q1-Q22 reach: arithmetic, comparisons (string-aware), three-valued
-AND/OR/NOT, IS [NOT] NULL, CASE, COALESCE, IN lists, LIKE / ILIKE,
-SUBSTRING, EXTRACT, and DATE / TIMESTAMP arithmetic and comparisons.
-Any other operator raises ``NotImplementedError`` naming it (see
-``OPERATION_MAPPING``).
+The counterpart of ``dask_sql_tpu/physical/rex/ops.py``, with the same
+``OPERATION_MAPPING`` keys: logic and comparisons with three-valued NULL
+semantics, SQL truncating division, CASE / COALESCE / NULLIF / GREATEST /
+LEAST, IS [NOT] TRUE / FALSE / NULL / DISTINCT FROM, IN lists and SEARCH,
+LIKE / ILIKE / SIMILAR TO, the math functions, FLOOR / CEIL on numbers and
+on dates, seeded RAND, the string functions and EXTRACT with its
+shorthands.
 
 String functions run once per dictionary entry on the host and map back
 to the rows by a gather on the device (``map_dictionary``); only an
 operator over several string columns at once, or a per-row LIKE pattern,
-decodes rows on the host.
+decodes rows on the host.  LIKE over a dictionary of at least
+``DSQL_DEVICE_STRING_THRESHOLD`` entries matches on the device
+(``ops/strings_fast.py``).
 
 Value model: every op takes a list of Column/Scalar args plus the
 binder-inferred result type and returns Column or Scalar.  Python float
 scalars enter tensor arithmetic as float64 tensors, so an int column times
 a float literal computes in float64 as it does under JAX's x64 mode (torch
-would otherwise take a Python float as float32).
+would otherwise take a Python float as float32); DOUBLE-valued functions
+of integer columns compute in float64 for the same reason.
+
+Where the JAX package's answer is not SQL's, the port gives SQL's:
+``POWER`` of integers with a negative exponent (JAX: INT64_MIN; here
+``POWER(2, -1) = 0.5``), ``CBRT`` of a negative literal (JAX: the real part
+of a complex root) and ``GREATEST`` / ``LEAST`` over strings (JAX raises).
 """
 from __future__ import annotations
 
@@ -27,12 +36,16 @@ from typing import Callable, List, Optional, Union
 import numpy as np
 import torch
 
+from ...ops import strings_fast as SF
 from ...ops.kernels import (
     US_PER_DAY, civil_from_days, days_from_civil, extract_field,
-    timestamp_time_of_day_us, timestamp_to_days, unify_string_codes,
+    timestamp_time_of_day_us, timestamp_to_days, trunc_date,
+    unify_string_codes,
 )
 from ...table import Column, Scalar
-from ...types import BOOLEAN, VARCHAR, SqlType, physical_dtype, torch_dtype
+from ...types import (
+    BOOLEAN, DOUBLE, VARCHAR, SqlType, physical_dtype, torch_dtype,
+)
 
 Value = Union[Column, Scalar]
 
@@ -372,6 +385,41 @@ def is_not_null(args, stype, ctx):
     return Column(a.valid_mask(), BOOLEAN, None)
 
 
+def _is_bool(value: bool, negated: bool):
+    def op(args, stype, ctx):
+        (a,) = args
+        if isinstance(a, Scalar):
+            r = (not a.is_null) and bool(a.value) == value
+            return Scalar((not r) if negated else r, BOOLEAN)
+        r = a.valid_mask() & (a.data.to(torch.bool) == value)
+        return Column(~r if negated else r, BOOLEAN, None)
+
+    return op
+
+
+def _null_flags(v: Value, n: int, device) -> torch.Tensor:
+    if isinstance(v, Column):
+        return ~v.valid_mask()
+    return torch.full((n,), v.is_null, dtype=torch.bool, device=device)
+
+
+def is_distinct_from(negated: bool):
+    def op(args, stype, ctx):
+        a, b = args
+        col = _column_of(args)
+        if col is None:
+            an, bn = a.is_null, b.is_null
+            distinct = (an != bn) if (an or bn) else a.value != b.value
+            return Scalar((not distinct) if negated else distinct, BOOLEAN)
+        n, dev = len(col), col.device
+        ev, ek = _to_bool_parts(comparison("=")([a, b], BOOLEAN, ctx), n, dev)
+        a_null, b_null = _null_flags(a, n, dev), _null_flags(b, n, dev)
+        distinct = torch.where(a_null | b_null, ~(a_null & b_null), ~(ev & ek))
+        return Column(~distinct if negated else distinct, BOOLEAN, None)
+
+    return op
+
+
 # ---------------------------------------------------------------------------
 # CASE
 # ---------------------------------------------------------------------------
@@ -483,8 +531,78 @@ def in_list_op(args: List[Value], stype: SqlType, ctx) -> Value:
     return Scalar(False, BOOLEAN) if out is None else out
 
 
+def nullif_op(args, stype, ctx):
+    a, b = args
+    eq = comparison("=")([a, b], BOOLEAN, ctx)
+    col = _column_of(args)
+    if col is None:
+        if not eq.is_null and eq.value:
+            return Scalar(None, stype)
+        return a
+    n, dev = len(col), col.device
+    ac = _as_col(a, n, dev)
+    ev, ek = _to_bool_parts(eq, n, dev)
+    return Column(ac.data, ac.stype, ac.valid_mask() & ~(ev & ek),
+                  ac.dictionary)
+
+
+def greatest_least(is_greatest: bool):
+    """GREATEST / LEAST: NULL if any argument is NULL (Calcite).  Strings
+    compare through their dictionaries, as ``_string_compare`` does: the
+    codes of every argument on the sorted union of the dictionaries."""
+    pick = torch.maximum if is_greatest else torch.minimum
+
+    def op(args, stype, ctx):
+        col = _column_of(args)
+        if col is None:
+            vals = [a.value for a in args]
+            if any(v is None for v in vals):
+                return Scalar(None, stype)
+            return Scalar(max(vals) if is_greatest else min(vals), stype)
+        if _any_null_scalar(args):
+            return _null_result(args, stype)
+        n, dev = len(col), col.device
+        if stype.is_string:
+            cols = [_as_col(_cast_value_to(a, VARCHAR), n, dev) for a in args]
+            codes = unify_string_codes(cols)
+            union = np.unique(np.concatenate([c.dictionary.astype(str)
+                                              for c in cols]))
+            out = codes[0]
+            for c in codes[1:]:
+                out = pick(out, c)
+            return Column(out.to(torch.int32), VARCHAR, combine_masks(*cols),
+                          union.astype(object))
+        cols = [_as_col(_cast_value_to(a, stype), n, dev) for a in args]
+        out = cols[0].data
+        for c in cols[1:]:
+            out = pick(out, c.data)
+        return Column(out, stype, combine_masks(*cols))
+
+    return op
+
+
+def _search_op(args, stype, ctx):
+    """SEARCH(x, Sarg): range-set membership.  The second argument is a
+    Scalar holding a list of (lo, lo_open, hi, hi_open) ranges."""
+    expr, ranges = args
+    out = None
+    for lo, lo_open, hi, hi_open in ranges.value:
+        conds = []
+        if lo is not None:
+            conds.append(comparison(">" if lo_open else ">=")(
+                [expr, Scalar(lo, expr.stype)], BOOLEAN, ctx))
+        if hi is not None:
+            conds.append(comparison("<" if hi_open else "<=")(
+                [expr, Scalar(hi, expr.stype)], BOOLEAN, ctx))
+        piece = conds[0] if conds else Scalar(True, BOOLEAN)
+        for c in conds[1:]:
+            piece = logical_and([piece, c], BOOLEAN, ctx)
+        out = piece if out is None else logical_or([out, piece], BOOLEAN, ctx)
+    return Scalar(False, BOOLEAN) if out is None else out
+
+
 # ---------------------------------------------------------------------------
-# LIKE / ILIKE
+# LIKE / ILIKE / SIMILAR TO
 # ---------------------------------------------------------------------------
 
 def sql_like_to_regex(pattern: str, escape: Optional[str] = None) -> str:
@@ -501,14 +619,58 @@ def sql_like_to_regex(pattern: str, escape: Optional[str] = None) -> str:
     return "^" + "".join(out) + "$"
 
 
+def sql_similar_to_regex(pattern: str, escape: Optional[str] = None) -> str:
+    """SIMILAR TO: the ``%`` and ``_`` wildcards, and every other character
+    passed through as a regex metacharacter or literal."""
+    out = []
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if escape and c == escape and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        out.append(".*" if c == "%" else "." if c == "_" else c)
+        i += 1
+    return "^" + "".join(out) + "$"
+
+
 def _like_regex(kind: str, pattern: str, escape: Optional[str]):
-    return re.compile(sql_like_to_regex(pattern, escape),
-                      re.IGNORECASE if kind == "ILIKE" else 0)
+    rx = (sql_similar_to_regex(pattern, escape) if kind == "SIMILAR"
+          else sql_like_to_regex(pattern, escape))
+    return re.compile(rx, re.IGNORECASE if kind == "ILIKE" else 0)
+
+
+def _regex_bitmap(kind: str, pattern: str, escape: Optional[str], d
+                  ) -> np.ndarray:
+    SF.stats["regex_bitmaps"] += 1
+    rx = _like_regex(kind, pattern, escape)
+    return np.array([rx.match(x) is not None for x in d], dtype=bool)
+
+
+def like_bitmap(kind: str, pattern: str, escape: Optional[str],
+                dictionary: np.ndarray, device) -> torch.Tensor:
+    """The per-entry bitmap of a dictionary (or of a column's values as
+    strings) on ``device``: matched on the device at or past
+    ``DEVICE_STRING_THRESHOLD`` entries, else by the vectorized host bitmap,
+    else (``_`` wildcards, SIMILAR TO) by regex."""
+    if len(dictionary) >= SF.DEVICE_STRING_THRESHOLD:
+        per = SF.device_like_bitmap(dictionary, pattern, escape, kind, device)
+        if per is not None:
+            SF.stats["device_bitmaps"] += 1
+            return per
+    d = SF.dict_as_str(dictionary)
+    per = SF.like_bitmap_vectorized(d, pattern, escape, kind)
+    if per is None:
+        per = _regex_bitmap(kind, pattern, escape, d)
+    else:
+        SF.stats["vectorized_bitmaps"] += 1
+    return torch.from_numpy(np.asarray(per, dtype=bool)).to(device)
 
 
 def like_op(kind: str):
-    """LIKE over a dictionary column: the pattern runs once per dictionary
-    entry on the host and the codes gather the bitmap on the device."""
+    """LIKE / ILIKE / SIMILAR TO over a dictionary column: one bitmap over
+    the dictionary (``like_bitmap``) gathered by the codes on the device."""
 
     def op(args: List[Value], stype: SqlType, ctx) -> Value:
         expr, pattern, *rest = args
@@ -531,16 +693,18 @@ def like_op(kind: str):
             n = _length(args)
             return (Scalar(None, BOOLEAN) if n is None
                     else all_null_column(n, BOOLEAN, expr.device))
-        rx = _like_regex(kind, str(pattern.value), escape)
+        pat = str(pattern.value)
         if isinstance(expr, Scalar):
-            return Scalar(rx.match(str(expr.value)) is not None, BOOLEAN)
+            return Scalar(_like_regex(kind, pat, escape).match(str(expr.value))
+                          is not None, BOOLEAN)
         if expr.stype.is_string:
-            return map_dictionary(
-                expr, lambda d: np.array([rx.match(x) is not None for x in d],
-                                         dtype=bool), BOOLEAN)
-        d = expr.to_numpy().astype(str)
-        per = np.array([rx.match(x) is not None for x in d], dtype=bool)
-        return Column(torch.from_numpy(per).to(expr.device), BOOLEAN, expr.mask)
+            dct = expr.dictionary
+            per = like_bitmap(kind, pat, escape, dct, expr.device)
+            idx = expr.data.clamp(0, max(len(dct) - 1, 0)).long()
+            return Column(per[idx], BOOLEAN, expr.mask)
+        per = like_bitmap(kind, pat, escape, expr.to_numpy().astype(str),
+                          expr.device)
+        return Column(per, BOOLEAN, expr.mask)
 
     return op
 
@@ -564,6 +728,19 @@ def map_dictionary(col: Column, fn: Callable[[np.ndarray], np.ndarray],
                       newdict.astype(object))
     table = torch.from_numpy(np.asarray(res).astype(physical_dtype(stype)))
     return Column(table.to(col.device)[idx], stype, col.mask)
+
+
+def string_unary(fn_one: Callable[[str], object]):
+    """Lift a Python str -> value function: once per dictionary entry."""
+
+    def op(args: List[Value], stype: SqlType, ctx) -> Value:
+        (a,) = args
+        if isinstance(a, Scalar):
+            return Scalar(None if a.is_null else fn_one(str(a.value)), stype)
+        return map_dictionary(
+            a, lambda d: np.array([fn_one(x) for x in d], dtype=object), stype)
+
+    return op
 
 
 def string_nary(fn_row: Callable[..., object]):
@@ -659,6 +836,62 @@ def substring_op(args: List[Value], stype: SqlType, ctx) -> Value:
     return string_nary(_substring)(args, stype, ctx)
 
 
+def _trim(side, chars, s):
+    chars = chars or " "
+    if side == "LEADING":
+        return s.lstrip(chars)
+    if side == "TRAILING":
+        return s.rstrip(chars)
+    return s.strip(chars)
+
+
+def _overlay(s, repl, start, length=None):
+    start = int(start)
+    if length is None:
+        length = len(repl)
+    return s[: start - 1] + repl + s[start - 1 + int(length):]
+
+
+def _split_part(s, delim, idx):
+    parts = s.split(delim)
+    i = int(idx)
+    return parts[i - 1] if 1 <= i <= len(parts) else ""
+
+
+def _left(s, k):
+    return s[: int(k)] if k >= 0 else s[: max(len(s) + int(k), 0)]
+
+
+def _right(s, k):
+    if k > 0:
+        return s[-int(k):]
+    return s[-(len(s) + int(k)):] if len(s) + int(k) > 0 else ""
+
+
+def _lpad(s, k, p=" "):
+    k = int(k)
+    return s[:k] if len(s) >= k else (p * k)[: k - len(s)] + s
+
+
+def _rpad(s, k, p=" "):
+    k = int(k)
+    return s[:k] if len(s) >= k else s + (p * k)[: k - len(s)]
+
+
+def _translate(s, frm, to):
+    return s.translate(str.maketrans(frm, to[: len(frm)].ljust(len(frm))))
+
+
+def _initcap(s):
+    return re.sub(r"[a-zA-Z]+", lambda m: m.group(0).capitalize(), s)
+
+
+def concat_op(args: List[Value], stype: SqlType, ctx) -> Value:
+    """``||`` / CONCAT: NULL if any argument is NULL (Calcite)."""
+    return string_nary(lambda *vals: "".join(str(v) for v in vals))(
+        args, stype, ctx)
+
+
 # ---------------------------------------------------------------------------
 # EXTRACT
 # ---------------------------------------------------------------------------
@@ -695,34 +928,309 @@ def _fdiv(a, b):
     return torch.div(a, b, rounding_mode="floor")
 
 
+def _shorthand(field: str):
+    """YEAR(x), MONTH(x), ...: EXTRACT(field FROM x)."""
+    def op(args, stype, ctx):
+        return extract_op([Scalar(field, SqlType("SYMBOL")), args[0]], stype,
+                          ctx)
+    return op
+
+
 # ---------------------------------------------------------------------------
-# THE MAPPING (the ported subset of the JAX package's OPERATION_MAPPING)
+# FLOOR / CEIL, on numbers and TO <unit> on DATE and TIMESTAMP
+# ---------------------------------------------------------------------------
+
+def floor_ceil_op(is_floor: bool):
+    def op(args: List[Value], stype: SqlType, ctx) -> Value:
+        if not (len(args) == 2 and isinstance(args[1], Scalar)
+                and args[1].stype.name == "SYMBOL"):
+            fn = torch.floor if is_floor else torch.ceil
+            py = math.floor if is_floor else math.ceil
+            return numeric_op(fn, py)(args[:1], stype, ctx)
+        src, unit = args[0], str(args[1].value)
+        if isinstance(src, Scalar):
+            if src.is_null:
+                return Scalar(None, stype)
+            one = Column(torch.as_tensor([src.value]), src.stype)
+            return Scalar(int(op([one, args[1]], stype, ctx).data[0]), stype)
+        if src.stype.name == "DATE":
+            days = src.data.to(torch.int64)
+            fdays, _ = trunc_date(unit, days, None)
+            out = fdays if is_floor else _ceil_date(unit, days, fdays, None,
+                                                    None)
+            return Column(out.to(torch_dtype(stype)), stype, src.mask)
+        days = timestamp_to_days(src.data)
+        tod = timestamp_time_of_day_us(src.data)
+        fdays, ftod = trunc_date(unit, days, tod)
+        floored = fdays * US_PER_DAY + (0 if ftod is None else ftod)
+        out = floored if is_floor else _ceil_date(unit, days, fdays, tod,
+                                                  floored)
+        return Column(out.to(torch.int64), stype, src.mask)
+
+    return op
+
+
+def _ceil_date(unit, days, floored_days, tod, floored_us):
+    """CEIL(x TO unit): x if already aligned, else the floor plus one unit
+    (as in the JAX package, a DATE's QUARTER and DAY are the date itself)."""
+    u = unit.upper()
+    if floored_us is None:
+        aligned = days == floored_days
+        if u == "YEAR":
+            y, m, d = civil_from_days(days)
+            return torch.where(aligned, days, days_from_civil(
+                y + 1, torch.ones_like(m), torch.ones_like(d)))
+        if u == "MONTH":
+            return torch.where(aligned, days, add_months(floored_days, 1))
+        if u == "WEEK":
+            return torch.where(aligned, days, floored_days + 7)
+        return days
+    orig = days * US_PER_DAY + tod
+    aligned = orig == floored_us
+    if u == "YEAR":
+        y, m, d = civil_from_days(days)
+        nxt = days_from_civil(y + 1, torch.ones_like(m),
+                              torch.ones_like(d)) * US_PER_DAY
+        return torch.where(aligned, orig, nxt)
+    if u == "MONTH":
+        nxt = add_months(timestamp_to_days(floored_us), 1) * US_PER_DAY
+        return torch.where(aligned, orig, nxt)
+    step = {"DAY": US_PER_DAY, "HOUR": 3_600_000_000, "MINUTE": 60_000_000,
+            "SECOND": 1_000_000, "WEEK": 7 * US_PER_DAY}.get(u)
+    if step is None:
+        raise NotImplementedError(f"CEIL unit {unit}")
+    return torch.where(aligned, orig, floored_us + step)
+
+
+# ---------------------------------------------------------------------------
+# math
+# ---------------------------------------------------------------------------
+
+def _fl(x):
+    """An operand of a DOUBLE-valued function: a float tensor keeps its
+    dtype (as under jnp); an integer tensor or a Python number computes in
+    float64 (torch would take float32)."""
+    if isinstance(x, torch.Tensor):
+        return x if x.dtype.is_floating_point else x.to(torch.float64)
+    return torch.tensor(float(x), dtype=torch.float64)
+
+
+def _float_fn(fn: Callable):
+    return lambda *xs: fn(*[_fl(x) for x in xs])
+
+
+def _power(a, b):
+    """POWER in the result type: integers compute in float64, so that
+    ``POWER(2, -1) = 0.5`` (the JAX package gives INT64_MIN there)."""
+    return torch.pow(_fl(a), _fl(b))
+
+
+def _log(a, b=None):
+    """LOG(x), or LOG(base, x)."""
+    return torch.log(_fl(a)) if b is None else torch.log(_fl(b)) / torch.log(_fl(a))
+
+
+def _py_log(a, b=None):
+    return math.log(a) if b is None else math.log(b, a)
+
+
+def _sign(a):
+    # torch.sign(NaN) is 0; SQL and jnp.sign give NaN
+    out = torch.sign(a)
+    return torch.where(torch.isnan(a), a, out) if a.dtype.is_floating_point \
+        else out
+
+
+def _cbrt(a):
+    """Real cube root: ``sign(a) * |a| ** (1/3)`` and one Newton step,
+    which brings it within an ulp or two of a correctly rounded root."""
+    a = _fl(a)
+    y = torch.sign(a) * a.abs().pow(1.0 / 3.0)
+    step = (y * y * y - a) / (3.0 * y * y)
+    return torch.where(torch.isfinite(step) & (y != 0), y - step, y)
+
+
+def _py_cbrt(a):
+    return math.copysign(abs(a) ** (1.0 / 3.0), a)
+
+
+def _scaled(fn: Callable):
+    """ROUND / TRUNCATE with optional digits: ``fn(a * 10**d) / 10**d``."""
+    def f(a, d=None):
+        if d is None:
+            return fn(a) if a.dtype.is_floating_point else a
+        scale = 10.0 ** (_fl(d) if isinstance(d, torch.Tensor) else d)
+        return fn(_fl(a) * scale) / scale
+    return f
+
+
+def _py_round(a, d=None):
+    return round(a) if d is None else round(a, int(d))
+
+
+def _py_truncate(a, d=None):
+    return math.trunc(a) if d is None else math.trunc(a * 10 ** d) / 10 ** d
+
+
+# ---------------------------------------------------------------------------
+# random, seeded on the table's device
+# ---------------------------------------------------------------------------
+
+def _generator(seed: Optional[int], device) -> torch.Generator:
+    g = torch.Generator(device=device)
+    if seed is None:
+        g.seed()
+    else:
+        g.manual_seed(seed)
+    return g
+
+
+def _table_device(table):
+    return table.columns[0].device if table.columns else torch.device("cpu")
+
+
+def rand_op(args: List[Value], stype: SqlType, ctx) -> Value:
+    """RAND([seed]): uniform [0, 1) doubles, one per row."""
+    dev = _table_device(ctx)
+    g = _generator(int(args[0].value) if args else None, dev)
+    return Column(torch.rand(ctx.num_rows, generator=g, dtype=torch.float64,
+                             device=dev), DOUBLE, None)
+
+
+def rand_integer_op(args: List[Value], stype: SqlType, ctx) -> Value:
+    """RAND_INTEGER([seed,] bound): uniform integers in [0, bound)."""
+    seed = int(args[0].value) if len(args) == 2 else None
+    dev = _table_device(ctx)
+    out = torch.randint(0, int(args[-1].value), (ctx.num_rows,),
+                        generator=_generator(seed, dev), device=dev)
+    return Column(out.to(torch.int32), stype, None)
+
+
+# ---------------------------------------------------------------------------
+# THE MAPPING (the keys of the JAX package's OPERATION_MAPPING)
 # ---------------------------------------------------------------------------
 
 OPERATION_MAPPING = {
+    # logic
     "AND": logical_and,
     "OR": logical_or,
     "NOT": logical_not,
+    # comparison
     "=": comparison("="),
     "<>": comparison("<>"),
     "<": comparison("<"),
     "<=": comparison("<="),
     ">": comparison(">"),
     ">=": comparison(">="),
+    # arithmetic
     "+": temporal_plus_minus(+1),
     "-": temporal_plus_minus(-1),
-    "*": numeric_op(lambda a, b: a * b),
+    "*": numeric_op(lambda a, b: a * b, lambda a, b: a * b),
     "/": numeric_op(sql_div, _py_div),
     "%": numeric_op(_sql_mod, _py_mod),
     "MOD": numeric_op(_sql_mod, _py_mod),
-    "NEGATE": numeric_op(lambda a: -a),
+    "NEGATE": numeric_op(lambda a: -a, lambda a: -a),
+    # is-ness
     "IS_NULL": is_null,
     "IS_NOT_NULL": is_not_null,
+    "IS_TRUE": _is_bool(True, False),
+    "IS_NOT_TRUE": _is_bool(True, True),
+    "IS_FALSE": _is_bool(False, False),
+    "IS_NOT_FALSE": _is_bool(False, True),
+    "IS_DISTINCT_FROM": is_distinct_from(False),
+    "IS_NOT_DISTINCT_FROM": is_distinct_from(True),
+    # conditional
     "CASE": case_op,
     "COALESCE": coalesce_op,
+    "IFNULL": coalesce_op,
+    "NVL": coalesce_op,
+    "NULLIF": nullif_op,
+    "GREATEST": greatest_least(True),
+    "LEAST": greatest_least(False),
     "IN_LIST": in_list_op,
+    "SEARCH": _search_op,
+    # pattern matching
     "LIKE": like_op("LIKE"),
     "ILIKE": like_op("ILIKE"),
+    "SIMILAR": like_op("SIMILAR"),
+    # math
+    "ABS": numeric_op(torch.abs, abs),
+    "SQRT": numeric_op(_float_fn(torch.sqrt), math.sqrt),
+    "EXP": numeric_op(_float_fn(torch.exp), math.exp),
+    "LN": numeric_op(_float_fn(torch.log), math.log),
+    "LOG10": numeric_op(_float_fn(torch.log10), math.log10),
+    "LOG": numeric_op(_log, _py_log),
+    "POWER": numeric_op(_power, math.pow),
+    "POW": numeric_op(_power, math.pow),
+    "SIN": numeric_op(_float_fn(torch.sin), math.sin),
+    "COS": numeric_op(_float_fn(torch.cos), math.cos),
+    "TAN": numeric_op(_float_fn(torch.tan), math.tan),
+    "ASIN": numeric_op(_float_fn(torch.asin), math.asin),
+    "ACOS": numeric_op(_float_fn(torch.acos), math.acos),
+    "ATAN": numeric_op(_float_fn(torch.atan), math.atan),
+    "ATAN2": numeric_op(_float_fn(torch.atan2), math.atan2),
+    "SINH": numeric_op(_float_fn(torch.sinh), math.sinh),
+    "COSH": numeric_op(_float_fn(torch.cosh), math.cosh),
+    "TANH": numeric_op(_float_fn(torch.tanh), math.tanh),
+    "COT": numeric_op(_float_fn(lambda a: 1.0 / torch.tan(a)),
+                      lambda a: 1.0 / math.tan(a)),
+    "DEGREES": numeric_op(_float_fn(lambda a: a * (180.0 / math.pi)),
+                          math.degrees),
+    "RADIANS": numeric_op(_float_fn(lambda a: a * (math.pi / 180.0)),
+                          math.radians),
+    "SIGN": numeric_op(_sign, lambda a: (a > 0) - (a < 0)),
+    "CBRT": numeric_op(_cbrt, _py_cbrt),
+    "ROUND": numeric_op(_scaled(torch.round), _py_round),
+    "TRUNCATE": numeric_op(_scaled(torch.trunc), _py_truncate),
+    "PI": lambda args, stype, ctx: Scalar(math.pi, DOUBLE),
+    "FLOOR": floor_ceil_op(True),
+    "CEIL": floor_ceil_op(False),
+    "CEILING": floor_ceil_op(False),
+    "RAND": rand_op,
+    "RANDOM": rand_op,
+    "RAND_INTEGER": rand_integer_op,
+    # strings
+    "||": concat_op,
+    "CONCAT": concat_op,
+    "UPPER": string_unary(str.upper),
+    "LOWER": string_unary(str.lower),
+    "INITCAP": string_unary(_initcap),
+    "REVERSE": string_unary(lambda x: x[::-1]),
+    "CHAR_LENGTH": string_unary(len),
+    "CHARACTER_LENGTH": string_unary(len),
+    "LENGTH": string_unary(len),
+    "OCTET_LENGTH": string_unary(lambda x: len(x.encode())),
+    "ASCII": string_unary(lambda x: ord(x[0]) if x else 0),
+    "CHR": string_nary(lambda c: chr(int(c))),
     "SUBSTRING": substring_op,
+    "SUBSTR": substring_op,
+    "TRIM": string_nary(_trim),
+    "LTRIM": string_nary(lambda x, c=" ": x.lstrip(c)),
+    "RTRIM": string_nary(lambda x, c=" ": x.rstrip(c)),
+    "BTRIM": string_nary(lambda x, c=" ": x.strip(c)),
+    "POSITION": string_nary(lambda needle, hay: hay.find(needle) + 1),
+    "STRPOS": string_nary(lambda hay, needle: hay.find(needle) + 1),
+    "OVERLAY": string_nary(_overlay),
+    "REPLACE": string_nary(lambda x, old, new: x.replace(old, new)),
+    "REPEAT": string_nary(lambda x, k: x * int(k)),
+    "LEFT": string_nary(_left),
+    "RIGHT": string_nary(_right),
+    "LPAD": string_nary(_lpad),
+    "RPAD": string_nary(_rpad),
+    "SPLIT_PART": string_nary(_split_part),
+    "TRANSLATE": string_nary(_translate),
+    "REGEXP_REPLACE": string_nary(lambda x, p, r: re.sub(p, r, x)),
+    # datetime
     "EXTRACT": extract_op,
+    "YEAR": _shorthand("YEAR"),
+    "MONTH": _shorthand("MONTH"),
+    "DAY": _shorthand("DAY"),
+    "HOUR": _shorthand("HOUR"),
+    "MINUTE": _shorthand("MINUTE"),
+    "SECOND": _shorthand("SECOND"),
+    "QUARTER": _shorthand("QUARTER"),
+    "DAYOFWEEK": _shorthand("DOW"),
+    "DAYOFMONTH": _shorthand("DAY"),
+    "DAYOFYEAR": _shorthand("DOY"),
+    "WEEK": _shorthand("WEEK"),
 }

@@ -370,3 +370,109 @@ def test_dense_paths_make_only_their_named_syncs(cuda_device):
         _, counts[variant] = _count_syncs(
             lambda: J.join_tables(lt, rt, [0], [0], "INNER", variant=variant))
     assert counts["dense"] <= counts["hash"]
+
+
+def _window_frame(n, seed):
+    rng = np.random.RandomState(seed)
+    return {
+        "p": rng.randint(0, 40, n),
+        "o": rng.permutation(n),
+        "t": rng.randint(0, 500, n),
+        "v": rng.randn(n).round(3) * 100,
+        "i": rng.randint(-50, 50, n),
+        "s": rng.choice(["kiwi", "apple", "fig", "banana", "cherry"], n).astype(object),
+    }
+
+
+@pytest.mark.gpu
+def test_window_queries_on_card_match_cpu(cuda_device):
+    """Every window function and frame form on the card equals the CPU's:
+    ints and strings exact, float sums rtol 1e-9 (the prefix sum adds in
+    another order on the card)."""
+    data = _window_frame(50_000, 7)
+    on_card, on_cpu = Context(device=cuda_device), Context(device="cpu")
+    for ctx in (on_card, on_cpu):
+        ctx.create_table("w", data)
+    over = "OVER (PARTITION BY p ORDER BY t, o)"
+    queries = [
+        f"SELECT ROW_NUMBER() {over} AS rn, RANK() {over} AS r, "
+        f"DENSE_RANK() {over} AS dr, NTILE(4) {over} AS nt, "
+        f"PERCENT_RANK() {over} AS pr, CUME_DIST() {over} AS cd FROM w",
+        "SELECT SUM(v) OVER (PARTITION BY p ORDER BY o ROWS BETWEEN 6 PRECEDING "
+        "AND CURRENT ROW) AS s, MIN(v) OVER (PARTITION BY p ORDER BY o ROWS "
+        "BETWEEN 3 PRECEDING AND 3 FOLLOWING) AS mn, MAX(s) OVER (PARTITION BY p "
+        "ORDER BY o ROWS BETWEEN 2 PRECEDING AND 1 FOLLOWING) AS mx, "
+        f"AVG(i) {over} AS a, LAG(v, 2) {over} AS lg, LEAD(s) {over} AS ld FROM w",
+        "SELECT SUM(v) OVER (PARTITION BY p ORDER BY t RANGE BETWEEN 20 PRECEDING "
+        "AND CURRENT ROW) AS rs, FIRST_VALUE(s) OVER (PARTITION BY p ORDER BY t) "
+        "AS fv, LAST_VALUE(s) OVER (PARTITION BY p ORDER BY t) AS lv, "
+        "MIN(i) OVER (PARTITION BY p) AS mw, COUNT(*) OVER (PARTITION BY s) AS c "
+        "FROM w",
+    ]
+    for q in queries:
+        got, want = on_card.sql(q), on_cpu.sql(q)
+        for name, g, w in zip(want.names, got.columns, want.columns):
+            gv, wv = g.to_numpy(), w.to_numpy()
+            if wv.dtype.kind == "f":
+                np.testing.assert_allclose(gv, wv, rtol=1e-9, atol=1e-6,
+                                           equal_nan=True, err_msg=name)
+            else:
+                assert gv.tolist() == wv.tolist(), name
+
+
+@pytest.mark.gpu
+def test_device_like_bitmap_on_card_matches_cpu(cuda_device):
+    """The device bytes-matrix bitmap on the card equals the CPU's and the
+    regex bitmap, bit for bit, and is kept per device."""
+    import re
+
+    from dask_sql_tpu_torch.ops import strings_fast as sf
+    from dask_sql_tpu_torch.physical.rex.ops import sql_like_to_regex
+
+    rng = np.random.RandomState(3)
+    words = np.array(["special", "requests", "pending", "deposits", "quickly",
+                      "Special", "REQUESTS", "x"], dtype=object)
+    d = np.array([" ".join(rng.choice(words, rng.randint(0, 8)))
+                  for _ in range(40_000)] + ["", "a_b"], dtype=object)
+    for kind, pattern in (("LIKE", "%special%requests%"), ("ILIKE", "%SPECIAL%"),
+                          ("LIKE", "special%"), ("LIKE", "%x"), ("LIKE", ""),
+                          ("ILIKE", "pending deposits")):
+        card = sf.device_like_bitmap(d, pattern, None, kind, cuda_device)
+        cpu = sf.device_like_bitmap(d, pattern, None, kind, torch.device("cpu"))
+        rx = re.compile(sql_like_to_regex(pattern),
+                        re.IGNORECASE if kind == "ILIKE" else 0)
+        want = np.array([rx.match(x) is not None for x in d])
+        assert card.device.type == "cuda"
+        assert torch.equal(card.cpu(), cpu)
+        np.testing.assert_array_equal(cpu.numpy(), want, err_msg=pattern)
+    assert sf._bytes_matrix(d, cuda_device)[0].device.type == "cuda"
+    assert sf._bytes_matrix(d, torch.device("cpu"))[0].device.type == "cpu"
+
+
+@pytest.mark.gpu
+def test_window_calls_make_only_their_host_reads(cuda_device):
+    """compute_window synchronises only where it reads a constant argument
+    from column data: none for ranks, frame sums and bounded MIN/MAX, one
+    for NTILE and for LAG with an offset."""
+    from dask_sql_tpu_torch.ops import window as W
+    from dask_sql_tpu_torch.table import Column, Table
+    from dask_sql_tpu_torch.types import BIGINT, DOUBLE
+
+    rng = np.random.RandomState(4)
+    n = 500_000
+    t = Table(["p", "o", "v", "k"], [
+        Column(torch.from_numpy(rng.randint(0, 800, n)).to(cuda_device), BIGINT),
+        Column(torch.from_numpy(rng.permutation(n)).to(cuda_device), BIGINT),
+        Column(torch.from_numpy(rng.randn(n)).to(cuda_device), DOUBLE),
+        Column(torch.full((n,), 3, device=cuda_device), BIGINT)])
+    order = [(1, True, False)]
+    cases = [("ROW_NUMBER", [], None, BIGINT, 0), ("DENSE_RANK", [], None, BIGINT, 0),
+             ("SUM", [2], ("ROWS", ("PRECEDING", 6), ("CURRENT", None)), DOUBLE, 0),
+             ("MIN", [2], ("ROWS", ("PRECEDING", 3), ("FOLLOWING", 3)), DOUBLE, 0),
+             ("SUM", [2], ("RANGE", ("PRECEDING", 1000), ("CURRENT", None)), DOUBLE, 0),
+             ("NTILE", [3], None, BIGINT, 1), ("LAG", [2, 3], None, DOUBLE, 1)]
+    for op, args, frame, st, want in cases:
+        W.compute_window(t, op, args, [0], order, frame, st)  # warm-up
+        _, syncs = _count_syncs(
+            lambda: W.compute_window(t, op, args, [0], order, frame, st))
+        assert syncs == want, (op, frame, syncs)

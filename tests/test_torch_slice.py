@@ -172,6 +172,10 @@ def test_scalar_operators_match_jax(small_tables, tpch_li, name):
 
 
 def test_unported_operator_names_itself(small_tables):
+    """A row UDF (fed pandas rows in the JAX package) is not ported: the
+    query raises and names it."""
     _, pc = _contexts(small_tables)
-    with pytest.raises(NotImplementedError, match="UPPER"):
-        pc.sql("SELECT UPPER(k) FROM t")
+    pc.register_function(lambda row: row["a0"], "row_identity",
+                         [("x", np.float64)], np.float64, row_udf=True)
+    with pytest.raises(NotImplementedError, match="row_identity"):
+        pc.sql("SELECT row_identity(v) FROM t")
