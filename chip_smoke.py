@@ -7,8 +7,10 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: compile every hand-written kernel from ``dask_sql_tpu_torch/csrc``
-   with nvcc (sm_90a), one nvcc per source, all started together; report
-   the build times and ptxas's register report;
+   with nvcc (sm_90a), one nvcc per source, all started together, and,
+   beside them, the native parser and optimizer from
+   ``dask_sql_tpu_torch/native`` with g++; report the build times and
+   ptxas's register report;
 3. data: the eight TPC-H tables at ``--sf`` (SF 1: 6.0 M lineitem rows),
    generated here from ``--seed`` in numpy alone with the columns,
    distributions and random stream of ``benchmarks/tpch.py``, registered
@@ -91,7 +93,27 @@ Phases, in order; any failure exits non-zero before the last line:
    bitmap and the device bitmap equal to it bit for bit, NOT LIKE's warm
    wall under each strategy forced, the bytes matrix's size; W2 and S1
    profiled once (device busy and idle).  One ``surface table:`` JSON line
-   per query.
+   per query;
+11. front end: Q1-Q22 at ``--sf`` planned five times each, in turns, by
+   the native front end (``Context``'s path: the C++ parser and optimizer,
+   then the statistics join order; every plan counts ``planner_native``)
+   and by the port's Python parser and ``PASSES`` pipeline called directly
+   (with the same post-pass); the EXPLAIN texts equal, the plan-ms medians
+   of both, of the native path's C++ calls (parse and optimize, ctypes and
+   JSON decoding included) and of the statistics post-pass; then each
+   query's warm wall through ``Context.sql`` with either front end
+   (``DSQL_NATIVE=0`` for the Python one), five runs each in turns, and
+   the garbage collector's generation-2 passes in each; one
+   ``frontend table:`` JSON line per query; then the statement layer on
+   the card: CREATE SCHEMA, CREATE TABLE AS Q1 (kernel 1 launches once,
+   the launch counts set to 0 before it and read after it; the table
+   equal to the numpy oracle and to phase 7's answer), a view over
+   lineitem queried twice (equal to the inline query), SHOW TABLES,
+   PREPARE Q6 with ``?`` markers and EXECUTE with two parameter sets (each
+   equal to the inline-literal query), EXPLAIN ANALYZE of Q1 and Q9 (the
+   root's ``rows=`` equal to the result's rows), fractional RANGE offsets
+   and LAG / LEAD defaults over lineitem against the port's CPU run, and
+   the DROPs; one ``statements:`` JSON line.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -100,6 +122,7 @@ beside it, the script exits non-zero and prints neither.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -870,10 +893,20 @@ def phase_environment() -> str:
 
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dask_sql_tpu_torch import native
     from dask_sql_tpu_torch.ops import gpu_kernels as gk
 
     t0 = time.perf_counter()
-    for name, info in gk.build_kernels().items():
+    with ThreadPoolExecutor(2) as pool:
+        front_end = pool.submit(native.build)
+        kernels = gk.build_kernels()
+        info = front_end.result()
+    print(f"build: native parser and optimizer "
+          f"{'built' if info['built'] else 'cached'} in "
+          f"{info['seconds']:.1f} s -> {info['path']}")
+    for name, info in kernels.items():
         print(f"build: {name} {'built' if info['built'] else 'cached'} in "
               f"{info['seconds']:.1f} s -> {info['path']}")
         for line in str(info["log"]).splitlines():
@@ -1953,6 +1986,222 @@ def phase_cliff(dev, seed: int) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the front end and the statement layer
+# ---------------------------------------------------------------------------
+
+FRONTEND_REPS = 5
+
+# F5's fractional RANGE offsets and F6's LAG / LEAD defaults over lineitem
+FRONTEND_WINDOWS = (
+    "SELECT l_orderkey, l_linenumber, COUNT(*) OVER (PARTITION BY l_suppkey "
+    "ORDER BY l_quantity RANGE BETWEEN 0.5 PRECEDING AND CURRENT ROW) AS c_half, "
+    "SUM(l_quantity) OVER (PARTITION BY l_suppkey ORDER BY l_quantity RANGE "
+    "BETWEEN 1.5 PRECEDING AND 0.25 FOLLOWING) AS s_mixed, "
+    "LAG(l_linenumber, 1, -1) OVER (PARTITION BY l_orderkey ORDER BY "
+    "l_linenumber) AS lag_d, LEAD(l_shipmode, 2, 'dflt') OVER (PARTITION BY "
+    "l_orderkey ORDER BY l_linenumber) AS lead_d FROM lineitem")
+
+Q6_PREPARE = (
+    "PREPARE q6 AS SELECT SUM(l_extendedprice * l_discount) AS revenue "
+    "FROM lineitem WHERE l_shipdate >= DATE '1994-01-01' "
+    "AND l_shipdate < DATE '1995-01-01' AND l_discount BETWEEN ? AND ? "
+    "AND l_quantity < ?")
+Q6_INLINE = (
+    "SELECT SUM(l_extendedprice * l_discount) AS revenue FROM lineitem "
+    "WHERE l_shipdate >= DATE '1994-01-01' AND l_shipdate < DATE '1995-01-01' "
+    "AND l_discount BETWEEN {} AND {} AND l_quantity < {}")
+
+
+def _walls_by_front_end(ctx, text: str) -> dict:
+    """Warm walls of ``Context.sql(text)`` with the native front end and
+    with ``DSQL_NATIVE=0`` (the Python parser and pipeline), in turns, and
+    the garbage collector's generation-2 passes during each mode's runs."""
+    walls = {"native": [], "python": []}
+    gc2 = {"native": 0, "python": 0}
+    for _ in range(FRONTEND_REPS):
+        for mode in walls:
+            if mode == "python":
+                os.environ["DSQL_NATIVE"] = "0"
+            try:
+                before = gc.get_stats()[2]["collections"]
+                walls[mode].append(wall_ms(lambda: ctx.sql(text)))
+                gc2[mode] += gc.get_stats()[2]["collections"] - before
+            finally:
+                os.environ.pop("DSQL_NATIVE", None)
+    return {"wall_native_ms": _median(walls["native"]),
+            "wall_python_ms": _median(walls["python"]),
+            "gc2_native": gc2["native"], "gc2_python": gc2["python"]}
+
+
+def phase_frontend(ctx) -> list:
+    """Q1-Q22 planned by the native front end and by the Python parser and
+    pipeline, in turns; EXPLAIN texts equal; per query the plan-ms medians
+    of both paths, of the native C++ calls and of the statistics
+    post-pass; then each query's warm wall by either front end, in turns
+    (``_walls_by_front_end``)."""
+    from dask_sql_tpu_torch import native
+    from dask_sql_tpu_torch.plan import optimizer as opt
+    from dask_sql_tpu_torch.plan.binder import Binder
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+    from dask_sql_tpu_torch.sql.parser import Parser, parse_sql
+
+    clock = {"cpp": 0.0, "stats": 0.0}
+    real = {"parse_to_json": native.parse_to_json,
+            "optimize_to_json": native.optimize_to_json,
+            "reorder_joins_stats": opt.reorder_joins_stats}
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                clock[key] += (time.perf_counter() - t0) * 1e3
+        return wrapper
+
+    def plan_native(text):
+        return ctx._get_plan(parse_sql(text)[0].query, text)
+
+    def plan_python(text):
+        stmt = Parser(text).parse_statements()[0]
+        plan = opt.optimize_python(Binder(ctx, text).bind(stmt.query))
+        return opt.reorder_joins_stats(plan, ctx)
+
+    native.parse_to_json = timed(real["parse_to_json"], "cpp")
+    native.optimize_to_json = timed(real["optimize_to_json"], "cpp")
+    opt.reorder_joins_stats = timed(real["reorder_joins_stats"], "stats")
+    rows = []
+    try:
+        for qid in sorted(QUERIES):
+            text = QUERIES[qid]
+            got = {k: [] for k in ("native_ms", "native_cpp_ms",
+                                   "native_stats_ms", "python_ms",
+                                   "python_stats_ms")}
+            counted = tel.REGISTRY.counters().get("planner_native", 0)
+            for _ in range(FRONTEND_REPS):
+                for path in ("native", "python"):
+                    clock.update(cpp=0.0, stats=0.0)
+                    t0 = time.perf_counter()
+                    plan = (plan_native if path == "native"
+                            else plan_python)(text)
+                    got[f"{path}_ms"].append((time.perf_counter() - t0) * 1e3)
+                    got[f"{path}_stats_ms"].append(clock["stats"])
+                    if path == "native":
+                        got["native_cpp_ms"].append(clock["cpp"])
+                        native_text = plan.explain()
+                    elif plan.explain() != native_text:
+                        raise AssertionError(
+                            f"Q{qid}: native and Python plans differ")
+            counted = tel.REGISTRY.counters()["planner_native"] - counted
+            if counted != FRONTEND_REPS:
+                raise AssertionError(f"Q{qid}: planner_native {counted}")
+            rows.append({"q": qid, **{k: _median(v) for k, v in got.items()},
+                         "planner_native": counted})
+    finally:
+        native.parse_to_json = real["parse_to_json"]
+        native.optimize_to_json = real["optimize_to_json"]
+        opt.reorder_joins_stats = real["reorder_joins_stats"]
+    for row in rows:
+        row.update(_walls_by_front_end(ctx, QUERIES[row["q"]]))
+        print("frontend table: " + json.dumps(row))
+    total = {k: sum(r[k] for r in rows) for k in (
+        "native_ms", "python_ms", "native_cpp_ms", "wall_native_ms",
+        "wall_python_ms")}
+    print(f"front end: Q1-Q22 plan ms (sums of medians) native "
+          f"{total['native_ms']:.2f} (C++ calls {total['native_cpp_ms']:.2f}),"
+          f" Python {total['python_ms']:.2f}; EXPLAIN texts equal; warm walls "
+          f"native {total['wall_native_ms']:.1f}, Python "
+          f"{total['wall_python_ms']:.1f}")
+    return rows
+
+
+def _analyzed_root_rows(ctx, text: str) -> tuple:
+    lines = ctx.sql("EXPLAIN ANALYZE " + text).columns[0].to_numpy().tolist()
+    m = re.search(r"\[rows=(\d+) ", lines[0])
+    if m is None or "-- tier: eager" not in lines:
+        raise AssertionError(f"EXPLAIN ANALYZE: {lines}")
+    return int(m.group(1)), lines
+
+
+def phase_statements(ctx, tables: dict, q1_result) -> dict:
+    """The statement layer on the card (see the module docstring)."""
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    out = {}
+
+    def timed(label, sql):
+        box = {}
+        out[label] = wall_ms(lambda: box.update(r=ctx.sql(sql)))
+        return box["r"]
+
+    timed("create_schema_ms", "CREATE SCHEMA smoke")
+    gk.reset_launch_counts()
+    timed("ctas_q1_ms", f"CREATE TABLE smoke.q1 AS ({QUERIES[1]})")
+    launched = {k: v for k, v in gk.LAUNCHES.items() if v}
+    if launched != {"segsum_fixedpoint": 1}:
+        raise AssertionError(f"CREATE TABLE AS Q1 launched {launched}")
+    out["ctas_q1_launches"] = launched
+    q1 = timed("query_ctas_ms", "SELECT * FROM smoke.q1")
+    check_answer("CTAS Q1", {k: v.tolist() for k, v in q1.to_numpy().items()},
+                 oracle_q1(tables["lineitem"]))
+    check_same_result("CTAS Q1", q1, q1_result, rtol=1e-12)
+
+    view = ("SELECT COUNT(*) AS n, SUM(l_extendedprice) AS s, "
+            "MAX(l_orderkey) AS mx FROM {} ")
+    where = "WHERE l_quantity > 45"
+    timed("create_view_ms", "CREATE VIEW smoke.big AS (SELECT l_orderkey, "
+          f"l_quantity, l_extendedprice FROM lineitem {where})")
+    inline = ctx.sql(view.format("lineitem") + where)
+    for i in range(2):
+        check_same_result(f"view run {i + 1}",
+                          timed(f"view_run{i + 1}_ms", view.format("smoke.big")),
+                          inline, rtol=1e-9)
+    tables_shown = timed("show_tables_ms", "SHOW TABLES FROM smoke")
+    if sorted(tables_shown.columns[0].to_numpy().tolist()) != ["big", "q1"]:
+        raise AssertionError(f"SHOW TABLES: {tables_shown}")
+
+    timed("prepare_ms", Q6_PREPARE)
+    for i, params in enumerate([(0.05, 0.07, 24), (0.02, 0.09, 30)]):
+        got = timed(f"execute{i + 1}_ms", "EXECUTE q6 ({}, {}, {})".format(*params))
+        check_same_result(f"EXECUTE q6 {params}", got,
+                          ctx.sql(Q6_INLINE.format(*params)), rtol=1e-12)
+
+    for qid in (1, 9):
+        t0 = time.perf_counter()
+        root_rows, lines = _analyzed_root_rows(ctx, QUERIES[qid])
+        out[f"explain_analyze_q{qid}_ms"] = (time.perf_counter() - t0) * 1e3
+        want = ctx.sql(QUERIES[qid]).num_rows
+        if root_rows != want:
+            raise AssertionError(f"EXPLAIN ANALYZE Q{qid}: rows={root_rows}, "
+                                 f"the query returns {want}")
+        out[f"explain_analyze_q{qid}_rows"] = root_rows
+        print(f"EXPLAIN ANALYZE Q{qid}:\n  " + "\n  ".join(lines))
+
+    cpu_ctx = Context(device=torch.device("cpu"))
+    cpu_ctx.create_table("lineitem", ctx.schema["root"].tables["lineitem"].table)
+    timed("windows_cold_ms", FRONTEND_WINDOWS)
+    got = timed("windows_warm_ms", FRONTEND_WINDOWS)
+    t0 = time.perf_counter()
+    check_tensors("F5/F6 windows", got, cpu_ctx.sql(FRONTEND_WINDOWS), 1e-12)
+    out["windows_cpu_rerun_s"] = time.perf_counter() - t0
+    lag = got.columns[4].data
+    lead = got.columns[5].to_numpy()
+    n_orders = int(torch.unique(got.columns[0].data).numel())
+    if int((lag == -1).sum()) != n_orders or not (lead == "dflt").any():
+        raise AssertionError("LAG / LEAD defaults missing")
+
+    for label, sql in (("drop_table_ms", "DROP TABLE smoke.q1"),
+                       ("drop_view_ms", "DROP TABLE smoke.big"),
+                       ("drop_schema_ms", "DROP SCHEMA smoke")):
+        timed(label, sql)
+    if "smoke" in ctx.sql("SHOW SCHEMAS").columns[0].to_numpy().tolist():
+        raise AssertionError("DROP SCHEMA left the schema")
+    print("statements: " + json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--sf", type=float, default=1.0)
@@ -1997,6 +2246,8 @@ def main(argv=None) -> int:
     surface = phase_surface(ctx, tables) + phase_cliff(dev, args.seed)
     for row in surface:
         print("surface table: " + json.dumps(row))
+    phase_frontend(ctx)
+    phase_statements(ctx, tables, on_results[1])
     kernel1["launches"] = launches["segsum_fixedpoint"]
     print(f"card: {card}")
     print(json.dumps({"kernels": [kernel1, kernel2]}))

@@ -2,12 +2,17 @@
 
 The counterpart of ``dask_sql_tpu.Context``: ``create_table`` (a dict of
 numpy arrays, a ``Table``, or a pandas frame; it collects the table's
-statistics, ``runtime/statistics.py``), ``drop_table``, ``sql`` (queries
-and plain ``EXPLAIN``), ``explain`` and ``register_function`` (column
-UDFs).  The planner is the JAX package's Python parser, binder and
-optimizer, copied, with the statistics-driven join order; execution is
-the eager executor (``physical/rel/executor.py``).  Each ``sql`` call runs
-in a telemetry trace whose ``QueryReport`` is kept as ``last_report``.
+statistics, ``runtime/statistics.py``), ``drop_table``, ``alter_table``,
+the schemas (``create_schema``, ``drop_schema``, ``alter_schema``,
+``fqn``), per-table catalog epochs, ``sql`` (queries with ``params`` for
+their ``?`` markers, and every statement of
+``physical/rel/custom.py``: DDL, views, CTAS, SHOW, EXPLAIN [ANALYZE],
+PREPARE / EXECUTE), ``explain`` and ``register_function`` (column UDFs).
+Parsing and optimization are native (``native/``), with the JAX package's
+Python parser and optimizer, copied, for what the native ones do not take;
+the statistics-driven join order follows either.  Execution is the eager
+executor (``physical/rel/executor.py``).  Each ``sql`` call runs in a
+telemetry trace whose ``QueryReport`` is kept as ``last_report``.
 
 Queries run on the card unless the caller asks for another device:
 ``Context()`` means ``device="cuda"`` and raises when CUDA is unavailable;
@@ -15,11 +20,10 @@ the tests pass ``device="cpu"``.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
-
-import numpy as np
 
 from .datacontainer import FunctionDescription, SchemaContainer, TableEntry
 from .plan.binder import Binder
@@ -55,6 +59,47 @@ class Context:
         self.schema = {self.DEFAULT_SCHEMA_NAME:
                        SchemaContainer(self.DEFAULT_SCHEMA_NAME)}
         self.last_report: Optional[_tel.QueryReport] = None
+        # catalog epochs: a per-table version every mutating path bumps
+        self._table_epochs: dict = {}
+        self._epoch_counter = itertools.count(1)
+        # PREPARE: name -> PrepareStatement; EXECUTE binds its query anew
+        self._prepared: dict = {}
+
+    # -------------------------------------------------------------- epochs
+    def table_epoch(self, schema_name: str, table_name: str) -> int:
+        """The table's catalog epoch; 0 = not mutated since the Context
+        was made."""
+        return self._table_epochs.get((schema_name, table_name.lower()), 0)
+
+    def catalog_entry(self, schema_name: str, table_name: str) -> TableEntry:
+        """The executor's catalog read (raises KeyError like the dict)."""
+        return self.schema[schema_name].tables[table_name]
+
+    def bump_table_epoch(self, schema_name: str, table_name: str) -> int:
+        """Advance the table's epoch; every mutating path calls this."""
+        epoch = next(self._epoch_counter)
+        self._table_epochs[(schema_name, table_name.lower())] = epoch
+        return epoch
+
+    # ------------------------------------------------------------- schemas
+    def create_schema(self, schema_name: str):
+        self.schema[schema_name] = SchemaContainer(schema_name)
+
+    def drop_schema(self, schema_name: str):
+        if schema_name == self.DEFAULT_SCHEMA_NAME:
+            raise RuntimeError(
+                f"Default schema {schema_name} cannot be deleted")
+        for table_name in list(self.schema[schema_name].tables):
+            self.bump_table_epoch(schema_name, table_name)
+        del self.schema[schema_name]
+        if self.schema_name == schema_name:
+            self.schema_name = self.DEFAULT_SCHEMA_NAME
+
+    def alter_schema(self, old_schema_name: str, new_schema_name: str):
+        self.schema[new_schema_name] = self.schema.pop(old_schema_name)
+        for table_name in list(self.schema[new_schema_name].tables):
+            self.bump_table_epoch(old_schema_name, table_name)
+            self.bump_table_epoch(new_schema_name, table_name)
 
     # -------------------------------------------------------------- tables
     def create_table(self, table_name: str, input_table: Any,
@@ -74,10 +119,20 @@ class Context:
         schema_name = schema_name or self.schema_name
         self.schema[schema_name].tables[table_name.lower()] = TableEntry(
             table=table, stats=_stats.collect_table_stats(table))
+        self.bump_table_epoch(schema_name, table_name)
 
     def drop_table(self, table_name: str, schema_name: Optional[str] = None):
         schema_name = schema_name or self.schema_name
         del self.schema[schema_name].tables[table_name.lower()]
+        self.bump_table_epoch(schema_name, table_name)
+
+    def alter_table(self, old_table_name: str, new_table_name: str,
+                    schema_name: Optional[str] = None):
+        schema_name = schema_name or self.schema_name
+        s = self.schema[schema_name]
+        s.tables[new_table_name.lower()] = s.tables.pop(old_table_name.lower())
+        self.bump_table_epoch(schema_name, old_table_name)
+        self.bump_table_epoch(schema_name, new_table_name)
 
     # ----------------------------------------------------------- functions
     def register_function(self, f: Callable, name: str,
@@ -105,13 +160,17 @@ class Context:
         schema.function_lists.append(fd)
 
     # ----------------------------------------------------------------- sql
-    def sql(self, sql: str, return_futures: bool = True):
-        """Parse, plan, optimize and execute one query, or answer a plain
-        ``EXPLAIN`` with a one-column ``PLAN`` table.
+    def sql(self, sql: str, return_futures: bool = True,
+            params: Optional[list] = None):
+        """Parse, plan, optimize and execute the statements of ``sql``;
+        the last one's result is returned.  A query (or EXPLAIN, SHOW,
+        DESCRIBE, EXECUTE) returns rows; DDL returns an empty table.
 
-        Returns a device ``Table`` (``return_futures=True``) or a pandas
-        DataFrame (``return_futures=False``).  The call's telemetry report
-        is kept as ``self.last_report``."""
+        ``params`` binds the positional ``?`` markers of a query to Python
+        values (``$n`` markers parse only inside PREPARE).  Returns a
+        device ``Table`` (``return_futures=True``) or a pandas DataFrame
+        (``return_futures=False``).  The call's telemetry report is kept
+        as ``self.last_report``."""
         trace = None
         try:
             with _tel.trace_scope(sql) as trace:
@@ -119,11 +178,14 @@ class Context:
                     stmts = parse_sql(sql)
                 result = None
                 for stmt in stmts:
-                    result = self._execute_statement(stmt, sql)
+                    result = self._execute_statement(stmt, sql, params=params)
                 if result is None:
                     result = Table([], [])
                 if trace is not None:
                     trace.root.attrs["rows_out"] = result.num_rows
+                    trace.root.attrs["bytes_out"] = sum(
+                        c.data.numel() * c.data.element_size()
+                        for c in result.columns)
                 if return_futures:
                     return result
                 with _tel.span("fetch"):
@@ -132,31 +194,35 @@ class Context:
             if trace is not None and trace.report is not None:
                 self.last_report = trace.report
 
-    def _execute_statement(self, stmt: A.Statement, sql: str) -> Table:
+    def _execute_statement(self, stmt: A.Statement, sql: str,
+                           params: Optional[list] = None) -> Optional[Table]:
+        from .physical.rel.custom import StatementDispatcher
+
+        if isinstance(stmt, A.QueryStatement):
+            with _tel.span("plan"):
+                plan = self._get_plan(stmt.query, sql, params=params)
+            with _tel.span("execute"):
+                return self._execute_query_plan(plan)
+        handler = StatementDispatcher.get_plugin(type(stmt).__name__)
+        with _tel.span("execute", statement=type(stmt).__name__):
+            return handler(stmt, self, sql)
+
+    def _execute_query_plan(self, plan: RelNode) -> Table:
+        """Every plan a statement executes passes here (queries, CTAS,
+        EXECUTE): the seam where admission and the compiled tier will go."""
+        return self._run_query_plan(plan)
+
+    def _run_query_plan(self, plan: RelNode) -> Table:
         from .physical.rel.executor import RelExecutor
 
-        if isinstance(stmt, A.ExplainStatement):
-            if stmt.analyze or stmt.profile:
-                raise NotImplementedError(
-                    "EXPLAIN ANALYZE and EXPLAIN PROFILE are not ported yet")
-            with _tel.span("plan"):
-                plan = self._get_plan(stmt.query, sql)
-            # the plan, then the operator variants the statistics predict
-            lines = plan.explain().splitlines() + _stats.explain_lines(plan,
-                                                                       self)
-            return Table.from_pydict({"PLAN": np.array(lines, dtype=object)},
-                                     self.device)
-        if not isinstance(stmt, A.QueryStatement):
-            raise NotImplementedError(
-                f"Statement {type(stmt).__name__} is not ported yet")
-        with _tel.span("plan"):
-            plan = self._get_plan(stmt.query, sql)
-        with _tel.span("execute"):
-            return RelExecutor(self).execute(plan)
+        _tel.annotate(tier="eager")
+        return RelExecutor(self).execute(plan)
 
-    def _get_plan(self, query: A.SelectLike, sql: str = "") -> RelNode:
+    def _get_plan(self, query: A.SelectLike, sql: str = "",
+                  params: Optional[list] = None) -> RelNode:
         # the context lets the optimizer order join chains by statistics
-        return optimize(Binder(self, sql).bind(query), context=self)
+        return optimize(Binder(self, sql, params=params).bind(query),
+                        context=self)
 
     def explain(self, sql: str) -> str:
         """The optimized plan as text."""
@@ -166,6 +232,14 @@ class Context:
         return f"-- {type(stmt).__name__}"
 
     # ----------------------------------------------------- catalog interface
+    def fqn(self, identifier: Union[str, List[str]]) -> Tuple[str, str]:
+        """Split a (qualified) name into (schema, name)."""
+        parts = identifier.split(".") if isinstance(identifier, str) \
+            else list(identifier)
+        if len(parts) == 2 and parts[0] in self.schema:
+            return parts[0], parts[1].lower()
+        return self.schema_name, ".".join(parts).lower()
+
     def resolve_table(self, parts: List[str]):
         """Binder hook: (schema, table, fields, view_plan) or None."""
         candidates = []
@@ -179,10 +253,14 @@ class Context:
             if schema is None:
                 continue
             entry = schema.tables.get(table_name.lower())
-            if entry is not None:
-                fields = [Field(n, c.stype) for n, c in
-                          zip(entry.table.names, entry.table.columns)]
-                return schema_name, table_name.lower(), fields, None
+            if entry is None:
+                continue
+            if entry.table is None:  # a view: its plan, re-bound per query
+                return (schema_name, table_name.lower(),
+                        list(entry.plan.schema), entry.plan)
+            fields = [Field(n, c.stype) for n, c in
+                      zip(entry.table.names, entry.table.columns)]
+            return schema_name, table_name.lower(), fields, None
         return None
 
     def get_function(self, name: str) -> Optional[FunctionDescription]:

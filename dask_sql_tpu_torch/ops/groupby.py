@@ -462,6 +462,12 @@ def whole_table_aggregate(op: str, col: Optional[Column],
     if op in ("MIN", "MAX"):
         reduce = torch.amin if op == "MIN" else torch.amax
         if col.stype.is_string:
+            if n_rows == 0:
+                # no row: one NULL (code 0 of a dictionary that has one)
+                d = col.dictionary if len(col.dictionary) else \
+                    np.array([""], dtype=object)
+                return Column(torch.zeros(1, dtype=torch.int32, device=device),
+                              out_type, has_any, d)
             ranks = col.dict_ranks().data.to(torch.int64)
             sent = _minmax_sentinel(torch.int64, op)
             r = reduce(torch.where(valid, ranks, sent)).reshape(1)

@@ -19,9 +19,10 @@ NTILE, LAG / LEAD and NTH_VALUE read their constant argument from column
 data on the host: one synchronisation each.
 
 NTILE gives SQL's buckets (the first n mod k one row larger), where the
-JAX package's formula sizes them otherwise; string-valued results (LAG of
-a string, FIRST_VALUE, MIN / MAX of a string, ...) carry their dictionary,
-where the JAX package's raise.
+JAX package's formula sizes them otherwise; LAG / LEAD give their third
+argument (the default) outside the partition, where the JAX package gives
+NULL; string-valued results (LAG of a string, FIRST_VALUE, MIN / MAX of a
+string, ...) carry their dictionary, where the JAX package's raise.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ import torch
 
 from ..table import Column, Table, dict_sort_order
 from ..types import SqlType, torch_dtype
-from .kernels import append_lexsort_operands, comparable_data, key_parts
+from .kernels import (append_lexsort_operands, comparable_data, key_parts,
+                      unify_string_codes)
 
 
 def _adjacent_diff(channels, n: int, device) -> torch.Tensor:
@@ -311,8 +313,23 @@ def compute_window(table: Table, op: str, arg_cols: List[int],
         src = pos + (-offset if op == "LAG" else offset)
         valid = (src >= seg_start) & (src <= seg_end)
         gathered = sorted_arg().take(src.clamp(0, n - 1))
-        return scatter_back(gathered.data, gathered.valid_mask() & valid,
-                            col.dictionary)
+        data, mask = gathered.data, gathered.valid_mask() & valid
+        dictionary = col.dictionary
+        if len(arg_cols) > 2:
+            # SQL's default: where the offset row lies outside the
+            # partition, the third argument at the current row
+            dflt = table.columns[arg_cols[2]].take(perm)
+            if stype.is_string:
+                codes, dcodes = unify_string_codes([gathered, dflt])
+                dictionary = np.unique(np.concatenate(
+                    [gathered.dictionary.astype(str),
+                     dflt.dictionary.astype(str)])).astype(object)
+                data, fill = codes.to(torch.int32), dcodes.to(torch.int32)
+            else:
+                fill = dflt.data.to(data.dtype)
+            data = torch.where(valid, data, fill)
+            mask = torch.where(valid, mask, dflt.valid_mask())
+        return scatter_back(data, mask, dictionary)
 
     if op in ("FIRST_VALUE", "LAST_VALUE", "NTH_VALUE"):
         # the frame applies: FIRST_VALUE is the first frame row,

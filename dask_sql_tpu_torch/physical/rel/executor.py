@@ -30,6 +30,7 @@ variant is the one that runs.
 from __future__ import annotations
 
 import math
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -48,6 +49,7 @@ from ...plan.nodes import (
 )
 from ...plan.optimizer import split_join_condition
 from ...runtime import statistics as _stats
+from ...runtime import telemetry as _tel
 from ...table import Column, Scalar, Table, dict_sort_order
 from ...types import BOOLEAN, exact_decimal_scale, physical_dtype, torch_dtype
 from ...utils import Pluggable
@@ -66,7 +68,16 @@ class RelExecutor(Pluggable):
         name = type(rel).__name__
         if not RelExecutor.has_plugin(name):
             raise NotImplementedError(f"Plan node {name} is not ported yet")
-        return RelExecutor.get_plugin(name)(rel, self)
+        plugin = RelExecutor.get_plugin(name)
+        rec = _tel.active_node_recorder()
+        if rec is None:
+            return plugin(rel, self)
+        # EXPLAIN ANALYZE: the node's wall (its children's included) and
+        # output rows
+        t0 = time.perf_counter()
+        result = plugin(rel, self)
+        rec.add(rel, (time.perf_counter() - t0) * 1e3, result.num_rows)
+        return result
 
 
 # ---------------------------------------------------------------------------
@@ -74,7 +85,7 @@ class RelExecutor(Pluggable):
 # ---------------------------------------------------------------------------
 
 def _table_scan(rel: LogicalTableScan, ex: RelExecutor) -> Table:
-    entry = ex.context.schema[rel.schema_name].tables[rel.table_name]
+    entry = ex.context.catalog_entry(rel.schema_name, rel.table_name)
     t = entry.table if entry.table is not None else ex.execute(entry.plan)
     names = [f.name for f in rel.schema]
     return t.limit_to(names) if t.names != names else t

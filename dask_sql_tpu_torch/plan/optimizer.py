@@ -1187,7 +1187,7 @@ def optimize_subplans(rel: RelNode) -> RelNode:
 
     def walk_rex(r: RexNode) -> None:
         if isinstance(r, RexScalarSubquery):
-            r.plan = optimize(r.plan)
+            r.plan = optimize_python(r.plan)
         elif isinstance(r, RexCall):
             for o in r.operands:
                 walk_rex(o)
@@ -1206,18 +1206,34 @@ def optimize_subplans(rel: RelNode) -> RelNode:
 
 def optimize(plan: RelNode, enable_pruning: bool = True,
              context=None) -> RelNode:
-    """The Python rule pipeline (``PASSES``), then subplans and pruning,
-    then the statistics-driven join order (``reorder_joins_stats``).
+    """The native optimizer (``native/optimizer.cpp``, a lockstep copy of
+    the passes below), or the Python pipeline for a plan the wire format
+    cannot carry (``native_planner.serialize_plan``) or under
+    ``DSQL_NATIVE=0``; then, after either, the statistics-driven join order
+    (``reorder_joins_stats``), as in the JAX package.  Counts
+    ``planner_native`` or ``planner_python`` once per call.  Without a
+    ``context`` (or with ``DSQL_ADAPTIVE=0``) the post-pass leaves the plan
+    as it is."""
+    from ..runtime import telemetry as _tel
+    from .native_planner import optimize_native
 
-    The JAX package prefers its native C++ optimizer, a lockstep copy of
-    these passes, and runs the same statistics post-pass after either
-    pipeline; the port runs the Python pipeline, the semantics reference
-    the native one is tested against.  Without a ``context`` (or with
-    ``DSQL_ADAPTIVE=0``) the post-pass leaves the plan as it is."""
+    native = optimize_native(plan, enable_pruning)
+    if native is not None:
+        _tel.inc("planner_native")
+        plan = native
+    else:
+        _tel.inc("planner_python")
+        plan = optimize_python(plan, enable_pruning)
+    return reorder_joins_stats(plan, context)
+
+
+def optimize_python(plan: RelNode, enable_pruning: bool = True) -> RelNode:
+    """The Python rule pipeline (``PASSES``), then the subplans (by this
+    pipeline too) and pruning."""
     for p in PASSES:
         plan = p(plan)
     plan = optimize_subplans(plan)
     if enable_pruning:
         plan = prune_columns(plan)
         plan = merge_projects(plan)
-    return reorder_joins_stats(plan, context)
+    return plan

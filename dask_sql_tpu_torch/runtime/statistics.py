@@ -21,8 +21,9 @@ decisions, so that both packages plan and dispatch a query alike.
   GROUP BYs that the static-domain route (``executor._aggregate``) does
   not take, as it pins only the JAX package's eager variant.
 - Reporting: ``record_choice`` counts each choice
-  (``operator_choice_<op>_<variant>``) and lists it on the current span;
-  ``explain_lines`` gives EXPLAIN's ``-- operator:`` lines.
+  (``operator_choice_<op>_<variant>``), lists it on the current span and
+  in an open ``capture`` (EXPLAIN ANALYZE's choices); ``explain_lines``
+  gives EXPLAIN's predicted ``-- operator:`` lines.
 
 Not part of the port (each waits for the part of the system that needs
 it): the flight recorder's measured rows, the autopilot's hint, the
@@ -34,7 +35,9 @@ from __future__ import annotations
 import logging
 import math
 import os
+import threading
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -529,18 +532,38 @@ def join_decision(rel, left_cols, right_cols, context
 
 
 # ---------------------------------------------------------------------------
-# choice recording: counters and spans
+# choice recording: counters, spans and an optional thread-local capture
 # ---------------------------------------------------------------------------
+
+_tls = threading.local()
+
+
+@contextmanager
+def capture():
+    """Collect every ``record_choice`` on this thread in the block, as
+    (op, variant, info) tuples: EXPLAIN ANALYZE prints the choices its run
+    took."""
+    prev = getattr(_tls, "capture", None)
+    buf: List[Tuple[str, str, Dict[str, Any]]] = []
+    _tls.capture = buf
+    try:
+        yield buf
+    finally:
+        _tls.capture = prev
+
 
 def record_choice(op: str, variant: str, **info) -> None:
     """One dispatch decision: counter ``operator_choice_<op>_<variant>``,
-    and an ``operators`` entry on the current span (the QueryReport's
-    ``operators``)."""
+    an ``operators`` entry on the current span (the QueryReport's
+    ``operators``), and an entry in the open ``capture`` buffer."""
     _tel.inc(f"operator_choice_{op}_{variant}")
     line = format_choice(op, variant, info)
     span = _tel.current_span()
     if span is not None:
         span.attrs.setdefault("operators", []).append(line)
+    buf = getattr(_tls, "capture", None)
+    if buf is not None:
+        buf.append((op, variant, dict(info)))
 
 
 def format_choice(op: str, variant: str, info: Dict[str, Any]) -> str:

@@ -8,11 +8,15 @@ statistics module and ``Context.sql`` use:
   adaptive dispatch counts each choice as ``operator_choice_<op>_<variant>``.
 - Spans: ``trace_scope(sql)`` opens one trace per outermost query on this
   thread, ``span(name)`` nests a timed child under the current span,
-  ``current_span`` returns it.
+  ``current_span`` returns it and ``annotate`` adds attributes to it.
 - ``QueryReport``: built when the trace closes -- phase walls (parse,
-  plan, execute, fetch), the counter deltas of the query, the operator
-  choices recorded on its spans, and the span tree.  ``Context.sql`` keeps
-  it as ``context.last_report``.
+  plan, execute, fetch), the counter deltas of the query (``planner_native``
+  or ``planner_python`` among them), the operator choices recorded on its
+  spans, rows and bytes out, and the span tree.  ``Context.sql`` keeps it
+  as ``context.last_report``; ``last_report()`` returns the last one closed
+  on this thread.
+- ``record_nodes``: EXPLAIN ANALYZE's per-plan-node (wall, rows, calls),
+  fed by the eager executor.
 
 The JAX package's environment-armed hooks (fleet, flight recorder, device
 profiler, event bus, autopilot, chrome-trace export, slow-query log),
@@ -95,6 +99,8 @@ class QueryTrace:
 class _Tls(threading.local):
     trace: Optional[QueryTrace] = None
     span: Optional[Span] = None
+    node_recorder: Optional["NodeRecorder"] = None
+    last_report: Optional["QueryReport"] = None
 
 
 _tls = _Tls()
@@ -127,6 +133,54 @@ def span(name: str, **attrs):
         _tls.span = parent
 
 
+def annotate(**attrs) -> None:
+    """Attach attributes to the innermost open span (no-op outside)."""
+    s = _tls.span
+    if s is not None:
+        s.attrs.update(attrs)
+
+
+# ---------------------------------------------------------------------------
+# per-node instrumentation (EXPLAIN ANALYZE)
+# ---------------------------------------------------------------------------
+
+class NodeRecorder:
+    """Per-plan-node [wall ms, rows, calls], keyed by node id.  Walls
+    include the node's children (the executor recurses through the same
+    entry point); renderers subtract the children's for self time."""
+
+    def __init__(self):
+        self.records: Dict[int, List[float]] = {}
+
+    def add(self, rel, ms: float, rows: int) -> None:
+        rec = self.records.get(id(rel))
+        if rec is None:
+            self.records[id(rel)] = [ms, rows, 1]
+        else:
+            rec[0] += ms
+            rec[1] += rows
+            rec[2] += 1
+
+    def get(self, rel):
+        return self.records.get(id(rel))
+
+
+def active_node_recorder() -> Optional[NodeRecorder]:
+    return _tls.node_recorder
+
+
+@contextmanager
+def record_nodes():
+    """Install a ``NodeRecorder`` on this thread for the block."""
+    prev = _tls.node_recorder
+    rec = NodeRecorder()
+    _tls.node_recorder = rec
+    try:
+        yield rec
+    finally:
+        _tls.node_recorder = prev
+
+
 # ---------------------------------------------------------------------------
 # reports
 # ---------------------------------------------------------------------------
@@ -141,10 +195,11 @@ class QueryReport:
     ``phases``: wall ms per span name; ``counters``: registry deltas
     between the trace's open and close (exact when queries do not
     overlap); ``operators``: the adaptive dispatch choices recorded on the
-    spans, in span order; ``root``: the span tree."""
+    spans, in span order; ``rows_out`` / ``bytes_out``: the result's rows
+    and device bytes; ``root``: the span tree."""
 
     __slots__ = ("query", "wall_ms", "phases", "counters", "root",
-                 "rows_out", "operators")
+                 "rows_out", "bytes_out", "operators")
 
     def __init__(self, trace: QueryTrace):
         root = trace.root
@@ -152,6 +207,7 @@ class QueryReport:
         self.wall_ms = root.wall_ms
         self.root = root
         self.rows_out = int(root.attrs.get("rows_out", 0))
+        self.bytes_out = int(root.attrs.get("bytes_out", 0))
         phases: Dict[str, float] = {}
         operators: List[str] = []
         for s in root.walk():
@@ -171,6 +227,7 @@ def _close_trace(trace: QueryTrace, error: Optional[BaseException]) -> None:
         trace.root.attrs["error"] = type(error).__name__
         REGISTRY.inc("query_errors")
     trace.report = QueryReport(trace)
+    _tls.last_report = trace.report
     REGISTRY.inc("queries")
 
 
@@ -197,3 +254,8 @@ def trace_scope(query: str = ""):
         _tls.trace = None
         _tls.span = None
         _close_trace(trace, err)
+
+
+def last_report() -> Optional[QueryReport]:
+    """The report of the last trace closed on this thread."""
+    return _tls.last_report

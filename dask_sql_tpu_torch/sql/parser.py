@@ -13,6 +13,7 @@ EXPORT MODEL, SELECT ... FROM PREDICT(MODEL name, query), and the
 """
 from __future__ import annotations
 
+import re as _re
 from typing import List, Optional, Tuple
 
 from ..utils import ParsingException
@@ -1233,7 +1234,9 @@ class Parser:
         if t.kind != "NUMBER":
             self.error("Expected frame bound")
         self.i += 1
-        n = int(t.text)
+        # a fractional offset (RANGE 0.5 PRECEDING) stays a float, as the
+        # native grammar's JSON number does
+        n = _number_value(t.text)
         which = self.expect_kw("PRECEDING", "FOLLOWING")
         return (which, n)
 
@@ -1293,13 +1296,36 @@ def _number_value(text: str):
     return int(text)
 
 
-def parse_sql(sql: str) -> List[Statement]:
-    """Parse SQL text into AST statements with the pure-Python parser.
+# Statements the native grammar lacks go to the Python parser, as in the
+# JAX package: EXPLAIN ANALYZE / PROFILE, the materialized-view and INSERT
+# grammar, and PREPARE / EXECUTE / DEALLOCATE.
+_PYTHON_ONLY_RE = _re.compile(
+    r"^\s*EXPLAIN\s+(ANALYZE|PROFILE)\b"
+    r"|^\s*(INSERT|REFRESH|PREPARE|EXECUTE|DEALLOCATE)\b"
+    r"|^\s*(CREATE|DROP)\s+(OR\s+REPLACE\s+)?MATERIALIZED\b",
+    _re.IGNORECASE)
 
-    The JAX package prefers its native C++ parser and keeps this parser as
-    the lockstep superset; the port uses this parser alone until the
-    native front end is ported."""
-    return Parser(sql).parse_statements()
+
+def parse_sql(sql: str) -> List[Statement]:
+    """Parse SQL text into AST statements.
+
+    The native C++ parser (``native/parser.cpp`` through ctypes) parses
+    everything but the statements of ``_PYTHON_ONLY_RE``, which this
+    module's Python parser takes; ``DSQL_NATIVE=0`` sends every statement
+    here.  A native parse error raises ``ParsingException`` at the native
+    position; it is not retried in Python."""
+    from .. import native as _native
+    from . import native_bridge
+
+    if _PYTHON_ONLY_RE.match(sql):
+        return Parser(sql).parse_statements()
+    envelope = _native.parse_to_json(sql)
+    if envelope is None:
+        return Parser(sql).parse_statements()
+    stmts = native_bridge.json_to_statements(envelope, sql)
+    if stmts is None:
+        raise RuntimeError(f"native parser: malformed envelope {envelope!r}")
+    return stmts
 
 
 def parse_one(sql: str) -> Statement:

@@ -19,7 +19,8 @@ setup(
                                     "dask_sql_tpu_torch",
                                     "dask_sql_tpu_torch.*"]),
     package_data={"dask_sql_tpu.native": ["*.so"],
-                  "dask_sql_tpu_torch": ["csrc/*.cu"]},
+                  "dask_sql_tpu_torch": ["csrc/*.cu", "native/*.cpp",
+                                         "native/*.h"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -31,7 +32,8 @@ setup(
         "ml": ["scikit-learn", "joblib"],
         "cli": ["prompt_toolkit", "pygments"],
         # the PyTorch/CUDA port (dask_sql_tpu_torch); its kernels build
-        # with nvcc from csrc/ at first use
+        # with nvcc from csrc/, and its parser with g++ from native/, at
+        # first use
         "torch": ["torch"],
     },
     entry_points={

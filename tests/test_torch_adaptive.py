@@ -464,6 +464,25 @@ def test_new_aggregates_on_an_empty_table():
         assert len(out) == 1 and _col_values(out) == [None], op
 
 
+@pytest.mark.parametrize("sql", [
+    "SELECT MIN(s), MAX(s) FROM t WHERE k > 10",
+    "SELECT MAX(s2) FROM u WHERE k > 100",
+])
+def test_string_min_max_over_no_rows(sql):
+    """MIN/MAX of a string over no row answer one NULL row, as the JAX
+    package does (the reduction used to run over zero elements)."""
+    frames = {"t": pd.DataFrame({"k": [1, 2, 3], "s": ["b", "a", "c"]}),
+              "u": pd.DataFrame({"k": [1, 2, 3], "s2": [None, "x", None]})}
+    jc, pc = JaxContext(), Context(device=CPU)
+    for name, df in frames.items():
+        jc.create_table(name, df)
+        pc.create_table(name, df)
+    got, want = pc.sql(sql), jc.sql(sql)
+    assert got.num_rows == want.num_rows == 1
+    assert [_col_values(c) for c in got.columns] == \
+        [_col_values(c) for c in want.columns] == [[None]] * want.num_columns
+
+
 # ---------------------------------------------------------------------------
 # precedence of the environment variables
 # ---------------------------------------------------------------------------

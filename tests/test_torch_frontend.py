@@ -1,8 +1,9 @@
 """The port's front end and planner against the JAX package's: for the
-slice's queries, ``explain()`` text is identical.  The JAX package runs its
-Python parser and optimizer here (the port has no native ones yet): its
-native library is switched off for the test by patching the loader's cache,
-since ``DSQL_NATIVE=0`` is read only on the first load of a process."""
+slice's queries, ``explain()`` text is identical.  The port plans natively;
+the JAX package runs its Python parser and optimizer here: its native
+library is switched off for the test by patching the loader's cache, since
+``DSQL_NATIVE=0`` is read only on the first load of a process
+(``tests/test_torch_native.py`` holds the two native paths together)."""
 import numpy as np
 import pandas as pd
 import pytest

@@ -56,3 +56,25 @@ def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
                              env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+_MAPS_PROBE = """
+import json, numpy as np
+from dask_sql_tpu_torch import Context
+c = Context(device="cpu")
+c.create_table("t", {"k": np.array([1, 2, 3]), "s": np.array(["a", "b", "a"])})
+c.sql("SELECT s, SUM(k) AS n FROM t GROUP BY s")
+print(json.dumps([line.split()[-1] for line in open("/proc/self/maps")
+                  if line.rstrip().endswith(".so")]))
+"""
+
+
+def test_port_never_maps_the_jax_native_library():
+    """After a query the port's process maps its own parser library (built
+    from dask_sql_tpu_torch/native) and never the JAX package's."""
+    out = subprocess.run([sys.executable, "-c", _MAPS_PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    libs = json.loads(out.stdout.strip().splitlines()[-1])
+    assert not any("/dask_sql_tpu/native/" in p for p in libs)
+    assert any("/build/dask_sql_tpu_torch/libdsqlparser-" in p for p in libs)

@@ -341,6 +341,17 @@ def test_segmented_scan_matches_a_loop():
 # the queries of tests/integration/test_over.py, through both Contexts
 # ---------------------------------------------------------------------------
 
+def _fractional_frame():
+    """A non-null DOUBLE key with ties and gaps of every size around the
+    fractional offsets below, an integer and a string column."""
+    rng = np.random.RandomState(5)
+    n = 60
+    return pd.DataFrame({"g": np.round(rng.randint(0, 40, n) * 0.25, 2),
+                         "p": rng.randint(0, 3, n),
+                         "k": rng.permutation(n).astype(np.int64),
+                         "s": rng.choice(["kiwi", "fig", "apple"], n)})
+
+
 @pytest.fixture(scope="module")
 def contexts():
     jc, pc = JaxContext(), Context(device=CPU)
@@ -352,6 +363,7 @@ def contexts():
         "wf_t": pd.DataFrame({"o": [1, 2, 3, 4], "v": [5.0, 1.0, 7.0, 3.0]}),
         "df": pd.DataFrame({"a": [1.0] * 100 + [2.0] * 200 + [3.0] * 400,
                             "b": 10 * np.random.RandomState(42).rand(700)}),
+        "fr": _fractional_frame(),
     }
     for name, frame in frames.items():
         jc.create_table(name, frame)
@@ -425,3 +437,80 @@ def test_tablesample_properties(contexts):
     assert len(rows("SELECT * FROM df TABLESAMPLE BERNOULLI (0)")) == 0
     s = rows("SELECT * FROM df TABLESAMPLE SYSTEM (50) REPEATABLE (7)")
     assert abs(len(s) - n * 0.5) <= 5 * np.sqrt(n * 0.25)
+
+
+# ---------------------------------------------------------------------------
+# F5: fractional RANGE offsets, through the native and the Python parser
+# ---------------------------------------------------------------------------
+
+FRACTIONAL = {
+    "count_half": "SELECT k, COUNT(*) OVER (ORDER BY g RANGE BETWEEN 0.5 "
+                  "PRECEDING AND CURRENT ROW) AS c FROM fr",
+    "sum_mixed": "SELECT k, SUM(g) OVER (ORDER BY g RANGE BETWEEN 1.5 "
+                 "PRECEDING AND 0.25 FOLLOWING) AS c FROM fr",
+    "sum_partitioned": "SELECT k, SUM(g) OVER (PARTITION BY p ORDER BY g "
+                       "RANGE BETWEEN 1.5 PRECEDING AND 0.25 FOLLOWING) AS c "
+                       "FROM fr",
+}
+
+
+@pytest.mark.parametrize("parser", ["native", "python"])
+@pytest.mark.parametrize("name", list(FRACTIONAL))
+def test_fractional_range_offsets(contexts, monkeypatch, name, parser):
+    """The JAX package answers these through its native parser (its Python
+    parser refuses the offset); the port gives the same answer through
+    either of its parsers, and the two parse to the same AST."""
+    from dask_sql_tpu_torch.sql import native_bridge
+    from dask_sql_tpu_torch import native as port_native
+    from dask_sql_tpu_torch.sql.parser import Parser
+
+    jc, pc = contexts
+    sql = FRACTIONAL[name] + " ORDER BY k"
+    want = jc.sql(sql, return_futures=False)
+    assert Parser(sql).parse_statements() == native_bridge.json_to_statements(
+        port_native.parse_to_json(sql), sql)
+    if parser == "python":
+        monkeypatch.setenv("DSQL_NATIVE", "0")
+    got = pc.sql(sql, return_futures=False)
+    assert got["k"].tolist() == want["k"].tolist()
+    np.testing.assert_allclose(got["c"].to_numpy(float),
+                               want["c"].to_numpy(float), rtol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# F6: LAG / LEAD with a default, against sqlite
+# ---------------------------------------------------------------------------
+
+DEFAULTS = {  # name: (query, its default)
+    "lag_int": ("SELECT k, LAG(k, 1, -1) OVER (ORDER BY k) AS d FROM fr", -1),
+    "lead_string": ("SELECT k, LEAD(s, 2, 'dflt') OVER (ORDER BY k) AS d "
+                    "FROM fr", "dflt"),
+    "lag_partitioned": ("SELECT k, LAG(k, 2, -7) OVER (PARTITION BY p ORDER "
+                        "BY k) AS d FROM fr", -7),
+}
+
+
+@pytest.mark.parametrize("name", list(DEFAULTS))
+def test_lag_lead_defaults_are_sql(contexts, name):
+    """The port gives the third argument outside the partition, as sqlite
+    does; the JAX package ignores it (NULL for an integer, and its string
+    windows raise)."""
+    import sqlite3
+
+    jc, pc = contexts
+    sql, default = DEFAULTS[name]
+    sql += " ORDER BY k"
+    con = sqlite3.connect(":memory:")
+    _fractional_frame().to_sql("fr", con, index=False)
+    want = [list(r) for r in con.execute(sql).fetchall()]
+    got = pc.sql(sql, return_futures=False)
+    assert [[int(k), d if isinstance(d, str) else int(d)]
+            for k, d in zip(got["k"], got["d"])] == want
+    assert any(d == default for _, d in want)
+    if name == "lead_string":
+        with pytest.raises(ValueError, match="require a dictionary"):
+            jc.sql(sql)
+        return
+    jax_d = jc.sql(sql, return_futures=False)["d"].tolist()
+    assert [None if d == default else d for _, d in want] == [
+        None if pd.isna(d) else int(d) for d in jax_d]
