@@ -41,7 +41,11 @@ Phases, in order; any failure exits non-zero before the last line:
    ``index_add_`` and the bound (3.35 TB/s, 67 TFLOP/s FP32);
 6. stats: the tables copied to a Context on the CPU, whose statistics
    (collected there) must equal the card's field for field;
-7. slice, the main path, with the statistics-driven dispatch on (the
+Phases 4-8 and 10-11 measure the eager executor (``DSQL_COMPILE=0``), as
+they did before the compiled tier; phases 9 and 12 run the default path,
+the compiled tier first.
+
+7. slice, the eager path, with the statistics-driven dispatch on (the
    default): TPC-H Q1-Q22 through the Context, one cold and three warm
    runs each, the launch counts set to 0 before each query and read after
    it (kernel 1 must launch); the host synchronisations of one more warm
@@ -67,8 +71,8 @@ Phases, in order; any failure exits non-zero before the last line:
    answers equal to phase 7's, Q1
    still on the static-domain route with one kernel-1 launch (the
    variable pins only the other GROUP BYs' codes), Q3 on the forced codes;
-9. oracle: the 22 queries at SF 0.01 through a Context on the card
-   against the standard library's ``sqlite3`` (the rules of
+9. oracle: the 22 queries at SF 0.01 through a Context on the card (the
+   compiled tier, after phase 12) against the standard library's ``sqlite3`` (the rules of
    ``tests/integration/test_tpch.py``: row count exact, doubles rtol 1e-6,
    everything else as strings, unordered results sorted), then phase 10's
    W1-W3 and the part of F1 that sqlite has (no math, date or padding
@@ -113,7 +117,20 @@ Phases, in order; any failure exits non-zero before the last line:
    equal to the inline-literal query), EXPLAIN ANALYZE of Q1 and Q9 (the
    root's ``rows=`` equal to the result's rows), fractional RANGE offsets
    and LAG / LEAD defaults over lineitem against the port's CPU run, and
-   the DROPs; one ``statements:`` JSON line.
+   the DROPs; one ``statements:`` JSON line;
+12. compiled, the main path (run after phase 8): the 22 queries at
+   ``--sf`` through the compiled tier, each plan one program captured as a
+   CUDA graph and replayed: per query the tier and any fallback's reason,
+   the cold wall (warm-up and capture), three warm walls (replays), the
+   host syncs of one more warm run and the source line of each, the
+   graph's memory pool, and kernel 1's launches per replay (the launch
+   counts set to 0 before each run and read after it); every answer equal
+   to phase 7's eager answer (doubles rtol 1e-9), Q1's bit for bit; a
+   query that does not compile, or a static GROUP BY (Q1, Q4, Q5, Q12,
+   Q22) that compiles without one kernel-1 launch per replay, fails it;
+   then Q1 and Q9 profiled (device busy, idle share against the
+   unprofiled warm wall).  One ``compiled table:`` JSON line per query.
+   The ``kernels`` line's launches for kernel 1 are this phase's.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -1393,7 +1410,7 @@ def phase_slice(ctx, tables: dict, q1_cold: tuple, cpu_ctx) -> tuple:
         raise AssertionError(f"no query launched segsum_fixedpoint: {total}")
     print(f"queries that launched segsum_fixedpoint: {static_queries}")
     print("slice table: " + json.dumps(rows))
-    return total, results
+    return total, results, {r["q"]: r for r in rows}
 
 
 def phase_stats(ctx, cpu_ctx) -> None:
@@ -1585,6 +1602,211 @@ def phase_oracle(dev, sf: float, seed: int) -> None:
         print(f"oracle {name}: {result.num_rows} rows match sqlite "
               f"({time.perf_counter() - t0:.1f} s)")
     conn.close()
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the compiled tier (one CUDA graph per query plan)
+# ---------------------------------------------------------------------------
+
+COMPILED_WARM = 3
+
+
+def _last_tier(ctx) -> tuple:
+    """(tier, the reason of a fallback, the compiled tier's counters) of the
+    context's last query, from its report."""
+    rep = ctx.last_report
+    tier, reason = "eager", ""
+    for s in rep.root.walk():
+        tier = s.attrs.get("tier", tier)
+        reason = (s.attrs.get("compiled_unsupported")
+                  or s.attrs.get("compiled_fallback") or reason)
+    names = ("compiles", "hits", "unsupported", "fallbacks", "recompiles",
+             "graph_captures", "graph_replays")
+    return tier, reason, {k: rep.counters[k] for k in names
+                          if rep.counters.get(k)}
+
+
+def _graph_attrs(ctx) -> dict:
+    """The last capture's (or replay's) graph attributes on the context's
+    last query report: pool, constant bytes, warm-up and capture ms."""
+    out = {}
+    for s in ctx.last_report.root.walk():
+        out.update({k[len("graph_"):]: v for k, v in s.attrs.items()
+                    if k.startswith("graph_")})
+    return out
+
+
+def sync_sites(fn) -> list:
+    """The port's source line (file:line) of each host synchronisation in
+    one run of fn(): the Python stack at each
+    ``torch.cuda.set_sync_debug_mode("warn")`` warning, innermost frame in
+    ``dask_sql_tpu_torch``."""
+    import traceback
+
+    sites = []
+    show = warnings.showwarning
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()
+                  if "dask_sql_tpu_torch" in f.filename]
+        f = frames[-1] if frames else None
+        sites.append("?" if f is None else
+                     f"{f.filename.split('dask_sql_tpu_torch/')[-1]}:"
+                     f"{f.lineno} ({f.name})")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            warnings.showwarning = show
+    torch.cuda.synchronize()
+    return sites
+
+
+def _bit_equal_tables(name: str, got, want) -> None:
+    if got.names != want.names or got.num_rows != want.num_rows:
+        raise AssertionError(f"{name}: {got} != {want}")
+    for col, g, w in zip(want.names, got.columns, want.columns):
+        gv, wv = g.to_numpy(), w.to_numpy()
+        if gv.dtype.kind == "f":
+            same = gv.dtype == wv.dtype and np.array_equal(
+                gv.view(np.int64), wv.view(np.int64))
+        else:
+            same = gv.tolist() == wv.tolist()
+        if not same:
+            raise AssertionError(f"{name}.{col} is not bit for bit the eager "
+                                 f"answer")
+
+
+def _compiled_query(ctx, qid: int, eager_results: dict, eager_rows: dict,
+                    total: dict) -> dict:
+    """Phase 12 for one query (see ``phase_compiled``); adds its launches
+    to ``total`` and returns its table row."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    text = QUERIES[qid]
+    box = {}
+    gk.reset_launch_counts()
+    cold = wall_ms(lambda: box.update(r=ctx.sql(text)))
+    tier, reason, counters = _last_tier(ctx)
+    capture = _graph_attrs(ctx)
+    runs = [dict(gk.LAUNCHES)]
+    warm = []
+    for _ in range(COMPILED_WARM):
+        gk.reset_launch_counts()
+        warm.append(wall_ms(lambda: box.update(r=ctx.sql(text))))
+        runs.append(dict(gk.LAUNCHES))
+    warm_tier, _, warm_counters = _last_tier(ctx)
+    sites = sync_sites(lambda: ctx.sql(text))
+    syncs = len(sites)
+    result = box["r"]
+    for launches in runs:
+        for k, v in launches.items():
+            total[k] += v
+    if qid == 1:
+        _bit_equal_tables("Q1 compiled", result, eager_results[1])
+    else:
+        check_same_result(f"Q{qid} compiled", result, eager_results[qid],
+                          rtol=1e-9)
+    if tier != "compiled" and "runtime" not in reason:
+        raise AssertionError(f"Q{qid} did not compile on the card: "
+                             f"{tier}, {reason or counters}")
+    k1 = runs[-1].get("segsum_fixedpoint", 0)
+    static = bool(eager_rows[qid]["launched"].get("segsum_fixedpoint"))
+    if static and warm_tier == "compiled" and k1 != 1:
+        raise AssertionError(f"Q{qid}: kernel 1 launched {k1} times per "
+                             f"replay, expected 1")
+    if warm_tier == "compiled" and not warm_counters.get("graph_replays"):
+        raise AssertionError(f"Q{qid}: a warm run replayed no graph: "
+                             f"{warm_counters}")
+    eager_warm = sorted(eager_rows[qid]["warm_ms"])[1]
+    row = {"q": qid, "tier": warm_tier, "reason": reason,
+           "cold_ms": cold, "warm_ms": warm,
+           "warm_median_ms": sorted(warm)[1], "syncs": syncs,
+           "sync_sites": sites,
+           "eager_warm_median_ms": eager_warm,
+           "eager_syncs": eager_rows[qid]["syncs"],
+           "pool_mb": capture.get("pool_bytes", 0) / 2**20,
+           "const_mb": capture.get("const_bytes", 0) / 2**20,
+           "warmup_ms": capture.get("warmup_ms"),
+           "capture_ms": capture.get("capture_ms"),
+           "kernel1_per_replay": k1, "cold_counters": counters,
+           "warm_counters": warm_counters, "rows": result.num_rows}
+    print(f"compiled Q{qid}: {warm_tier}{' (' + reason + ')' if reason else ''}; "
+          f"cold {cold:.1f} ms (warm-up {capture.get('warmup_ms', 0):.1f}, "
+          f"capture {capture.get('capture_ms', 0):.1f}), warm "
+          + ", ".join(f"{t:.2f}" for t in warm)
+          + f" ms (eager {eager_warm:.1f}); {syncs} syncs (eager "
+          f"{eager_rows[qid]['syncs']}; at {', '.join(sites) or '-'}); "
+          f"pool {row['pool_mb']:.1f} MB; "
+          f"kernel 1 x{k1} per run; {result.num_rows} rows; equal to "
+          f"eager{' bit for bit' if qid == 1 else ''}")
+    print("compiled table: " + json.dumps(row))
+    return row
+
+
+def phase_compiled(ctx, eager_results: dict, eager_rows: dict) -> tuple:
+    """The 22 queries through the compiled tier (the default path:
+    ``DSQL_COMPILE`` unset): per query the tier and any fallback's reason,
+    the cold wall (trace, warm-up and capture), the warm walls (graph
+    replays), the host syncs of one more warm run, the graph's memory pool
+    and kernel 1's launches per replay (the launch counts set to 0 before
+    each run and read after it).  Every answer equals phase 7's eager
+    answer (doubles rtol 1e-9), Q1's bit for bit; a query that does not
+    compile, or a static GROUP BY that compiles without launching kernel 1
+    once per replay, fails the phase.  Then Q1 and Q9 profiled, and every
+    program dropped.  Returns the launches of all runs and the rows."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+    from dask_sql_tpu_torch.physical import compiled, graphs
+
+    os.environ.pop("DSQL_COMPILE", None)
+    total = {k: 0 for k in gk.LAUNCHES}
+    rows = []
+    failures = []
+    for qid in sorted(QUERIES):
+        try:
+            rows.append(_compiled_query(ctx, qid, eager_results, eager_rows,
+                                        total))
+        except Exception as exc:  # reported together after the loop
+            import traceback
+            traceback.print_exc()
+            failures.append(f"Q{qid}: {type(exc).__name__}: {exc}")
+            print(f"compiled Q{qid}: FAILED {failures[-1]}")
+    if failures:
+        raise AssertionError("phase 12: " + "; ".join(failures))
+    # the profiler's tracing slows graph replays several-fold, so the idle
+    # share is also given against the same query's unprofiled warm median
+    profiles = {}
+    for q in (1, 9):
+        prof = profile_query(ctx, f"compiled Q{q}", QUERIES[q])
+        warm_ms = next(r["warm_median_ms"] for r in rows if r["q"] == q)
+        prof["unprofiled_warm_ms"] = warm_ms
+        prof["idle_vs_unprofiled"] = 1 - prof["busy_ms"] / warm_ms
+        print(f"compiled Q{q}: device busy {prof['busy_ms']:.2f} ms of an "
+              f"unprofiled warm {warm_ms:.2f} ms: idle "
+              f"{100 * prof['idle_vs_unprofiled']:.1f}%")
+        profiles[q] = prof
+    print("compiled profiles: " + json.dumps(profiles))
+    print(f"compiled: {sum(r['tier'] == 'compiled' for r in rows)} of "
+          f"{len(rows)} queries compiled; graph pools alive "
+          f"{graphs.live_pool_bytes() / 2**20:.1f} MB; counters "
+          + json.dumps({k: v for k, v in compiled.stats.items()
+                        if k in ("compiles", "hits", "unsupported",
+                                 "fallbacks", "recompiles", "graph_captures",
+                                 "graph_replays")}))
+    for entry in list(compiled._cache.values()):
+        if isinstance(entry, compiled._Compiled):
+            entry.fn.release()
+    compiled._cache.clear()
+    torch.cuda.empty_cache()
+    return total, rows
 
 
 # ---------------------------------------------------------------------------
@@ -2217,9 +2439,12 @@ def main(argv=None) -> int:
         return 3
     from dask_sql_tpu_torch import Context
 
-    # the production default: statistics-driven dispatch, nothing forced
+    # the production default: statistics-driven dispatch, nothing forced;
+    # phases 4-8 and 10-11 measure the eager executor (DSQL_COMPILE=0) as
+    # they did before the compiled tier, phases 9 and 12 the compiled tier
     os.environ.pop("DSQL_ADAPTIVE", None)
     os.environ.pop("DSQL_FORCE_GROUPBY", None)
+    os.environ["DSQL_COMPILE"] = "0"
     dev = torch.device("cuda")
     card = phase_environment()
     phase_build()
@@ -2232,23 +2457,26 @@ def main(argv=None) -> int:
     for name, entry in ctx.schema["root"].tables.items():
         cpu_ctx.create_table(name, entry.table)
     phase_stats(ctx, cpu_ctx)
-    launches, on_results = phase_slice(
+    launches, on_results, eager_rows = phase_slice(
         ctx, tables, (q1_cold_ms, q1_launches), cpu_ctx)
     del cpu_ctx
     profiles = {q: profile_query(ctx, f"Q{q}", QUERIES[q])
                 for q in (1, 4, 5, 6, 9)}
     print("profiles: " + json.dumps(profiles))
     off_launches = phase_adaptive(ctx, on_results)
-    print(f"launches: main path (adaptive on) {launches}, adaptive off and "
+    print(f"launches: eager path (adaptive on) {launches}, adaptive off and "
           f"forced {off_launches}")
+    compiled_launches, _ = phase_compiled(ctx, on_results, eager_rows)
+    print(f"launches: compiled tier (the main path) {compiled_launches}")
     phase_oracle(dev, ORACLE_SF, args.seed)
+    os.environ["DSQL_COMPILE"] = "0"
     phase_functions(dev, args.seed)
     surface = phase_surface(ctx, tables) + phase_cliff(dev, args.seed)
     for row in surface:
         print("surface table: " + json.dumps(row))
     phase_frontend(ctx)
     phase_statements(ctx, tables, on_results[1])
-    kernel1["launches"] = launches["segsum_fixedpoint"]
+    kernel1["launches"] = compiled_launches["segsum_fixedpoint"]
     print(f"card: {card}")
     print(json.dumps({"kernels": [kernel1, kernel2]}))
     print(json.dumps({"ok": True, "device": {

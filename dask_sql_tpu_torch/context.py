@@ -10,8 +10,11 @@ their ``?`` markers, and every statement of
 PREPARE / EXECUTE), ``explain`` and ``register_function`` (column UDFs).
 Parsing and optimization are native (``native/``), with the JAX package's
 Python parser and optimizer, copied, for what the native ones do not take;
-the statistics-driven join order follows either.  Execution is the eager
-executor (``physical/rel/executor.py``).  Each ``sql`` call runs in a
+the statistics-driven join order follows either.  Execution tries the
+compiled tier first (``physical/compiled.py``: one program per plan, a
+CUDA graph on the card) and runs the eager executor
+(``physical/rel/executor.py``) where it answers None; ``DSQL_COMPILE=0``
+is the opt-out.  Each ``sql`` call runs in a
 telemetry trace whose ``QueryReport`` is kept as ``last_report``.
 
 Queries run on the card unless the caller asks for another device:
@@ -209,12 +212,20 @@ class Context:
 
     def _execute_query_plan(self, plan: RelNode) -> Table:
         """Every plan a statement executes passes here (queries, CTAS,
-        EXECUTE): the seam where admission and the compiled tier will go."""
+        EXECUTE): the seam where admission will go."""
         return self._run_query_plan(plan)
 
     def _run_query_plan(self, plan: RelNode) -> Table:
+        """The compiled tier first, the eager executor where it declines
+        (``DSQL_COMPILE=0``, a plan outside its subset, a runtime flag);
+        the span says which with ``tier``."""
+        from .physical.compiled import try_execute_compiled
         from .physical.rel.executor import RelExecutor
 
+        result = try_execute_compiled(plan, self)
+        if result is not None:
+            _tel.annotate(tier="compiled")
+            return result
         _tel.annotate(tier="eager")
         return RelExecutor(self).execute(plan)
 

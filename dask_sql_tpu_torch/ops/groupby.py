@@ -6,7 +6,9 @@ choose between (``group_codes``: ``hash``, ``sorted``, ``dense``), then
 every aggregate is a segment reduction (``index_add_`` /
 ``scatter_reduce_``) in ``segment_aggregate``, or a plain reduction in
 ``whole_table_aggregate``; ``distinct_rows`` and ``dedup_for_distinct_agg``
-select the rows behind DISTINCT.
+select the rows behind DISTINCT.  ``sorted_segment_aggregate`` is the
+compiled tier's scatter-free form over group-sorted rows
+(``ops/sorted_agg.py``).
 """
 from __future__ import annotations
 
@@ -418,6 +420,79 @@ def _ranks_to_codes(out_ranks: torch.Tensor, col: Column, out_type: SqlType,
     safe = out_ranks.clamp(0, len(order) - 1)
     return Column(order[safe].to(torch.int32), out_type, has_any,
                   col.dictionary)
+
+
+def sorted_segment_aggregate(op: str, col_sorted: Optional[Column],
+                             valid_sorted: Optional[torch.Tensor],
+                             codes_sorted: torch.Tensor, starts: torch.Tensor,
+                             ends: torch.Tensor, out_type: SqlType) -> Column:
+    """One aggregate over a group-sorted stream, gathers and scans only.
+
+    ``col_sorted`` is the argument column already in group order (None for
+    COUNT(*)); ``valid_sorted`` the row validity, FILTER and value
+    nullability in the same order."""
+    from . import sorted_agg as sa
+
+    n = codes_sorted.shape[0]
+    if valid_sorted is None:
+        valid_sorted = torch.ones(n, dtype=torch.bool,
+                                  device=codes_sorted.device)
+
+    if op in ("COUNT", "REGR_COUNT"):
+        return Column(sa.seg_count(valid_sorted, starts, ends), out_type, None)
+
+    if col_sorted is None:
+        raise ValueError(f"{op} requires an argument")
+    data = col_sorted.data
+    count = sa.seg_count(valid_sorted, starts, ends)
+    has_any = count > 0
+
+    if op in _SUM_FAMILY:
+        dscale = exact_decimal_scale(col_sorted.stype) if op in (
+            "SUM", "$SUM0", "AVG") else None
+        if dscale is not None:
+            s_int = sa.seg_sum(_decimal_scaled_ints(data, dscale),
+                               valid_sorted, codes_sorted, starts, ends)
+            return _decimal_exact_result(op, s_int.to(torch.int64), count,
+                                         dscale, out_type)
+        s = sa.seg_sum(data, valid_sorted, codes_sorted, starts, ends)
+        if op == "SUM":
+            return Column(s.to(torch_dtype(out_type)), out_type, has_any)
+        if op == "$SUM0":
+            return Column(s.to(torch_dtype(out_type)), out_type, None)
+        s2 = None
+        if op != "AVG":
+            s2 = sa.seg_sum(data.to(torch.float64) ** 2, valid_sorted,
+                            codes_sorted, starts, ends)
+        return _moments(op, s, s2, count, has_any, out_type)
+
+    if op in ("MIN", "MAX"):
+        f = sa.seg_min if op == "MIN" else sa.seg_max
+        if col_sorted.stype.is_string:
+            ranked = col_sorted.dict_ranks().data.to(torch.int64)
+            out_ranks = f(ranked, valid_sorted, codes_sorted, ends)
+            return _ranks_to_codes(out_ranks, col_sorted, out_type, has_any)
+        out = f(data, valid_sorted, codes_sorted, ends)
+        return Column(out.to(torch_dtype(out_type)), out_type, has_any)
+
+    if op in ("EVERY", "BOOL_AND", "BOOL_OR", "ANY"):
+        every = op in ("EVERY", "BOOL_AND")
+        work = torch.where(valid_sorted, data.to(torch.bool), every
+                           ).to(torch.int32)
+        f = sa.seg_min if every else sa.seg_max
+        out = f(work, torch.ones_like(valid_sorted), codes_sorted, ends) > 0
+        return Column(out, out_type, has_any)
+
+    if op in _PICK_FAMILY:
+        if op == "LAST_VALUE":
+            pos = sa.seg_last_valid_pos(valid_sorted, codes_sorted, ends)
+        else:
+            pos = sa.seg_first_valid_pos(valid_sorted, codes_sorted, ends)
+        out = col_sorted.take(pos.clamp(0, max(n - 1, 0)))
+        return Column(out.data, out.stype, out.valid_mask() & has_any,
+                      out.dictionary)
+
+    raise NotImplementedError(f"Sorted aggregate {op}")
 
 
 def whole_table_aggregate(op: str, col: Optional[Column],

@@ -37,6 +37,14 @@ from .kernels import (append_lexsort_operands, comparable_data, key_parts,
                       unify_string_codes)
 
 
+#: window functions the compiled tier traces (the JAX package's set)
+TRACE_SAFE_OPS = frozenset({
+    "ROW_NUMBER", "RANK", "DENSE_RANK", "PERCENT_RANK", "CUME_DIST",
+    "COUNT", "SUM", "$SUM0", "AVG", "MIN", "MAX",
+    "FIRST_VALUE", "LAST_VALUE", "SINGLE_VALUE",
+})
+
+
 def _adjacent_diff(channels, n: int, device) -> torch.Tensor:
     """Row 0 True; row i True iff any (sorted) channel differs from row i-1.
     (Built by concatenation: ``out[0] = True`` on a card tensor copies a

@@ -173,11 +173,15 @@ def _explain_analyze(plan, context) -> list:
     ``[rows= time= self=]``; then the run's wall and rows, the result cache
     (the port has none), the operator variants the run took, the tier and
     the telemetry counters it moved.  Node times are host walls: on the
-    card they count the launches, not the kernels' completion."""
+    card they count the launches, not the kernels' completion.  As in the
+    JAX package the analyzed run is always eager: a compiled program has
+    no per-node boundaries to time."""
+    from .executor import RelExecutor
+
     snap0 = _tel.REGISTRY.counters()
     t0 = time.perf_counter()
     with _stats.capture() as choices, _tel.record_nodes() as rec:
-        result = context._execute_query_plan(plan)
+        result = RelExecutor(context).execute(plan)
     wall_ms = (time.perf_counter() - t0) * 1e3
     snap1 = _tel.REGISTRY.counters()
 

@@ -2,9 +2,9 @@
 
 The counterpart of ``dask_sql_tpu/physical/rex/evaluate.py``: expression
 nodes dispatch through a Pluggable registry keyed on the node class name.
-An uncorrelated scalar subquery runs its plan once and becomes a Scalar;
-a parameter reads its node's value (the port has no compiled tier to pass
-it as an argument); a column UDF (``Context.register_function``) runs on
+An uncorrelated scalar subquery runs its plan once and becomes a Scalar
+(inside a compiled trace, the tracer inlines it instead); a parameter
+reads its node's value (the compiled tier bakes it into the program); a column UDF (``Context.register_function``) runs on
 the host over numpy arrays.  A row UDF, which the JAX package feeds a
 pandas row at a time, raises ``NotImplementedError``: the card's machine
 has no pandas.
@@ -64,6 +64,10 @@ def _eval_call(rex: RexCall, table: Table, executor):
 
 
 def _eval_scalar_subquery(rex: RexScalarSubquery, table: Table, executor):
+    if getattr(executor, "is_tracer", False):
+        # compiled tier: the subplan joins the trace; its result broadcasts
+        # to a column whose NULL-ness is a device mask
+        return executor.traced_scalar_subquery(rex, table)
     sub = executor.execute(rex.plan)
     if sub.num_rows == 0:
         return Scalar(None, rex.stype)

@@ -631,3 +631,45 @@ def explain_lines(plan, context) -> List[str]:
     except Exception:
         return []
     return lines
+
+
+# ---------------------------------------------------------------------------
+# the compiled tier's starting group capacities (physical/compiled.py)
+# ---------------------------------------------------------------------------
+
+def _pad_pow2(n: int, lo: int = 64, hi: int = 1 << 20) -> int:
+    n = max(int(n), 1)
+    return min(max(1 << (n - 1).bit_length(), lo), hi)
+
+
+def compiled_cap_hints(plan, context) -> Dict[str, int]:
+    """Statistics-derived starting caps for the compiled tier's padded
+    group capacities, as in the JAX package: offered only when the plan
+    holds exactly one grouped aggregate (then unambiguously ``agg0``, the
+    first tag in trace order).  A wrong hint is safe: too small trips the
+    overflow flag into one recompile, too large is padding."""
+    if not adaptive_enabled() or forced_groupby() is not None:
+        return {}
+    from ..plan import nodes as N
+
+    aggs: List[Any] = []
+
+    def walk(rel) -> None:
+        if isinstance(rel, N.LogicalAggregate) and rel.group_keys:
+            aggs.append(rel)
+        for i in rel.inputs:
+            walk(i)
+
+    try:
+        walk(plan)
+        if len(aggs) != 1:
+            return {}
+        groups = estimate_rows(aggs[0], context)
+        if groups is None:
+            return {}
+        return {"agg0": _pad_pow2(int(groups * 1.25) + 1)}
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except Exception:
+        logger.debug("cap hints failed", exc_info=True)
+        return {}

@@ -17,6 +17,9 @@ statistics module and ``Context.sql`` use:
   on this thread.
 - ``record_nodes``: EXPLAIN ANALYZE's per-plan-node (wall, rows, calls),
   fed by the eager executor.
+- ``CounterAlias``: the dict-shaped view of the registry behind
+  ``physical.compiled.stats``; ``exec_profile``: this thread's scratchpad
+  for the compiled tier's device/materialize split.
 
 The JAX package's environment-armed hooks (fleet, flight recorder, device
 profiler, event bus, autopilot, chrome-trace export, slow-query log),
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import threading
 import time
+from collections.abc import MutableMapping
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
 
@@ -41,6 +45,14 @@ class MetricsRegistry:
     def inc(self, name: str, n: int = 1) -> None:
         with self._lock:
             self._counters[name] = self._counters.get(name, 0) + n
+
+    def get(self, name: str) -> Optional[int]:
+        with self._lock:
+            return self._counters.get(name)
+
+    def set(self, name: str, value: int) -> None:
+        with self._lock:
+            self._counters[name] = int(value)
 
     def counters(self) -> Dict[str, int]:
         """A snapshot of every counter."""
@@ -101,6 +113,7 @@ class _Tls(threading.local):
     span: Optional[Span] = None
     node_recorder: Optional["NodeRecorder"] = None
     last_report: Optional["QueryReport"] = None
+    exec_profile: Optional[Dict[str, float]] = None
 
 
 _tls = _Tls()
@@ -138,6 +151,15 @@ def annotate(**attrs) -> None:
     s = _tls.span
     if s is not None:
         s.attrs.update(attrs)
+
+
+def exec_profile() -> Dict[str, float]:
+    """This thread's device/materialize timing scratchpad (the compiled
+    tier's ``DSQL_TIME_DEVICE`` split)."""
+    p = _tls.exec_profile
+    if p is None:
+        p = _tls.exec_profile = {}
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -259,3 +281,32 @@ def trace_scope(query: str = ""):
 def last_report() -> Optional[QueryReport]:
     """The report of the last trace closed on this thread."""
     return _tls.last_report
+
+
+# ---------------------------------------------------------------------------
+# the dict alias of the counters (physical.compiled.stats)
+# ---------------------------------------------------------------------------
+
+class CounterAlias(MutableMapping):
+    """Dict-shaped read-through view of ``REGISTRY``'s counters, so that
+    ``compiled.stats["compiles"]`` and ``dict(compiled.stats)`` read as in
+    the JAX package.  Writes go to the registry; new code increments with
+    ``inc``."""
+
+    def __getitem__(self, key: str) -> int:
+        v = REGISTRY.get(key)
+        if v is None:
+            raise KeyError(key)
+        return v
+
+    def __setitem__(self, key: str, value: int) -> None:
+        REGISTRY.set(key, value)
+
+    def __delitem__(self, key: str) -> None:
+        raise TypeError("registry counters cannot be deleted")
+
+    def __iter__(self):
+        return iter(REGISTRY.counters())
+
+    def __len__(self) -> int:
+        return len(REGISTRY.counters())

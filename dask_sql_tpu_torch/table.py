@@ -58,9 +58,13 @@ class Scalar:
 # ---------------------------------------------------------------------------
 
 class Column:
-    """One device column: tensor data + optional validity mask + logical type."""
+    """One device column: tensor data + optional validity mask + logical type.
 
-    __slots__ = ("data", "mask", "stype", "dictionary")
+    ``host`` optionally holds (data, mask) numpy copies of the same values
+    (a compiled-tier result fetched in one transfer): ``to_numpy`` reads
+    them instead of the device."""
+
+    __slots__ = ("data", "mask", "stype", "dictionary", "host")
 
     def __init__(
         self,
@@ -68,11 +72,13 @@ class Column:
         stype: SqlType,
         mask: Optional[torch.Tensor] = None,
         dictionary: Optional[np.ndarray] = None,
+        host: Optional[tuple] = None,
     ):
         self.data = data
         self.stype = stype
         self.mask = mask
         self.dictionary = dictionary
+        self.host = host
         if stype.is_string and dictionary is None:
             raise ValueError("string columns require a dictionary")
 
@@ -183,13 +189,21 @@ class Column:
     # -- host conversion ---------------------------------------------------
     def to_numpy(self) -> np.ndarray:
         """Host representation with rich types; nulls become None/NaN/NaT."""
-        mask = None if self.mask is None else self.mask.cpu().numpy()
+        if self.host is not None:
+            data, mask = self.host
+        else:
+            data = self.data.cpu().numpy()
+            mask = None if self.mask is None else self.mask.cpu().numpy()
         if mask is not None and mask.all():
             mask = None
         if self.stype.is_string:
-            return Column(self.data, self.stype, None if mask is None
-                          else self.mask, self.dictionary).decode()
-        return host_decode(self.data.cpu().numpy(), mask, self.stype)
+            d = self.dictionary
+            out = d[np.clip(data, 0, len(d) - 1)]
+            if mask is not None:
+                out = out.copy()
+                out[~mask] = None
+            return out
+        return host_decode(data, mask, self.stype)
 
     def __repr__(self):
         return f"Column({self.stype}, len={len(self)}, nulls={self.null_count()})"

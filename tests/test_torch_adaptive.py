@@ -285,10 +285,14 @@ def _jax_tpch_answer(jc, qid: int) -> pd.DataFrame:
 
 
 @pytest.mark.parametrize("qid", TPCH_QIDS)
-def test_tpch_adaptive_answers_match_jax(tpch_contexts, qid):
+def test_tpch_adaptive_answers_match_jax(tpch_contexts, qid, monkeypatch):
     jc, pc = tpch_contexts
+    want = _jax_tpch_answer(jc, qid)
+    # the variants are the eager executor's (the compiled tier's hash
+    # joins report none)
+    monkeypatch.setenv("DSQL_COMPILE", "0")
     got = pc.sql(QUERIES[qid], return_futures=False)
-    _assert_same_frame(got, _jax_tpch_answer(jc, qid), 1e-12)
+    _assert_same_frame(got, want, 1e-12)
     ops = pc.last_report.operators
     assert any(o.startswith("join=dense") for o in ops), ops
 
@@ -326,8 +330,9 @@ def test_date_group_by_takes_dense_codes(date_contexts, monkeypatch):
     _assert_same_frame(got, jc.sql(DATE_Q, return_futures=False), 1e-12)
 
 
-def test_query_report(tpch_contexts):
+def test_query_report(tpch_contexts, monkeypatch):
     _, pc = tpch_contexts
+    monkeypatch.setenv("DSQL_COMPILE", "0")   # the eager executor's choices
     pc.sql(QUERIES[5])
     rep = pc.last_report
     assert set(rep.phases) >= {"parse", "plan", "execute"}
@@ -524,6 +529,7 @@ def test_forced_beats_kill_switch(tpch_contexts, date_contexts, monkeypatch):
     variant, as the JAX package's does."""
     monkeypatch.setenv("DSQL_ADAPTIVE", "0")
     monkeypatch.setenv("DSQL_FORCE_GROUPBY", "dense")
+    monkeypatch.setenv("DSQL_COMPILE", "0")   # the eager executor's choices
     _, pc = tpch_contexts
     _, dc = date_contexts
     before = port_tel.REGISTRY.counters()

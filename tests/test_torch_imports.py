@@ -78,3 +78,18 @@ def test_port_never_maps_the_jax_native_library():
     libs = json.loads(out.stdout.strip().splitlines()[-1])
     assert not any("/dask_sql_tpu/native/" in p for p in libs)
     assert any("/build/dask_sql_tpu_torch/libdsqlparser-" in p for p in libs)
+
+
+def test_walk_covers_the_compiled_tier():
+    """The import probe above walks every module of the port, the compiled
+    tier's among them."""
+    import pkgutil
+
+    import dask_sql_tpu_torch
+
+    names = {info.name for info in pkgutil.walk_packages(
+        dask_sql_tpu_torch.__path__, "dask_sql_tpu_torch.")}
+    assert {"dask_sql_tpu_torch.physical.compiled",
+            "dask_sql_tpu_torch.physical.graphs",
+            "dask_sql_tpu_torch.runtime.kvstore",
+            "dask_sql_tpu_torch.ops.sorted_agg"} <= names

@@ -49,7 +49,10 @@ def _assert_same(got: pd.DataFrame, want: pd.DataFrame):
 
 @pytest.fixture
 def static_calls(monkeypatch):
-    """Counts calls of the static-domain reduction from the executor."""
+    """Counts calls of the static-domain reduction from either executor:
+    the compiled tier (through ``gpu_kernels``) or the eager one."""
+    from dask_sql_tpu_torch.ops import gpu_kernels
+
     calls = []
     real = port_executor.segmented_sums_dispatch
 
@@ -58,6 +61,7 @@ def static_calls(monkeypatch):
         return real(*args, **kw)
 
     monkeypatch.setattr(port_executor, "segmented_sums_dispatch", spy)
+    monkeypatch.setattr(gpu_kernels, "segmented_sums_dispatch", spy)
     return calls
 
 
@@ -143,10 +147,17 @@ _GENERIC = {
 
 
 @pytest.mark.parametrize("name", list(_GENERIC))
-def test_generic_group_by_matches_jax(small_tables, name, static_calls):
+def test_generic_group_by_matches_jax(small_tables, name, static_calls,
+                                      monkeypatch):
     jc, pc = _contexts(small_tables)
-    _assert_same(pc.sql(_GENERIC[name], return_futures=False),
-                 jc.sql(_GENERIC[name], return_futures=False))
+    want = jc.sql(_GENERIC[name], return_futures=False)
+    # the compiled tier (int_2_53: the program's 2**53 flag sends the query
+    # to the eager executor after the static reduction ran in it)
+    _assert_same(pc.sql(_GENERIC[name], return_futures=False), want)
+    static_calls.clear()
+    # the eager executor decides before it reduces: no static route
+    monkeypatch.setenv("DSQL_COMPILE", "0")
+    _assert_same(pc.sql(_GENERIC[name], return_futures=False), want)
     assert static_calls == []
 
 

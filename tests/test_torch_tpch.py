@@ -124,8 +124,9 @@ def test_tpch_port_matches_jax(both_contexts, qid):
 def test_joined_dictionary_keys_take_static_route(port_ctx, monkeypatch, qid,
                                                   static):
     """Joined results keep dictionary-encoded keys, so Q4, Q5 and Q12 group
-    through the static-domain reduction (kernel 1 on the card); Q3 groups
-    by integer keys and takes the hash path."""
+    through the static-domain reduction (kernel 1 on the card), in the
+    compiled tier (through ``gpu_kernels``) as in the eager executor; Q3
+    groups by integer keys and takes the hash path."""
     from dask_sql_tpu_torch.physical.rel import executor as ex
 
     calls = []
@@ -136,6 +137,7 @@ def test_joined_dictionary_keys_take_static_route(port_ctx, monkeypatch, qid,
         return real(*args, **kw)
 
     monkeypatch.setattr(ex, "segmented_sums_dispatch", spy)
+    monkeypatch.setattr(gk, "segmented_sums_dispatch", spy)
     port_ctx.sql(QUERIES[qid])
     assert bool(calls) == static
     assert gk.LAUNCHES["segsum_fixedpoint"] == 0   # no launch on the CPU
