@@ -1621,18 +1621,22 @@ def _last_tier(ctx) -> tuple:
         reason = (s.attrs.get("compiled_unsupported")
                   or s.attrs.get("compiled_fallback") or reason)
     names = ("compiles", "hits", "unsupported", "fallbacks", "recompiles",
-             "graph_captures", "graph_replays")
+             "graph_captures", "graph_replays", "stage_graphs", "stage_execs",
+             "stage_compiles", "stage_hits", "compile_errors",
+             "degradations", "param_plan_hits", "param_plan_misses")
     return tier, reason, {k: rep.counters[k] for k in names
                           if rep.counters.get(k)}
 
 
 def _graph_attrs(ctx) -> dict:
-    """The last capture's (or replay's) graph attributes on the context's
-    last query report: pool, constant bytes, warm-up and capture ms."""
+    """The graph attributes on the context's last query report, summed
+    over its programs (a stage graph has one per stage): pool, constant
+    bytes, warm-up and capture ms."""
     out = {}
     for s in ctx.last_report.root.walk():
-        out.update({k[len("graph_"):]: v for k, v in s.attrs.items()
-                    if k.startswith("graph_")})
+        for k, v in s.attrs.items():
+            if k.startswith("graph_"):
+                out[k[len("graph_"):]] = out.get(k[len("graph_"):], 0) + v
     return out
 
 
@@ -1770,6 +1774,8 @@ def phase_compiled(ctx, eager_results: dict, eager_rows: dict) -> tuple:
     total = {k: 0 for k in gk.LAUNCHES}
     rows = []
     failures = []
+    ladder0 = {k: compiled.stats.get(k, 0)
+               for k in ("compile_errors", "degradations")}
     for qid in sorted(QUERIES):
         try:
             rows.append(_compiled_query(ctx, qid, eager_results, eager_rows,
@@ -1779,6 +1785,9 @@ def phase_compiled(ctx, eager_results: dict, eager_rows: dict) -> tuple:
             traceback.print_exc()
             failures.append(f"Q{qid}: {type(exc).__name__}: {exc}")
             print(f"compiled Q{qid}: FAILED {failures[-1]}")
+    ladder = {k: compiled.stats.get(k, 0) - v for k, v in ladder0.items()}
+    if any(ladder.values()):
+        failures.append(f"the ladder ran: {ladder}")
     if failures:
         raise AssertionError("phase 12: " + "; ".join(failures))
     # the profiler's tracing slows graph replays several-fold, so the idle
@@ -1800,13 +1809,449 @@ def phase_compiled(ctx, eager_results: dict, eager_rows: dict) -> tuple:
           + json.dumps({k: v for k, v in compiled.stats.items()
                         if k in ("compiles", "hits", "unsupported",
                                  "fallbacks", "recompiles", "graph_captures",
-                                 "graph_replays")}))
+                                 "graph_replays", "stage_graphs",
+                                 "stage_compiles", "compile_errors",
+                                 "degradations")}))
+    forget_programs()
+    return total, rows
+
+
+def forget_programs(learned: bool = False) -> None:
+    """Drop every program (and, with ``learned``, the learned capacities
+    and verdicts: a fresh process's state) and the cached card memory."""
+    from dask_sql_tpu_torch.physical import compiled
+
     for entry in list(compiled._cache.values()):
         if isinstance(entry, compiled._Compiled):
             entry.fn.release()
     compiled._cache.clear()
+    if learned:
+        compiled._learned_caps.clear()
+        compiled._runtime_eager.clear()
+    with compiled._tier_lock:
+        compiled._tier_done.clear()
     torch.cuda.empty_cache()
-    return total, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the rest of the compiled tier (parameters, stage graphs,
+# tiering, the ladder)
+# ---------------------------------------------------------------------------
+
+def _q1_variant(delta: int) -> str:
+    day = np.datetime64("1998-12-01") - np.timedelta64(delta, "D")
+    return QUERIES[1].replace("DATE '1998-09-02'", f"DATE '{day}'")
+
+
+def _q6_variant(year: int, discount: float, quantity: int) -> str:
+    return (QUERIES[6]
+            .replace("DATE '1994-01-01'", f"DATE '{year}-01-01'")
+            .replace("DATE '1995-01-01'", f"DATE '{year + 1}-01-01'")
+            .replace("BETWEEN 0.05 AND 0.07",
+                     f"BETWEEN {discount - 0.01:.2f} AND {discount + 0.01:.2f}")
+            .replace("l_quantity < 24", f"l_quantity < {quantity}"))
+
+
+#: TPC-H's substitution ranges: Q1 DELTA in [60, 120]; Q6 DATE the first of
+#: January of 1993-1997, DISCOUNT in [0.02, 0.09], QUANTITY 24 or 25
+PARAM_VARIANTS = {
+    1: [(f"DELTA={d}", _q1_variant(d)) for d in (60, 75, 90, 105, 120)],
+    6: [(f"{y}/{d}/{q}", _q6_variant(y, d, q))
+        for y, d, q in ((1993, 0.02, 24), (1994, 0.05, 25), (1995, 0.07, 24),
+                        (1996, 0.09, 25), (1997, 0.04, 24))],
+}
+
+
+def _counter_delta(before: dict, names) -> dict:
+    from dask_sql_tpu_torch.physical import compiled
+    return {k: compiled.stats.get(k, 0) - before.get(k, 0) for k in names}
+
+
+def _eager_answer(ctx, text: str):
+    os.environ["DSQL_COMPILE"] = "0"
+    try:
+        return ctx.sql(text)
+    finally:
+        os.environ.pop("DSQL_COMPILE", None)
+
+
+def phase_params(ctx) -> list:
+    """13(a): Q1 and Q6 over five literal sets each.  With parameters (the
+    default) each query captures once and replays for every later set;
+    kernel 1 launches once per Q1 run.  The same sets with
+    ``DSQL_PARAM_PLANS=0`` (one program per set) and eagerly answer alike:
+    Q1 bit for bit, Q6 rtol 1e-9."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+    from dask_sql_tpu_torch.physical import compiled
+
+    names = ("graph_captures", "graph_replays", "compiles", "hits",
+             "param_plan_hits", "param_plan_misses")
+    rows = []
+    for qid, variants in PARAM_VARIANTS.items():
+        forget_programs()
+        param_runs = []
+        for label, text in variants:
+            before = dict(compiled.stats)
+            gk.reset_launch_counts()
+            box = {}
+            ms = wall_ms(lambda: box.update(r=ctx.sql(text)))
+            param_runs.append((label, ms, _counter_delta(before, names),
+                               gk.LAUNCHES["segsum_fixedpoint"], box["r"]))
+        os.environ["DSQL_PARAM_PLANS"] = "0"
+        try:
+            baked = []
+            for label, text in variants:
+                box = {}
+                ms = wall_ms(lambda: box.update(r=ctx.sql(text)))
+                baked.append((ms, box["r"]))
+        finally:
+            os.environ.pop("DSQL_PARAM_PLANS", None)
+        captures = sum(r[2]["graph_captures"] for r in param_runs)
+        for i, ((label, text), run, (baked_ms, baked_r)) in enumerate(
+                zip(variants, param_runs, baked)):
+            _, ms, counters, k1, result = run
+            eager = _eager_answer(ctx, text)
+            if qid == 1:
+                _bit_equal_tables(f"Q1 {label} (parameters, baked)", result,
+                                  baked_r)
+                _bit_equal_tables(f"Q1 {label} (parameters, eager)", result,
+                                  eager)
+                if k1 != 1:
+                    raise AssertionError(f"Q1 {label}: kernel 1 launched {k1} "
+                                         "times, expected 1")
+            else:
+                check_same_result(f"Q6 {label} (parameters, baked)", result,
+                                  baked_r, rtol=1e-9)
+                check_same_result(f"Q6 {label} (parameters, eager)", result,
+                                  eager, rtol=1e-9)
+            if i > 0 and (counters["graph_captures"]
+                          or counters["graph_replays"] != 1):
+                raise AssertionError(f"Q{qid} {label}: {counters}, expected "
+                                     "one replay and no capture")
+            row = {"q": qid, "variant": label, "wall_ms": ms,
+                   "baked_wall_ms": baked_ms,
+                   "captures": counters["graph_captures"],
+                   "replays": counters["graph_replays"],
+                   "kernel1": k1, "counters": counters,
+                   "rows": result.num_rows}
+            rows.append(row)
+            print(f"params Q{qid} {label}: {ms:.2f} ms (baked {baked_ms:.2f} "
+                  f"ms), captures {row['captures']}, replays "
+                  f"{row['replays']}, kernel 1 x{k1}; equal to the baked "
+                  f"literal and eager")
+            print("params table: " + json.dumps(row))
+        if captures != 1:
+            raise AssertionError(f"Q{qid}: {captures} captures over five "
+                                 "literal sets, expected 1")
+    forget_programs()
+    return rows
+
+
+STAGED = (2, 8, 21)
+PADDED = (3, 9, 20)
+#: runtime verdicts a stage graph reaches in both packages (ROADMAP Queue
+#: 3): Q2's second stage builds its INNER join on the materialized boundary
+#: (fewer rows than the aggregate it joins), whose keys repeat, and the
+#: non-unique build sends the query to eager; the whole program compiles
+KNOWN_STAGE_FALLBACKS = {2: ("runtime flag",
+                             "runtime verdict of these tables")}
+
+
+def _staged_run(ctx, qid: int, env: dict) -> dict:
+    """A fresh process's cold run (no programs, no learned capacities) and
+    three warm runs of ``qid`` under ``env``; counters of the cold run,
+    syncs of one more warm run."""
+    from dask_sql_tpu_torch.physical import compiled
+
+    forget_programs(learned=True)
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        names = ("stage_graphs", "stage_execs", "stage_compiles", "stage_hits",
+                 "compiles", "recompiles", "graph_captures")
+        before = dict(compiled.stats)
+        box = {}
+        cold = wall_ms(lambda: box.update(r=ctx.sql(QUERIES[qid])))
+        counters = _counter_delta(before, names)
+        warm = [wall_ms(lambda: box.update(r=ctx.sql(QUERIES[qid])))
+                for _ in range(3)]
+        syncs = count_syncs(lambda: ctx.sql(QUERIES[qid]))
+        tier, reason, _ = _last_tier(ctx)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if tier != "compiled" and not (
+            counters["stage_graphs"]
+            and reason in KNOWN_STAGE_FALLBACKS.get(qid, ())):
+        raise AssertionError(f"Q{qid} {env}: {tier} ({reason})")
+    return {"tier": tier, "reason": reason, "cold_ms": cold, "warm_ms": warm,
+            "warm_median_ms": _median(warm), "syncs": syncs,
+            "counters": counters, "result": box["r"]}
+
+
+def phase_stages(ctx, eager_results: dict) -> list:
+    """13(b): Q2, Q8 and Q21 as stage graphs at the default budget, with
+    ``DSQL_COMPILE_WORKERS=1`` and 4, against the whole program
+    (``DSQL_STAGE_HEAVY=99``) and eager (phase 7); then Q3, Q9 and Q20 at
+    ``DSQL_STAGE_HEAVY=1`` against whole: the walls that padded rows and
+    materialized boundaries cost (a measurement, not a default).  Each run
+    starts as a fresh process would: no programs, no learned caps."""
+    rows = []
+    configs = {q: {"workers=4": {"DSQL_COMPILE_WORKERS": "4"},
+                   "workers=1": {"DSQL_COMPILE_WORKERS": "1"},
+                   "whole": {"DSQL_STAGE_HEAVY": "99"}} for q in STAGED}
+    for q in PADDED:
+        configs[q] = {"budget=1": {"DSQL_STAGE_HEAVY": "1"},
+                      "whole": {"DSQL_STAGE_HEAVY": "99"}}
+    for qid, runs in configs.items():
+        results = {}
+        for label, env in runs.items():
+            got = _staged_run(ctx, qid, env)
+            results[label] = got.pop("result")
+            row = {"q": qid, "config": label, **got}
+            rows.append(row)
+            c = got["counters"]
+            print(f"stages Q{qid} {label}: {got['tier']}"
+                  + (f" ({got['reason']})" if got["tier"] != "compiled"
+                     else "")
+                  + f", {c['stage_execs'] or 1} program(s), cold "
+                  f"{got['cold_ms']:.1f} ms "
+                  f"({c['compiles']} builds, {c['recompiles']} recompiles), "
+                  f"warm " + ", ".join(f"{t:.2f}" for t in got["warm_ms"])
+                  + f" ms, {got['syncs']} syncs")
+            print("stages table: " + json.dumps(row))
+        if qid in STAGED and not all(
+                r["counters"]["stage_graphs"] for r in rows
+                if r["q"] == qid and r["config"] != "whole"):
+            raise AssertionError(f"Q{qid} did not stage at the default budget")
+        for label, result in results.items():
+            check_same_result(f"Q{qid} {label} against whole", result,
+                              results["whole"], rtol=1e-9)
+            check_same_result(f"Q{qid} {label} against eager", result,
+                              eager_results[qid], rtol=1e-9)
+        print(f"stages Q{qid}: every configuration equal to the whole "
+              "program and to eager")
+    forget_programs(learned=True)
+    return rows
+
+
+TIERED_QUERY = 10
+EAGER_SIDE_QUERIES = (1, 6, 12, 14)
+
+
+def phase_tiering(ctx, eager_results: dict) -> dict:
+    """13(c): with tiering on (the production default), a cold plan's
+    first arrival is answered eager (``eager-compiling``) while its
+    program builds on a background thread, and meanwhile another thread
+    runs eager queries (their host reads must not disturb the warm-up, nor
+    be disturbed by it); once no build is in flight the next arrival is
+    ``compiled``.  Answers equal phase 7's; one background build done, no
+    background error."""
+    from dask_sql_tpu_torch.physical import compiled
+    from dask_sql_tpu_torch.physical.rel.executor import RelExecutor
+    import threading
+
+    forget_programs(learned=True)
+    text = QUERIES[TIERED_QUERY]
+    before = dict(compiled.stats)
+    os.environ["DSQL_TIERED"] = "1"
+    os.environ["DSQL_EAGER_FALLBACK"] = "1"
+    side = {"runs": 0, "error": None}
+    stop = threading.Event()
+
+    def eager_side():
+        try:
+            plans = [ctx._get_plan(*_query_of(QUERIES[q]))
+                     for q in EAGER_SIDE_QUERIES]
+            while not stop.is_set():
+                for q, plan in zip(EAGER_SIDE_QUERIES, plans):
+                    got = RelExecutor(ctx).execute(plan)
+                    check_same_result(f"eager Q{q} beside a build", got,
+                                      eager_results[q], rtol=1e-9)
+                    side["runs"] += 1
+        except Exception as exc:   # reported by the main thread
+            side["error"] = exc
+
+    try:
+        box = {}
+        first_ms = wall_ms(lambda: box.update(r=ctx.sql(text)))
+        first_tier, _, _ = _last_tier(ctx)
+        thread = threading.Thread(target=eager_side, name="eager-side")
+        thread.start()
+        t0 = time.perf_counter()
+        while compiled.inflight_background_compiles():
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("background compile still running "
+                                     "after 300 s")
+            time.sleep(0.005)
+        build_s = time.perf_counter() - t0
+        stop.set()
+        thread.join()
+        if side["error"] is not None:
+            raise side["error"]
+        second_ms = wall_ms(lambda: box.update(r2=ctx.sql(text)))
+        second_tier, _, _ = _last_tier(ctx)
+    finally:
+        stop.set()
+        os.environ["DSQL_TIERED"] = "0"
+        os.environ["DSQL_EAGER_FALLBACK"] = "0"
+    counters = _counter_delta(before, ("background_compiles_done",
+                                       "background_compile_errors",
+                                       "served_eager_while_compiling"))
+    for name, result in (("first", box["r"]), ("second", box["r2"])):
+        check_same_result(f"Q{TIERED_QUERY} {name} arrival", result,
+                          eager_results[TIERED_QUERY], rtol=1e-9)
+    row = {"q": TIERED_QUERY, "first_tier": first_tier,
+           "first_ms": first_ms, "build_wait_s": build_s,
+           "second_tier": second_tier, "second_ms": second_ms,
+           "eager_side_runs": side["runs"], "counters": counters}
+    print(f"tiering Q{TIERED_QUERY}: first arrival {first_tier} "
+          f"{first_ms:.1f} ms; background build done {build_s:.2f} s later "
+          f"({side['runs']} eager queries on another thread meanwhile); "
+          f"next arrival {second_tier} {second_ms:.1f} ms; {counters}")
+    print("tiering table: " + json.dumps(row))
+    if (first_tier != "eager-compiling" or second_tier != "compiled"
+            or counters["background_compiles_done"] != 1
+            or counters["background_compile_errors"]):
+        raise AssertionError(f"tiering: {row}")
+    forget_programs(learned=True)
+    return row
+
+
+def _query_of(text: str) -> tuple:
+    from dask_sql_tpu_torch.sql.parser import parse_sql
+    return parse_sql(text)[0].query, text
+
+
+LADDER_QUERY = ("SELECT k, SUM(x) AS s, COUNT(*) AS n FROM lt GROUP BY k "
+                "ORDER BY k")
+LADDER_ROWS = 1_000_000
+
+
+def ladder_table(ctx) -> None:
+    """The small table of phase 13(d), the same in every process."""
+    rng = np.random.default_rng(13)
+    ctx.create_table("lt", {"k": rng.integers(0, 1000, LADDER_ROWS),
+                            "x": rng.random(LADDER_ROWS)})
+
+
+def ladder_child(qfile: str, device: str) -> None:
+    """The second process of 13(d): the quarantined program's query, run
+    with the first process's quarantine file; prints its counters."""
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.physical import compiled
+
+    os.environ.update({"DSQL_QUARANTINE_FILE": qfile, "DSQL_TIERED": "0",
+                       "DSQL_EAGER_FALLBACK": "1"})
+    ctx = Context(device=device)
+    ladder_table(ctx)
+    result = ctx.sql(LADDER_QUERY)
+    print(json.dumps({"rows": result.num_rows,
+                      "quarantine_skips": compiled.stats.get(
+                          "quarantine_skips", 0),
+                      "compiles": compiled.stats.get("compiles", 0)}))
+
+
+def phase_ladder(ctx, eager_results: dict) -> dict:
+    """13(d): the compile-error ladder on the card.  An injected transient
+    compile fault retries and builds; an injected fatal one is exiled,
+    marked in a quarantine file and answered eager, equal to the eager
+    answer, and a second process skips its build; an injected transient
+    ``stage_exec`` fault replays exactly one stage of Q3 (budget 1, one
+    worker); ``timeout=0.001`` on Q9 raises ``DeadlineExceeded``."""
+    from dask_sql_tpu_torch.physical import compiled
+    from dask_sql_tpu_torch.runtime import faults
+    from dask_sql_tpu_torch.runtime.resilience import DeadlineExceeded
+
+    out = {}
+    ladder_table(ctx)
+    want = _eager_answer(ctx, LADDER_QUERY)
+    os.environ["DSQL_RETRY_BASE_MS"] = "1"
+    names = ("compile_errors", "retries", "compiles", "degradations",
+             "exiled", "quarantine_marks", "quarantine_skips",
+             "stage_execs", "stage_replays", "stage_replay_saved_stages",
+             "deadline_exceeded")
+    try:
+        forget_programs(learned=True)
+        before = dict(compiled.stats)
+        with faults.inject("compile:1"):
+            got = ctx.sql(LADDER_QUERY)
+        c = _counter_delta(before, names)
+        check_same_result("transient compile fault", got, want, rtol=1e-9)
+        tier, _, _ = _last_tier(ctx)
+        if tier != "compiled" or c["retries"] != 1 or c["compiles"] < 1:
+            raise AssertionError(f"transient compile fault: {tier} {c}")
+        out["transient"] = c
+        print(f"ladder: transient compile fault retried and built ({c})")
+
+        forget_programs(learned=True)
+        qfile = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "quarantine.json")
+        os.makedirs(os.path.dirname(qfile), exist_ok=True)
+        if os.path.exists(qfile):
+            os.unlink(qfile)
+        os.environ["DSQL_QUARANTINE_FILE"] = qfile
+        os.environ["DSQL_EAGER_FALLBACK"] = "1"
+        before = dict(compiled.stats)
+        with faults.inject("compile:1+:fatal"):
+            got = ctx.sql(LADDER_QUERY)
+        c = _counter_delta(before, names)
+        tier, _, _ = _last_tier(ctx)
+        check_same_result("fatal compile fault", got, want, rtol=1e-9)
+        if tier != "eager" or c["exiled"] != 1 or c["quarantine_marks"] != 1:
+            raise AssertionError(f"fatal compile fault: {tier} {c}")
+        child = subprocess.run(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.ladder_child({qfile!r}, "
+             f"{str(ctx.device)!r})"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        if child.returncode != 0:
+            raise AssertionError(f"quarantine child failed: {child.stderr}")
+        seen = json.loads(child.stdout.strip().splitlines()[-1])
+        if (seen["quarantine_skips"] != 1 or seen["compiles"] != 0
+                or seen["rows"] != want.num_rows):
+            raise AssertionError(f"the second process did not skip: {seen}")
+        out["fatal"] = {**c, "second_process": seen}
+        print(f"ladder: fatal compile fault exiled, marked and answered "
+              f"eager ({c}); a second process skipped its build ({seen})")
+    finally:
+        os.environ.pop("DSQL_QUARANTINE_FILE", None)
+        os.environ["DSQL_EAGER_FALLBACK"] = "0"
+
+    forget_programs(learned=True)
+    os.environ.update({"DSQL_STAGE_HEAVY": "1", "DSQL_COMPILE_WORKERS": "1"})
+    try:
+        before = dict(compiled.stats)
+        with faults.inject("stage_exec:2"):
+            got = ctx.sql(QUERIES[3])
+        c = _counter_delta(before, names)
+    finally:
+        os.environ.pop("DSQL_STAGE_HEAVY", None)
+        os.environ.pop("DSQL_COMPILE_WORKERS", None)
+        os.environ.pop("DSQL_RETRY_BASE_MS", None)
+    check_same_result("Q3 after a stage replay", got, eager_results[3],
+                      rtol=1e-9)
+    if (c["stage_replays"] != 1 or c["stage_replay_saved_stages"] != 1
+            or c["degradations"]):
+        raise AssertionError(f"stage replay: {c}")
+    out["stage_replay"] = c
+    print(f"ladder: a transient stage_exec fault replayed one stage of Q3 "
+          f"({c['stage_execs'] - 1} stages, {c['stage_execs']} executions)")
+
+    try:
+        ctx.sql(QUERIES[9], timeout=0.001)
+    except DeadlineExceeded as exc:
+        out["deadline"] = str(exc)
+        print(f"ladder: Q9 with timeout=0.001 raised DeadlineExceeded ({exc})")
+    else:
+        raise AssertionError("Q9 with timeout=0.001 did not raise")
+    forget_programs(learned=True)
+    print("ladder table: " + json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2445,6 +2890,11 @@ def main(argv=None) -> int:
     os.environ.pop("DSQL_ADAPTIVE", None)
     os.environ.pop("DSQL_FORCE_GROUPBY", None)
     os.environ["DSQL_COMPILE"] = "0"
+    # the compiled phases: cold means trace, warm-up and capture (no eager
+    # first arrival), and no failure turns into an eager answer; phase 13
+    # turns each on where it tests it
+    os.environ["DSQL_TIERED"] = "0"
+    os.environ["DSQL_EAGER_FALLBACK"] = "0"
     dev = torch.device("cuda")
     card = phase_environment()
     phase_build()
@@ -2468,6 +2918,10 @@ def main(argv=None) -> int:
           f"forced {off_launches}")
     compiled_launches, _ = phase_compiled(ctx, on_results, eager_rows)
     print(f"launches: compiled tier (the main path) {compiled_launches}")
+    phase_params(ctx)
+    phase_stages(ctx, on_results)
+    phase_tiering(ctx, on_results)
+    phase_ladder(ctx, on_results)
     phase_oracle(dev, ORACLE_SF, args.seed)
     os.environ["DSQL_COMPILE"] = "0"
     phase_functions(dev, args.seed)

@@ -164,19 +164,28 @@ class Context:
 
     # ----------------------------------------------------------------- sql
     def sql(self, sql: str, return_futures: bool = True,
-            params: Optional[list] = None):
+            params: Optional[list] = None, timeout: Optional[float] = None):
         """Parse, plan, optimize and execute the statements of ``sql``;
         the last one's result is returned.  A query (or EXPLAIN, SHOW,
         DESCRIBE, EXECUTE) returns rows; DDL returns an empty table.
 
         ``params`` binds the positional ``?`` markers of a query to Python
-        values (``$n`` markers parse only inside PREPARE).  Returns a
-        device ``Table`` (``return_futures=True``) or a pandas DataFrame
+        values (``$n`` markers parse only inside PREPARE); with the
+        compiled tier's parameterized plans every value list reuses one
+        program per query shape.  ``timeout`` (seconds; default
+        ``DSQL_QUERY_TIMEOUT_MS``, unset or 0: none) is a deadline checked
+        at every layer (builds, stage scheduling, eager plan nodes), which
+        raises ``runtime.resilience.DeadlineExceeded``; a nested call keeps
+        the sooner deadline.  Returns a device ``Table``
+        (``return_futures=True``) or a pandas DataFrame
         (``return_futures=False``).  The call's telemetry report is kept
         as ``self.last_report``."""
+        from .runtime import resilience as _res
+
         trace = None
         try:
-            with _tel.trace_scope(sql) as trace:
+            with _res.query_scope(timeout_s=timeout), \
+                    _tel.trace_scope(sql) as trace:
                 with _tel.span("parse"):
                     stmts = parse_sql(sql)
                 result = None
@@ -217,16 +226,21 @@ class Context:
 
     def _run_query_plan(self, plan: RelNode) -> Table:
         """The compiled tier first, the eager executor where it declines
-        (``DSQL_COMPILE=0``, a plan outside its subset, a runtime flag);
-        the span says which with ``tier``."""
+        (``DSQL_COMPILE=0``, a plan outside its subset, a runtime flag, a
+        rung of its ladder, or a cold plan answered eager while its
+        programs build); the span says which with ``tier``: ``compiled``,
+        ``eager`` or the tier's own ``eager-compiling``."""
         from .physical.compiled import try_execute_compiled
         from .physical.rel.executor import RelExecutor
 
         result = try_execute_compiled(plan, self)
+        span = _tel.current_span()
         if result is not None:
-            _tel.annotate(tier="compiled")
+            if span is not None:
+                span.attrs.setdefault("tier", "compiled")
             return result
-        _tel.annotate(tier="eager")
+        if span is not None:
+            span.attrs.setdefault("tier", "eager")
         return RelExecutor(self).execute(plan)
 
     def _get_plan(self, query: A.SelectLike, sql: str = "",

@@ -43,8 +43,10 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -69,7 +71,11 @@ PRIVATE_BUDGET = 64 * 1024
 _K1_WARPS = 8
 
 #: launches of each hand-written kernel; only the kernel wrappers add to it
+#: (``count_launch``), and ``physical/graphs.py`` once per replay for the
+#: launches a CUDA graph holds
 LAUNCHES: Dict[str, int] = {"segsum_fixedpoint": 0, "segsum_accumulate": 0}
+_launch_lock = threading.Lock()
+_launch_tls = threading.local()
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = {name: _CSRC / f"{name}.cu" for name in LAUNCHES}
@@ -78,8 +84,43 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name`` on this thread: into ``LAUNCHES``, or,
+    while this thread captures a CUDA graph (``recording_launches``), into
+    the capture's own record."""
+    rec = getattr(_launch_tls, "record", None)
+    if rec is not None:
+        rec[name] = rec.get(name, 0) + 1
+        return
+    with _launch_lock:
+        LAUNCHES[name] += 1
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """A graph replay: the launches its capture recorded."""
+    with _launch_lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
+
+
+@contextmanager
+def recording_launches():
+    """Launches made on this thread in the block are recorded in the
+    yielded dict instead of ``LAUNCHES``: a capture records kernels into a
+    graph, which launches them once per replay.  Other threads count as
+    usual."""
+    prev = getattr(_launch_tls, "record", None)
+    rec: Dict[str, int] = {}
+    _launch_tls.record = rec
+    try:
+        yield rec
+    finally:
+        _launch_tls.record = prev
 
 
 # ---------------------------------------------------------------------------
@@ -307,7 +348,7 @@ def segsum_limb_totals_cuda(vals: torch.Tensor, codes: torch.Tensor,
         out_nonfinite.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"segsum_fixedpoint launch failed: CUDA error {rc}")
-    LAUNCHES["segsum_fixedpoint"] += 1
+    count_launch("segsum_fixedpoint")
     return out_limbs, out_nonfinite
 
 
@@ -512,7 +553,7 @@ def segsum_accumulate_cuda(vals: torch.Tensor, codes: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segsum_accumulate launch failed: CUDA error {rc}")
-    LAUNCHES["segsum_accumulate"] += 1
+    count_launch("segsum_accumulate")
     return out, nonfinite
 
 

@@ -1,16 +1,15 @@
 """The compiled tier: whole query plans as single programs with static shapes.
 
-The counterpart of ``dask_sql_tpu/physical/compiled.py``'s single-program
-path.  A plan is traced into one program: filters keep rows and flip a
-validity mask instead of compacting, GROUP BY takes dense codes from a
-hash table (or straight from dictionary ranks for a small static key
-domain, which sums through kernel 1) with a static group capacity, and
-equi-joins probe a hash table of the build side.  Each program is cached
-by (plan fingerprint, input shapes/dtypes and dictionary content,
-strategy, device).  On the card a program is captured once as a CUDA
-graph and replayed (``physical/graphs.py``): steady state is one graph
-replay and one transfer of the flags (with the outputs, when they are
-small) per query.
+The counterpart of ``dask_sql_tpu/physical/compiled.py``.  A plan is traced
+into one program: filters keep rows and flip a validity mask instead of
+compacting, GROUP BY takes dense codes from a hash table (or straight from
+dictionary ranks for a small static key domain, which sums through kernel
+1) with a static group capacity, and equi-joins probe a hash table of the
+build side.  Each program is cached by (plan fingerprint, input
+shapes/dtypes and dictionary content, strategy, device).  On the card a
+program is captured once as a CUDA graph and replayed
+(``physical/graphs.py``): steady state is one graph replay and one
+transfer of the flags (with the outputs, when they are small) per query.
 
 Conditions a static program cannot express surface through a flags
 vector read after the run: a group count above the capacity (recompile
@@ -20,24 +19,56 @@ a non-unique join build side, a 64-bit hash collision or an int sum past
 2**53 (fall back to the eager executor; the verdict is pinned to the
 exact tables).  Plans outside the traceable subset raise ``Unsupported``
 (or ``graphs.HostRead`` where the trace would read device data on the
-host) and are cached as such.  Those are the only routes to eager: a
-failure to capture, replay or launch raises.
+host) and are cached as such.
 
 ``Context._run_query_plan`` calls ``try_execute_compiled`` first and the
 eager ``RelExecutor`` on ``None``; ``DSQL_COMPILE=0`` (read per call)
 opts out.  ``DSQL_STRATEGY=auto|host|tpu`` picks the tracing strategy as
 in the JAX package: ``auto`` is ``host`` here (the JAX package takes it on
 a GPU).  ``DSQL_CAPS_FILE`` / ``DSQL_CAPS_SEED`` persist learned
-capacities.
+capacities.  Under ``DSQL_STRATEGY=tpu`` the tracer takes the JAX
+package's sorted strategy: a group sort with scatter-free aggregates,
+sorted-probe merge joins, learned-capacity compaction after selective
+filters (``DSQL_COMPACT``) and the terminal sort inside the program.
 
-Under ``DSQL_STRATEGY=tpu`` the tracer takes the JAX package's sorted
-strategy: a group sort with scatter-free aggregates, sorted-probe merge
-joins, learned-capacity compaction after selective filters
-(``DSQL_COMPACT``) and the terminal sort inside the program.
+Around that single-program path, as in the JAX package:
 
-Not ported yet: plan parameterization, the program store and quarantine,
-the compile-error ladder, tiering, and stage graphs (a plan of any size
-runs as one program).
+- **Parameters** (``plan/parameterize.py``): comparison literals are
+  hoisted into ``RexParam`` nodes that fingerprint as ``P{i}:{TYPE}``, so
+  every literal variant of a shape shares one program; the values ride as
+  trailing 0-d tensors that a CUDA graph copies into its own buffers
+  before each replay.  ``DSQL_PARAM_PLANS=0`` restores value-baked keys.
+  Counters ``param_plans``, ``param_literals_hoisted``,
+  ``param_plan_hits``, ``param_plan_misses``.
+- **Stage graphs** (``physical/stages.py``): a plan with more heavy nodes
+  than the budget (``DSQL_STAGE_HEAVY``, default 6) runs as a DAG of
+  bounded programs; each stage's output is materialized into a padded
+  power-of-2 ``__split__`` table that its consumers scan (a copied input
+  of their graphs).  Independent stages run on ``DSQL_COMPILE_WORKERS``
+  threads (default 4); a transient stage failure replays that stage alone
+  from its materialized inputs.  Counters ``stage_graphs``,
+  ``stage_execs``, ``stage_compiles``, ``stage_hits``,
+  ``cross_query_hits``, ``stage_replays``.
+- **The compile-error ladder** (``runtime/resilience.py``): a failed
+  build (trace, warm-up or capture) is classified; a transient one retries
+  in place, anything else walks whole program, then stages, then eager.
+  A fatal verdict exiles the program and marks it in the quarantine store
+  (``runtime/quarantine.py``), which other processes read; a build runs
+  inside the compile watchdog.  Concurrent builds of one program wait for
+  the first (``_inflight``); consecutive failures halve the worker width
+  (``DSQL_COMPILE_BACKOFF_AFTER``).  ``DSQL_EAGER_FALLBACK=0`` surfaces the
+  typed error instead of an eager answer; a sticky CUDA error
+  (``DeviceLost``) always surfaces.  Counters ``compile_errors``,
+  ``retries``, ``degradations``, ``split_hints``, ``exiled``,
+  ``quarantine_skips``, ``quarantine_probes``, ``compile_backoffs``.
+- **Tiering** (``DSQL_TIERED``, on by default): the first arrival of a
+  cold plan is answered by the eager executor while its programs build on
+  a daemon thread; the next arrival runs compiled.  ``tier_probe`` says
+  which tier a plan would take now.
+
+Not ported yet: the persistent program store (the JAX package serializes
+XLA executables; a CUDA graph cannot be serialized, and what a fresh
+process could reuse needs a design of its own).
 """
 from __future__ import annotations
 
@@ -63,12 +94,19 @@ from ..plan.nodes import (
     LogicalTableScan, LogicalUnion, LogicalValues, LogicalWindow, RelNode,
     RexCall, RexInputRef, RexLiteral, RexNode, RexParam, RexScalarSubquery,
 )
+from ..runtime import faults as _faults
 from ..runtime import kvstore as _kv
+from ..runtime import quarantine as _quar
+from ..runtime import resilience as _res
+from ..runtime import result_cache as _rcache
 from ..runtime import telemetry as _tel
 from ..table import dict_sort_order, Column, Scalar, Table
 from ..types import exact_decimal_scale, torch_dtype
 from .graphs import GraphProgram, HostRead
 from .rex.evaluate import evaluate_predicate, evaluate_rex
+from .stages import StageGraph, heavy_count, stage_budget
+from .stages import annotate_stats as _annotate_stage_stats
+from .stages import partition as _partition
 
 logger = logging.getLogger(__name__)
 
@@ -117,12 +155,21 @@ def _strategy_on_tpu() -> bool:
 # fingerprinting
 # ---------------------------------------------------------------------------
 
-def _fp_rex(rex: RexNode, context=None, scans=None) -> str:
+def _fp_rex(rex: RexNode, context=None, scans=None, params=None) -> str:
+    if params is None:
+        params = []
     if isinstance(rex, RexInputRef):
         return f"@{rex.index}"
-    if isinstance(rex, (RexLiteral, RexParam)):
-        # the port does not hoist literals: a parameter's value is baked
-        # into the program like a literal's, and keys it the same way
+    if isinstance(rex, RexParam):
+        # a hoisted literal: identity is its position in this walk and its
+        # type, never its value; ``params`` collects the nodes in the same
+        # order, which is the order of the program's trailing inputs
+        for i, p in enumerate(params):
+            if p is rex:
+                return f"P{i}:{rex.stype.name}"
+        params.append(rex)
+        return f"P{len(params) - 1}:{rex.stype.name}"
+    if isinstance(rex, RexLiteral):
         return f"L{rex.stype.name}:{rex.value!r}"
     if isinstance(rex, RexCall):
         if rex.op in _DENY_OPS:
@@ -132,18 +179,23 @@ def _fp_rex(rex: RexNode, context=None, scans=None) -> str:
         if info is not None:
             extra = f"!{getattr(info, 'name', info)}"
         return (f"C{rex.op}{extra}["
-                + ",".join(_fp_rex(o, context, scans) for o in rex.operands)
+                + ",".join(_fp_rex(o, context, scans, params)
+                           for o in rex.operands)
                 + f"]:{rex.stype.name}")
     if isinstance(rex, RexScalarSubquery) and context is not None:
         # uncorrelated scalar subquery: its plan joins the key and its
         # scans the inputs; the tracer inlines it as a broadcast 1-row result
-        return ("S[" + _fp_plan(rex.plan, context, scans)
+        return ("S[" + _fp_plan(rex.plan, context, scans, params)
                 + f"]:{rex.stype.name}")
     raise Unsupported(type(rex).__name__)
 
 
-def _fp_plan(rel: RelNode, context, scans: list) -> str:
-    """Serialize the plan for cache keying; collects the scanned tables."""
+def _fp_plan(rel: RelNode, context, scans: list, params=None) -> str:
+    """Serialize the plan for cache keying; collects the scanned tables
+    (and the plan's RexParam nodes, in serialization order, into
+    ``params``)."""
+    if params is None:
+        params = []
     t = type(rel).__name__
     schema = ";".join(f"{f.name}:{f.stype.name}" for f in rel.schema)
     if isinstance(rel, LogicalTableScan):
@@ -157,9 +209,10 @@ def _fp_plan(rel: RelNode, context, scans: list) -> str:
         rv = "+rv" if entry.row_valid is not None else ""
         return f"Scan({rel.schema_name}.{rel.table_name}{rv})[{schema}]"
     if isinstance(rel, LogicalProject):
-        body = ",".join(_fp_rex(e, context, scans) for e in rel.exprs)
+        body = ",".join(_fp_rex(e, context, scans, params)
+                        for e in rel.exprs)
     elif isinstance(rel, LogicalFilter):
-        body = _fp_rex(rel.condition, context, scans)
+        body = _fp_rex(rel.condition, context, scans, params)
     elif isinstance(rel, LogicalAggregate):
         for agg in rel.aggs:
             if agg.udaf is not None:
@@ -181,7 +234,7 @@ def _fp_plan(rel: RelNode, context, scans: list) -> str:
             raise Unsupported(rel.join_type)
         na = "N" if getattr(rel, "null_aware", False) else ""
         cond = ("T" if rel.condition is None
-                else _fp_rex(rel.condition, context, scans))
+                else _fp_rex(rel.condition, context, scans, params))
         body = f"{rel.join_type}{na}|{cond}"
     elif isinstance(rel, LogicalSort):
         body = (",".join(f"{c.index}{'a' if c.ascending else 'd'}"
@@ -205,7 +258,7 @@ def _fp_plan(rel: RelNode, context, scans: list) -> str:
         body = repr([[lit.value for lit in row] for row in rel.rows])
     else:
         raise Unsupported(type(rel).__name__)
-    kids = ",".join(_fp_plan(i, context, scans) for i in rel.inputs)
+    kids = ",".join(_fp_plan(i, context, scans, params) for i in rel.inputs)
     return f"{t}({body})[{schema}]<{kids}>"
 
 
@@ -784,6 +837,9 @@ class _Tracer:
         self._cmp_counter = 0
         self._rnd_counter = 0
         self.compact_ok: set = set()
+        # RexParam node id -> the program's 0-d input tensor for it
+        # (``rex/evaluate._eval_param``); None outside a parameterized plan
+        self.param_values: Optional[Dict[int, torch.Tensor]] = None
 
     def _rounds(self) -> Tuple[str, int]:
         tag = f"rnd{self._rnd_counter}"
@@ -1597,12 +1653,13 @@ class _Tracer:
 # ---------------------------------------------------------------------------
 
 class _Compiled:
-    __slots__ = ("fn", "meta", "caps")
+    __slots__ = ("fn", "meta", "caps", "origin")
 
-    def __init__(self, fn, meta, caps):
+    def __init__(self, fn, meta, caps, origin=None):
         self.fn = fn            # a graphs.GraphProgram
         self.meta = meta        # filled during the first trace
         self.caps = caps
+        self.origin = origin    # the root query's fingerprint that built it
 
 
 _cache: "OrderedDict[tuple, object]" = OrderedDict()
@@ -1616,6 +1673,8 @@ _hints_memo: "OrderedDict[tuple, Dict[str, int]]" = OrderedDict()
 _LEARNED_LIMIT = 1024
 _UNSUPPORTED = object()
 _state_lock = threading.RLock()
+# key -> Event: a second caller of a program being built waits for it
+_inflight: Dict[tuple, threading.Event] = {}
 
 # write-through persistence of learned caps (``DSQL_CAPS_FILE``) and a
 # read-only seed (``DSQL_CAPS_SEED``): keys are digests of the program's
@@ -1674,6 +1733,55 @@ def _bounded_put(d: OrderedDict, key, value):
     d[key] = value
 
 
+# ---------------------------------------------------------------------------
+# compile-worker backoff: consecutive build failures halve the effective
+# worker width (floor 1, DSQL_COMPILE_BACKOFF_AFTER failures per halving,
+# counter ``compile_backoffs``); a successful build restores it
+# ---------------------------------------------------------------------------
+
+_compile_fail_streak = 0
+
+
+def _backoff_after() -> int:
+    try:
+        return max(1, int(os.environ.get("DSQL_COMPILE_BACKOFF_AFTER", "2")))
+    except ValueError:
+        return 2
+
+
+def _note_compile_result(ok: bool) -> None:
+    global _compile_fail_streak
+    after = _backoff_after()
+    with _state_lock:
+        if ok:
+            _compile_fail_streak = 0
+            return
+        _compile_fail_streak += 1
+        crossed = _compile_fail_streak % after == 0
+    if crossed:
+        _tel.inc("compile_backoffs")
+        logger.warning(
+            "%d consecutive compile failures; halving effective compile "
+            "workers (now %d)", _compile_fail_streak, _compile_workers())
+
+
+def _compile_workers(n_stages: Optional[int] = None) -> int:
+    """The stage and background-compile width: ``DSQL_COMPILE_WORKERS``
+    (default 4), halved once per ``DSQL_COMPILE_BACKOFF_AFTER``
+    consecutive build failures, capped by the stage count."""
+    try:
+        w = int(os.environ.get("DSQL_COMPILE_WORKERS", "4"))
+    except ValueError:
+        w = 4
+    with _state_lock:
+        halvings = _compile_fail_streak // _backoff_after()
+    if halvings:
+        w = max(1, w >> min(halvings, 8))
+    if n_stages is not None:
+        w = min(w, n_stages)
+    return max(1, w)
+
+
 def _flatten_tables(scans) -> List[torch.Tensor]:
     flat: List[torch.Tensor] = []
     for _, tbl, row_valid in scans:
@@ -1686,8 +1794,55 @@ def _flatten_tables(scans) -> List[torch.Tensor]:
     return flat
 
 
-def _build(plan: RelNode, context, scans, caps: Dict[str, int]) -> _Compiled:
-    """The program for this plan and input spec."""
+def _copied_positions(scans, n_params: int) -> List[int]:
+    """Positions of the inputs that change on every call: the tensors of
+    ``__split__`` scans (a stage's materialized boundary) and the trailing
+    parameters.  A CUDA graph copies them into its own buffers."""
+    out: List[int] = []
+    i = 0
+    for skey, tbl, row_valid in scans:
+        n = (sum(2 if c.mask is not None else 1 for c in tbl.columns)
+             + (row_valid is not None))
+        if skey[0] == _SPLIT_SCHEMA:
+            out.extend(range(i, i + n))
+        i += n
+    out.extend(range(i, i + n_params))
+    return out
+
+
+def _param_args(params, device) -> List[torch.Tensor]:
+    """One 0-d tensor per hoisted literal, in fingerprint order (the
+    ``P{i}`` positions of the key), of its declared SQL type's dtype, so
+    that ``x > 5`` and ``x > 5000000000`` of one declared type share a
+    program and different declared types never do.  On the card they are
+    pinned host tensors, which the graph copies into its buffers without a
+    synchronisation."""
+    cuda = torch.device(device).type == "cuda"
+    out = []
+    for p in params:
+        t = torch.tensor(p.value, dtype=torch_dtype(p.stype))
+        out.append(t.pin_memory() if cuda else t)
+    return out
+
+
+def _maybe_parameterize(plan: RelNode, count: bool = True) -> RelNode:
+    """Hoist literals into runtime arguments (``plan/parameterize.py``)
+    unless ``DSQL_PARAM_PLANS=0``.  Idempotent: re-entries (the ladder,
+    background compiles) hoist nothing; probes pass ``count=False``."""
+    from ..plan.parameterize import param_plans_enabled, parameterize_plan
+    if not param_plans_enabled():
+        return plan
+    new, hoisted = parameterize_plan(plan)
+    if hoisted and count:
+        _tel.inc("param_plans")
+        _tel.inc("param_literals_hoisted", hoisted)
+    return new
+
+
+def _build(plan: RelNode, context, scans, caps: Dict[str, int],
+           params=None, origin=None) -> _Compiled:
+    """The program for this plan and input spec; ``params`` (the plan's
+    RexParam nodes in fingerprint order) are its trailing inputs."""
     spec = []
     for skey, tbl, row_valid in scans:
         spec.append((skey, [(c.stype, c.mask is not None, c.dictionary)
@@ -1696,6 +1851,7 @@ def _build(plan: RelNode, context, scans, caps: Dict[str, int]) -> _Compiled:
     meta: dict = {}
     tpu = _strategy_on_tpu()
     dev = context.device
+    params = list(params or ())
 
     def fn(*flat):
         i = 0
@@ -1713,6 +1869,9 @@ def _build(plan: RelNode, context, scans, caps: Dict[str, int]) -> _Compiled:
                 i += 1
             tables[skey] = (Table(names, cols), valid)
         tr = _Tracer(context, tables, caps, tpu=tpu)
+        if params:
+            tr.param_values = {id(p): flat[i + j]
+                               for j, p in enumerate(params)}
         if tpu and os.environ.get("DSQL_COMPACT", "1") != "0":
             tr.compact_ok = _compact_eligible(plan)
         out = tr.run(plan)
@@ -1744,12 +1903,47 @@ def _build(plan: RelNode, context, scans, caps: Dict[str, int]) -> _Compiled:
             outs.append(out.valid)
         return tuple(outs)
 
-    return _Compiled(GraphProgram(fn, dev), meta, dict(caps))
+    program = GraphProgram(fn, dev,
+                           copied=_copied_positions(scans, len(params)))
+    return _Compiled(program, meta, dict(caps), origin)
 
 
 class _NeedsRecompile(Exception):
     def __init__(self, caps):
         self.caps = caps
+
+
+def _degrade_compile(plan: RelNode, context, base_key, key, exc: Exception,
+                     err, split_limit: Optional[int]) -> Optional[Table]:
+    """One rung down the ladder (``resilience.LADDER``) after a build
+    failed past its in-rung retries.
+
+    whole -> stages: a plan with more than one heavy node runs again as
+    minimal stages (budget 1).  stages, or an unsplittable plan -> eager:
+    ``None`` tells the caller to run the eager executor, or, with
+    ``DSQL_EAGER_FALLBACK=0``, the typed error surfaces.  A fatal verdict
+    also exiles the program in this process and marks it in the
+    quarantine store for the others; a transient one leaves the cache slot
+    empty, so the next call tries again."""
+    _tel.inc("degradations")
+    if split_limit is None and heavy_count(plan) > 1:
+        _tel.inc("split_hints")
+        _tel.annotate(degraded_to="stages")
+        logger.warning("program build failed (%s); degrading to bounded "
+                       "stages", type(exc).__name__)
+        return try_execute_compiled(plan, context, _split_limit=1)
+    _tel.annotate(degraded_to="eager")
+    if not isinstance(err, _res.TransientError):
+        with _state_lock:
+            _cache[key] = _UNSUPPORTED
+        _tel.inc("exiled")
+        _quar.get_store().mark(_quar.program_key(base_key), "fatal",
+                               reason=str(err)[:200])
+    if os.environ.get("DSQL_EAGER_FALLBACK", "1") == "0":
+        raise err if err is exc else err from exc
+    logger.warning("compiled path failed for this plan (%s); using the "
+                   "eager executor", str(err)[:200])
+    return None
 
 
 def _compact_eligible(plan: RelNode) -> set:
@@ -1854,6 +2048,7 @@ def _materialize(entry: _Compiled, outs) -> Optional[Table]:
     ``SMALL_FETCH_BYTES``) comes to the host in one transfer with the flags
     and keeps host copies; a large one reads only the flags.  Valid rows
     are compacted on the device (``count`` is known)."""
+    _faults.maybe_fail("materialize")
     meta = entry.meta
     total = sum(o.numel() * o.element_size() for o in outs)
     host = _fetch(outs) if total <= SMALL_FETCH_BYTES else None
@@ -1980,47 +2175,360 @@ def _apply_host_sort(result: Table, sort: LogicalSort) -> Table:
     return Table(result.names, cols)
 
 
-def try_execute_compiled(plan: RelNode, context) -> Optional[Table]:
-    """Execute through the compiled tier; None => the caller runs eager.
-    The whole plan is one program (``_execute_single``)."""
-    if os.environ.get("DSQL_COMPILE", "1") == "0":
+
+
+# ---------------------------------------------------------------------------
+# stage graphs: a plan above the heavy-node budget (physical/stages.py) runs
+# as a DAG of bounded programs.  Each stage's output is materialized into a
+# padded power-of-2 capacity-class table under the ``__split__`` schema, so
+# that the consumer's program key is stable across runs; its graph copies
+# the boundary into its own buffers on every call.  Stages keep the ordinary
+# (plan fingerprint, input layout) cache key: a pipeline shared by two
+# queries builds once (``cross_query_hits``).  Independent stages run
+# concurrently on a small pool of threads.
+# ---------------------------------------------------------------------------
+
+_SPLIT_SCHEMA = "__split__"
+
+_split_lock = threading.Lock()
+_split_refs: Dict[tuple, int] = {}
+
+
+def _rex_scan_uids(rex, context) -> list:
+    if isinstance(rex, RexScalarSubquery):
+        return _scan_uids(rex.plan, context)
+    if isinstance(rex, RexCall):
+        return [u for o in rex.operands for u in _rex_scan_uids(o, context)]
+    return []
+
+
+def _scan_uids(rel: RelNode, context) -> list:
+    """uids of every table a subtree scans, scalar-subquery plans
+    included; a boundary scan contributes its name (already a content
+    digest of its producing subtree)."""
+    if isinstance(rel, LogicalTableScan):
+        if rel.schema_name == _SPLIT_SCHEMA:
+            return [rel.table_name]
+        entry = context.schema.get(rel.schema_name)
+        tbl = (entry.tables[rel.table_name].table
+               if entry is not None and rel.table_name in entry.tables
+               else None)
+        return [str(getattr(tbl, "uid", "?"))]
+    out = [u for i in rel.inputs for u in _scan_uids(i, context)]
+    if isinstance(rel, LogicalProject):
+        for e in rel.exprs:
+            out.extend(_rex_scan_uids(e, context))
+    elif isinstance(rel, LogicalFilter):
+        out.extend(_rex_scan_uids(rel.condition, context))
+    elif isinstance(rel, LogicalJoin) and rel.condition is not None:
+        out.extend(_rex_scan_uids(rel.condition, context))
+    return out
+
+
+def _stage_table_name(node: RelNode, context) -> str:
+    """A deterministic boundary name: a digest of the subtree's canonical
+    text (``result_cache.canonical_plan``: values included, so two literal
+    variants never share a boundary), its output types and the scanned
+    tables' uids.  The name feeds the consumer's fingerprint, so it must
+    not change between runs of one query; equal names mean equal data, so
+    two concurrent queries may share one."""
+    shape, _, _ = _rcache.canonical_plan(node, context)
+    digest = hashlib.blake2s(
+        (shape + "|"
+         + ",".join(f.stype.name for f in node.schema) + "|"
+         + ",".join(_scan_uids(node, context))).encode()
+    ).hexdigest()[:16]
+    return f"t{digest}"
+
+
+def _make_boundary_scan(node: RelNode, context) -> LogicalTableScan:
+    from ..plan.nodes import Field
+    return LogicalTableScan(
+        schema_name=_SPLIT_SCHEMA,
+        table_name=_stage_table_name(node, context),
+        schema=[Field(f"c{i}", f.stype)
+                for i, f in enumerate(node.schema)])
+
+
+def _partition_plan(plan: RelNode, budget: int, context) -> StageGraph:
+    graph = _partition(plan, budget,
+                       lambda sub: _make_boundary_scan(sub, context))
+    _annotate_stage_stats(graph, context)
+    return graph
+
+
+def _capacity_class(n: int) -> int:
+    """The padded row count of a stage output of ``n`` rows: a power of 2,
+    at least 64."""
+    return 1 << max((max(n, 1) - 1).bit_length(), 6)
+
+
+def _pad_capacity(table: Table):
+    """(padded table, row_valid): a stage output padded to its capacity
+    class with row validity, so that its consumer's key, which holds input
+    shapes, is stable across runs."""
+    n = table.num_rows
+    cap = _capacity_class(n)
+    cols = list(table.columns)
+    dev = cols[0].device if cols else torch.device("cpu")
+    if cap != n:
+        pad = cap - n
+        padded = []
+        for c in cols:
+            data = torch.cat([c.data, torch.zeros(
+                (pad,) + tuple(c.data.shape[1:]), dtype=c.data.dtype,
+                device=c.data.device)])
+            mask = (None if c.mask is None else torch.cat(
+                [c.mask, torch.zeros(pad, dtype=torch.bool,
+                                     device=c.mask.device)]))
+            padded.append(Column(data, c.stype, mask, c.dictionary))
+        cols = padded
+    names = [f"c{i}" for i in range(len(cols))]
+    return Table(names, cols), torch.arange(cap, device=dev) < n
+
+
+def _register_stage_table(context, name: str, table: Table) -> None:
+    """Publish a stage output under ``__split__`` (reference-counted:
+    concurrent queries on one context may share a boundary name, whose
+    digest guarantees equal content)."""
+    from ..datacontainer import TableEntry
+    padded, row_valid = _pad_capacity(table)
+    ref_key = (id(context), name)
+    with _split_lock:
+        if _SPLIT_SCHEMA not in context.schema:
+            context.create_schema(_SPLIT_SCHEMA)
+        context.schema[_SPLIT_SCHEMA].tables[name] = TableEntry(
+            table=padded, row_valid=row_valid)
+        _split_refs[ref_key] = _split_refs.get(ref_key, 0) + 1
+
+
+def _unregister_stage_table(context, name: str) -> None:
+    ref_key = (id(context), name)
+    with _split_lock:
+        refs = _split_refs.get(ref_key, 0) - 1
+        if refs > 0:
+            _split_refs[ref_key] = refs
+            return
+        _split_refs.pop(ref_key, None)
+        sch = context.schema.get(_SPLIT_SCHEMA)
+        if sch is not None:
+            sch.tables.pop(name, None)
+
+
+def _record_stage_stats(st, out: Table, query_fp: str,
+                        wall_ms: float) -> None:
+    """The stage's span annotations: its digest (the boundary name, or the
+    query's fingerprint for the root), output rows against the padded
+    capacity it will be materialized at, bytes and wall."""
+    rows_out = int(out.num_rows)
+    nbytes = 0
+    for c in out.columns:
+        nbytes += c.data.numel() * c.data.element_size()
+        if c.mask is not None:
+            nbytes += c.mask.numel()
+    digest = (st.scan.table_name if st.scan is not None
+              else f"root:{query_fp[:48]}")
+    _tel.annotate(stage_digest=digest, stage_rows_out=rows_out,
+                  stage_capacity=_capacity_class(rows_out),
+                  stage_bytes=nbytes, stage_wall_ms=round(wall_ms, 3))
+
+
+def _execute_stage_graph(graph: StageGraph, context, query_fp: str,
+                         split_limit: Optional[int]) -> Optional[Table]:
+    """Run a stage DAG: dependencies first, independent stages
+    concurrently.  A stage that cannot run compiled (unsupported, runtime
+    flag) sends the whole query to eager; boundary tables are unregistered
+    on every path."""
+    with _tel.span("stage_graph", stages=len(graph.stages)):
+        return _execute_stage_graph_inner(graph, context, query_fp,
+                                          split_limit)
+
+
+def _execute_stage_graph_inner(graph: StageGraph, context, query_fp: str,
+                               split_limit: Optional[int]
+                               ) -> Optional[Table]:
+    _tel.inc("stage_graphs")
+    stages = graph.stages
+    nst = len(stages)
+    root_idx = nst - 1
+    registered: List[str] = []
+    rt = _res.current()
+    tel_trace = _tel.current_trace()
+    tel_parent = _tel.current_span()
+
+    def run_stage_once(idx: int, attempt: int) -> Optional[Table]:
+        _tel.inc("stage_execs")
+        if attempt > 0:
+            # the replay path is its own site, checked first, so that
+            # arming both sabotages the replay itself
+            _faults.maybe_fail("stage_replay")
+        _faults.maybe_fail("stage_exec")
+        return _execute_single(stages[idx].plan, context, query_fp,
+                               split_limit, in_stage=True)
+
+    def run_stage(idx: int) -> Optional[Table]:
+        # a worker thread re-enters the query's deadline scope and trace;
+        # a transient failure replays this stage alone: its dependencies'
+        # outputs are registered boundary tables, rescanned, not recomputed
+        with _res.scoped(rt), _tel.scoped(tel_trace, tel_parent), \
+                _tel.span("stage", index=idx):
+            if stages[idx].est_rows is not None:
+                _tel.annotate(stage_est_rows=stages[idx].est_rows)
+            attempt = 0
+            while True:
+                _res.check("stage_exec")
+                try:
+                    t0 = time.perf_counter()
+                    out = run_stage_once(idx, attempt)
+                    if out is not None:
+                        _record_stage_stats(stages[idx], out, query_fp,
+                                            (time.perf_counter() - t0) * 1e3)
+                    return out
+                except (KeyboardInterrupt, SystemExit):
+                    raise
+                except Exception as e:
+                    err = _res.classify(e)
+                    if err is None:
+                        raise
+                    if not isinstance(err, _res.TransientError):
+                        raise err if err is e else err from e
+                    attempt += 1
+                    if attempt > _res.retry_max():
+                        raise err if err is e else err from e
+                    saved = len(registered)
+                    _tel.inc("retries")
+                    _tel.inc("stage_replays")
+                    _tel.inc("stage_replay_saved_stages", saved)
+                    _tel.annotate(stage_replays=attempt,
+                                  stage_replay_saved=saved)
+                    logger.warning(
+                        "stage %d failed transiently (%s); replaying it from "
+                        "%d materialized boundary stage(s), retry %d/%d",
+                        idx, str(err)[:200], saved, attempt, _res.retry_max())
+                    _res.backoff(attempt, "stage_exec")
+
+    def stage_error(e: Exception) -> Optional[BaseException]:
+        """None: degrade the whole graph to eager; else raise this.  Only a
+        transient failure degrades: each stage's own ladder already
+        resolved what it could, so anything else surfaces typed."""
+        err = _res.classify(e)
+        if err is None or not isinstance(err, _res.TransientError):
+            return err if err is not None else e
+        if os.environ.get("DSQL_EAGER_FALLBACK", "1") == "0":
+            return err
+        _tel.inc("degradations")
+        _tel.annotate(degraded_to="eager")
+        logger.warning("stage failed (%s); degrading the graph to eager",
+                       str(err)[:200])
         return None
-    return _execute_single(plan, context)
 
-
-def _unsupported(e: Exception) -> None:
-    logger.debug("not compilable: %s", e)
-    _tel.inc("unsupported")
-    _tel.annotate(compiled_unsupported=str(e)[:200])
-    return None
-
-
-def _execute_single(plan: RelNode, context) -> Optional[Table]:
-    """Trace, capture and run ONE program for the whole plan; None =>
-    eager."""
-    tpu = _strategy_on_tpu()
-    host_sort = None
-    if not tpu and isinstance(plan, LogicalSort):
-        # a terminal ORDER BY / LIMIT runs after the fetch: the rows are
-        # compacted to their true count there, so the sort costs the result
-        # size, not the padded one
-        host_sort = plan
-        plan = plan.input
-    scans: list = []
     try:
-        plan_fp = _fp_plan(plan, context, scans)
-    except Unsupported as e:
-        return _unsupported(e)
-    base_key = (plan_fp, _fp_inputs(scans), tpu, _mesh_signature(context))
-    # runtime verdicts depend on values the layout cannot see: pinned to
-    # the exact tables, so reloaded (corrected) data gets a fresh chance
-    runtime_key = (base_key, tuple(t.uid for _, t, _ in scans))
-    with _state_lock:
-        exiled = runtime_key in _runtime_eager
-    if exiled:
-        _tel.inc("fallbacks")
-        _tel.annotate(compiled_fallback="runtime verdict of these tables")
-        return None
+        workers = _compile_workers(nst)
+        if workers == 1:
+            for idx, st in enumerate(stages):   # already topological
+                _res.check("stage_graph")
+                try:
+                    out = run_stage(idx)
+                except (KeyboardInterrupt, SystemExit):
+                    raise
+                except (_res.DeadlineExceeded, _res.QueryCancelled):
+                    raise
+                except Exception as e:
+                    raised = stage_error(e)
+                    if raised is not None:
+                        raise raised from (None if raised is e else e)
+                    return None
+                if out is None:
+                    return None
+                if idx == root_idx:
+                    return out
+                _register_stage_table(context, st.scan.table_name, out)
+                registered.append(st.scan.table_name)
+            return None   # unreachable: the root returns above
+
+        from concurrent.futures import (FIRST_COMPLETED, ThreadPoolExecutor,
+                                        wait as _fwait)
+        pending = set(range(nst))
+        done: set = set()
+        futs: Dict[object, int] = {}
+        failed = False
+        aborted = False
+        result: Optional[Table] = None
+        pool = ThreadPoolExecutor(workers, thread_name_prefix="dsql-stage")
+        try:
+            while (pending or futs) and not failed:
+                # a deadline cuts the graph: queued stages are abandoned,
+                # running ones finish in the background
+                _res.check("stage_graph")
+                for i in sorted(pending):
+                    if all(d in done for d in stages[i].deps):
+                        pending.discard(i)
+                        futs[pool.submit(run_stage, i)] = i
+                if not futs:
+                    break
+                finished, _ = _fwait(list(futs), timeout=0.1,
+                                     return_when=FIRST_COMPLETED)
+                for f in finished:
+                    i = futs.pop(f)
+                    try:
+                        out = f.result()
+                    except (KeyboardInterrupt, SystemExit):
+                        raise
+                    except Exception as e:
+                        raised = stage_error(e)
+                        if raised is not None:
+                            raise raised from (None if raised is e else e)
+                        failed = True
+                        continue
+                    if out is None:
+                        failed = True
+                        continue
+                    if i == root_idx:
+                        result = out
+                    else:
+                        _register_stage_table(
+                            context, stages[i].scan.table_name, out)
+                        registered.append(stages[i].scan.table_name)
+                    done.add(i)
+        except BaseException:
+            aborted = True
+            raise
+        finally:
+            pool.shutdown(wait=not aborted, cancel_futures=aborted)
+        return None if failed else result
+    finally:
+        for name in registered:
+            _unregister_stage_table(context, name)
+
+
+# ---------------------------------------------------------------------------
+# tiered execution: the first arrival of a cold plan is answered on the
+# eager tier while its programs build on a daemon thread (bounded by the
+# DSQL_COMPILE_WORKERS width and its failure backoff); the next arrival runs
+# compiled.  A plan with a standing verdict (exile, runtime flag,
+# quarantine) is decided and takes the normal path.  DSQL_EAGER_FALLBACK=0
+# leaves no eager tier to serve from, so builds stay synchronous.
+# DSQL_TIERED=0 turns it off (the tests pin it off; on by default).
+# ---------------------------------------------------------------------------
+
+_tier_lock = threading.Lock()
+_tier_done: "OrderedDict[tuple, bool]" = OrderedDict()   # attempted keys
+_tier_inflight: set = set()
+_tier_local = threading.local()          # .bg: on a background thread
+_bg_sem: Optional[threading.Semaphore] = None
+
+
+def _tiering_enabled() -> bool:
+    if os.environ.get("DSQL_TIERED", "1") == "0":
+        return False
+    return os.environ.get("DSQL_EAGER_FALLBACK", "1") != "0"
+
+
+def _initial_caps(plan: RelNode, context, base_key, runtime_key,
+                  count: bool = True) -> Dict[str, int]:
+    """The capacities a program starts from: the learned ones, then the
+    statistics' hints for the sites not learned yet (memoized per set of
+    tables).  Execution and the readiness probe key with the same caps."""
     caps: Dict[str, int] = _learned_caps_get(base_key)
     hints = _hints_memo.get(runtime_key)
     if hints is None:
@@ -2031,73 +2539,433 @@ def _execute_single(plan: RelNode, context) -> Optional[Table]:
     for tag, cap in hints.items():
         if tag not in caps:
             caps[tag] = cap
-            _tel.inc("stats_cap_hints")
-            _tel.annotate(cap_hint=f"{tag}={cap}")
+            if count:
+                _tel.inc("stats_cap_hints")
+                _tel.annotate(cap_hint=f"{tag}={cap}")
+    return caps
+
+
+def _program_decided(plan: RelNode, context, base_key, scans) -> bool:
+    """True when the normal path needs no fresh build for this program: an
+    entry (or an unsupported verdict) in the cache, a runtime exile, or a
+    standing quarantine verdict."""
+    runtime_key = (base_key, tuple(t.uid for _, t, _ in scans))
+    caps = _initial_caps(plan, context, base_key, runtime_key, count=False)
+    key = (base_key, tuple(sorted(caps.items())))
+    with _state_lock:
+        if key in _cache or runtime_key in _runtime_eager:
+            return True
+    qstore = _quar.get_store()
+    return qstore.enabled() and _quar.program_key(base_key) in qstore.entries()
+
+
+def _probe_single(plan: RelNode, context, tpu: bool) -> bool:
+    """Readiness of ONE program, keyed as ``_execute_single`` keys it
+    (the terminal ORDER BY peeled under the host strategy)."""
+    if not tpu and isinstance(plan, LogicalSort):
+        plan = plan.input
+    scans: list = []
+    try:
+        fp = _fp_plan(plan, context, scans)
+    except Unsupported:
+        return True   # needs no build; the normal path serves it eager
+    base_key = (fp, _fp_inputs(scans), tpu, _mesh_signature(context))
+    return _program_decided(plan, context, base_key, scans)
+
+
+def _programs_ready(plan: RelNode, context, base_key, budget: int) -> bool:
+    """Would the compiled path answer without a fresh build?  A whole
+    program is probed exactly; a stage graph at its leaf stages (deeper
+    stages scan boundary tables that do not exist before execution)."""
+    tpu = base_key[2]
+    if heavy_count(plan) <= budget:
+        return _probe_single(plan, context, tpu)
+    graph = _partition_plan(plan, budget, context)
+    if len(graph.stages) <= 1:
+        return _probe_single(plan, context, tpu)
+    return all(_probe_single(st.plan, context, tpu)
+               for st in graph.stages if not st.deps)
+
+
+def _background_compile(plan: RelNode, context, base_key) -> None:
+    """Build (and run once) this plan's programs off the query path: a
+    daemon thread with fresh thread-locals (no deadline) and a background
+    trace of its own, through the normal pipeline, so that learned caps,
+    the program cache and quarantine fill as a foreground build would."""
+    _tier_local.bg = True
+    trace = None
+    try:
+        with _bg_sem:
+            trace = _tel.QueryTrace(
+                f"<background-compile:{base_key[0][:48]}>")
+            trace.root.name = "background_compile"
+            try:
+                with _tel.scoped(trace, trace.root):
+                    try_execute_compiled(plan, context)
+                _tel.inc("background_compiles_done")
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except BaseException as e:
+                trace.root.attrs["error"] = type(e).__name__
+                _tel.inc("background_compile_errors")
+                logger.warning("background compile failed (%s: %s)",
+                               type(e).__name__, str(e)[:200])
+    finally:
+        if trace is not None:
+            _tel.close_background_trace(trace)
+        _tier_local.bg = False
+        with _tier_lock:
+            _tier_inflight.discard(base_key)
+            _bounded_put(_tier_done, base_key, True)
+
+
+def _tier_serve_eager(plan: RelNode, context, base_key, budget: int,
+                      split_limit: Optional[int]) -> bool:
+    """The tier decision: True => answer this arrival on the eager tier
+    (the caller returns None) while the programs build in the
+    background."""
+    global _bg_sem
+    if split_limit is not None or not _tiering_enabled() \
+            or getattr(_tier_local, "bg", False):
+        return False
+    with _tier_lock:
+        if base_key in _tier_done:
+            return False   # the background attempt finished
+        if base_key in _tier_inflight:
+            return True    # still building
+    if _programs_ready(plan, context, base_key, budget):
+        return False
+    with _tier_lock:
+        if base_key in _tier_done or base_key in _tier_inflight:
+            return True
+        _tier_inflight.add(base_key)
+        if _bg_sem is None:
+            _bg_sem = threading.Semaphore(_compile_workers())
+    # a daemon thread, not a pool: process exit never waits for a build
+    threading.Thread(target=_background_compile,
+                     args=(plan, context, base_key),
+                     name="dsql-bg-compile", daemon=True).start()
+    return True
+
+
+def inflight_background_compiles() -> list:
+    """Plan fingerprints building in background threads now."""
+    with _tier_lock:
+        return [k[0] for k in _tier_inflight]
+
+
+def tier_probe(plan: RelNode, context) -> str:
+    """Which tier would answer this plan now, without running it:
+    ``eager`` (not compilable, or ``DSQL_COMPILE=0``), ``compiled`` (its
+    programs are built), ``eager-compiling`` (cold: tiering answers eager
+    while building) or ``compiled-cold`` (tiering off: the arrival pays
+    the build)."""
+    if os.environ.get("DSQL_COMPILE", "1") == "0":
+        return "eager"
+    plan = _maybe_parameterize(plan, count=False)
+    scans: list = []
+    try:
+        plan_fp = _fp_plan(plan, context, scans)
+    except Unsupported:
+        return "eager"
+    base_key = (plan_fp, _fp_inputs(scans), _strategy_on_tpu(),
+                _mesh_signature(context))
+    try:
+        if _programs_ready(plan, context, base_key, stage_budget()):
+            return "compiled"
+    except Exception:   # a probe never fails a query
+        logger.debug("tier probe failed", exc_info=True)
+        return "eager"
+    with _tier_lock:
+        inflight = base_key in _tier_inflight
+    if inflight or _tiering_enabled():
+        return "eager-compiling"
+    return "compiled-cold"
+
+
+def try_execute_compiled(plan: RelNode, context,
+                         _split_limit: Optional[int] = None
+                         ) -> Optional[Table]:
+    """Execute through the compiled tier; None => the caller runs eager.
+
+    A plan within the heavy-node budget is one program; a larger one runs
+    as a stage graph.  ``_split_limit`` overrides the budget (the ladder's
+    whole -> stages rung; keys equal a ``DSQL_STAGE_HEAVY`` run at that
+    value)."""
+    if os.environ.get("DSQL_COMPILE", "1") == "0":
+        return None
+    _res.check("compile_entry")
+    # literals hoist here, at the one entry of the tier, so every key
+    # below (whole plan, stages) sees the shape; the eager executor never
+    # sees this plan
+    plan = _maybe_parameterize(plan)
+    scans: list = []
+    try:
+        plan_fp = _fp_plan(plan, context, scans)
+    except Unsupported as e:
+        return _unsupported(e)
+    base_key = (plan_fp, _fp_inputs(scans), _strategy_on_tpu(),
+                _mesh_signature(context))
+    budget = stage_budget(_split_limit)
+    if _tier_serve_eager(plan, context, base_key, budget, _split_limit):
+        _tel.inc("served_eager_while_compiling")
+        _tel.annotate(tier="eager-compiling")
+        return None
+    if heavy_count(plan) > budget:
+        graph = _partition_plan(plan, budget, context)
+        if len(graph.stages) > 1:
+            return _execute_stage_graph(graph, context, plan_fp,
+                                        _split_limit)
+        # nothing to cut (one oversized node): run it whole
+    return _execute_single(plan, context, plan_fp, _split_limit)
+
+
+def _unsupported(e: Exception) -> None:
+    logger.debug("not compilable: %s", e)
+    _tel.inc("unsupported")
+    _tel.annotate(compiled_unsupported=str(e)[:200])
+    return None
+
+
+def _execute_single(plan: RelNode, context, query_fp: str,
+                    split_limit: Optional[int] = None,
+                    in_stage: bool = False) -> Optional[Table]:
+    """Build, capture and run ONE program (a whole plan or one stage);
+    None => eager.  Under the host strategy a terminal ORDER BY / LIMIT
+    runs after the fetch: the rows are compacted to their true count there,
+    so the sort costs the result size, not the padded one; it applies to
+    whatever rung answers."""
+    host_sort = None
+    if not _strategy_on_tpu() and isinstance(plan, LogicalSort):
+        host_sort = plan
+        plan = plan.input
+    result = _execute_program(plan, context, query_fp, split_limit, in_stage)
+    if result is not None and host_sort is not None:
+        result = _apply_host_sort(result, host_sort)
+    return result
+
+
+def _build_and_run(plan: RelNode, context, scans, params, caps, key,
+                   base_key, plan_fp: str, query_fp: str, flat,
+                   split_limit: Optional[int], in_stage: bool):
+    """The build of a program absent from the cache, on the ladder:
+    (entry, the first run's outputs), or ("answer", result) when a rung
+    below whole answered (None: eager)."""
+    degrade = None
+    qstore = _quar.get_store()
+    qkey = _quar.program_key(base_key)
+    with _tel.span("compile"):
+        verdict = qstore.check(qkey) if qstore.enabled() else None
+        if verdict == "quarantined":
+            # a standing cross-process verdict: no build, eager
+            _tel.inc("quarantine_skips")
+            _tel.annotate(quarantined=True)
+            logger.warning("program is quarantined (a crash or hang in an "
+                           "earlier process); skipping its build, serving "
+                           "eager")
+            return "answer", None
+        if verdict == "probe":
+            # half-open: this caller tries the build; success lifts the
+            # verdict, failure re-arms it
+            _tel.inc("quarantine_probes")
+            _tel.annotate(quarantine_probe=True)
+        attempt = 0
+        while True:   # in-rung transient retries
+            try:
+                # the watchdog observes the build from outside: an
+                # injected compile fault (stall included) sits inside it
+                with _quar.get_watchdog().watch(qkey, label=plan_fp[:60]):
+                    _faults.maybe_fail("compile")
+                    entry = _build(plan, context, scans, caps,
+                                   params=params, origin=query_fp)
+                    with entry.fn.lock:
+                        outs = entry.fn(*flat)
+                break
+            except (Unsupported, HostRead) as e:
+                with _state_lock:
+                    _cache[key] = _UNSUPPORTED
+                return "answer", _unsupported(e)
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:
+                err = _res.classify(e)
+                if err is None:
+                    raise
+                if isinstance(err, (_res.DeadlineExceeded,
+                                    _res.QueryCancelled, _res.DeviceLost)):
+                    raise err if err is e else err from e
+                _tel.inc("compile_errors")
+                _note_compile_result(False)
+                attempt += 1
+                _tel.annotate(attempts=attempt)
+                if (isinstance(err, _res.TransientError)
+                        and attempt <= _res.retry_max()):
+                    _tel.inc("retries")
+                    logger.warning("transient compile failure (%s); retry "
+                                   "%d/%d", str(err)[:200], attempt,
+                                   _res.retry_max())
+                    _res.backoff(attempt, "compile")
+                    continue
+                degrade = (e, err)
+                break
+    if degrade is not None:
+        return "degrade", degrade
+    _tel.inc("compiles")
+    _note_compile_result(True)
+    if params:
+        _tel.inc("param_plan_misses")
+    if in_stage:
+        _tel.inc("stage_compiles")
+    if qstore.enabled():
+        # a build that succeeded lifts any verdict left on it
+        qstore.clear(qkey)
+    with _state_lock:
+        while len(_cache) >= _CACHE_LIMIT:
+            _, old = _cache.popitem(last=False)
+            if isinstance(old, _Compiled):
+                old.fn.release()
+        _cache[key] = entry
+    return entry, outs
+
+
+def _execute_program(plan: RelNode, context, query_fp: str,
+                     split_limit: Optional[int], in_stage: bool
+                     ) -> Optional[Table]:
+    scans: list = []
+    params: list = []
+    try:
+        plan_fp = _fp_plan(plan, context, scans, params)
+    except Unsupported as e:
+        return _unsupported(e)
+    base_key = (plan_fp, _fp_inputs(scans), _strategy_on_tpu(),
+                _mesh_signature(context))
+    # runtime verdicts depend on values the layout cannot see: pinned to
+    # the exact tables, so reloaded (corrected) data gets a fresh chance
+    runtime_key = (base_key, tuple(t.uid for _, t, _ in scans))
+    with _state_lock:
+        exiled = runtime_key in _runtime_eager
+    if exiled:
+        _tel.inc("fallbacks")
+        _tel.annotate(compiled_fallback="runtime verdict of these tables")
+        return None
+    caps = _initial_caps(plan, context, base_key, runtime_key)
     # escalation bound: the JAX package's 8 for capacities, and the five
     # doublings of a hash site's rounds (2 -> 64)
     for _ in range(16):
+        _res.check("execute")
         key = (base_key, tuple(sorted(caps.items())))
+        my_event = None
         with _state_lock:
             entry = _cache.get(key)
-        if entry is _UNSUPPORTED:
-            _tel.inc("unsupported")
-            return None
-        flat = _flatten_tables(scans)
-        fresh = entry is None
-        if fresh:
-            entry = _build(plan, context, scans, caps)
-        else:
-            _tel.inc("hits")
-            _tel.annotate(cache_hit=True)
+            if entry is None:
+                other = _inflight.get(key)
+                if other is None:
+                    my_event = threading.Event()
+                    _inflight[key] = my_event
+        if entry is None and my_event is None:
+            # another thread builds this exact program: wait for it, never
+            # past this query's deadline
+            rt = _res.current()
+            rem = None if rt is None else rt.remaining()
+            other.wait(1800 if rem is None else max(min(rem, 1800), 1e-3))
+            _res.check("compile_wait")
             with _state_lock:
-                _cache.move_to_end(key)
-        with entry.fn.lock:
-            t0 = time.perf_counter()
-            try:
-                with _tel.span("compile" if fresh else "run"):
-                    outs = entry.fn(*flat)
-            except (Unsupported, HostRead) as e:
-                if not fresh:
-                    raise
+                entry = _cache.get(key)
+                if entry is None:   # its builder failed: take over
+                    my_event = threading.Event()
+                    _inflight[key] = my_event
+        try:
+            if entry is _UNSUPPORTED:
+                _tel.inc("unsupported")
+                return None
+            flat = _flatten_tables(scans)
+            if params:
+                flat = flat + _param_args(params, context.device)
+            if entry is None:
+                got = _build_and_run(plan, context, scans, params, caps,
+                                     key, base_key, plan_fp, query_fp, flat,
+                                     split_limit, in_stage)
+            else:
+                got = None
+        finally:
+            if my_event is not None:
                 with _state_lock:
-                    _cache[key] = _UNSUPPORTED
-                return _unsupported(e)
-            if fresh:
-                _tel.inc("compiles")
-                with _state_lock:
-                    while len(_cache) >= _CACHE_LIMIT:
-                        _, old = _cache.popitem(last=False)
-                        if isinstance(old, _Compiled):
-                            old.fn.release()
-                    _cache[key] = entry
-            if os.environ.get("DSQL_TIME_DEVICE"):
-                # opt-in split of the run into device and materialize time
-                # (one extra synchronisation)
-                if outs[0].is_cuda:
-                    torch.cuda.synchronize(outs[0].device)
-                prof = _tel.exec_profile()
-                prof["device_ms"] = (time.perf_counter() - t0) * 1e3
-                _tel.annotate(device_ms=prof["device_ms"])
-            try:
+                    _inflight.pop(key, None)
+                my_event.set()
+        if got is not None and got[0] == "answer":
+            return got[1]
+        if got is not None and got[0] == "degrade":
+            exc, err = got[1]
+            return _degrade_compile(plan, context, base_key, key, exc, err,
+                                    split_limit)
+        try:
+            if got is not None:
+                entry, outs = got
                 with _tel.span("materialize"):
-                    result = _materialize(entry, outs)
-            except _NeedsRecompile as r:
-                _tel.inc("recompiles")
-                caps = r.caps
-                _learned_caps_put(base_key, caps)
-                continue
+                    result = _res.retry_transient(
+                        lambda: _materialize(entry, outs),
+                        site="materialize", passthrough=(_NeedsRecompile,))
+            else:
+                result = _run_cached(entry, flat, params, in_stage, query_fp,
+                                     key)
+        except _NeedsRecompile as r:
+            _tel.inc("recompiles")
+            caps = r.caps
+            _learned_caps_put(base_key, caps)
+            continue
+        except _res.TransientError as e:
+            # the host decode failed past its retries: one rung down, the
+            # eager executor recomputes from the source tables
+            _tel.inc("degradations")
+            _tel.annotate(degraded_to="eager")
+            if os.environ.get("DSQL_EAGER_FALLBACK", "1") == "0":
+                raise
+            logger.warning("materialize failed (%s); using the eager "
+                           "executor", str(e)[:200])
+            return None
         if result is None:
             # a runtime invariant failed (non-unique build, collision,
             # 2**53): stable for these tables, eager from now on
             _tel.annotate(compiled_fallback="runtime flag")
             with _state_lock:
                 _bounded_put(_runtime_eager, runtime_key, True)
-            return None
-        if host_sort is not None:
-            result = _apply_host_sort(result, host_sort)
         return result
     # the flags kept asking for larger capacities or more rounds: a
     # runtime verdict, counted as one
     _tel.inc("fallbacks")
     _tel.annotate(compiled_fallback="runtime escalation bound")
     return None
+
+
+def _run_cached(entry: _Compiled, flat, params, in_stage: bool,
+                query_fp: str, key) -> Optional[Table]:
+    """A cache hit: replay (or, for new table inputs, warm up and capture
+    once more) and materialize, under the program's lock: the next replay
+    overwrites the outputs."""
+    _tel.inc("hits")
+    _tel.annotate(cache_hit=True)
+    if params:
+        _tel.inc("param_plan_hits")
+    if in_stage:
+        _tel.inc("stage_hits")
+    if entry.origin is not None and entry.origin != query_fp:
+        _tel.inc("cross_query_hits")
+    with _state_lock:
+        if key in _cache:
+            _cache.move_to_end(key)
+    with entry.fn.lock:
+        t0 = time.perf_counter()
+        with _tel.span("run"):
+            outs = entry.fn(*flat)
+        if os.environ.get("DSQL_TIME_DEVICE"):
+            # opt-in split of the run into device and materialize time
+            # (one extra synchronisation)
+            if outs[0].is_cuda:
+                torch.cuda.synchronize(outs[0].device)
+            prof = _tel.exec_profile()
+            prof["device_ms"] = (time.perf_counter() - t0) * 1e3
+            _tel.annotate(device_ms=prof["device_ms"])
+        with _tel.span("materialize"):
+            return _res.retry_transient(
+                lambda: _materialize(entry, outs), site="materialize",
+                passthrough=(_NeedsRecompile,))

@@ -6,21 +6,27 @@ on the card the counterpart is one ``torch.cuda.CUDAGraph`` replay.
 tensors``:
 
 - The first call on a set of input tensors runs ``fn`` eagerly (the
-  warm-up; its outputs answer that call), then captures it with
-  ``torch.cuda.graph``.  Every later call on the same input tensors is one
-  ``replay()``.  The graph bakes in the input pointers, so a capture keeps
-  its input tensors alive and is keyed by them: reloaded data with the same
-  layout reuses the program (the cache key in ``compiled.py``) and takes
-  one more capture.  At most ``CAPTURES_PER_PROGRAM`` captures per program
-  and graph memory pools of a quarter of the card in all stay alive, least
-  recently used first out.
+  warm-up; its outputs answer that call), then captures it.  Every later
+  call on the same input tensors is one ``replay()``.  The graph bakes in
+  the input pointers, so a capture keeps its input tensors alive and is
+  keyed by them: reloaded data with the same layout reuses the program
+  (the cache key in ``compiled.py``) and takes one more capture.  At most
+  ``CAPTURES_PER_PROGRAM`` captures per program and graph memory pools of
+  a quarter of the card in all stay alive, least recently used first out.
+- Inputs that change on every call (``copied``: the hoisted parameters,
+  a stage graph's boundary tables) do not key a capture.  Each capture
+  owns a buffer for each of them; a call copies the new values in
+  (``copy_``, non-blocking: from pinned host memory for a parameter, on
+  the card for a boundary table) and replays.  A new literal or a new
+  stage output is one replay, not a capture.
 - Outputs of a replay live in the graph's memory pool and are overwritten
   by the next replay: the caller copies them out before it calls again.
 - On the CPU nothing is captured: ``fn`` runs eagerly on every call, the
   first under the same trace checks as a warm-up.
 
 The warm-up and the capture run under ``_TraceMode``, a
-``TorchFunctionMode`` that
+``TorchFunctionMode`` (the mode stack is per thread, so one thread's
+trace never sees another's ops) that
 
 - follows the input tensors' data through every op, and raises
   ``HostRead`` where the trace reads such data on the host (``item``,
@@ -37,21 +43,35 @@ The warm-up and the capture run under ``_TraceMode``, a
   (kernel 1's layout tables, string byte matrices) is freed while the
   graph lives.
 
-On the card the warm-up also runs under
-``torch.cuda.set_sync_debug_mode("error")``: a synchronisation the mode
-does not see (inside an op) raises there, before the capture, and is
-reported as ``HostRead``.  ``gpu_kernels.LAUNCHES`` counts kernels that
-ran: the launches recorded into a graph are taken back after the capture
-and added once per replay.
+Threads: stage workers and background compiles warm up and capture while
+other threads run queries.  Nothing here is process-wide for the length
+of a warm-up or a capture:
+
+- a warm-up's host synchronisations are caught per thread (``_SyncWatch``:
+  ``torch.cuda.set_sync_debug_mode("warn")`` while any warm-up runs, and a
+  warning hook that keeps the warming threads' warnings and drops the
+  others'), reported as ``HostRead`` before the capture; another thread's
+  ``.item()`` meanwhile neither raises nor counts;
+- each capture has its own stream and ``capture_error_mode=
+  "thread_local"`` (an unsafe call on another thread does not break it),
+  and is begun without ``torch.cuda.graph``'s device-wide synchronize; the
+  allocator's free blocks are released before it only while no other
+  capture runs (the allocator must not release blocks during one);
+- kernel launches recorded into a graph go to the capture's own record
+  (``gpu_kernels.recording_launches``) and are added to
+  ``gpu_kernels.LAUNCHES`` once per replay; other threads' launches count
+  as usual.
 """
 from __future__ import annotations
 
 import hashlib
 import threading
 import time
+import warnings
 import weakref
 from collections import OrderedDict
-from typing import Dict, List, Optional
+from contextlib import contextmanager
+from typing import Dict, FrozenSet, List, Optional
 
 import torch
 from torch.overrides import TorchFunctionMode
@@ -97,6 +117,80 @@ def _digest(host: torch.Tensor) -> tuple:
     return (str(host.dtype), tuple(host.shape), h.hexdigest())
 
 
+_SYNC_TEXT = "synchroniz"
+
+
+class _SyncWatch:
+    """Host synchronisations of warm-ups, caught per thread.
+
+    ``torch.cuda.set_sync_debug_mode`` is process-wide, and its ``"error"``
+    setting would make any other thread's ``.item()`` raise.  Instead the
+    mode is ``"warn"`` while at least one warm-up runs, and a
+    ``warnings.showwarning`` hook files each synchronisation warning under
+    the thread that raised it: a warming thread's are kept (and raise
+    ``HostRead`` after its warm-up), the others' are dropped (the mode is
+    on only for the warm-ups)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._active: Dict[int, List[str]] = {}
+        self._tls = threading.local()
+        self._prev_mode = 0
+        self._prev_show = None
+        self._filtered = False
+
+    @contextmanager
+    def watch(self):
+        """Yield the list this thread's synchronisations are added to."""
+        tid = threading.get_ident()
+        seen: List[str] = []
+        with self._lock:
+            if not self._active:
+                if not self._filtered:
+                    warnings.filterwarnings("always", message=".*" + _SYNC_TEXT)
+                    self._filtered = True
+                self._prev_mode = torch.cuda.get_sync_debug_mode()
+                self._prev_show = warnings.showwarning
+                warnings.showwarning = self._show
+                torch.cuda.set_sync_debug_mode("warn")
+            self._active[tid] = seen
+        try:
+            yield seen
+        finally:
+            with self._lock:
+                del self._active[tid]
+                if not self._active:
+                    torch.cuda.set_sync_debug_mode(self._prev_mode)
+                    if warnings.showwarning is self._show:
+                        warnings.showwarning = self._prev_show
+
+    @contextmanager
+    def suspended(self):
+        """This thread's synchronisations in the block are not kept."""
+        prev = getattr(self._tls, "off", False)
+        self._tls.off = True
+        try:
+            yield
+        finally:
+            self._tls.off = prev
+
+    def _show(self, message, category, filename, lineno, file=None,
+              line=None):
+        if _SYNC_TEXT in str(message):
+            seen = self._active.get(threading.get_ident())
+            if seen is not None:
+                if not getattr(self._tls, "off", False):
+                    seen.append(f"{filename}:{lineno}: {message}")
+                return
+            if self._prev_mode == 0:
+                return
+        show = self._prev_show or warnings._showwarning_orig
+        show(message, category, filename, lineno, file, line)
+
+
+_SYNCS = _SyncWatch()
+
+
 class _Consts:
     """A program's host-to-device constants, by content: recorded in the
     warm-up, handed back in the same order per content during capture."""
@@ -107,12 +201,10 @@ class _Consts:
         self._cursor: Dict[tuple, int] = {}
 
     def record(self, host: torch.Tensor) -> torch.Tensor:
-        prev = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode(0)
-        try:
+        # the copy synchronises; a capture replays its result, so it is
+        # not a synchronisation of the program
+        with _SYNCS.suspended():
             dev = host.to(self.device)
-        finally:
-            torch.cuda.set_sync_debug_mode(prev)
         self.by_key.setdefault(_digest(host), []).append(dev)
         return dev
 
@@ -271,6 +363,26 @@ _lock = threading.RLock()
 #: every live capture, least recently used first: (program, key) -> bytes
 _LIVE: "OrderedDict[tuple, int]" = OrderedDict()
 
+# captures in progress: the cache's free blocks are released before a
+# capture (its pool cannot reuse them) only while no other capture runs,
+# since the allocator must not release blocks during one
+_capture_gate = threading.Lock()
+_captures_underway = 0
+
+
+def _capture_enter(device: torch.device) -> None:
+    global _captures_underway
+    with _capture_gate:
+        if _captures_underway == 0:
+            torch.cuda.empty_cache()
+        _captures_underway += 1
+
+
+def _capture_exit() -> None:
+    global _captures_underway
+    with _capture_gate:
+        _captures_underway -= 1
+
 
 def live_pool_bytes() -> int:
     with _lock:
@@ -279,11 +391,14 @@ def live_pool_bytes() -> int:
 
 class GraphProgram:
     """One compiled program: ``fn`` captured and replayed on the card, run
-    eagerly on the CPU (module docstring)."""
+    eagerly on the CPU (module docstring).  ``copied``: the positions of
+    the inputs that change per call, copied into each capture's own
+    buffers."""
 
-    def __init__(self, fn, device: torch.device):
+    def __init__(self, fn, device: torch.device, copied=()):
         self.fn = fn
         self.device = torch.device(device)
+        self.copied: FrozenSet[int] = frozenset(copied)
         self.lock = threading.RLock()
         self.checked = False
         self.captures: "OrderedDict[tuple, _Capture]" = OrderedDict()
@@ -296,7 +411,8 @@ class GraphProgram:
                 outs = self.fn(*flat)
             self.checked = True
             return outs
-        key = tuple(t.data_ptr() for t in flat)
+        key = tuple(t.data_ptr() for i, t in enumerate(flat)
+                    if i not in self.copied)
         with self.lock:
             cap = self.captures.get(key)
             if cap is not None:
@@ -304,45 +420,64 @@ class GraphProgram:
                 with _lock:
                     if (self, key) in _LIVE:
                         _LIVE.move_to_end((self, key))
+                self._load(cap.inputs, flat)
                 cap.graph.replay()
-                for k, v in cap.launches.items():
-                    gk.LAUNCHES[k] += v
+                gk.add_launches(cap.launches)
                 _tel.inc("graph_replays")
                 _tel.annotate(graph_pool_bytes=cap.pool_bytes)
                 return cap.outs
             return self._warm_and_capture(key, flat)
 
+    def _load(self, inputs, flat) -> None:
+        """Copy this call's values of the copied inputs into a capture's
+        buffers (ordered on the current stream; a pinned host source is
+        read without a synchronisation)."""
+        for i in self.copied:
+            inputs[i].copy_(flat[i], non_blocking=True)
+
     def _warm_and_capture(self, key, flat):
+        inputs = tuple(torch.empty(t.shape, dtype=t.dtype, device=self.device)
+                       if i in self.copied else t
+                       for i, t in enumerate(flat))
+        self._load(inputs, flat)
         consts = _Consts(self.device)
         t0 = time.perf_counter()
-        prev = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            with _TraceMode(flat, consts):
-                outs = self.fn(*flat)
-        except RuntimeError as e:
-            if "synchroniz" in str(e):
-                raise HostRead(f"synchronisation in the trace: {e}") from e
-            raise
-        finally:
-            torch.cuda.set_sync_debug_mode(prev)
+        with _SYNCS.watch() as seen:
+            with _TraceMode(inputs, consts):
+                outs = self.fn(*inputs)
+        if seen:
+            raise HostRead(f"synchronisation in the trace: {seen[0]}")
         t1 = time.perf_counter()
-        before = dict(gk.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
-        mode = _TraceMode(flat, consts, capture=True)
+        mode = _TraceMode(inputs, consts, capture=True)
+        current = torch.cuda.current_stream(self.device)
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(current)
+        _capture_enter(self.device)
         try:
-            with torch.cuda.graph(graph):
-                r0 = torch.cuda.memory_reserved(self.device)
-                with mode:
-                    static = self.fn(*flat)
+            r0 = torch.cuda.memory_reserved(self.device)
+            failed: Optional[BaseException] = None
+            with gk.recording_launches() as launched, \
+                    torch.cuda.stream(stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    with mode:
+                        static = self.fn(*inputs)
+                except BaseException as e:
+                    failed = e
+                try:
+                    graph.capture_end()
+                except Exception:
+                    if failed is None:
+                        raise
+                if failed is not None:
+                    raise failed
+            current.wait_stream(stream)
             r1 = torch.cuda.memory_reserved(self.device)
         finally:
-            launched = {k: gk.LAUNCHES[k] - before.get(k, 0)
-                        for k in gk.LAUNCHES}
-            for k, v in before.items():
-                gk.LAUNCHES[k] = v
+            _capture_exit()
         cap = _Capture()
-        cap.graph, cap.outs, cap.inputs = graph, static, tuple(flat)
+        cap.graph, cap.outs, cap.inputs = graph, static, inputs
         cap.consts, cap.hold = consts, mode.hold
         cap.launches = {k: v for k, v in launched.items() if v}
         cap.pool_bytes = max(r1 - r0, 0)

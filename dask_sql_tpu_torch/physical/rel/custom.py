@@ -171,13 +171,21 @@ def _explain_analyze(plan, context) -> list:
     """Run the plan on the eager executor, each node timed and its rows
     counted (``telemetry.record_nodes``), and render the tree annotated
     ``[rows= time= self=]``; then the run's wall and rows, the result cache
-    (the port has none), the operator variants the run took, the tier and
-    the telemetry counters it moved.  Node times are host walls: on the
+    (the port has none), the operator variants the run took, the tier a
+    plain run would take (``compiled.tier_probe``) and the telemetry
+    counters it moved.  Node times are host walls: on the
     card they count the launches, not the kernels' completion.  As in the
     JAX package the analyzed run is always eager: a compiled program has
     no per-node boundaries to time."""
+    from ..compiled import tier_probe
     from .executor import RelExecutor
 
+    # the tier a plain run would take, probed before the analyzed run
+    # (always eager) changes anything
+    try:
+        exec_tier = tier_probe(plan, context)
+    except Exception:
+        exec_tier = "eager"
     snap0 = _tel.REGISTRY.counters()
     t0 = time.perf_counter()
     with _stats.capture() as choices, _tel.record_nodes() as rec:
@@ -202,7 +210,7 @@ def _explain_analyze(plan, context) -> list:
     lines.append("-- cache: disabled")
     lines.extend("-- operator: " + _stats.format_choice(op, variant, info)
                  for op, variant, info in choices)
-    lines.append("-- tier: eager")
+    lines.append(f"-- tier: {exec_tier}")
     delta = {k: v - snap0.get(k, 0) for k, v in snap1.items()
              if v != snap0.get(k, 0)}
     if delta:

@@ -48,6 +48,7 @@ from ...plan.nodes import (
     LogicalUnion, LogicalValues, LogicalWindow, RelNode, RexCall,
 )
 from ...plan.optimizer import split_join_condition
+from ...runtime import resilience as _res
 from ...runtime import statistics as _stats
 from ...runtime import telemetry as _tel
 from ...table import Column, Scalar, Table, dict_sort_order
@@ -65,6 +66,10 @@ class RelExecutor(Pluggable):
         self.device = context.device
 
     def execute(self, rel: RelNode) -> Table:
+        # the deadline/cancel checkpoint of every plan node: the eager
+        # executor is the ladder's last rung, and no query runs past its
+        # budget there either
+        _res.check("eager")
         name = type(rel).__name__
         if not RelExecutor.has_plugin(name):
             raise NotImplementedError(f"Plan node {name} is not ported yet")

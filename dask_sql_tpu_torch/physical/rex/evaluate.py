@@ -4,8 +4,9 @@ The counterpart of ``dask_sql_tpu/physical/rex/evaluate.py``: expression
 nodes dispatch through a Pluggable registry keyed on the node class name.
 An uncorrelated scalar subquery runs its plan once and becomes a Scalar
 (inside a compiled trace, the tracer inlines it instead); a parameter
-reads its node's value (the compiled tier bakes it into the program); a column UDF (``Context.register_function``) runs on
-the host over numpy arrays.  A row UDF, which the JAX package feeds a
+reads the compiled program's input for it, or its node's value elsewhere;
+a column UDF (``Context.register_function``) runs on the host over numpy
+arrays.  A row UDF, which the JAX package feeds a
 pandas row at a time, raises ``NotImplementedError``: the card's machine
 has no pandas.
 """
@@ -47,6 +48,15 @@ def _eval_literal(rex: RexLiteral, table: Table, executor):
 
 
 def _eval_param(rex: RexParam, table: Table, executor):
+    """A hoisted literal (``plan/parameterize.py``): inside a compiled
+    program, the 0-d tensor the program received for it
+    (``compiled._build`` maps each parameter node to its input); every
+    other executor reads the node's value like a literal's."""
+    vals = getattr(executor, "param_values", None)
+    if vals is not None:
+        v = vals.get(id(rex))
+        if v is not None:
+            return Scalar(v, rex.stype)
     return Scalar(rex.value, rex.stype)
 
 

@@ -78,10 +78,13 @@ def all_null_column(length: int, stype: SqlType, device) -> Column:
 
 
 def _data(v: Value, device=None):
-    """Tensor for a Column; for a Scalar, the Python value, or a float64
-    tensor on ``device`` for a Python float (see the module docstring)."""
+    """Tensor for a Column; for a Scalar, the Python value, a float64
+    tensor on ``device`` for a Python float (see the module docstring), or
+    the 0-d tensor of a hoisted parameter inside a compiled program."""
     if isinstance(v, Column):
         return v.data
+    if isinstance(v.value, torch.Tensor):
+        return v.value
     if isinstance(v.value, float) and device is not None:
         return torch.tensor(v.value, dtype=torch.float64, device=device)
     return v.value
@@ -191,6 +194,8 @@ def _as_array(x, n, device):
 def _to_us(v: Value):
     if v.stype.name == "DATE":
         if isinstance(v, Scalar):
+            if isinstance(v.value, torch.Tensor):   # a DATE parameter
+                return v.value.to(torch.int64) * US_PER_DAY
             return v.value * US_PER_DAY
         return v.data.to(torch.int64) * US_PER_DAY
     return _data(v)
@@ -279,9 +284,54 @@ def comparison(op_name: str):
             db = _to_us(b)
         if col is None:
             return Scalar(bool(fn(da, db)), BOOLEAN)
+        da, db = _promote_pair(a, b, da, db)
         return Column(fn(da, db), BOOLEAN, combine_masks(a, b))
 
     return op
+
+
+_FLOAT_TYPES = ("FLOAT", "REAL", "DOUBLE", "DECIMAL")
+
+
+def _scalar_dtype(s: Scalar, value, col_dtype: torch.dtype):
+    """The dtype a column-vs-scalar comparison gives the scalar: a
+    parameter's own, a float literal's declared one, an int literal the
+    column's while it fits (int64 past it); None: leave torch's rules."""
+    if isinstance(value, torch.Tensor):
+        return value.dtype
+    if isinstance(value, bool) or not isinstance(value, (int, float)):
+        return None
+    if isinstance(value, float):
+        return (torch_dtype(s.stype) if s.stype.name in _FLOAT_TYPES
+                else torch.float64)
+    if col_dtype.is_floating_point:
+        return None
+    info = torch.iinfo(col_dtype)
+    return col_dtype if info.min <= value <= info.max else torch.int64
+
+
+def _promote_pair(a: Value, b: Value, da, db):
+    """A numeric column against a scalar compares in the promoted type of
+    the column's dtype and the scalar's (``_scalar_dtype``), as the JAX
+    package compares a hoisted parameter: an int32 column against an int64
+    value past 2**31 widens instead of wrapping, and a float32 column
+    against a DOUBLE compares in float64.  A baked literal and a parameter
+    (a 0-d tensor of the declared type) thus compare alike, bit for bit."""
+    if isinstance(a, Column) == isinstance(b, Column):
+        return da, db
+    flip = not isinstance(a, Column)
+    cval, sval, sc = (db, da, a) if flip else (da, db, b)
+    if not isinstance(cval, torch.Tensor) or cval.dtype == torch.bool:
+        return da, db
+    sdt = _scalar_dtype(sc, sval, cval.dtype)
+    if sdt is None or sdt == torch.bool:
+        return da, db
+    target = torch.promote_types(cval.dtype, sdt)
+    if cval.dtype != target:
+        cval = cval.to(target)
+    if isinstance(sval, torch.Tensor) and sval.dtype != target:
+        sval = sval.to(target)
+    return (sval, cval) if flip else (cval, sval)
 
 
 def _string_compare(op_name: str, a: Value, b: Value) -> Value:

@@ -2,10 +2,11 @@
 
 The counterpart of ``dask_sql_tpu/runtime/kvstore.py``, cut to what the
 learned-caps file of the compiled tier (``DSQL_CAPS_FILE``,
-``DSQL_CAPS_SEED``; ``physical/compiled.py``) needs: content-digest keys,
-a read that takes a missing or corrupt file as empty, and an atomic
-tmp + rename write.  Concurrent writers can lose a race (one re-learn),
-never corrupt the file.
+``DSQL_CAPS_SEED``; ``physical/compiled.py``) and the quarantine store
+(``runtime/quarantine.py``) need: content-digest keys, a read that takes a
+missing or corrupt file as empty, an atomic tmp + rename write, and
+``MtimeCachedJsonFile``.  Concurrent writers can lose a race (one
+re-learn or re-mark), never corrupt the file.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import json
 import logging
 import os
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 logger = logging.getLogger(__name__)
 
@@ -53,3 +54,49 @@ def atomic_write_json(path: str, data: dict) -> bool:
         except OSError:
             pass
         return False
+
+
+class MtimeCachedJsonFile:
+    """A {key: dict} JSON file with an mtime-validated in-memory cache
+    (reads are cheap enough for per-query hot paths) and read-merge-replace
+    writes.  ``path`` is re-resolved per call via the callable so env-flipped
+    configuration (tests, operators) takes effect without restart."""
+
+    def __init__(self, path_fn):
+        self._path_fn = path_fn
+        self._lock = threading.Lock()
+        self._cached: Dict[str, dict] = {}
+        self._cached_mtime: Optional[int] = None
+
+    def path(self) -> Optional[str]:
+        return self._path_fn()
+
+    def read(self) -> Dict[str, dict]:
+        path = self.path()
+        if not path:
+            return {}
+        try:
+            mtime = os.stat(path).st_mtime_ns
+        except OSError:
+            with self._lock:
+                self._cached, self._cached_mtime = {}, None
+            return {}
+        with self._lock:
+            if self._cached_mtime == mtime:
+                return dict(self._cached)
+        data = read_json_dict(path)
+        with self._lock:
+            self._cached, self._cached_mtime = data, mtime
+        return dict(data)
+
+    def write(self, data: Dict[str, dict]) -> None:
+        path = self.path()
+        if not path:
+            return
+        if atomic_write_json(path, data):
+            with self._lock:
+                self._cached = dict(data)
+                try:
+                    self._cached_mtime = os.stat(path).st_mtime_ns
+                except OSError:
+                    self._cached_mtime = None

@@ -20,6 +20,11 @@ statistics module and ``Context.sql`` use:
 - ``CounterAlias``: the dict-shaped view of the registry behind
   ``physical.compiled.stats``; ``exec_profile``: this thread's scratchpad
   for the compiled tier's device/materialize split.
+- Threads: ``current_trace`` and ``scoped`` re-enter a query's trace on a
+  worker thread (the compiled tier's stage workers); a background compile
+  runs in a ``QueryTrace`` of its own, closed by
+  ``close_background_trace`` without counting a query (its reports are
+  kept in ``BACKGROUND_REPORTS``, the last 16).
 
 The JAX package's environment-armed hooks (fleet, flight recorder, device
 profiler, event bus, autopilot, chrome-trace export, slow-query log),
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from collections.abc import MutableMapping
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
@@ -121,6 +127,24 @@ _tls = _Tls()
 
 def current_span() -> Optional[Span]:
     return _tls.span
+
+
+def current_trace() -> Optional[QueryTrace]:
+    return _tls.trace
+
+
+@contextmanager
+def scoped(trace: Optional[QueryTrace], parent: Optional[Span] = None):
+    """Install an existing trace (and the span to nest under) in THIS
+    thread: worker-pool re-entry, as ``resilience.scoped`` for deadlines."""
+    prev_t, prev_s = _tls.trace, _tls.span
+    _tls.trace = trace
+    _tls.span = parent if parent is not None else (
+        trace.root if trace is not None else None)
+    try:
+        yield
+    finally:
+        _tls.trace, _tls.span = prev_t, prev_s
 
 
 @contextmanager
@@ -241,6 +265,21 @@ class QueryReport:
         now = REGISTRY.counters()
         self.counters = {k: now[k] - trace.counters0.get(k, 0)
                          for k in now if now[k] != trace.counters0.get(k, 0)}
+
+
+#: reports of the last background (non-query) traces, newest last
+BACKGROUND_REPORTS: "deque[QueryReport]" = deque(maxlen=16)
+
+
+def close_background_trace(trace: QueryTrace) -> "QueryReport":
+    """Close a trace that is not a query's (a background compile's): its
+    report is built and kept in ``BACKGROUND_REPORTS``; no query is
+    counted and no thread's ``last_report`` changes."""
+    trace.root.t1 = time.perf_counter()
+    report = QueryReport(trace)
+    trace.report = report
+    BACKGROUND_REPORTS.append(report)
+    return report
 
 
 def _close_trace(trace: QueryTrace, error: Optional[BaseException]) -> None:

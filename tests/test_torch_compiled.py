@@ -12,7 +12,10 @@ sqlite.
   fallback or unsupported) equals the JAX tier's
   (``dask_sql_tpu.physical.compiled.try_execute_compiled``), each answer
   the port's eager answer (ints and strings exact, doubles rtol 1e-12) and
-  sqlite's (the rules of ``test_torch_tpch.py``); Q1 bit for bit.
+  sqlite's (the rules of ``test_torch_tpch.py``); Q1 bit for bit.  The
+  stage counters (``stage_graphs``, ``stage_compiles``, ``stage_hits``)
+  equal the JAX tier's too: Q2, Q8 and Q21 run as stage graphs at the
+  default budget in both packages.
 """
 import os
 import sqlite3
@@ -483,6 +486,35 @@ def test_host_read_of_traced_data_raises():
             graphs.GraphProgram(bad, CPU)(x)
 
 
+def test_trace_mode_is_per_thread():
+    """A warm-up's ``_TraceMode`` (a ``TorchFunctionMode``) lives on its
+    thread's mode stack: while one thread traces, another thread's host
+    read of the same tensor neither raises nor is seen by the trace."""
+    import threading
+
+    x = torch.arange(6)
+    inside, done = threading.Event(), threading.Event()
+    seen = {}
+
+    def traced(t):
+        inside.set()
+        done.wait(30)
+        return (t * 2,)
+
+    def other():
+        inside.wait(30)
+        seen["modes"] = torch._C._len_torch_function_stack()
+        seen["value"] = x.sum().item()   # a host read of the traced input
+        done.set()
+
+    thread = threading.Thread(target=other)
+    thread.start()
+    out = graphs.GraphProgram(traced, CPU)(x)
+    thread.join()
+    assert seen == {"modes": 0, "value": 15}
+    assert out[0].tolist() == [0, 2, 4, 6, 8, 10]
+
+
 # ---------------------------------------------------------------------------
 # bit equality with the JAX package
 # ---------------------------------------------------------------------------
@@ -697,10 +729,18 @@ def _verdict(before: dict, after: dict, result) -> str:
     return "compiled" if result is not None else "eager"
 
 
+STAGE_COUNTERS = ("stage_graphs", "stage_compiles", "stage_hits")
+
+
+def _stage_counters(before: dict, after: dict) -> dict:
+    return {k: after.get(k, 0) - before.get(k, 0) for k in STAGE_COUNTERS}
+
+
 @pytest.fixture(scope="module")
 def jax_verdicts(tpch_data):
-    """The JAX tier's verdict on each query (its try_execute_compiled on
-    the plan its Context builds), under the pins of conftest."""
+    """The JAX tier's verdict and stage counters on each query (its
+    try_execute_compiled on the plan its Context builds), under the pins
+    of conftest."""
     from benchmarks.tpch import QUERIES
     from dask_sql_tpu import Context as JaxContext
     from dask_sql_tpu.physical import compiled as jc
@@ -722,7 +762,9 @@ def jax_verdicts(tpch_data):
             plan = ctx._get_plan(parse_sql(QUERIES[qid])[0].query)
             before = dict(jc.stats)
             result = jc.try_execute_compiled(plan, ctx)
-            out[qid] = _verdict(before, dict(jc.stats), result)
+            after = dict(jc.stats)
+            out[qid] = (_verdict(before, after, result),
+                        _stage_counters(before, after))
     return out
 
 
@@ -763,9 +805,12 @@ def test_tpch_compiled(qid, tpch_port, tpch_sqlite, jax_verdicts):
     q = QUERIES[qid]
     before = dict(compiled.stats)
     got = tpch_port.sql(q)
-    verdict = _verdict(before, dict(compiled.stats),
-                       got if _tier(tpch_port) == "compiled" else None)
+    after = dict(compiled.stats)
+    verdict = (_verdict(before, after,
+                        got if _tier(tpch_port) == "compiled" else None),
+               _stage_counters(before, after))
     assert verdict == jax_verdicts[qid], f"Q{qid}: {verdict}"
+    assert bool(verdict[1]["stage_graphs"]) == (qid in (2, 8, 21))
     eager = _eager(tpch_port, q)
     comp = got.to_pandas()
     assert list(comp.columns) == list(eager.columns)

@@ -476,3 +476,119 @@ def test_window_calls_make_only_their_host_reads(cuda_device):
         _, syncs = _count_syncs(
             lambda: W.compute_window(t, op, args, [0], order, frame, st))
         assert syncs == want, (op, frame, syncs)
+
+
+# ---------------------------------------------------------------------------
+# the compiled tier's graphs: copied inputs and threads
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_parameter_change_is_a_replay_not_a_capture(cuda_device, monkeypatch):
+    """Two literal variants of one shape: one capture, then one replay,
+    with the baked-literal answer (``DSQL_PARAM_PLANS=0``) bit for bit."""
+    from dask_sql_tpu_torch.physical import compiled
+
+    monkeypatch.setenv("DSQL_TIERED", "0")
+    monkeypatch.setenv("DSQL_EAGER_FALLBACK", "0")
+    rng = np.random.RandomState(8)
+    n = 200_000
+    c = Context(device=cuda_device)
+    c.create_table("pt", {"k": rng.randint(0, 50, n), "x": rng.rand(n),
+                          "d": rng.randint(9000, 9400, n).astype(np.int32)})
+    q = "SELECT k, SUM(x) AS s, COUNT(*) AS n FROM pt WHERE x > {} GROUP BY k ORDER BY k"
+    c.sql(q.format(0.25))
+    before = dict(compiled.stats)
+    got = c.sql(q.format(0.75))
+    delta = {k: compiled.stats.get(k, 0) - before.get(k, 0)
+             for k in ("graph_captures", "graph_replays", "param_plan_hits")}
+    assert delta == {"graph_captures": 0, "graph_replays": 1,
+                     "param_plan_hits": 1}
+    monkeypatch.setenv("DSQL_PARAM_PLANS", "0")
+    baked = c.sql(q.format(0.75))
+    for g, w in zip(got.columns, baked.columns):
+        assert _same_bits(g.data.to(torch.float64), w.data.to(torch.float64))
+
+
+@pytest.mark.gpu
+def test_two_threads_capture_concurrently(cuda_device):
+    """Two programs warm up and capture at the same time on two threads
+    (each capture on its own stream, thread-local capture mode); both
+    replay to their eager answers."""
+    import threading
+
+    from dask_sql_tpu_torch.physical import graphs
+
+    x = torch.arange(1 << 20, dtype=torch.float64, device=cuda_device)
+
+    def f(t):
+        y = t
+        for i in range(200):
+            y = torch.sin(y) + i
+        return (y.sum(),)
+
+    def g(t):
+        y = t
+        for i in range(200):
+            y = torch.cos(y) * 0.5 + i
+        return (y.amax(),)
+
+    progs = [graphs.GraphProgram(f, cuda_device),
+             graphs.GraphProgram(g, cuda_device)]
+    barrier = threading.Barrier(2)
+    errors = []
+
+    def run(p):
+        try:
+            barrier.wait()
+            p(x)
+        except Exception as exc:   # reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(p,)) for p in progs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert all(len(p.captures) == 1 for p in progs)
+    for p, fn in zip(progs, (f, g)):
+        got = p(x)[0].clone()
+        assert torch.equal(got, fn(x)[0])
+
+
+@pytest.mark.gpu
+def test_eager_item_during_warm_up_does_not_raise(cuda_device):
+    """Another thread's ``.item()`` while a program warms up neither raises
+    nor counts against the warm-up; a synchronisation inside the warm-up
+    itself is still reported as ``HostRead``."""
+    import threading
+
+    from dask_sql_tpu_torch.physical import graphs
+
+    x = torch.arange(1000, dtype=torch.float64, device=cuda_device)
+    inside = threading.Event()
+    reads_done = threading.Event()
+
+    def slow(t):
+        inside.set()
+        reads_done.wait(60)
+        return (t * 2,)
+
+    def reader():
+        inside.wait(60)
+        for _ in range(20):
+            x.sum().item()
+        reads_done.set()
+
+    t = threading.Thread(target=reader)
+    t.start()
+    out = graphs.GraphProgram(slow, cuda_device)(x)
+    t.join()
+    assert torch.equal(out[0], x * 2)
+
+    def syncs(t):
+        k = torch.ones(3, device=t.device).sum().item()   # untraced data
+        return (t + k,)
+
+    with pytest.raises(graphs.HostRead, match="synchronisation"):
+        graphs.GraphProgram(syncs, cuda_device)(x)

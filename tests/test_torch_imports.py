@@ -82,7 +82,8 @@ def test_port_never_maps_the_jax_native_library():
 
 def test_walk_covers_the_compiled_tier():
     """The import probe above walks every module of the port, the compiled
-    tier's among them."""
+    tier's among them: parameters, stage graphs, the ladder's taxonomy,
+    fault injection and quarantine, and the canonical plan text."""
     import pkgutil
 
     import dask_sql_tpu_torch
@@ -92,4 +93,10 @@ def test_walk_covers_the_compiled_tier():
     assert {"dask_sql_tpu_torch.physical.compiled",
             "dask_sql_tpu_torch.physical.graphs",
             "dask_sql_tpu_torch.runtime.kvstore",
-            "dask_sql_tpu_torch.ops.sorted_agg"} <= names
+            "dask_sql_tpu_torch.ops.sorted_agg",
+            "dask_sql_tpu_torch.physical.stages",
+            "dask_sql_tpu_torch.plan.parameterize",
+            "dask_sql_tpu_torch.runtime.faults",
+            "dask_sql_tpu_torch.runtime.quarantine",
+            "dask_sql_tpu_torch.runtime.resilience",
+            "dask_sql_tpu_torch.runtime.result_cache"} <= names
