@@ -131,6 +131,38 @@ the compiled tier first.
    then Q1 and Q9 profiled (device busy, idle share against the
    unprofiled warm wall).  One ``compiled table:`` JSON line per query.
    The ``kernels`` line's launches for kernel 1 are this phase's.
+13. the rest of the compiled tier (after phase 12): parameters, stage
+   graphs, tiering and the ladder (``params table:``, ``stages table:``).
+14. serving, the default layers in front of the tiers (after phase 13, at
+   ``--sf``): phases 1-13 run with ``DSQL_RESULT_CACHE_MB=0`` and
+   ``DSQL_MAX_CONCURRENT_QUERIES=0`` so that they measure the engine, and
+   phase 14 lifts both pins.  (a) The result cache at its defaults (the
+   manager off): Q1-Q22 twice, the second run a hit that launches no
+   kernel, replays no graph and equals the first bit for bit; nation
+   registered again with other names, after which Q5 and Q7 miss and
+   answer the new rows; parameterized Q1 at DELTA 60, 120 and 60 again,
+   the last a hit equal bit for bit to the first although the second
+   replayed the same graph over its pool; a device budget just above one
+   result, so that entries spill to the host tier and come back on a
+   hit; Q8 and Q21 again with a literal of their root stage changed,
+   whose first stage hits the subplan cache.  (b) The workload manager at
+   its defaults (4 slots, a queue 32 deep, a 4096 MB ledger; the cache
+   off): 16 client threads, Q1, Q3, Q6, Q9, Q10, Q12, Q14 and Q18 once
+   as ``interactive`` and once as ``batch``, answers equal to phase 7's
+   (doubles rtol 1e-9); per class the queue ms p50 / p95 and the admitted
+   count (all, none rejected); per query the byte estimate against the
+   ledger; with ``DSQL_QUEUE_DEPTH=2`` and every slot held the third
+   waiter is refused.  (c) The Presto-wire server on the card
+   (``run_server(..., port=0, blocking=False)``, urllib clients): 8
+   concurrent clients send (b)'s 16 queries, answers equal; each query
+   once with the cache off, POST to FINISHED beside phase 12's warm wall
+   (Q1 must launch kernel 1); a result of over 100,000 rows paged and
+   reassembled equal to the direct answer; 429 with ``Retry-After`` on a
+   full queue; ``/metrics`` and ``/v1/engine`` (the devices section names
+   the card); DELETE of a query waiting for a slot; last, a drain: a new
+   POST answers 503 while the query in flight finishes.  One ``serving
+   table:`` JSON line per part and query; the launch counts set to 0
+   before the phase and read after it (kernel 1 must launch).
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -2869,6 +2901,680 @@ def phase_statements(ctx, tables: dict, q1_result) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the serving path (the result cache, the workload manager, the
+# Presto-wire server)
+# ---------------------------------------------------------------------------
+
+#: 14(b) and (c): the client mix, each query once per priority class
+SERVING_MIX = (1, 3, 6, 9, 10, 12, 14, 18)
+#: the pins of phases 1-13: the cache and the manager off, so that their
+#: warm runs measure the engine (as bench.py pins the JAX package's)
+SERVING_PINS = {"DSQL_RESULT_CACHE_MB": "0", "DSQL_MAX_CONCURRENT_QUERIES": "0"}
+#: 14(c)'s paged result has more rows than this (about 120,000 at SF 1)
+PAGED_MIN_ROWS = 100_000
+
+
+def _unpin_serving() -> None:
+    for name in SERVING_PINS:
+        os.environ.pop(name, None)
+
+
+#: phase 14's launches, summed over the per-run counts its checks read
+SERVING_LAUNCHES: dict = {}
+
+
+def _fold_launches() -> None:
+    """Add the launch counts into ``SERVING_LAUNCHES`` and set them to 0."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    for k, v in gk.LAUNCHES.items():
+        SERVING_LAUNCHES[k] = SERVING_LAUNCHES.get(k, 0) + v
+    gk.reset_launch_counts()
+
+
+def _replays(report) -> int:
+    """Graph replays in a query's report."""
+    return report.counters.get("graph_replays", 0)
+
+
+def _renamed_nation(nation: dict) -> dict:
+    """nation with FRANCE and GERMANY's names swapped and CHINA renamed:
+    Q7's two nations trade places and Q5's ASIA names change."""
+    names = [str(n) for n in nation["n_name"]]
+    swap = {"FRANCE": "GERMANY", "GERMANY": "FRANCE", "CHINA": "CATHAY"}
+    out = dict(nation)
+    out["n_name"] = np.array([swap.get(n, n) for n in names], dtype=object)
+    return out
+
+
+def _q8_variant() -> str:
+    # the root stage's literal (TPC-H's NATION parameter of Q8)
+    return QUERIES[8].replace("'BRAZIL'", "'CANADA'")
+
+
+def _q21_variant() -> str:
+    # the root stage's LIMIT; the other literals sit in the first stage
+    return QUERIES[21].replace("LIMIT 100", "LIMIT 50")
+
+
+def _direct(ctx, text: str):
+    """``text`` through the tiers with the cache off."""
+    os.environ["DSQL_RESULT_CACHE_MB"] = "0"
+    try:
+        return ctx.sql(text)
+    finally:
+        os.environ.pop("DSQL_RESULT_CACHE_MB", None)
+
+
+def serving_cache(ctx, tables: dict) -> dict:
+    """14(a): the result cache at its defaults (256 MB on the card, 1024 MB
+    on the host) with the manager off, as (b) runs the manager with the
+    cache off.  Q1-Q22 run twice: the first run is a miss that stores, the
+    second a hit that launches no kernel, replays no graph and equals the
+    miss bit for bit.  Then nation is dropped and registered again with
+    other names: Q5 and Q7 miss and answer the new rows.  Then the
+    graph-pool check: parameterized Q1 at DELTA 60 (stored), 120 (a miss
+    replaying the same graph over its pool), 60 again (a hit equal bit for
+    bit to the first).  Then a device budget just above Q1's result:
+    entries spill to the host tier and come back on a hit.  Then Q8 and
+    Q21, each run again with a literal of its root stage changed: a
+    full-query miss whose first stage hits the subplan cache."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+    from dask_sql_tpu_torch.runtime import result_cache as rc
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+
+    os.environ["DSQL_MAX_CONCURRENT_QUERIES"] = "0"
+    try:
+        return _serving_cache(ctx, tables, rc.get_cache(), gk, rc, tel)
+    finally:
+        os.environ.pop("DSQL_MAX_CONCURRENT_QUERIES", None)
+
+
+def _serving_cache(ctx, tables: dict, cache, gk, rc, tel) -> dict:
+    cache.clear()
+    names = ("graph_replays", "graph_captures", "result_cache_hits",
+             "result_cache_misses", "result_cache_stores")
+    rows, misses = [], {}
+    for qid in sorted(QUERIES):
+        _fold_launches()
+        box = {}
+        miss_ms = wall_ms(lambda: box.update(r=ctx.sql(QUERIES[qid])))
+        miss_launches = dict(gk.LAUNCHES)
+        miss = box["r"]
+        stored = ctx.last_report.cache["stored"]
+        _fold_launches()
+        hit_ms = wall_ms(lambda: box.update(r=ctx.sql(QUERIES[qid])))
+        hit_launches = sum(gk.LAUNCHES.values())
+        rep = ctx.last_report
+        counters = {k: rep.counters.get(k, 0) for k in names}
+        if not stored or not rep.cache["hit"] or hit_launches or \
+                _replays(rep):
+            raise AssertionError(
+                f"Q{qid}: the second run is not a launch-free hit: "
+                f"{rep.cache}, launches {hit_launches}, {counters}")
+        _bit_equal_tables(f"Q{qid} hit", box["r"], miss)
+        misses[qid] = miss
+        row = {"q": qid, "stored": stored, "hit": rep.cache["hit"],
+               "miss_ms": miss_ms, "hit_ms": hit_ms,
+               "miss_kernel1": miss_launches.get("segsum_fixedpoint", 0),
+               "hit_launches": hit_launches,
+               "result_bytes": rc._table_nbytes(miss),
+               "cache_device_bytes": cache.device_bytes}
+        rows.append(row)
+        print("serving table: " + json.dumps({"part": "a-cache", **row}))
+    summary = {"stored": len(rows), "device_bytes": cache.device_bytes,
+               "host_bytes": cache.host_bytes,
+               "miss_ms_sum": sum(r["miss_ms"] for r in rows),
+               "hit_ms_sum": sum(r["hit_ms"] for r in rows)}
+    print(f"serving cache: {len(rows)} of 22 stored and hit; hit walls "
+          f"{summary['hit_ms_sum']:.1f} ms against misses "
+          f"{summary['miss_ms_sum']:.1f} ms; {cache.device_bytes} bytes on "
+          f"the card")
+
+    # a mutation: nation re-registered with other names
+    original = tables["nation"]
+    ctx.drop_table("nation")
+    ctx.create_table("nation", _renamed_nation(original))
+    try:
+        mutated = {}
+        for qid in (5, 7):
+            got = ctx.sql(QUERIES[qid])
+            if ctx.last_report.cache["hit"]:
+                raise AssertionError(f"Q{qid} hit after nation changed")
+            want = _direct(ctx, QUERIES[qid])
+            check_same_result(f"Q{qid} after the change", got, want,
+                              rtol=1e-12)
+            if got.to_pylist() == misses[qid].to_pylist():
+                raise AssertionError(f"Q{qid} gave the old answer")
+            mutated[qid] = [str(v) for v in got.to_pylist()[0]]
+    finally:
+        ctx.drop_table("nation")
+        ctx.create_table("nation", original)
+    summary["mutated"] = mutated
+    print(f"serving cache: nation changed, Q5 and Q7 missed and answered "
+          f"the new rows ({mutated})")
+
+    # the graph pool: the stored answer must not alias the graph's outputs
+    a_text, b_text = _q1_variant(60), _q1_variant(120)
+    first = ctx.sql(a_text)
+    first_rep = ctx.last_report
+    ctx.sql(b_text)
+    b_rep = ctx.last_report
+    again = ctx.sql(a_text)
+    if not ctx.last_report.cache["hit"]:
+        raise AssertionError("Q1 DELTA 60 missed on its second run")
+    if not _replays(b_rep):
+        raise AssertionError(f"Q1 DELTA 120 replayed no graph: "
+                             f"{b_rep.counters}")
+    _bit_equal_tables("Q1 DELTA 60 after DELTA 120", again, first)
+    summary["aliasing"] = {
+        "a_stored": first_rep.cache["stored"],
+        "b_replays": _replays(b_rep),
+        "a_again_hit": True}
+    print("serving cache: Q1 DELTA 60, 120, 60: the hit equals the first "
+          "answer bit for bit after a replay over the same graph")
+
+    # the host tier: a device budget just above one Q1 result, three
+    # literal sets of Q1 twice: each store spills the one before it, and
+    # the second pass hits the host tier
+    nbytes = rc._table_nbytes(first)
+    os.environ["DSQL_RESULT_CACHE_MB"] = repr(1.5 * nbytes / 2**20)
+    try:
+        cache.clear()
+        before = tel.REGISTRY.counters()
+        texts = [_q1_variant(d) for d in (60, 90, 120)]
+        stored_answers = [ctx.sql(t) for t in texts]
+        host_hits = 0
+        for text, want in zip(texts, stored_answers):
+            got = ctx.sql(text)
+            if ctx.last_report.cache["tier"] == "host":
+                host_hits += 1
+            _bit_equal_tables("Q1 from the host tier", got, want)
+        after = tel.REGISTRY.counters()
+    finally:
+        os.environ.pop("DSQL_RESULT_CACHE_MB", None)
+    spills = after["result_cache_spills"] - before["result_cache_spills"]
+    if not spills or not host_hits:
+        raise AssertionError(f"no spill or no host hit ({spills}, "
+                             f"{host_hits})")
+    summary["host_tier"] = {"budget_bytes": int(1.5 * nbytes),
+                            "spills": spills, "host_hits": host_hits,
+                            "host_bytes": cache.host_bytes}
+    print(f"serving cache: budget {int(1.5 * nbytes)} bytes: {spills} "
+          f"spills, {host_hits} hits from the host tier, answers equal")
+
+    # the subplan cache on stage graphs
+    subplan = {}
+    for qid, variant in ((8, _q8_variant()), (21, _q21_variant())):
+        cache.clear()
+        ctx.sql(QUERIES[qid])
+        if not ctx.last_report.counters.get("stage_graphs"):
+            raise AssertionError(f"Q{qid} did not run as a stage graph")
+        got = ctx.sql(variant)
+        rep = ctx.last_report
+        hits = rep.counters.get("result_cache_subplan_hits", 0)
+        want = _direct(ctx, variant)
+        check_same_result(f"Q{qid} variant", got, want, rtol=1e-12)
+        if rep.cache["hit"] or not hits:
+            raise AssertionError(f"Q{qid} variant: {rep.cache}, subplan "
+                                 f"hits {hits}")
+        subplan[qid] = {"subplan_hits": hits, "rows": got.num_rows,
+                        "stage_graphs": rep.counters.get("stage_graphs", 0)}
+    summary["subplan"] = subplan
+    cache.clear()
+    print(f"serving cache: stage variants {subplan}, answers equal to "
+          "direct runs")
+    print("serving table: " + json.dumps({"part": "a-summary", **summary}))
+    return summary
+
+
+def _percentile(xs: list, p: float) -> float:
+    xs = sorted(xs)
+    return xs[min(int(round(p * (len(xs) - 1))), len(xs) - 1)] if xs else 0.0
+
+
+def _run_clients(fn, args: list) -> list:
+    import threading
+
+    out = [None] * len(args)
+    errors = []
+
+    def one(i):
+        try:
+            out[i] = fn(*args[i])
+        except BaseException as e:   # noqa: BLE001 - reported below
+            errors.append(f"{args[i]}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(args))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError("clients failed: " + "; ".join(errors))
+    return out
+
+
+def serving_manager(ctx, answers: dict) -> dict:
+    """14(b): the workload manager at its defaults (4 slots, a queue 32
+    deep, a 4096 MB ledger) with the cache off.  16 client threads send
+    the mix (Q1, Q3, Q6, Q9, Q10, Q12, Q14, Q18), half interactive and
+    half batch; every answer equals phase 12's (doubles rtol 1e-9).  Per
+    class: the queue ms (p50, p95) and the admitted count, which must be
+    the submitted count with none rejected; per query its byte estimate
+    against the ledger and whether it was clamped to the budget.  Then,
+    with ``DSQL_QUEUE_DEPTH=2`` and every slot held, the third waiter is
+    refused with ``AdmissionRejected``."""
+    import threading
+
+    from dask_sql_tpu_torch.runtime import resilience as res
+    from dask_sql_tpu_torch.runtime import scheduler as sched
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+
+    mgr = sched.get_manager()
+    budget = mgr.ledger.budget()
+    os.environ["DSQL_RESULT_CACHE_MB"] = "0"
+    try:
+        def client(qid, priority):
+            t0 = time.perf_counter()
+            got = ctx.sql(QUERIES[qid], priority=priority)
+            wall = (time.perf_counter() - t0) * 1e3
+            rep = tel.last_report()
+            q = next(s for s in rep.root.walk() if s.name == "queued")
+            return got, wall, dict(q.attrs)
+
+        # each query once first: a program whose input tables changed in
+        # (a) captures again here, not inside the measured clients
+        warmup = {q: wall_ms(lambda q=q: ctx.sql(QUERIES[q]))
+                  for q in SERVING_MIX}
+        jobs = [(q, p) for q in SERVING_MIX for p in ("interactive", "batch")]
+        before = tel.REGISTRY.counters()
+        t0 = time.perf_counter()
+        results = _run_clients(client, jobs)
+        total_ms = (time.perf_counter() - t0) * 1e3
+        after = tel.REGISTRY.counters()
+        per_class = {}
+        estimates = {}
+        for (qid, prio), (got, wall, attrs) in zip(jobs, results):
+            check_same_result(f"Q{qid} {prio} under the manager", got,
+                              answers[qid], rtol=1e-9)
+            per_class.setdefault(prio, []).append(attrs.get("queued_ms", 0.0))
+            estimates[qid] = {"est_bytes": attrs.get("est_bytes"),
+                              "source": attrs.get("est_source"),
+                              "reserved": attrs.get("reserved_bytes"),
+                              "clamped": attrs.get("est_bytes", 0) > budget}
+        classes = {}
+        for prio, queued in per_class.items():
+            admitted = after[f"sched_admitted_{prio}"] - \
+                before[f"sched_admitted_{prio}"]
+            rejected = after[f"sched_rejected_{prio}"] - \
+                before[f"sched_rejected_{prio}"]
+            if admitted != len(queued) or rejected:
+                raise AssertionError(f"{prio}: {admitted} admitted, "
+                                     f"{rejected} rejected of {len(queued)}")
+            classes[prio] = {"submitted": len(queued), "admitted": admitted,
+                             "rejected": rejected,
+                             "queue_p50_ms": _percentile(queued, 0.5),
+                             "queue_p95_ms": _percentile(queued, 0.95)}
+
+        # a full queue
+        os.environ["DSQL_QUEUE_DEPTH"] = "2"
+        held = [mgr.acquire("interactive", 0) for _ in range(mgr.limit())]
+        verdicts = []
+        try:
+            waiters = []
+            for _ in range(2):
+                th = threading.Thread(
+                    target=lambda: verdicts.append(
+                        type(_admit_once(ctx)).__name__))
+                th.start()
+                waiters.append(th)
+            deadline = time.time() + 30
+            while len(mgr.waiting_snapshot()) < 2 and time.time() < deadline:
+                time.sleep(0.005)
+            overflow = _admit_once(ctx)
+        finally:
+            for t in held:
+                mgr.release(t)
+            for th in waiters:
+                th.join(timeout=60)
+            os.environ.pop("DSQL_QUEUE_DEPTH", None)
+        if not isinstance(overflow, res.AdmissionRejected) or \
+                verdicts != ["Table", "Table"]:
+            raise AssertionError(f"queue depth 2: overflow {overflow!r}, "
+                                 f"waiters {verdicts}")
+    finally:
+        os.environ.pop("DSQL_RESULT_CACHE_MB", None)
+    out = {"classes": classes, "estimates": estimates,
+           "budget_bytes": budget, "wall_ms": total_ms, "warmup_ms": warmup,
+           "clamped": sum(e["clamped"] for e in estimates.values()),
+           "overflow": type(overflow).__name__,
+           "retry_after_s": overflow.retry_after_s}
+    print(f"serving manager: 16 clients in {total_ms:.1f} ms; {classes}; "
+          f"{out['clamped']} of {len(estimates)} estimates clamped to the "
+          f"{budget} byte ledger; depth 2 overflow: {out['overflow']}")
+    print("serving table: " + json.dumps({"part": "b-manager", **out}))
+    return out
+
+
+def _admit_once(ctx):
+    """Q6 through the Context; the exception instead of raising it."""
+    try:
+        return ctx.sql(QUERIES[6])
+    except Exception as e:      # the verdict is the result here
+        return e
+
+
+def _http(method: str, url: str, body: bytes = None, headers=None):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method=method,
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _post_and_poll(base: str, text: str, headers=None) -> tuple:
+    """(final payload, POST-to-FINISHED ms, rows, pages) of one statement,
+    following page URIs to the end; ``POLLS`` counts the status polls."""
+    t0 = time.perf_counter()
+    code, _, body = _http("POST", f"{base}/v1/statement", text.encode(),
+                          headers)
+    if code != 200:
+        raise AssertionError(f"POST answered {code}: {body[:300]}")
+    p = json.loads(body)
+    while "nextUri" in p and "/v1/status/" in p["nextUri"]:
+        time.sleep(0.001)
+        p = json.loads(_http("GET", p["nextUri"])[2])
+        POLLS.append(1)
+    ms = (time.perf_counter() - t0) * 1e3
+    if "error" in p:
+        raise AssertionError(f"{text[:60]}: {p['error']}")
+    rows, pages = list(p.get("data", [])), 1
+    while "nextUri" in p:
+        p = json.loads(_http("GET", p["nextUri"])[2])
+        rows.extend(p.get("data", []))
+        pages += 1
+    return p, ms, rows, pages
+
+
+#: one entry per status poll of ``_post_and_poll``
+POLLS: list = []
+
+
+def _wire_cell(v):
+    if hasattr(v, "isoformat"):
+        return v.isoformat(sep=" ") if hasattr(v, "date") else v.isoformat()
+    if hasattr(v, "item"):
+        return v.item()
+    return v
+
+
+def check_wire_rows(name: str, got: list, want, rtol: float) -> None:
+    """Rows decoded from the wire against a port table: ints, strings and
+    timestamps exact, doubles to rtol."""
+    expect = [[_wire_cell(v) for v in row] for row in want.to_pylist()]
+    if len(got) != len(expect):
+        raise AssertionError(f"{name}: {len(got)} rows, expected "
+                             f"{len(expect)}")
+    for g_row, w_row in zip(got, expect):
+        for g, w in zip(g_row, w_row):
+            if isinstance(w, float) and g is not None:
+                if not math.isclose(g, w, rel_tol=rtol, abs_tol=0.0) and \
+                        not (math.isnan(w) and math.isnan(g)):
+                    raise AssertionError(f"{name}: {g} != {w}")
+            elif g != w:
+                raise AssertionError(f"{name}: {g!r} != {w!r}")
+
+
+def serving_server(ctx, answers: dict, compiled_rows: list) -> dict:
+    """14(c): the server on the card (``run_server(context, port=0,
+    blocking=False)``; the clients use urllib).  8 concurrent clients POST
+    the mix and poll until done, answers equal to phase 12's; a cache-off
+    Q1 request launches kernel 1; a result of over 100,000 rows pages
+    through the spool and reassembles to the direct answer; a full queue
+    answers 429 with Retry-After; /metrics parses and carries the
+    result_cache_* and sched_* series; /v1/engine's devices section names
+    the card; DELETE cancels a queued query; each query's POST-to-FINISHED
+    wall beside phase 12's warm wall; last, ``drain_async()`` makes new
+    POSTs answer 503 while the query in flight finishes."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+    from dask_sql_tpu_torch.runtime import scheduler as sched
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+    from dask_sql_tpu_torch.server.app import run_server
+
+    mgr = sched.get_manager()
+    srv = run_server(context=ctx, host="127.0.0.1", port=0, blocking=False)
+    base = f"http://127.0.0.1:{srv.server_port}"
+    out = {}
+    try:
+        # 8 concurrent clients, the cache at its default
+        jobs = [(q, p) for q in SERVING_MIX[:4] for p in ("interactive",
+                                                          "batch")] + \
+               [(q, p) for q in SERVING_MIX[4:] for p in ("interactive",
+                                                          "batch")]
+
+        def client(batch):
+            done = []
+            for qid, prio in batch:
+                _, ms, rows, _ = _post_and_poll(
+                    base, QUERIES[qid], {"X-DSQL-Priority": prio})
+                check_wire_rows(f"Q{qid} {prio} over the wire", rows,
+                                answers[qid], rtol=1e-9)
+                done.append(ms)
+            return done
+
+        batches = [jobs[i::8] for i in range(8)]
+        t0 = time.perf_counter()
+        walls = _run_clients(client, [(b,) for b in batches])
+        out["clients"] = {"clients": 8, "queries": len(jobs),
+                          "wall_ms": (time.perf_counter() - t0) * 1e3,
+                          "p50_ms": _percentile(sum(walls, []), 0.5),
+                          "p95_ms": _percentile(sum(walls, []), 0.95)}
+
+        # one client, the cache off: POST to FINISHED per query against
+        # phase 12's warm wall; Q1 must launch kernel 1
+        os.environ["DSQL_RESULT_CACHE_MB"] = "0"
+        try:
+            added = {}
+            warm = {r["q"]: r["warm_median_ms"] for r in compiled_rows}
+            for qid in SERVING_MIX:
+                direct_ms = wall_ms(lambda: ctx.sql(QUERIES[qid]))
+                _fold_launches()
+                POLLS.clear()
+                _, ms, rows, _ = _post_and_poll(base, QUERIES[qid])
+                polls = len(POLLS)
+                launches = dict(gk.LAUNCHES)
+                check_wire_rows(f"Q{qid} cache off", rows, answers[qid],
+                                rtol=1e-9)
+                if qid == 1 and launches.get("segsum_fixedpoint", 0) < 1:
+                    raise AssertionError(f"Q1 over the server launched no "
+                                         f"kernel 1: {launches}")
+                base_ms = warm.get(qid)
+                added[qid] = {"post_to_finished_ms": ms,
+                              "direct_ms": direct_ms,
+                              "server_added_ms": ms - direct_ms,
+                              "polls": polls,
+                              "phase12_warm_ms": base_ms,
+                              "added_ms": (None if base_ms is None
+                                           else ms - base_ms),
+                              "kernel1": launches.get("segsum_fixedpoint",
+                                                      0)}
+            out["added"] = added
+
+            # paging: over 100,000 rows
+            text = ("SELECT l_orderkey, l_linenumber, l_quantity, "
+                    "l_extendedprice, l_shipdate FROM lineitem "
+                    "WHERE l_orderkey <= 120000 "
+                    "ORDER BY l_orderkey, l_linenumber")
+            _, ms, rows, pages = _post_and_poll(base, text)
+            direct = ctx.sql(text)
+            if direct.num_rows <= PAGED_MIN_ROWS or pages < 3:
+                raise AssertionError(f"paging: {direct.num_rows} rows, "
+                                     f"{pages} pages")
+            check_wire_rows("paged result", rows, direct, rtol=0.0)
+            out["paging"] = {"rows": direct.num_rows, "pages": pages,
+                             "ms": ms}
+        finally:
+            os.environ.pop("DSQL_RESULT_CACHE_MB", None)
+
+        # a full queue: 429 with Retry-After
+        os.environ["DSQL_QUEUE_DEPTH"] = "0"
+        held = [mgr.acquire("interactive", 0) for _ in range(mgr.limit())]
+        try:
+            code, hdrs, body = _http("POST", f"{base}/v1/statement",
+                                     QUERIES[6].encode())
+        finally:
+            for t in held:
+                mgr.release(t)
+            os.environ.pop("DSQL_QUEUE_DEPTH", None)
+        err = json.loads(body)["error"]
+        if code != 429 or int(hdrs.get("Retry-After", 0)) < 1 or \
+                err["errorName"] != "QUERY_QUEUE_FULL":
+            raise AssertionError(f"full queue: {code} {hdrs} {err}")
+        out["full_queue"] = {"status": code,
+                             "retry_after": int(hdrs["Retry-After"]),
+                             "errorName": err["errorName"]}
+
+        # /metrics and /v1/engine
+        code, hdrs, body = _http("GET", f"{base}/metrics")
+        series = {}
+        for line in body.decode().splitlines():
+            if line and not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                series[name] = float(value)
+        if not any(k.startswith("dsql_result_cache_") for k in series) or \
+                not any(k.startswith("dsql_sched_") for k in series):
+            raise AssertionError("/metrics lacks result_cache_* or sched_*")
+        engine = json.loads(_http("GET", f"{base}/v1/engine")[2])
+        kind = torch.cuda.get_device_name(0)
+        if not engine["devices"] or engine["devices"][0]["kind"] != kind:
+            raise AssertionError(f"/v1/engine devices: {engine['devices']}")
+        out["metrics"] = {"series": len(series),
+                          "sched_admitted_interactive": series.get(
+                              "dsql_sched_admitted_interactive_total"),
+                          "result_cache_hits": series.get(
+                              "dsql_result_cache_hits_total")}
+        out["devices"] = engine["devices"]
+
+        # DELETE cancels a query waiting for a slot
+        held = [mgr.acquire("interactive", 0) for _ in range(mgr.limit())]
+        before = tel.REGISTRY.counters()
+        try:
+            p = json.loads(_http("POST", f"{base}/v1/statement",
+                                 QUERIES[14].encode())[2])
+            deadline = time.time() + 30
+            while not mgr.waiting_snapshot() and time.time() < deadline:
+                time.sleep(0.005)
+            code, _, _ = _http("DELETE", p["partialCancelUri"])
+            deadline = time.time() + 30
+            while mgr.waiting_snapshot() and time.time() < deadline:
+                time.sleep(0.005)     # the cancelled wait leaves the queue
+        finally:
+            for t in held:
+                mgr.release(t)
+        deadline = time.time() + 30
+        while (mgr.running_count() or mgr.queue_depth()) and \
+                time.time() < deadline:
+            time.sleep(0.005)
+        status = _http("GET", p["nextUri"])[0]
+        after = tel.REGISTRY.counters()
+        timeouts = after["sched_timeout_interactive"] - \
+            before["sched_timeout_interactive"]
+        if code != 200 or status != 404 or timeouts != 1:
+            raise AssertionError(f"cancel: DELETE {code}, status {status}, "
+                                 f"abandoned waits {timeouts}")
+        out["cancel"] = {"delete": code, "status_after": status,
+                         "abandoned_waits": timeouts}
+
+        # drain: the query in flight finishes, new POSTs answer 503
+        held = [mgr.acquire("interactive", 0) for _ in range(mgr.limit())]
+        try:
+            first = json.loads(_http("POST", f"{base}/v1/statement",
+                                     QUERIES[1].encode())[2])
+            deadline = time.time() + 30
+            while not mgr.waiting_snapshot() and time.time() < deadline:
+                time.sleep(0.005)
+            srv.drain_async()
+            deadline = time.time() + 30
+            while not mgr.draining() and time.time() < deadline:
+                time.sleep(0.005)
+            code, hdrs, body = _http("POST", f"{base}/v1/statement",
+                                     QUERIES[6].encode())
+        finally:
+            for t in held:
+                mgr.release(t)
+        p = first
+        while "nextUri" in p:
+            time.sleep(0.005)
+            p = json.loads(_http("GET", p["nextUri"])[2])
+        if code != 503 or int(hdrs.get("Retry-After", 0)) < 1 or \
+                "data" not in p:
+            raise AssertionError(f"drain: {code} {hdrs}, in flight {p}")
+        check_wire_rows("Q1 in flight during the drain", p["data"],
+                        answers[1], rtol=1e-9)
+        if not srv.drained_event.wait(30):
+            raise AssertionError("the drain did not stop the server")
+        out["drain"] = {"new_post": code,
+                        "retry_after": int(hdrs["Retry-After"]),
+                        "in_flight_finished": True}
+    finally:
+        mgr.end_drain()
+        try:
+            srv.shutdown()
+            srv.server_close()
+        except Exception:
+            pass
+        srv.app_state.drained.set()
+        srv.app_state.pool.shutdown(wait=True)
+    print(f"serving server: 8 clients {out['clients']}; paging "
+          f"{out['paging']}; 429 {out['full_queue']}; cancel "
+          f"{out['cancel']}; drain {out['drain']}")
+    for qid, row in out["added"].items():
+        print("serving table: " + json.dumps({"part": "c-server", "q": qid,
+                                              **row}))
+    print("serving table: " + json.dumps({"part": "c-summary",
+                                          **{k: v for k, v in out.items()
+                                             if k != "added"}}))
+    return out
+
+
+def phase_serving(ctx, tables: dict, answers: dict,
+                  compiled_rows: list) -> dict:
+    """Phase 14 (see ``serving_cache``, ``serving_manager``,
+    ``serving_server``), the launch counts set to 0 before it and read
+    after it: kernel 1 must launch on its path.  The pins of phases 1-13
+    come back at its end."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    _unpin_serving()
+    gk.reset_launch_counts()
+    SERVING_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    try:
+        out = {"cache": serving_cache(ctx, tables),
+               "manager": serving_manager(ctx, answers),
+               "server": serving_server(ctx, answers, compiled_rows)}
+    finally:
+        os.environ.update(SERVING_PINS)
+    _fold_launches()
+    out["launches"] = dict(SERVING_LAUNCHES)
+    out["seconds"] = time.perf_counter() - t0
+    if out["launches"].get("segsum_fixedpoint", 0) < 1:
+        raise AssertionError(f"phase 14 launched no kernel 1: "
+                             f"{out['launches']}")
+    print(f"launches: serving path {out['launches']} "
+          f"({out['seconds']:.1f} s)")
+    forget_programs()
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--sf", type=float, default=1.0)
@@ -2895,6 +3601,9 @@ def main(argv=None) -> int:
     # turns each on where it tests it
     os.environ["DSQL_TIERED"] = "0"
     os.environ["DSQL_EAGER_FALLBACK"] = "0"
+    # phases 1-13 measure the engine: the result cache and the workload
+    # manager stay off until phase 14 (bench.py pins the JAX package so)
+    os.environ.update(SERVING_PINS)
     dev = torch.device("cuda")
     card = phase_environment()
     phase_build()
@@ -2916,12 +3625,14 @@ def main(argv=None) -> int:
     off_launches = phase_adaptive(ctx, on_results)
     print(f"launches: eager path (adaptive on) {launches}, adaptive off and "
           f"forced {off_launches}")
-    compiled_launches, _ = phase_compiled(ctx, on_results, eager_rows)
+    compiled_launches, compiled_rows = phase_compiled(ctx, on_results,
+                                                      eager_rows)
     print(f"launches: compiled tier (the main path) {compiled_launches}")
     phase_params(ctx)
     phase_stages(ctx, on_results)
     phase_tiering(ctx, on_results)
     phase_ladder(ctx, on_results)
+    phase_serving(ctx, tables, on_results, compiled_rows)
     phase_oracle(dev, ORACLE_SF, args.seed)
     os.environ["DSQL_COMPILE"] = "0"
     phase_functions(dev, args.seed)

@@ -17,6 +17,16 @@ CUDA graph on the card) and runs the eager executor
 is the opt-out.  Each ``sql`` call runs in a
 telemetry trace whose ``QueryReport`` is kept as ``last_report``.
 
+Every plan passes the JAX package's three default layers
+(``_execute_query_plan`` and ``_run_query_plan``): tenancy admission
+(``runtime/tenancy.py``; ``DSQL_TENANCY=0`` turns it off), the workload
+manager's admission with its device-bytes ledger (``runtime/scheduler.py``;
+``DSQL_MAX_CONCURRENT_QUERIES=0``) and the result cache
+(``runtime/result_cache.py``; ``DSQL_RESULT_CACHE_MB=0``): a repeated
+query over unchanged tables is answered from memory without touching the
+tiers.  ``run_server`` starts the Presto-wire server on this context
+(``server/app.py``).
+
 Queries run on the card unless the caller asks for another device:
 ``Context()`` means ``device="cuda"`` and raises when CUDA is unavailable;
 the tests pass ``device="cpu"``.
@@ -24,6 +34,7 @@ the tests pass ``device="cpu"``.
 from __future__ import annotations
 
 import itertools
+import time
 from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
@@ -57,7 +68,12 @@ class Context:
             raise RuntimeError(
                 "Context: CUDA is not available; pass device='cpu' to run on "
                 "the CPU")
+        from .runtime.gates import refuse
+
+        # the JAX package arms its fleet plane and ingest log here
+        refuse("DSQL_FLEET_DIR", "DSQL_INGEST_DIR")
         self.device = device
+        self.server = None
         self.schema_name = self.DEFAULT_SCHEMA_NAME
         self.schema = {self.DEFAULT_SCHEMA_NAME:
                        SchemaContainer(self.DEFAULT_SCHEMA_NAME)}
@@ -79,9 +95,13 @@ class Context:
         return self.schema[schema_name].tables[table_name]
 
     def bump_table_epoch(self, schema_name: str, table_name: str) -> int:
-        """Advance the table's epoch; every mutating path calls this."""
+        """Advance the table's epoch (every mutating path calls this) and
+        drop the cached results that scan it."""
+        from .runtime import result_cache as _rc
+
         epoch = next(self._epoch_counter)
         self._table_epochs[(schema_name, table_name.lower())] = epoch
+        _rc.get_cache().invalidate_table(schema_name, table_name.lower())
         return epoch
 
     # ------------------------------------------------------------- schemas
@@ -164,7 +184,8 @@ class Context:
 
     # ----------------------------------------------------------------- sql
     def sql(self, sql: str, return_futures: bool = True,
-            params: Optional[list] = None, timeout: Optional[float] = None):
+            params: Optional[list] = None, timeout: Optional[float] = None,
+            priority: Optional[str] = None, tenant: Optional[str] = None):
         """Parse, plan, optimize and execute the statements of ``sql``;
         the last one's result is returned.  A query (or EXPLAIN, SHOW,
         DESCRIBE, EXECUTE) returns rows; DDL returns an empty table.
@@ -174,20 +195,38 @@ class Context:
         compiled tier's parameterized plans every value list reuses one
         program per query shape.  ``timeout`` (seconds; default
         ``DSQL_QUERY_TIMEOUT_MS``, unset or 0: none) is a deadline checked
-        at every layer (builds, stage scheduling, eager plan nodes), which
-        raises ``runtime.resilience.DeadlineExceeded``; a nested call keeps
-        the sooner deadline.  Returns a device ``Table``
-        (``return_futures=True``) or a pandas DataFrame
+        at every layer (admission, builds, stage scheduling, eager plan
+        nodes), which raises ``runtime.resilience.DeadlineExceeded``; a
+        nested call keeps the sooner deadline.  ``priority``
+        (``interactive``, ``batch`` or ``background``; default
+        ``DSQL_DEFAULT_PRIORITY`` or ``interactive``) is the query's class
+        in the workload manager, and ``tenant`` the tenant it bills
+        against (``runtime/tenancy.py``; default ``default``).  Returns a
+        device ``Table`` (``return_futures=True``) or a pandas DataFrame
         (``return_futures=False``).  The call's telemetry report is kept
-        as ``self.last_report``."""
-        from .runtime import resilience as _res
+        as ``self.last_report``, and its host walls (parse, plan, exec,
+        fetch; compile, device and materialize when the report has them)
+        as ``self.last_timings``."""
+        from contextlib import nullcontext
 
+        from .runtime import resilience as _res, scheduler as _sched
+        from .runtime.gates import tenancy_on
+
+        ten_scope = nullcontext()
+        if tenant is not None and tenancy_on():
+            from .runtime import tenancy as _ten
+            ten_scope = _ten.tenant_scope(tenant)
         trace = None
         try:
             with _res.query_scope(timeout_s=timeout), \
-                    _tel.trace_scope(sql) as trace:
+                    _tel.trace_scope(sql) as trace, \
+                    _sched.priority_scope(priority), ten_scope:
+                t0 = time.perf_counter()
                 with _tel.span("parse"):
                     stmts = parse_sql(sql)
+                timings = {"parse_ms": (time.perf_counter() - t0) * 1e3,
+                           "plan_ms": 0.0, "exec_ms": 0.0, "fetch_ms": 0.0}
+                self.last_timings = timings
                 result = None
                 for stmt in stmts:
                     result = self._execute_statement(stmt, sql, params=params)
@@ -200,48 +239,101 @@ class Context:
                         for c in result.columns)
                 if return_futures:
                     return result
+                t0 = time.perf_counter()
                 with _tel.span("fetch"):
-                    return result.to_pandas()
+                    result = result.to_pandas()
+                timings["fetch_ms"] = (time.perf_counter() - t0) * 1e3
+                return result
         finally:
             if trace is not None and trace.report is not None:
                 self.last_report = trace.report
+                timings = getattr(self, "last_timings", None)
+                if timings is not None:
+                    for k in ("compile", "device", "materialize"):
+                        v = trace.report.phases.get(k)
+                        if v is not None:
+                            timings[f"{k}_ms"] = v
 
     def _execute_statement(self, stmt: A.Statement, sql: str,
                            params: Optional[list] = None) -> Optional[Table]:
         from .physical.rel.custom import StatementDispatcher
 
+        timings = getattr(self, "last_timings", None)
         if isinstance(stmt, A.QueryStatement):
+            t0 = time.perf_counter()
             with _tel.span("plan"):
                 plan = self._get_plan(stmt.query, sql, params=params)
-            with _tel.span("execute"):
-                return self._execute_query_plan(plan)
+            t1 = time.perf_counter()
+            try:
+                with _tel.span("execute"):
+                    return self._execute_query_plan(plan)
+            finally:
+                if timings is not None:
+                    timings["plan_ms"] += (t1 - t0) * 1e3
+                    timings["exec_ms"] += (time.perf_counter() - t1) * 1e3
         handler = StatementDispatcher.get_plugin(type(stmt).__name__)
         with _tel.span("execute", statement=type(stmt).__name__):
             return handler(stmt, self, sql)
 
     def _execute_query_plan(self, plan: RelNode) -> Table:
         """Every plan a statement executes passes here (queries, CTAS,
-        EXECUTE): the seam where admission will go."""
-        return self._run_query_plan(plan)
+        EXECUTE, server requests): tenancy admission outside (a tenant
+        over quota is refused before it takes a slot or a queue place;
+        a server pre-claim is adopted, not claimed again), then the
+        workload manager's admission.  A nested plan (a thread that
+        already holds both) passes straight through."""
+        from contextlib import nullcontext
+
+        from .runtime import scheduler as _sched
+        from .runtime.gates import tenancy_on
+
+        ten_adm = nullcontext()
+        if tenancy_on():
+            from .runtime import tenancy as _ten
+            ten_adm = _ten.admission()
+        with ten_adm, _sched.get_manager().admission(plan, self):
+            return self._run_query_plan(plan)
 
     def _run_query_plan(self, plan: RelNode) -> Table:
-        """The compiled tier first, the eager executor where it declines
-        (``DSQL_COMPILE=0``, a plan outside its subset, a runtime flag, a
-        rung of its ladder, or a cold plan answered eager while its
-        programs build); the span says which with ``tier``: ``compiled``,
-        ``eager`` or the tier's own ``eager-compiling``."""
+        """The result cache first: an identical plan over unchanged tables
+        (the same epochs and table uids) is answered from memory
+        (``result_cache=hit``); ``_rc_bypass`` skips the lookup, not the
+        store.  Then the compiled tier, and the eager executor where it
+        declines (``DSQL_COMPILE=0``, a plan outside its subset, a runtime
+        flag, a rung of its ladder, or a cold plan answered eager while
+        its programs build); the span says which with ``tier``:
+        ``compiled``, ``eager`` or the tier's own ``eager-compiling``.
+        Only a successful execution is stored."""
         from .physical.compiled import try_execute_compiled
         from .physical.rel.executor import RelExecutor
+        from .runtime import result_cache as _rc
 
+        cache = _rc.get_cache()
+        ckey = _rc.plan_key(plan, self) if cache.enabled() else None
+        if ckey is not None:
+            if getattr(self, "_rc_bypass", False):
+                _tel.annotate(result_cache="bypass")
+            else:
+                hit = cache.get(ckey)
+                if hit is not None:
+                    table, tier = hit
+                    _tel.inc("result_cache_hits")
+                    _tel.annotate(result_cache="hit",
+                                  result_cache_tier=tier)
+                    return table
+                _tel.inc("result_cache_misses")
         result = try_execute_compiled(plan, self)
         span = _tel.current_span()
-        if result is not None:
+        if result is None:
             if span is not None:
-                span.attrs.setdefault("tier", "compiled")
-            return result
-        if span is not None:
-            span.attrs.setdefault("tier", "eager")
-        return RelExecutor(self).execute(plan)
+                span.attrs.setdefault("tier", "eager")
+            result = RelExecutor(self).execute(plan)
+        elif span is not None:
+            span.attrs.setdefault("tier", "compiled")
+        if ckey is not None and result is not None \
+                and cache.put(ckey, result):
+            _tel.annotate(result_cache="store")
+        return result
 
     def _get_plan(self, query: A.SelectLike, sql: str = "",
                   params: Optional[list] = None) -> RelNode:
@@ -298,6 +390,19 @@ class Context:
 
     def resolve_model(self, parts: List[str]):
         return None
+
+    # -------------------------------------------------------------- server
+    def run_server(self, **kwargs):
+        """Start the Presto-wire HTTP server on this context
+        (``server/app.py`` ``run_server``)."""
+        from .server.app import run_server
+        return run_server(context=self, **kwargs)
+
+    def stop_server(self):
+        if self.server is not None:
+            self.server.shutdown()
+            self.server.server_close()
+            self.server = None
 
 
 def _to_sql_type(t) -> SqlType:

@@ -64,11 +64,18 @@ Around that single-program path, as in the JAX package:
 - **Tiering** (``DSQL_TIERED``, on by default): the first arrival of a
   cold plan is answered by the eager executor while its programs build on
   a daemon thread; the next arrival runs compiled.  ``tier_probe`` says
-  which tier a plan would take now.
+  which tier a plan would take now.  Background builds run outside the
+  workload manager's admission (no slot, no reservation);
+  ``inflight_background_compiles`` lists them for the server's
+  ``/v1/engine``.
+- **The subplan cache**: a stage whose boundary output is in the result
+  cache (``result_cache.stage_key``) is answered from it, counter
+  ``result_cache_subplan_hits``; a stage that ran stores its output.
 
 Not ported yet: the persistent program store (the JAX package serializes
 XLA executables; a CUDA graph cannot be serialized, and what a fresh
-process could reuse needs a design of its own).
+process could reuse needs a design of its own); ``DSQL_PROGRAM_STORE``
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -100,7 +107,8 @@ from ..runtime import quarantine as _quar
 from ..runtime import resilience as _res
 from ..runtime import result_cache as _rcache
 from ..runtime import telemetry as _tel
-from ..table import dict_sort_order, Column, Scalar, Table
+from ..runtime.gates import refuse
+from ..table import dict_sort_order, tensors_to_host, Column, Scalar, Table
 from ..types import exact_decimal_scale, torch_dtype
 from .graphs import GraphProgram, HostRead
 from .rex.evaluate import evaluate_predicate, evaluate_rex
@@ -2027,21 +2035,6 @@ def _check_flags(entry: _Compiled, flags) -> None:
 SMALL_FETCH_BYTES = 8 << 20
 
 
-def _fetch(outs) -> List[np.ndarray]:
-    """Every output on the host in ONE device-to-host transfer (packed as
-    bytes on the device first)."""
-    pieces = [o.contiguous().reshape(-1).view(torch.uint8) for o in outs]
-    buf = torch.cat(pieces).cpu().numpy()
-    host, off = [], 0
-    for o, p in zip(outs, pieces):
-        nb = p.numel()
-        np_dtype = torch.empty(0, dtype=o.dtype).numpy().dtype
-        host.append(buf[off:off + nb].copy().view(np_dtype)
-                    .reshape(tuple(o.shape)))
-        off += nb
-    return host
-
-
 def _materialize(entry: _Compiled, outs) -> Optional[Table]:
     """The result table from a run's outputs, copied out of the program's
     memory (the next replay overwrites it).  A small result (at most
@@ -2051,7 +2044,8 @@ def _materialize(entry: _Compiled, outs) -> Optional[Table]:
     _faults.maybe_fail("materialize")
     meta = entry.meta
     total = sum(o.numel() * o.element_size() for o in outs)
-    host = _fetch(outs) if total <= SMALL_FETCH_BYTES else None
+    # one device-to-host transfer of every output (``tensors_to_host``)
+    host = tensors_to_host(outs) if total <= SMALL_FETCH_BYTES else None
     flags = host[0] if host is not None else outs[0].cpu().numpy()
     _check_rounds(entry, flags)
     if flags[0]:
@@ -2363,8 +2357,25 @@ def _execute_stage_graph_inner(graph: StageGraph, context, query_fp: str,
             # arming both sabotages the replay itself
             _faults.maybe_fail("stage_replay")
         _faults.maybe_fail("stage_exec")
-        return _execute_single(stages[idx].plan, context, query_fp,
-                               split_limit, in_stage=True)
+        st = stages[idx]
+        # the subplan cache: a non-root stage's boundary name digests its
+        # subtree (the scanned tables' uids included), so a query sharing
+        # the subplan replays its stored output and skips the device
+        skey = None
+        cache = _rcache.get_cache()
+        if st.scan is not None and cache.enabled():
+            skey = _rcache.stage_key(st.scan.table_name)
+            hit = cache.get(skey)
+            if hit is not None:
+                _tel.inc("result_cache_subplan_hits")
+                _tel.annotate(subplan_cache="hit",
+                              result_cache_tier=hit[1])
+                return hit[0]
+        out = _execute_single(st.plan, context, query_fp, split_limit,
+                              in_stage=True)
+        if skey is not None and out is not None:
+            cache.put(skey, out)
+        return out
 
     def run_stage(idx: int) -> Optional[Table]:
         # a worker thread re-enters the query's deadline scope and trace;
@@ -2694,6 +2705,8 @@ def try_execute_compiled(plan: RelNode, context,
     value)."""
     if os.environ.get("DSQL_COMPILE", "1") == "0":
         return None
+    # the JAX package's persistent program store (not ported)
+    refuse("DSQL_PROGRAM_STORE")
     _res.check("compile_entry")
     # literals hoist here, at the one entry of the tier, so every key
     # below (whole plan, stages) sees the shape; the eager executor never

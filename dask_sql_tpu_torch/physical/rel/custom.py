@@ -7,10 +7,11 @@ statement AST class, registered in ``StatementDispatcher``.  A handler takes
 DESCRIBE, EXPLAIN, EXECUTE) or None (DDL).
 
 The statements whose machinery the port lacks raise ``NotImplementedError``
-naming themselves and what they wait for: CREATE TABLE ... WITH (location)
-(the file readers, ``io/inputs.py``), ANALYZE TABLE (a host path without
-pandas), the materialized views and INSERT INTO (``runtime/matview.py``,
-``runtime/delta.py``), the model statements (``models/``, with
+naming themselves and what they wait for (``_UNPORTED``): CREATE TABLE ...
+WITH (location) (the file readers, ``io/inputs.py``), ANALYZE TABLE (a
+host path without pandas), the materialized views (``runtime/matview.py``
+and its delta log, ``runtime/delta.py``), INSERT INTO (the same delta log
+and ``Context.append_rows``), the model statements (``models/``, with
 ``register_model``) and EXPLAIN PROFILE (``runtime/profiler.py``).
 """
 from __future__ import annotations
@@ -170,15 +171,29 @@ def _explain(stmt: A.ExplainStatement, context, sql):
 def _explain_analyze(plan, context) -> list:
     """Run the plan on the eager executor, each node timed and its rows
     counted (``telemetry.record_nodes``), and render the tree annotated
-    ``[rows= time= self=]``; then the run's wall and rows, the result cache
-    (the port has none), the operator variants the run took, the tier a
-    plain run would take (``compiled.tier_probe``) and the telemetry
-    counters it moved.  Node times are host walls: on the
-    card they count the launches, not the kernels' completion.  As in the
-    JAX package the analyzed run is always eager: a compiled program has
-    no per-node boundaries to time."""
+    ``[rows= time= self=]``; then the run's wall and rows, what the result
+    cache would do for a plain run (``-- cache: disabled``,
+    ``uncacheable``, ``miss`` or ``hit tier=...``, probed before the run),
+    the operator variants the run took, the tier a plain run would take
+    (``compiled.tier_probe``) and the telemetry counters it moved.  Node
+    times are host walls: on the card they count the launches, not the
+    kernels' completion.  As in the JAX package the analyzed run is always
+    eager (a compiled program has no per-node boundaries to time) and
+    stores its result, so the next plain run hits."""
+    from ...runtime import result_cache as _rc
     from ..compiled import tier_probe
     from .executor import RelExecutor
+
+    cache = _rc.get_cache()
+    ckey = _rc.plan_key(plan, context) if cache.enabled() else None
+    if not cache.enabled():
+        cache_line = "-- cache: disabled"
+    elif ckey is None:
+        cache_line = "-- cache: uncacheable (volatile or chunked plan)"
+    else:
+        tier = cache.probe(ckey)
+        cache_line = (f"-- cache: hit tier={tier}" if tier is not None
+                      else "-- cache: miss")
 
     # the tier a plain run would take, probed before the analyzed run
     # (always eager) changes anything
@@ -204,10 +219,12 @@ def _explain_analyze(plan, context) -> list:
         return (f"[rows={rows} time={total_ms:.3f}ms "
                 f"self={max(total_ms - child_ms, 0.0):.3f}ms{extra}]")
 
+    if ckey is not None and result is not None:
+        cache.put(ckey, result)
     lines = plan.explain(annotate=annotate).splitlines()
     lines.append(f"-- analyzed: wall={wall_ms:.3f}ms "
                  f"rows_out={result.num_rows} nodes={len(rec.records)}")
-    lines.append("-- cache: disabled")
+    lines.append(cache_line)
     lines.extend("-- operator: " + _stats.format_choice(op, variant, info)
                  for op, variant, info in choices)
     lines.append(f"-- tier: {exec_tier}")
@@ -271,7 +288,8 @@ _UNPORTED = {
     "DropMaterializedView": ("DROP MATERIALIZED VIEW", "runtime/matview.py"),
     "RefreshMaterializedView": ("REFRESH MATERIALIZED VIEW",
                                 "runtime/matview.py"),
-    "InsertInto": ("INSERT INTO", "runtime/delta.py and Context.append_rows"),
+    "InsertInto": ("INSERT INTO",
+                   "runtime/delta.py and Context.append_rows"),
     "ShowModels": ("SHOW MODELS", "models/ and register_model"),
     "DescribeModel": ("DESCRIBE MODEL", "models/ and register_model"),
     "CreateModel": ("CREATE MODEL", "models/ and register_model"),

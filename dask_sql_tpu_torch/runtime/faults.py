@@ -5,7 +5,7 @@ ladder (``runtime/resilience.py``) is only trustworthy if tests and the
 smoke script exercise it, and real faults (device out-of-memory, a failed
 capture) cannot be scheduled.  Injection sites sit at the layer
 boundaries, each calling ``maybe_fail(site)``, a no-op unless armed.  The
-port places four of the JAX package's sites:
+port places these of the JAX package's sites:
 
   ``compile``        a program's build and first call, inside the
                      quarantine watchdog (``physical/compiled.py``
@@ -16,6 +16,20 @@ port places four of the JAX package's sites:
                      again by a replay)
   ``stage_replay``   a checkpointed stage replay, checked before
                      ``stage_exec``
+  ``cache_populate`` storing a result or a stage output in the result
+                     cache (``runtime/result_cache.py`` ``put``): a fired
+                     fault skips the store, never the query
+  ``admission``      the top of the workload manager's ``acquire``
+                     (``runtime/scheduler.py``): the query fails typed
+                     before it takes a slot
+  ``drain``          the server's graceful drain (``server/app.py``),
+                     which logs a fired fault and shuts down all the same
+  ``spill``          each disk write and read of the spill store
+                     (``runtime/spill.py``), under ``retry_transient``
+  ``host_transfer``  a device chunk's copy to the host in the spill store
+  ``result_spool``   spooling a large server result into pages
+                     (``server/app.py``): a fired fault serves the result
+                     unpaged
 
 ``SITES`` keeps the JAX package's whole list, so a spec parses the same
 in both packages; the other sites belong to modules not ported yet.

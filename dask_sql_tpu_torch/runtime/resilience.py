@@ -41,8 +41,13 @@ base), checking the deadline before every sleep.
 a typed failure; counters ``degradations``, ``retries`` and
 ``deadline_exceeded`` say that it ran.
 
-The JAX package's admission verdicts (scheduler, tenancy, ingest) come
-with those services, which are not ported.
+**Admission verdicts.**  ``AdmissionRejected`` (with ``retry_after_s``)
+and its subclasses are what the workload manager
+(``runtime/scheduler.py``), tenancy (``runtime/tenancy.py``) and the
+server's drain raise before a query takes a slot; the server maps them to
+429 / 503 with ``Retry-After`` (``server/app.py`` ``ERROR_WIRE_MATRIX``).
+``LoadShedRejected`` and ``IngestBackpressure`` keep their wire rows
+although their modules (the event bus, ingest) are not ported.
 """
 from __future__ import annotations
 
@@ -120,6 +125,72 @@ class QueryCancelled(UserError):
     """The client abandoned the query."""
 
     error_name = "USER_CANCELED"
+
+
+class SchemaMismatch(UserError):
+    """An appended batch does not fit the target table's schema (missing
+    or extra columns, wrong arity, a value that does not cast): the server
+    answers 400."""
+
+    error_name = "SCHEMA_MISMATCH"
+
+
+class AdmissionRejected(ResilienceError):
+    """The workload manager refused the query at submit time: queue full,
+    or the deadline would expire before a slot could free.  The server
+    answers 429 with a ``Retry-After`` from ``retry_after_s``."""
+
+    error_type = "INSUFFICIENT_RESOURCES"
+    error_name = "QUERY_QUEUE_FULL"
+    error_code = 0x20000
+
+    def __init__(self, message: str = "", retry_after_s: float = 1.0):
+        super().__init__(message)
+        self.retry_after_s = max(float(retry_after_s), 0.0)
+
+
+class AdmissionTimeout(AdmissionRejected):
+    """The query waited in the admission queue past
+    ``DSQL_QUEUE_TIMEOUT_MS`` without winning a slot."""
+
+    error_name = "QUERY_QUEUE_TIMEOUT"
+
+
+class ServerDraining(AdmissionRejected):
+    """The process is draining (SIGTERM/SIGINT): in-flight queries finish,
+    new admissions are refused with 503 + ``Retry-After``."""
+
+    error_name = "SERVER_SHUTTING_DOWN"
+
+
+class TenantQuotaExceeded(AdmissionRejected):
+    """The tenant's rate (``DSQL_TENANT_QPS``) or concurrency
+    (``DSQL_TENANT_CONCURRENT``) quota is spent: 429 + ``Retry-After``
+    from the bucket's refill time."""
+
+    error_name = "TENANT_QUOTA_EXCEEDED"
+
+
+class TenantCircuitOpen(AdmissionRejected):
+    """The tenant's circuit breaker is open (``DSQL_TENANT_BREAKER``
+    consecutive fatal or timeout verdicts) until a half-open probe
+    succeeds: 429 + ``Retry-After`` of the open window."""
+
+    error_name = "TENANT_CIRCUIT_OPEN"
+
+
+class LoadShedRejected(AdmissionRejected):
+    """A background admission shed while a class burns its SLO error
+    budget (the JAX package's event bus, not ported): 429."""
+
+    error_name = "SLO_LOAD_SHED"
+
+
+class IngestBackpressure(AdmissionRejected):
+    """An ingest batch the memory broker cannot absorb (the JAX package's
+    ``runtime/ingest.py``, not ported): 429."""
+
+    error_name = "INGEST_BACKPRESSURE"
 
 
 # exception type NAMES that are user mistakes by construction

@@ -25,9 +25,12 @@ decisions, so that both packages plan and dispatch a query alike.
   in an open ``capture`` (EXPLAIN ANALYZE's choices); ``explain_lines``
   gives EXPLAIN's predicted ``-- operator:`` lines.
 
+- The compiled tier's capacity hints (``compiled_cap_hints``) and the
+  workload manager's statistics rung (``estimate_plan_bytes_stats``: the
+  scanned bytes plus each heavy operator's estimated output).
+
 Not part of the port (each waits for the part of the system that needs
-it): the flight recorder's measured rows, the autopilot's hint, the
-compiled tier's capacity hints, the scheduler's byte estimate and the
+it): the flight recorder's measured rows, the autopilot's hint and the
 ``system.table_stats`` rows.
 """
 from __future__ import annotations
@@ -673,3 +676,43 @@ def compiled_cap_hints(plan, context) -> Dict[str, int]:
     except Exception:
         logger.debug("cap hints failed", exc_info=True)
         return {}
+
+
+def estimate_plan_bytes_stats(plan, context) -> Optional[int]:
+    """Stats-driven working-set estimate for the scheduler: the resident
+    scan bytes (they are touched regardless) plus every heavy operator's
+    estimated output (rows × 9 bytes/column — 8 data + amortized mask).
+    None when adaptive is off or the plan's cardinality can't be
+    estimated — the caller keeps the shape heuristic."""
+    if not adaptive_enabled():
+        return None
+    from ..plan import nodes as N
+
+    try:
+        scan_bytes = 0
+        inter_bytes = 0.0
+        ok = True
+        stack = [plan]
+        while stack:
+            rel = stack.pop()
+            if isinstance(rel, N.LogicalTableScan):
+                entry = _scan_entry(rel, context)
+                if entry is not None:
+                    from .scheduler import _entry_bytes
+                    scan_bytes += _entry_bytes(entry)
+            elif isinstance(rel, (N.LogicalJoin, N.LogicalAggregate,
+                                  N.LogicalWindow, N.LogicalSort)):
+                est = estimate_rows(rel, context)
+                if est is None:
+                    ok = False
+                    break
+                inter_bytes += est * max(len(rel.schema), 1) * 9
+            stack.extend(getattr(rel, "inputs", ()) or ())
+        if not ok:
+            return None
+        return int(scan_bytes + inter_bytes)
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except Exception:
+        logger.debug("stats byte estimate failed", exc_info=True)
+        return None

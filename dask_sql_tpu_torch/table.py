@@ -205,6 +205,20 @@ class Column:
             return out
         return host_decode(data, mask, self.stype)
 
+    def to_pylist(self) -> list:
+        """Python values: dates and timestamps as ``datetime`` objects,
+        intervals as ``timedelta``, every NULL as None (a float NULL too,
+        where the JAX package's list keeps NaN)."""
+        values = self.to_numpy()
+        out = values.tolist()
+        if values.dtype.kind == "f" and self.mask is not None:
+            mask = (self.host[1] if self.host is not None
+                    and self.host[1] is not None else
+                    self.mask.cpu().numpy())
+            for i in np.flatnonzero(~mask).tolist():
+                out[i] = None
+        return out
+
     def __repr__(self):
         return f"Column({self.stype}, len={len(self)}, nulls={self.null_count()})"
 
@@ -262,6 +276,42 @@ def _to_device(data: np.ndarray, device: torch.device) -> torch.Tensor:
     if torch.device(device).type == "cpu" or not data.flags.writeable:
         data = data.copy()
     return torch.from_numpy(data).to(device)
+
+
+def tensors_to_host(tensors: Sequence[torch.Tensor]) -> list:
+    """Numpy copies of ``tensors`` in one device-to-host transfer: on the
+    card the tensors are packed as bytes into one buffer and copied into
+    pinned host memory; on the CPU each is copied."""
+    tensors = list(tensors)
+    if not tensors or not tensors[0].is_cuda:
+        return [t.detach().clone().numpy() for t in tensors]
+    pieces = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+    packed = torch.cat(pieces)
+    host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    torch.cuda.current_stream(packed.device).synchronize()
+    buf = host.numpy()
+    out, off = [], 0
+    for t, p in zip(tensors, pieces):
+        nb = p.numel()
+        np_dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(buf[off:off + nb].copy().view(np_dtype)
+                   .reshape(tuple(t.shape)))
+        off += nb
+    return out
+
+
+def array_to_device(data: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Upload ``data`` without a host synchronisation: on the card through
+    pinned memory with a non-blocking copy (ordered on the current
+    stream); the result never shares memory with ``data``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return _to_device(data, device)
+    data = np.ascontiguousarray(data)
+    if not data.flags.writeable:
+        data = data.copy()
+    return torch.from_numpy(data).pin_memory().to(device, non_blocking=True)
 
 
 def _as_mask(mask, device: torch.device) -> Optional[torch.Tensor]:
@@ -357,6 +407,12 @@ class Table:
         import pandas as pd
 
         return pd.DataFrame(self.to_numpy(), columns=list(self.names))
+
+    def to_pylist(self) -> list:
+        """Rows as lists of Python values (``Column.to_pylist``), without
+        pandas: the server's and the REPL's output path."""
+        cols = [c.to_pylist() for c in self.columns]
+        return [list(row) for row in zip(*cols)] if cols else []
 
     def __repr__(self):
         parts = ", ".join(f"{n}: {c.stype}" for n, c in zip(self.names, self.columns))

@@ -40,6 +40,8 @@ setup(
         "console_scripts": [
             "dask-sql-tpu = dask_sql_tpu.cmd:main",
             "dask-sql-tpu-server = dask_sql_tpu.server.app:main",
+            "dask-sql-tpu-torch = dask_sql_tpu_torch.cmd:main",
+            "dask-sql-tpu-torch-server = dask_sql_tpu_torch.server.app:main",
         ]
     },
     distclass=_BinaryDistribution,

@@ -100,3 +100,136 @@ def test_walk_covers_the_compiled_tier():
             "dask_sql_tpu_torch.runtime.quarantine",
             "dask_sql_tpu_torch.runtime.resilience",
             "dask_sql_tpu_torch.runtime.result_cache"} <= names
+
+
+def test_walk_covers_the_serving_path():
+    """The import probe walks the serving path too: admission, tenancy,
+    the cache, the spill store, the gates, the server and the REPL."""
+    import pkgutil
+
+    import dask_sql_tpu_torch
+
+    names = {info.name for info in pkgutil.walk_packages(
+        dask_sql_tpu_torch.__path__, "dask_sql_tpu_torch.")}
+    assert {"dask_sql_tpu_torch.runtime.scheduler",
+            "dask_sql_tpu_torch.runtime.tenancy",
+            "dask_sql_tpu_torch.runtime.spill",
+            "dask_sql_tpu_torch.runtime.gates",
+            "dask_sql_tpu_torch.server.app",
+            "dask_sql_tpu_torch.cmd"} <= names
+
+
+_NO_PANDAS_SERVER = """
+import sys
+sys.modules["pandas"] = None          # the card's machine has no pandas
+import json, time, urllib.request
+import numpy as np
+from dask_sql_tpu_torch import Context, run_server
+
+c = Context(device="cpu")
+c.create_table("t", {"k": np.array(["a", "b", "a"], dtype=object),
+                     "x": np.array([1.5, 2.0, 4.0]),
+                     "d": np.array(["2020-01-01", "2021-06-30", "NaT"],
+                                   dtype="datetime64[D]")})
+srv = run_server(context=c, host="127.0.0.1", port=0, blocking=False)
+base = f"http://127.0.0.1:{srv.server_port}"
+req = urllib.request.Request(
+    base + "/v1/statement", method="POST",
+    data=b"SELECT k, SUM(x) AS s, MAX(d) AS d FROM t GROUP BY k ORDER BY k")
+with urllib.request.urlopen(req) as r:
+    p = json.loads(r.read())
+while "nextUri" in p:
+    time.sleep(0.02)
+    with urllib.request.urlopen(p["nextUri"]) as r:
+        p = json.loads(r.read())
+with urllib.request.urlopen(base + "/metrics") as r:
+    metrics = r.read().decode()
+with urllib.request.urlopen(base + "/v1/engine") as r:
+    engine = json.loads(r.read())
+srv.shutdown()
+print(json.dumps({"data": p["data"], "types": [c["type"] for c in p["columns"]],
+                  "metrics": "dsql_sched_admitted_interactive_total 1" in metrics,
+                  "engine": sorted(engine)[:3],
+                  "pandas": sys.modules.get("pandas") is None}))
+"""
+
+
+def test_server_round_trip_without_pandas():
+    """A server round trip in a process where ``import pandas`` fails."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DSQL_MAX_CONCURRENT_QUERIES", "DSQL_RESULT_CACHE_MB")}
+    env.update(DSQL_TIERED="0", CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", _NO_PANDAS_SERVER], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=env, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"data": [["a", 5.5, "2020-01-01 00:00:00"],
+                            ["b", 2.0, "2021-06-30 00:00:00"]],
+                   "types": ["varchar", "double", "timestamp"],
+                   "metrics": True, "engine": ["active",
+                                               "backgroundCompiles",
+                                               "cache"],
+                   "pandas": True}
+
+
+@pytest.mark.parametrize("variable,module", [
+    ("DSQL_EVENTS", "runtime/events.py"),
+    ("DSQL_FLEET_DIR", "runtime/fleet.py"),
+    ("DSQL_INGEST_DIR", "runtime/ingest.py"),
+    ("DSQL_AUTOPILOT", "runtime/autopilot.py"),
+    ("DSQL_HISTORY_FILE", "runtime/flight_recorder.py"),
+    ("DSQL_PROFILE", "runtime/profiler.py"),
+    ("DSQL_PROGRAM_STORE", "runtime/program_store.py"),
+])
+def test_armed_unported_subsystems_raise(monkeypatch, tmp_path, variable,
+                                         module):
+    """A subsystem that only its variable arms, and whose module is not
+    ported, raises NotImplementedError naming the module wherever the JAX
+    package would import it; the server refuses to start with it armed."""
+    import numpy as np
+
+    from dask_sql_tpu_torch import Context, run_server
+
+    c = Context(device="cpu")
+    c.create_table("t", {"a": np.arange(3)})
+    monkeypatch.setenv(variable, str(tmp_path / "x") if variable in (
+        "DSQL_FLEET_DIR", "DSQL_INGEST_DIR", "DSQL_HISTORY_FILE",
+        "DSQL_PROGRAM_STORE") else "1")
+    with pytest.raises(NotImplementedError, match=module):
+        if variable in ("DSQL_FLEET_DIR", "DSQL_INGEST_DIR"):
+            Context(device="cpu")
+        else:
+            c.sql("SELECT SUM(a) AS s FROM t")
+    with pytest.raises(NotImplementedError, match=module):
+        run_server(context=c, host="127.0.0.1", port=0, blocking=False)
+
+
+def test_default_layers_and_their_switches(monkeypatch):
+    """With no variable set a query passes tenancy, the workload manager
+    and the result cache; each switch turns its layer off."""
+    import numpy as np
+
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.runtime import result_cache, tenancy
+
+    for name in ("DSQL_RESULT_CACHE_MB", "DSQL_MAX_CONCURRENT_QUERIES",
+                 "DSQL_TENANCY"):
+        monkeypatch.delenv(name, raising=False)
+    tenancy.get_registry()._reset_for_tests()
+    c = Context(device="cpu")
+    c.create_table("t", {"a": np.arange(3)})
+    q = "SELECT SUM(a) AS s FROM t"
+    c.sql(q)
+    c.sql(q)
+    assert c.last_report.cache["hit"]
+    assert c.last_report.priority == "interactive"
+    assert tenancy.tenant_rows()[0]["admitted"] == 2
+    monkeypatch.setenv("DSQL_RESULT_CACHE_MB", "0")
+    monkeypatch.setenv("DSQL_MAX_CONCURRENT_QUERIES", "0")
+    monkeypatch.setenv("DSQL_TENANCY", "0")
+    c.sql(q)
+    assert not c.last_report.cache["hit"] and not c.last_report.cache["stored"]
+    assert c.last_report.priority is None
+    assert tenancy.tenant_rows()[0]["admitted"] == 2
+    tenancy.get_registry()._reset_for_tests()
+    result_cache.get_cache().clear()
