@@ -163,6 +163,33 @@ the compiled tier first.
    POST answers 503 while the query in flight finishes.  One ``serving
    table:`` JSON line per part and query; the launch counts set to 0
    before the phase and read after it (kernel 1 must launch).
+15. out-of-core (last, on the default path: the compiled tier first):
+   (a) lineitem at ``--sf`` registered chunked from its numpy columns
+   (``ChunkedSource.from_columns``, no pandas) in batches of 1,048,576
+   rows (6 at SF 1, the last one short), the other tables resident:
+   Q1-Q22 once cold and once warm, each answer equal to phase 7's
+   (doubles rtol 1e-9); per query the walls, the streamed batches, each
+   streamed program's captures and replays (at most two captures: the
+   full batch and the padded last one; the other batches replay), the
+   bytes uploaded per batch and the effective upload rate (bytes over
+   the warm wall); Q1 must launch kernel 1 at least once per batch; the
+   port's upload path over Q1's columns beside one pinned ``copy_`` of a
+   batch (the bound, CUDA events); Q1 and Q6 profiled (device idle
+   share) and run once more with ``DSQL_COMPILE=0`` (the eager scan
+   compacts the padded batch).  (b) orders and lineitem both chunked,
+   ``DSQL_SPILL_MB=64``, ``DSQL_SPILL_DEVICE_MB=8`` and the spill
+   directory under ``build/``: Q3 and a Q3-shaped orders-lineitem GROUP
+   BY through the grace-hash join, equal to the resident answers;
+   ``morsel_joins``, ``morsel_pairs`` and ``spill_partitions`` must
+   advance, the store's peak device bytes stay within its cap, no run is
+   left after a query, and with ``DSQL_SPILL_MB=0`` the join raises
+   ``StreamingUnsupported``.  (c) phase 10's W1 over the chunked lineitem
+   (buckets of l_suppkey) equal to the resident answer row for row.  (d)
+   lineitem at SF 10 (about 60 M rows, 15 batches of the default
+   4,194,304) chunked, Q1 and Q6 cold and warm against the numpy oracles
+   of the same data.  One ``ooc table:`` JSON line per query of (a) and an
+   ``ooc summary:`` line; the ``kernels`` line carries Q1's kernel-1
+   launches of (a) as ``launches_out_of_core_q1``.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -908,6 +935,17 @@ def wall_ms(fn) -> float:
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def stream_wall_ms(fn) -> float:
+    """``wall_ms`` ending in the current stream's synchronisation, not the
+    device's: safe while another thread captures a CUDA graph."""
+    stream = torch.cuda.current_stream()
+    stream.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    stream.synchronize()
     return (time.perf_counter() - t0) * 1e3
 
 
@@ -2109,7 +2147,10 @@ def phase_tiering(ctx, eager_results: dict) -> dict:
 
     try:
         box = {}
-        first_ms = wall_ms(lambda: box.update(r=ctx.sql(text)))
+        # a device-wide synchronize while the background build captures
+        # would invalidate its capture: the first arrival is timed to its
+        # own stream's synchronisation
+        first_ms = stream_wall_ms(lambda: box.update(r=ctx.sql(text)))
         first_tier, _, _ = _last_tier(ctx)
         thread = threading.Thread(target=eager_side, name="eager-side")
         thread.start()
@@ -3575,6 +3616,433 @@ def phase_serving(ctx, tables: dict, answers: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: out-of-core execution (chunked tables, the streaming executor,
+# grace-hash joins over the spill store)
+# ---------------------------------------------------------------------------
+
+#: (a)-(c): lineitem in batches of 1,048,576 rows (6 at SF 1, the last short)
+OOC_BATCH_ROWS = 1 << 20
+#: (d): lineitem at this scale in the default 4,194,304-row batches
+OOC_SCALE_SF = 10.0
+#: (b): the spill store as scripts/ooc_smoke.py sets it
+OOC_SPILL_ENV = {"DSQL_SPILL_MB": "64", "DSQL_SPILL_DEVICE_MB": "8"}
+#: (b): a Q3-shaped orders-lineitem join under a GROUP BY
+OOC_JOIN = ("SELECT o_orderpriority, COUNT(*) AS n, "
+            "SUM(l_extendedprice * (1 - l_discount)) AS revenue "
+            "FROM orders JOIN lineitem ON o_orderkey = l_orderkey "
+            "WHERE o_orderdate < DATE '1995-03-15' "
+            "AND l_shipdate > DATE '1995-03-15' "
+            "GROUP BY o_orderpriority ORDER BY o_orderpriority")
+
+
+class GraphLog:
+    """Calls and captures of every CUDA-graph program while it is entered
+    (``GraphProgram.__call__`` and ``_warm_and_capture`` wrapped), mapped
+    after the run to the compiled tier's plan keys: which programs scan a
+    streamed batch or a grace-join pair."""
+
+    def __enter__(self):
+        from dask_sql_tpu_torch.physical import graphs
+
+        self.calls, self.captures = {}, {}
+        cls = graphs.GraphProgram
+        self._orig = (cls.__call__, cls._warm_and_capture)
+        call, capture = self._orig
+        log = self
+
+        def logged_call(prog, *flat):
+            log.calls[id(prog)] = log.calls.get(id(prog), 0) + 1
+            return call(prog, *flat)
+
+        def logged_capture(prog, key, flat):
+            log.captures[id(prog)] = log.captures.get(id(prog), 0) + 1
+            return capture(prog, key, flat)
+
+        cls.__call__, cls._warm_and_capture = logged_call, logged_capture
+        return self
+
+    def __exit__(self, *exc):
+        from dask_sql_tpu_torch.physical import graphs
+
+        graphs.GraphProgram.__call__, graphs.GraphProgram._warm_and_capture = \
+            self._orig
+
+    def streamed(self) -> list:
+        """Per streamed split (the programs whose plan scans
+        ``__stream__.batch``, the full batch's and the padded last batch's
+        together, or a grace pair): ``programs`` (compiled programs run:
+        one per batch layout and capacity set; a capacity escalation, the
+        tier's ``recompiles``, is a new program), ``calls``, ``captures``
+        and ``replays``, and the most captures of any one program."""
+        from dask_sql_tpu_torch.physical import compiled
+
+        rows = {}
+        for key, entry in list(compiled._cache.items()):
+            if not isinstance(entry, compiled._Compiled):
+                continue
+            fp = key[0][0]
+            if "__stream__.batch" not in fp and "__stream__.grace_l" not in fp:
+                continue
+            pid = id(entry.fn)
+            if pid not in self.calls:
+                continue
+            row = rows.setdefault(fp.replace("+rv", ""), {
+                "programs": 0, "calls": 0, "captures": 0,
+                "most_captures": 0})
+            caps = self.captures.get(pid, 0)
+            row["programs"] += 1
+            row["calls"] += self.calls[pid]
+            row["captures"] += caps
+            row["most_captures"] = max(row["most_captures"], caps)
+        out = []
+        for _name, row in sorted(rows.items()):
+            row["replays"] = row["calls"] - row["captures"]
+            out.append(row)
+        return out
+
+
+def _upload_bytes(report) -> list:
+    """``upload_bytes`` of each ``stream_batch`` span of a query report."""
+    return [s.attrs["upload_bytes"] for s in report.root.walk()
+            if s.name == "stream_batch" and "upload_bytes" in s.attrs]
+
+
+def _ooc_run(ctx, text: str) -> dict:
+    """One run of ``text`` (the launch counts set to 0 before it and read
+    after it): the result, the wall, the streamed programs' calls,
+    captures and replays, the batches and their upload bytes."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    gk.reset_launch_counts()
+    box = {}
+    with GraphLog() as log:
+        ms = wall_ms(lambda: box.update(r=ctx.sql(text)))
+    rep = ctx.last_report
+    uploads = _upload_bytes(rep)
+    return {"result": box["r"], "ms": ms, "programs": log.streamed(),
+            "batches": rep.counters.get("stream_batches", 0),
+            "upload_bytes": sum(uploads), "uploads": len(uploads),
+            "launches": {k: v for k, v in gk.LAUNCHES.items() if v},
+            "counters": rep.counters}
+
+
+def _check_streamed(name: str, run: dict) -> None:
+    """Each streamed program was captured at most once (so a split takes
+    two captures, the full batch's and the padded last batch's, plus one
+    per capacity escalation), and every other call was a replay."""
+    for p in run["programs"]:
+        if p["most_captures"] > 1 or p["replays"] < p["calls"] - p["programs"]:
+            raise AssertionError(f"{name}: streamed programs captured more "
+                                 f"than once: {run['programs']}")
+
+
+def _graph_cells(programs: list) -> str:
+    """(programs, captures, replays) of each streamed split, as JSON."""
+    return json.dumps([(p["programs"], p["captures"], p["replays"])
+                       for p in programs])
+
+
+def _ooc_context(dev, ctx, tables: dict, chunked: dict) -> tuple:
+    """A Context on ``dev`` with the tables of ``chunked`` ({name:
+    batch_rows}) registered chunked from their numpy columns
+    (``ChunkedSource.from_columns``, no pandas) and the others sharing the
+    resident context's entries; returns it and the encode seconds."""
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.io.chunked import ChunkedSource
+
+    octx = Context(device=dev)
+    seconds = {}
+    for name, cols in tables.items():
+        if name in chunked:
+            t0 = time.perf_counter()
+            src = ChunkedSource.from_columns(cols, batch_rows=chunked[name])
+            seconds[name] = time.perf_counter() - t0
+            octx.create_table(name, src, chunked=True)
+        else:
+            octx.schema["root"].tables[name] = ctx.schema["root"].tables[name]
+    return octx, seconds
+
+
+def pinned_copy_gbps(dev, nbytes: int) -> float:
+    """The upload bound: one pinned host-to-device ``copy_`` of ``nbytes``,
+    timed with CUDA events (GB/s)."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    host.fill_(1)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    ms = cuda_ms(lambda: dst.copy_(host, non_blocking=True), reps=5)
+    return nbytes / ms / 1e6
+
+
+def upload_path_gbps(source, dev, columns) -> tuple:
+    """(bytes, GB/s) of the port's own upload path over every batch of
+    ``source`` (staging into pinned memory and the copy), host clock to
+    a synchronisation."""
+    total = 0
+
+    def run():
+        nonlocal total
+        total = 0
+        for i in range(source.n_batches):
+            t, rv = source.batch_table(i, dev, columns)
+            total += sum(c.data.numel() * c.data.element_size()
+                         + (0 if c.mask is None else c.mask.numel())
+                         for c in t.columns)
+    run()
+    ms = wall_ms(run)
+    return total, total / ms / 1e6
+
+
+def _sorted_columns(result, keys: tuple) -> dict:
+    """{name: host array} of ``result`` sorted by the ``keys`` columns."""
+    cols = {n: c.to_numpy() for n, c in zip(result.names, result.columns)}
+    order = np.lexsort(tuple(cols[k] for k in reversed(keys)))
+    return {n: v[order] for n, v in cols.items()}
+
+
+def ooc_one_table(dev, ctx, tables: dict, answers: dict) -> tuple:
+    """15(a): lineitem chunked, Q1-Q22 cold and warm against phase 7;
+    Q1 and Q6 profiled, and once more eagerly (``DSQL_COMPILE=0``)."""
+    octx, enc = _ooc_context(dev, ctx, tables,
+                             {"lineitem": OOC_BATCH_ROWS})
+    source = octx.schema["root"].tables["lineitem"].chunked
+    print(f"ooc: lineitem chunked, {source.n_rows} rows in "
+          f"{source.n_batches} batches of {OOC_BATCH_ROWS} (encoded in "
+          f"{enc['lineitem']:.1f} s, no pandas)")
+    rows, failures = [], []
+    q1_launches = None
+    for qid in sorted(QUERIES):
+        text = QUERIES[qid]
+        try:
+            cold = _ooc_run(octx, text)
+            warm = _ooc_run(octx, text)
+            for label, run in (("cold", cold), ("warm", warm)):
+                check_same_result(f"ooc Q{qid} {label}", run["result"],
+                                  answers[qid], 1e-9)
+                _check_streamed(f"ooc Q{qid} {label}", run)
+            if qid == 1:
+                q1_launches = warm["launches"].get("segsum_fixedpoint", 0)
+                if q1_launches < source.n_batches:
+                    raise AssertionError(
+                        f"ooc Q1 launched kernel 1 {q1_launches} times for "
+                        f"{source.n_batches} batches")
+        except Exception as exc:  # reported together after the loop
+            import traceback
+            traceback.print_exc()
+            failures.append(f"Q{qid}: {type(exc).__name__}: {exc}")
+            continue
+        per_batch = (warm["upload_bytes"] / warm["uploads"]
+                     if warm["uploads"] else 0)
+        row = {"q": qid, "cold_ms": cold["ms"], "warm_ms": warm["ms"],
+               "stream_batches": warm["batches"],
+               "programs_cold": cold["programs"],
+               "programs_warm": warm["programs"],
+               "upload_bytes_per_batch": per_batch,
+               "effective_h2d_gbps": (warm["upload_bytes"] / warm["ms"] / 1e6
+                                      if warm["ms"] else 0.0),
+               "launches_warm": warm["launches"]}
+        rows.append(row)
+        print(f"ooc Q{qid}: cold {cold['ms']:.1f} ms, warm {warm['ms']:.1f} "
+              f"ms; {warm['batches']} batches, {per_batch / 1e6:.1f} MB "
+              f"uploaded per batch, {row['effective_h2d_gbps']:.2f} GB/s "
+              f"effective; streamed splits cold "
+              + _graph_cells(cold["programs"]) + " warm "
+              + _graph_cells(warm["programs"])
+              + f" (programs, captures, replays); launched "
+              f"{warm['launches'] or '-'}")
+    if failures:
+        raise AssertionError("phase 15(a): " + "; ".join(failures))
+    for row in rows:
+        print("ooc table: " + json.dumps(row))
+    q1_cols = ["l_returnflag", "l_linestatus", "l_quantity",
+               "l_extendedprice", "l_discount", "l_tax", "l_shipdate"]
+    nbytes, path_gbps = upload_path_gbps(source, dev, q1_cols)
+    bound = pinned_copy_gbps(dev, nbytes // source.n_batches)
+    print(f"ooc upload: Q1's {len(q1_cols)} columns, {nbytes} bytes in "
+          f"{source.n_batches} batches: the port's path {path_gbps:.2f} GB/s, "
+          f"one pinned copy_ of a batch {bound:.2f} GB/s (the bound)")
+    # the profiler slows the run down: the idle share is also given
+    # against the unprofiled warm wall
+    profiles = {}
+    for q in (1, 6):
+        prof = profile_query(octx, f"ooc Q{q}", QUERIES[q])
+        warm_ms = next(r["warm_ms"] for r in rows if r["q"] == q)
+        prof["unprofiled_warm_ms"] = warm_ms
+        prof["idle_vs_unprofiled"] = 1 - prof["busy_ms"] / warm_ms
+        print(f"ooc Q{q}: device busy {prof['busy_ms']:.2f} ms of an "
+              f"unprofiled warm {warm_ms:.2f} ms: idle "
+              f"{100 * prof['idle_vs_unprofiled']:.1f}%")
+        profiles[q] = prof
+    os.environ["DSQL_COMPILE"] = "0"
+    try:
+        for qid in (1, 6):
+            run = _ooc_run(octx, QUERIES[qid])
+            check_same_result(f"ooc eager Q{qid}", run["result"],
+                              answers[qid], 1e-9)
+            print(f"ooc eager Q{qid}: {run['ms']:.1f} ms, {run['batches']} "
+                  f"batches, equal to phase 7 (the eager scan compacts the "
+                  f"padded last batch)")
+    finally:
+        os.environ.pop("DSQL_COMPILE", None)
+    return octx, {"rows": rows, "q1_launches": q1_launches,
+                  "upload_path_gbps": path_gbps, "pinned_copy_gbps": bound,
+                  "profiles": profiles}
+
+
+def ooc_two_tables(dev, ctx, tables: dict, answers: dict) -> dict:
+    """15(b): orders and lineitem chunked, the grace-hash join over the
+    spill store (its device tier capped small, runs under ``build/``)."""
+    from dask_sql_tpu_torch.physical.streaming import StreamingUnsupported
+    from dask_sql_tpu_torch.runtime import spill
+
+    spill_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "ooc_spill")
+    os.environ.update(OOC_SPILL_ENV)
+    os.environ["DSQL_SPILL_DIR"] = spill_dir
+    spill.reset_store()
+    out = {}
+    try:
+        octx, _ = _ooc_context(dev, ctx, tables,
+                               {"orders": OOC_BATCH_ROWS,
+                                "lineitem": OOC_BATCH_ROWS})
+        want = {"Q3": answers[3], "OJ": ctx.sql(OOC_JOIN)}
+        for name, text in (("Q3", QUERIES[3]), ("OJ", OOC_JOIN)):
+            run = _ooc_run(octx, text)
+            check_same_result(f"ooc join {name}", run["result"], want[name],
+                              1e-9)
+            _check_streamed(f"ooc join {name}", run)
+            c = run["counters"]
+            moved = {k: c.get(k, 0) for k in
+                     ("morsel_joins", "morsel_pairs", "spill_partitions",
+                      "spill_chunks", "spill_flushes", "spill_loads",
+                      "spill_demotions", "spill_bytes_host",
+                      "spill_bytes_disk", "stream_batches")}
+            for k in ("morsel_joins", "morsel_pairs", "spill_partitions"):
+                if moved[k] < 1:
+                    raise AssertionError(f"ooc join {name}: {k} did not "
+                                         f"advance: {moved}")
+            stats = spill.get_store().stats()
+            if stats["runs"] or stats["host_bytes"] or stats["disk_bytes"]:
+                raise AssertionError(f"ooc join {name}: runs left: {stats}")
+            if stats["peak_device_bytes"] > stats["device_cap"]:
+                raise AssertionError(f"ooc join {name}: peak device bytes "
+                                     f"{stats['peak_device_bytes']} over the "
+                                     f"cap {stats['device_cap']}")
+            out[name] = {"ms": run["ms"], "counters": moved,
+                         "peak_device_bytes": stats["peak_device_bytes"],
+                         "device_cap": stats["device_cap"],
+                         "programs": run["programs"]}
+            print(f"ooc join {name}: {run['ms']:.1f} ms, equal to the "
+                  f"resident answer; {json.dumps(moved)}; store peak device "
+                  f"{stats['peak_device_bytes']} of a {stats['device_cap']}-"
+                  f"byte cap, no run left; streamed splits "
+                  + _graph_cells(run["programs"]))
+        os.environ["DSQL_SPILL_MB"] = "0"
+        spill.reset_store()
+        try:
+            octx.sql(QUERIES[3])
+        except StreamingUnsupported as exc:
+            print(f"ooc join with DSQL_SPILL_MB=0: StreamingUnsupported "
+                  f"({exc})")
+        else:
+            raise AssertionError("ooc join with DSQL_SPILL_MB=0 answered")
+    finally:
+        for k in (*OOC_SPILL_ENV, "DSQL_SPILL_DIR"):
+            os.environ.pop(k, None)
+        spill.reset_store()
+    return out
+
+
+def ooc_window(ctx, octx) -> dict:
+    """15(c): phase 10's W1 over the chunked lineitem (the window regroup:
+    buckets of l_suppkey) against the resident answer, rows sorted by
+    (l_orderkey, l_linenumber)."""
+    os.environ["DSQL_COMPILE"] = "0"
+    try:
+        want = _sorted_columns(ctx.sql(SURFACE["W1"]),
+                               ("l_orderkey", "l_linenumber"))
+    finally:
+        os.environ.pop("DSQL_COMPILE", None)
+    run = _ooc_run(octx, SURFACE["W1"])
+    got = _sorted_columns(run["result"], ("l_orderkey", "l_linenumber"))
+    for name, w in want.items():
+        if not np.array_equal(got[name], w):
+            raise AssertionError(f"ooc W1.{name} differs from phase 10's")
+    print(f"ooc W1: {run['ms']:.1f} ms, {run['batches']} batches and "
+          f"buckets, {len(want['rn'])} rows equal to phase 10's; streamed "
+          "splits " + _graph_cells(run["programs"]))
+    return {"ms": run["ms"], "batches": run["batches"]}
+
+
+def ooc_at_scale(dev, sf: float, seed: int) -> dict:
+    """15(d): lineitem at ``sf`` chunked in the default batches, Q1 and Q6
+    against the numpy oracles of the same data."""
+    from dask_sql_tpu_torch.io.chunked import DEFAULT_BATCH_ROWS
+
+    t0 = time.perf_counter()
+    tables = generate_tpch(sf, seed)
+    li = tables.pop("lineitem")
+    tables.clear()
+    gen_s = time.perf_counter() - t0
+    want = {1: oracle_q1(li), 6: oracle_q6(li)}
+    octx, enc = _ooc_context(dev, None, {"lineitem": li},
+                             {"lineitem": DEFAULT_BATCH_ROWS})
+    source = octx.schema["root"].tables["lineitem"].chunked
+    print(f"ooc scale: SF {sf} lineitem {source.n_rows} rows in "
+          f"{source.n_batches} batches of {DEFAULT_BATCH_ROWS} (generated "
+          f"in {gen_s:.1f} s, encoded in {enc['lineitem']:.1f} s)")
+    del li
+    out = {"sf": sf, "rows": source.n_rows, "batches": source.n_batches}
+    for qid in (1, 6):
+        cold = _ooc_run(octx, QUERIES[qid])
+        warm = _ooc_run(octx, QUERIES[qid])
+        for label, run in (("cold", cold), ("warm", warm)):
+            got = {k: v.tolist() for k, v in run["result"].to_numpy().items()}
+            check_answer(f"ooc SF {sf} Q{qid} {label}", got, want[qid])
+            _check_streamed(f"ooc SF {sf} Q{qid} {label}", run)
+        gbps = warm["upload_bytes"] / warm["ms"] / 1e6
+        out[f"Q{qid}"] = {"cold_ms": cold["ms"], "warm_ms": warm["ms"],
+                          "batches": warm["batches"],
+                          "upload_bytes": warm["upload_bytes"],
+                          "effective_h2d_gbps": gbps,
+                          "launches": warm["launches"]}
+        print(f"ooc scale Q{qid}: cold {cold['ms']:.1f} ms, warm "
+              f"{warm['ms']:.1f} ms, {warm['batches']} batches, "
+              f"{warm['upload_bytes'] / 1e9:.2f} GB uploaded, {gbps:.2f} GB/s "
+              f"effective, equal to the numpy oracle; launched "
+              f"{warm['launches'] or '-'}")
+    return out
+
+
+def phase_ooc(dev, ctx, tables: dict, answers: dict, seed: int) -> dict:
+    """Phase 15 (see ``ooc_one_table``, ``ooc_two_tables``, ``ooc_window``,
+    ``ooc_at_scale``) on the default path (the compiled tier first)."""
+    os.environ.pop("DSQL_COMPILE", None)
+    forget_programs()
+    t0 = time.perf_counter()
+    octx, one = ooc_one_table(dev, ctx, tables, answers)
+    t1 = time.perf_counter()
+    two = ooc_two_tables(dev, ctx, tables, answers)
+    t2 = time.perf_counter()
+    window = ooc_window(ctx, octx)
+    del octx
+    forget_programs()
+    t3 = time.perf_counter()
+    scale = ooc_at_scale(dev, OOC_SCALE_SF, seed)
+    forget_programs()
+    seconds = {"one_table": t1 - t0, "two_tables": t2 - t1,
+               "window": t3 - t2, "scale": time.perf_counter() - t3}
+    print("ooc summary: " + json.dumps(
+        {"seconds": seconds, "q1_launches": one["q1_launches"],
+         "upload_path_gbps": one["upload_path_gbps"],
+         "pinned_copy_gbps": one["pinned_copy_gbps"],
+         "idle": {q: p["idle"] for q, p in one["profiles"].items()},
+         "idle_vs_unprofiled": {q: p["idle_vs_unprofiled"]
+                                for q, p in one["profiles"].items()},
+         "two_tables": two, "window": window, "scale": scale}))
+    return {"q1_launches": one["q1_launches"]}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--sf", type=float, default=1.0)
@@ -3641,7 +4109,9 @@ def main(argv=None) -> int:
         print("surface table: " + json.dumps(row))
     phase_frontend(ctx)
     phase_statements(ctx, tables, on_results[1])
+    ooc = phase_ooc(dev, ctx, tables, on_results, args.seed)
     kernel1["launches"] = compiled_launches["segsum_fixedpoint"]
+    kernel1["launches_out_of_core_q1"] = ooc["q1_launches"]
     print(f"card: {card}")
     print(json.dumps({"kernels": [kernel1, kernel2]}))
     print(json.dumps({"ok": True, "device": {

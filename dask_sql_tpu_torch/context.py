@@ -2,7 +2,8 @@
 
 The counterpart of ``dask_sql_tpu.Context``: ``create_table`` (a dict of
 numpy arrays, a ``Table``, or a pandas frame; it collects the table's
-statistics, ``runtime/statistics.py``), ``drop_table``, ``alter_table``,
+statistics, ``runtime/statistics.py``; ``chunked=True`` keeps the table on
+the host in batches, streamed by ``physical/streaming.py``), ``drop_table``, ``alter_table``,
 the schemas (``create_schema``, ``drop_schema``, ``alter_schema``,
 ``fqn``), per-table catalog epochs, ``sql`` (queries with ``params`` for
 their ``?`` markers, and every statement of
@@ -83,6 +84,9 @@ class Context:
         self._epoch_counter = itertools.count(1)
         # PREPARE: name -> PrepareStatement; EXECUTE binds its query anew
         self._prepared: dict = {}
+        # a chunked table was registered: plans are checked for chunked
+        # scans, which go to the streaming executor
+        self._has_chunked = False
 
     # -------------------------------------------------------------- epochs
     def table_epoch(self, schema_name: str, table_name: str) -> int:
@@ -126,9 +130,23 @@ class Context:
 
     # -------------------------------------------------------------- tables
     def create_table(self, table_name: str, input_table: Any,
-                     schema_name: Optional[str] = None) -> None:
+                     schema_name: Optional[str] = None, chunked: bool = False,
+                     batch_rows: Optional[int] = None) -> None:
         """Register a dict of column -> numpy array (or list), a ``Table``,
-        or a pandas DataFrame as a SQL table on this context's device."""
+        or a pandas DataFrame as a SQL table on this context's device.
+
+        ``chunked=True``: out-of-device-memory mode.  The data stays on the
+        host as encoded batches of ``batch_rows`` rows (default
+        ``io.chunked.DEFAULT_BATCH_ROWS``) and queries stream it through
+        the device one batch at a time (``physical/streaming.py``).  It
+        takes a dict of numpy arrays (``ChunkedSource.from_columns``, no
+        pandas needed), a pandas frame, a parquet path (pyarrow) or a
+        ``ChunkedSource``."""
+        schema_name = schema_name or self.schema_name
+        if chunked:
+            self._create_chunked(table_name, input_table, schema_name,
+                                 batch_rows)
+            return
         if isinstance(input_table, Table):
             table = Table(input_table.names,
                           [_to(c, self.device) for c in input_table.columns])
@@ -139,9 +157,32 @@ class Context:
         else:
             raise TypeError(
                 f"create_table: unsupported input {type(input_table).__name__}")
-        schema_name = schema_name or self.schema_name
         self.schema[schema_name].tables[table_name.lower()] = TableEntry(
             table=table, stats=_stats.collect_table_stats(table))
+        self.bump_table_epoch(schema_name, table_name)
+
+    def _create_chunked(self, table_name: str, input_table: Any,
+                        schema_name: str, batch_rows: Optional[int]) -> None:
+        from .io.chunked import DEFAULT_BATCH_ROWS, ChunkedSource
+
+        rows = batch_rows or DEFAULT_BATCH_ROWS
+        if isinstance(input_table, ChunkedSource):
+            source = input_table
+        elif isinstance(input_table, dict):
+            source = ChunkedSource.from_columns(input_table, batch_rows=rows)
+        elif isinstance(input_table, str):
+            source = ChunkedSource.from_parquet(input_table, batch_rows=rows)
+        elif hasattr(input_table, "columns") and hasattr(input_table, "dtypes"):
+            source = ChunkedSource.from_pandas(input_table, batch_rows=rows)
+        else:
+            raise TypeError(
+                "chunked=True accepts a dict of numpy arrays, a pandas "
+                "frame, a parquet path or a ChunkedSource")
+        self._has_chunked = True
+        self.schema[schema_name].tables[table_name.lower()] = TableEntry(
+            table=source.schema_table(self.device), chunked=source,
+            statistics={"row_count": source.n_rows},
+            filepath=input_table if isinstance(input_table, str) else None)
         self.bump_table_epoch(schema_name, table_name)
 
     def drop_table(self, table_name: str, schema_name: Optional[str] = None):
@@ -303,11 +344,20 @@ class Context:
         flag, a rung of its ladder, or a cold plan answered eager while
         its programs build); the span says which with ``tier``:
         ``compiled``, ``eager`` or the tier's own ``eager-compiling``.
-        Only a successful execution is stored."""
+        Only a successful execution is stored.  Before all of it, a plan
+        that scans a chunked table goes to the streaming executor
+        (``physical/streaming.py``), whose batches take the same tiers."""
         from .physical.compiled import try_execute_compiled
         from .physical.rel.executor import RelExecutor
         from .runtime import result_cache as _rc
 
+        if self._has_chunked:
+            # a chunked table's entry holds a binding stub: its plans
+            # stream through the streaming executor, never the paths below
+            from .physical.streaming import (execute_streaming,
+                                             plan_references_chunked)
+            if plan_references_chunked(plan, self):
+                return execute_streaming(plan, self)
         cache = _rc.get_cache()
         ckey = _rc.plan_key(plan, self) if cache.enabled() else None
         if ckey is not None:

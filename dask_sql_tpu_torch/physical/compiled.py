@@ -1804,14 +1804,22 @@ def _flatten_tables(scans) -> List[torch.Tensor]:
 
 def _copied_positions(scans, n_params: int) -> List[int]:
     """Positions of the inputs that change on every call: the tensors of
-    ``__split__`` scans (a stage's materialized boundary) and the trailing
-    parameters.  A CUDA graph copies them into its own buffers."""
+    ``__split__`` scans (a stage's materialized boundary), of the
+    out-of-core path's ``__stream__`` tables (``streaming.py``'s batch or
+    window bucket and ``morsel.py``'s pair sides ``grace_l`` and
+    ``grace_r``, each with its ``row_valid``, replaced per call; the
+    temps a streamed query materializes, named afresh by every query) and
+    the trailing parameters.  A CUDA graph copies them into its own
+    buffers, so a streamed batch is one device copy and one replay, and a
+    repeated streamed query replays the graphs of the last one."""
+    from .streaming import STREAM_SCHEMA
+
     out: List[int] = []
     i = 0
     for skey, tbl, row_valid in scans:
         n = (sum(2 if c.mask is not None else 1 for c in tbl.columns)
              + (row_valid is not None))
-        if skey[0] == _SPLIT_SCHEMA:
+        if skey[0] in (_SPLIT_SCHEMA, STREAM_SCHEMA):
             out.extend(range(i, i + n))
         i += n
     out.extend(range(i, i + n_params))

@@ -138,6 +138,10 @@ class _SyncWatch:
         self._prev_mode = 0
         self._prev_show = None
         self._filtered = False
+        # one bound method, so that the restore below can tell by identity
+        # whether the hook is still installed (every ``self._show`` is a
+        # new object)
+        self._hook = self._show
 
     @contextmanager
     def watch(self):
@@ -151,7 +155,7 @@ class _SyncWatch:
                     self._filtered = True
                 self._prev_mode = torch.cuda.get_sync_debug_mode()
                 self._prev_show = warnings.showwarning
-                warnings.showwarning = self._show
+                warnings.showwarning = self._hook
                 torch.cuda.set_sync_debug_mode("warn")
             self._active[tid] = seen
         try:
@@ -161,7 +165,7 @@ class _SyncWatch:
                 del self._active[tid]
                 if not self._active:
                     torch.cuda.set_sync_debug_mode(self._prev_mode)
-                    if warnings.showwarning is self._show:
+                    if warnings.showwarning is self._hook:
                         warnings.showwarning = self._prev_show
 
     @contextmanager

@@ -204,7 +204,15 @@ def _explain_analyze(plan, context) -> list:
     snap0 = _tel.REGISTRY.counters()
     t0 = time.perf_counter()
     with _stats.capture() as choices, _tel.record_nodes() as rec:
-        result = RelExecutor(context).execute(plan)
+        if getattr(context, "_has_chunked", False):
+            from ..streaming import execute_streaming, plan_references_chunked
+            if plan_references_chunked(plan, context):
+                # the chunked scans hold binding stubs: the plan streams
+                result = execute_streaming(plan, context)
+            else:
+                result = RelExecutor(context).execute(plan)
+        else:
+            result = RelExecutor(context).execute(plan)
     wall_ms = (time.perf_counter() - t0) * 1e3
     snap1 = _tel.REGISTRY.counters()
 

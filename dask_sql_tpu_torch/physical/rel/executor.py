@@ -92,6 +92,10 @@ class RelExecutor(Pluggable):
 def _table_scan(rel: LogicalTableScan, ex: RelExecutor) -> Table:
     entry = ex.context.catalog_entry(rel.schema_name, rel.table_name)
     t = entry.table if entry.table is not None else ex.execute(entry.plan)
+    if entry.table is not None and entry.row_valid is not None:
+        # a padded table (a streamed batch, a stage boundary): drop the
+        # padding rows (the compiled tier consumes the mask directly)
+        t = t.take(mask_to_indices(entry.row_valid))
     names = [f.name for f in rel.schema]
     return t.limit_to(names) if t.names != names else t
 

@@ -224,20 +224,6 @@ def estimate_plan_bytes(plan, context) -> int:
     return int(scan_bytes * min(mult, _MULTIPLIER_CAP)) + _MIN_ESTIMATE
 
 
-def _references_chunked(plan, context) -> bool:
-    stack = [plan]
-    while stack:
-        rel = stack.pop()
-        if type(rel).__name__ == "LogicalTableScan":
-            schema = context.schema.get(rel.schema_name)
-            entry = (schema.tables.get(rel.table_name)
-                     if schema is not None else None)
-            if getattr(entry, "chunked", None) is not None:
-                return True
-        stack.extend(getattr(rel, "inputs", ()) or ())
-    return False
-
-
 def estimate_working_set(plan, context) -> "Tuple[int, str]":
     """(bytes, source) for the admission reservation, by the first rung
     that answers: ``history`` (the flight recorder's measured bytes; not
@@ -249,7 +235,10 @@ def estimate_working_set(plan, context) -> "Tuple[int, str]":
     from .gates import refuse
 
     refuse("DSQL_HISTORY_FILE")
-    if _references_chunked(plan, context):
+    from ..physical.streaming import plan_references_chunked
+    if plan_references_chunked(plan, context):
+        # chunked plans stream one batch at a time: the heuristic's scan
+        # bytes are batch-bounded already (``_entry_bytes``)
         return estimate_plan_bytes(plan, context), "chunked"
     est = _stats.estimate_plan_bytes_stats(plan, context)
     if est is not None:

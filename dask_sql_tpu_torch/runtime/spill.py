@@ -23,10 +23,10 @@ movement between them:
 Every disk write and read passes the ``spill`` fault site and runs under
 ``retry_transient``; a device chunk's copy to the host passes
 ``host_transfer``.  Counters ``spill_*`` and gauges
-``spill_{device,host,disk}_bytes`` keep the JAX package's names.  The
-server's result pages are its user in the port; the grace-hash join and
-the morsel pipeline that also use it in the JAX package belong to the
-out-of-core execution, not ported yet.
+``spill_{device,host,disk}_bytes`` keep the JAX package's names.  Its
+users are the server's result pages and, as in the JAX package, the
+grace-hash join of two chunked tables (``physical/morsel.py``: partition
+runs on the host tier, pair outputs on the device tier while they fit).
 
 One RLock per store guards its runs and tiers; the byte totals are plain
 ints read without it, so the ledger's admission arithmetic never waits on

@@ -376,6 +376,12 @@ def estimate_rows(rel, context, _depth: int = 0) -> Optional[float]:
         if ts is not None:
             return float(ts.rows)
         entry = _scan_entry(rel, context)
+        if entry is None:
+            return None
+        chunked = getattr(entry, "chunked", None)
+        if chunked is not None:
+            # the entry's table is a 1-row binding stub: the source counts
+            return float(getattr(chunked, "n_rows", 0))
         table = getattr(entry, "table", None)
         return float(table.num_rows) if table is not None else None
     if isinstance(rel, N.LogicalValues):

@@ -19,6 +19,9 @@ pandas is imported only inside ``from_pandas`` / ``to_pandas`` and
 from __future__ import annotations
 
 import itertools
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, Iterable, Optional, Sequence
 
@@ -314,6 +317,86 @@ def array_to_device(data: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(data).pin_memory().to(device, non_blocking=True)
 
 
+#: staging copies split into slices of this many bytes, copied by a pool
+#: of threads when a batch holds at least ``_STAGE_PARALLEL_BYTES``
+_STAGE_SLICE = 8 << 20
+_STAGE_PARALLEL_BYTES = 32 << 20
+_stage_pool: Optional[ThreadPoolExecutor] = None
+_stage_pool_lock = threading.Lock()
+
+
+def _stage_workers() -> Optional[ThreadPoolExecutor]:
+    """The staging copy threads, started at the first large upload (never
+    at import); None on a one-core host."""
+    global _stage_pool
+    with _stage_pool_lock:
+        if _stage_pool is None:
+            n = min(8, os.cpu_count() or 1)
+            if n < 2:
+                return None
+            _stage_pool = ThreadPoolExecutor(n, thread_name_prefix="dsql-stage")
+        return _stage_pool
+
+
+def _stage(buf: np.ndarray, arrays, offsets, pads) -> None:
+    """Copy ``arrays`` into ``buf`` at ``offsets``, each followed by
+    ``pads`` zero bytes: the host copy into pinned memory bounds an
+    upload, so a large batch is copied in slices by threads (numpy
+    releases the interpreter lock for the copies)."""
+    slices = []
+    for a, off, pad in zip(arrays, offsets, pads):
+        raw = a.view(np.uint8)
+        for s in range(0, len(raw), _STAGE_SLICE):
+            slices.append((off + s, raw[s:s + _STAGE_SLICE]))
+        if pad:
+            buf[off + len(raw):off + len(raw) + pad] = 0
+
+    def copy(item):
+        off, raw = item
+        buf[off:off + len(raw)] = raw
+
+    total = sum(len(raw) for _, raw in slices)
+    pool = _stage_workers() if total >= _STAGE_PARALLEL_BYTES else None
+    if pool is None:
+        for item in slices:
+            copy(item)
+    else:
+        list(pool.map(copy, slices))
+
+
+def arrays_to_device(arrays: Sequence[np.ndarray], device: torch.device,
+                     pad_to: Optional[int] = None) -> list:
+    """Upload host arrays together without a host synchronisation, each
+    padded with zeros to ``pad_to`` elements when given.  On the card they
+    are copied (``_stage``) into one pinned staging buffer (16-byte
+    aligned slices) and sent in one non-blocking copy, whose device buffer
+    the results view.  The staging buffer comes from PyTorch's caching
+    host allocator, which records the copy's event and hands the block out
+    again only after the copy has finished, so a later batch never refills
+    a buffer still in flight.  The results never share memory with
+    ``arrays``."""
+    device = torch.device(device)
+    arrays = [np.ascontiguousarray(a).reshape(-1) for a in arrays]
+    lengths = [len(a) if pad_to is None else max(pad_to, len(a))
+               for a in arrays]
+    if device.type != "cuda":
+        return [_to_device(np.concatenate([a, np.zeros(n - len(a), a.dtype)])
+                           if n > len(a) else a, device)
+                for a, n in zip(arrays, lengths)]
+    offsets, total = [], 0
+    for a, n in zip(arrays, lengths):
+        total = -(-total // 16) * 16
+        offsets.append(total)
+        total += n * a.itemsize
+    stage = torch.empty(max(total, 1), dtype=torch.uint8, pin_memory=True)
+    _stage(stage.numpy(), arrays, offsets,
+           [(n - len(a)) * a.itemsize for a, n in zip(arrays, lengths)])
+    dev = stage.to(device, non_blocking=True)
+    return [dev[off:off + n * a.itemsize]
+            .view(torch.from_numpy(np.empty(0, a.dtype)).dtype)
+            for a, off, n in zip(arrays, offsets, lengths)]
+
+
 def _as_mask(mask, device: torch.device) -> Optional[torch.Tensor]:
     if mask is None:
         return None
@@ -431,9 +514,12 @@ _PANDAS_NULLABLE_NUMPY = {
 
 
 def host_encode_numpy(values: np.ndarray, stype: Optional[SqlType] = None,
-                      mask: Optional[np.ndarray] = None):
+                      mask: Optional[np.ndarray] = None,
+                      dictionary: Optional[np.ndarray] = None):
     """Ingestion encoding on HOST arrays: (data, mask, stype, dictionary),
-    by the JAX package's rules (``dask_sql_tpu.table.host_encode_numpy``)."""
+    by the JAX package's rules (``dask_sql_tpu.table.host_encode_numpy``).
+    ``dictionary``: a sorted dictionary shared by every batch of a chunked
+    source (``io/chunked.py``), which string values are encoded against."""
     values = np.asarray(values)
     if values.dtype.kind == "O" and (stype is None or not stype.is_string):
         import decimal as _decimal
@@ -465,7 +551,7 @@ def host_encode_numpy(values: np.ndarray, stype: Optional[SqlType] = None,
     if stype is None:
         stype = sql_type_from_numpy(values.dtype)
     if values.dtype.kind in ("O", "U", "S") or stype.is_string:
-        return _host_encode_strings(values, mask)
+        return _host_encode_strings(values, mask, dictionary)
     if values.dtype.kind == "M":
         vals = values.astype("datetime64[us]").astype(np.int64)
         na = np.isnat(values)
@@ -499,18 +585,54 @@ def _decode_bytes_objects(values: np.ndarray) -> np.ndarray:
     return values
 
 
-def _host_encode_strings(values: np.ndarray, mask: Optional[np.ndarray]):
+def string_uniques(values: np.ndarray) -> np.ndarray:
+    """Sorted unique strings of a column (NULLs -> ""): the dictionary pass
+    of a chunked source, with ingestion's null semantics."""
     if np.asarray(values).dtype.kind == "U":
-        # fixed-width unicode arrays hold no nulls: one vectorized unique
-        dictionary, codes = np.unique(np.asarray(values), return_inverse=True)
-        return (codes.astype(np.int32).reshape(-1), mask, VARCHAR,
-                dictionary.astype(object))
+        return np.unique(np.asarray(values)).astype(object)
     values = _decode_bytes_objects(np.asarray(values, dtype=object))
     isna = np.array([v is None or (isinstance(v, float) and np.isnan(v))
                      for v in values], dtype=bool)
     safe = np.where(isna, "", values).astype(str)
-    dictionary, codes = np.unique(safe, return_inverse=True)
-    dictionary = dictionary.astype(object)
+    return np.unique(safe).astype(object)
+
+
+def _encode_against(safe: np.ndarray, dictionary: np.ndarray) -> np.ndarray:
+    """Codes of ``safe`` in a sorted shared dictionary (binary search); a
+    value the dictionary lacks raises, as in the JAX package, where it
+    would otherwise take a neighbour's code."""
+    dict_str = dictionary.astype(str)
+    codes = np.searchsorted(dict_str, safe)
+    clipped = np.clip(codes, 0, len(dict_str) - 1)
+    if not np.array_equal(dict_str[clipped], safe):
+        missing = np.unique(safe[dict_str[clipped] != safe])[:5]
+        raise ValueError(
+            "string batch contains values absent from the shared "
+            f"dictionary (first few: {missing.tolist()!r}); the "
+            "dictionary pass missed this column's values")
+    return clipped
+
+
+def _host_encode_strings(values: np.ndarray, mask: Optional[np.ndarray],
+                         dictionary: Optional[np.ndarray] = None):
+    if np.asarray(values).dtype.kind == "U":
+        # fixed-width unicode arrays hold no nulls: one vectorized unique
+        values = np.asarray(values).reshape(-1)
+        if dictionary is None:
+            dictionary, codes = np.unique(values, return_inverse=True)
+            dictionary = dictionary.astype(object)
+        else:
+            codes = _encode_against(values, dictionary)
+        return codes.astype(np.int32).reshape(-1), mask, VARCHAR, dictionary
+    values = _decode_bytes_objects(np.asarray(values, dtype=object))
+    isna = np.array([v is None or (isinstance(v, float) and np.isnan(v))
+                     for v in values], dtype=bool)
+    safe = np.where(isna, "", values).astype(str)
+    if dictionary is None:
+        dictionary, codes = np.unique(safe, return_inverse=True)
+        dictionary = dictionary.astype(object)
+    else:
+        codes = _encode_against(safe, dictionary)
     codes = codes.astype(np.int32).reshape(-1)
     if isna.any():
         m = ~isna if mask is None else (np.asarray(mask, bool) & ~isna)
@@ -519,12 +641,13 @@ def _host_encode_strings(values: np.ndarray, mask: Optional[np.ndarray]):
     return codes, m, VARCHAR, dictionary
 
 
-def host_encode_series(s):
+def host_encode_series(s, dictionary: Optional[np.ndarray] = None):
     """Host-side encoding of a pandas Series: (data, mask, stype, dict).
 
     pandas 3 gives string columns ``StringDtype`` (``str``), on which
     ``np.issubdtype`` raises: every extension dtype is converted here, at
-    the pandas boundary, before any numpy dtype test."""
+    the pandas boundary, before any numpy dtype test.  ``dictionary``: a
+    chunked source's shared dictionary (``host_encode_numpy``)."""
     import pandas as pd
 
     dtype = s.dtype
@@ -532,11 +655,17 @@ def host_encode_series(s):
         arr = s.array
         mask = ~np.asarray(arr.isna())
         vals = arr.to_numpy(dtype=_PANDAS_NULLABLE_NUMPY[str(dtype)], na_value=0)
-        return host_encode_numpy(vals, mask=mask if not mask.all() else None)
+        return host_encode_numpy(vals, mask=mask if not mask.all() else None,
+                                 dictionary=dictionary)
     if isinstance(dtype, pd.StringDtype) or str(dtype) in ("string", "str"):
         vals = s.to_numpy(dtype=object, na_value=None)
-        return host_encode_numpy(vals)
+        return host_encode_numpy(vals, dictionary=dictionary)
     if isinstance(dtype, pd.CategoricalDtype):
+        if dictionary is not None:
+            # the shared dictionary overrides a batch's own categories
+            # (arrow row groups may carry differing ones)
+            return host_encode_numpy(s.astype(object).to_numpy(),
+                                     dictionary=dictionary)
         cats = s.cat.categories.to_numpy(dtype=object)
         codes = s.cat.codes.to_numpy().astype(np.int32)
         mask = codes >= 0
@@ -546,8 +675,8 @@ def host_encode_series(s):
     if isinstance(dtype, pd.DatetimeTZDtype):
         # tz-aware -> UTC naive
         s = s.dt.tz_convert("UTC").dt.tz_localize(None)
-        return host_encode_numpy(s.to_numpy())
-    return host_encode_numpy(s.to_numpy())
+        return host_encode_numpy(s.to_numpy(), dictionary=dictionary)
+    return host_encode_numpy(s.to_numpy(), dictionary=dictionary)
 
 
 def _has_none(v) -> bool:

@@ -515,6 +515,28 @@ def test_trace_mode_is_per_thread():
     assert out[0].tolist() == [0, 2, 4, 6, 8, 10]
 
 
+def test_sync_watch_restores_the_warnings_hook(monkeypatch):
+    """After a warm-up's watch the warnings hook is the caller's again, so
+    a later watch does not chain the hook to itself (on the card the next
+    warning other than a synchronisation then recursed without end)."""
+    import warnings
+
+    monkeypatch.setattr(torch.cuda, "get_sync_debug_mode", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda mode: None)
+    watch = graphs._SyncWatch()
+    before = warnings.showwarning
+    for _ in range(2):
+        with watch.watch() as seen:
+            assert warnings.showwarning is not before
+        assert warnings.showwarning is before and seen == []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with watch.watch():
+            pass
+        warnings.warn("not a synchronisation")
+    assert [str(w.message) for w in caught] == ["not a synchronisation"]
+
+
 # ---------------------------------------------------------------------------
 # bit equality with the JAX package
 # ---------------------------------------------------------------------------

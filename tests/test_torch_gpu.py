@@ -592,3 +592,41 @@ def test_eager_item_during_warm_up_does_not_raise(cuda_device):
 
     with pytest.raises(graphs.HostRead, match="synchronisation"):
         graphs.GraphProgram(syncs, cuda_device)(x)
+
+
+@pytest.mark.gpu
+def test_streamed_batches_replay_one_graph(cuda_device, monkeypatch):
+    """A chunked table of 5 batches, the last one short: a static GROUP BY
+    takes at most two captures (the full and the padded last batch), the
+    other batches are replays that launch kernel 1 each, and a repeated
+    query captures nothing; the answer equals the CPU's."""
+    from dask_sql_tpu_torch.physical import compiled
+
+    monkeypatch.setenv("DSQL_TIERED", "0")
+    monkeypatch.setenv("DSQL_EAGER_FALLBACK", "0")
+    rng = np.random.RandomState(4)
+    n = 4 * 65536 + 1234
+    cols = {"g": rng.choice(np.array(["A", "N", "R"]), n),
+            "x": np.round(rng.rand(n) * 1000, 2), "k": rng.randint(0, 9, n)}
+    q = "SELECT g, SUM(x) AS s, AVG(x) AS a, COUNT(*) AS n FROM ct GROUP BY g"
+    answers = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        c = Context(device=dev)
+        c.create_table("ct", cols, chunked=True, batch_rows=65536)
+        gk.reset_launch_counts()
+        before = dict(compiled.stats)
+        answers[dev.type] = c.sql(q).to_pylist()
+        delta = {k: compiled.stats.get(k, 0) - before.get(k, 0)
+                 for k in ("graph_captures", "graph_replays")}
+        if dev.type == "cuda":
+            # 2 batch programs, 1 merge program over the partials
+            assert delta["graph_captures"] <= 3, delta
+            assert delta["graph_replays"] >= 3, delta
+            assert gk.LAUNCHES["segsum_fixedpoint"] >= 5
+            before = dict(compiled.stats)
+            c.sql(q)
+            assert compiled.stats["graph_captures"] == \
+                before["graph_captures"]
+    for want, got in zip(sorted(answers["cpu"]), sorted(answers["cuda"])):
+        assert got[0] == want[0] and got[3] == want[3]
+        assert got[1:3] == pytest.approx(want[1:3], rel=1e-12)

@@ -119,6 +119,66 @@ def test_walk_covers_the_serving_path():
             "dask_sql_tpu_torch.cmd"} <= names
 
 
+def test_walk_covers_the_out_of_core_path():
+    """The import probe walks the out-of-core modules: the chunked source,
+    the streaming executor and the grace-hash join."""
+    import pkgutil
+
+    import dask_sql_tpu_torch
+
+    names = {info.name for info in pkgutil.walk_packages(
+        dask_sql_tpu_torch.__path__, "dask_sql_tpu_torch.")}
+    assert {"dask_sql_tpu_torch.io",
+            "dask_sql_tpu_torch.io.chunked",
+            "dask_sql_tpu_torch.physical.streaming",
+            "dask_sql_tpu_torch.physical.morsel"} <= names
+
+
+_NO_PANDAS_CHUNKED = """
+import sys
+sys.modules["pandas"] = None          # the card's machine has no pandas
+import json
+import numpy as np
+from dask_sql_tpu_torch import Context
+
+rng = np.random.RandomState(0)
+n = 5000
+cols = {"k": rng.choice(["a", "b", "c"], n), "x": rng.rand(n),
+        "j": np.arange(n) % 97}
+c = Context(device="cpu")
+c.create_table("t", cols, chunked=True, batch_rows=1024)
+c.create_table("u", {"j": np.arange(97), "w": np.arange(97) * 2.0},
+               chunked=True, batch_rows=40)
+got = c.sql("SELECT k, SUM(x) AS s, COUNT(*) AS n FROM t GROUP BY k "
+            "ORDER BY k").to_pylist()
+join = c.sql("SELECT SUM(t.x * u.w) AS s FROM t JOIN u ON t.j = u.j"
+             ).to_pylist()
+want = [[k, float(cols["x"][cols["k"] == k].sum()),
+         int((cols["k"] == k).sum())] for k in ("a", "b", "c")]
+print(json.dumps({"got": got, "want": want, "join": join[0][0],
+                  "join_want": float((cols["x"] * (cols["j"] * 2.0)).sum()),
+                  "batches": c.schema["root"].tables["t"].chunked.n_batches,
+                  "pandas": sys.modules.get("pandas") is None}))
+"""
+
+
+def test_chunked_query_without_pandas(tmp_path):
+    """A chunked table from a dict of numpy arrays, its streamed GROUP BY
+    and a grace-hash join of two chunked tables, in a process where
+    ``import pandas`` fails."""
+    env = {**os.environ, "DSQL_SPILL_MB": "64",
+           "DSQL_SPILL_DIR": str(tmp_path), "DSQL_TIERED": "0"}
+    out = subprocess.run([sys.executable, "-c", _NO_PANDAS_CHUNKED],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, check=True, env=env)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["pandas"] and res["batches"] == 5
+    assert [r[0] for r in res["got"]] == ["a", "b", "c"]
+    for (_, s, n), (_, ws, wn) in zip(res["got"], res["want"]):
+        assert n == wn and s == pytest.approx(ws, rel=1e-12)
+    assert res["join"] == pytest.approx(res["join_want"], rel=1e-12)
+
+
 _NO_PANDAS_SERVER = """
 import sys
 sys.modules["pandas"] = None          # the card's machine has no pandas
