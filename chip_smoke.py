@@ -191,6 +191,36 @@ the compiled tier first.
    ``ooc summary:`` line; the ``kernels`` line carries Q1's kernel-1
    launches of (a) as ``launches_out_of_core_q1``.
 
+16. the write path (last, on the default path, the result cache and the
+   workload manager on): (a) TPC-H's RF1 (spec 2.5: SF x 1,500 new orders
+   and their about SF x 6,000 lineitems on new keys, from the seed) ten
+   times, half as INSERT INTO ... SELECT from staged tables and half as
+   ``append_rows`` of numpy dicts: each append's wall and the bytes the
+   whole-table concat and the statistics move, Q1's cold (a new capture:
+   new tables) and warm wall after it.  (b) Four materialized views made
+   before the appends: Q1 (``agg``), a selection (``append``), orders
+   JOIN lineitem without an aggregate (``join``, the delta join) and
+   COUNT(DISTINCT l_suppkey) GROUP BY l_returnflag (``cdistinct``); after
+   each RF1 every view is read: it must refresh incrementally
+   (``mv_refresh_incremental`` +1, ``mv_refresh_full`` +0) and equal the
+   same query run directly (counts exact, doubles rtol 1e-9), and the Q1
+   view's refresh must launch kernel 1; at the end a tombstone and
+   REFRESH MATERIALIZED VIEW recompute each in full, equal to its
+   incremental result.  (c) ANALYZE TABLE lineitem on the card equal to
+   the port's CPU run (numeric cells rtol 1e-12).  (d) The ingest log
+   under ``build/`` with fsync on: RF1 lineitem batches through
+   ``append_rows``, through ``POST /v1/ingest`` of an in-process server
+   and coalesced two to a WAL line (batches/s, rows/s); a new Context
+   replays the log equal to the live table; a reader thread's Q6 answers
+   under the writer, on the default path (some from the compiled tier),
+   each equal Q6 over a committed prefix.  (e) CTAS over a chunked
+   lineitem equals the SELECT (F14), and ANALYZE TABLE over it equals
+   ANALYZE of the same columns resident, with the device's peak below the
+   table's bytes and within the resident ANALYZE's peak plus one column
+   and one batch.  One ``write table:`` JSON
+   line per RF1 and a ``write summary:`` line; the ``kernels`` line
+   carries the phase's kernel-1 launches as ``launches_write_path``.
+
 The last two lines are a JSON object ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints neither.
@@ -4043,6 +4073,593 @@ def phase_ooc(dev, ctx, tables: dict, answers: dict, seed: int) -> dict:
     return {"q1_launches": one["q1_launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the write path (appends, INSERT INTO, maintained views, ANALYZE
+# TABLE, the ingest log and POST /v1/ingest)
+# ---------------------------------------------------------------------------
+
+#: RF1 refresh functions of 16(a) and (b): half INSERT INTO ... SELECT
+RF1_ROUNDS = 10
+#: 16(d)'s batches through append_rows, through the server, and buffered
+INGEST_BATCHES = 4
+#: 16(d)'s micro-batch: this many RF1 lineitem batches coalesce
+INGEST_COALESCE = 2
+WRITE_VIEWS = {
+    "v_q1": QUERIES[1],
+    "v_sel": ("SELECT l_orderkey, l_linenumber, l_extendedprice, "
+              "l_discount, l_shipdate FROM lineitem "
+              "WHERE l_quantity > 48 AND l_discount >= 0.09"),
+    "v_join": ("SELECT o_orderkey, o_orderdate, o_orderpriority, "
+               "l_linenumber, l_extendedprice FROM orders "
+               "JOIN lineitem ON o_orderkey = l_orderkey "
+               "WHERE o_orderdate >= DATE '1998-06-01'"),
+    "v_cd": ("SELECT l_returnflag, COUNT(DISTINCT l_suppkey) AS n_supp "
+             "FROM lineitem GROUP BY l_returnflag"),
+}
+WRITE_SHAPES = {"v_q1": "agg", "v_sel": "append", "v_join": "join",
+                "v_cd": "cdistinct"}
+INGEST_DIR = os.path.join("build", "dask_sql_tpu_torch", "ingest-smoke")
+
+
+def rf1(sf: float, rng, first_key: int) -> tuple:
+    """TPC-H's New Sales refresh function (RF1, spec 2.5): SF x 1,500 new
+    orders on keys from ``first_key`` (every fourth key, as the base
+    table's) with their about SF x 6,000 lineitems, drawn as
+    ``generate_tpch`` draws the base tables.  Returns (orders, lineitem)
+    as dicts of numpy arrays."""
+    n_part = max(int(200_000 * sf), 50)
+    n_supp = max(int(10_000 * sf), 10)
+    n_cust = max(int(150_000 * sf), 30)
+    n_ord = max(int(1_500 * sf), 1)
+    ps_step = max(n_supp // 4, 1)
+    o_dates = rng.randint(_days("1992-01-01"), _days("1998-08-02"), n_ord)
+    keys = first_key + np.arange(n_ord) * 4
+    orders = {
+        "o_orderkey": keys,
+        "o_custkey": rng.randint(1, n_cust + 1, n_ord),
+        "o_orderstatus": rng.choice(["F", "O", "P"], n_ord,
+                                    p=[0.49, 0.49, 0.02]),
+        "o_totalprice": np.round(rng.uniform(800.0, 600_000.0, n_ord), 2),
+        "o_orderdate": _dates(o_dates),
+        "o_orderpriority": rng.choice(_PRIORITIES, n_ord),
+        "o_clerk": _tag("Clerk#", np.arange(n_ord) % 1000, 9),
+        "o_shippriority": np.zeros(n_ord, dtype=np.int64),
+        "o_comment": _blank(n_ord),
+    }
+    lines = rng.randint(1, 8, n_ord)
+    n_li = int(lines.sum())
+    odate = np.repeat(o_dates, lines)
+    ship = odate + rng.randint(1, 122, n_li)
+    commit = odate + rng.randint(30, 91, n_li)
+    receipt = ship + rng.randint(1, 31, n_li)
+    partkey = rng.randint(1, n_part + 1, n_li)
+    lineitem = {
+        "l_orderkey": np.repeat(keys, lines),
+        "l_partkey": partkey,
+        "l_suppkey": (partkey - 1 + rng.randint(0, 4, n_li) * ps_step)
+        % n_supp + 1,
+        "l_linenumber": np.arange(n_li) - np.repeat(np.cumsum(lines) - lines,
+                                                    lines) + 1,
+        "l_quantity": rng.randint(1, 51, n_li).astype(np.float64),
+        "l_extendedprice": np.round(rng.uniform(900.0, 105_000.0, n_li), 2),
+        "l_discount": np.round(rng.randint(0, 11, n_li) / 100.0, 2),
+        "l_tax": np.round(rng.randint(0, 9, n_li) / 100.0, 2),
+        "l_returnflag": np.where(receipt <= _days("1995-06-17"),
+                                 rng.choice(["R", "A"], n_li), "N"),
+        "l_linestatus": np.where(ship > _days("1995-06-17"), "O", "F"),
+        "l_shipdate": _dates(ship),
+        "l_commitdate": _dates(commit),
+        "l_receiptdate": _dates(receipt),
+        "l_shipinstruct": rng.choice(_INSTRUCTS, n_li),
+        "l_shipmode": rng.choice(_SHIPMODES, n_li),
+        "l_comment": _blank(n_li),
+    }
+    return orders, lineitem
+
+
+def _entry_bytes(ctx, name: str) -> int:
+    total = 0
+    for c in ctx.schema["root"].tables[name].table.columns:
+        total += c.data.numel() * c.data.element_size()
+        if c.mask is not None:
+            total += c.mask.numel()
+    return total
+
+
+def _host_rows(result) -> list:
+    """A result's rows on the host, in a canonical order (the views and
+    the direct queries answer the same rows in any order)."""
+    cols = [c.to_numpy() for c in result.columns]
+    rows = list(zip(*[v.tolist() for v in cols])) if cols else []
+    return sorted(rows, key=lambda r: tuple(
+        (v is None, str(v) if not isinstance(v, float) else f"{v:.9e}")
+        for v in r))
+
+
+def check_same_rows(name: str, got, want, rtol: float = 1e-9) -> None:
+    """Two results of one query in any row order: integers, strings,
+    timestamps and NULLs exact, doubles to ``rtol``."""
+    if got.names != want.names or got.num_rows != want.num_rows:
+        raise AssertionError(f"{name}: {got} != {want}")
+    for gr, wr in zip(_host_rows(got), _host_rows(want)):
+        for g, w in zip(gr, wr):
+            if isinstance(w, float) and isinstance(g, float) \
+                    and not (math.isnan(w) and math.isnan(g)):
+                if not math.isclose(g, w, rel_tol=rtol, abs_tol=0.0):
+                    raise AssertionError(f"{name}: {gr} != {wr}")
+            elif g != w:
+                raise AssertionError(f"{name}: {gr} != {wr}")
+
+
+WRITE_LAUNCHES: dict = {}
+
+
+def _fold_write_launches() -> dict:
+    """Add the launch counts into ``WRITE_LAUNCHES``, set them to 0, and
+    return what this step launched."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    step = dict(gk.LAUNCHES)
+    for k, v in step.items():
+        WRITE_LAUNCHES[k] = WRITE_LAUNCHES.get(k, 0) + v
+    gk.reset_launch_counts()
+    return step
+
+
+def _mv_counters() -> dict:
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+
+    c = tel.REGISTRY.counters()
+    return {k: c.get(k, 0) for k in ("mv_refresh_incremental",
+                                     "mv_refresh_full", "mv_deltas_recorded")}
+
+
+def _direct_ms(ctx, text: str) -> tuple:
+    """(result, wall ms) of a query run past the result cache's lookup."""
+    ctx._rc_bypass = True
+    try:
+        out = {}
+        ms = wall_ms(lambda: out.setdefault("r", ctx.sql(text)))
+        return out["r"], ms
+    finally:
+        ctx._rc_bypass = False
+
+
+def write_appends_and_views(ctx, sf: float, seed: int) -> dict:
+    """16(a) and (b): the views, then RF1 x ``RF1_ROUNDS`` (half INSERT
+    INTO ... SELECT from staged tables, half append_rows of numpy dicts),
+    each followed by a read of every view (incremental, equal to the
+    direct query), Q1's cold and warm wall over the appended base; at the
+    end a tombstone and REFRESH MATERIALIZED VIEW recompute each view in
+    full, equal to the incremental result."""
+    from dask_sql_tpu_torch.runtime import matview as mv
+
+    rng = np.random.RandomState(seed + 16)
+    first_key = int(ctx.sql("SELECT MAX(o_orderkey) AS m FROM orders")
+                    .to_pylist()[0][0]) + 4
+    create_ms = {}
+    for name, text in WRITE_VIEWS.items():
+        create_ms[name] = wall_ms(lambda: ctx.sql(
+            f"CREATE OR REPLACE MATERIALIZED VIEW {name} AS {text}"))
+    reg = ctx._matview_registry
+    for name, kind in WRITE_SHAPES.items():
+        v = reg.views[("root", name)]
+        if not v.maintainable or v.shape.kind != kind:
+            raise AssertionError(f"16(b) {name}: not maintained as {kind} "
+                                 f"({v.reason})")
+    _fold_write_launches()
+    rounds = []
+    latest = {}
+    for i in range(RF1_ROUNDS):
+        orders, lineitem = rf1(sf, rng, first_key)
+        first_key = int(orders["o_orderkey"][-1]) + 4
+        row = {"round": i, "rows": len(lineitem["l_orderkey"]),
+               "route": "insert" if i % 2 == 0 else "append_rows"}
+        if i % 2 == 0:
+            ctx.create_table("rf1_orders", orders)
+            ctx.create_table("rf1_lineitem", lineitem)
+            row["append_ms"] = wall_ms(lambda: (
+                ctx.sql("INSERT INTO orders SELECT * FROM rf1_orders"),
+                ctx.sql("INSERT INTO lineitem SELECT * FROM rf1_lineitem")))
+            ctx.drop_table("rf1_orders")
+            ctx.drop_table("rf1_lineitem")
+        else:
+            row["append_ms"] = wall_ms(lambda: (
+                ctx.append_rows("orders", orders),
+                ctx.append_rows("lineitem", lineitem)))
+        li1, ord1 = (_entry_bytes(ctx, "lineitem"),
+                     _entry_bytes(ctx, "orders"))
+        # concat_tables reads the base and the batch (the new table's
+        # bytes) and writes the new table; collect_table_stats reads it
+        row["concat_bytes"] = 2 * (li1 + ord1)
+        row["stats_bytes"] = li1 + ord1
+        row["append_launches"] = _fold_write_launches()
+        refresh = {}
+        for name, text in WRITE_VIEWS.items():
+            before = _mv_counters()
+            out = {}
+            ms = wall_ms(lambda: out.setdefault(
+                "r", ctx.sql(f"SELECT * FROM {name}")))
+            step = _fold_write_launches()
+            moved = {k: v - before[k] for k, v in _mv_counters().items()}
+            if moved["mv_refresh_incremental"] != 1 \
+                    or moved["mv_refresh_full"] != 0:
+                raise AssertionError(f"16(b) round {i} {name}: {moved} "
+                                     f"({reg.views[('root', name)].last_refresh_reason})")
+            if name == "v_q1" and step.get("segsum_fixedpoint", 0) < 1:
+                raise AssertionError(f"16(b) round {i}: the Q1 view's "
+                                     f"refresh launched no kernel 1: {step}")
+            direct, direct_ms = _direct_ms(ctx, text)
+            _fold_write_launches()   # the direct query's, not the view's
+            check_same_rows(f"16(b) round {i} {name}", out["r"], direct)
+            refresh[name] = {"incremental_ms": ms, "direct_cold_ms": direct_ms,
+                             "kernel1_launches": step.get(
+                                 "segsum_fixedpoint", 0)}
+            latest[name] = out["r"]
+        _fold_write_launches()
+        row["views"] = refresh
+        _, row["q1_warm_ms"] = _direct_ms(ctx, QUERIES[1])
+        row["q1_cold_ms"] = refresh["v_q1"]["direct_cold_ms"]
+        _fold_write_launches()
+        rounds.append(row)
+        print("write table: " + json.dumps(row))
+    # the direct queries' warm walls, then a full REFRESH of each view
+    full = {}
+    for name, text in WRITE_VIEWS.items():
+        _, warm = _direct_ms(ctx, text)
+        ctx.bump_table_epoch("root", "lineitem")   # a tombstone: no delta
+        before = _mv_counters()
+        ms = wall_ms(lambda: ctx.sql(f"REFRESH MATERIALIZED VIEW {name}"))
+        moved = {k: v - before[k] for k, v in _mv_counters().items()}
+        if moved["mv_refresh_full"] != 1:
+            raise AssertionError(f"16(b) REFRESH {name}: {moved}")
+        check_same_rows(f"16(b) REFRESH {name}", ctx.sql(
+            f"SELECT * FROM {name}"), latest[name])
+        full[name] = {"full_refresh_ms": ms, "direct_warm_ms": warm}
+    _fold_write_launches()
+    for name in WRITE_VIEWS:
+        ctx.sql(f"DROP MATERIALIZED VIEW {name}")
+    rows = mv.matview_rows(ctx)
+    if rows:
+        raise AssertionError(f"16(b): views left after DROP: {rows}")
+    return {"create_ms": create_ms, "rounds": rounds, "full": full}
+
+
+def write_analyze(ctx) -> dict:
+    """16(c): ANALYZE TABLE lineitem on the card, equal to the port's CPU
+    run over the same table (numeric cells rtol 1e-12, the others
+    exact)."""
+    from dask_sql_tpu_torch import Context
+
+    sql = "ANALYZE TABLE lineitem COMPUTE STATISTICS FOR ALL COLUMNS"
+    out = {}
+    ms = wall_ms(lambda: out.setdefault("r", ctx.sql(sql)))
+    cpu = Context(device=torch.device("cpu"))
+    cpu.create_table("lineitem", ctx.schema["root"].tables["lineitem"].table)
+    t0 = time.perf_counter()
+    want = cpu.sql(sql)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    got = out["r"]
+    if got.names != want.names or got.num_rows != want.num_rows:
+        raise AssertionError(f"16(c): {got} != {want}")
+    cells = 0
+    for name, g, w in zip(got.names, got.columns, want.columns):
+        for a, b in zip(g.to_pylist(), w.to_pylist()):
+            cells += 1
+            if a == b:
+                continue
+            try:
+                fa, fb = float(a), float(b)
+            except (TypeError, ValueError):
+                raise AssertionError(f"16(c) {name}: {a!r} != {b!r}")
+            if not math.isclose(fa, fb, rel_tol=1e-12):
+                raise AssertionError(f"16(c) {name}: {a!r} != {b!r}")
+    return {"analyze_ms": ms, "cpu_ms": cpu_ms, "cells": cells,
+            "columns": got.num_columns - 1}
+
+
+def _answered_by(ctx) -> str:
+    """``result_cache`` on a cache hit, else the tier of the context's
+    last query, from its report."""
+    tier = "eager"
+    for s in ctx.last_report.root.walk():
+        if s.attrs.get("result_cache") == "hit":
+            return "result_cache"
+        tier = s.attrs.get("tier", tier)
+    return tier
+
+
+def _post_json(url: str, body: dict) -> tuple:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _wire_batch(lineitem: dict) -> dict:
+    """An RF1 lineitem batch as a /v1/ingest body's columns (dates as ISO
+    strings, as a JSON client sends them)."""
+    out = {}
+    for k, v in lineitem.items():
+        if v.dtype.kind == "M":
+            out[k] = [str(d) for d in v.astype("datetime64[D]")]
+        else:
+            out[k] = v.tolist()
+    return out
+
+
+def _q6_prefixes(base: float, batches: list) -> list:
+    """Q6's answer over the base and each committed prefix of ``batches``."""
+    out, total = [base], base
+    for li in batches:
+        total += oracle_q6(li)["revenue"][0]
+        out.append(total)
+    return out
+
+
+def write_ingest(dev, ctx, sf: float, seed: int) -> dict:
+    """16(d): the ingest log armed at a directory under build/, fsync on:
+    RF1 lineitem batches through append_rows and through POST /v1/ingest
+    to an in-process server (batches/s, rows/s), again with
+    ``DSQL_INGEST_BATCH_ROWS`` > 1; a new Context replays the log equal to
+    the live table; a reader thread runs Q6 while the writer appends, each
+    answer equal to Q6 over a committed prefix."""
+    import shutil
+    import threading
+
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.runtime import ingest
+
+    shutil.rmtree(INGEST_DIR, ignore_errors=True)
+    env = {"DSQL_INGEST_DIR": INGEST_DIR, "DSQL_INGEST_FSYNC": "1"}
+    saved = {k: os.environ.get(k) for k in
+             list(env) + ["DSQL_INGEST_BATCH_ROWS", "DSQL_INGEST_BATCH_MS"]}
+    os.environ.update(env)
+    rng = np.random.RandomState(seed + 17)
+    base = ctx.schema["root"].tables["lineitem"].table
+    first_key = int(ctx.sql("SELECT MAX(l_orderkey) AS m FROM lineitem")
+                    .to_pylist()[0][0]) + 4
+    out = {}
+    try:
+        ictx = Context(device=dev)
+        ictx.create_table("lineitem", base)
+        batches = []
+
+        def batch():
+            nonlocal first_key
+            _, li = rf1(sf, rng, first_key)
+            first_key = int(li["l_orderkey"][-1]) + 4
+            batches.append(li)
+            return li
+
+        def rate(label: str, fn, n: int) -> None:
+            rows0 = ictx.schema["root"].tables["lineitem"].table.num_rows
+            work = [batch() for _ in range(n)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for li in work:
+                fn(li)
+            log = ictx.__dict__.get("_ingest_log")
+            if log is not None:
+                log.flush_all()
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            rows = ictx.schema["root"].tables["lineitem"].table.num_rows \
+                - rows0
+            if rows != sum(len(li["l_orderkey"]) for li in work):
+                raise AssertionError(f"16(d) {label}: {rows} rows applied")
+            out[label] = {"batches": n, "rows": rows, "seconds": s,
+                          "batches_per_s": n / s, "rows_per_s": rows / s}
+
+        rate("append_rows", lambda li: ictx.append_rows("lineitem", li),
+             INGEST_BATCHES)
+        srv = ictx.run_server(host="127.0.0.1", port=0, blocking=False)
+        url = f"http://127.0.0.1:{srv.server_port}/v1/ingest"
+        try:
+            def post(li):
+                code, payload = _post_json(url, {"table": "lineitem",
+                                                 "rows": _wire_batch(li)})
+                if code != 200 or payload.get("state") != "COMMITTED":
+                    raise AssertionError(f"16(d) POST: {code} {payload}")
+
+            rate("v1_ingest", post, INGEST_BATCHES)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        per_batch = len(batches[-1]["l_orderkey"])
+        os.environ["DSQL_INGEST_BATCH_ROWS"] = str(
+            per_batch * INGEST_COALESCE)
+        os.environ["DSQL_INGEST_BATCH_MS"] = "60000"
+        rate("append_rows_coalesced",
+             lambda li: ictx.append_rows("lineitem", li), INGEST_BATCHES)
+        os.environ.pop("DSQL_INGEST_BATCH_ROWS")
+        os.environ.pop("DSQL_INGEST_BATCH_MS")
+        live = ictx.schema["root"].tables["lineitem"].table
+        out["wal_bytes"] = ingest.engine_section(ictx)["walBytes"]
+        # a new Context replays the log onto the same base
+        ictx._ingest_log.close()
+        ictx.__dict__.pop("_ingest_log")
+        rctx = Context(device=dev)
+        replay_s = wall_ms(lambda: rctx.create_table("lineitem", base)) / 1e3
+        got = rctx.schema["root"].tables["lineitem"].table
+        n0 = base.num_rows
+        check_same_result("16(d) replayed tail", got.slice(n0, got.num_rows),
+                          live.slice(n0, live.num_rows), rtol=0.0)
+        check_same_result("16(d) replayed Q1", rctx.sql(QUERIES[1]),
+                          ictx.sql(QUERIES[1]), rtol=1e-9)
+        out["replay"] = {"seconds": replay_s, "rows": got.num_rows - n0}
+        del rctx
+        # a reader under a writer on the default path: the compiled tier
+        # captures Q6 afresh over each new table while the writer appends
+        ingest_log = ingest.get_log(ictx, create=True)
+        base_q6 = float(ictx.sql(QUERIES[6]).to_pylist()[0][0])
+        writes = [batch() for _ in range(INGEST_BATCHES)]
+        prefixes = _q6_prefixes(base_q6, writes)
+        seen, tiers, errors = [], [], []
+        done = threading.Event()
+
+        def reader():
+            try:
+                while not done.is_set():
+                    seen.append(float(ictx.sql(QUERIES[6])
+                                      .to_pylist()[0][0]))
+                    tiers.append(_answered_by(ictx))
+            except Exception as exc:
+                errors.append(exc)
+
+        th = threading.Thread(target=reader)
+        th.start()
+        t0 = time.perf_counter()
+        try:
+            for li in writes:
+                ictx.append_rows("lineitem", li)
+        finally:
+            done.set()
+            th.join(timeout=120)
+        if th.is_alive():
+            raise AssertionError("16(d): the reader thread did not stop")
+        if errors:
+            raise errors[0]
+        for v in seen:
+            if not any(math.isclose(v, p, rel_tol=1e-9) for p in prefixes):
+                raise AssertionError(f"16(d) reader saw {v}, not a prefix "
+                                     f"of {prefixes}")
+        final = float(ictx.sql(QUERIES[6]).to_pylist()[0][0])
+        if not math.isclose(final, prefixes[-1], rel_tol=1e-9):
+            raise AssertionError(f"16(d) Q6 after the writer: {final} != "
+                                 f"{prefixes[-1]}")
+        out["reader"] = {"answers": len(seen),
+                         "prefixes_seen": len({min(
+                             range(len(prefixes)),
+                             key=lambda k: abs(prefixes[k] - v))
+                             for v in seen}),
+                         "writer_s": time.perf_counter() - t0,
+                         "answered_by": {t: tiers.count(t)
+                                         for t in sorted(set(tiers))}}
+        if not out["reader"]["answered_by"].get("compiled"):
+            raise AssertionError(f"16(d): no reader answer came from the "
+                                 f"compiled tier: {out['reader']}")
+        ingest_log.close()
+        ictx.__dict__.pop("_ingest_log", None)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(INGEST_DIR, ignore_errors=True)
+    return out
+
+
+def write_f14(dev, tables: dict) -> dict:
+    """16(e): CTAS over a chunked lineitem equals the SELECT over it (the
+    JAX package's CTAS reads the one-row binding stub, F14), and ANALYZE
+    TABLE over it equals ANALYZE of the same columns resident, cell for
+    cell, with the device's peak over the chunked ANALYZE below the
+    table's bytes and within the resident ANALYZE's peak plus one column
+    and one batch."""
+    from dask_sql_tpu_torch import Context
+
+    li = tables["lineitem"]
+    # every column but the three free-text ones (their dictionaries take
+    # seconds to encode at SF 1)
+    cols = [k for k in li if k not in ("l_shipinstruct", "l_shipmode",
+                                       "l_comment")]
+    fctx = Context(device=dev)
+    fctx.create_table("lic", {k: li[k] for k in cols}, chunked=True,
+                      batch_rows=OOC_BATCH_ROWS)
+    q = ("SELECT l_returnflag, l_linestatus, SUM(l_quantity) AS q, "
+         "SUM(l_extendedprice) AS p, COUNT(*) AS n FROM lic "
+         "GROUP BY l_returnflag, l_linestatus")
+    want = fctx.sql(q)
+    ms = wall_ms(lambda: fctx.sql(f"CREATE TABLE f14 AS {q}"))
+    got = fctx.sql("SELECT * FROM f14")
+    check_same_rows("16(e) CTAS", got, want)
+    n = sum(r[4] for r in got.to_pylist())
+    if n != len(li["l_returnflag"]) or got.num_rows < 2:
+        raise AssertionError(f"16(e): CTAS counts {n} rows in "
+                             f"{got.num_rows} groups")
+    analyze = "ANALYZE TABLE {} COMPUTE STATISTICS FOR ALL COLUMNS"
+
+    def peak_of(name: str) -> tuple:
+        """(wall ms, the device's peak bytes over what it held before) of
+        ANALYZE of ``name``, and its result."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = {}
+        ms = wall_ms(lambda: out.setdefault("r", fctx.sql(
+            analyze.format(name))))
+        return ms, torch.cuda.max_memory_allocated() - base, out["r"]
+
+    a_ms, peak, chunked = peak_of("lic")
+    fctx.create_table("lir", {k: li[k] for k in cols})
+    resident = fctx.schema["root"].tables["lir"].table
+    table_bytes = sum(c.data.nbytes + (0 if c.mask is None else c.mask.nbytes)
+                      for c in resident.columns)
+    column_bytes = max(c.data.nbytes + len(c.data) for c in resident.columns)
+    r_ms, r_peak, want = peak_of("lir")
+    if chunked.to_pylist() != want.to_pylist():
+        raise AssertionError(f"16(e) ANALYZE: {chunked.to_pylist()} != "
+                             f"{want.to_pylist()}")
+    # beyond what the resident ANALYZE adds over its table, the chunked
+    # one holds one column (its data and mask) and one batch of it
+    bound = r_peak + column_bytes * (1 + OOC_BATCH_ROWS / len(li["l_tax"]))
+    if peak >= table_bytes or peak > bound:
+        raise AssertionError(
+            f"16(e) ANALYZE: device peak {peak} bytes, the table "
+            f"{table_bytes}, the resident ANALYZE's peak {r_peak} and a "
+            f"column {column_bytes}")
+    return {"ctas_ms": ms, "groups": got.num_rows, "rows": n,
+            "analyze_chunked_ms": a_ms, "analyze_resident_ms": r_ms,
+            "analyze_peak_bytes": peak, "analyze_resident_peak_bytes": r_peak,
+            "table_bytes": table_bytes, "column_bytes": column_bytes}
+
+
+def phase_write(dev, ctx, tables: dict, sf: float, seed: int) -> dict:
+    """Phase 16 on the default path (the compiled tier first, the result
+    cache and the workload manager on; the cache holds the views' state),
+    the launch counts set to 0 before it and read after it."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    _unpin_serving()
+    os.environ.pop("DSQL_COMPILE", None)
+    os.environ["DSQL_RESULT_CACHE_MB"] = "2048"
+    gk.reset_launch_counts()
+    WRITE_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    try:
+        out = {"views": write_appends_and_views(ctx, sf, seed)}
+        t1 = time.perf_counter()
+        out["analyze"] = write_analyze(ctx)
+        t2 = time.perf_counter()
+        out["ingest"] = write_ingest(dev, ctx, sf, seed)
+        t3 = time.perf_counter()
+        out["f14"] = write_f14(dev, tables)
+        out["seconds"] = {"views": t1 - t0, "analyze": t2 - t1,
+                          "ingest": t3 - t2,
+                          "f14": time.perf_counter() - t3}
+    finally:
+        os.environ.update(SERVING_PINS)
+    _fold_write_launches()
+    out["launches"] = dict(WRITE_LAUNCHES)
+    if out["launches"].get("segsum_fixedpoint", 0) < 1:
+        raise AssertionError(f"phase 16 launched no kernel 1: "
+                             f"{out['launches']}")
+    rounds = out["views"].pop("rounds")
+    out["views"]["q1_view_launches_per_refresh"] = [
+        r["views"]["v_q1"]["kernel1_launches"] for r in rounds]
+    print("write summary: " + json.dumps(out))
+    forget_programs()
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--sf", type=float, default=1.0)
@@ -4110,8 +4727,10 @@ def main(argv=None) -> int:
     phase_frontend(ctx)
     phase_statements(ctx, tables, on_results[1])
     ooc = phase_ooc(dev, ctx, tables, on_results, args.seed)
+    write = phase_write(dev, ctx, tables, args.sf, args.seed)
     kernel1["launches"] = compiled_launches["segsum_fixedpoint"]
     kernel1["launches_out_of_core_q1"] = ooc["q1_launches"]
+    kernel1["launches_write_path"] = write["launches"]["segsum_fixedpoint"]
     print(f"card: {card}")
     print(json.dumps({"kernels": [kernel1, kernel2]}))
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,14 @@ query over unchanged tables is answered from memory without touching the
 tiers.  ``run_server`` starts the Presto-wire server on this context
 (``server/app.py``).
 
+The write path: ``append_rows`` (which INSERT INTO and the server's
+``POST /v1/ingest`` lower to) appends a coerced batch to a resident table
+and bumps its epoch with the batch as a delta record, from which the
+materialized views (``runtime/matview.py``, ``runtime/delta.py``) refresh
+incrementally.  ``DSQL_INGEST_DIR`` arms the write-ahead log
+(``runtime/ingest.py``): appends commit through it, a new Context replays
+it, and each query reads the tables as pinned at its admission.
+
 Queries run on the card unless the caller asks for another device:
 ``Context()`` means ``device="cuda"`` and raises when CUDA is unavailable;
 the tests pass ``device="cpu"``.
@@ -35,6 +43,8 @@ the tests pass ``device="cpu"``.
 from __future__ import annotations
 
 import itertools
+import logging
+import threading
 import time
 from typing import Any, Callable, List, Optional, Tuple, Union
 
@@ -44,12 +54,15 @@ from .datacontainer import FunctionDescription, SchemaContainer, TableEntry
 from .plan.binder import Binder
 from .plan.nodes import Field, RelNode
 from .plan.optimizer import optimize
+from .runtime import ingest as _ing
 from .runtime import statistics as _stats
 from .runtime import telemetry as _tel
 from .sql import ast as A
 from .sql.parser import parse_sql
 from .table import Table
 from .types import SqlType, parse_type_name, sql_type_from_numpy
+
+logger = logging.getLogger(__name__)
 
 
 class Context:
@@ -71,8 +84,8 @@ class Context:
                 "the CPU")
         from .runtime.gates import refuse
 
-        # the JAX package arms its fleet plane and ingest log here
-        refuse("DSQL_FLEET_DIR", "DSQL_INGEST_DIR")
+        # the JAX package arms its fleet plane here
+        refuse("DSQL_FLEET_DIR")
         self.device = device
         self.server = None
         self.schema_name = self.DEFAULT_SCHEMA_NAME
@@ -87,26 +100,64 @@ class Context:
         # a chunked table was registered: plans are checked for chunked
         # scans, which go to the streaming executor
         self._has_chunked = False
+        # per-table append locks: an append's read-concat-swap (and, with
+        # the ingest log armed, its WAL write) never interleaves with
+        # another writer's on the same table
+        self._append_locks: dict = {}
+        self._append_locks_guard = threading.Lock()
+        # the ingest log: opened, replayed for registered tables and its
+        # flusher started when DSQL_INGEST_DIR arms it (create_table
+        # replays tables registered later)
+        if _ing.enabled():
+            _ing.ensure_armed(self)
 
     # -------------------------------------------------------------- epochs
     def table_epoch(self, schema_name: str, table_name: str) -> int:
         """The table's catalog epoch; 0 = not mutated since the Context
-        was made."""
+        was made.  Inside a query pinned by the armed ingest log
+        (``runtime/ingest.py:pin_scope``) it is the epoch at admission."""
+        if _ing.enabled():
+            pinned = _ing.pinned_epoch(schema_name, table_name.lower())
+            if pinned is not None:
+                return pinned
         return self._table_epochs.get((schema_name, table_name.lower()), 0)
 
     def catalog_entry(self, schema_name: str, table_name: str) -> TableEntry:
-        """The executor's catalog read (raises KeyError like the dict)."""
+        """The executors' catalog read (raises KeyError like the dict).
+        Inside a pinned query it is the entry at admission, so one query
+        reads one committed prefix of every table while a writer
+        appends."""
+        if _ing.enabled():
+            entry = _ing.pinned_entry(schema_name, table_name)
+            if entry is not None:
+                return entry
         return self.schema[schema_name].tables[table_name]
 
-    def bump_table_epoch(self, schema_name: str, table_name: str) -> int:
+    def bump_table_epoch(self, schema_name: str, table_name: str,
+                         delta: Optional[Table] = None) -> int:
         """Advance the table's epoch (every mutating path calls this) and
-        drop the cached results that scan it."""
+        drop the cached results that scan it.  ``delta``: the appended
+        batch of a pure append, recorded on the materialized-view
+        registry so that dependent views refresh from it; without it the
+        bump is a tombstone and dependents recompute in full."""
         from .runtime import result_cache as _rc
 
+        key = (schema_name, table_name.lower())
         epoch = next(self._epoch_counter)
-        self._table_epochs[(schema_name, table_name.lower())] = epoch
+        self._table_epochs[key] = epoch
         _rc.get_cache().invalidate_table(schema_name, table_name.lower())
+        reg = self._matviews()
+        if reg is not None:
+            if delta is not None:
+                reg.record_delta(key, epoch, delta)
+            else:
+                reg.record_overwrite(key, epoch)
         return epoch
+
+    def _matviews(self):
+        """The materialized-view registry, or None before the first
+        CREATE MATERIALIZED VIEW."""
+        return self.__dict__.get("_matview_registry")
 
     # ------------------------------------------------------------- schemas
     def create_schema(self, schema_name: str):
@@ -116,6 +167,9 @@ class Context:
         if schema_name == self.DEFAULT_SCHEMA_NAME:
             raise RuntimeError(
                 f"Default schema {schema_name} cannot be deleted")
+        reg = self._matviews()
+        if reg is not None:
+            reg.discard_schema(schema_name)
         for table_name in list(self.schema[schema_name].tables):
             self.bump_table_epoch(schema_name, table_name)
         del self.schema[schema_name]
@@ -123,6 +177,12 @@ class Context:
             self.schema_name = self.DEFAULT_SCHEMA_NAME
 
     def alter_schema(self, old_schema_name: str, new_schema_name: str):
+        reg = self._matviews()
+        if reg is not None:
+            # a rename re-keys the catalog under the views: their
+            # registry entries go, and the bumps below tombstone
+            reg.discard_schema(old_schema_name)
+            reg.discard_schema(new_schema_name)
         self.schema[new_schema_name] = self.schema.pop(old_schema_name)
         for table_name in list(self.schema[new_schema_name].tables):
             self.bump_table_epoch(old_schema_name, table_name)
@@ -143,6 +203,10 @@ class Context:
         pandas needed), a pandas frame, a parquet path (pyarrow) or a
         ``ChunkedSource``."""
         schema_name = schema_name or self.schema_name
+        reg = self._matviews()
+        if reg is not None:
+            # registering over a materialized view's name overwrites it
+            reg.discard_view(schema_name, table_name.lower())
         if chunked:
             self._create_chunked(table_name, input_table, schema_name,
                                  batch_rows)
@@ -160,6 +224,15 @@ class Context:
         self.schema[schema_name].tables[table_name.lower()] = TableEntry(
             table=table, stats=_stats.collect_table_stats(table))
         self.bump_table_epoch(schema_name, table_name)
+        if _ing.enabled():
+            # the restart path: logged batches of this table apply on the
+            # re-registered base; with none pending this is a mid-run
+            # re-registration, whose source supersedes the log
+            log = _ing.get_log(self, create=True)
+            if log.has_pending(schema_name, table_name.lower()):
+                log.maybe_replay(schema_name, table_name.lower())
+            else:
+                log.truncate(schema_name, table_name.lower())
 
     def _create_chunked(self, table_name: str, input_table: Any,
                         schema_name: str, batch_rows: Optional[int]) -> None:
@@ -187,16 +260,129 @@ class Context:
 
     def drop_table(self, table_name: str, schema_name: Optional[str] = None):
         schema_name = schema_name or self.schema_name
+        reg = self._matviews()
+        if reg is not None:
+            reg.discard_view(schema_name, table_name.lower())
         del self.schema[schema_name].tables[table_name.lower()]
         self.bump_table_epoch(schema_name, table_name)
+        if _ing.enabled():
+            # the table's log dies with it: a later table of the same
+            # name must not replay the dropped rows
+            log = _ing.get_log(self)
+            if log is not None:
+                log.truncate(schema_name, table_name.lower())
 
     def alter_table(self, old_table_name: str, new_table_name: str,
                     schema_name: Optional[str] = None):
         schema_name = schema_name or self.schema_name
+        reg = self._matviews()
+        if reg is not None:
+            reg.discard_view(schema_name, old_table_name.lower())
+            reg.discard_view(schema_name, new_table_name.lower())
         s = self.schema[schema_name]
         s.tables[new_table_name.lower()] = s.tables.pop(old_table_name.lower())
         self.bump_table_epoch(schema_name, old_table_name)
         self.bump_table_epoch(schema_name, new_table_name)
+
+    # --------------------------------------------------------------- appends
+    def append_rows(self, table_name: str, rows: Any,
+                    schema_name: Optional[str] = None) -> int:
+        """Append ``rows`` to a registered resident table: the epoch bump
+        carries the batch, so the materialized views over the table
+        refresh from it (``runtime/matview.py``).  INSERT INTO and
+        ``POST /v1/ingest`` lower to this.
+
+        ``rows``: a ``Table``, a dict of columns (numpy arrays or lists),
+        a list of row tuples (matched by position) or a pandas DataFrame.
+        Columns align with the target case-insensitively by name, or by
+        position when the names do not match; a named strict subset
+        NULL-fills the other columns; values cast to the target types.
+        What does not fit raises ``SchemaMismatch``.  Returns the rows
+        appended.  With the ingest log armed (``DSQL_INGEST_DIR``) the
+        batch is written to it first and may be held for a micro-batch
+        (``DSQL_INGEST_BATCH_ROWS``): the return value is then the rows
+        made visible now (0 = buffered)."""
+        from .runtime.resilience import UserError
+
+        schema_name = schema_name or self.schema_name
+        entry = self.schema[schema_name].tables.get(table_name.lower())
+        if entry is None:
+            raise UserError(f"Table {table_name} not found in schema "
+                            f"{schema_name}; create it before INSERT INTO.")
+        if entry.chunked is not None:
+            raise UserError(
+                f"Table {table_name} is chunked (host-resident batches); "
+                "appends are not supported — re-create it from the extended "
+                "source instead.")
+        if entry.table is None:
+            raise UserError(
+                f"{table_name} is a view; INSERT INTO targets tables. "
+                "Append to its base tables instead.")
+        reg = self._matviews()
+        if reg is not None and (schema_name, table_name.lower()) in reg.views:
+            raise UserError(
+                f"{table_name} is a materialized view; INSERT INTO targets "
+                "base tables — the view refreshes from their appends.")
+        delta = _coerce_delta(entry.table, rows, self.device)
+        if delta.num_rows == 0:
+            return 0
+        if _ing.enabled():
+            log = _ing.get_log(self, create=True)
+            return log.commit(schema_name, table_name.lower(), delta)
+        return self._apply_delta(schema_name, table_name.lower(), delta)
+
+    def _append_lock(self, schema_name: str, table_name: str):
+        """The per-table lock an append holds across its read-concat-swap
+        (and the ingest log across its WAL write, so that the log's order
+        is the order of the swaps).  Reentrant: replay applies under it."""
+        key = (schema_name, table_name.lower())
+        with self._append_locks_guard:
+            lock = self._append_locks.get(key)
+            if lock is None:
+                lock = self._append_locks[key] = threading.RLock()
+            return lock
+
+    def _apply_delta(self, schema_name: str, table_name: str,
+                     delta: Table) -> int:
+        """Make one coerced batch visible under the table's append lock:
+        without it two writers would read the same entry and the later
+        swap would drop the earlier batch."""
+        with self._append_lock(schema_name, table_name):
+            return self._apply_delta_locked(schema_name, table_name, delta)
+
+    def _apply_delta_locked(self, schema_name: str, table_name: str,
+                            delta: Table) -> int:
+        """A new catalog entry (the base and the batch concatenated, its
+        statistics collected anew) and a delta-carrying epoch bump.  The
+        entry is fetched and the batch coerced again: under
+        micro-batching the table may have been replaced since."""
+        from .ops.join import concat_tables
+        from .runtime.resilience import UserError
+
+        entry = self.schema[schema_name].tables.get(table_name)
+        if entry is None or entry.table is None:
+            raise UserError(f"Table {table_name} not found in schema "
+                            f"{schema_name}; create it before INSERT INTO.")
+        delta = _coerce_delta(entry.table, delta, self.device)
+        new_table = concat_tables([entry.table, delta])
+        new_entry = TableEntry(
+            table=new_table, statistics=entry.statistics,
+            filepath=entry.filepath, gpu=entry.gpu,
+            stats=_stats.collect_table_stats(new_table))
+        reg = self._matviews()
+        if reg is not None:
+            # the swap and the delta record are one step under the
+            # registry lock: a refresh that saw the new table before its
+            # delta was logged would count the batch twice
+            with reg.lock:
+                self.schema[schema_name].tables[table_name] = new_entry
+                self.bump_table_epoch(schema_name, table_name, delta=delta)
+        else:
+            self.schema[schema_name].tables[table_name] = new_entry
+            self.bump_table_epoch(schema_name, table_name, delta=delta)
+        logger.debug("Appended %d rows to %s.%s (now %d)", delta.num_rows,
+                     schema_name, table_name, new_table.num_rows)
+        return delta.num_rows
 
     # ----------------------------------------------------------- functions
     def register_function(self, f: Callable, name: str,
@@ -321,8 +507,9 @@ class Context:
         EXECUTE, server requests): tenancy admission outside (a tenant
         over quota is refused before it takes a slot or a queue place;
         a server pre-claim is adopted, not claimed again), then the
-        workload manager's admission.  A nested plan (a thread that
-        already holds both) passes straight through."""
+        workload manager's admission, and the ingest log's snapshot pin
+        when it is armed.  A nested plan (a thread that already holds
+        both admissions) passes straight through them."""
         from contextlib import nullcontext
 
         from .runtime import scheduler as _sched
@@ -332,7 +519,12 @@ class Context:
         if tenancy_on():
             from .runtime import tenancy as _ten
             ten_adm = _ten.admission()
-        with ten_adm, _sched.get_manager().admission(plan, self):
+        # under the armed ingest log every scanned table's entry and epoch
+        # are pinned at admission: the query reads one committed prefix
+        pin = nullcontext()
+        if _ing.enabled():
+            pin = _ing.pin_scope(self, plan)
+        with ten_adm, _sched.get_manager().admission(plan, self), pin:
             return self._run_query_plan(plan)
 
     def _run_query_plan(self, plan: RelNode) -> Table:
@@ -422,6 +614,12 @@ class Context:
             entry = schema.tables.get(table_name.lower())
             if entry is None:
                 continue
+            reg = self._matviews()
+            if reg is not None:
+                # a materialized view whose bases advanced refreshes here,
+                # before the scan binds: a stale view is never served
+                entry = reg.maybe_serve(self, schema_name,
+                                        table_name.lower(), entry)
             if entry.table is None:  # a view: its plan, re-bound per query
                 return (schema_name, table_name.lower(),
                         list(entry.plan.schema), entry.plan)
@@ -453,6 +651,147 @@ class Context:
             self.server.shutdown()
             self.server.server_close()
             self.server = None
+
+
+def _coerce_delta(target: Table, rows: Any, device) -> Table:
+    """``rows`` as a Table of ``target``'s column names and types, on
+    ``device`` (``append_rows``' alignment and casts, the JAX package's
+    rules and messages, without pandas unless ``rows`` is a DataFrame).
+    What does not fit raises ``SchemaMismatch`` naming the columns."""
+    import numpy as np
+
+    from .physical.rex.cast import cast_column
+    from .runtime.resilience import SchemaMismatch, UserError
+    from .table import Column, Scalar
+
+    names = list(target.names)
+    if isinstance(rows, Table):
+        given = list(rows.names)
+        cols = [_to(c, device) for c in rows.columns]
+        n = rows.num_rows
+    elif hasattr(rows, "columns") and hasattr(rows, "dtypes"):
+        t = Table.from_pandas(rows, device)
+        given = [c for c in rows.columns]
+        cols, n = t.columns, t.num_rows
+    elif isinstance(rows, dict):
+        given = list(rows)
+        arrays = [_series_column(v, device)
+                  if hasattr(v, "array") and hasattr(v, "dtype")
+                  else _host_values(v) for v in rows.values()]
+        lengths = {len(a) for a in arrays}
+        if len(lengths) > 1:
+            raise SchemaMismatch(
+                f"appended columns have different lengths {sorted(lengths)}")
+        n = lengths.pop() if lengths else 0
+        cols = arrays
+    elif isinstance(rows, (list, tuple)):
+        width = {len(r) for r in rows if isinstance(r, (list, tuple))}
+        if width - {len(names)}:
+            raise SchemaMismatch(
+                f"appended row tuples have {sorted(width)} values but the "
+                f"table has {len(names)} columns ({names})")
+        given = list(names)
+        n = len(rows)
+        cols = [_host_values([r[i] for r in rows]) for i in range(len(names))]
+    else:
+        raise UserError(
+            "append_rows accepts a Table, pandas DataFrame, dict of "
+            f"columns, or list of row tuples; got {type(rows).__name__}")
+    lower_map = {str(c).lower(): i for i, c in enumerate(given)}
+    target_lower = {nm.lower() for nm in names}
+    if all(nm.lower() in lower_map for nm in names) and \
+            len(given) == len(names):
+        cols = [cols[lower_map[nm.lower()]] for nm in names]
+    elif len(given) == len(names):
+        pass  # positional order
+    elif 0 < len(given) < len(names) and set(lower_map) <= target_lower:
+        # a named strict subset: the other columns fill NULL
+        cols = [cols[lower_map[nm.lower()]] if nm.lower() in lower_map
+                else None for nm in names]
+    else:
+        extra = sorted(set(lower_map) - target_lower)
+        missing = sorted(target_lower - set(lower_map))
+        detail = []
+        if extra:
+            detail.append(f"unknown column(s) {extra}")
+        if missing:
+            detail.append(f"missing column(s) {missing}")
+        raise SchemaMismatch(
+            f"appended rows have columns {given} but the table "
+            f"has {names}: " + "; ".join(detail) +
+            " — supply target columns by name (any case, a subset "
+            "NULL-fills the rest) or all of them positionally")
+    out = []
+    for col, tgt, name in zip(cols, target.columns, names):
+        if col is None or (not isinstance(col, Column)
+                           and _all_null(col)):
+            out.append(Column.from_scalar(Scalar(None, tgt.stype), n,
+                                          device))
+            continue
+        if not isinstance(col, Column):
+            col = Table.from_pydict({name: col}, device).columns[0]
+        if col.stype.name != tgt.stype.name:
+            try:
+                col = cast_column(col, tgt.stype)
+            except Exception as exc:
+                raise SchemaMismatch(
+                    f"column {name!r} of the appended rows "
+                    f"({col.stype.name}) does not cast to the table's "
+                    f"{tgt.stype.name}: {exc}") from exc
+        out.append(col)
+    return Table(names, out)
+
+
+def _series_column(series, device):
+    """A pandas Series of a dict batch, encoded at the pandas boundary."""
+    from .table import Column, _as_mask, _to_device, host_encode_series
+
+    data, mask, stype, dictionary = host_encode_series(series)
+    return Column(_to_device(data, device), stype, _as_mask(mask, device),
+                  dictionary)
+
+
+def _is_na(v) -> bool:
+    try:
+        return v is None or bool(v != v)
+    except (TypeError, ValueError):
+        return False
+
+
+def _host_values(values):
+    """A column of an appended batch as a host array: numpy arrays pass
+    through; a list of datetimes becomes datetime64, as pandas would
+    read it."""
+    import datetime
+
+    import numpy as np
+
+    if isinstance(values, np.ndarray):
+        return values
+    values = list(values)
+    present = [v for v in values if not _is_na(v)]
+    if present and all(isinstance(v, datetime.datetime) for v in present):
+        return np.array([np.datetime64("NaT") if _is_na(v)
+                         else np.datetime64(v.replace(tzinfo=None), "us")
+                         for v in values], dtype="datetime64[us]")
+    if present and all(isinstance(v, datetime.date) for v in present):
+        return np.array([np.datetime64("NaT") if _is_na(v)
+                         else np.datetime64(v, "D") for v in values],
+                        dtype="datetime64[D]")
+    return values
+
+
+def _all_null(values) -> bool:
+    import numpy as np
+
+    if isinstance(values, np.ndarray):
+        if values.dtype.kind == "f":
+            return len(values) > 0 and bool(np.isnan(values).all())
+        if values.dtype.kind in "mM":
+            return len(values) > 0 and bool(np.isnat(values).all())
+        if values.dtype.kind != "O":
+            return False
+    return len(values) > 0 and all(_is_na(v) for v in values)
 
 
 def _to_sql_type(t) -> SqlType:

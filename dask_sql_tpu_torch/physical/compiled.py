@@ -102,6 +102,7 @@ from ..plan.nodes import (
     RexCall, RexInputRef, RexLiteral, RexNode, RexParam, RexScalarSubquery,
 )
 from ..runtime import faults as _faults
+from ..runtime import ingest as _ing
 from ..runtime import kvstore as _kv
 from ..runtime import quarantine as _quar
 from ..runtime import resilience as _res
@@ -2207,14 +2208,19 @@ def _rex_scan_uids(rex, context) -> list:
 def _scan_uids(rel: RelNode, context) -> list:
     """uids of every table a subtree scans, scalar-subquery plans
     included; a boundary scan contributes its name (already a content
-    digest of its producing subtree)."""
+    digest of its producing subtree).  The tables are read through
+    ``Context.catalog_entry``, as the scans themselves are: under the
+    ingest log's snapshot pin a boundary's name must name the pinned
+    table its stage reads, not a newer one a writer swapped in (two
+    queries sharing a name share the boundary's data)."""
     if isinstance(rel, LogicalTableScan):
         if rel.schema_name == _SPLIT_SCHEMA:
             return [rel.table_name]
-        entry = context.schema.get(rel.schema_name)
-        tbl = (entry.tables[rel.table_name].table
-               if entry is not None and rel.table_name in entry.tables
-               else None)
+        try:
+            tbl = context.catalog_entry(rel.schema_name,
+                                        rel.table_name).table
+        except KeyError:
+            tbl = None
         return [str(getattr(tbl, "uid", "?"))]
     out = [u for i in rel.inputs for u in _scan_uids(i, context)]
     if isinstance(rel, LogicalProject):
@@ -2355,6 +2361,7 @@ def _execute_stage_graph_inner(graph: StageGraph, context, query_fp: str,
     root_idx = nst - 1
     registered: List[str] = []
     rt = _res.current()
+    pins = _ing.current_pins()
     tel_trace = _tel.current_trace()
     tel_parent = _tel.current_span()
 
@@ -2386,10 +2393,12 @@ def _execute_stage_graph_inner(graph: StageGraph, context, query_fp: str,
         return out
 
     def run_stage(idx: int) -> Optional[Table]:
-        # a worker thread re-enters the query's deadline scope and trace;
-        # a transient failure replays this stage alone: its dependencies'
-        # outputs are registered boundary tables, rescanned, not recomputed
-        with _res.scoped(rt), _tel.scoped(tel_trace, tel_parent), \
+        # a worker thread re-enters the query's deadline scope, snapshot
+        # pins and trace; a transient failure replays this stage alone: its
+        # dependencies' outputs are registered boundary tables, rescanned,
+        # not recomputed
+        with _res.scoped(rt), _ing.carried_pins(pins), \
+                _tel.scoped(tel_trace, tel_parent), \
                 _tel.span("stage", index=idx):
             if stages[idx].est_rows is not None:
                 _tel.annotate(stage_est_rows=stages[idx].est_rows)
@@ -2606,11 +2615,13 @@ def _programs_ready(plan: RelNode, context, base_key, budget: int) -> bool:
                for st in graph.stages if not st.deps)
 
 
-def _background_compile(plan: RelNode, context, base_key) -> None:
+def _background_compile(plan: RelNode, context, base_key, pins) -> None:
     """Build (and run once) this plan's programs off the query path: a
     daemon thread with fresh thread-locals (no deadline) and a background
     trace of its own, through the normal pipeline, so that learned caps,
-    the program cache and quarantine fill as a foreground build would."""
+    the program cache and quarantine fill as a foreground build would.
+    It carries the arrival's snapshot pins: its scans are the tables
+    ``base_key`` was built from."""
     _tier_local.bg = True
     trace = None
     try:
@@ -2619,7 +2630,8 @@ def _background_compile(plan: RelNode, context, base_key) -> None:
                 f"<background-compile:{base_key[0][:48]}>")
             trace.root.name = "background_compile"
             try:
-                with _tel.scoped(trace, trace.root):
+                with _tel.scoped(trace, trace.root), \
+                        _ing.carried_pins(pins):
                     try_execute_compiled(plan, context)
                 _tel.inc("background_compiles_done")
             except (KeyboardInterrupt, SystemExit):
@@ -2662,7 +2674,7 @@ def _tier_serve_eager(plan: RelNode, context, base_key, budget: int,
             _bg_sem = threading.Semaphore(_compile_workers())
     # a daemon thread, not a pool: process exit never waits for a build
     threading.Thread(target=_background_compile,
-                     args=(plan, context, base_key),
+                     args=(plan, context, base_key, _ing.current_pins()),
                      name="dsql-bg-compile", daemon=True).start()
     return True
 

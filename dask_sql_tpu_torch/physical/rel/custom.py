@@ -1,5 +1,6 @@
-"""Statement handlers: schemas, tables and views, SHOW / DESCRIBE, EXPLAIN
-[ANALYZE], PREPARE / EXECUTE / DEALLOCATE.
+"""Statement handlers: schemas, tables and views, materialized views,
+INSERT INTO, SHOW / DESCRIBE, ANALYZE TABLE, EXPLAIN [ANALYZE], PREPARE /
+EXECUTE / DEALLOCATE.
 
 The counterpart of ``dask_sql_tpu/physical/rel/custom.py``: one handler per
 statement AST class, registered in ``StatementDispatcher``.  A handler takes
@@ -8,18 +9,25 @@ DESCRIBE, EXPLAIN, EXECUTE) or None (DDL).
 
 The statements whose machinery the port lacks raise ``NotImplementedError``
 naming themselves and what they wait for (``_UNPORTED``): CREATE TABLE ...
-WITH (location) (the file readers, ``io/inputs.py``), ANALYZE TABLE (a
-host path without pandas), the materialized views (``runtime/matview.py``
-and its delta log, ``runtime/delta.py``), INSERT INTO (the same delta log
-and ``Context.append_rows``), the model statements (``models/``, with
-``register_model``) and EXPLAIN PROFILE (``runtime/profiler.py``).
+WITH (location) (the file readers, ``io/inputs.py``), the model statements
+(``models/``, with ``register_model``) and EXPLAIN PROFILE
+(``runtime/profiler.py``).
+
+Every statement that reads a table's rows (CTAS, INSERT INTO ... SELECT,
+ANALYZE TABLE over a view) runs its plan through
+``Context._execute_query_plan``, so a chunked table streams and is never
+read through its one-row binding stub; ANALYZE TABLE streams a chunked
+table's batches one column at a time.
 """
 from __future__ import annotations
 
+import datetime
+import math
 import re
 import time
 
 import numpy as np
+import torch
 
 from ...datacontainer import TableEntry
 from ...runtime import statistics as _stats
@@ -91,12 +99,74 @@ def _create_table_as(stmt: A.CreateTableAs, context, sql):
             raise RuntimeError(
                 f"A table with the name {name} is already present.")
     plan = context._get_plan(stmt.query, sql)
+    reg = context._matviews()
+    if reg is not None:
+        # replacing a materialized view ends its maintenance
+        reg.discard_view(schema_name, name)
     if stmt.view:
         entry = TableEntry(plan=plan)
     else:
         entry = TableEntry(table=context._execute_query_plan(plan))
     context.schema[schema_name].tables[name] = entry
     context.bump_table_epoch(schema_name, name)
+    return None
+
+
+def _create_matview(stmt: A.CreateMaterializedView, context, sql):
+    from ...runtime import matview as _mv
+    _mv.create_matview(context, stmt.name, stmt.query, sql,
+                       if_not_exists=stmt.if_not_exists,
+                       or_replace=stmt.or_replace)
+    return None
+
+
+def _drop_matview(stmt: A.DropMaterializedView, context, sql):
+    from ...runtime import matview as _mv
+    _mv.drop_matview(context, stmt.name, if_exists=stmt.if_exists)
+    return None
+
+
+def _refresh_matview(stmt: A.RefreshMaterializedView, context, sql):
+    from ...runtime import matview as _mv
+    _mv.refresh_matview(context, stmt.name)
+    return None
+
+
+def _insert_into(stmt: A.InsertInto, context, sql):
+    """INSERT INTO: the source query (VALUES is a query too) runs through
+    the query path, and its rows go to ``Context.append_rows``.  A column
+    list names target columns by position of the source's; the others
+    fill NULL."""
+    from ...runtime.resilience import SchemaMismatch
+
+    plan = context._get_plan(stmt.query, sql)
+    rows = context._execute_query_plan(plan)
+    schema_name, name = context.fqn(stmt.table)
+    payload = rows
+    if stmt.columns is not None:
+        if len(stmt.columns) != rows.num_columns:
+            raise SchemaMismatch(
+                f"INSERT INTO {name} names {len(stmt.columns)} columns but "
+                f"the source produces {rows.num_columns}.")
+        entry = context.schema[schema_name].tables.get(name)
+        if entry is not None and entry.table is not None:
+            given = [c.lower() for c in stmt.columns]
+            target = list(entry.table.names)
+            unknown = [c for c in given
+                       if c not in {t.lower() for t in target}]
+            if unknown:
+                raise SchemaMismatch(
+                    f"INSERT INTO {name} names columns {unknown} that the "
+                    f"table does not have (columns: {target}).")
+            # every target column by name; the unnamed ones fill NULL
+            from ...table import Column, Scalar
+            by_name = dict(zip(given, rows.columns))
+            payload = Table(target, [
+                by_name[t.lower()] if t.lower() in by_name
+                else Column.from_scalar(Scalar(None, tc.stype),
+                                        rows.num_rows, context.device)
+                for t, tc in zip(target, entry.table.columns)])
+    context.append_rows(name, payload, schema_name=schema_name)
     return None
 
 
@@ -147,6 +217,247 @@ def _show_columns(stmt: A.ShowColumns, context, sql):
 
 def _describe_table(stmt: A.DescribeTable, context, sql):
     return _show_columns(A.ShowColumns(table=stmt.table), context, sql)
+
+
+# ---------------------------------------------------------------------------
+# ANALYZE TABLE
+# ---------------------------------------------------------------------------
+
+def _analyze_table(stmt: A.AnalyzeTable, context, sql):
+    """ANALYZE TABLE: the JAX package's table, which is pandas'
+    ``DataFrame.describe(include="all")`` with a ``data_type`` and a
+    ``col_name`` row, every cell a string (NULL where describe has none),
+    computed here on the table's device (``_describe``).
+
+    A resident table is read from its ``Table``, and a view runs its plan
+    through ``Context._execute_query_plan``.  A chunked table is read one
+    column at a time (``_chunked_column``): its catalog entry holds only a
+    one-row binding stub, and the table does not fit on the device."""
+    resolved = context.resolve_table(stmt.table)
+    if resolved is None:
+        raise AttributeError(f"Table {'.'.join(stmt.table)} is not defined.")
+    schema_name, table_name, fields, _ = resolved
+    entry = context.schema[schema_name].tables[table_name]
+    if entry.chunked is not None:
+        source = entry.chunked
+        columns = stmt.columns or list(source.names)
+        _chunked_budget(source, columns)
+        described = [_describe(_chunked_column(source, c, context))
+                     for c in columns]
+        stypes = [source.stypes[source.names.index(c)] for c in columns]
+    else:
+        table = (context._execute_query_plan(entry.plan)
+                 if entry.table is None else entry.table)
+        columns = stmt.columns or table.names
+        described = [_describe(table.column(c)) for c in columns]
+        stypes = [table.column(c).stype for c in columns]
+    # pandas' row order: the columns' statistic lists, shortest first
+    # (stable), each name at its first appearance
+    names: list = []
+    for _, stats in sorted(described, key=lambda d: len(d[1])):
+        for k in stats:
+            if k not in names:
+                names.append(k)
+    out = {"statistic": _strings(names + ["data_type", "col_name"])}
+    for c, stype, (kind, stats) in zip(columns, stypes, described):
+        # an all-integer categorical series reads as int64 unless
+        # describe's union of rows gives it NaN, which makes it float64
+        as_float = kind == "num" or (kind == "int" and len(names) > len(stats))
+        cells = []
+        for k in names:
+            v = stats.get(k)
+            if v is None or (isinstance(v, float) and math.isnan(v)):
+                cells.append(None)
+            elif as_float:
+                cells.append(repr(float(v)))
+            else:
+                cells.append(str(v))
+        cells += [str(stype).lower(), c]
+        out[c] = np.array(cells, dtype=object)
+    return _meta_table(out, context)
+
+
+def _chunked_budget(source, columns) -> None:
+    """Refuse before any upload a column that would not fit: a column's
+    quartiles and most frequent value need all of its rows at once, so
+    each column (its data and NULL mask) is gathered on the device, one
+    at a time, within the streaming executor's ``DSQL_STREAM_PARTIAL_BYTES``."""
+    from ..streaming import PARTIAL_BYTES_BUDGET, StreamingUnsupported
+
+    for c in columns:
+        ci = source.names.index(c)
+        width = max((b[ci][0].itemsize + (b[ci][1] is not None)
+                     for b in source.batches), default=0)
+        need = source.n_rows * width
+        if need > PARTIAL_BYTES_BUDGET:
+            raise StreamingUnsupported(
+                f"ANALYZE TABLE needs column {c} whole on the device "
+                f"({need} bytes), past DSQL_STREAM_PARTIAL_BYTES "
+                f"({PARTIAL_BYTES_BUDGET}); raise it, or name fewer or "
+                "narrower columns")
+
+
+def _chunked_column(source, name: str, context):
+    """One column of a chunked table on the device: its batches streamed
+    (that column only, the ``chunked_read`` fault site retried) into one
+    buffer of its rows and one of its NULL mask, so the device holds one
+    column and one batch, never the table."""
+    from ...runtime import resilience as _res
+    from ...table import Column
+
+    ci = source.names.index(name)
+    device = context.device
+    data = mask = None
+    off = 0
+    for bi, enc in enumerate(source.batches):
+        _res.check("stream_batch")
+        batch, _ = _res.retry_transient(
+            lambda: source.batch_table(bi, device, [name]),
+            site="chunked_read")
+        _tel.inc("stream_batches")
+        col = batch.columns[0]
+        n = len(enc[ci][0])
+        if data is None:
+            data = torch.empty(source.n_rows, dtype=col.data.dtype,
+                               device=device)
+        data[off:off + n].copy_(col.data[:n])
+        if col.mask is not None:
+            if mask is None:
+                mask = torch.ones(source.n_rows, dtype=torch.bool,
+                                  device=device)
+            mask[off:off + n].copy_(col.mask[:n])
+        off += n
+    if data is None:
+        data = source.schema_table(device).column(name).data[:0]
+    return Column(data, source.stypes[ci], mask, source.dictionaries[ci])
+
+
+_QUANTILES = (("25%", 0.25), ("50%", 0.5), ("75%", 0.75))
+
+
+def _describe(col) -> tuple:
+    """(kind, {statistic: value}) of one column as pandas describes the
+    JAX package's host copy of it: numeric columns without NULLs and
+    floating ones by count, mean, std (ddof 1), min, linear quartiles and
+    max; timestamps and dates by count, mean, min, quartiles and max;
+    strings, booleans, times and integers with NULLs (an object column
+    there) by count, unique, top and freq, the top's ties going to the
+    value seen first.  ``kind``: ``num`` (a float64 series), ``int`` (a
+    categorical whose four values are integers), ``obj``."""
+    st = col.stype
+    valid = col.valid_mask()
+    has_nulls = col.mask is not None and not bool(valid.all())
+    if st.name in ("TIMESTAMP", "TIMESTAMP_WITH_LOCAL_TIME_ZONE", "DATE"):
+        return "obj", _describe_temporal(col, valid)
+    if st.is_numeric and st.name != "BOOLEAN" and (
+            not has_nulls or col.data.dtype.is_floating_point):
+        return "num", _describe_numeric(col.data[valid])
+    return _describe_categorical(col, valid)
+
+
+def _lerp(a, b, t: float) -> float:
+    """numpy's linear interpolation (``numpy.lib._function_base_impl._lerp``):
+    from the upper neighbour when ``t >= 0.5``."""
+    d = b - a
+    if t >= 0.5:
+        return float(b) - float(d) * (1.0 - t)
+    return float(a) + float(d) * t
+
+
+def _quantiles(sorted_vals: torch.Tensor) -> list:
+    """The 25%, 50% and 75% points of sorted values, by numpy's linear
+    method; the neighbours are read to the host in one copy."""
+    n = int(sorted_vals.numel())
+    picks = []
+    for _, q in _QUANTILES:
+        v = (n - 1) * q          # numpy's virtual index; q < 1
+        lo = math.floor(v)
+        picks.append((lo, min(lo + 1, n - 1), v - lo))
+    idx = torch.tensor([i for lo, hi, _ in picks for i in (lo, hi)],
+                       device=sorted_vals.device)
+    vals = sorted_vals[idx].tolist()
+    return [_lerp(vals[2 * k], vals[2 * k + 1], gamma)
+            for k, (_, _, gamma) in enumerate(picks)]
+
+
+def _describe_numeric(x: torch.Tensor) -> dict:
+    n = int(x.numel())
+    stats = {"count": float(n)}
+    if n == 0:
+        stats.update({k: math.nan for k in
+                      ("mean", "std", "min", "25%", "50%", "75%", "max")})
+        return stats
+    xf = x.to(torch.float64)
+    total = xf.sum()
+    mean = total / n
+    sq = ((mean - xf) ** 2).sum()
+    srt = torch.sort(x).values
+    mean, sq, lo, hi = torch.stack([mean, sq, srt[0].to(torch.float64),
+                                    srt[-1].to(torch.float64)]).tolist()
+    stats["mean"] = mean
+    stats["std"] = math.sqrt(sq / (n - 1)) if n > 1 else math.nan
+    stats["min"] = lo
+    for (k, _), v in zip(_QUANTILES, _quantiles(srt)):
+        stats[k] = v
+    stats["max"] = hi
+    return stats
+
+
+def _describe_temporal(col, valid: torch.Tensor) -> dict:
+    """pandas reads a DATE as datetime64[s] and a TIMESTAMP as
+    datetime64[us]; its mean and quantiles are computed in floats of that
+    unit and truncated.  The mean's sum is exact here (two 32-bit halves
+    summed in int64), which pandas' float sum is below 2**53."""
+    if col.stype.name == "DATE":
+        x, unit = col.data[valid].to(torch.int64) * 86400, "s"
+    else:
+        x, unit = col.data[valid].to(torch.int64), "us"
+    n = int(x.numel())
+    stats = {"count": n}
+    if n == 0:
+        stats.update({k: None for k in
+                      ("mean", "min", "25%", "50%", "75%", "max")})
+        return stats
+    hi_part, lo_part = x >> 32, x & 0xFFFFFFFF
+    srt = torch.sort(x).values
+    s_hi, s_lo, vmin, vmax = torch.stack(
+        [hi_part.sum(), lo_part.sum(), srt[0], srt[-1]]).tolist()
+    total = (s_hi << 32) + s_lo
+
+    def fmt(v) -> str:
+        return str(np.datetime64(int(v), unit).astype(datetime.datetime))
+
+    stats["mean"] = fmt(math.trunc(float(total) / n))
+    stats["min"] = fmt(vmin)
+    for (k, _), v in zip(_QUANTILES, _quantiles(srt)):
+        stats[k] = fmt(math.trunc(v))
+    stats["max"] = fmt(vmax)
+    return stats
+
+
+def _describe_categorical(col, valid: torch.Tensor) -> tuple:
+    n_rows = col.data.shape[0]
+    pos = torch.nonzero(valid).reshape(-1)
+    if col.stype.is_string:
+        slots = col.data[valid].to(torch.int64)
+        counts = torch.bincount(slots, minlength=len(col.dictionary))
+    else:
+        _, slots, counts = torch.unique(col.data[valid], return_inverse=True,
+                                        return_counts=True)
+    first = torch.full_like(counts, n_rows).scatter_reduce(0, slots, pos,
+                                                           "amin")
+    stats = {"count": int(pos.numel()), "unique": int((counts > 0).sum()),
+             "top": None, "freq": None}
+    if stats["unique"] == 0:
+        return "obj", stats
+    stats["freq"] = int(counts.max())
+    # among the most frequent values, the one seen first
+    slot = int(torch.argmin(torch.where(counts == stats["freq"], first,
+                                        n_rows + 1)))
+    row = torch.tensor([int(first[slot])], device=col.data.device)
+    top = stats["top"] = col.take(row).to_pylist()[0]
+    return ("int" if isinstance(top, int) and not isinstance(top, bool)
+            else "obj"), stats
 
 
 # ---------------------------------------------------------------------------
@@ -290,14 +601,6 @@ def _waits_for(what: str, module: str):
 _UNPORTED = {
     "CreateTable": ("CREATE TABLE ... WITH (location=...)",
                     "io/inputs.py (its readers are pandas)"),
-    "AnalyzeTable": ("ANALYZE TABLE", "a host path without pandas"),
-    "CreateMaterializedView": ("CREATE MATERIALIZED VIEW",
-                               "runtime/matview.py"),
-    "DropMaterializedView": ("DROP MATERIALIZED VIEW", "runtime/matview.py"),
-    "RefreshMaterializedView": ("REFRESH MATERIALIZED VIEW",
-                                "runtime/matview.py"),
-    "InsertInto": ("INSERT INTO",
-                   "runtime/delta.py and Context.append_rows"),
     "ShowModels": ("SHOW MODELS", "models/ and register_model"),
     "DescribeModel": ("DESCRIBE MODEL", "models/ and register_model"),
     "CreateModel": ("CREATE MODEL", "models/ and register_model"),
@@ -314,6 +617,11 @@ StatementDispatcher.add_plugin("DropSchema", _drop_schema)
 StatementDispatcher.add_plugin("UseSchema", _use_schema)
 StatementDispatcher.add_plugin("CreateTableAs", _create_table_as)
 StatementDispatcher.add_plugin("DropTable", _drop_table)
+StatementDispatcher.add_plugin("CreateMaterializedView", _create_matview)
+StatementDispatcher.add_plugin("DropMaterializedView", _drop_matview)
+StatementDispatcher.add_plugin("RefreshMaterializedView", _refresh_matview)
+StatementDispatcher.add_plugin("InsertInto", _insert_into)
+StatementDispatcher.add_plugin("AnalyzeTable", _analyze_table)
 StatementDispatcher.add_plugin("ShowSchemas", _show_schemas)
 StatementDispatcher.add_plugin("ShowTables", _show_tables)
 StatementDispatcher.add_plugin("ShowColumns", _show_columns)

@@ -5,7 +5,8 @@ subsystem's module, so an unset variable keeps the module out of the
 process.  The port keeps the same variables with the same meanings:
 
 - ``DSQL_TENANCY`` (default on; ``0`` turns tenancy off) gates
-  ``runtime/tenancy.py``, which the port has.
+  ``runtime/tenancy.py``, and ``DSQL_INGEST_DIR`` (unless ``DSQL_INGEST``
+  is ``0``) arms ``runtime/ingest.py``; the port has both.
 - The subsystems below are armed only by their variable, and their
   modules are not ported.  Unset, the port behaves as the JAX package does
   with them unset.  Set, ``refuse`` raises ``NotImplementedError`` naming
@@ -20,7 +21,6 @@ import os
 UNPORTED = {
     "DSQL_EVENTS": "runtime/events.py",
     "DSQL_FLEET_DIR": "runtime/fleet.py",
-    "DSQL_INGEST_DIR": "runtime/ingest.py",
     "DSQL_AUTOPILOT": "runtime/autopilot.py",
     "DSQL_HISTORY_FILE": "runtime/flight_recorder.py",
     "DSQL_PROFILE": "runtime/profiler.py",

@@ -187,8 +187,8 @@ class LoadShedRejected(AdmissionRejected):
 
 
 class IngestBackpressure(AdmissionRejected):
-    """An ingest batch the memory broker cannot absorb (the JAX package's
-    ``runtime/ingest.py``, not ported): 429."""
+    """An ingest batch the memory broker cannot absorb
+    (``runtime/ingest.py``): 429 with a ``Retry-After``."""
 
     error_name = "INGEST_BACKPRESSURE"
 

@@ -244,8 +244,12 @@ def plan_key(plan, context) -> Optional[CacheKey]:
     h = hashlib.blake2b(text.encode(), digest_size=16)
     tables: List[Tuple[str, str]] = []
     for schema_name, table_name in scans:
-        schema = context.schema.get(schema_name)
-        entry = schema.tables.get(table_name) if schema is not None else None
+        # the executors' read: a pinned query keys on its pinned entry
+        # and epoch together (runtime/ingest.py)
+        try:
+            entry = context.catalog_entry(schema_name, table_name)
+        except KeyError:
+            entry = None
         if entry is None or entry.table is None or entry.chunked is not None:
             # views resolve through the binder before this point; a chunked
             # source has no stable content identity to key on

@@ -243,10 +243,14 @@ def _sampled_ndv(vals: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 
 def _scan_entry(rel, context):
-    schema = context.schema.get(rel.schema_name)
-    if schema is None:
+    """The scanned table's entry as the executors read it
+    (``Context.catalog_entry``): under the ingest log's snapshot pin the
+    dispatch reads the statistics of the pinned table, whose value range
+    a table replaced since may not cover."""
+    try:
+        return context.catalog_entry(rel.schema_name, rel.table_name)
+    except KeyError:
         return None
-    return schema.tables.get(rel.table_name)
 
 
 def table_stats_for_scan(rel, context) -> Optional[TableStats]:

@@ -29,11 +29,19 @@ quarantine, background builds, tenants, the card's memory) and
   while queries in flight finish within ``DSQL_DRAIN_TIMEOUT_S``; then
   stragglers are cancelled and the listener closes.
 
+- **Ingest.**  With ``DSQL_INGEST_DIR`` armed (``runtime/ingest.py``),
+  ``POST /v1/ingest`` appends one batch per request through
+  ``Context.append_rows`` and the write-ahead log: 200 ``COMMITTED`` or
+  ``BUFFERED``, 400 on a ``SchemaMismatch``, 429 with ``Retry-After`` on
+  backpressure or a tenant's quota, 503 while draining; ``/v1/engine``
+  gains an ``ingest`` section, and a drain commits the buffered rows.
+  Unarmed, the route answers 404.
+
 Rows travel as ``Table.to_pylist`` values, without pandas (the card's
 machine has none).  The JAX package's event bus (``X-DSQL-Trace``,
-``/v1/events``), fleet plane (``/v1/fleet``, replica labels) and ingest
-route (``/v1/ingest``) are not ported: unarmed, their routes answer 404 as
-there; ``run_server`` raises ``NotImplementedError`` when one is armed.
+``/v1/events``) and fleet plane (``/v1/fleet``, replica labels) are not
+ported: unarmed, their routes answer 404 as there; ``run_server`` raises
+``NotImplementedError`` when one is armed.
 """
 from __future__ import annotations
 
@@ -48,8 +56,9 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
 
-from ..runtime import (faults as _faults, resilience as _res,
-                       scheduler as _sched, telemetry as _tel)
+from ..runtime import (faults as _faults, ingest as _ing,
+                       resilience as _res, scheduler as _sched,
+                       telemetry as _tel)
 from ..runtime.gates import refuse, tenancy_on as _tenancy_on
 
 logger = logging.getLogger(__name__)
@@ -60,8 +69,8 @@ logger = logging.getLogger(__name__)
 # /v1/statement answers when the verdict is known before a query id exists
 # (admission, drain); verdicts raised later ride the Presto convention:
 # HTTP 200 with a FAILED payload carrying errorType/errorName/errorCode.
-# The rows of the event bus's load shed and of ingest keep the JAX
-# package's values although those modules are not ported.
+# The load shed's row keeps the JAX package's values although the event
+# bus is not ported.
 # ---------------------------------------------------------------------------
 
 ERROR_WIRE_MATRIX = {
@@ -486,6 +495,8 @@ def _engine_snapshot(state: "_AppState") -> dict:
     if _tenancy_on():
         from ..runtime import tenancy as _ten
         out["tenants"] = _ten.get_registry().snapshot()
+    if _ing.enabled():
+        out["ingest"] = _ing.engine_section(state.context)
     return out
 
 
@@ -707,6 +718,15 @@ def _drain_and_shutdown(server, state: _AppState,
                            and time.monotonic() < grace):
                         time.sleep(0.05)
     finally:
+        if _ing.enabled():
+            # rows acknowledged as buffered are not in the WAL yet: the
+            # drain commits them before the process goes
+            try:
+                log = _ing.get_log(state.context)
+                if log is not None:
+                    log.flush_all()
+            except Exception:
+                logger.exception("ingest flush during drain failed")
         try:
             server.shutdown()
             server.server_close()
@@ -914,8 +934,11 @@ def _make_handler(state: _AppState, base_url: str):
                 "stats": _stats("FINISHED"),
             })
 
-        # POST /v1/statement
+        # POST /v1/statement | POST /v1/ingest (armed)
         def do_POST(self):
+            if self.path.rstrip("/") == "/v1/ingest" and _ing.enabled():
+                self._do_ingest()
+                return
             if self.path.rstrip("/") != "/v1/statement":
                 self._send(404, {"error": "not found"})
                 return
@@ -1002,6 +1025,83 @@ def _make_handler(state: _AppState, base_url: str):
                 "stats": _stats("QUEUED", info),
             })
 
+        def _do_ingest(self):
+            """POST /v1/ingest: one WAL-committed append per request.
+            Body ``{"table": "t", "rows": [[...], ...] | {"col": [...]},
+            "schema": "root"?}``.  Tenant-tagged (``X-DSQL-Tenant``) and
+            governed by the tenant's quota like a statement; 429 with
+            ``Retry-After`` on quota or backpressure, 400 on a schema
+            mismatch, 503 while draining."""
+            _tel.inc("server_ingest_requests")
+            uid = str(uuid_mod.uuid4())
+
+            def reject(e: _res.AdmissionRejected) -> None:
+                hdrs = {"Retry-After":
+                        str(max(int(math.ceil(e.retry_after_s)), 1))}
+                self._send(submit_status(e),
+                           _error_payload(str(e), uid, exc=e), headers=hdrs)
+
+            mgr = _sched.get_manager()
+            if mgr.draining():
+                _tel.inc("server_drain_rejects")
+                reject(mgr._drain_verdict())
+                return
+            length = int(self.headers.get("Content-Length", 0))
+            try:
+                payload = json.loads(self.rfile.read(length).decode())
+                table = payload["table"]
+                rows = payload["rows"]
+                schema_name = payload.get("schema") or None
+                if not isinstance(rows, (list, dict)):
+                    raise TypeError("rows must be a list or dict")
+            except Exception:
+                self._send(400, _error_payload(
+                    'Invalid ingest body (expected {"table": "...", '
+                    '"rows": [[...], ...] | {"col": [...]}, '
+                    '"schema": "..."?})', uid))
+                return
+            grant = None
+            if _tenancy_on():
+                from ..runtime import tenancy as _ten
+                try:
+                    grant = _ten.get_registry().claim(
+                        self.headers.get("X-DSQL-Tenant"))
+                except _res.AdmissionRejected as e:
+                    _tel.inc("server_throttled")
+                    reject(e)
+                    return
+            outcome = None   # a refusal feeds neither breaker nor counts
+            try:
+                if isinstance(rows, list):
+                    rows = [tuple(r) if isinstance(r, list) else r
+                            for r in rows]
+                n = state.context.append_rows(table, rows,
+                                              schema_name=schema_name)
+                outcome = "ok"
+                self._send(200, {
+                    "id": uid,
+                    "table": table,
+                    "state": "COMMITTED" if n else "BUFFERED",
+                    "rows": int(n),
+                    "epoch": state.context.table_epoch(
+                        schema_name or state.context.schema_name,
+                        str(table)),
+                })
+            except _res.AdmissionRejected as e:
+                _tel.inc("server_throttled")
+                reject(e)
+            except Exception as e:
+                outcome = "error"
+                err = _res.classify(e, default=_res.UserError)
+                if err is None:
+                    raise
+                self._send(submit_status(err),
+                           _error_payload(str(err), uid, exc=err))
+            finally:
+                if grant is not None:
+                    from ..runtime import tenancy as _ten
+                    _ten.get_registry().release(grant, outcome=outcome)
+
         # DELETE /v1/cancel/{id}
         def do_DELETE(self):
             if not self.path.startswith("/v1/cancel/"):
@@ -1074,10 +1174,14 @@ def run_server(context=None, host: str = "0.0.0.0", port: int = 8080,
         logging.basicConfig(level=log_level)
     from ..context import Context
 
-    # the JAX package arms its fleet plane and ingest log here, and its
-    # event bus adds trace headers and a route
+    # the JAX package arms its fleet plane here, and its event bus adds
+    # trace headers and a route
     refuse()
     context = context or Context()
+    # the ingest log on the serving context before the first request
+    # (idempotent with the Context's own arming)
+    if _ing.enabled():
+        _ing.ensure_armed(context)
     if startup:
         context.sql("SELECT 1 + 1")
 

@@ -235,7 +235,6 @@ def test_server_round_trip_without_pandas():
 @pytest.mark.parametrize("variable,module", [
     ("DSQL_EVENTS", "runtime/events.py"),
     ("DSQL_FLEET_DIR", "runtime/fleet.py"),
-    ("DSQL_INGEST_DIR", "runtime/ingest.py"),
     ("DSQL_AUTOPILOT", "runtime/autopilot.py"),
     ("DSQL_HISTORY_FILE", "runtime/flight_recorder.py"),
     ("DSQL_PROFILE", "runtime/profiler.py"),
@@ -253,15 +252,42 @@ def test_armed_unported_subsystems_raise(monkeypatch, tmp_path, variable,
     c = Context(device="cpu")
     c.create_table("t", {"a": np.arange(3)})
     monkeypatch.setenv(variable, str(tmp_path / "x") if variable in (
-        "DSQL_FLEET_DIR", "DSQL_INGEST_DIR", "DSQL_HISTORY_FILE",
-        "DSQL_PROGRAM_STORE") else "1")
+        "DSQL_FLEET_DIR", "DSQL_HISTORY_FILE", "DSQL_PROGRAM_STORE")
+        else "1")
     with pytest.raises(NotImplementedError, match=module):
-        if variable in ("DSQL_FLEET_DIR", "DSQL_INGEST_DIR"):
+        if variable == "DSQL_FLEET_DIR":
             Context(device="cpu")
         else:
             c.sql("SELECT SUM(a) AS s FROM t")
     with pytest.raises(NotImplementedError, match=module):
         run_server(context=c, host="127.0.0.1", port=0, blocking=False)
+
+
+def test_ingest_dir_arms_the_ported_log(monkeypatch, tmp_path):
+    """DSQL_INGEST_DIR arms runtime/ingest.py in the Context and the
+    server (it no longer raises); DSQL_INGEST=0 keeps it off."""
+    import numpy as np
+
+    from dask_sql_tpu_torch import Context, run_server
+    from dask_sql_tpu_torch.runtime import gates, ingest
+
+    assert "DSQL_INGEST_DIR" not in gates.UNPORTED
+    monkeypatch.setenv("DSQL_INGEST_DIR", str(tmp_path / "ing"))
+    monkeypatch.setenv("DSQL_INGEST", "0")
+    c = Context(device="cpu")
+    assert c.__dict__.get("_ingest_log") is None
+    monkeypatch.setenv("DSQL_INGEST", "1")
+    c = Context(device="cpu")
+    c.create_table("t", {"a": np.arange(3)})
+    srv = run_server(context=c, host="127.0.0.1", port=0, blocking=False)
+    try:
+        assert c.append_rows("t", {"a": np.array([7])}) == 1
+        assert (tmp_path / "ing" / "wal").is_dir()
+        assert ingest.engine_section(c)["armed"]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        ingest._reset_for_tests()
 
 
 def test_default_layers_and_their_switches(monkeypatch):

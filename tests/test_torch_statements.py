@@ -8,7 +8,9 @@ tables); results, errors and the analyzed trees' node lines with their
 grammar refuses PREPARE / EXECUTE / DEALLOCATE, so it runs those with its
 native library switched off by patching the loader's cache (its Python
 parser then takes every statement).  Each statement the port does not
-have yet raises ``NotImplementedError`` naming itself.
+have yet raises ``NotImplementedError`` naming itself.  Statements that
+read a chunked table's rows (CTAS, ANALYZE TABLE) read them through the
+query path, never through the table's one-row binding stub (F14).
 """
 import re
 
@@ -314,12 +316,6 @@ def test_explain_analyze_lists_the_choices_it_took(contexts, monkeypatch):
 @pytest.mark.parametrize("sql,name", [
     ("CREATE TABLE z WITH (location = 'z.csv', format = 'csv')",
      "CREATE TABLE ... WITH (location=...)"),
-    ("ANALYZE TABLE t COMPUTE STATISTICS FOR ALL COLUMNS", "ANALYZE TABLE"),
-    ("CREATE MATERIALIZED VIEW mv AS SELECT a FROM t",
-     "CREATE MATERIALIZED VIEW"),
-    ("DROP MATERIALIZED VIEW mv", "DROP MATERIALIZED VIEW"),
-    ("REFRESH MATERIALIZED VIEW mv", "REFRESH MATERIALIZED VIEW"),
-    ("INSERT INTO t VALUES (1, 10, 0.5)", "INSERT INTO"),
     ("SHOW MODELS", "SHOW MODELS"),
     ("DESCRIBE MODEL m", "DESCRIBE MODEL"),
     ("CREATE MODEL m WITH (model_class = 'x.Y', target_column = 'a') AS "
@@ -336,3 +332,60 @@ def test_unported_statements_name_themselves(sql, name):
     pc.create_table("t", SMALL["t"])
     with pytest.raises(NotImplementedError, match=re.escape(name)):
         pc.sql(sql)
+
+
+# ---------------------------------------------------------------------------
+# statements over a chunked table read its rows (F14)
+# ---------------------------------------------------------------------------
+
+def _chunked_frame():
+    rng = np.random.default_rng(14)
+    n = 3000
+    return pd.DataFrame({"k": rng.integers(0, 5, n),
+                         "x": np.round(rng.random(n) * 10, 3),
+                         "s": rng.choice(["p", "q", "r"], n).astype(object)})
+
+
+@pytest.fixture(scope="module")
+def chunked():
+    df = _chunked_frame()
+    jc, pc = JaxContext(), Context(device=CPU)
+    for c in (jc, pc):
+        c.create_table("tc", df, chunked=True, batch_rows=512)
+    return jc, pc, df
+
+
+def test_ctas_over_chunked_equals_the_select(chunked):
+    """The JAX package's CTAS runs its eager executor over the binding
+    stub and stores one row of zeros; the port's equals the SELECT."""
+    jc, pc, df = chunked
+    q = "SELECT k, SUM(x) AS sx FROM tc GROUP BY k"
+    pc.sql(f"CREATE OR REPLACE TABLE agg AS {q}")
+    got = pc.sql("SELECT * FROM agg ORDER BY k", return_futures=False)
+    want = jc.sql(q + " ORDER BY k", return_futures=False)
+    assert _rows(got) == _rows(want)
+    assert len(got) == 5
+    oracle = df.groupby("k")["x"].sum()
+    assert np.allclose(got["sx"], oracle.values, rtol=1e-12)
+
+
+def test_ctas_select_star_over_chunked_raises_as_the_select(chunked):
+    from dask_sql_tpu_torch.physical.streaming import StreamingUnsupported
+
+    _, pc, _ = chunked
+    with pytest.raises(StreamingUnsupported) as plain:
+        pc.sql("SELECT * FROM tc")
+    with pytest.raises(StreamingUnsupported) as ctas:
+        pc.sql("CREATE OR REPLACE TABLE big AS SELECT * FROM tc")
+    assert str(ctas.value) == str(plain.value)
+    assert "big" not in pc.schema["root"].tables
+
+
+def test_analyze_over_chunked_equals_resident(chunked):
+    _, pc, df = chunked
+    pc.create_table("tres", df)
+    sql = "ANALYZE TABLE {} COMPUTE STATISTICS FOR ALL COLUMNS"
+    got = pc.sql(sql.format("tc"), return_futures=False)
+    want = pc.sql(sql.format("tres"), return_futures=False)
+    assert _rows(got) == _rows(want)
+    assert dict(zip(got["statistic"], got["k"]))["count"] == "3000.0"
