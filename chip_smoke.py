@@ -132,7 +132,12 @@ the compiled tier first.
    unprofiled warm wall).  One ``compiled table:`` JSON line per query.
    The ``kernels`` line's launches for kernel 1 are this phase's.
 13. the rest of the compiled tier (after phase 12): parameters, stage
-   graphs, tiering and the ladder (``params table:``, ``stages table:``).
+   graphs, tiering and the ladder (``params table:``, ``stages table:``);
+   13(c) also runs a cold query whose background build's capture is held
+   open while another thread calls ``torch.cuda.synchronize()`` once: the
+   build must land (a capture invalidated so is retried once on the
+   build's thread, ``background_capture_retries``; ``tiering device
+   sync:``).
 14. serving, the default layers in front of the tiers (after phase 13, at
    ``--sf``): phases 1-13 run with ``DSQL_RESULT_CACHE_MB=0`` and
    ``DSQL_MAX_CONCURRENT_QUERIES=0`` so that they measure the engine, and
@@ -220,6 +225,25 @@ the compiled tier first.
    and one batch.  One ``write table:`` JSON
    line per RF1 and a ``write summary:`` line; the ``kernels`` line
    carries the phase's kernel-1 launches as ``launches_write_path``.
+
+17. multi-device execution (last, on the default path): the resident
+   tables at ``--sf`` on ``Context(mesh=Mesh([cuda:0] * 4))`` (four row
+   shards on the card, ``parallel/``).  (a) Q1-Q22 cold and 3 warm with
+   the SPMD stage executor on: per query the tier (``spmd``, or the
+   compiled tier where it declines), the ``spmd_*`` counters and
+   collective bytes, kernel-1 launches, syncs, cold and warm walls; each
+   answer equal to phase 7's (doubles rtol 1e-9), the last two warm runs
+   bit for bit.  (b) The 22 queries with
+   ``DSQL_MESH=0``: the compiled tier over the padded mesh tables, each
+   with phase 12's tier (no new fallback), kernel 1 launching for Q1, Q4,
+   Q5, Q12 and Q22, answers equal.  (c) Q1 and Q6 streamed over lineitem
+   chunked on the mesh (batches of 1,048,576 rows, each sharded), equal.
+   (d) One RF1 appended to the mesh lineitem, then Q1, equal to a plain
+   context's after the same append.  (e) Q1, Q3 and Q6 on
+   ``default_mesh()`` when the machine has two cards or more, else one
+   line saying the branch is skipped.  One ``mesh table:`` JSON line per
+   query and part, and a ``mesh summary:`` line; the ``kernels`` line
+   carries the phase's kernel-1 launches as ``launches_mesh``.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -2221,6 +2245,104 @@ def phase_tiering(ctx, eager_results: dict) -> dict:
             or counters["background_compile_errors"]):
         raise AssertionError(f"tiering: {row}")
     forget_programs(learned=True)
+    row["device_sync"] = tiering_device_sync(ctx, eager_results)
+    forget_programs(learned=True)
+    return row
+
+
+def tiering_device_sync(ctx, eager_results: dict) -> dict:
+    """13(c), F12: another thread calls ``torch.cuda.synchronize()`` once
+    while the background build's CUDA graph capture is open (the first
+    capture attempt waits inside the captured function until the call has
+    returned or raised), which invalidates that capture; the build
+    captures once more on its own thread (``background_capture_retries``)
+    and lands: the next arrival is ``compiled``, equal to phase 7's.  The
+    row says whether the sync raised and how many captures were retried."""
+    import threading
+
+    from dask_sql_tpu_torch.physical import compiled, graphs
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+
+    text = QUERIES[TIERED_QUERY]
+    opened, synced = threading.Event(), threading.Event()
+    seen = {"sync_error": None, "hooked": 0}
+    real = graphs.GraphProgram._capture
+
+    def capture(self, inputs, consts):
+        if seen["hooked"]:
+            return real(self, inputs, consts)
+        seen["hooked"] += 1
+        fn = self.fn
+
+        def held(*args):
+            opened.set()
+            synced.wait(60)
+            return fn(*args)
+
+        self.fn = held
+        try:
+            return real(self, inputs, consts)
+        finally:
+            self.fn = fn
+
+    def syncer():
+        if not opened.wait(300):
+            return
+        try:
+            torch.cuda.synchronize()
+        except Exception as exc:   # reported in the row
+            seen["sync_error"] = f"{type(exc).__name__}: {str(exc)[:120]}"
+        finally:
+            synced.set()
+
+    before = dict(compiled.stats)
+    retries0 = tel.REGISTRY.counters().get("background_capture_retries", 0)
+    os.environ["DSQL_TIERED"] = "1"
+    os.environ["DSQL_EAGER_FALLBACK"] = "1"
+    graphs.GraphProgram._capture = capture
+    thread = threading.Thread(target=syncer, name="device-sync")
+    thread.start()
+    try:
+        box = {}
+        first_ms = stream_wall_ms(lambda: box.update(r=ctx.sql(text)))
+        first_tier = _last_tier(ctx)[0]
+        t0 = time.perf_counter()
+        while compiled.inflight_background_compiles():
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("background build still running after "
+                                     "300 s")
+            time.sleep(0.005)
+        build_s = time.perf_counter() - t0
+    finally:
+        synced.set()
+        opened.set()
+        thread.join()
+        graphs.GraphProgram._capture = real
+        torch.cuda.synchronize()
+    try:
+        box["r2"] = ctx.sql(text)
+        second_tier = _last_tier(ctx)[0]
+    finally:
+        os.environ["DSQL_TIERED"] = "0"
+        os.environ["DSQL_EAGER_FALLBACK"] = "0"
+    counters = _counter_delta(before, ("background_compiles_done",
+                                       "background_compile_errors"))
+    counters["background_capture_retries"] = (
+        tel.REGISTRY.counters().get("background_capture_retries", 0)
+        - retries0)
+    for name, result in (("first", box["r"]), ("second", box["r2"])):
+        check_same_result(f"Q{TIERED_QUERY} {name} arrival beside a sync",
+                          result, eager_results[TIERED_QUERY], rtol=1e-9)
+    row = {"q": TIERED_QUERY, "first_tier": first_tier,
+           "first_ms": first_ms, "build_s": build_s,
+           "second_tier": second_tier, "sync_error": seen["sync_error"],
+           "counters": counters}
+    print("tiering device sync: " + json.dumps(row))
+    if (first_tier != "eager-compiling" or second_tier != "compiled"
+            or counters["background_compiles_done"] != 1
+            or counters["background_compile_errors"]
+            or counters["background_capture_retries"] > 1):
+        raise AssertionError(f"tiering beside a device-wide sync: {row}")
     return row
 
 
@@ -4660,6 +4782,320 @@ def phase_write(dev, ctx, tables: dict, sf: float, seed: int) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 17: multi-device execution (parallel/): a mesh of four shards on
+# the card
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4
+MESH_WARM = 3
+#: the static GROUP BYs the single-device tier sums through kernel 1
+MESH_KERNEL1 = (1, 4, 5, 12, 22)
+MESH_DISTINCT = (1, 3, 6)
+MESH_STREAMED = (1, 6)
+MESH_BATCH_ROWS = 1 << 20
+#: the queries the SPMD walker serves (tests/test_torch_spmd_tpch.py's
+#: SERVED); the other 16 decline up front (``spmd_unsupported``)
+MESH_SPMD_SERVED = (1, 3, 6, 8, 12, 14)
+#: the one runtime flag a served query may fall back on: Q3's mixed-radix
+#: group codes pass 2**62 over microsecond timestamps at SF 1, as in JAX
+#: (a duplicate-build-key flag of the same run would only flip its join)
+MESH_SPMD_FLAGS = {3: "radix_overflow"}
+
+
+def _spmd_counters(ctx) -> dict:
+    return {k: v for k, v in sorted(ctx.last_report.counters.items())
+            if k.startswith("spmd_") and v}
+
+
+def _span_attr(ctx, key: str):
+    for s in ctx.last_report.root.walk():
+        if key in s.attrs:
+            return s.attrs[key]
+    return None
+
+
+def _spmd_run(ctx) -> dict:
+    """What the SPMD executor did in the context's last query: its
+    counters, the runtime flags that sent it to the tiers and the error
+    its walker raised, if any."""
+    return {"counters": _spmd_counters(ctx),
+            "fallback": _span_attr(ctx, "spmd_fallback"),
+            "error": _span_attr(ctx, "spmd_error")}
+
+
+def check_spmd_runs(label: str, qid: int, tier: str, runs: list,
+                    virtual: bool) -> None:
+    """Every run of a query on the SPMD path did what the walker should:
+    no error caught by its generic handler; a served shape served, or
+    falling back on its one known flag only; any other shape declined up
+    front; on one card (``virtual``) no stage run outside a CUDA graph."""
+    for run in runs:
+        c = run["counters"]
+        if c.get("spmd_errors") or run["error"]:
+            raise AssertionError(f"{label} Q{qid}: the SPMD walker failed: "
+                                 f"{run}")
+        if virtual and c.get("spmd_eager_stages"):
+            raise AssertionError(f"{label} Q{qid}: stages ran outside a "
+                                 f"CUDA graph: {run}")
+        if qid not in MESH_SPMD_SERVED:
+            if c != {"spmd_unsupported": 1}:
+                raise AssertionError(f"{label} Q{qid}: expected a decline up "
+                                     f"front: {run}")
+        elif c.get("spmd_fallbacks"):
+            fatal = [f for f in str(run["fallback"]).split(",")
+                     if not f.startswith("dup_build_keys@")]
+            if fatal != [MESH_SPMD_FLAGS.get(qid)]:
+                raise AssertionError(f"{label} Q{qid}: fell back on "
+                                     f"{run['fallback']}: {run}")
+        elif c.get("spmd_queries") != 1:
+            raise AssertionError(f"{label} Q{qid}: not served: {run}")
+    served = [r["counters"].get("spmd_queries") == 1 for r in runs]
+    if any(served) != all(served) or (tier == "spmd") != all(served):
+        raise AssertionError(f"{label} Q{qid}: tier {tier}, runs {runs}")
+
+
+def _mesh_context(mesh, base: dict):
+    """A mesh context over the resident context's encoded tables (``base``:
+    name -> device ``Table``, as phase 3 registered them)."""
+    from dask_sql_tpu_torch import Context
+
+    t0 = time.perf_counter()
+    mctx = Context(mesh=mesh)
+    for name, table in base.items():
+        mctx.create_table(name, table)
+    torch.cuda.synchronize()
+    return mctx, time.perf_counter() - t0
+
+
+def _mesh_runs(mctx, qid: int, answers: dict, warm: int) -> dict:
+    """Cold and ``warm`` warm runs of one query on a mesh context, the
+    launch counts set to 0 before each run and read after it; the answer
+    held to the resident one and the last two warm runs to each other,
+    bit for bit."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    text = QUERIES[qid]
+    walls, launches, results, runs = [], [], [], []
+    for _ in range(1 + warm):
+        gk.reset_launch_counts()
+        box = {}
+        walls.append(wall_ms(lambda: box.update(r=mctx.sql(text))))
+        launches.append(gk.LAUNCHES.get("segsum_fixedpoint", 0))
+        results.append(box["r"])
+        runs.append(_spmd_run(mctx))
+        MESH_LAUNCHES["segsum_fixedpoint"] = (
+            MESH_LAUNCHES.get("segsum_fixedpoint", 0) + launches[-1])
+    tier, reason, comp = _last_tier(mctx)
+    spmd = _spmd_counters(mctx)
+    check_same_result(f"mesh Q{qid}", results[-1], answers[qid], rtol=1e-9)
+    if warm >= 2:
+        _bit_equal_tables(f"mesh Q{qid} warm runs", results[-1], results[-2])
+    return {"q": qid, "tier": tier, "reason": reason, "compiled": comp,
+            "spmd": spmd, "spmd_runs": runs,
+            "spmd_fallback": sorted({str(r["fallback"]) for r in runs
+                                     if r["fallback"]}),
+            "kernel1_launches": launches,
+            "syncs": count_syncs(lambda: mctx.sql(text)),
+            "cold_ms": walls[0], "warm_ms": walls[1:],
+            "warm_median_ms": _median(walls[1:]) if warm else None}
+
+
+MESH_LAUNCHES: dict = {}
+
+
+def mesh_spmd(mctx, answers: dict) -> list:
+    """17(a): the 22 queries with the SPMD executor on (the default under a
+    mesh): a query the stage executor declines (``spmd_unsupported``) or
+    whose stage raises a runtime flag (``spmd_fallbacks``: Q3's mixed-radix
+    group codes overflow over microsecond timestamps, as in the JAX
+    package) runs on the compiled tier over the padded tables.  Every run
+    is held to ``check_spmd_runs``."""
+    rows = []
+    for qid in sorted(QUERIES):
+        row = _mesh_runs(mctx, qid, answers, MESH_WARM)
+        row["part"] = "spmd"
+        rows.append(row)
+        print("mesh table: " + json.dumps(
+            {k: v for k, v in row.items() if k != "spmd_runs"}))
+        check_spmd_runs("mesh", qid, row["tier"], row["spmd_runs"],
+                        virtual=True)
+    return rows
+
+
+def mesh_single_device(mctx, answers: dict, resident_tiers: dict) -> list:
+    """17(b): the 22 queries with ``DSQL_MESH=0``: each served by the
+    compiled tier over the mesh tables with no fallback that phase 12's
+    run over the resident tables did not have (Q2's stage graph falls
+    back there, F8); kernel 1 launches for the static GROUP BYs."""
+    rows = []
+    os.environ["DSQL_MESH"] = "0"
+    try:
+        for qid in sorted(QUERIES):
+            row = _mesh_runs(mctx, qid, answers, 1)
+            row["part"] = "single-device"
+            rows.append(row)
+            print("mesh table: " + json.dumps(
+                {k: v for k, v in row.items() if k != "spmd_runs"}))
+            if any(r["counters"] for r in row["spmd_runs"]):
+                raise AssertionError(f"mesh Q{qid}: the SPMD executor ran "
+                                     f"with DSQL_MESH=0: {row}")
+            if row["tier"] != resident_tiers[qid] or (
+                    row["tier"] != "compiled"
+                    and "runtime" not in row["reason"]):
+                raise AssertionError(f"mesh Q{qid} with DSQL_MESH=0 took "
+                                     f"{row['tier']} ({row['reason']}), the "
+                                     f"resident tables "
+                                     f"{resident_tiers[qid]}: {row}")
+            if qid in MESH_KERNEL1 and min(row["kernel1_launches"]) < 1:
+                raise AssertionError(f"mesh Q{qid} with DSQL_MESH=0 launched "
+                                     f"no kernel 1: {row}")
+    finally:
+        os.environ.pop("DSQL_MESH", None)
+    return rows
+
+
+def mesh_streamed(mesh, tables: dict, answers: dict) -> list:
+    """17(c): Q1 and Q6 streamed over lineitem chunked on the mesh (each
+    uploaded batch row-sharded), equal to the resident answers."""
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.io.chunked import ChunkedSource
+
+    sctx = Context(mesh=mesh)
+    sctx.create_table("lineitem", ChunkedSource.from_columns(
+        tables["lineitem"], batch_rows=MESH_BATCH_ROWS), chunked=True)
+    rows = []
+    for qid in MESH_STREAMED:
+        walls = []
+        for _ in range(2):
+            box = {}
+            walls.append(wall_ms(
+                lambda: box.update(r=sctx.sql(QUERIES[qid]))))
+        check_same_result(f"streamed mesh Q{qid}", box["r"], answers[qid],
+                          rtol=1e-9)
+        batches = sctx.last_report.counters.get("stream_batches", 0)
+        row = {"part": "streamed", "q": qid, "cold_ms": walls[0],
+               "warm_ms": walls[1], "batches": batches}
+        rows.append(row)
+        print("mesh table: " + json.dumps(row))
+    return rows
+
+
+def mesh_append(dev, mctx, base: dict, tables: dict, sf: float,
+                seed: int) -> dict:
+    """17(d): one RF1 appended to the mesh lineitem (its valid prefix
+    concatenated with the batch and sharded again), then Q1, equal to Q1
+    on a plain context after the same append."""
+    from dask_sql_tpu_torch import Context
+
+    first_key = int(tables["orders"]["o_orderkey"].max()) + 1
+    _, lines = rf1(sf, np.random.RandomState(seed + 17), first_key)
+    plain = Context(device=dev)
+    plain.create_table("lineitem", base["lineitem"])
+    n = len(lines["l_orderkey"])
+    t0 = time.perf_counter()
+    appended = mctx.append_rows("lineitem", lines)
+    torch.cuda.synchronize()
+    append_ms = (time.perf_counter() - t0) * 1e3
+    plain.append_rows("lineitem", lines)
+    entry = mctx.schema["root"].tables["lineitem"]
+    rows_now = len(tables["lineitem"]["l_orderkey"]) + n
+    if appended != n or entry.stats.rows != rows_now \
+            or entry.table.num_rows % MESH_SHARDS:
+        raise AssertionError(f"mesh append: {appended} of {n} rows, stats "
+                             f"{entry.stats.rows} of {rows_now}, "
+                             f"{entry.table.num_rows} padded rows")
+    box = {}
+    q1_ms = wall_ms(lambda: box.update(r=mctx.sql(QUERIES[1])))
+    check_same_result("mesh Q1 after RF1", box["r"], plain.sql(QUERIES[1]),
+                      rtol=1e-9)
+    row = {"part": "append", "rows": n, "append_ms": append_ms,
+           "q1_cold_ms": q1_ms, "tier": _last_tier(mctx)[0]}
+    print("mesh table: " + json.dumps(row))
+    del plain
+    return row
+
+
+def mesh_distinct_cards(base: dict, answers: dict) -> dict:
+    """17(e): Q1, Q3 and Q6 on ``default_mesh()`` when it spans distinct
+    cards (each shard on its own card; stages run eagerly there)."""
+    from dask_sql_tpu_torch.parallel.mesh import default_mesh
+
+    if torch.cuda.device_count() < 2:
+        print("mesh 17(e): skipped, the machine has one card: a mesh over "
+              "distinct cards is not verified by this run")
+        return {"part": "distinct-cards", "skipped": "one card"}
+    mesh = default_mesh()
+    dctx, seconds = _mesh_context(mesh, base)
+    rows = [_mesh_runs(dctx, qid, answers, 1) for qid in MESH_DISTINCT]
+    for r in rows:
+        check_spmd_runs("distinct-card mesh", r["q"], r["tier"],
+                        r.pop("spmd_runs"), virtual=False)
+    row = {"part": "distinct-cards", "devices": [str(d) for d in mesh.devices],
+           "create_s": seconds, "queries": rows}
+    print("mesh table: " + json.dumps(row))
+    del dctx
+    return row
+
+
+def phase_mesh(dev, base: dict, tables: dict, answers: dict,
+               compiled_rows: list, sf: float, seed: int) -> dict:
+    """Phase 17: ``Context(mesh=Mesh([cuda:0] * 4))`` over phase 3's
+    tables at ``--sf`` (``base``, their encoded device tables; ``tables``,
+    the generated columns), on the default path: SPMD stages, then the
+    compiled tier; the launch counts set to 0 before each run and read
+    after it."""
+    from dask_sql_tpu_torch.parallel import spmd
+    from dask_sql_tpu_torch.parallel.mesh import Mesh
+
+    os.environ.pop("DSQL_COMPILE", None)
+    os.environ.pop("DSQL_MESH", None)
+    MESH_LAUNCHES.clear()
+    forget_programs()
+    shard = torch.device(dev.type, 0) if dev.type == "cuda" else dev
+    mesh = Mesh([shard] * MESH_SHARDS)
+    t0 = time.perf_counter()
+    mctx, create_s = _mesh_context(mesh, base)
+    out = {"create_s": create_s}
+    t1 = time.perf_counter()
+    out["spmd"] = mesh_spmd(mctx, answers)
+    t2 = time.perf_counter()
+    out["single_device"] = mesh_single_device(
+        mctx, answers, {r["q"]: r["tier"] for r in compiled_rows})
+    t3 = time.perf_counter()
+    out["streamed"] = mesh_streamed(mesh, tables, answers)
+    t4 = time.perf_counter()
+    out["append"] = mesh_append(dev, mctx, base, tables, sf, seed)
+    t5 = time.perf_counter()
+    out["distinct_cards"] = mesh_distinct_cards(base, answers)
+    eager_stages = sum(r["spmd"].get("spmd_eager_stages", 0)
+                       for r in out["spmd"])
+    served = [r["q"] for r in out["spmd"] if r["tier"] == "spmd"]
+    fell_back = {r["q"]: r["spmd_fallback"] for r in out["spmd"]
+                 if r["spmd_fallback"]}
+    for r in out["spmd"]:
+        del r["spmd_runs"]
+    summary = {
+        "create_s": create_s, "spmd_served": served,
+        "spmd_fallback_flags": fell_back,
+        "spmd_eager_stages": eager_stages,
+        "spmd_programs": len(spmd._prog_cache),
+        "kernel1_launches": dict(MESH_LAUNCHES),
+        "seconds": {"spmd": t2 - t1, "single_device": t3 - t2,
+                    "streamed": t4 - t3, "append": t5 - t4,
+                    "distinct_cards": time.perf_counter() - t5,
+                    "all": time.perf_counter() - t0}}
+    print(f"mesh: {len(served)} of 22 queries served as SPMD stages "
+          f"{served}, fallbacks {fell_back}, no walker error; "
+          f"{eager_stages} stage runs outside a CUDA graph")
+    print("mesh summary: " + json.dumps(summary))
+    out["summary"] = summary
+    del mctx
+    spmd.clear_programs()
+    forget_programs()
+    return out
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--sf", type=float, default=1.0)
@@ -4693,6 +5129,10 @@ def main(argv=None) -> int:
     card = phase_environment()
     phase_build()
     ctx, tables = phase_data(dev, args.sf, args.seed)
+    # phase 3's encoded tables, for phase 17 (phases 14 and 16 replace
+    # entries of the context)
+    base = {name: entry.table
+            for name, entry in ctx.schema["root"].tables.items()}
     q1_args, q1_cold_ms, q1_launches = capture_q1_reduction(ctx)
     kernel1 = phase_kernel1(dev, q1_args)
     kernel2 = phase_kernel2(dev, q1_args)
@@ -4728,9 +5168,14 @@ def main(argv=None) -> int:
     phase_statements(ctx, tables, on_results[1])
     ooc = phase_ooc(dev, ctx, tables, on_results, args.seed)
     write = phase_write(dev, ctx, tables, args.sf, args.seed)
+    del ctx
+    mesh = phase_mesh(dev, base, tables, on_results, compiled_rows, args.sf,
+                      args.seed)
     kernel1["launches"] = compiled_launches["segsum_fixedpoint"]
     kernel1["launches_out_of_core_q1"] = ooc["q1_launches"]
     kernel1["launches_write_path"] = write["launches"]["segsum_fixedpoint"]
+    kernel1["launches_mesh"] = mesh["summary"]["kernel1_launches"].get(
+        "segsum_fixedpoint", 0)
     print(f"card: {card}")
     print(json.dumps({"kernels": [kernel1, kernel2]}))
     print(json.dumps({"ok": True, "device": {

@@ -76,17 +76,33 @@ class Context:
 
     DEFAULT_SCHEMA_NAME = "root"
 
-    def __init__(self, device: Union[str, torch.device, None] = None):
+    def __init__(self, device: Union[str, torch.device, None] = None,
+                 mesh=None):
+        """``mesh``: a ``parallel.mesh.Mesh`` whose first device is this
+        context's.  Tables registered on the context are row-sharded over
+        it, and queries run as SPMD stages over its shards
+        (``parallel/spmd.py``), or on the single-device tiers over the
+        padded tables where that declines."""
+        if device is None and mesh is not None:
+            device = mesh.devices[0]
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "Context: CUDA is not available; pass device='cpu' to run on "
                 "the CPU")
+        if mesh is not None and device.type == "cuda" \
+                and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if mesh is not None and mesh.devices[0] != device:
+            raise ValueError(
+                f"Context: the mesh's first device {mesh.devices[0]} must be "
+                f"the context's device {device}")
         from .runtime.gates import refuse
 
         # the JAX package arms its fleet plane here
         refuse("DSQL_FLEET_DIR")
         self.device = device
+        self.mesh = mesh
         self.server = None
         self.schema_name = self.DEFAULT_SCHEMA_NAME
         self.schema = {self.DEFAULT_SCHEMA_NAME:
@@ -221,8 +237,13 @@ class Context:
         else:
             raise TypeError(
                 f"create_table: unsupported input {type(input_table).__name__}")
+        row_valid = None
+        if self.mesh is not None:
+            from .parallel.mesh import shard_table_with_validity
+            table, row_valid = shard_table_with_validity(table, self.mesh)
         self.schema[schema_name].tables[table_name.lower()] = TableEntry(
-            table=table, stats=_stats.collect_table_stats(table))
+            table=table, row_valid=row_valid,
+            stats=_stats.collect_table_stats(table, row_valid=row_valid))
         self.bump_table_epoch(schema_name, table_name)
         if _ing.enabled():
             # the restart path: logged batches of this table apply on the
@@ -364,11 +385,19 @@ class Context:
             raise UserError(f"Table {table_name} not found in schema "
                             f"{schema_name}; create it before INSERT INTO.")
         delta = _coerce_delta(entry.table, delta, self.device)
-        new_table = concat_tables([entry.table, delta])
+        base, row_valid = entry.table, None
+        if entry.row_valid is not None:
+            # a sharded base: its valid prefix (the padding is at the end)
+            base = base.slice(0, int(entry.row_valid.sum()))
+        new_table = concat_tables([base, delta])
+        if self.mesh is not None:
+            from .parallel.mesh import shard_table_with_validity
+            new_table, row_valid = shard_table_with_validity(new_table,
+                                                             self.mesh)
         new_entry = TableEntry(
             table=new_table, statistics=entry.statistics,
-            filepath=entry.filepath, gpu=entry.gpu,
-            stats=_stats.collect_table_stats(new_table))
+            filepath=entry.filepath, gpu=entry.gpu, row_valid=row_valid,
+            stats=_stats.collect_table_stats(new_table, row_valid=row_valid))
         reg = self._matviews()
         if reg is not None:
             # the swap and the delta record are one step under the
@@ -531,7 +560,8 @@ class Context:
         """The result cache first: an identical plan over unchanged tables
         (the same epochs and table uids) is answered from memory
         (``result_cache=hit``); ``_rc_bypass`` skips the lookup, not the
-        store.  Then the compiled tier, and the eager executor where it
+        store.  Under a mesh the SPMD stage executor (``tier="spmd"``),
+        then the compiled tier, and the eager executor where it
         declines (``DSQL_COMPILE=0``, a plan outside its subset, a runtime
         flag, a rung of its ladder, or a cold plan answered eager while
         its programs build); the span says which with ``tier``:
@@ -564,8 +594,18 @@ class Context:
                                   result_cache_tier=tier)
                     return table
                 _tel.inc("result_cache_misses")
-        result = try_execute_compiled(plan, self)
+        # the SPMD stage executor first under a mesh (parallel/spmd.py);
+        # None: outside its envelope or a runtime flag tripped, and the
+        # single-device tiers serve the padded tables
+        result = None
         span = _tel.current_span()
+        if self.mesh is not None:
+            from .parallel.spmd import try_execute_spmd
+            result = try_execute_spmd(plan, self)
+            if result is not None and span is not None:
+                span.attrs.setdefault("tier", "spmd")
+        if result is None:
+            result = try_execute_compiled(plan, self)
         if result is None:
             if span is not None:
                 span.attrs.setdefault("tier", "eager")

@@ -187,18 +187,57 @@ def _masked(col: Column, extra_mask: Optional[torch.Tensor]):
 
 
 def _segment_sum(values: torch.Tensor, codes: torch.Tensor,
-                 num_groups: int) -> torch.Tensor:
-    """Per-group sums, the same bits on every run.  On the card a float
-    ``index_add_`` adds with atomics in a varying order, so two runs of one
-    SUM can differ in the last bit (and TPC-H Q15's ``total_revenue =
-    (SELECT MAX(total_revenue) ...)`` then matches nothing); there float
-    sums go through ``index_put_(accumulate=True)``, which sorts the codes
-    and adds each group's values in row order.  Integer sums are exact in
-    any order, and the CPU's ``index_add_`` adds in row order."""
+                 num_groups: int, spread: bool = False) -> torch.Tensor:
+    """Per-group sums, the same bits on every run.  The CPU's
+    ``index_add_`` adds in row order.  On the card a float ``index_add_``
+    adds with atomics in a varying order, so two runs of one SUM could
+    differ in the last bit (and TPC-H Q15's ``total_revenue = (SELECT
+    MAX(total_revenue) ...)`` then matches nothing): float sums go through
+    ``index_put_(accumulate=True)``, which sorts the codes and adds each
+    group's values in row order, so a group's bits depend only on its live
+    values in row order, not on padding or compaction (eager and compiled
+    runs of one subplan agree).  Integer sums are exact in any order; on
+    the card they spread over lanes (``_lane_segment_sum``) so that a few
+    groups do not serialize the atomics.  ``spread`` spreads float sums
+    over lanes as well: for callers whose shapes are fixed (the SPMD slot
+    sums), where a few groups over millions of rows would otherwise be
+    walked by one warp each."""
+    if values.is_cuda and (spread or not values.dtype.is_floating_point):
+        return _lane_segment_sum(values, codes, num_groups)
     out = torch.zeros(num_groups, dtype=values.dtype, device=values.device)
-    if values.is_cuda and values.dtype.is_floating_point:
+    if values.is_cuda:
         return out.index_put_((codes,), values, accumulate=True)
     return out.index_add_(0, codes, values)
+
+
+#: rows per (group, lane) run that ``_lane_segment_sum`` aims at
+_LANE_ROWS = 256
+_MAX_LANES = 1024
+
+
+def _lane_segment_sum(values: torch.Tensor, codes: torch.Tensor,
+                      num_groups: int) -> torch.Tensor:
+    """Per-group sums with rows spread over ``lanes`` interleaved
+    sub-groups (row ``i`` to lane ``i % lanes``), so that no group gets
+    much more than ``_LANE_ROWS`` rows, and each group's lanes then summed
+    in order.  Floats add through ``index_put_(accumulate=True)``, which
+    sorts the codes and adds each run of equal codes in row order (one warp
+    walks a run, hence the lanes); the order is fixed by the shapes, so
+    every run gives the same bits.  Integers are exact in any order and
+    add through ``index_add_``, whose atomics the lanes spread."""
+    n = int(values.shape[0])
+    lanes = max(1, min(_MAX_LANES, n // (max(num_groups, 1) * _LANE_ROWS)))
+    if lanes > 1:
+        codes = codes * lanes + torch.arange(n, device=codes.device) % lanes
+    out = torch.zeros(num_groups * lanes, dtype=values.dtype,
+                      device=values.device)
+    if values.dtype.is_floating_point:
+        out.index_put_((codes,), values, accumulate=True)
+    else:
+        out.index_add_(0, codes, values)
+    if lanes == 1:
+        return out
+    return out.view(num_groups, lanes).sum(1, dtype=out.dtype)
 
 
 def _segment_minmax(values: torch.Tensor, codes: torch.Tensor,

@@ -1,0 +1,188 @@
+"""The device mesh: an ordered tuple of devices on one row axis.
+
+The counterpart of ``dask_sql_tpu/parallel/mesh.py``.  The JAX package
+keeps a sharded column as one global ``jax.Array`` with a
+``NamedSharding`` and lets ``shard_map`` hand each device its shard.
+PyTorch has neither, so the port keeps a single controller and makes
+every placement explicit:
+
+- a ``Mesh`` is an ordered tuple of ``torch.device``s on the axis
+  ``ROW_AXIS`` ("data"); shard ``i`` of a row-sharded tensor is rows
+  ``[i * local, (i + 1) * local)``;
+- a mesh may repeat one device: ``Mesh(["cuda:0"] * 4)`` is four shards
+  on one card, the counterpart of the JAX tests' virtual CPU devices
+  (``Mesh(["cpu"] * 8)`` on the CPU);
+- the catalog holds a table's global padded columns and its ``row_valid``
+  on ``devices[0]`` (the context's device), where the single-device tiers
+  read them.  ``Mesh.split`` gives the shards: ``narrow`` views where the
+  shard's device is ``devices[0]`` (a repeated-device mesh copies
+  nothing), and on a mesh of distinct cards a copy on the shard's own
+  card, made once per tensor (so once per catalog epoch) and counted
+  (``mesh_placements``, ``mesh_placement_bytes``).
+
+``init_multihost`` with a coordinator (a mesh across processes, every
+collective over ``torch.distributed``) is not ported yet.
+"""
+from __future__ import annotations
+
+import threading
+import weakref
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..runtime import telemetry as _tel
+
+ROW_AXIS = "data"
+
+
+class Mesh:
+    """A 1-D row mesh over ``devices`` (in shard order)."""
+
+    axis_names: Tuple[str, ...] = (ROW_AXIS,)
+
+    def __init__(self, devices: Sequence):
+        if not devices:
+            raise ValueError("a mesh needs at least one device")
+        # "cuda" and "cuda:0" name one card: placements compare indices
+        self.devices: Tuple[torch.device, ...] = tuple(
+            torch.device("cuda", torch.cuda.current_device())
+            if torch.device(d) == torch.device("cuda") else torch.device(d)
+            for d in devices)
+        self._lock = threading.Lock()
+        self._placed: Dict[int, tuple] = {}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def virtual(self) -> bool:
+        """Every shard on one device (no transfer between shards)."""
+        return len(set(self.devices)) == 1
+
+    def distinct_devices(self) -> List[torch.device]:
+        return list(dict.fromkeys(self.devices))
+
+    def signature(self) -> str:
+        """The layout a program is built for: axis, size and placement."""
+        return (f"{ROW_AXIS}:{self.size}@"
+                + ",".join(str(d) for d in self.devices))
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.signature()})"
+
+    def split(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """The row shards of ``t`` (whose length divides by the size),
+        each on its shard's device."""
+        local = int(t.shape[0]) // self.size
+        parts = [t.narrow(0, i * local, local) for i in range(self.size)]
+        if all(d == t.device for d in self.devices):
+            return parts
+        key = id(t)
+        with self._lock:
+            hit = self._placed.get(key)
+            if hit is not None and hit[0]() is t:
+                return list(hit[1])
+        placed = [on(p, d)
+                  for p, d in zip(parts, self.devices)]
+        moved = sum(p.numel() * p.element_size()
+                    for p, d in zip(parts, self.devices) if d != t.device)
+        _tel.inc("mesh_placements")
+        _tel.inc("mesh_placement_bytes", moved)
+        with self._lock:
+            self._placed[key] = (
+                weakref.ref(t, lambda _r, k=key: self._placed.pop(k, None)),
+                tuple(placed))
+        return placed
+
+
+def on(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``: itself when it is there already (a move to the
+    same device would read as a host transfer to a graph's trace)."""
+    return t if t.device == device else t.to(device)
+
+
+def default_mesh(n_devices: Optional[int] = None,
+                 device: Optional[str] = None) -> Mesh:
+    """The row mesh over the first ``n_devices`` visible cards (all by
+    default).  Raises where there is no card, unless the caller asks for
+    the CPU (``device="cpu"``: a mesh of one CPU shard)."""
+    kind = torch.device("cuda" if device is None else device).type
+    if kind == "cpu":
+        devices = [torch.device("cpu")]
+    elif not torch.cuda.is_available():
+        raise RuntimeError("default_mesh: CUDA is not available; pass "
+                           "device='cpu' to build a CPU mesh")
+    else:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    if n_devices is not None:
+        devices = devices[:n_devices]
+    return Mesh(devices)
+
+
+def pad_to_multiple(n: int, k: int) -> int:
+    return ((n + k - 1) // k) * k
+
+
+def _padded(t: torch.Tensor, pad: int, device) -> torch.Tensor:
+    t = on(t, device)
+    if not pad:
+        return t
+    return torch.cat([t, torch.zeros(pad, dtype=t.dtype, device=device)])
+
+
+def shard_table_with_validity(table, mesh: Mesh):
+    """The catalog's placement under a mesh: rows padded to a multiple of
+    the mesh size on ``devices[0]``, column NULL masks untouched (padding
+    is a table property: COUNT(*) must not see pad rows), and a
+    ``row_valid`` marking the real rows, None when nothing was padded."""
+    from ..table import Column, Table
+
+    n = table.num_rows
+    k = mesh.size
+    padded = pad_to_multiple(max(n, 1), k)
+    pad = padded - n
+    dev = mesh.devices[0]
+    cols = [Column(_padded(c.data, pad, dev), c.stype,
+                   None if c.mask is None else _padded(c.mask, pad, dev),
+                   c.dictionary)
+            for c in table.columns]
+    row_valid = (torch.arange(padded, device=dev) < n) if pad else None
+    return Table(list(table.names), cols), row_valid
+
+
+def shard_table(table, mesh: Mesh):
+    """Every column padded to a multiple of the mesh size: (padded table,
+    valid row count).  Padding rows are masked invalid, so kernels that
+    respect masks ignore them; count-style kernels slice to the count."""
+    from ..table import Column, Table
+
+    n = table.num_rows
+    k = mesh.size
+    padded = pad_to_multiple(max(n, 1), k)
+    pad = padded - n
+    dev = mesh.devices[0]
+    cols = []
+    for c in table.columns:
+        mask = c.valid_mask() if (c.mask is not None or pad) else None
+        cols.append(Column(_padded(c.data, pad, dev), c.stype,
+                           None if mask is None else _padded(mask, pad, dev),
+                           c.dictionary))
+    return Table(list(table.names), cols), n
+
+
+def init_multihost(coordinator_address: Optional[str] = None,
+                   num_processes: Optional[int] = None,
+                   process_id: Optional[int] = None,
+                   device: Optional[str] = None) -> Mesh:
+    """The row mesh of this host (``default_mesh(device=device)``).  A mesh
+    across processes (a coordinator address) would run every collective
+    over ``torch.distributed``; it is not ported yet."""
+    if coordinator_address is not None:
+        raise NotImplementedError(
+            "init_multihost: a mesh across processes (every collective "
+            "over torch.distributed) is not ported yet; build a Mesh of "
+            "this host's devices instead")
+    return default_mesh(device=device)

@@ -111,7 +111,8 @@ from ..runtime import telemetry as _tel
 from ..runtime.gates import refuse
 from ..table import dict_sort_order, tensors_to_host, Column, Scalar, Table
 from ..types import exact_decimal_scale, torch_dtype
-from .graphs import GraphProgram, HostRead
+from .graphs import (GraphProgram, HostRead, capture_retry_armed,
+                     capture_retry_scope)
 from .rex.evaluate import evaluate_predicate, evaluate_rex
 from .stages import StageGraph, heavy_count, stage_budget
 from .stages import annotate_stats as _annotate_stage_stats
@@ -306,9 +307,15 @@ def _fp_inputs(scans: list) -> tuple:
 
 
 def _mesh_signature(context) -> str:
-    """The device component of a program's identity (the JAX package's
-    mesh layout; ``parallel/`` is not ported, so it is the device)."""
-    return str(getattr(context, "device", ""))
+    """The device component of a program's identity: the context's device,
+    and under a mesh its layout (axis, size and placement), so that a
+    program built for one mesh is never served to another mesh or to a
+    context without one."""
+    device = str(getattr(context, "device", ""))
+    mesh = getattr(context, "mesh", None)
+    if mesh is None:
+        return device
+    return f"{device}|{mesh.signature()}"
 
 
 # ---------------------------------------------------------------------------
@@ -2364,6 +2371,7 @@ def _execute_stage_graph_inner(graph: StageGraph, context, query_fp: str,
     pins = _ing.current_pins()
     tel_trace = _tel.current_trace()
     tel_parent = _tel.current_span()
+    retry_armed = capture_retry_armed()
 
     def run_stage_once(idx: int, attempt: int) -> Optional[Table]:
         _tel.inc("stage_execs")
@@ -2399,6 +2407,7 @@ def _execute_stage_graph_inner(graph: StageGraph, context, query_fp: str,
         # not recomputed
         with _res.scoped(rt), _ing.carried_pins(pins), \
                 _tel.scoped(tel_trace, tel_parent), \
+                capture_retry_scope(retry_armed), \
                 _tel.span("stage", index=idx):
             if stages[idx].est_rows is not None:
                 _tel.annotate(stage_est_rows=stages[idx].est_rows)
@@ -2630,8 +2639,10 @@ def _background_compile(plan: RelNode, context, base_key, pins) -> None:
                 f"<background-compile:{base_key[0][:48]}>")
             trace.root.name = "background_compile"
             try:
+                # a capture that another thread's device-wide sync
+                # invalidated is retried once here (graphs.py)
                 with _tel.scoped(trace, trace.root), \
-                        _ing.carried_pins(pins):
+                        _ing.carried_pins(pins), capture_retry_scope():
                     try_execute_compiled(plan, context)
                 _tel.inc("background_compiles_done")
             except (KeyboardInterrupt, SystemExit):

@@ -57,6 +57,11 @@ of a warm-up or a capture:
   and is begun without ``torch.cuda.graph``'s device-wide synchronize; the
   allocator's free blocks are released before it only while no other
   capture runs (the allocator must not release blocks during one);
+- a device-wide ``torch.cuda.synchronize()`` on another thread still
+  invalidates a capture; a background build (``capture_retry_scope``,
+  armed by tiering's build thread and the stage workers it starts)
+  captures once more on its own thread, counted
+  ``background_capture_retries``, and only a second failure fails it;
 - kernel launches recorded into a graph go to the capture's own record
   (``gpu_kernels.recording_launches``) and are added to
   ``gpu_kernels.LAUNCHES`` once per replay; other threads' launches count
@@ -358,6 +363,54 @@ class _TraceMode(TorchFunctionMode):
         return out
 
 
+# a background build retries a capture that another thread's device-wide
+# synchronisation invalidated (cudaErrorStreamCaptureInvalidated, 901, or
+# cudaErrorStreamCaptureUnsupported, 900): once, on its own thread
+_retry = threading.local()
+_RETRIED_CODES = (900, 901)
+_RETRIED_NAMES = ("cudaerrorstreamcaptureinvalidated",
+                  "cudaerrorstreamcaptureunsupported",
+                  "operation not permitted when stream is capturing",
+                  "operation failed due to a previous error during capture")
+
+
+def capture_retry_armed() -> bool:
+    return getattr(_retry, "armed", False)
+
+
+@contextmanager
+def capture_retry_scope(armed: bool = True):
+    """Arm the one capture retry for this thread (a background build and
+    the stage workers it starts)."""
+    prev = capture_retry_armed()
+    _retry.armed = armed
+    try:
+        yield
+    finally:
+        _retry.armed = prev
+
+
+def _invalidated_capture(exc: BaseException) -> bool:
+    from ..runtime.resilience import _cuda_code
+
+    text = str(exc).lower()
+    return (_cuda_code(exc) in _RETRIED_CODES
+            or any(m in text for m in _RETRIED_NAMES))
+
+
+def capture_retrying(attempt):
+    """``attempt()`` (one capture); under ``capture_retry_scope`` a capture
+    invalidated by another thread runs once more, counted
+    ``background_capture_retries``.  A second failure propagates."""
+    try:
+        return attempt()
+    except Exception as e:
+        if not (capture_retry_armed() and _invalidated_capture(e)):
+            raise
+        _tel.inc("background_capture_retries")
+        return attempt()
+
+
 class _Capture:
     __slots__ = ("graph", "outs", "inputs", "consts", "hold", "launches",
                  "pool_bytes")
@@ -452,6 +505,26 @@ class GraphProgram:
         if seen:
             raise HostRead(f"synchronisation in the trace: {seen[0]}")
         t1 = time.perf_counter()
+        cap = capture_retrying(lambda: self._capture(inputs, consts))
+        self.captures[key] = cap
+        while len(self.captures) > CAPTURES_PER_PROGRAM:
+            self._drop(next(iter(self.captures)))
+        with _lock:
+            _LIVE[(self, key)] = cap.pool_bytes
+            budget = POOL_SHARE * torch.cuda.get_device_properties(
+                self.device).total_memory
+            while len(_LIVE) > 1 and sum(_LIVE.values()) > budget:
+                prog, k = next(iter(_LIVE))
+                prog._drop(k)
+        _tel.inc("graph_captures")
+        _tel.annotate(graph_pool_bytes=cap.pool_bytes,
+                      graph_const_bytes=consts.nbytes(),
+                      graph_warmup_ms=(t1 - t0) * 1e3,
+                      graph_capture_ms=(time.perf_counter() - t1) * 1e3)
+        return outs
+
+    def _capture(self, inputs, consts: _Consts) -> "_Capture":
+        """One capture of ``fn`` on a stream of its own."""
         graph = torch.cuda.CUDAGraph()
         mode = _TraceMode(inputs, consts, capture=True)
         current = torch.cuda.current_stream(self.device)
@@ -485,22 +558,7 @@ class GraphProgram:
         cap.consts, cap.hold = consts, mode.hold
         cap.launches = {k: v for k, v in launched.items() if v}
         cap.pool_bytes = max(r1 - r0, 0)
-        self.captures[key] = cap
-        while len(self.captures) > CAPTURES_PER_PROGRAM:
-            self._drop(next(iter(self.captures)))
-        with _lock:
-            _LIVE[(self, key)] = cap.pool_bytes
-            budget = POOL_SHARE * torch.cuda.get_device_properties(
-                self.device).total_memory
-            while len(_LIVE) > 1 and sum(_LIVE.values()) > budget:
-                prog, k = next(iter(_LIVE))
-                prog._drop(k)
-        _tel.inc("graph_captures")
-        _tel.annotate(graph_pool_bytes=cap.pool_bytes,
-                      graph_const_bytes=consts.nbytes(),
-                      graph_warmup_ms=(t1 - t0) * 1e3,
-                      graph_capture_ms=(time.perf_counter() - t1) * 1e3)
-        return outs
+        return cap
 
     def _drop(self, key) -> None:
         self.captures.pop(key, None)

@@ -54,9 +54,10 @@ host working set is bounded by the DISTINCT count, not the row count.
 Plans outside every strategy (a window without PARTITION BY over the
 chunked scan, no aggregate/limit split, chunked on the NULL-extended side
 of an outer join) raise ``StreamingUnsupported`` with a reason, never a
-wrong answer on binding stubs.  The JAX package's mesh branch (each
-batch row-sharded over a device mesh) has no counterpart: ``parallel/``
-is not ported.
+wrong answer on binding stubs.
+
+Under ``Context(mesh=...)`` each uploaded batch is row-sharded over the
+mesh (``_set_batch_entry``): out-of-core and over the mesh at once.
 """
 from __future__ import annotations
 
@@ -66,6 +67,7 @@ import threading
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..datacontainer import TableEntry
 from ..plan.nodes import (
@@ -234,6 +236,20 @@ def _register_chunked_temp(context, source) -> str:
 def _set_batch_entry(context, table: Table, row_valid,
                      name: str = BATCH_TABLE) -> None:
     _ensure_schema(context)
+    if getattr(context, "mesh", None) is not None and name == BATCH_TABLE:
+        # streaming x mesh: the uploaded batch is row-sharded over the
+        # mesh, its row_valid ANDed into the shard validity, so that the
+        # batch's program runs over the mesh table as a resident one does
+        from ..parallel.mesh import shard_table_with_validity
+        table, shard_valid = shard_table_with_validity(table, context.mesh)
+        if row_valid is not None:
+            n = (len(shard_valid) if shard_valid is not None
+                 else table.num_rows)
+            rv = torch.zeros(n, dtype=torch.bool, device=row_valid.device)
+            rv[:len(row_valid)] = row_valid
+            row_valid = rv if shard_valid is None else (rv & shard_valid)
+        else:
+            row_valid = shard_valid
     context.schema[STREAM_SCHEMA].tables[name] = TableEntry(
         table=table, row_valid=row_valid)
 

@@ -77,6 +77,9 @@ def analyze_join(plan, chain, join, context):
     if len({id(s) for s in scans}) != len(scans):
         return None, ("shared scan node below a join requires full "
                       "recompute")
+    if getattr(context, "mesh", None) is not None:
+        return None, ("mesh-sharded bases reshard on append; delta-join "
+                      "requires stable row prefixes")
     return _mv._Shape(kind="join", scan=scans[0], below=plan,
                       scans=list(scans)), ""
 

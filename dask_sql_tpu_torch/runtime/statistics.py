@@ -134,8 +134,9 @@ class TableStats:
         return self.cols.get(name)
 
 
-def collect_table_stats(table) -> Optional[TableStats]:
-    """Ingest-time statistics of a device ``Table``.
+def collect_table_stats(table, row_valid=None) -> Optional[TableStats]:
+    """Ingest-time statistics of a device ``Table``; under a mesh
+    ``row_valid`` marks the real rows, and only those count.
 
     Never raises: a column that fails is left out, and a failure of the
     whole collection returns None (the engine then plans and dispatches
@@ -143,9 +144,11 @@ def collect_table_stats(table) -> Optional[TableStats]:
     t0 = time.perf_counter()
     try:
         rows = int(table.num_rows)
+        if row_valid is not None:
+            rows = int(row_valid.sum())
         ts = TableStats(rows=rows)
         for name, col in zip(table.names, table.columns):
-            cs = _collect_column(name, col, rows)
+            cs = _collect_column(name, col, rows, row_valid)
             if cs is not None:
                 ts.cols[name] = cs
         ts.collected_ms = (time.perf_counter() - t0) * 1e3
@@ -159,9 +162,12 @@ def collect_table_stats(table) -> Optional[TableStats]:
         return None
 
 
-def _collect_column(name: str, col, rows: int) -> Optional[ColumnStats]:
+def _collect_column(name: str, col, rows: int,
+                    row_valid=None) -> Optional[ColumnStats]:
     try:
         mask = col.mask
+        if row_valid is not None:
+            mask = row_valid if mask is None else (mask & row_valid)
         n = rows if rows else 1
         nulls = 0 if mask is None else rows - int(mask.sum())
         null_frac = max(0.0, min(1.0, nulls / n))

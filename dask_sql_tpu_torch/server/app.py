@@ -221,18 +221,24 @@ class _QueryInfo:
 
 def _peak_memory(context) -> int:
     """The card's peak allocated bytes (``torch.cuda.memory_stats``); 0 on
-    the CPU."""
+    the CPU.  Under a mesh the peaks of its distinct cards add up: the
+    query's working set is sharded, and one card alone understates it."""
     import torch
 
     device = getattr(context, "device", None)
-    if device is None or device.type != "cuda":
-        return 0
-    try:
-        stats = torch.cuda.memory_stats(device)
-    except Exception as e:  # telemetry only; never fail the query over it
-        logger.debug("memory_stats unavailable: %s", e)
-        return 0
-    return int(stats.get("allocated_bytes.all.peak", 0) or 0)
+    mesh = getattr(context, "mesh", None)
+    devices = [device] if mesh is None else mesh.distinct_devices()
+    peak = 0
+    for d in devices:
+        if d is None or d.type != "cuda":
+            continue
+        try:
+            stats = torch.cuda.memory_stats(d)
+        except Exception as e:  # telemetry only; never fail the query
+            logger.debug("memory_stats unavailable: %s", e)
+            continue
+        peak += int(stats.get("allocated_bytes.all.peak", 0) or 0)
+    return peak
 
 
 def _run_tracked(context, sql: str, info: _QueryInfo,

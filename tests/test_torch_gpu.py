@@ -630,3 +630,114 @@ def test_streamed_batches_replay_one_graph(cuda_device, monkeypatch):
     for want, got in zip(sorted(answers["cpu"]), sorted(answers["cuda"])):
         assert got[0] == want[0] and got[3] == want[3]
         assert got[1:3] == pytest.approx(want[1:3], rel=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# a mesh of four shards on one card (parallel/)
+# ---------------------------------------------------------------------------
+
+def _mesh_table(n: int = 200_003):
+    rng = np.random.RandomState(12)
+    fact = {"k": rng.randint(0, 5000, n), "g": rng.randint(0, 7, n),
+            "s": rng.choice(np.array(["A", "N", "R"]), n),
+            "x": np.round(rng.rand(n) * 100, 2)}
+    dim = {"k": np.arange(5000), "w": np.arange(5000) * 0.5}
+    return fact, dim
+
+
+MESH_SQL = (
+    "SELECT s, COUNT(*) AS n, SUM(x) AS t, AVG(x) AS a FROM f GROUP BY s",
+    "SELECT g, SUM(x * w) AS r FROM f JOIN d ON f.k = d.k GROUP BY g",
+    "SELECT k, COUNT(*) AS n, MAX(x) AS m FROM f GROUP BY k",
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sql", MESH_SQL)
+def test_spmd_on_a_four_shard_mesh_matches_cpu(cuda_device, monkeypatch, sql):
+    """SPMD stages over ``Mesh([cuda:0] * 4)``: served by the stage
+    executor, captured and then replayed (no eager stage), the same bits
+    on two runs, and the CPU's single-device answer."""
+    from dask_sql_tpu_torch.parallel.mesh import Mesh
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+
+    monkeypatch.setenv("DSQL_MESH", "1")
+    monkeypatch.setenv("DSQL_RESULT_CACHE_MB", "0")
+    fact, dim = _mesh_table()
+    mc = Context(mesh=Mesh(["cuda:0"] * 4))
+    cpu = Context(device="cpu")
+    for c in (mc, cpu):
+        c.create_table("f", fact)
+        c.create_table("d", dim)
+    first = mc.sql(sql)
+    before = tel.REGISTRY.counters()
+    second = mc.sql(sql)
+    now = tel.REGISTRY.counters()
+    moved = {k: now.get(k, 0) - before.get(k, 0)
+             for k in ("spmd_queries", "spmd_eager_stages", "graph_replays",
+                       "graph_captures")}
+    assert moved["spmd_queries"] == 1 and moved["spmd_eager_stages"] == 0
+    assert moved["graph_replays"] >= 1 and moved["graph_captures"] == 0
+    for a, b in zip(first.columns, second.columns):
+        assert torch.equal(a.data, b.data)
+    want = sorted(cpu.sql(sql).to_pylist())
+    got = sorted(second.to_pylist())
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g == pytest.approx(w, rel=1e-9)
+
+
+@pytest.mark.gpu
+def test_mesh_tables_on_the_compiled_tier_of_the_card(cuda_device,
+                                                      monkeypatch):
+    """With ``DSQL_MESH=0`` the compiled tier serves the padded mesh
+    tables (no fallback) with the CPU's answers."""
+    from dask_sql_tpu_torch.parallel.mesh import Mesh
+    from dask_sql_tpu_torch.physical import compiled
+
+    monkeypatch.setenv("DSQL_MESH", "0")
+    monkeypatch.setenv("DSQL_TIERED", "0")
+    monkeypatch.setenv("DSQL_EAGER_FALLBACK", "0")
+    fact, dim = _mesh_table(100_001)
+    mc = Context(mesh=Mesh(["cuda:0"] * 4))
+    cpu = Context(device="cpu")
+    for c in (mc, cpu):
+        c.create_table("f", fact)
+        c.create_table("d", dim)
+    assert mc.schema["root"].tables["f"].row_valid is not None
+    for sql in MESH_SQL:
+        before = dict(compiled.stats)
+        got = sorted(mc.sql(sql).to_pylist())
+        assert compiled.stats["fallbacks"] == before["fallbacks"]
+        assert compiled.stats["compiles"] + compiled.stats["hits"] > \
+            before["compiles"] + before["hits"]
+        want = sorted(cpu.sql(sql).to_pylist())
+        for g, w in zip(got, want):
+            assert g == pytest.approx(w, rel=1e-9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [1, 6, 5000])
+def test_segment_sum_lanes_on_the_card(cuda_device, groups):
+    """``ops.groupby._segment_sum`` on the card: float sums spread over
+    lanes where the caller asks (the SPMD slot sums) and in row order
+    otherwise, integer sums always spread; the CPU's sums within rtol 1e-9
+    (integers exact), the same bits on two runs."""
+    from dask_sql_tpu_torch.ops.groupby import _segment_sum
+
+    rng = np.random.RandomState(groups)
+    n = 1_500_007
+    vals = torch.from_numpy(rng.randn(n) * 1e3)
+    codes = torch.from_numpy(rng.randint(0, groups, n))
+    want = _segment_sum(vals, codes, groups)
+    for spread in (True, False):
+        a = _segment_sum(vals.to(cuda_device), codes.to(cuda_device), groups,
+                         spread=spread)
+        b = _segment_sum(vals.to(cuda_device), codes.to(cuda_device), groups,
+                         spread=spread)
+        assert _same_bits(a, b)
+        np.testing.assert_allclose(a.cpu().numpy(), want.numpy(), rtol=1e-9)
+    ones = torch.ones(n, dtype=torch.int64)
+    assert torch.equal(_segment_sum(ones.to(cuda_device),
+                                    codes.to(cuda_device), groups).cpu(),
+                       _segment_sum(ones, codes, groups))

@@ -18,6 +18,8 @@ import dask_sql_tpu_torch
 for info in pkgutil.walk_packages(dask_sql_tpu_torch.__path__, "dask_sql_tpu_torch."):
     importlib.import_module(info.name)
 import chip_smoke
+for name in ("mesh", "exchange", "partial_agg", "distributed", "spmd"):
+    assert f"dask_sql_tpu_torch.parallel.{name}" in sys.modules, name
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "jaxlib" or m.startswith("jaxlib.")

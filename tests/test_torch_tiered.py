@@ -171,3 +171,89 @@ def test_stage_graph_ready_at_its_leaf_stages(c, monkeypatch):
     pd.testing.assert_frame_equal(
         got.sort_values("a", ignore_index=True),
         _eager(c, q).sort_values("a", ignore_index=True))
+
+
+# ---------------------------------------------------------------------------
+# F12: a capture that another thread's device-wide synchronisation
+# invalidates is retried once by a background build.  The CPU captures
+# nothing, so a stub makes the program's capture step fail as the card's
+# does (cudaErrorStreamCaptureInvalidated) before the real call.
+# ---------------------------------------------------------------------------
+
+_INVALIDATED = ("CUDA error: operation failed due to a previous error "
+                "during capture")
+
+
+def _flaky_capture(monkeypatch, failures: int) -> list:
+    from dask_sql_tpu_torch.physical import graphs
+
+    left = [failures]
+    real = graphs.GraphProgram.__call__
+
+    def call(self, *flat):
+        def attempt():
+            if left[0] > 0:
+                left[0] -= 1
+                raise RuntimeError(_INVALIDATED)
+            return real(self, *flat)
+        return graphs.capture_retrying(attempt)
+
+    monkeypatch.setattr(graphs.GraphProgram, "__call__", call)
+    return left
+
+
+RETRY = BG + ("background_capture_retries",)
+
+
+def _retries(before: dict) -> dict:
+    now = tel.REGISTRY.counters()
+    return {k: now.get(k, 0) - before.get(k, 0) for k in RETRY}
+
+
+def test_background_build_retries_an_invalidated_capture_once(c, monkeypatch):
+    q = "SELECT a % 5 AS k, SUM(b) AS s FROM t GROUP BY a % 5"
+    left = _flaky_capture(monkeypatch, 1)
+    before = tel.REGISTRY.counters()
+    c.sql(q)
+    assert _tier(c) == "eager-compiling"
+    _wait_for_builds()
+    assert left == [0]
+    assert _retries(before) == {
+        "background_compiles_done": 1, "background_compile_errors": 0,
+        "served_eager_while_compiling": 1, "compiles": 1,
+        "background_capture_retries": 1}
+    got = c.sql(q, return_futures=False)
+    assert _tier(c) == "compiled"
+    pd.testing.assert_frame_equal(
+        got.sort_values("k", ignore_index=True),
+        _eager(c, q).sort_values("k", ignore_index=True))
+
+
+def test_second_invalidated_capture_fails_the_build(c, monkeypatch):
+    from dask_sql_tpu_torch.physical import graphs
+
+    q = "SELECT a % 3 AS k, MIN(b) AS m FROM t GROUP BY a % 3"
+    _flaky_capture(monkeypatch, 2)
+    before = tel.REGISTRY.counters()
+    c.sql(q)
+    _wait_for_builds()
+    moved = _retries(before)
+    now = tel.REGISTRY.counters()
+    # the second failure takes the ladder as any failed capture does: the
+    # error is counted and the program exiled, and no program lands
+    assert moved["background_capture_retries"] == 1
+    assert moved["compiles"] == 0
+    assert {k: now.get(k, 0) - before.get(k, 0)
+            for k in ("compile_errors", "exiled")} == {
+        "compile_errors": 1, "exiled": 1}
+    c.sql(q)
+    assert _tier(c) == "eager"
+    # a foreground build is not armed: its failed capture is not retried
+    assert not graphs.capture_retry_armed()
+    with pytest.raises(RuntimeError, match="previous error during capture"):
+        graphs.capture_retrying(lambda: (_ for _ in ()).throw(
+            RuntimeError(_INVALIDATED)))
+    with graphs.capture_retry_scope():
+        with pytest.raises(ValueError):   # not a capture error: no retry
+            graphs.capture_retrying(lambda: (_ for _ in ()).throw(
+                ValueError("other")))
