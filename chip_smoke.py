@@ -245,6 +245,28 @@ the compiled tier first.
    query and part, and a ``mesh summary:`` line; the ``kernels`` line
    carries the phase's kernel-1 launches as ``launches_mesh``.
 
+18. the mesh across processes (last; ``parallel/group.py``): (a) a
+   process group of one rank in this process over NCCL
+   (``init_multihost("127.0.0.1:<port>", 1, 0, local_shards=4)``, the
+   same four shards as phase 17, every collective through the group):
+   Q1-Q22 cold and warm on the resident tables, each run held to phase
+   17's checks (Q1, Q6, Q8, Q12 and Q14 served, Q3 served or falling back
+   on ``radix_overflow`` only, no walker error), a served run must count
+   ``mesh_process_collectives`` and ``mesh_process_bytes``, Q4, Q5 and
+   Q22 must launch kernel 1 on the compiled tier, every answer equal to
+   phase 7's and every served one bit for bit 17(a)'s; the group is
+   destroyed after.  (b) Where the machine has two cards or more, one
+   rank per card (up to four), each a process of this script
+   (``--rank``) that generates the tables from ``--seed`` at ``--sf``,
+   holds one shard and runs the same checks; every rank's answers equal
+   phase 7's, rank 0's bit for bit, and with four ranks 18(a)'s served
+   answers bit for bit.  On one card one line says 18(b) is skipped.
+   One warm run each of Q1 and Q12 in 18(a) under ``torch.profiler``
+   (device busy and idle share).
+   One ``multiprocess table:`` JSON line per query and part, a
+   ``multiprocess summary:`` line per part; the ``kernels`` line carries
+   18(a)'s kernel-1 launches as ``launches_multiprocess``.
+
 The last two lines are a JSON object ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints neither.
@@ -1809,8 +1831,8 @@ def _bit_equal_tables(name: str, got, want) -> None:
         else:
             same = gv.tolist() == wv.tolist()
         if not same:
-            raise AssertionError(f"{name}.{col} is not bit for bit the eager "
-                                 f"answer")
+            raise AssertionError(f"{name}.{col} is not bit for bit the "
+                                 f"answer it is held to")
 
 
 def _compiled_query(ctx, qid: int, eager_results: dict, eager_rows: dict,
@@ -4869,11 +4891,12 @@ def _mesh_context(mesh, base: dict):
     return mctx, time.perf_counter() - t0
 
 
-def _mesh_runs(mctx, qid: int, answers: dict, warm: int) -> dict:
+def _mesh_runs(mctx, qid: int, answers: dict, warm: int,
+               keep: dict = None) -> dict:
     """Cold and ``warm`` warm runs of one query on a mesh context, the
     launch counts set to 0 before each run and read after it; the answer
     held to the resident one and the last two warm runs to each other,
-    bit for bit."""
+    bit for bit (and kept in ``keep``, where given)."""
     from dask_sql_tpu_torch.ops import gpu_kernels as gk
 
     text = QUERIES[qid]
@@ -4892,6 +4915,8 @@ def _mesh_runs(mctx, qid: int, answers: dict, warm: int) -> dict:
     check_same_result(f"mesh Q{qid}", results[-1], answers[qid], rtol=1e-9)
     if warm >= 2:
         _bit_equal_tables(f"mesh Q{qid} warm runs", results[-1], results[-2])
+    if keep is not None:
+        keep[qid] = results[-1]
     return {"q": qid, "tier": tier, "reason": reason, "compiled": comp,
             "spmd": spmd, "spmd_runs": runs,
             "spmd_fallback": sorted({str(r["fallback"]) for r in runs
@@ -4903,6 +4928,9 @@ def _mesh_runs(mctx, qid: int, answers: dict, warm: int) -> dict:
 
 
 MESH_LAUNCHES: dict = {}
+#: 17(a)'s answers (four shards in one process), which phase 18's mesh
+#: across processes (four shards too) must give bit for bit
+MESH_ANSWERS: dict = {}
 
 
 def mesh_spmd(mctx, answers: dict) -> list:
@@ -4914,7 +4942,7 @@ def mesh_spmd(mctx, answers: dict) -> list:
     is held to ``check_spmd_runs``."""
     rows = []
     for qid in sorted(QUERIES):
-        row = _mesh_runs(mctx, qid, answers, MESH_WARM)
+        row = _mesh_runs(mctx, qid, answers, MESH_WARM, MESH_ANSWERS)
         row["part"] = "spmd"
         rows.append(row)
         print("mesh table: " + json.dumps(
@@ -5052,6 +5080,7 @@ def phase_mesh(dev, base: dict, tables: dict, answers: dict,
     os.environ.pop("DSQL_COMPILE", None)
     os.environ.pop("DSQL_MESH", None)
     MESH_LAUNCHES.clear()
+    MESH_ANSWERS.clear()
     forget_programs()
     shard = torch.device(dev.type, 0) if dev.type == "cuda" else dev
     mesh = Mesh([shard] * MESH_SHARDS)
@@ -5096,12 +5125,286 @@ def phase_mesh(dev, base: dict, tables: dict, answers: dict,
     forget_programs()
     return out
 
+
+# ---------------------------------------------------------------------------
+# phase 18: the mesh across processes (parallel/group.py): init_multihost
+# over torch.distributed, one rank per process, NCCL on the cards
+# ---------------------------------------------------------------------------
+
+#: 18(a): one rank with four shards on its card (phase 17's layout)
+MP_SHARDS = 4
+#: 18(b): one rank per card, one shard each, up to four cards
+MP_MAX_RANKS = 4
+#: 18(b)'s ranks in all, their data's generation included
+MP_RANK_LIMIT_S = 600.0
+#: the static GROUP BYs that decline the walker and sum through kernel 1
+#: on each rank's compiled tier
+MP_KERNEL1 = tuple(q for q in MESH_KERNEL1 if q not in MESH_SPMD_SERVED)
+MP_COUNTERS = ("mesh_process_collectives", "mesh_process_bytes")
+#: 18(a)'s warm runs under torch.profiler: a psum-tree query and a
+#: broadcast join, eager stages both
+MP_PROFILED = (1, 12)
+MP_RANK_DIR = os.path.join("build", "dask_sql_tpu_torch", "multiprocess")
+#: what 18(b) starts once per rank (with ``--rank``)
+MP_RANK_SCRIPT = os.path.abspath(__file__)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mp_env() -> None:
+    """Phase 17's settings: the default path (the compiled tier behind the
+    walker), no eager first arrival, the result cache and the workload
+    manager off (every run executes)."""
+    os.environ.pop("DSQL_COMPILE", None)
+    os.environ.pop("DSQL_MESH", None)
+    os.environ.update({"DSQL_TIERED": "0", "DSQL_EAGER_FALLBACK": "0"})
+    os.environ.update(SERVING_PINS)
+
+
+def _mp_queries(mctx, label: str, answers: dict = None) -> tuple:
+    """Q1-Q22 on a mesh across processes, a cold and a warm run each, the
+    launch counts set to 0 before each run and read after it.  Every run
+    is held to ``check_spmd_runs`` (served shapes served, Q3 falling back
+    on its one known flag only, no walker error), a served run must have
+    gone through the process group, the declined static GROUP BYs must
+    launch kernel 1, and the answer must equal ``answers`` (doubles rtol
+    1e-9) where given.  Returns the rows and the warm answers."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    rows, results = [], {}
+    for qid in sorted(QUERIES):
+        walls, launches, runs, traffic = [], [], [], []
+        for _ in range(2):
+            gk.reset_launch_counts()
+            box = {}
+            walls.append(wall_ms(lambda: box.update(
+                r=mctx.sql(QUERIES[qid]))))
+            launches.append(gk.LAUNCHES.get("segsum_fixedpoint", 0))
+            runs.append(_spmd_run(mctx))
+            traffic.append({k: mctx.last_report.counters.get(k, 0)
+                            for k in MP_COUNTERS})
+        tier = _last_tier(mctx)[0]
+        check_spmd_runs(label, qid, tier, runs, virtual=False)
+        for run, moved in zip(runs, traffic):
+            if run["counters"].get("spmd_rank_errors"):
+                raise AssertionError(f"{label} Q{qid}: ranks disagreed: {run}")
+            if tier == "spmd" and not all(moved.values()):
+                raise AssertionError(f"{label} Q{qid}: served without the "
+                                     f"process group: {moved}")
+        if qid in MP_KERNEL1 and min(launches) < 1:
+            raise AssertionError(f"{label} Q{qid}: kernel 1 did not launch "
+                                 f"on the compiled tier: {launches}")
+        if answers is not None:
+            check_same_result(f"{label} Q{qid}", box["r"], answers[qid],
+                              rtol=1e-9)
+        results[qid] = box["r"]
+        row = {"q": qid, "tier": tier, "spmd": _spmd_counters(mctx),
+               "spmd_fallback": sorted({str(r["fallback"]) for r in runs
+                                        if r["fallback"]}),
+               "kernel1_launches": launches, "process_traffic": traffic,
+               "cold_ms": walls[0], "warm_ms": walls[1]}
+        rows.append(row)
+        print("multiprocess table: " + json.dumps(dict(row, part=label)))
+    return rows, results
+
+
+def _mp_summary(rows: list, world: int, seconds: float) -> dict:
+    return {"world_size": world,
+            "served": [r["q"] for r in rows if r["tier"] == "spmd"],
+            "fallback_flags": {r["q"]: r["spmd_fallback"] for r in rows
+                               if r["spmd_fallback"]},
+            "eager_stages": sum(r["spmd"].get("spmd_eager_stages", 0)
+                                for r in rows),
+            "collectives": sum(t["mesh_process_collectives"]
+                               for r in rows for t in r["process_traffic"]),
+            "bytes": sum(t["mesh_process_bytes"]
+                         for r in rows for t in r["process_traffic"]),
+            "kernel1_launches": sum(sum(r["kernel1_launches"])
+                                    for r in rows),
+            "seconds": seconds}
+
+
+def multiprocess_world1(dev, base: dict, answers: dict) -> tuple:
+    """18(a): a process group of one rank in this process (NCCL on the
+    card) holding four shards: Q1-Q22 through ``Context(mesh=...)``, every
+    collective through the group; served answers bit for bit 17(a)'s
+    (the same four shards, reduced in the same order)."""
+    from dask_sql_tpu_torch.parallel import group as G
+    from dask_sql_tpu_torch.parallel.mesh import init_multihost
+
+    t0 = time.perf_counter()
+    device = "cpu" if dev.type == "cpu" else "cuda:0"
+    mesh = init_multihost(f"127.0.0.1:{_free_port()}", 1, 0, device=device,
+                          local_shards=MP_SHARDS)
+    try:
+        if mesh.group.backend != ("gloo" if dev.type == "cpu" else "nccl"):
+            raise AssertionError(f"18(a): a {mesh.group.backend} group")
+        mctx, create_s = _mesh_context(mesh, base)
+        rows, results = _mp_queries(mctx, "18(a)", answers)
+        profiles = {q: profile_query(mctx, f"18(a) Q{q}", QUERIES[q])
+                    for q in MP_PROFILED}
+        for row in rows:
+            if row["tier"] == "spmd" and row["q"] in MESH_ANSWERS:
+                _bit_equal_tables(f"18(a) Q{row['q']} against 17(a)",
+                                  results[row["q"]], MESH_ANSWERS[row["q"]])
+        del mctx
+    finally:
+        G.close(mesh.group)
+    summary = _mp_summary(rows, 1, time.perf_counter() - t0)
+    summary.update(create_s=create_s, profiles=profiles)
+    return summary, results
+
+
+def multiprocess_rank(args) -> int:
+    """One rank of 18(b), started by ``multiprocess_cards`` as ``chip_smoke.py
+    --rank R --world W --port P``: the tables generated from ``--seed`` at
+    ``--sf``, a mesh of one shard per rank (rank ``r`` on ``cuda:r``), the
+    22 queries held to 18(a)'s checks; the answers (on the host) and the
+    summary pickled under ``MP_RANK_DIR`` for the parent."""
+    import pickle
+
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.parallel import group as G
+    from dask_sql_tpu_torch.parallel.mesh import init_multihost
+    from dask_sql_tpu_torch.table import Column, Table
+
+    _mp_env()
+    os.environ.pop("DSQL_ADAPTIVE", None)
+    os.environ.pop("DSQL_FORCE_GROUPBY", None)
+    t0 = time.perf_counter()
+    mesh = init_multihost(f"127.0.0.1:{args.port}", args.world, args.rank,
+                          device=args.device, local_shards=1)
+    try:
+        tables = generate_tpch(args.sf, args.seed)
+        mctx = Context(mesh=mesh)
+        for name, cols in tables.items():
+            mctx.create_table(name, cols)
+        ready_s = time.perf_counter() - t0
+        rows, results = _mp_queries(mctx, f"18(b) rank {args.rank}")
+    finally:
+        G.close(mesh.group)
+    host = {q: Table(r.names, [Column(
+        c.data.cpu(), c.stype, None if c.mask is None else c.mask.cpu(),
+        c.dictionary) for c in r.columns]) for q, r in results.items()}
+    summary = _mp_summary(rows, args.world, time.perf_counter() - t0)
+    summary.update(rank=args.rank, device=str(mesh.devices[0]),
+                   ready_s=ready_s)
+    with open(os.path.join(MP_RANK_DIR, f"rank{args.rank}.pkl"), "wb") as f:
+        pickle.dump({"summary": summary, "answers": host}, f)
+    return 0
+
+
+def multiprocess_cards(sf: float, seed: int, answers: dict, world1: dict,
+                       n_ranks: int = None, device: str = None) -> dict:
+    """18(b): one rank per card (up to four), each a process of its own
+    (``multiprocess_rank``) over NCCL, when the machine has two cards or
+    more; else one line saying why it is skipped.  Every rank's answers
+    equal the resident ones (doubles rtol 1e-9), and the served ones 18(a)'s
+    bit for bit where the ranks hold as many shards (four)."""
+    import pickle
+
+    n = n_ranks or min(torch.cuda.device_count(), MP_MAX_RANKS)
+    if n < 2:
+        print("multiprocess 18(b): skipped, the machine has one card: NCCL "
+              "takes one rank per card, so ranks on several cards are not "
+              "verified by this run")
+        return {"skipped": "one card"}
+    t0 = time.perf_counter()
+    os.makedirs(MP_RANK_DIR, exist_ok=True)
+    for r in range(n):
+        path = os.path.join(MP_RANK_DIR, f"rank{r}.pkl")
+        if os.path.exists(path):
+            os.remove(path)
+    port = _free_port()
+    cmd = [sys.executable, MP_RANK_SCRIPT, "--sf", repr(sf),
+           "--seed", str(seed), "--world", str(n), "--port", str(port)]
+    if device:
+        cmd += ["--device", device]
+    procs = [subprocess.Popen(cmd + ["--rank", str(r)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+    logs = []
+    deadline = time.monotonic() + MP_RANK_LIMIT_S
+    try:
+        for r, p in enumerate(procs):
+            out, _ = p.communicate(timeout=max(1.0,
+                                               deadline - time.monotonic()))
+            logs.append(out)
+            if p.returncode:
+                raise AssertionError(f"18(b) rank {r} exited {p.returncode}:"
+                                     f"\n{out[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(MP_RANK_DIR, f"rank{r}.pkl"), "rb") as f:
+            got = pickle.load(f)
+        for qid, result in got["answers"].items():
+            check_same_result(f"18(b) rank {r} Q{qid}", result, answers[qid],
+                              rtol=1e-9)
+            if n == MP_SHARDS and qid in got["summary"]["served"]:
+                _bit_equal_tables(f"18(b) rank {r} Q{qid} against 18(a)",
+                                  result, world1[qid])
+            if r:
+                _bit_equal_tables(f"18(b) rank {r} Q{qid} against rank 0",
+                                  result, ranks[0]["answers"][qid])
+        ranks.append(got)
+    for line in logs[0].splitlines():
+        if line.startswith("multiprocess table: "):
+            print(line)
+    return {"world_size": n, "seconds": time.perf_counter() - t0,
+            "ranks": [g["summary"] for g in ranks]}
+
+
+def phase_multiprocess(dev, base: dict, answers: dict, sf: float,
+                       seed: int) -> dict:
+    """Phase 18: the mesh across processes.  18(a) in this process (a
+    group of one rank over NCCL), 18(b) over the machine's cards; the
+    launch counts set to 0 before each run and read after it."""
+    from dask_sql_tpu_torch.parallel import spmd
+
+    _mp_env()
+    forget_programs()
+    t0 = time.perf_counter()
+    world1, results = multiprocess_world1(dev, base, answers)
+    spmd.clear_programs()
+    forget_programs()
+    print("multiprocess summary: " + json.dumps(dict(world1, part="18(a)")))
+    t1 = time.perf_counter()
+    cards = multiprocess_cards(sf, seed, answers, results)
+    if "ranks" in cards:
+        print("multiprocess summary: " + json.dumps(dict(cards,
+                                                         part="18(b)")))
+    print(f"multiprocess: world 1 x {MP_SHARDS} shards served "
+          f"{world1['served']} with {world1['collectives']} collectives "
+          f"({world1['bytes']} bytes) through the group in "
+          f"{t1 - t0:.1f} s; 18(b) "
+          + ("skipped" if "skipped" in cards else
+             f"{cards['world_size']} ranks in {cards['seconds']:.1f} s"))
+    return {"world1": world1, "cards": cards}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--sf", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0)
+    # one rank of phase 18(b), started by the script itself
+    for flag in ("--rank", "--world", "--port"):
+        p.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--device", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    if not torch.cuda.is_available():
+    rehearsal = args.rank is not None and args.device == "cpu"
+    if not torch.cuda.is_available() and not rehearsal:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     try:
@@ -5111,6 +5414,8 @@ def main(argv=None) -> int:
         return 3
     from dask_sql_tpu_torch import Context
 
+    if args.rank is not None:
+        return multiprocess_rank(args)
     # the production default: statistics-driven dispatch, nothing forced;
     # phases 4-8 and 10-11 measure the eager executor (DSQL_COMPILE=0) as
     # they did before the compiled tier, phases 9 and 12 the compiled tier
@@ -5171,11 +5476,13 @@ def main(argv=None) -> int:
     del ctx
     mesh = phase_mesh(dev, base, tables, on_results, compiled_rows, args.sf,
                       args.seed)
+    multi = phase_multiprocess(dev, base, on_results, args.sf, args.seed)
     kernel1["launches"] = compiled_launches["segsum_fixedpoint"]
     kernel1["launches_out_of_core_q1"] = ooc["q1_launches"]
     kernel1["launches_write_path"] = write["launches"]["segsum_fixedpoint"]
     kernel1["launches_mesh"] = mesh["summary"]["kernel1_launches"].get(
         "segsum_fixedpoint", 0)
+    kernel1["launches_multiprocess"] = multi["world1"]["kernel1_launches"]
     print(f"card: {card}")
     print(json.dumps({"kernels": [kernel1, kernel2]}))
     print(json.dumps({"ok": True, "device": {

@@ -82,7 +82,10 @@ class Context:
         context's.  Tables registered on the context are row-sharded over
         it, and queries run as SPMD stages over its shards
         (``parallel/spmd.py``), or on the single-device tiers over the
-        padded tables where that declines."""
+        padded tables where that declines.  On a mesh across processes
+        (``init_multihost`` with a coordinator) every rank makes its own
+        context, registers the same tables and runs the same queries in
+        the same order; each rank holds the whole padded table."""
         if device is None and mesh is not None:
             device = mesh.devices[0]
         device = torch.device("cuda" if device is None else device)
@@ -125,6 +128,12 @@ class Context:
         # flusher started when DSQL_INGEST_DIR arms it (create_table
         # replays tables registered later)
         if _ing.enabled():
+            if mesh is not None and mesh.spans_processes:
+                # every rank would append to (and replay) one log
+                raise NotImplementedError(
+                    "Context: the ingest log (DSQL_INGEST_DIR) on a mesh "
+                    "across processes, one writer for every rank's "
+                    "catalog, is not ported yet")
             _ing.ensure_armed(self)
 
     # -------------------------------------------------------------- epochs

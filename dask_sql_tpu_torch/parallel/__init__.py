@@ -10,6 +10,10 @@
 - ``spmd``        the stage executor: whole query stages over the shards
                   (``try_execute_spmd``)
 - ``distributed`` standalone collective functions over a mesh
+- ``group``       a mesh across processes (``init_multihost`` with a
+                  coordinator): its process group's collectives (NCCL on
+                  cards, gloo on the CPU), ordered reductions and the
+                  store rendezvous the stage walker agrees through
 """
 from .mesh import (ROW_AXIS, Mesh, default_mesh, init_multihost,
                    shard_table, shard_table_with_validity)

@@ -18,6 +18,11 @@ the list, and returns global tensors on ``devices[0]``:
 - ``dist_prefix_sum``: local cumsum plus the all_gathered shard totals
   (integers accumulate in int64, as numpy and the JAX package do).
 
+On a mesh across processes every rank passes the same global tensors:
+``Mesh.split`` gives this rank's shards, the collectives go through the
+process group, and every rank gets the global result (its shards
+gathered in rank order).
+
 The SPMD executor (``parallel/spmd.py``) uses the per-shard halves in
 ``exchange.py`` and ``partial_agg.py`` instead.
 """
@@ -29,13 +34,13 @@ import torch
 
 from ..ops.groupby import _segment_sum
 from . import exchange as X
+from . import group as G
 from . import partial_agg as PA
 from .mesh import Mesh, on
 
 
 def _global(parts: List[torch.Tensor], mesh: Mesh) -> torch.Tensor:
-    dev = mesh.devices[0]
-    return torch.cat([on(p, dev) for p in parts])
+    return X.gather_build(parts, mesh.group)
 
 
 def dist_segment_sum(mesh: Mesh, values: torch.Tensor, codes: torch.Tensor,
@@ -44,7 +49,7 @@ def dist_segment_sum(mesh: Mesh, values: torch.Tensor, codes: torch.Tensor,
     The result is replicated (one tensor on ``devices[0]``)."""
     local = [_segment_sum(v, c.to(torch.int64), num_groups, spread=True)
              for v, c in zip(mesh.split(values), mesh.split(codes))]
-    return PA.psum(local)
+    return PA.psum(local, mesh.group)
 
 
 def dist_segment_minmax(mesh: Mesh, values: torch.Tensor,
@@ -64,7 +69,7 @@ def dist_segment_minmax(mesh: Mesh, values: torch.Tensor,
         keep = (torch.isfinite(out) if v.dtype.is_floating_point
                 else torch.ones_like(out, dtype=torch.bool))
         local.append(torch.where(keep | (out == sent), out, sent))
-    return PA.pminmax(local, is_min)
+    return PA.pminmax(local, is_min, mesh.group)
 
 
 def hash_exchange(mesh: Mesh, codes: torch.Tensor, *payload: torch.Tensor
@@ -75,10 +80,10 @@ def hash_exchange(mesh: Mesh, codes: torch.Tensor, *payload: torch.Tensor
     (new_codes, *new_payload)."""
     c_parts = mesh.split(codes)
     p_parts = [mesh.split(p) for p in payload]
-    per_shard = [[p[s] for p in p_parts] for s in range(mesh.size)]
-    c_out, p_out = X.exchange(c_parts, per_shard, mesh.devices)
+    per_shard = [[p[s] for p in p_parts] for s in range(mesh.local_size)]
+    c_out, p_out = X.exchange(c_parts, per_shard, mesh.devices, mesh.group)
     return (_global(c_out, mesh),
-            *[_global([p_out[s][j] for s in range(mesh.size)], mesh)
+            *[_global([p_out[s][j] for s in range(mesh.local_size)], mesh)
               for j in range(len(payload))])
 
 
@@ -95,7 +100,7 @@ def dist_groupby_sum_exchange(mesh: Mesh, codes: torch.Tensor,
             torch.where(valid, v, torch.zeros_like(v)),
             torch.where(valid, c, torch.zeros_like(c)), num_groups,
             spread=True))
-    return PA.psum(local)
+    return PA.psum(local, mesh.group)
 
 
 def dist_join_broadcast(mesh: Mesh, probe_codes: torch.Tensor,
@@ -104,8 +109,8 @@ def dist_join_broadcast(mesh: Mesh, probe_codes: torch.Tensor,
     """The broadcast join of 1:1 build keys: all_gather the build side,
     probe each shard locally; each probe row gets its build value or
     ``default``."""
-    bc_all = X.gather_build(mesh.split(build_codes))
-    bv_all = X.gather_build(mesh.split(build_values))
+    bc_all = X.gather_build(mesh.split(build_codes), mesh.group)
+    bv_all = X.gather_build(mesh.split(build_values), mesh.group)
     order = torch.argsort(bc_all, stable=True)
     sc, sv = bc_all[order], bv_all[order]
     out = []
@@ -123,6 +128,9 @@ def ring_shift(mesh: Mesh, x: torch.Tensor, shift: int = 1) -> torch.Tensor:
     """ppermute on the ring: shard ``i`` receives shard ``i - shift``."""
     parts = mesh.split(x)
     n = mesh.size
+    if mesh.group is not None:
+        every = G.gather_shards(mesh.group, parts)
+        return torch.cat([every[(i - shift) % n] for i in range(n)])
     return _global([on(parts[(i - shift) % n], mesh.devices[i])
                     for i in range(n)], mesh)
 
@@ -134,9 +142,13 @@ def dist_prefix_sum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     totals = [c[-1] if c.shape[0] else torch.zeros((), dtype=c.dtype,
                                                    device=c.device)
               for c in local]
+    if mesh.group is not None:
+        totals = G.gather_shards(mesh.group, totals)
+    first = mesh.rank * mesh.local_size
     out = []
     for i, c in enumerate(local):
-        offset = PA.psum(totals[:i]) if i else torch.zeros(
+        g = first + i
+        offset = PA.psum(totals[:g]) if g else torch.zeros(
             (), dtype=c.dtype, device=c.device)
         out.append(c + on(offset, c.device))
     return _global(out, mesh)

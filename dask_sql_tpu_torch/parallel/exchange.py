@@ -12,6 +12,12 @@ and each collective is a plain function that combines those lists:
 - ``all_gather`` (``gather_build``): the shards concatenated in order;
 - ``pmax`` of a flag (``replicated_flag``): ``any`` over the shards.
 
+Under a mesh across processes (``group``, ``parallel/group.py``) the
+lists hold this rank's shards only, and each collective goes on through
+the process group: the exchange's buckets for other ranks' shards ride
+one ``all_to_all_single``, the gather concatenates every rank's shards
+in rank order, and a flag is the max over the ranks.
+
 Shapes stay static, as in JAX: ``exchange`` sends a full local-length
 bucket to every destination, so every shard receives ``n_dev * local``
 rows, and the byte counters count what the JAX ones count from the same
@@ -23,10 +29,11 @@ rows; flags are 0-d bool tensors read on the host after the stage ran.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from . import group as G
 from .mesh import on
 
 #: Dead-slot key of the broadcast join: above every key the engine makes,
@@ -35,24 +42,33 @@ from .mesh import on
 BROADCAST_SENTINEL = (1 << 62)
 
 
-def replicated_flag(flags: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The shards' local bool observations combined into one (any)."""
+def replicated_flag(flags: Sequence[torch.Tensor],
+                    group=None) -> torch.Tensor:
+    """The shards' local bool observations combined into one (any; over
+    every rank's shards under ``group``)."""
     dev = flags[0].device
-    return torch.stack([on(f.reshape(()), dev) for f in flags]).any()
+    local = torch.stack([on(f.reshape(()), dev) for f in flags]).any()
+    if group is None:
+        return local
+    return G.agree(group, local.reshape(1).to(torch.int32))[0] > 0
 
 
-def shard_replicated(r: torch.Tensor, n_dev: int
+def shard_replicated(r: torch.Tensor, n_dev: int, first: int = 0,
+                     count: Optional[int] = None
                      ) -> Tuple[List[torch.Tensor], int]:
     """A replicated value as row shards: padded to ``ceil(k/n) * n`` rows
     and sliced per shard (JAX emits it so through the stage's uniform
-    row-sharded out-spec).  Returns (the shards, the padded length)."""
+    row-sharded out-spec).  Returns (shards ``first`` to ``first + count
+    - 1``, all by default: a rank of a mesh across processes asks for its
+    own; the padded length)."""
     k = int(r.shape[0])
     per = max(1, -(-k // n_dev))
     kp = per * n_dev
     if kp != k:
         r = torch.cat([r, torch.zeros((kp - k,) + tuple(r.shape[1:]),
                                       dtype=r.dtype, device=r.device)])
-    return [r[i * per:(i + 1) * per] for i in range(n_dev)], kp
+    count = n_dev - first if count is None else count
+    return [r[i * per:(i + 1) * per] for i in range(first, first + count)], kp
 
 
 def _buckets(codes: torch.Tensor, payloads: Sequence[torch.Tensor],
@@ -86,20 +102,27 @@ def _all_to_all(bufs: Sequence[torch.Tensor], devices) -> List[torch.Tensor]:
 
 
 def exchange(codes: Sequence[torch.Tensor],
-             payloads: Sequence[Sequence[torch.Tensor]], devices
+             payloads: Sequence[Sequence[torch.Tensor]], devices,
+             group=None
              ) -> Tuple[List[torch.Tensor], List[List[torch.Tensor]]]:
     """Radix-partition every shard's rows by ``code % n_dev`` and
     all_to_all them: equal codes land on one shard, no row is dropped.
-    ``codes[s]`` and ``payloads[s]`` are shard ``s``'s; the result has
-    ``n_dev * local`` rows per shard, payloads 0-filled where the code
-    is -1."""
-    n_dev = len(devices)
+    ``codes[s]`` and ``payloads[s]`` are (local) shard ``s``'s, on
+    ``devices[s]``; the result has ``n_dev * local`` rows per shard,
+    payloads 0-filled where the code is -1.  ``n_dev`` counts every
+    rank's shards under ``group``."""
+    n_dev = len(devices) * (1 if group is None else group.world_size)
     sent = [_buckets(c, p, n_dev) for c, p in zip(codes, payloads)]
-    codes_out = _all_to_all([s[0] for s in sent], devices)
     n_pay = len(payloads[0]) if payloads else 0
-    cols = [_all_to_all([s[1][j] for s in sent], devices)
-            for j in range(n_pay)]
-    return codes_out, [[col[d] for col in cols] for d in range(n_dev)]
+    arrays = [[s[0] for s in sent]] + [[s[1][j] for s in sent]
+                                       for j in range(n_pay)]
+    if group is None:
+        out = [_all_to_all(bufs, devices) for bufs in arrays]
+    else:
+        out = G.all_to_all(group, arrays)
+    codes_out, cols = out[0], out[1:]
+    return codes_out, [[col[d] for col in cols]
+                       for d in range(len(devices))]
 
 
 def exchange_bytes(codes: torch.Tensor, payloads: Sequence[torch.Tensor],
@@ -123,11 +146,15 @@ def psum_bytes(arrs: Sequence[torch.Tensor], n_dev: int) -> int:
     return sum(int(a.numel()) * a.element_size() * n_dev for a in arrs)
 
 
-def gather_build(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+def gather_build(parts: Sequence[torch.Tensor], group=None) -> torch.Tensor:
     """all_gather of a (small) build side: the shards concatenated in
-    order on the first shard's device."""
+    order on the first shard's device (every rank's, in rank order,
+    under ``group``)."""
     dev = parts[0].device
-    return torch.cat([on(p, dev) for p in parts])
+    local = torch.cat([on(p, dev) for p in parts])
+    if group is None:
+        return local
+    return G.all_gather(group, local).reshape((-1,) + tuple(local.shape[1:]))
 
 
 def sorted_probe(build_keys: torch.Tensor, probe_keys: torch.Tensor,

@@ -20,8 +20,16 @@ every placement explicit:
   card, made once per tensor (so once per catalog epoch) and counted
   (``mesh_placements``, ``mesh_placement_bytes``).
 
-``init_multihost`` with a coordinator (a mesh across processes, every
-collective over ``torch.distributed``) is not ported yet.
+A mesh across processes (``init_multihost`` with a coordinator) spans
+``world_size`` ranks, one process each, and carries their
+``group.ProcessGroup``.  Its ``devices`` are this rank's shards, one
+device repeated ``local_size`` times (``devices[0]`` is the rank's
+context device); ``size`` is the global shard count, ``world_size *
+local_size``, and this rank's shards are the global ones ``rank *
+local_size`` to ``rank * local_size + local_size - 1``.  Every rank runs
+the same program over the same registered data, and the catalog
+holds the whole padded table on each rank's device: ``split`` picks this
+rank's shards out of it.
 """
 from __future__ import annotations
 
@@ -41,7 +49,10 @@ class Mesh:
 
     axis_names: Tuple[str, ...] = (ROW_AXIS,)
 
-    def __init__(self, devices: Sequence):
+    def __init__(self, devices: Sequence, group=None):
+        """``group``: the ``group.ProcessGroup`` of a mesh across
+        processes (``devices`` are then this rank's shards, all on its
+        device), None for a mesh of this process's devices."""
         if not devices:
             raise ValueError("a mesh needs at least one device")
         # "cuda" and "cuda:0" name one card: placements compare indices
@@ -49,34 +60,63 @@ class Mesh:
             torch.device("cuda", torch.cuda.current_device())
             if torch.device(d) == torch.device("cuda") else torch.device(d)
             for d in devices)
+        if group is not None and set(self.devices) != {group.device}:
+            raise ValueError(f"a mesh across processes holds its rank's "
+                             f"shards on {group.device}, not {self.devices}")
+        self.group = group
         self._lock = threading.Lock()
         self._placed: Dict[int, tuple] = {}
 
     @property
-    def size(self) -> int:
+    def local_size(self) -> int:
+        """This rank's shards (every shard of a single-process mesh)."""
         return len(self.devices)
+
+    @property
+    def world_size(self) -> int:
+        return 1 if self.group is None else self.group.world_size
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.group is None else self.group.rank
+
+    @property
+    def size(self) -> int:
+        """The global shard count."""
+        return self.local_size * self.world_size
+
+    @property
+    def spans_processes(self) -> bool:
+        """The collectives go through a process group (even of one rank)."""
+        return self.group is not None
 
     @property
     def virtual(self) -> bool:
         """Every shard on one device (no transfer between shards)."""
-        return len(set(self.devices)) == 1
+        return not self.spans_processes and len(set(self.devices)) == 1
 
     def distinct_devices(self) -> List[torch.device]:
         return list(dict.fromkeys(self.devices))
 
     def signature(self) -> str:
-        """The layout a program is built for: axis, size and placement."""
-        return (f"{ROW_AXIS}:{self.size}@"
-                + ",".join(str(d) for d in self.devices))
+        """The layout a program is built for: axis, size and placement
+        (and across processes the world size and this rank)."""
+        sig = f"{ROW_AXIS}:{self.size}@" + ",".join(str(d)
+                                                     for d in self.devices)
+        if self.group is not None:
+            sig += f"/world{self.world_size}:rank{self.rank}"
+        return sig
 
     def __repr__(self) -> str:
         return f"Mesh({self.signature()})"
 
     def split(self, t: torch.Tensor) -> List[torch.Tensor]:
-        """The row shards of ``t`` (whose length divides by the size),
-        each on its shard's device."""
+        """This process's row shards of the global ``t`` (whose length
+        divides by the size), each on its shard's device."""
         local = int(t.shape[0]) // self.size
-        parts = [t.narrow(0, i * local, local) for i in range(self.size)]
+        first = self.rank * self.local_size
+        parts = [t.narrow(0, (first + i) * local, local)
+                 for i in range(self.local_size)]
         if all(d == t.device for d in self.devices):
             return parts
         key = id(t)
@@ -95,6 +135,15 @@ class Mesh:
                 weakref.ref(t, lambda _r, k=key: self._placed.pop(k, None)),
                 tuple(placed))
         return placed
+
+    def split_local(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """The row shards of ``t`` that holds this process's rows only (a
+        stage output of a mesh across processes), one per local shard."""
+        if self.group is None:
+            return self.split(t)
+        local = int(t.shape[0]) // self.local_size
+        return [on(t.narrow(0, i * local, local), d)
+                for i, d in enumerate(self.devices)]
 
 
 def on(t: torch.Tensor, device) -> torch.Tensor:
@@ -176,13 +225,26 @@ def shard_table(table, mesh: Mesh):
 def init_multihost(coordinator_address: Optional[str] = None,
                    num_processes: Optional[int] = None,
                    process_id: Optional[int] = None,
-                   device: Optional[str] = None) -> Mesh:
-    """The row mesh of this host (``default_mesh(device=device)``).  A mesh
-    across processes (a coordinator address) would run every collective
-    over ``torch.distributed``; it is not ported yet."""
-    if coordinator_address is not None:
-        raise NotImplementedError(
-            "init_multihost: a mesh across processes (every collective "
-            "over torch.distributed) is not ported yet; build a Mesh of "
-            "this host's devices instead")
-    return default_mesh(device=device)
+                   device: Optional[str] = None, local_shards: int = 1,
+                   timeout_s: Optional[float] = None) -> Mesh:
+    """The row mesh.  Without a coordinator, this host's
+    (``default_mesh(device=device)``).  With one ("host:port"), a mesh
+    across ``num_processes`` processes, this one rank ``process_id``:
+    every process calls this with the same address and world size, then
+    runs the same program over the same data, and every rank gets
+    every answer (as the JAX package's ``jax.distributed`` contract).
+    The group is NCCL on a card (rank ``r`` on ``cuda:{r % cards}``
+    unless ``device`` names one) and gloo on the CPU (``device="cpu"``);
+    a group already set up is reused.  The rank holds ``local_shards``
+    shards on its device, so the mesh has ``num_processes *
+    local_shards``.  ``timeout_s`` (``group.DEFAULT_TIMEOUT_S``) bounds
+    every collective's and every stage agreement's wait."""
+    if coordinator_address is None:
+        return default_mesh(device=device)
+    from .group import DEFAULT_TIMEOUT_S, init_group
+
+    group = init_group(coordinator_address, num_processes, process_id,
+                       device=device,
+                       timeout_s=(DEFAULT_TIMEOUT_S if timeout_s is None
+                                  else float(timeout_s)))
+    return Mesh([group.device] * int(local_shards), group=group)

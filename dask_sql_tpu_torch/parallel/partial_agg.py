@@ -10,7 +10,11 @@ slot tables combine by an all_gather.
 The JAX functions run inside ``shard_map`` on one device's shard; these
 take one tensor per shard, in shard order (a list of one for a replicated
 table, whose combine is the identity), and reduce in shard order on the
-first shard's device, so that two runs give the same bits.  Segment sums
+first shard's device, so that two runs give the same bits.  Under a mesh
+across processes (``group``) the list holds this rank's shards, and the
+combine gathers every rank's partials and reduces them in global shard
+order on every rank (``group.ordered_sum``): the same bits as the
+single-process mesh, for any world size.  Segment sums
 go through ``ops.groupby._segment_sum`` spread over lanes, deterministic
 on the card.
 """
@@ -21,6 +25,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ..ops.groupby import _segment_sum
+from . import group as G
 from .exchange import gather_build
 from .mesh import on
 
@@ -32,32 +37,37 @@ def _widen(data: torch.Tensor) -> torch.Tensor:
     return data.to(torch.int64)
 
 
-def psum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+def psum(parts: Sequence[torch.Tensor], group=None) -> torch.Tensor:
     """Elementwise sum of the shards' values, in shard order."""
+    if group is not None:
+        return G.ordered_sum(group, parts)
     acc = parts[0]
     for p in parts[1:]:
         acc = acc + on(p, acc.device)
     return acc
 
 
-def pminmax(parts: Sequence[torch.Tensor], is_min: bool) -> torch.Tensor:
+def pminmax(parts: Sequence[torch.Tensor], is_min: bool,
+            group=None) -> torch.Tensor:
     """Elementwise min (or max) of the shards' values."""
     dev = parts[0].device
+    if group is not None:
+        parts = G.gather_shards(group, parts)
     stacked = torch.stack([on(p, dev) for p in parts])
     return stacked.amin(0) if is_min else stacked.amax(0)
 
 
-def global_sum(datas: Sequence[torch.Tensor], oks: Sequence[torch.Tensor]
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def global_sum(datas: Sequence[torch.Tensor], oks: Sequence[torch.Tensor],
+               group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum, valid count) over every live row of every shard."""
     s = [torch.where(ok, _widen(d), torch.zeros((), dtype=_widen(d).dtype,
                                                  device=d.device)).sum()
          for d, ok in zip(datas, oks)]
-    return psum(s), global_count(oks)
+    return psum(s, group), global_count(oks, group)
 
 
-def global_count(oks: Sequence[torch.Tensor]) -> torch.Tensor:
-    return psum([ok.to(torch.int64).sum() for ok in oks])
+def global_count(oks: Sequence[torch.Tensor], group=None) -> torch.Tensor:
+    return psum([ok.to(torch.int64).sum() for ok in oks], group)
 
 
 def minmax_sentinel(dtype: torch.dtype, is_min: bool):
@@ -79,11 +89,12 @@ def _minmax_work(data: torch.Tensor, ok: torch.Tensor,
 
 
 def global_minmax(datas: Sequence[torch.Tensor],
-                  oks: Sequence[torch.Tensor], is_min: bool) -> torch.Tensor:
+                  oks: Sequence[torch.Tensor], is_min: bool,
+                  group=None) -> torch.Tensor:
     local = [(_minmax_work(d, ok, is_min).amin() if is_min
               else _minmax_work(d, ok, is_min).amax())
              for d, ok in zip(datas, oks)]
-    return pminmax(local, is_min)
+    return pminmax(local, is_min, group)
 
 
 # ---------------------------------------------------------------------------
@@ -145,13 +156,13 @@ def slot_minmax(data: torch.Tensor, ok: torch.Tensor, slot: torch.Tensor,
     return out[:cap]
 
 
-def gather_groups(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+def gather_groups(parts: Sequence[torch.Tensor], group=None) -> torch.Tensor:
     """Disjoint per-shard slot tables into the global group table: a plain
     all_gather (ownership is disjoint after the exchange)."""
-    return gather_build(parts)
+    return gather_build(parts, group)
 
 
-def psum_table(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+def psum_table(parts: Sequence[torch.Tensor], group=None) -> torch.Tensor:
     """OVERLAPPING per-shard partials (the static-domain path, where every
     shard fills the same dense slot table) combined by a psum."""
-    return psum(parts)
+    return psum(parts, group)

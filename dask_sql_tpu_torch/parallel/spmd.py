@@ -46,6 +46,30 @@ too, as in the JAX package, and ``spmd_errors`` apart.  Either way None
 sends the query to the single-device tiers; the query's span carries the
 tripped flags (``spmd_fallback``) or the error (``spmd_error``).
 
+A mesh across processes (``init_multihost`` with a coordinator) runs the
+same walker on every rank over that rank's shards (``Mesh.split``), and
+each collective goes on through the process group
+(``parallel/group.py``).  A stage's output stays on its rank (a
+``__spmd__`` temp holds this rank's rows); the root stage's output is
+gathered to every rank, and every rank compacts it and runs the
+epilogue.  Ranks must take the same host decisions, so:
+
+- the stage's flag vector is agreed inside the stage (``group.agree``,
+  the max over the ranks), and every rank reads the same flags;
+- after each stage every rank reports through the group's store how the
+  stage ended (``group.rendezvous``: ok, unsupported, a runtime flag, an
+  error or a failed collective, with its count of collectives and its
+  recorded decisions).  Alike on every rank, the outcome is handled as
+  on one process: an error on every rank at the same collective falls
+  back on every rank (``spmd_fallbacks``, ``spmd_errors``).  Ranks that
+  ended differently, or one that did not report within the group's
+  timeout, raise ``RankError`` on every rank, naming the ranks that
+  raised; where their collectives no longer pair (a collective failed,
+  or the ranks stopped at different ones) the group is marked broken
+  and every later query that needs it raises at once;
+- a stage that holds a collective of the process group runs eagerly
+  (``spmd_eager_stages``): no CUDA graph captures an NCCL call yet.
+
 Not ported yet: the stage programs' persistence in the program store and
 the profiling skew probe (their modules are not ported).
 
@@ -77,6 +101,7 @@ from ..runtime import telemetry as _tel
 from ..table import Column, Scalar, Table
 from ..types import torch_dtype
 from . import exchange as X
+from . import group as G
 from . import partial_agg as PA
 from .mesh import on
 
@@ -91,6 +116,13 @@ _BIG = 1 << 62
 
 class Unsupported(Exception):
     """A plan shape outside the SPMD walker's envelope (clean refusal)."""
+
+
+class RankError(RuntimeError):
+    """The ranks of a mesh across processes did not end a step of a query
+    alike (one raised, or did not report in time): no rank may answer
+    from a path the others did not take, so the query fails on every
+    rank."""
 
 
 def spmd_enabled(context) -> bool:
@@ -234,7 +266,8 @@ class _Walker:
     def __init__(self, context, mesh, scan_tables: Dict, meta: Dict):
         self.context = context
         self.devices = mesh.devices
-        self.n_dev = mesh.size
+        self.n_dev = mesh.size          # global: the byte ledgers' factor
+        self.group = mesh.group
         self.scan_tables = scan_tables
         self.meta = meta
         self.record = not meta.get("recorded")
@@ -260,6 +293,11 @@ class _Walker:
 
     def _dev(self, st: _ST, i: int) -> torch.device:
         return self.devices[i] if st.sharded else self.devices[0]
+
+    def _g(self, st: _ST):
+        """The process group a combine over ``st`` goes through: none for
+        a replicated table (every rank holds all of it)."""
+        return self.group if st.sharded else None
 
     # -- dispatch ----------------------------------------------------------
     def walk(self, rel: RelNode) -> _ST:
@@ -417,13 +455,15 @@ class _Walker:
                     gathered.append(c.mask)
             self._count("spmd_all_gather_bytes",
                         X.gather_bytes(gathered, self.n_dev))
-            bkey = X.gather_build(bkeys)
+            g = self.group
+            bkey = X.gather_build(bkeys, g)
             has = _has_masks(build)
             bcols = [Column(
-                X.gather_build([t.columns[j].data for t in build.tables]),
+                X.gather_build([t.columns[j].data for t in build.tables], g),
                 c.stype,
                 X.gather_build([t.columns[j].valid_mask()
-                                for t in build.tables]) if has[j] else None,
+                                for t in build.tables], g)
+                if has[j] else None,
                 c.dictionary) for j, c in enumerate(build.proto.columns)]
         else:
             bkey, bcols = bkeys[0], build.proto.columns
@@ -449,7 +489,7 @@ class _Walker:
             torch.where(bk == sent, torch.full_like(bk, _BIG), bk).amin(),
             torch.where(pk == sent, torch.full_like(pk, _BIG), pk).amin())
             for bk, pk in zip(bkeys, pkeys)]
-        gmin = PA.pminmax(local_min, True)
+        gmin = PA.pminmax(local_min, True, self.group)
 
         def codes(keys):
             return [torch.where(k == sent, torch.full_like(k, -1),
@@ -462,13 +502,13 @@ class _Walker:
         self._count("spmd_exchange_bytes",
                     X.exchange_bytes(bcode[0], bpay[0], self.n_dev)
                     + X.exchange_bytes(pcode[0], ppay[0], self.n_dev))
-        bcode2, bpay2 = X.exchange(bcode, bpay, self.devices)
-        pcode2, ppay2 = X.exchange(pcode, ppay, self.devices)
+        bcode2, bpay2 = X.exchange(bcode, bpay, self.devices, self.group)
+        pcode2, ppay2 = X.exchange(pcode, ppay, self.devices, self.group)
         build2 = _unflatten_st(build, bpay2, bspec, [c >= 0 for c in bcode2])
         probe2 = _unflatten_st(probe, ppay2, pspec, [c >= 0 for c in pcode2])
 
         dups, out_b, out_p, valids = [], [], [], []
-        for i in range(self.n_dev):
+        for i in range(len(self.devices)):
             bk = torch.where(bcode2[i] >= 0, bcode2[i],
                              torch.full_like(bcode2[i], sent))
             pk = torch.where(pcode2[i] >= 0, pcode2[i],
@@ -522,15 +562,16 @@ class _Walker:
             col = inputs[0][0]
             oks = [ok for _, ok in inputs]
             out_dt = torch_dtype(f.stype)
+            g = self._g(src)
             if agg.op == "COUNT":
-                c = PA.global_count(oks)
+                c = PA.global_count(oks, g)
                 cols.append(Column(c.reshape(1).to(out_dt), f.stype, None))
                 continue
             if col is None:
                 raise Unsupported(f"{agg.op} without argument")
             datas = [c.data for c, _ in inputs]
             if agg.op in ("SUM", "$SUM0", "AVG"):
-                s, c = PA.global_sum(datas, oks)
+                s, c = PA.global_sum(datas, oks, g)
                 has = (c > 0).reshape(1)
                 if agg.op == "AVG":
                     mean = s.to(torch.float64) / torch.clamp(c, min=1)
@@ -542,8 +583,8 @@ class _Walker:
                                        mask))
                 continue
             # MIN / MAX (not of strings: gated)
-            m = PA.global_minmax(datas, oks, agg.op == "MIN")
-            c = PA.global_count(oks)
+            m = PA.global_minmax(datas, oks, agg.op == "MIN", g)
+            c = PA.global_count(oks, g)
             cols.append(Column(m.reshape(1).to(out_dt), f.stype,
                                (c > 0).reshape(1)))
         if src.sharded:
@@ -620,8 +661,8 @@ class _Walker:
                 self._count("spmd_psum_bytes",
                             X.psum_bytes([parts[0]], self.n_dev))
             if not is_minmax:
-                return PA.psum_table(parts)
-            return PA.pminmax(parts, is_min)
+                return PA.psum_table(parts, self._g(src))
+            return PA.pminmax(parts, is_min, self._g(src))
 
         rows = combine([PA.slot_count(ok, s, G)
                         for ok, s in zip(rows_ok, slots)], False, False)
@@ -657,7 +698,8 @@ class _Walker:
                            .amax())
                 ds.append(d)
                 oks.append(ok)
-            lo, hi = PA.pminmax(los, True), PA.pminmax(his, False)
+            g = self._g(src)
+            lo, hi = PA.pminmax(los, True, g), PA.pminmax(his, False, g)
             span = torch.clamp(hi - lo + 2, min=2)   # +1 NULL, +1 range
             for i, (d, ok) in enumerate(zip(ds, oks)):
                 dev = d.device
@@ -676,7 +718,7 @@ class _Walker:
             self._count("spmd_exchanges")
             self._count("spmd_exchange_bytes",
                         X.exchange_bytes(codes[0], pay[0], self.n_dev))
-            codes, pay2 = X.exchange(codes, pay, self.devices)
+            codes, pay2 = X.exchange(codes, pay, self.devices, self.group)
             src = _unflatten_st(src, pay2, spec, [c >= 0 for c in codes])
             rows_ok = [c >= 0 for c in codes]
 
@@ -689,7 +731,7 @@ class _Walker:
             if src.sharded:
                 self._count("spmd_all_gather_bytes",
                             X.gather_bytes([parts[0]], self.n_dev))
-            return PA.gather_groups(parts)
+            return PA.gather_groups(parts, self._g(src))
 
         rows = combine([PA.slot_count(ok, s, cap)
                         for ok, s in zip(rows_ok, slots)], False, False)
@@ -898,33 +940,42 @@ def _scan_specs(scans) -> list:
             for key, tbl, row_valid in scans]
 
 
-def _make_stage_body(stage_plan: RelNode, context, specs, mesh, meta: Dict):
+def _make_stage_body(stage_plan: RelNode, context, specs, mesh, meta: Dict,
+                     root: bool = False):
     """The stage function: the flat inputs (``compiled._flatten_tables``
     order) split into shards, the stage plan walked, every output
     returned as a global tensor on the first device (a replicated one
-    padded to a multiple of the mesh size), the flags last."""
+    padded to a multiple of the mesh size), the flags last.  On a mesh
+    across processes a ``__spmd__`` input holds this rank's rows and so
+    does an output, but the ``root`` stage's, which every rank gets
+    whole; the flags are agreed over the ranks."""
     ctx_ref = weakref.ref(context)
     n_dev = mesh.size
+    n_loc = mesh.local_size
+    first = mesh.rank * n_loc
+    group = mesh.group
     dev0 = mesh.devices[0]
 
     def body(*flat):
         scan_tables: Dict[Tuple[str, str], _ST] = {}
         i = 0
         for key, names, colspecs, has_rv in specs:
-            per_shard: List[List[Column]] = [[] for _ in range(n_dev)]
+            split = (mesh.split_local if key[0] == _SPMD_SCHEMA
+                     else mesh.split)
+            per_shard: List[List[Column]] = [[] for _ in range(n_loc)]
             for stype, has_mask, dictionary in colspecs:
-                data = mesh.split(flat[i])
+                data = split(flat[i])
                 i += 1
-                mask = [None] * n_dev
+                mask = [None] * n_loc
                 if has_mask:
-                    mask = mesh.split(flat[i])
+                    mask = split(flat[i])
                     i += 1
-                for s in range(n_dev):
+                for s in range(n_loc):
                     per_shard[s].append(Column(data[s], stype, mask[s],
                                                dictionary))
-            valid = [None] * n_dev
+            valid = [None] * n_loc
             if has_rv:
-                valid = mesh.split(flat[i])
+                valid = split(flat[i])
                 i += 1
             scan_tables[key] = _ST([Table(names, cols) for cols in per_shard],
                                    valid, sharded=True)
@@ -934,29 +985,36 @@ def _make_stage_body(stage_plan: RelNode, context, specs, mesh, meta: Dict):
         outs: List[torch.Tensor] = []
         has = _has_masks(st)
         if st.sharded:
+            # this process's shards; the root's gathered from every rank
+            gather = group if root else None
             for j in range(st.proto.num_columns):
-                outs.append(torch.cat([on(t.columns[j].data, dev0)
-                                       for t in st.tables]))
+                outs.append(X.gather_build([t.columns[j].data
+                                            for t in st.tables], gather))
                 if has[j]:
-                    outs.append(torch.cat([on(t.columns[j].valid_mask(), dev0)
-                                           for t in st.tables]))
-            outs.append(torch.cat([on(st.vmask(s), dev0)
-                                   for s in range(n_dev)]))
+                    outs.append(X.gather_build(
+                        [t.columns[j].valid_mask() for t in st.tables],
+                        gather))
+            outs.append(X.gather_build([st.vmask(s) for s in range(n_loc)],
+                                       gather))
             layout = {"sharded": True, "k": None, "kp": None}
         else:
+            # every rank holds the whole value: it keeps its own shards,
+            # and the root all of them
+            mine = (0, None) if root or group is None else (first, n_loc)
             kp = 0
             for c, hm in zip(st.proto.columns, has):
-                parts, kp = X.shard_replicated(c.data, n_dev)
+                parts, kp = X.shard_replicated(c.data, n_dev, *mine)
                 outs.append(torch.cat(parts))
                 if hm:
                     outs.append(torch.cat(X.shard_replicated(
-                        c.valid_mask(), n_dev)[0]))
-            parts, kp = X.shard_replicated(st.vmask(0), n_dev)
+                        c.valid_mask(), n_dev, *mine)[0]))
+            parts, kp = X.shard_replicated(st.vmask(0), n_dev, *mine)
             outs.append(torch.cat(parts))
             layout = {"sharded": False, "k": st.n, "kp": kp}
         if walker.flags:
-            outs.append(torch.stack([on(f, dev0).to(torch.int32).reshape(())
-                                     for _, f in walker.flags]))
+            flags = torch.stack([on(f, dev0).to(torch.int32).reshape(())
+                                 for _, f in walker.flags])
+            outs.append(flags if group is None else G.agree(group, flags))
         meta["out"] = [(c.stype, hm, c.dictionary)
                        for c, hm in zip(st.proto.columns, has)]
         meta["layout"] = layout
@@ -985,25 +1043,31 @@ def _stats_fingerprint(context, scans) -> tuple:
     return tuple(out)
 
 
-def _stage_key(plan_fp: str, inputs_fp, mesh, stats_fp, params) -> tuple:
+def _stage_key(plan_fp: str, inputs_fp, mesh, stats_fp, params,
+               root: bool = False) -> tuple:
     """The identity of one stage program: the canonical plan (temp names
     replaced by position-stable placeholders), the input layout, the
-    mesh, the statistics, the parameters' values and the caps."""
+    mesh, the statistics, the parameters' values and the caps (and
+    whether it is the root of a mesh across processes, which gathers
+    its output)."""
     mapping: Dict[str, str] = {}
 
     def sub(m):
         return mapping.setdefault(m.group(0), f"__spmd__.#{len(mapping)}")
 
     canon = _TEMP_NAME_RE.sub(sub, plan_fp)
-    return ("spmd1", canon, inputs_fp, mesh.signature(), stats_fp,
-            tuple(repr(p.value) for p in params),
-            (_broadcast_rows_cap(), _group_cap(), _dense_cap()))
+    key = ("spmd1", canon, inputs_fp, mesh.signature(), stats_fp,
+           tuple(repr(p.value) for p in params),
+           (_broadcast_rows_cap(), _group_cap(), _dense_cap()))
+    return key + (("root",) if root else ())
 
 
 def _program(key: tuple, stage_plan, context, scans, mesh, meta: Dict,
-             counts: Dict[str, int]) -> _StageProgram:
+             counts: Dict[str, int], root: bool = False) -> _StageProgram:
     """The cached stage program for ``key``, made (and counted
-    ``spmd_compiles``) on a miss."""
+    ``spmd_compiles``) on a miss.  A mesh across processes is never
+    ``virtual``: its stages hold collectives of the process group, which
+    no CUDA graph captures yet, so they run eagerly on every rank."""
     from ..physical import compiled as _C
     from ..physical.graphs import GraphProgram
 
@@ -1013,19 +1077,14 @@ def _program(key: tuple, stage_plan, context, scans, mesh, meta: Dict,
             _prog_cache.move_to_end(key)
             return prog
     body = _make_stage_body(stage_plan, context, _scan_specs(scans), mesh,
-                            meta)
+                            meta, root)
     graph = None
     if mesh.virtual:
         # the inputs of __spmd__ temps change per query: a graph copies
         # them into its buffers instead of keying a capture on them
         copied = _C._copied_positions(scans, 0)
-        pos = 0
-        for skey, tbl, row_valid in scans:
-            n = (sum(2 if c.mask is not None else 1 for c in tbl.columns)
-                 + (row_valid is not None))
-            if skey[0] == _SPMD_SCHEMA:
-                copied.extend(range(pos, pos + n))
-            pos += n
+        copied.extend(i for i, temp in enumerate(_flat_in_temps(scans))
+                      if temp)
         graph = GraphProgram(body, mesh.devices[0], copied=copied)
     prog = _StageProgram(body, meta, graph)
     counts["spmd_compiles"] = counts.get("spmd_compiles", 0) + 1
@@ -1134,42 +1193,159 @@ def _compact(table: Table, valid) -> Table:
     return table.take(mask_to_indices(valid))
 
 
-def _run_stage(stage, context, mesh, counts: Dict[str, int]):
-    """One stage over the mesh: (table, valid, meta).  Raises
-    Unsupported, compiled.Unsupported or _Fallback."""
+def _flat_in_temps(scans) -> List[bool]:
+    """Per flat input (``compiled._flatten_tables`` order): whether it
+    belongs to a ``__spmd__`` temp, which on a mesh across processes holds
+    this rank's rows only."""
+    out: List[bool] = []
+    for skey, tbl, row_valid in scans:
+        n = (sum(2 if c.mask is not None else 1 for c in tbl.columns)
+             + (row_valid is not None))
+        out.extend([skey[0] == _SPMD_SCHEMA] * n)
+    return out
+
+
+def _outcome(err: Optional[BaseException], group) -> Dict:
+    """How a step ended on this rank, as the rendezvous carries it."""
     from ..physical import compiled as _C
 
-    n_dev = mesh.size
-    scans: list = []
-    params: list = []
-    plan_fp = _C._fp_plan(stage.plan, context, scans, params)
-    flat = _C._flatten_tables(scans)
-    for a in flat:
-        if a.shape[0] % n_dev:
-            raise Unsupported(f"global length {a.shape[0]} not divisible "
-                              f"by {n_dev} shards")
-    key = _stage_key(plan_fp, _C._fp_inputs(scans), mesh,
-                     _stats_fingerprint(context, scans), params)
-    meta: Dict = {"counts": {}, "decisions": []}
-    flipped: set = set()
+    if err is None:
+        status = "ok"
+    elif isinstance(err, (Unsupported, _C.Unsupported)):
+        status = "unsupported"
+    elif isinstance(err, _Fallback):
+        status = "fallback"
+    elif isinstance(err, G.CollectiveError):
+        status = "collective"
+    else:
+        status = "error"
+    return {"status": status, "collectives": group.collectives,
+            "tripped": getattr(err, "tripped", None),
+            "error": (None if err is None
+                      else f"{type(err).__name__}: {str(err)[:300]}")}
+
+
+def _alike(a: Dict, b: Dict) -> bool:
+    return all(a.get(k) == b.get(k) for k in ("status", "collectives",
+                                               "tripped", "decisions"))
+
+
+def _disagreement(group, peers: List[Optional[Dict]]) -> RankError:
+    """The error every rank raises when the ranks ended a step apart; the
+    group is marked broken where their collectives no longer pair."""
+    parts, absent = [], []
+    for r, p in enumerate(peers):
+        if p is None:
+            absent.append(r)
+        elif p["status"] == "collective":
+            parts.append(f"rank {r}: a collective failed ({p['error']})")
+        elif p["error"] is not None:
+            parts.append(f"rank {r} raised {p['error']}")
+        elif p["status"] != "ok":
+            parts.append(f"rank {r}: {p['status']} {p['tripped']}")
+    if absent:
+        parts.append(f"ranks {absent} did not report within "
+                     f"{group.timeout_s:g} s")
+    seen = [p for p in peers if p is not None]
+    if not parts:
+        parts.append("the ranks recorded different decisions or collective "
+                     "counts")
+    msg = (f"SPMD step ended differently on the ranks of the mesh (this is "
+           f"rank {group.rank}): " + "; ".join(parts))
+    if absent or any(p["status"] == "collective" for p in seen) \
+            or len({p["collectives"] for p in seen}) > 1:
+        group.broken = group.broken or msg[:300]
+    return RankError(msg)
+
+
+def _agreed(mesh, fn, decisions=None):
+    """``fn()``; on a mesh across processes, then how it ended agreed with
+    every other rank through the group's store.  Alike on every rank (and
+    no collective failed), the result is returned or this rank's
+    exception raised (marked agreed), so every rank goes on the same way;
+    otherwise ``RankError`` on every rank.  ``decisions()``, after a success, is the recorded dispatch
+    decisions, which must be equal too."""
+    if not mesh.spans_processes:
+        return fn()
+    import hashlib
+
+    group = mesh.group
+    out, err = None, None
+    try:
+        out = fn()
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except Exception as e:  # reported to every rank, then acted on alike
+        err = e
+    mine = _outcome(err, group)
+    if err is None and decisions is not None:
+        mine["decisions"] = hashlib.sha1(
+            repr(decisions()).encode()).hexdigest()[:16]
+    peers = G.rendezvous(group, mine)
+    # a failed collective is never an outcome to go on from, even alike
+    if mine["status"] != "collective" \
+            and all(p is not None and _alike(p, mine) for p in peers):
+        if err is not None:
+            err.spmd_agreed = True
+            raise err
+        return out
+    raise _disagreement(group, peers) from err
+
+
+def _run_stage(stage, context, mesh, counts: Dict[str, int],
+               root: bool = False):
+    """One stage over the mesh: (table, valid, meta).  Raises
+    Unsupported, compiled.Unsupported or _Fallback (alike on every rank
+    of a mesh across processes, else RankError)."""
+    from ..physical import compiled as _C
+
+    st: Dict = {}
+
+    def prepare() -> None:
+        scans: list = []
+        params: list = []
+        plan_fp = _C._fp_plan(stage.plan, context, scans, params)
+        flat = _C._flatten_tables(scans)
+        for a, temp in zip(flat, _flat_in_temps(scans)):
+            # a temp of a mesh across processes holds this rank's rows
+            n = (mesh.local_size if temp and mesh.spans_processes
+                 else mesh.size)
+            if a.shape[0] % n:
+                raise Unsupported(f"length {a.shape[0]} not divisible "
+                                  f"by {n} shards")
+        st.update(scans=scans, flat=flat, flipped=set(),
+                  meta={"counts": {}, "decisions": []},
+                  key=_stage_key(plan_fp, _C._fp_inputs(scans), mesh,
+                                 _stats_fingerprint(context, scans), params,
+                                 root))
+
+    def launch():
+        if not st:
+            prepare()
+        prog = _program(st["key"], stage.plan, context, st["scans"], mesh,
+                        st["meta"], counts, root)
+        st["meta"] = prog.meta
+        return _run_program(prog, st["flat"], counts)
+
     while True:
-        prog = _program(key, stage.plan, context, scans, mesh, meta, counts)
-        meta = prog.meta
-        outs = _run_program(prog, flat, counts)
+        outs = _agreed(mesh, launch, lambda: st["meta"]["decisions"])
         try:
-            table, valid = _parse_stage_outputs(stage.plan, outs, meta)
+            table, valid = _parse_stage_outputs(stage.plan, outs, st["meta"])
         except _Fallback as e:
             # the flipped variant is a program of its own, with its own
             # copy of the decisions (the counts stay those recorded)
+            meta = st["meta"]
             meta = dict(meta, decisions=list(meta["decisions"]),
                         counts=dict(meta["counts"]))
-            if not _flip_dup_joins(meta, e.tripped, flipped):
+            if not _flip_dup_joins(meta, e.tripped, st["flipped"]):
                 raise
             counts["spmd_join_flips"] = (counts.get("spmd_join_flips", 0)
                                          + len(e.tripped))
-            key = key + (("flip",) + tuple(sorted(flipped)),)
+            st["meta"] = meta
+            st["key"] = st["key"] + (("flip",)
+                                     + tuple(sorted(st["flipped"])),)
             continue
-        return table, valid, meta
+        return table, valid, st["meta"]
 
 
 _DUP_FLAG_RE = re.compile(r"^dup_build_keys@(\d+)$")
@@ -1206,7 +1382,9 @@ def try_execute_spmd(plan: RelNode, context) -> Optional[Table]:
     Returns the result Table, or None when the plan is outside the SPMD
     envelope (``spmd_unsupported``) or a runtime flag tripped
     (``spmd_fallbacks``): the caller then serves the query through the
-    single-device tiers.  Never raises."""
+    single-device tiers.  Raises only on a mesh across processes whose
+    ranks did not end a step alike, or whose group broke earlier
+    (``RankError``, counted ``spmd_rank_errors``)."""
     if not spmd_enabled(context):
         return None
     from ..physical import compiled as _C
@@ -1232,21 +1410,36 @@ def try_execute_spmd(plan: RelNode, context) -> Optional[Table]:
         logger.debug("spmd: gate error (%s: %s)", type(e).__name__, e)
         return None
 
+    spans = mesh.spans_processes
+    if spans and mesh.group.broken is not None:
+        _tel.inc("spmd_rank_errors")
+        raise RankError(f"rank {mesh.rank}: the mesh's process group broke "
+                        f"earlier ({mesh.group.broken}); set it up again "
+                        f"with init_multihost")
     registered: List[str] = []
     metas: List[Dict] = []
+    # one query's collectives stay contiguous on this rank
+    lock = mesh.group.lock if spans else threading.Lock()
+    lock.acquire()
     try:
         result = None
         for si, stage in enumerate(graph.stages):
+            root = stage.scan is None
             with _tel.span("spmd_stage", index=si):
-                table, valid, meta = _run_stage(stage, context, mesh, counts)
+                table, valid, meta = _run_stage(stage, context, mesh, counts,
+                                                root and spans)
             metas.append(meta)
-            if stage.scan is not None:
+            if not root:
                 name = stage.scan.table_name
                 _register_temp(context, name, table, valid)
                 registered.append(name)
             else:
-                result = _apply_epilogue(_compact(table, valid), epilogue,
-                                         mesh.devices[0])
+                result = _agreed(mesh, lambda: _apply_epilogue(
+                    _compact(table, valid), epilogue, mesh.devices[0]))
+    except RankError as e:
+        _tel.inc("spmd_rank_errors")
+        _tel.annotate(spmd_error=f"RankError: {str(e)[:200]}")
+        raise
     except (Unsupported, _C.Unsupported) as e:
         _tel.inc("spmd_unsupported")
         logger.debug("spmd: unsupported at run (%s)", e)
@@ -1259,6 +1452,15 @@ def try_execute_spmd(plan: RelNode, context) -> Optional[Table]:
     except (KeyboardInterrupt, SystemExit):
         raise
     except Exception as e:
+        if spans and not getattr(e, "spmd_agreed", False):
+            # this rank alone, outside an agreed step: the other ranks
+            # wait at their next rendezvous and name this rank absent
+            msg = (f"rank {mesh.rank} raised {type(e).__name__}: "
+                   f"{str(e)[:200]} outside an agreed step")
+            mesh.group.broken = mesh.group.broken or msg
+            _tel.inc("spmd_rank_errors")
+            _tel.annotate(spmd_error=f"RankError: {msg}")
+            raise RankError(msg) from e
         # counted a fallback, as in the JAX package, and apart as an error
         # (no flag tripped: the walker itself failed)
         _tel.inc("spmd_fallbacks")
@@ -1268,6 +1470,7 @@ def try_execute_spmd(plan: RelNode, context) -> Optional[Table]:
                        type(e).__name__, str(e)[:200])
         return None
     finally:
+        lock.release()
         for name in registered:
             _unregister_temp(context, name)
 

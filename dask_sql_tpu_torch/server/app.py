@@ -1184,6 +1184,14 @@ def run_server(context=None, host: str = "0.0.0.0", port: int = 8080,
     # trace headers and a route
     refuse()
     context = context or Context()
+    mesh = getattr(context, "mesh", None)
+    if mesh is not None and mesh.spans_processes:
+        # the other ranks would wait at the first collective of a query
+        # that only this rank received
+        raise NotImplementedError(
+            "run_server: a context on a mesh across processes cannot serve "
+            "alone; a front end that sends every request to every rank in "
+            "one order is not ported yet")
     # the ingest log on the serving context before the first request
     # (idempotent with the Context's own arming)
     if _ing.enabled():

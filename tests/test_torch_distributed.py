@@ -222,8 +222,12 @@ def test_default_mesh_and_init_multihost():
             PM.default_mesh()
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             PM.init_multihost(None)
-    with pytest.raises(NotImplementedError, match="across processes"):
-        PM.init_multihost("127.0.0.1:1234", 2, 0)
+        # a coordinator means a process group: NCCL on a card unless the
+        # caller asks for gloo on the CPU (device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            PM.init_multihost("127.0.0.1:1234", 2, 0)
+    with pytest.raises(ValueError, match="outside a world"):
+        PM.init_multihost("127.0.0.1:1234", 2, 2, device="cpu")
 
 
 def test_context_mesh_must_start_at_its_device():

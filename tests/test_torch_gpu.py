@@ -741,3 +741,38 @@ def test_segment_sum_lanes_on_the_card(cuda_device, groups):
     assert torch.equal(_segment_sum(ones.to(cuda_device),
                                     codes.to(cuda_device), groups).cpu(),
                        _segment_sum(ones, codes, groups))
+
+
+@pytest.mark.gpu
+def test_world1_nccl_group_exchange_and_psum_equal_the_single_process_mesh(
+        cuda_device):
+    import socket
+
+    from dask_sql_tpu_torch.parallel import exchange as X
+    from dask_sql_tpu_torch.parallel import group as G
+    from dask_sql_tpu_torch.parallel import partial_agg as PA
+    from dask_sql_tpu_torch.parallel.mesh import Mesh, init_multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mesh = init_multihost(f"127.0.0.1:{port}", 1, 0, device="cuda:0",
+                          local_shards=4, timeout_s=60.0)
+    try:
+        assert mesh.group.backend == "nccl" and mesh.size == 4
+        plain = Mesh(["cuda:0"] * 4)
+        rng = np.random.RandomState(9)
+        codes = torch.from_numpy(rng.randint(-1, 50, 4 * 4096)).cuda()
+        vals = torch.from_numpy(rng.standard_normal(4 * 4096) * 1e6).cuda()
+        c_parts, v_parts = plain.split(codes), plain.split(vals)
+        got = X.exchange(c_parts, [[v] for v in v_parts], mesh.devices,
+                         mesh.group)
+        want = X.exchange(c_parts, [[v] for v in v_parts], plain.devices)
+        for g, w in zip(got[0], want[0]):
+            assert torch.equal(g, w)
+        for g, w in zip(got[1], want[1]):
+            assert _same_bits(g[0], w[0])
+        sums = [v.sum() for v in v_parts]
+        assert _same_bits(PA.psum(sums, mesh.group), PA.psum(sums))
+    finally:
+        G.close(mesh.group)
