@@ -267,6 +267,38 @@ the compiled tier first.
    ``multiprocess summary:`` line per part; the ``kernels`` line carries
    18(a)'s kernel-1 launches as ``launches_multiprocess``.
 
+19. profiling, query history and the event bus (after phase 13, on phase
+   12's tables; ``runtime/{profiler,flight_recorder,events}.py``):
+   ``DSQL_PROFILE``, ``DSQL_HISTORY_FILE`` and ``DSQL_EVENTS`` armed with
+   their files under ``build/phase19``, the workload manager on and the
+   result cache off.  (a) Every program dropped, then per query an armed
+   cold run (the build counts its cost) and two warm runs armed and two
+   unarmed, in turns: each answer equal to phase 12's bit for bit; every
+   program built has a counted cost with bytes above 0; the history holds
+   an envelope for each query, with measured bytes above 0 where the
+   result has rows; Q1's program holds kernel 1's record (one launch, at
+   least Q1's values' bytes) and each replay launches it once.  (b) One
+   ``profile table:`` JSON line per query (warm walls armed and unarmed,
+   the counted bytes of the programs that served and the measured bytes,
+   ``est_source``, ``cost_err``), a ``profile split:`` line for Q1, Q2
+   and Q8 (warm walls with no variable and with each alone) and a
+   ``profile summary:`` line.  (c) EXPLAIN PROFILE of Q1 and Q9: every
+   device row ``platform=gpu`` with bytes in use above 0 and the card's
+   total memory as its limit.  (d) ``Context.profile(Q1)`` writes a chrome
+   trace that names ``segsum_fixedpoint_kernel`` (a trace without device
+   events raises; three tries, as phase 4's timing).  (e) The server
+   echoes ``X-DSQL-Trace`` and ``/v1/events`` returns that trace's
+   events.  (f) The sampler at ``DSQL_PROFILE_SAMPLE_MS=10`` beside one
+   tiering background build (Q3): the build lands with no error and no
+   capture retry, the next arrival replays it, equal bit for bit; then
+   ``Context.profile(Q6)`` called while the same build runs waits for it
+   (torch.profiler's start and stop invalidate another thread's capture),
+   and the build lands with no retry.  (g), inside phase
+   17 after 17(a): the mesh's Q1 armed, every SPMD stage's
+   ``shard_rows`` equal to a host count of each shard's valid rows.  The
+   ``kernels`` line carries 19(a)'s Q1 launches as
+   ``launches_profiled_q1``.
+
 The last two lines are a JSON object ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints neither.
@@ -1836,9 +1868,10 @@ def _bit_equal_tables(name: str, got, want) -> None:
 
 
 def _compiled_query(ctx, qid: int, eager_results: dict, eager_rows: dict,
-                    total: dict) -> dict:
+                    total: dict, answers: dict) -> dict:
     """Phase 12 for one query (see ``phase_compiled``); adds its launches
-    to ``total`` and returns its table row."""
+    to ``total``, keeps its answer in ``answers`` and returns its table
+    row."""
     from dask_sql_tpu_torch.ops import gpu_kernels as gk
 
     text = QUERIES[qid]
@@ -1856,7 +1889,7 @@ def _compiled_query(ctx, qid: int, eager_results: dict, eager_rows: dict,
     warm_tier, _, warm_counters = _last_tier(ctx)
     sites = sync_sites(lambda: ctx.sql(text))
     syncs = len(sites)
-    result = box["r"]
+    result = answers[qid] = box["r"]
     for launches in runs:
         for k, v in launches.items():
             total[k] += v
@@ -1912,20 +1945,22 @@ def phase_compiled(ctx, eager_results: dict, eager_rows: dict) -> tuple:
     answer (doubles rtol 1e-9), Q1's bit for bit; a query that does not
     compile, or a static GROUP BY that compiles without launching kernel 1
     once per replay, fails the phase.  Then Q1 and Q9 profiled, and every
-    program dropped.  Returns the launches of all runs and the rows."""
+    program dropped.  Returns the launches of all runs, the rows and the
+    answers (phase 19 holds its own to them bit for bit)."""
     from dask_sql_tpu_torch.ops import gpu_kernels as gk
     from dask_sql_tpu_torch.physical import compiled, graphs
 
     os.environ.pop("DSQL_COMPILE", None)
     total = {k: 0 for k in gk.LAUNCHES}
     rows = []
+    answers = {}
     failures = []
     ladder0 = {k: compiled.stats.get(k, 0)
                for k in ("compile_errors", "degradations")}
     for qid in sorted(QUERIES):
         try:
             rows.append(_compiled_query(ctx, qid, eager_results, eager_rows,
-                                        total))
+                                        total, answers))
         except Exception as exc:  # reported together after the loop
             import traceback
             traceback.print_exc()
@@ -1959,7 +1994,7 @@ def phase_compiled(ctx, eager_results: dict, eager_rows: dict) -> tuple:
                                  "stage_compiles", "compile_errors",
                                  "degradations")}))
     forget_programs()
-    return total, rows
+    return total, rows, answers
 
 
 def forget_programs(learned: bool = False) -> None:
@@ -3791,6 +3826,422 @@ def phase_serving(ctx, tables: dict, answers: dict,
 
 
 # ---------------------------------------------------------------------------
+# phase 19: profiling, query history and the event bus (runtime/profiler.py,
+# runtime/flight_recorder.py, runtime/events.py) on the compiled tier
+# ---------------------------------------------------------------------------
+
+OBS_DIR = os.path.join("build", "phase19")
+#: warm runs per query and mode (armed, unarmed), in turns
+OBS_WARM = 2
+
+
+def _obs_env(armed: bool) -> None:
+    """Arm (or disarm) the three variables, the files under ``OBS_DIR``."""
+    if armed:
+        os.environ.update({
+            "DSQL_PROFILE": "1", "DSQL_EVENTS": "1",
+            "DSQL_HISTORY_FILE": os.path.join(OBS_DIR, "history.jsonl")})
+    else:
+        for name in ("DSQL_PROFILE", "DSQL_EVENTS", "DSQL_HISTORY_FILE"):
+            os.environ.pop(name, None)
+
+
+def _program_costs() -> list:
+    """Every compiled program in the cache: its counted cost."""
+    from dask_sql_tpu_torch.physical import compiled
+
+    return [e.fn.cost for e in list(compiled._cache.values())
+            if isinstance(e, compiled._Compiled)]
+
+
+def obs_answers_and_records(ctx, answers: dict, q1_args: tuple) -> list:
+    """19(a) and (b): every program dropped, then per query one armed cold
+    run (the build counts its cost) and ``OBS_WARM`` warm runs armed and
+    unarmed in turns, the launch counts set to 0 before each run and read
+    after it.  Each answer equal to phase 12's bit for bit; every program
+    built has a cost with bytes above 0; the history holds an envelope
+    with measured bytes above 0 for each query; Q1's program counts kernel
+    1's function once, reading at least Q1's values, and each warm replay
+    of Q1 launches kernel 1 once.  One ``profile table:`` line per query."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+    from dask_sql_tpu_torch.runtime import flight_recorder as fr
+
+    rows = []
+    for qid in sorted(QUERIES):
+        text = QUERIES[qid]
+        forget_programs()
+        _obs_env(True)
+        box = {}
+        gk.reset_launch_counts()
+        cold = wall_ms(lambda: box.update(r=ctx.sql(text)))
+        _bit_equal_tables(f"19(a) Q{qid} cold", box["r"], answers[qid])
+        costs = _program_costs()
+        if any(c is None or c["bytes"] <= 0 for c in costs) or (
+                not costs and _last_tier(ctx)[0] == "compiled"):
+            raise AssertionError(f"19(a) Q{qid}: a program without a "
+                                 f"counted cost: {costs}")
+        walls = {True: [], False: []}
+        k1 = []
+        served_cost = 0.0
+        for _ in range(OBS_WARM):
+            for armed in (True, False):
+                _obs_env(armed)
+                gk.reset_launch_counts()
+                walls[armed].append(
+                    wall_ms(lambda: box.update(r=ctx.sql(text))))
+                k1.append(gk.LAUNCHES.get("segsum_fixedpoint", 0))
+                _bit_equal_tables(f"19(a) Q{qid} warm", box["r"],
+                                  answers[qid])
+                if armed:
+                    # the programs that served the run (the report's)
+                    served_cost = sum(
+                        float(sp.attrs.get("cost_bytes") or 0)
+                        for sp in ctx.last_report.root.walk())
+        _obs_env(True)
+        envs = [e for e in fr.read_events(kind="query")
+                if e["query"] == text.strip()[:500]]
+        # an empty result measures no bytes (rows at SF 0.01: Q18)
+        if not envs or (envs[-1]["measured_bytes"] <= 0
+                        and answers[qid].num_rows > 0):
+            raise AssertionError(f"19(a) Q{qid}: no envelope with measured "
+                                 f"bytes in the history: {envs[-1:]}")
+        kernels = {}
+        for c in costs:
+            for name, rec in c["kernels"].items():
+                kernels[name] = kernels.get(name, 0) + rec["launches"]
+        if qid == 1:
+            vals = q1_args[0]
+            (rec,) = [c["kernels"]["segsum_fixedpoint"] for c in costs
+                      if "segsum_fixedpoint" in c["kernels"]]
+            if rec["launches"] != 1 or rec["bytes"] < vals.numel() * 8:
+                raise AssertionError(f"19(a) Q1: kernel 1's cost record "
+                                     f"{rec}, values {tuple(vals.shape)}")
+            if k1 != [1] * len(k1):
+                raise AssertionError(f"19(a) Q1: kernel-1 launches per "
+                                     f"replay {k1}")
+        last = envs[-1]
+        row = {"q": qid, "cold_armed_ms": cold,
+               "warm_armed_ms": walls[True], "warm_unarmed_ms": walls[False],
+               "warm_armed_median_ms": _median(walls[True]),
+               "warm_unarmed_median_ms": _median(walls[False]),
+               "programs": len(costs), "cost_bytes": served_cost,
+               "cost_bytes_all_programs": sum(c["bytes"] for c in costs),
+               "kernel_records": kernels,
+               "measured_bytes": last["measured_bytes"],
+               "est_source": last["est_source"],
+               "est_bytes": last["est_bytes"], "cost_err": last["cost_err"],
+               "tier": last["tier"], "envelopes": len(envs),
+               "kernel1_per_run": k1}
+        print("profile table: " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+#: 19(b)'s breakdown of the armed overhead by variable
+OBS_SPLIT_QUERIES = (1, 2, 8)
+OBS_SPLIT = {"none": {}, "profile": {"DSQL_PROFILE": "1"},
+             "history": {"DSQL_HISTORY_FILE": None},
+             "events": {"DSQL_EVENTS": "1"}}
+
+
+def obs_overhead_split(ctx) -> list:
+    """19(b): the warm wall of Q1, Q2 and Q8 (one program, an eager stage
+    graph, a two-stage graph) with no variable, then each of the three
+    alone, three runs each in turns; the median per variant."""
+    history = os.path.join(OBS_DIR, "history.jsonl")
+    rows = []
+    for qid in OBS_SPLIT_QUERIES:
+        # built armed (its cost counted), and run once warm
+        _obs_env(True)
+        ctx.sql(QUERIES[qid])
+        ctx.sql(QUERIES[qid])
+        walls = {name: [] for name in OBS_SPLIT}
+        for _ in range(3):
+            for name, env in OBS_SPLIT.items():
+                _obs_env(False)
+                os.environ.update({k: v or history for k, v in env.items()})
+                walls[name].append(wall_ms(lambda: ctx.sql(QUERIES[qid])))
+        _obs_env(False)
+        row = {"q": qid, **{f"{name}_ms": _median(w)
+                             for name, w in walls.items()}}
+        print("profile split: " + json.dumps(row))
+        rows.append(row)
+    # the history's own writes, where the split puts the overhead: one
+    # O_APPEND line, and one read-merge-replace of the statistics file
+    from dask_sql_tpu_torch.runtime import flight_recorder as fr
+
+    _obs_env(True)
+    t0 = time.perf_counter()
+    for i in range(50):
+        fr._append(history, {"kind": "probe", "i": i})
+    t1 = time.perf_counter()
+    for i in range(50):
+        fr._observe_stat("probe", nbytes=i)
+    t2 = time.perf_counter()
+    io = {"append_ms": (t1 - t0) * 20, "observe_stat_ms": (t2 - t1) * 20,
+          "stats_entries": len(fr._STATS.read())}
+    print("profile io: " + json.dumps(io))
+    _obs_env(False)
+    rows.append(io)
+    return rows
+
+
+def obs_explain_profile(ctx) -> dict:
+    """19(c): EXPLAIN PROFILE of Q1 and Q9 armed; each device row names the
+    card (``platform=gpu``) with bytes in use above 0 and the card's total
+    memory as its limit."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {}
+    for qid in (1, 9):
+        lines = [r[0] for r in ctx.sql("EXPLAIN PROFILE "
+                                       + QUERIES[qid]).to_pylist()]
+        dev = [dict(re.findall(r"(\w+)=(\S+)", l)) for l in lines
+               if l.startswith("-- device")]
+        if not dev or any(d["platform"] != "gpu"
+                          or int(d["hbm_in_use"]) <= 0
+                          or int(d["hbm_limit"]) != total for d in dev):
+            raise AssertionError(f"19(c) Q{qid}: device rows {dev}, card "
+                                 f"total {total}")
+        stage = [l for l in lines if l.startswith("-- stage")]
+        if not stage or any(" bytes=n/a" in l for l in stage):
+            raise AssertionError(f"19(c) Q{qid}: stage rows {stage}")
+        print(f"19(c) EXPLAIN PROFILE Q{qid}:\n  " + "\n  ".join(
+            l for l in lines if l.startswith("--")))
+        out[qid] = [l for l in lines if l.startswith("--")]
+    return out
+
+
+def obs_trace(ctx) -> dict:
+    """19(d): ``Context.profile(Q1)`` writes a chrome trace that names
+    ``segsum_fixedpoint_kernel``.  A trace without device events raises in
+    ``Context.profile``; as phase 4's timing does, three tries (each
+    printed) before the run fails."""
+    trace_dir = os.path.join(OBS_DIR, "trace")
+    errors = []
+    for _ in range(3):
+        try:
+            ctx.profile(QUERIES[1], trace_dir=trace_dir)
+        except RuntimeError as e:
+            errors.append(str(e))
+            print(f"19(d): {e}")
+            continue
+        with open(ctx.last_profile_trace) as f:
+            trace = json.load(f)
+        names = [e.get("name", "") for e in trace["traceEvents"]]
+        hits = sum("segsum_fixedpoint_kernel" in n for n in names)
+        if not hits:
+            raise AssertionError("19(d): the trace names no "
+                                 "segsum_fixedpoint_kernel")
+        print(f"19(d): {ctx.last_profile_trace}: {len(names)} events, "
+              f"segsum_fixedpoint_kernel x{hits}")
+        return {"events": len(names), "kernel1_events": hits,
+                "empty_tries": len(errors)}
+    raise AssertionError(f"19(d): three traces without device events: "
+                         f"{errors}")
+
+
+def obs_server(ctx) -> dict:
+    """19(e): the server echoes ``X-DSQL-Trace``, and ``/v1/events``
+    returns that trace's events, ``query.begin`` through ``query.done``."""
+    from dask_sql_tpu_torch import run_server
+
+    srv = run_server(context=ctx, host="127.0.0.1", port=0, blocking=False)
+    base = f"http://127.0.0.1:{srv.server_port}"
+    tid = "phase19-q6"
+    try:
+        code, headers, body = _http("POST", f"{base}/v1/statement",
+                                    QUERIES[6].encode(),
+                                    {"X-DSQL-Trace": tid})
+        if code != 200 or headers.get("X-DSQL-Trace") != tid:
+            raise AssertionError(f"19(e): POST {code}, headers {headers}")
+        p = json.loads(body)
+        while "nextUri" in p:
+            time.sleep(0.005)
+            code, headers, body = _http("GET", p["nextUri"])
+            p = json.loads(body)
+        if "error" in p or p["stats"].get("traceId") != tid \
+                or headers.get("X-DSQL-Trace") != tid:
+            raise AssertionError(f"19(e): final {p.get('error')}, "
+                                 f"{p['stats']}, {headers}")
+        code, headers, body = _http("GET",
+                                    f"{base}/v1/events?cursor=0&limit=5000")
+        evs = [json.loads(l) for l in body.splitlines() if l]
+        types = [e["type"] for e in evs if e["trace"] == tid]
+        if code != 200 or types[:1] != ["query.begin"] \
+                or types[-1:] != ["query.done"]:
+            raise AssertionError(f"19(e): /v1/events {code}, {types}")
+        engine = json.loads(_http("GET", f"{base}/v1/engine")[2])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    print(f"19(e): X-DSQL-Trace echoed; /v1/events: {types}")
+    return {"types": types, "history": engine["history"],
+            "slo": engine["slo"]["classes"][0],
+            "profile_samples": engine["profile"]["samples"]}
+
+
+def _background_build(ctx, qid: int, during=None) -> dict:
+    """One cold arrival of ``qid`` under tiering (answered eager while its
+    programs build on a daemon thread), ``during()`` called until the build
+    lands; the build's counters and the eager answer."""
+    from dask_sql_tpu_torch.physical import compiled
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+
+    names = ("background_compiles_done", "background_compile_errors",
+             "background_capture_retries", "profile_samples")
+    c0 = {k: tel.REGISTRY.get(k, 0) for k in names}
+    forget_programs()
+    prev = {k: os.environ.get(k) for k in ("DSQL_TIERED",
+                                           "DSQL_EAGER_FALLBACK")}
+    # tiering answers a cold arrival eager: it needs the eager fallback
+    os.environ.update(DSQL_TIERED="1", DSQL_EAGER_FALLBACK="1")
+    try:
+        first = ctx.sql(QUERIES[qid])
+        tier = _last_tier(ctx)[0]
+        deadline = time.monotonic() + 600
+        while compiled.inflight_background_compiles():
+            if during is not None:
+                during()
+            else:
+                time.sleep(0.005)
+            if time.monotonic() > deadline:
+                raise AssertionError(f"19(f): Q{qid}'s build did not land")
+        second = ctx.sql(QUERIES[qid])
+        second_tier = _last_tier(ctx)[0]
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = {k: tel.REGISTRY.get(k, 0) - v for k, v in c0.items()}
+    out.update(first_tier=tier, second_tier=second_tier)
+    return out, first, second
+
+
+def obs_sampler(ctx, answers: dict) -> dict:
+    """19(f): the sampler at ``DSQL_PROFILE_SAMPLE_MS=10`` runs through one
+    tiering background build (Q3) with no failed capture: the build lands
+    with no error and no capture retry, samples are taken meanwhile, and
+    the next arrival replays the program, equal to phase 12 bit for bit.
+    Then ``Context.profile(Q6)`` called while the same build runs: it
+    waits for the build, which lands with no error and no retry."""
+    from dask_sql_tpu_torch.runtime import profiler as prof
+
+    os.environ["DSQL_PROFILE_SAMPLE_MS"] = "10"
+    try:
+        prof.ensure_sampler()
+        got, first, second = _background_build(ctx, 3)
+    finally:
+        os.environ.pop("DSQL_PROFILE_SAMPLE_MS", None)
+    if got["background_compile_errors"] or got["background_capture_retries"] \
+            or got["background_compiles_done"] < 1 \
+            or got["profile_samples"] < 3 or got["first_tier"] != \
+            "eager-compiling" or got["second_tier"] != "compiled":
+        raise AssertionError(f"19(f): sampler beside the build: {got}")
+    check_same_result("19(f) Q3 first arrival", first, answers[3], rtol=1e-9)
+    _bit_equal_tables("19(f) Q3 replay", second, answers[3])
+    print(f"19(f): sampler at 10 ms beside Q3's background build: {got}")
+
+    # Context.profile while a background build runs: it waits for the
+    # build (the profiler's start and stop invalidate a capture on
+    # another thread), then traces
+    prof_walls = []
+
+    def profile_q6():
+        if not prof_walls:
+            prof_walls.append(wall_ms(lambda: ctx.profile(
+                QUERIES[6], trace_dir=os.path.join(OBS_DIR, "trace"))))
+
+    beside, _, second = _background_build(ctx, 3, during=profile_q6)
+    beside["profile_ms"] = prof_walls[0] if prof_walls else None
+    if beside["background_compile_errors"] \
+            or beside["background_capture_retries"] or not prof_walls:
+        raise AssertionError(f"19(f): Context.profile beside a background "
+                             f"build: {beside}")
+    _bit_equal_tables("19(f) Q3 replay after Context.profile", second,
+                      answers[3])
+    print(f"19(f): Context.profile(Q6) beside Q3's background build "
+          f"waited for it: {beside}")
+    return {"sampler": got, "profile_beside_build": beside}
+
+
+def phase_observability(ctx, answers: dict, q1_args: tuple) -> dict:
+    """Phase 19 (after phase 13, on phase 12's tables): the three variables
+    armed with their files under ``build/phase19``, the workload manager on
+    (so that each query has an estimate) and the result cache off (so that
+    each executes); the pins restored after."""
+    import shutil
+
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    os.makedirs(OBS_DIR)
+    os.environ.pop("DSQL_COMPILE", None)
+    os.environ.pop("DSQL_MAX_CONCURRENT_QUERIES", None)
+    t0 = time.perf_counter()
+    try:
+        rows = obs_answers_and_records(ctx, answers, q1_args)
+        split = obs_overhead_split(ctx)
+        _obs_env(True)
+        out = {"split": split, "explain": obs_explain_profile(ctx),
+               "trace": obs_trace(ctx), "server": obs_server(ctx),
+               "sampler": obs_sampler(ctx, answers)}
+    finally:
+        _obs_env(False)
+        os.environ.update(SERVING_PINS)
+        # phase 14 meets the state phase 13 left (no program, nothing
+        # learned)
+        forget_programs(learned=True)
+    out["q1_launches"] = sum(next(r["kernel1_per_run"] for r in rows
+                                  if r["q"] == 1))
+    armed = sum(r["warm_armed_median_ms"] for r in rows)
+    unarmed = sum(r["warm_unarmed_median_ms"] for r in rows)
+    summary = {"warm_armed_ms_sum": armed, "warm_unarmed_ms_sum": unarmed,
+               "overhead": armed / unarmed - 1,
+               "cost_bytes_sum": sum(r["cost_bytes"] for r in rows),
+               "measured_bytes_sum": sum(r["measured_bytes"] for r in rows),
+               "est_sources": sorted({r["est_source"] for r in rows}),
+               "seconds": time.perf_counter() - t0}
+    out["summary"] = summary
+    print("profile summary: " + json.dumps(summary))
+    return out
+
+
+def mesh_profile(mctx) -> dict:
+    """19(g), on phase 17's mesh: Q1 armed with ``DSQL_PROFILE``; every
+    SPMD stage's ``shard_rows`` equal to a host count of each shard's
+    valid rows of that stage's output (the validity copied to the host
+    beside the probe's own device reduction)."""
+    from dask_sql_tpu_torch.parallel import spmd
+
+    real = spmd._skew_probe
+    seen = []
+
+    def spy(valid, mesh, gathered):
+        got = real(valid, mesh, gathered)
+        host = valid.cpu().numpy().astype(np.int64)
+        seen.append((got, host.reshape(mesh.size, -1).sum(axis=1).tolist()))
+        return got
+
+    spmd._skew_probe = spy
+    os.environ["DSQL_PROFILE"] = "1"
+    try:
+        mctx.sql(QUERIES[1])
+    finally:
+        spmd._skew_probe = real
+        os.environ.pop("DSQL_PROFILE", None)
+    stages = [{k: s.attrs.get(k) for k in ("index", "shard_rows",
+                                            "skew_ratio")}
+              for s in mctx.last_report.root.walk()
+              if s.name == "spmd_stage"]
+    if not seen or any(got.get("shard_rows") != host for got, host in seen) \
+            or [g["shard_rows"] for g, _ in seen] != \
+            [s["shard_rows"] for s in stages]:
+        raise AssertionError(f"19(g): probes {seen}, stage spans {stages}")
+    print(f"19(g): mesh Q1 stage probes {stages} equal the host counts")
+    return {"stages": stages, "skew_ratio": mctx.last_report.skew_ratio}
+
+
+# ---------------------------------------------------------------------------
 # phase 15: out-of-core execution (chunked tables, the streaming executor,
 # grace-hash joins over the spill store)
 # ---------------------------------------------------------------------------
@@ -5089,6 +5540,7 @@ def phase_mesh(dev, base: dict, tables: dict, answers: dict,
     out = {"create_s": create_s}
     t1 = time.perf_counter()
     out["spmd"] = mesh_spmd(mctx, answers)
+    out["profile"] = mesh_profile(mctx)
     t2 = time.perf_counter()
     out["single_device"] = mesh_single_device(
         mctx, answers, {r["q"]: r["tier"] for r in compiled_rows})
@@ -5455,13 +5907,15 @@ def main(argv=None) -> int:
     off_launches = phase_adaptive(ctx, on_results)
     print(f"launches: eager path (adaptive on) {launches}, adaptive off and "
           f"forced {off_launches}")
-    compiled_launches, compiled_rows = phase_compiled(ctx, on_results,
-                                                      eager_rows)
+    compiled_launches, compiled_rows, compiled_answers = phase_compiled(
+        ctx, on_results, eager_rows)
     print(f"launches: compiled tier (the main path) {compiled_launches}")
     phase_params(ctx)
     phase_stages(ctx, on_results)
     phase_tiering(ctx, on_results)
     phase_ladder(ctx, on_results)
+    observability = phase_observability(ctx, compiled_answers, q1_args)
+    del compiled_answers
     phase_serving(ctx, tables, on_results, compiled_rows)
     phase_oracle(dev, ORACLE_SF, args.seed)
     os.environ["DSQL_COMPILE"] = "0"
@@ -5483,6 +5937,7 @@ def main(argv=None) -> int:
     kernel1["launches_mesh"] = mesh["summary"]["kernel1_launches"].get(
         "segsum_fixedpoint", 0)
     kernel1["launches_multiprocess"] = multi["world1"]["kernel1_launches"]
+    kernel1["launches_profiled_q1"] = observability["q1_launches"]
     print(f"card: {card}")
     print(json.dumps({"kernels": [kernel1, kernel2]}))
     print(json.dumps({"ok": True, "device": {

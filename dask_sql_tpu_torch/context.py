@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import itertools
 import logging
+import os
 import threading
 import time
 from typing import Any, Callable, List, Optional, Tuple, Union
@@ -63,6 +64,10 @@ from .table import Table
 from .types import SqlType, parse_type_name, sql_type_from_numpy
 
 logger = logging.getLogger(__name__)
+
+# Context.profile's trace files: one number per trace in this process
+_profile_lock = threading.Lock()
+_profile_counter = [0]
 
 
 class Context:
@@ -107,6 +112,9 @@ class Context:
         self.device = device
         self.mesh = mesh
         self.server = None
+        # the devices the profiler may read memory of (runtime/profiler.py)
+        _tel.note_devices(device, *(mesh.devices if mesh is not None
+                                    else ()))
         self.schema_name = self.DEFAULT_SCHEMA_NAME
         self.schema = {self.DEFAULT_SCHEMA_NAME:
                        SchemaContainer(self.DEFAULT_SCHEMA_NAME)}
@@ -601,8 +609,16 @@ class Context:
                     _tel.inc("result_cache_hits")
                     _tel.annotate(result_cache="hit",
                                   result_cache_tier=tier)
+                    # the hit bypasses execution: its envelope still keys
+                    # to the plan's fingerprint (its view-candidate rank)
+                    self._stamp_plan_fingerprint(plan)
                     return table
                 _tel.inc("result_cache_misses")
+        # the flight recorder's canonical plan fingerprint on the execute
+        # span: the envelope and the EWMA statistics key to it.  The
+        # JAX package's autopilot keys its hints on it too (not ported:
+        # DSQL_AUTOPILOT raises at trace open)
+        self._stamp_plan_fingerprint(plan)
         # the SPMD stage executor first under a mesh (parallel/spmd.py);
         # None: outside its envelope or a runtime flag tripped, and the
         # single-device tiers serve the padded tables
@@ -626,6 +642,21 @@ class Context:
             _tel.annotate(result_cache="store")
         return result
 
+    def _stamp_plan_fingerprint(self, plan: RelNode) -> None:
+        """``plan_fp`` on the current span when ``DSQL_HISTORY_FILE`` arms
+        the flight recorder (checked before its import)."""
+        from .runtime.gates import history_on
+        if not history_on():
+            return
+        try:
+            from .runtime import flight_recorder as _fr
+            fp = _fr.plan_fingerprint(plan, self)
+        except Exception:  # the history is advisory
+            logger.debug("plan fingerprint failed", exc_info=True)
+            return
+        if fp is not None:
+            _tel.annotate(plan_fp=fp)
+
     def _get_plan(self, query: A.SelectLike, sql: str = "",
                   params: Optional[list] = None) -> RelNode:
         # the context lets the optimizer order join chains by statistics
@@ -638,6 +669,59 @@ class Context:
         if isinstance(stmt, (A.ExplainStatement, A.QueryStatement)):
             return self._get_plan(stmt.query, sql).explain()
         return f"-- {type(stmt).__name__}"
+
+    def visualize(self, sql: str, filename: str = "mydask.png") -> str:
+        """Write the text plan of ``sql`` next to ``filename`` (its stem
+        with ``.txt``; no graphviz) and return it."""
+        text = self.explain(sql)
+        with open(filename.rsplit(".", 1)[0] + ".txt", "w") as f:
+            f.write(text)
+        return text
+
+    def profile(self, sql: str, trace_dir: str = "/tmp/dsql_trace"):
+        """Run ``sql`` under ``torch.profiler`` and return its result; the
+        chrome trace goes to ``trace_dir`` (``trace_<pid>_<n>.json``, read
+        by Perfetto or chrome://tracing), and its path is kept as
+        ``self.last_profile_trace``.
+
+        On a card the profiler records CPU and CUDA activity and the trace
+        closes after the result's stream has finished; a trace that holds
+        no device kernel event (CUPTI absent or broken) raises.  On the
+        CPU it records CPU activity only.  Starting and stopping the
+        profiler invalidates a CUDA graph capture on another thread: on a
+        card the call waits for the compiled tier's background builds
+        before the start, and for any the query started before the
+        stop."""
+        from torch.profiler import ProfilerActivity, profile as _profile
+
+        from .physical import compiled as _compiled
+
+        cuda = self.device.type == "cuda"
+        activities = [ProfilerActivity.CPU]
+        if cuda:
+            activities.append(ProfilerActivity.CUDA)
+            _compiled.wait_background_compiles()
+        os.makedirs(trace_dir, exist_ok=True)
+        with _profile(activities=activities) as prof:
+            result = self.sql(sql)
+            if cuda:
+                torch.cuda.current_stream(self.device).synchronize()
+                # a build this query started must land before the stop
+                _compiled.wait_background_compiles()
+        if cuda and not any(
+                getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                for e in prof.events()):
+            raise RuntimeError(
+                "Context.profile: the trace holds no CUDA kernel event "
+                "(is CUPTI available?)")
+        with _profile_lock:
+            _profile_counter[0] += 1
+            n = _profile_counter[0]
+        path = os.path.join(trace_dir, f"trace_{os.getpid()}_{n}.json")
+        prof.export_chrome_trace(path)
+        self.last_profile_trace = path
+        logger.info("profiler trace written to %s", path)
+        return result
 
     # ----------------------------------------------------- catalog interface
     def fqn(self, identifier: Union[str, List[str]]) -> Tuple[str, str]:

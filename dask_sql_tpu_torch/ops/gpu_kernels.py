@@ -108,6 +108,44 @@ def add_launches(counts: Dict[str, int]) -> None:
             LAUNCHES[name] += n
 
 
+# a program's warm-up under DSQL_PROFILE counts its work (the cost count of
+# ``physical/graphs.py``, installed on this thread by ``counting_work``)
+_work_tls = threading.local()
+
+
+@contextmanager
+def counting_work(count):
+    """Install ``count`` (an object with ``suspended`` and ``kernel(name,
+    nbytes, flops)``) as this thread's work count for the block."""
+    prev = getattr(_work_tls, "count", None)
+    _work_tls.count = count
+    try:
+        yield count
+    finally:
+        _work_tls.count = prev
+
+
+@contextmanager
+def kernel_work(name: str, work):
+    """The block computes the function of hand kernel ``name``: under a
+    work count, its ops (the launch's own, or the plain version's on the
+    CPU) are hidden from the count, and the function's work, ``work()``
+    -> (bytes, operations), is added as one record when the block
+    succeeds (the bytes its bound counts: each input read once, each
+    output written once), so the count of a program is the same whichever
+    of the two ran.  Without a count the block runs as it is."""
+    count = getattr(_work_tls, "count", None)
+    if count is None:
+        yield
+        return
+    count.suspended += 1
+    try:
+        yield
+    finally:
+        count.suspended -= 1
+    count.kernel(name, *work())
+
+
 @contextmanager
 def recording_launches():
     """Launches made on this thread in the block are recorded in the
@@ -352,15 +390,29 @@ def segsum_limb_totals_cuda(vals: torch.Tensor, codes: torch.Tensor,
     return out_limbs, out_nonfinite
 
 
+def segsum_fixedpoint_work(a: int, n: int, row_classes: Sequence[str],
+                           num_groups: int) -> Tuple[int, int]:
+    """(bytes, operations) of kernel 1's function: vals (f64), codes
+    (int32), mask (uint8) and scale (f64) read once, the limb and
+    non-finite totals (int64) written once; one add per value."""
+    n_limb_rows = limb_layout(row_classes)[2][-1]
+    return (a * n * 8 + n * 4 + n + a * 8
+            + (n_limb_rows + 3 * a) * num_groups * 8, a * n)
+
+
 def segsum_limb_totals(vals, codes, mask, scale, row_classes, num_groups):
     """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
-    if vals.device.type == "cuda":
-        return segsum_limb_totals_cuda(vals, codes, mask, scale, row_classes,
-                                       num_groups)
-    if vals.device.type == "cpu":
-        return segsum_limb_totals_plain(vals, codes, mask, scale, row_classes,
-                                        num_groups)
-    raise ValueError(f"segsum_fixedpoint: no kernel for device {vals.device}")
+    a, n = vals.shape
+    with kernel_work("segsum_fixedpoint", lambda: segsum_fixedpoint_work(
+            a, n, row_classes, num_groups)):
+        if vals.device.type == "cuda":
+            return segsum_limb_totals_cuda(vals, codes, mask, scale,
+                                           row_classes, num_groups)
+        if vals.device.type == "cpu":
+            return segsum_limb_totals_plain(vals, codes, mask, scale,
+                                            row_classes, num_groups)
+        raise ValueError(
+            f"segsum_fixedpoint: no kernel for device {vals.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -557,13 +609,26 @@ def segsum_accumulate_cuda(vals: torch.Tensor, codes: torch.Tensor,
     return out, nonfinite
 
 
+def segsum_accumulate_work(a: int, n: int, element_size: int,
+                           num_groups: int) -> Tuple[int, int]:
+    """(bytes, operations) of kernel 2's function: vals, codes (int32)
+    and mask (uint8) read once, the sums (input precision) and the
+    non-finite counts (int64) written once; one add per value."""
+    return (a * n * element_size + n * 4 + n + a * num_groups * element_size
+            + 3 * a * num_groups * 8, a * n)
+
+
 def segsum_accumulate(vals, codes, mask, num_groups):
     """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
-    if vals.device.type == "cuda":
-        return segsum_accumulate_cuda(vals, codes, mask, num_groups)
-    if vals.device.type == "cpu":
-        return segsum_accumulate_plain(vals, codes, mask, num_groups)
-    raise ValueError(f"segsum_accumulate: no kernel for device {vals.device}")
+    a, n = vals.shape
+    with kernel_work("segsum_accumulate", lambda: segsum_accumulate_work(
+            a, n, vals.element_size(), num_groups)):
+        if vals.device.type == "cuda":
+            return segsum_accumulate_cuda(vals, codes, mask, num_groups)
+        if vals.device.type == "cpu":
+            return segsum_accumulate_plain(vals, codes, mask, num_groups)
+        raise ValueError(
+            f"segsum_accumulate: no kernel for device {vals.device}")
 
 
 def segmented_sums(vals: torch.Tensor, codes: torch.Tensor, mask: torch.Tensor,

@@ -70,8 +70,16 @@ epilogue.  Ranks must take the same host decisions, so:
 - a stage that holds a collective of the process group runs eagerly
   (``spmd_eager_stages``): no CUDA graph captures an NCCL call yet.
 
-Not ported yet: the stage programs' persistence in the program store and
-the profiling skew probe (their modules are not ported).
+Under ``DSQL_PROFILE`` each stage's span carries its shard skew
+(``skew_ratio``: max over mean of the shards' valid rows, and
+``shard_rows``), from one host read of the stage's validity; on a mesh
+across processes a rank reads only what it holds (its own shards, from
+``shard_first``; the root stage's gathered output whole), so the probe
+adds no collective and ranks that disagree on ``DSQL_PROFILE`` still pair
+theirs.  Under ``DSQL_EVENTS`` a served query publishes ``spmd.query``.
+
+Not ported yet: the stage programs' persistence in the program store (its
+module is not ported).
 
 Variables: ``DSQL_MESH=0`` turns the backend off;
 ``DSQL_SPMD_BROADCAST_ROWS`` (65536) is the build-side estimate above
@@ -97,6 +105,7 @@ from ..plan.nodes import (AggCall, Field, LogicalAggregate, LogicalFilter,
                           LogicalJoin, LogicalProject, LogicalSort,
                           LogicalTableScan, RelNode, RexScalarSubquery,
                           RexUdf)
+from ..runtime import gates
 from ..runtime import telemetry as _tel
 from ..table import Column, Scalar, Table
 from ..types import torch_dtype
@@ -1109,6 +1118,19 @@ def clear_programs() -> None:
         _release(prog)
 
 
+def _annotate_stage_cost(graph) -> None:
+    """The stage program's counted cost (its warm-up under
+    ``DSQL_PROFILE``, ``graphs._CostCount``) on the current span, where
+    EXPLAIN PROFILE and the report's ``cost_err`` read it; the profiler
+    is imported only when armed, and an eager stage has none."""
+    if not gates.profile_on():
+        return
+    from ..runtime import profiler as _prof
+    cost = _prof.cost_summary(graph)
+    if cost is not None:
+        _tel.annotate(cost_flops=cost["flops"], cost_bytes=cost["bytes"])
+
+
 def _run_program(prog: _StageProgram, flat, counts: Dict[str, int]):
     """Run the stage: its graph where it has one (the first call warms up
     and captures, later ones replay; the outputs are copied out of the
@@ -1123,6 +1145,7 @@ def _run_program(prog: _StageProgram, flat, counts: Dict[str, int]):
                 outs = graph(*flat)
                 if graph.device.type == "cuda":
                     outs = tuple(o.clone() for o in outs)
+            _annotate_stage_cost(graph)
             return outs
         except (KeyboardInterrupt, SystemExit):
             raise
@@ -1292,6 +1315,25 @@ def _agreed(mesh, fn, decisions=None):
     raise _disagreement(group, peers) from err
 
 
+def _skew_probe(valid, mesh, gathered: bool) -> Dict:
+    """Per-shard valid rows of a stage's output and their max/mean ratio:
+    one host read, no collective.  ``gathered``: the output is the root's,
+    which every rank of a mesh across processes holds whole; otherwise a
+    rank of one holds its own shards only."""
+    whole = gathered or not mesh.spans_processes
+    n = mesh.size if whole else mesh.local_size
+    if valid.shape[0] % n:
+        return {}
+    per = valid.reshape(n, -1).sum(dim=1, dtype=torch.int64).tolist()
+    mean = sum(per) / len(per)
+    out = {"shard_rows": [int(x) for x in per]}
+    if mean > 0:
+        out["skew_ratio"] = round(max(per) / mean, 3)
+    if not whole:
+        out["shard_first"] = mesh.rank * mesh.local_size
+    return out
+
+
 def _run_stage(stage, context, mesh, counts: Dict[str, int],
                root: bool = False):
     """One stage over the mesh: (table, valid, meta).  Raises
@@ -1418,6 +1460,8 @@ def try_execute_spmd(plan: RelNode, context) -> Optional[Table]:
                         f"with init_multihost")
     registered: List[str] = []
     metas: List[Dict] = []
+    skew: Optional[float] = None
+    profile = gates.profile_on()
     # one query's collectives stay contiguous on this rank
     lock = mesh.group.lock if spans else threading.Lock()
     lock.acquire()
@@ -1428,6 +1472,12 @@ def try_execute_spmd(plan: RelNode, context) -> Optional[Table]:
             with _tel.span("spmd_stage", index=si):
                 table, valid, meta = _run_stage(stage, context, mesh, counts,
                                                 root and spans)
+                if profile and valid is not None:
+                    probe = _skew_probe(valid, mesh, root and spans)
+                    _tel.annotate(**probe)
+                    r = probe.get("skew_ratio")
+                    if r is not None:
+                        skew = max(skew, r) if skew is not None else r
             metas.append(meta)
             if not root:
                 name = stage.scan.table_name
@@ -1502,5 +1552,12 @@ def try_execute_spmd(plan: RelNode, context) -> Optional[Table]:
         ann["spmd_psum_bytes"] = moved["spmd_psum_bytes"]
     if counts.get("spmd_eager_stages"):
         ann["spmd_eager_stages"] = counts["spmd_eager_stages"]
+    if skew is not None:
+        ann["skew_ratio"] = skew
     _tel.annotate(**ann)
+    if gates.events_on():
+        from ..runtime import events as _ev
+        _ev.publish("spmd.query", devices=n_dev, stages=len(graph.stages),
+                    exchange_bytes=moved["spmd_exchange_bytes"],
+                    skew_ratio=skew)
     return result

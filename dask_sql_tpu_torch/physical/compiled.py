@@ -102,6 +102,7 @@ from ..plan.nodes import (
     RexCall, RexInputRef, RexLiteral, RexNode, RexParam, RexScalarSubquery,
 )
 from ..runtime import faults as _faults
+from ..runtime import gates as _gates
 from ..runtime import ingest as _ing
 from ..runtime import kvstore as _kv
 from ..runtime import quarantine as _quar
@@ -2330,12 +2331,43 @@ def _unregister_stage_table(context, name: str) -> None:
             sch.tables.pop(name, None)
 
 
-def _record_stage_stats(st, out: Table, query_fp: str,
-                        wall_ms: float) -> None:
+def _program_digest(base_key) -> str:
+    """A program's digest in the profiler's ledger (the JAX package keys
+    it by its program-store digest; the port has no store)."""
+    return _kv.digest_key(("program", base_key))
+
+
+def _record_program_cost(entry: _Compiled, query_fp: str, base_key) -> None:
+    """Under ``DSQL_PROFILE``, a freshly built program's counted work
+    (its warm-up, ``graphs._CostCount``) goes on the current span
+    (``cost_flops`` / ``cost_bytes``: EXPLAIN PROFILE and the report's
+    ``cost_err`` read it there) and into the profiler's ledger under the
+    root query's fingerprint (the scheduler's ``cost_model`` rung)."""
+    if not _gates.profile_on():
+        return
+    from ..runtime import profiler as _prof
+
+    cost = _prof.cost_summary(entry.fn)
+    if cost is None:
+        return
+    cost["kernels"] = dict(entry.fn.cost.get("kernels") or {})
+    _prof.record_program_cost(query_fp, _program_digest(base_key), cost)
+    _tel.annotate(cost_flops=cost["flops"], cost_bytes=cost["bytes"])
+
+
+def _record_stage_stats(st, idx: int, out: Table, query_fp: str,
+                        stage_rows: Dict[int, int], wall_ms: float) -> None:
     """The stage's span annotations: its digest (the boundary name, or the
-    query's fingerprint for the root), output rows against the padded
-    capacity it will be materialized at, bytes and wall."""
+    query's fingerprint for the root), rows in and out against the padded
+    capacity it will be materialized at, bytes and wall (the query's
+    report sums ``stage_bytes`` into its measured working set).  Under
+    ``DSQL_PROFILE`` the measured side of the profiler's ledger, under
+    ``DSQL_HISTORY_FILE`` one flight-recorder stage record, and with either
+    of them and ``DSQL_EVENTS`` a ``stage.done`` event: each variable
+    checked before its module's import."""
     rows_out = int(out.num_rows)
+    stage_rows[idx] = rows_out
+    rows_in = sum(stage_rows.get(d, 0) for d in st.deps)
     nbytes = 0
     for c in out.columns:
         nbytes += c.data.numel() * c.data.element_size()
@@ -2343,9 +2375,40 @@ def _record_stage_stats(st, out: Table, query_fp: str,
             nbytes += c.mask.numel()
     digest = (st.scan.table_name if st.scan is not None
               else f"root:{query_fp[:48]}")
-    _tel.annotate(stage_digest=digest, stage_rows_out=rows_out,
-                  stage_capacity=_capacity_class(rows_out),
+    capacity = _capacity_class(rows_out)
+    _tel.annotate(stage_digest=digest, stage_rows_in=rows_in,
+                  stage_rows_out=rows_out, stage_capacity=capacity,
                   stage_bytes=nbytes, stage_wall_ms=round(wall_ms, 3))
+    # as in the JAX package, the records (and ``stage.done``) follow only
+    # when the recorder or the profiler is armed
+    profile, history = _gates.profile_on(), _gates.history_on()
+    if not (profile or history):
+        return
+    # device time, where DSQL_TIME_DEVICE split it onto the child spans
+    device_ms = 0.0
+    sp = _tel.current_span()
+    if sp is not None:
+        for s in sp.walk():
+            device_ms += float(s.attrs.get("device_ms", 0.0) or 0.0)
+    try:
+        if profile:
+            from ..runtime import profiler as _prof
+            _prof.record_measured(digest, nbytes=nbytes, wall_ms=wall_ms,
+                                  device_ms=device_ms or None)
+        if history:
+            from ..runtime import flight_recorder as _fr
+            _fr.record_stage(digest, rows_in=rows_in, rows_out=rows_out,
+                             capacity=capacity, nbytes=nbytes,
+                             wall_ms=wall_ms, device_ms=device_ms or None,
+                             query_fp=query_fp)
+        if _gates.events_on():
+            from ..runtime import events as _ev
+            _ev.publish("stage.done", digest=digest, index=idx,
+                        rows_out=rows_out, bytes=nbytes,
+                        wall_ms=round(wall_ms, 3))
+    except OSError:  # the history is advisory: it never fails a stage
+        _tel.inc("history_errors")
+        logger.debug("stage stat capture failed", exc_info=True)
 
 
 def _execute_stage_graph(graph: StageGraph, context, query_fp: str,
@@ -2372,6 +2435,7 @@ def _execute_stage_graph_inner(graph: StageGraph, context, query_fp: str,
     tel_trace = _tel.current_trace()
     tel_parent = _tel.current_span()
     retry_armed = capture_retry_armed()
+    stage_rows: Dict[int, int] = {}
 
     def run_stage_once(idx: int, attempt: int) -> Optional[Table]:
         _tel.inc("stage_execs")
@@ -2418,7 +2482,8 @@ def _execute_stage_graph_inner(graph: StageGraph, context, query_fp: str,
                     t0 = time.perf_counter()
                     out = run_stage_once(idx, attempt)
                     if out is not None:
-                        _record_stage_stats(stages[idx], out, query_fp,
+                        _record_stage_stats(stages[idx], idx, out, query_fp,
+                                            stage_rows,
                                             (time.perf_counter() - t0) * 1e3)
                     return out
                 except (KeyboardInterrupt, SystemExit):
@@ -2624,13 +2689,15 @@ def _programs_ready(plan: RelNode, context, base_key, budget: int) -> bool:
                for st in graph.stages if not st.deps)
 
 
-def _background_compile(plan: RelNode, context, base_key, pins) -> None:
+def _background_compile(plan: RelNode, context, base_key, pins,
+                        trace_id: Optional[str] = None) -> None:
     """Build (and run once) this plan's programs off the query path: a
     daemon thread with fresh thread-locals (no deadline) and a background
     trace of its own, through the normal pipeline, so that learned caps,
     the program cache and quarantine fill as a foreground build would.
     It carries the arrival's snapshot pins: its scans are the tables
-    ``base_key`` was built from."""
+    ``base_key`` was built from; and, with the event bus armed, the
+    arrival's trace id."""
     _tier_local.bg = True
     trace = None
     try:
@@ -2638,6 +2705,8 @@ def _background_compile(plan: RelNode, context, base_key, pins) -> None:
             trace = _tel.QueryTrace(
                 f"<background-compile:{base_key[0][:48]}>")
             trace.root.name = "background_compile"
+            if trace_id:
+                trace.root.attrs["trace_id"] = trace_id
             try:
                 # a capture that another thread's device-wide sync
                 # invalidated is retried once here (graphs.py)
@@ -2645,11 +2714,20 @@ def _background_compile(plan: RelNode, context, base_key, pins) -> None:
                         _ing.carried_pins(pins), capture_retry_scope():
                     try_execute_compiled(plan, context)
                 _tel.inc("background_compiles_done")
+                if _gates.events_on():
+                    from ..runtime import events as _ev
+                    _ev.publish("compile.background.done", trace=trace_id,
+                                plan=base_key[0][:48])
             except (KeyboardInterrupt, SystemExit):
                 raise
             except BaseException as e:
                 trace.root.attrs["error"] = type(e).__name__
                 _tel.inc("background_compile_errors")
+                if _gates.events_on():
+                    from ..runtime import events as _ev
+                    _ev.publish("compile.background.error", trace=trace_id,
+                                plan=base_key[0][:48],
+                                error=type(e).__name__)
                 logger.warning("background compile failed (%s: %s)",
                                type(e).__name__, str(e)[:200])
     finally:
@@ -2684,8 +2762,13 @@ def _tier_serve_eager(plan: RelNode, context, base_key, budget: int,
         if _bg_sem is None:
             _bg_sem = threading.Semaphore(_compile_workers())
     # a daemon thread, not a pool: process exit never waits for a build
+    tid = None
+    if _gates.events_on():
+        from ..runtime import events as _ev
+        tid = _ev.current_trace_id()
     threading.Thread(target=_background_compile,
-                     args=(plan, context, base_key, _ing.current_pins()),
+                     args=(plan, context, base_key, _ing.current_pins(),
+                           tid),
                      name="dsql-bg-compile", daemon=True).start()
     return True
 
@@ -2694,6 +2777,18 @@ def inflight_background_compiles() -> list:
     """Plan fingerprints building in background threads now."""
     with _tier_lock:
         return [k[0] for k in _tier_inflight]
+
+
+def wait_background_compiles(timeout_s: float = 1800.0) -> None:
+    """Block until no background build runs (``Context.profile``: the
+    profiler's start and stop invalidate a capture on another thread);
+    raises ``TimeoutError`` past ``timeout_s``."""
+    deadline = time.monotonic() + timeout_s
+    while inflight_background_compiles():
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"background builds still running after {timeout_s:g} s")
+        time.sleep(0.01)
 
 
 def tier_probe(plan: RelNode, context) -> str:
@@ -2869,6 +2964,7 @@ def _build_and_run(plan: RelNode, context, scans, params, caps, key,
             if isinstance(old, _Compiled):
                 old.fn.release()
         _cache[key] = entry
+    _record_program_cost(entry, query_fp, base_key)
     return entry, outs
 
 
@@ -2997,6 +3093,13 @@ def _run_cached(entry: _Compiled, flat, params, in_stage: bool,
     with _state_lock:
         if key in _cache:
             _cache.move_to_end(key)
+    if _gates.profile_on():
+        # the cost counted at the build, on this run's span too: a
+        # profiled re-run (EXPLAIN PROFILE included) shows it unrebuilt
+        from ..runtime import profiler as _prof
+        cost = _prof.cost_summary(entry.fn)
+        if cost is not None:
+            _tel.annotate(cost_flops=cost["flops"], cost_bytes=cost["bytes"])
     with entry.fn.lock:
         t0 = time.perf_counter()
         with _tel.span("run"):

@@ -66,6 +66,13 @@ of a warm-up or a capture:
   (``gpu_kernels.recording_launches``) and are added to
   ``gpu_kernels.LAUNCHES`` once per replay; other threads' launches count
   as usual.
+
+Under ``DSQL_PROFILE`` the first warm-up of a program also counts its work
+(``_CostCount``, kept as ``GraphProgram.cost``): the device profiler's
+cost model, in place of XLA's ``cost_analysis()``.  It counts once per
+program, never in a capture or a replay, and a hand kernel's function
+counts as the one record its entry point reports
+(``gpu_kernels.kernel_work``).
 """
 from __future__ import annotations
 
@@ -83,6 +90,7 @@ from torch.overrides import TorchFunctionMode
 from torch.utils._pytree import tree_leaves, tree_map
 
 from ..ops import gpu_kernels as gk
+from ..runtime import gates
 from ..runtime import telemetry as _tel
 
 #: captures kept per program (distinct input tensors)
@@ -250,16 +258,120 @@ class _IdSet:
         return r is not None and r() is t
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+#: a gather reads as many bytes of its source as it writes (not the whole
+#: source), a scatter those of its values; both read their index
+_GATHER_OPS = frozenset({"__getitem__", "index_select", "take", "gather",
+                         "take_along_dim"})
+_SCATTER_OPS = frozenset({"__setitem__", "index_put_", "index_put",
+                          "scatter", "scatter_", "scatter_add",
+                          "scatter_add_", "scatter_reduce",
+                          "scatter_reduce_", "index_add", "index_add_",
+                          "index_copy", "index_copy_"})
+_INPLACE_DUNDERS = frozenset({"__iadd__", "__isub__", "__imul__",
+                              "__itruediv__", "__ifloordiv__", "__imod__",
+                              "__iand__", "__ior__", "__ixor__",
+                              "__ilshift__", "__irshift__"})
+_MATMUL_OPS = frozenset({"matmul", "mm", "bmm", "__matmul__", "__rmatmul__"})
+_TRANSCENDENTAL_OPS = frozenset({
+    "exp", "exp_", "exp2", "expm1", "log", "log_", "log2", "log10",
+    "log1p", "pow", "pow_", "__pow__", "__rpow__", "float_power", "sin",
+    "cos", "tan", "asin", "acos", "atan", "atan2", "sinh", "cosh", "tanh",
+    "arcsin", "arccos", "arctan", "arctan2"})
+
+
+class _CostCount:
+    """The work of one warm-up: ``bytes`` each op reads and writes (a view
+    moves none; a gather reads as many as it writes plus its index; a
+    scatter reads and writes its values and index), ``flops`` the
+    elements each op writes (``2mnk`` for a product), ``transcendentals``
+    the elements of exp/log/pow/trigonometric outputs, and ``kernels``
+    the records of hand kernels (``gpu_kernels.kernel_work``), whose ops
+    are not counted again (``suspended``)."""
+
+    def __init__(self):
+        self.flops = 0
+        self.bytes = 0
+        self.transcendentals = 0
+        self.kernels: Dict[str, Dict[str, int]] = {}
+        self.suspended = 0
+
+    def kernel(self, name: str, nbytes: int, flops: int) -> None:
+        rec = self.kernels.setdefault(name, {"launches": 0, "bytes": 0,
+                                             "flops": 0})
+        rec["launches"] += 1
+        rec["bytes"] += int(nbytes)
+        rec["flops"] += int(flops)
+        self.bytes += int(nbytes)
+        self.flops += int(flops)
+
+    def op(self, name: str, args, leaves, out) -> None:
+        ins: Dict[int, torch.Tensor] = {}
+        for t in leaves:
+            if isinstance(t, torch.Tensor):
+                ins.setdefault(id(t), t)
+        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        target = args[0] if args and isinstance(args[0], torch.Tensor) \
+            else None
+        if name in _SCATTER_OPS:
+            vals = [t for k, t in ins.items()
+                    if target is None or k != id(target)]
+            moved = sum(_nbytes(t) for t in vals)
+            self.bytes += 2 * moved
+            self.flops += max((t.numel() for t in vals), default=0)
+            if not name.endswith("_") and not name.startswith("__") \
+                    and target is not None:
+                # the out-of-place form copies its target first
+                self.bytes += 2 * _nbytes(target)
+            return
+        if name in _INPLACE_DUNDERS or (
+                name.endswith("_") and not name.startswith("_")):
+            if target is None:
+                return
+            self.bytes += sum(_nbytes(t) for t in ins.values()) \
+                + _nbytes(target)
+            self.flops += target.numel()
+            return
+        fresh = [o for o in outs
+                 if o._base is None and id(o) not in ins]
+        if not fresh:
+            return              # a view, an alias or a non-tensor result
+        out_bytes = sum(_nbytes(o) for o in fresh)
+        if name in _GATHER_OPS:
+            index = [t for k, t in ins.items()
+                     if target is None or k != id(target)]
+            self.bytes += sum(_nbytes(t) for t in index) + 2 * out_bytes
+        else:
+            self.bytes += sum(_nbytes(t) for t in ins.values()) + out_bytes
+        elems = sum(o.numel() for o in fresh)
+        if name in _MATMUL_OPS and target is not None and target.dim() > 0:
+            self.flops += 2 * elems * int(target.shape[-1])
+        else:
+            self.flops += elems
+        if name in _TRANSCENDENTAL_OPS:
+            self.transcendentals += elems
+
+    def summary(self) -> Dict[str, object]:
+        return {"flops": float(self.flops), "bytes": float(self.bytes),
+                "transcendentals": float(self.transcendentals),
+                "kernels": {k: dict(v) for k, v in self.kernels.items()}}
+
+
 class _TraceMode(TorchFunctionMode):
     """Host-read checks, constant record/replay and keep-alive for one
-    warm-up or capture (see the module docstring)."""
+    warm-up or capture, and the work count of a profiled warm-up (see the
+    module docstring)."""
 
     def __init__(self, inputs, consts: Optional[_Consts] = None,
-                 capture: bool = False):
+                 capture: bool = False, cost: Optional[_CostCount] = None):
         super().__init__()
         self.tainted = _IdSet(inputs)
         self.consts = consts
         self.capture = capture
+        self.cost = cost
         self.hold: Dict[int, torch.Tensor] = {}
         # tensors made during the capture live in the graph's pool: they
         # are not held, so that the capture can reuse their memory
@@ -351,6 +463,8 @@ class _TraceMode(TorchFunctionMode):
                         and t not in self.made:
                     self.hold.setdefault(id(t), t)
         out = func(*args, **kwargs)
+        if self.cost is not None and not self.cost.suspended:
+            self.cost.op(name, args, leaves, out)
         if self.capture:
             for t in tree_leaves(out):
                 if isinstance(t, torch.Tensor):
@@ -459,13 +573,28 @@ class GraphProgram:
         self.lock = threading.RLock()
         self.checked = False
         self.captures: "OrderedDict[tuple, _Capture]" = OrderedDict()
+        #: the first profiled warm-up's counted work (``_CostCount``)
+        self.cost: Optional[Dict[str, object]] = None
+
+    def _cost_count(self) -> Optional[_CostCount]:
+        """A work count for this warm-up: under ``DSQL_PROFILE``, once."""
+        if self.cost is not None or not gates.profile_on():
+            return None
+        return _CostCount()
+
+    def _warm_up(self, inputs, consts: Optional[_Consts] = None):
+        count = self._cost_count()
+        with gk.counting_work(count), _TraceMode(inputs, consts, cost=count):
+            outs = self.fn(*inputs)
+        if count is not None:
+            self.cost = count.summary()
+        return outs
 
     def __call__(self, *flat):
         if self.device.type != "cuda":
             if self.checked:
                 return self.fn(*flat)
-            with _TraceMode(flat):
-                outs = self.fn(*flat)
+            outs = self._warm_up(flat)
             self.checked = True
             return outs
         key = tuple(t.data_ptr() for i, t in enumerate(flat)
@@ -500,8 +629,7 @@ class GraphProgram:
         consts = _Consts(self.device)
         t0 = time.perf_counter()
         with _SYNCS.watch() as seen:
-            with _TraceMode(inputs, consts):
-                outs = self.fn(*inputs)
+            outs = self._warm_up(inputs, consts)
         if seen:
             raise HostRead(f"synchronisation in the trace: {seen[0]}")
         t1 = time.perf_counter()

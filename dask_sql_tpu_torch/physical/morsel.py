@@ -36,10 +36,10 @@ Correctness is unaffected; the weakened device bound is reported
 Everything here is gated on ``DSQL_SPILL_MB > 0``: with spilling disabled
 the streaming lowerer never dispatches here and a join of two chunked
 tables raises ``StreamingUnsupported``.  Every run a query opens is freed
-when it ends, on the error path too (``streaming._cleanup``).  The JAX
-package's autopilot partition hint and event publication have no
-counterpart here: their modules are not ported (``DSQL_AUTOPILOT`` and
-``DSQL_EVENTS`` raise at every query).
+when it ends, on the error path too (``streaming._cleanup``).  With
+``DSQL_EVENTS`` armed each grace join publishes ``morsel.join``.  The JAX
+package's autopilot partition hint has no counterpart here: its module is
+not ported (``DSQL_AUTOPILOT`` raises at every query).
 """
 from __future__ import annotations
 
@@ -54,7 +54,8 @@ from ..plan.nodes import (
     Field, LogicalFilter, LogicalJoin, LogicalProject, LogicalTableScan,
     RelNode, RexCall, RexInputRef,
 )
-from ..runtime import (faults as _faults, resilience as _res,
+from ..runtime import (faults as _faults, gates as _gates,
+                       resilience as _res,
                        spill as _spill, telemetry as _tel)
 from . import streaming as _stream
 
@@ -416,6 +417,9 @@ def grace_join_split(join: LogicalJoin, context):
 
     with _tel.span("grace_join", partitions=P, spilled=True):
         _tel.inc("morsel_joins")
+        if _gates.events_on():
+            from ..runtime import events as _ev
+            _ev.publish("morsel.join", partitions=P)
         llayout = _partition_side(join.left, lscan, lsrc, context, lkeys,
                                   P, runs_l, store)
         rlayout = _partition_side(join.right, rscan, rsrc, context, rkeys,

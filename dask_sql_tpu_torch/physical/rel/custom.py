@@ -1,6 +1,6 @@
 """Statement handlers: schemas, tables and views, materialized views,
-INSERT INTO, SHOW / DESCRIBE, ANALYZE TABLE, EXPLAIN [ANALYZE], PREPARE /
-EXECUTE / DEALLOCATE.
+INSERT INTO, SHOW / DESCRIBE, ANALYZE TABLE, EXPLAIN [ANALYZE | PROFILE],
+PREPARE / EXECUTE / DEALLOCATE.
 
 The counterpart of ``dask_sql_tpu/physical/rel/custom.py``: one handler per
 statement AST class, registered in ``StatementDispatcher``.  A handler takes
@@ -9,9 +9,8 @@ DESCRIBE, EXPLAIN, EXECUTE) or None (DDL).
 
 The statements whose machinery the port lacks raise ``NotImplementedError``
 naming themselves and what they wait for (``_UNPORTED``): CREATE TABLE ...
-WITH (location) (the file readers, ``io/inputs.py``), the model statements
-(``models/``, with ``register_model``) and EXPLAIN PROFILE
-(``runtime/profiler.py``).
+WITH (location) (the file readers, ``io/inputs.py``) and the model
+statements (``models/``, with ``register_model``).
 
 Every statement that reads a table's rows (CTAS, INSERT INTO ... SELECT,
 ANALYZE TABLE over a view) runs its plan through
@@ -465,18 +464,125 @@ def _describe_categorical(col, valid: torch.Tensor) -> tuple:
 # ---------------------------------------------------------------------------
 
 def _explain(stmt: A.ExplainStatement, context, sql):
-    if stmt.profile:
-        raise NotImplementedError(
-            "EXPLAIN PROFILE is not ported yet: it waits for "
-            "runtime/profiler.py")
     plan = context._get_plan(stmt.query, sql)
-    if stmt.analyze:
+    if stmt.profile:
+        lines = _explain_profile(plan, context)
+    elif stmt.analyze:
         lines = _explain_analyze(plan, context)
     else:
         # the plan, then the operator variants the statistics predict
         lines = plan.explain().splitlines() + _stats.explain_lines(plan,
                                                                    context)
     return _meta_table({"PLAN": _strings(lines)}, context)
+
+
+def _explain_profile(plan, context) -> list:
+    """EXPLAIN PROFILE: run the plan through the normal path (admission,
+    the SPMD, compiled or eager tier a plain run would take; unlike
+    EXPLAIN ANALYZE's instrumented eager run), the result cache's lookup
+    bypassed so that something executes, and render what its spans
+    carry: per stage the counted flops and bytes, the measured bytes,
+    device ms, wall, rows, shard skew and the cost error; then the
+    query's skew, collective bytes by kind, cost error, and one row per
+    device of its memory (``runtime/profiler.py``).  Unarmed
+    (``DSQL_PROFILE``), nothing runs: the plan and a pointer at the
+    variable print."""
+    from ...runtime.gates import profile_on
+
+    lines = plan.explain().splitlines()
+    if not profile_on():
+        lines.append("-- profile: disabled (set DSQL_PROFILE=1)")
+        return lines
+
+    from ...runtime import profiler as _prof
+
+    context._rc_bypass = True
+    t0 = time.perf_counter()
+    try:
+        with _tel.span("profile_exec") as sp:
+            result = context._execute_query_plan(plan)
+    finally:
+        context._rc_bypass = False
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows_out = int(getattr(result, "num_rows", 0) or 0)
+    spans = list(sp.walk()) if sp is not None else []
+
+    def stat(ss, key, conv=float):
+        """Sum ``key`` over spans, or None when no span carried it."""
+        tot, seen = 0, False
+        for s in ss:
+            v = s.attrs.get(key)
+            if v:
+                tot, seen = tot + conv(v), True
+        return tot if seen else None
+
+    def fmt(v):
+        if v is None:
+            return "n/a"
+        return f"{v:.3f}" if isinstance(v, float) else str(v)
+
+    tier = next((str(s.attrs.get("tier")) for s in spans
+                 if s.attrs.get("tier")), None)
+    lines.append(f"-- profile: wall={wall_ms:.3f}ms rows_out={rows_out}"
+                 + (f" tier={tier}" if tier else ""))
+    # the admission estimate this run was charged under
+    for s in spans:
+        if s.name == "queued":
+            lines.append(
+                f"-- estimate: source={s.attrs.get('est_source', '?')} "
+                f"bytes={s.attrs.get('est_bytes', 0)}")
+            break
+    # per-stage rows (compiled stage graphs, SPMD stages); a single
+    # program renders one whole-plan row
+    stage_spans = [s for s in spans if s.name in ("stage", "spmd_stage")]
+    targets = stage_spans or ([sp] if sp is not None else [])
+    for s in targets:
+        ss = list(s.walk())
+        cbytes = stat(ss, "cost_bytes")
+        mbytes = stat(ss, "stage_bytes", int)
+        err = _prof.cost_error(cbytes, mbytes)
+        label = ("whole" if s is sp
+                 else f"{s.name}[{s.attrs.get('index', '?')}]")
+        lines.append(
+            f"-- stage {label}: flops={fmt(stat(ss, 'cost_flops'))} "
+            f"bytes={fmt(cbytes)} measured_bytes={fmt(mbytes)} "
+            f"device_ms={fmt(stat(ss, 'device_ms'))} "
+            f"wall_ms={s.wall_ms:.3f} "
+            f"rows={fmt(stat(ss, 'stage_rows_out', int))} "
+            f"skew={fmt(stat([s], 'skew_ratio'))} "
+            f"cost_err={fmt(err)}")
+    skews = [float(s.attrs.get("skew_ratio")) for s in spans
+             if s.attrs.get("skew_ratio") is not None]
+    if skews:
+        lines.append(f"-- skew_ratio: {max(skews):.3f}")
+    coll = []
+    for attr, kind in (("spmd_exchange_bytes", "all_to_all"),
+                       ("spmd_all_gather_bytes", "all_gather"),
+                       ("spmd_psum_bytes", "psum")):
+        v = stat(spans, attr, int)
+        if v:
+            coll.append(f"{kind}={v}")
+    if coll:
+        lines.append("-- collectives: " + " ".join(coll))
+    # query-wide cost error: counted bytes against the result plus the
+    # materialized stage bytes (the flight recorder's measured bytes)
+    total_pred = stat(spans, "cost_bytes")
+    res_bytes = sum(c.data.numel() * c.data.element_size()
+                    for c in (getattr(result, "columns", None) or []))
+    total_meas = (stat(spans, "stage_bytes", int) or 0) + res_bytes
+    err = _prof.cost_error(total_pred, total_meas)
+    if err is not None:
+        lines.append(f"-- cost_model_error: {err:.4f}")
+    mesh = getattr(context, "mesh", None)
+    for d in _prof.device_memory_rows(
+            [context.device] + (list(mesh.devices) if mesh is not None
+                                else [])):
+        lines.append(
+            f"-- device {d['id']}: platform={d['platform']} "
+            f"kind={d['kind']} hbm_in_use={d['bytes_in_use']} "
+            f"hbm_peak={d['peak_bytes_in_use']} "
+            f"hbm_limit={d['bytes_limit']}")
+    return lines
 
 
 def _explain_analyze(plan, context) -> list:

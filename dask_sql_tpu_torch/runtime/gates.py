@@ -7,8 +7,12 @@ process.  The port keeps the same variables with the same meanings:
 - ``DSQL_TENANCY`` (default on; ``0`` turns tenancy off) gates
   ``runtime/tenancy.py``, and ``DSQL_INGEST_DIR`` (unless ``DSQL_INGEST``
   is ``0``) arms ``runtime/ingest.py``; the port has both.
-- The subsystems below are armed only by their variable, and their
-  modules are not ported.  Unset, the port behaves as the JAX package does
+- ``DSQL_PROFILE`` arms ``runtime/profiler.py``, ``DSQL_HISTORY_FILE``
+  ``runtime/flight_recorder.py`` and ``DSQL_EVENTS`` ``runtime/events.py``;
+  the port has all three, and every caller checks the variable before it
+  imports the module, so an unarmed query loads none of them.
+- The subsystems of ``UNPORTED`` are armed only by their variable, and
+  their modules are not ported.  Unset, the port behaves as the JAX package does
   with them unset.  Set, ``refuse`` raises ``NotImplementedError`` naming
   the module, at the places where the JAX package would import it: the
   port never silently answers without a subsystem its caller armed.
@@ -19,11 +23,8 @@ import os
 
 #: variable -> the JAX package's module it arms (not ported)
 UNPORTED = {
-    "DSQL_EVENTS": "runtime/events.py",
     "DSQL_FLEET_DIR": "runtime/fleet.py",
     "DSQL_AUTOPILOT": "runtime/autopilot.py",
-    "DSQL_HISTORY_FILE": "runtime/flight_recorder.py",
-    "DSQL_PROFILE": "runtime/profiler.py",
     "DSQL_PROGRAM_STORE": "runtime/program_store.py",
 }
 
@@ -34,6 +35,22 @@ def _flag(name: str, default: str = "0") -> bool:
 
 def tenancy_on() -> bool:
     return _flag("DSQL_TENANCY", "1")
+
+
+def profile_on() -> bool:
+    """``DSQL_PROFILE`` arms the device profiler (``runtime/profiler.py``)."""
+    return _flag("DSQL_PROFILE")
+
+
+def history_on() -> bool:
+    """``DSQL_HISTORY_FILE`` arms the flight recorder
+    (``runtime/flight_recorder.py``)."""
+    return bool(os.environ.get("DSQL_HISTORY_FILE"))
+
+
+def events_on() -> bool:
+    """``DSQL_EVENTS`` arms the event bus (``runtime/events.py``)."""
+    return _flag("DSQL_EVENTS")
 
 
 def armed(variable: str) -> bool:

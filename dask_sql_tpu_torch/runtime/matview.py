@@ -44,8 +44,10 @@ card.  A full refresh goes through the compiled tier.
 ``UserError``, appends record tombstones, and resolution never consults
 the registry.  ``DSQL_MV_MAX_DELTAS`` (default 64) bounds a table's
 unconsumed delta records before they are compacted, then tombstoned.
-The event bus's publications (``DSQL_EVENTS``) are not ported and are
-refused where the JAX package publishes.
+With ``DSQL_EVENTS`` armed each refresh publishes ``mv.refresh`` (its
+mode, and a full refresh's reason) on the event bus, and with
+``DSQL_HISTORY_FILE`` armed ``view_candidate_rows`` ranks the recorder's
+hot plan shapes.
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ from ..plan.nodes import (
 )
 from ..table import Table
 from ..types import BIGINT, DOUBLE
-from .gates import refuse
+from .gates import events_on as _events_on, history_on as _history_on
 from .kvstore import digest_key
 from . import faults as _faults, resilience as _res, telemetry as _tel
 
@@ -459,8 +461,10 @@ class MatViewRegistry:
                 _faults.maybe_fail("mv_refresh")
                 self._refresh_incremental(context, mv, info)
                 _tel.inc("mv_refresh_incremental")
-                # the JAX package publishes the refresh on its event bus
-                refuse("DSQL_EVENTS")
+                if _events_on():
+                    from . import events as _ev
+                    _ev.publish("mv.refresh", view=mv.name,
+                                mode="incremental")
                 mv.refresh_incremental += 1
                 mv.last_refresh_reason = "incremental"
                 self._prune_locked()
@@ -610,7 +614,10 @@ class MatViewRegistry:
             for key in mv.base_tables:
                 self.tombstones.pop(key, None)
             _tel.inc("mv_refresh_full")
-            refuse("DSQL_EVENTS")
+            if _events_on():
+                from . import events as _ev
+                _ev.publish("mv.refresh", view=mv.name, mode="full",
+                            reason=reason or None)
             mv.refresh_full += 1
             mv.last_refresh_reason = f"full ({reason})" if reason else "full"
             if reason:
@@ -752,3 +759,44 @@ def matview_rows(context) -> List[dict]:
                 "fingerprint": mv.fingerprint,
             })
     return out
+
+
+def view_candidate_rows(context) -> List[dict]:
+    """The JAX package's ``system.view_candidates`` rows (the system
+    tables are not ported; this is their source): hot repeated plan
+    fingerprints from the flight recorder's EWMA statistics, ranked by
+    hits times recompute cost, each with its last SQL.  Empty unless
+    ``DSQL_HISTORY_FILE`` arms the recorder (checked before its import)."""
+    if not _history_on():
+        return []
+    from . import flight_recorder as _fr
+
+    stats = _fr._STATS.read()
+    if not stats:
+        return []
+    examples: Dict[str, str] = {}
+    for ev in _fr.read_events(kind="query"):
+        fp = ev.get("plan_fp")
+        if fp and ev.get("query"):
+            examples[fp] = ev["query"]
+    reg = get_registry(context)
+    materialized = {mv.fingerprint for mv in reg.views.values()} \
+        if reg is not None else set()
+    rows = []
+    for fp, e in stats.items():
+        if not isinstance(e, dict):
+            continue
+        n = int(e.get("n", 0) or 0)
+        ms = float(e.get("ms", 0.0) or 0.0)
+        if n <= 0 or ms <= 0.0:
+            continue
+        rows.append({
+            "fingerprint": fp,
+            "hits": n,
+            "ewma_ms": ms,
+            "score": n * ms,
+            "materialized": fp in materialized,
+            "example_sql": examples.get(fp, ""),
+        })
+    rows.sort(key=lambda r: r["score"], reverse=True)
+    return rows

@@ -46,8 +46,9 @@ and its subclasses are what the workload manager
 (``runtime/scheduler.py``), tenancy (``runtime/tenancy.py``) and the
 server's drain raise before a query takes a slot; the server maps them to
 429 / 503 with ``Retry-After`` (``server/app.py`` ``ERROR_WIRE_MATRIX``).
-``LoadShedRejected`` and ``IngestBackpressure`` keep their wire rows
-although their modules (the event bus, ingest) are not ported.
+``LoadShedRejected`` is the workload manager's load shed while an SLO
+class burns (``DSQL_EVENTS``), and ``IngestBackpressure`` the ingest
+log's refusal of a batch the broker cannot absorb.
 """
 from __future__ import annotations
 
@@ -181,7 +182,7 @@ class TenantCircuitOpen(AdmissionRejected):
 
 class LoadShedRejected(AdmissionRejected):
     """A background admission shed while a class burns its SLO error
-    budget (the JAX package's event bus, not ported): 429."""
+    budget (``scheduler._check_shed``, the event bus's SLO monitor): 429."""
 
     error_name = "SLO_LOAD_SHED"
 

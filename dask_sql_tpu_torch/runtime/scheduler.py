@@ -24,14 +24,19 @@ weight, the winner pays the round, and waiting adds one credit per
 **Memory broker.**  Admission reserves an estimated working set against
 a device-bytes ledger of ``DSQL_DEVICE_BUDGET_MB`` (default 4,096; 0 turns
 the broker off).  The estimate takes the JAX package's rungs in order:
-the flight recorder's history (not ported: ``DSQL_HISTORY_FILE`` raises),
-chunked sources, the table statistics
-(``statistics.estimate_plan_bytes_stats``), the device profiler's cost
-model (not ported: ``DSQL_PROFILE`` raises), and the shape heuristic
+the flight recorder's measured history (``DSQL_HISTORY_FILE``), chunked
+sources, the table statistics (``statistics.estimate_plan_bytes_stats``),
+the device profiler's counted cost (``DSQL_PROFILE``), and the shape heuristic
 (scanned bytes times per-operator multipliers).  The result cache and the
 spill store are the ledger's tenants: a reservation that does not fit
 spills the cache's device tier, then the store's, before the query waits;
 an estimate over the whole budget is clamped so the query runs alone.
+
+**Load shed.**  With the event bus armed (``DSQL_EVENTS``) a background
+admission is refused (``LoadShedRejected``, 429) while an SLO class burns
+its error budget past ``DSQL_SLO_BURN`` on both windows
+(``DSQL_SLO_SHED=0`` turns it off); ``slo.shed`` marks each edge, and
+``sched.admitted`` / ``sched.rejected`` each admission.
 
 **Drain.**  ``begin_drain()`` (the server's SIGTERM/SIGINT) refuses every
 new admission with ``ServerDraining`` (503) while running queries keep
@@ -66,16 +71,22 @@ from typing import Dict, List, Optional, Tuple
 
 from . import faults as _faults, telemetry as _tel
 from . import resilience as _res
+from .gates import (events_on as _events_on, history_on as _history_on,
+                    profile_on as _profile_on)
 from .resilience import (AdmissionRejected, AdmissionTimeout,
-                         ServerDraining, _env_int)
+                         LoadShedRejected, ServerDraining, _env_int)
 
 logger = logging.getLogger(__name__)
 
 
 def _shed_on() -> bool:
     # burn-driven load shedding (needs the SLO monitor, so it is inert
-    # unless the watchtower is also armed); DSQL_SLO_SHED=0 disables
+    # unless the event bus is also armed); DSQL_SLO_SHED=0 disables
     return os.environ.get("DSQL_SLO_SHED", "1").strip() not in ("", "0")
+
+
+_SHED_RETRY_AFTER_S = 5.0   # shed lifts as breaching samples age out of
+                            # the fast window; 5 s is a sane re-poll pace
 
 
 
@@ -226,15 +237,22 @@ def estimate_plan_bytes(plan, context) -> int:
 
 def estimate_working_set(plan, context) -> "Tuple[int, str]":
     """(bytes, source) for the admission reservation, by the first rung
-    that answers: ``history`` (the flight recorder's measured bytes; not
-    ported, so ``DSQL_HISTORY_FILE`` raises), ``chunked`` (out-of-core
-    sources, estimated by batch), ``stats`` (the table statistics, counter
-    ``estimate_from_stats``), ``cost_model`` (the device profiler's; not
-    ported, so ``DSQL_PROFILE`` raises) and ``heuristic``."""
+    that answers: ``history`` (the flight recorder's measured bytes of
+    earlier runs of this plan shape, times ``DSQL_HISTORY_HEADROOM``;
+    counter ``estimate_from_history``), ``chunked`` (out-of-core sources,
+    estimated by batch), ``stats`` (the table statistics, counter
+    ``estimate_from_stats``), ``cost_model`` (the device profiler's counted
+    bytes of this plan's programs, counter ``estimate_from_cost_model``)
+    and ``heuristic``.  The recorder and the profiler are imported only
+    when their variables arm them."""
     from . import statistics as _stats
-    from .gates import refuse
 
-    refuse("DSQL_HISTORY_FILE")
+    if _history_on():
+        from . import flight_recorder as _fr
+        hist = _fr.plan_history_bytes(plan, context)
+        if hist is not None:
+            _tel.inc("estimate_from_history")
+            return max(int(hist), _MIN_ESTIMATE), "history"
     from ..physical.streaming import plan_references_chunked
     if plan_references_chunked(plan, context):
         # chunked plans stream one batch at a time: the heuristic's scan
@@ -244,7 +262,12 @@ def estimate_working_set(plan, context) -> "Tuple[int, str]":
     if est is not None:
         _tel.inc("estimate_from_stats")
         return max(int(est), _MIN_ESTIMATE), "stats"
-    refuse("DSQL_PROFILE")
+    if _profile_on():
+        from . import profiler as _prof
+        est = _prof.plan_cost_bytes(plan, context)
+        if est is not None:
+            _tel.inc("estimate_from_cost_model")
+            return max(int(est), _MIN_ESTIMATE), "cost_model"
     return estimate_plan_bytes(plan, context), "heuristic"
 
 
@@ -437,6 +460,7 @@ class WorkloadManager:
         self._cv = threading.Condition(self._lock)
         self._running = 0
         self._seats = 0
+        self._shedding = False          # edge-trigger state for slo.shed
         # fairness classes: keyed by priority alone until
         # DSQL_TENANT_WEIGHTS arms, then "priority@tenant" keys appear on
         # demand (bounded: one per priority x tenant ever seen); with the
@@ -544,15 +568,36 @@ class WorkloadManager:
 
     # -- burn-driven load shedding ------------------------------------------
     def _check_shed(self, priority: str) -> None:
-        """The JAX package sheds background admissions while its event
-        bus's SLO monitor sees a class burning its error budget
-        (``DSQL_SLO_SHED``, on by default, inert without ``DSQL_EVENTS``).
-        The bus is not ported: armed, a background admission raises
-        ``NotImplementedError``; unarmed, nothing is shed."""
-        if priority != "background" or not _shed_on():
+        """Refuse a background admission with ``LoadShedRejected`` while
+        an SLO class burns its error budget past ``DSQL_SLO_BURN`` on both
+        windows (``events.SloMonitor.burning_classes``, recomputed live,
+        so the shed lifts by itself as the breaching samples age out).
+        Interactive and batch admissions are never shed.  Inert unless
+        ``DSQL_EVENTS`` arms the bus; ``DSQL_SLO_SHED=0`` turns it off."""
+        if priority != "background" or not _shed_on() or not _events_on():
             return
-        from .gates import refuse
-        refuse("DSQL_EVENTS")
+        from . import events as _ev
+        burning = _ev.get_monitor().burning_classes()
+        shedding = bool(burning)
+        fire = False
+        with self._cv:
+            if shedding != self._shedding:
+                self._shedding = shedding
+                fire = True
+        _tel.REGISTRY.set_gauge("slo_shedding", 1 if shedding else 0)
+        if fire:
+            _ev.publish("slo.shed", active=shedding,
+                        burning=sorted(burning))
+        if not shedding:
+            return
+        _tel.inc("sched_shed_background")
+        # counted rejected too: admitted + rejected + timeout == submitted
+        _tel.inc("sched_rejected_background")
+        raise LoadShedRejected(
+            f"background admissions shed: class(es) "
+            f"{', '.join(sorted(burning))} burning SLO error budget past "
+            f"{_ev.burn_threshold():g}x on both windows",
+            retry_after_s=_SHED_RETRY_AFTER_S)
 
     # -- seats (server POST-time pre-claims) --------------------------------
     def claim_seat(self, priority: str) -> Optional[Seat]:
@@ -853,16 +898,27 @@ class WorkloadManager:
         if plan is not None and context is not None:
             try:
                 est, est_src = estimate_working_set(plan, context)
-            except NotImplementedError:
-                raise              # an armed subsystem the port lacks
             except Exception:      # estimator must never fail a query
                 logger.debug("working-set estimate failed", exc_info=True)
                 est, est_src = _MIN_ESTIMATE, "floor"
         with _tel.span("queued", priority=pr):
-            ticket = self.acquire(pr, est, seat=seat)
+            try:
+                ticket = self.acquire(pr, est, seat=seat)
+            except Exception as e:
+                if _events_on():
+                    from . import events as _ev
+                    _ev.publish("sched.rejected", priority=pr,
+                                est_bytes=int(est),
+                                error=type(e).__name__)
+                raise
             _tel.annotate(queued_ms=round(ticket.queued_ms or 0.0, 3),
                           reserved_bytes=ticket.reserved_bytes,
                           est_bytes=int(est), est_source=est_src)
+        if _events_on():
+            from . import events as _ev
+            _ev.publish("sched.admitted", priority=pr,
+                        queued_ms=round(ticket.queued_ms or 0.0, 3),
+                        est_bytes=int(est), est_source=est_src)
         rt = _res.current()
         backoff0 = rt.backoff_s if rt is not None else 0.0
         _tls.ticket = ticket

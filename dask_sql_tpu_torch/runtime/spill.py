@@ -44,6 +44,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from . import faults as _faults
+from . import gates
 from . import resilience as _res
 from . import telemetry as _tel
 from ..table import tensors_to_host
@@ -351,6 +352,9 @@ class SpillStore:
         if chunks is None:
             chunks = self._runs[run] = []
             _tel.inc("spill_partitions")
+            if gates.events_on():
+                from . import events as _ev
+                _ev.publish("spill.run", run=run)
         return chunks
 
     def _chunk_locked(self, run: str, idx: int) -> _Chunk:

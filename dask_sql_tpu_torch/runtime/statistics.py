@@ -376,9 +376,18 @@ def selectivity(rex, rel, context) -> float:
 
 
 def estimate_rows(rel, context, _depth: int = 0) -> Optional[float]:
-    """Estimated output cardinality of a plan subtree; None = unknown."""
+    """Estimated output cardinality of a plan subtree; None = unknown.
+
+    The table statistics give the base numbers; the flight recorder's
+    EWMA history (``DSQL_HISTORY_FILE``), keyed by the canonical plan
+    fingerprint, replaces the estimate at the root with the rows measured
+    for this subtree shape on earlier runs (``measured_rows``)."""
     from ..plan import nodes as N
 
+    if _depth == 0:
+        measured = measured_rows(rel, context)
+        if measured is not None:
+            return float(measured)
     if _depth > 64:
         return None
     if isinstance(rel, N.LogicalTableScan):
@@ -436,6 +445,26 @@ def estimate_rows(rel, context, _depth: int = 0) -> Optional[float]:
                 return None
             total += c
         return total
+    return None
+
+
+def measured_rows(rel, context) -> Optional[float]:
+    """The flight recorder's EWMA of this subtree shape's output rows, or
+    None (recorder unarmed, checked before its import; never measured)."""
+    from .gates import history_on
+    if not history_on():
+        return None
+    from . import flight_recorder as _fr
+    try:
+        fp = _fr.plan_fingerprint(rel, context)
+    except Exception:  # a subtree outside the canonical form: unknown
+        logger.debug("measured_rows fingerprint failed", exc_info=True)
+        return None
+    if fp is None:
+        return None
+    stats = _fr.get_stats(fp)
+    if stats and stats.get("rows"):
+        return float(stats["rows"])
     return None
 
 

@@ -39,11 +39,16 @@ The counterpart of ``dask_sql_tpu/runtime/telemetry.py``:
   runs in a ``QueryTrace`` of its own, closed by
   ``close_background_trace`` without counting a query (its reports are
   kept in ``BACKGROUND_REPORTS``, the last 16).
-
-The JAX package's environment-armed hooks at trace open and close (flight
-recorder, device profiler, event bus, autopilot, fleet) belong to modules
-that are not ported: ``trace_scope`` raises ``NotImplementedError`` when
-one is armed (``runtime/gates.py``).
+- Hooks at trace open and close, each behind its variable, checked before
+  the import (an unarmed query loads none of the modules): the flight
+  recorder (``DSQL_HISTORY_FILE``: ``begin_query`` / ``end_query``,
+  ``record_query``), the device profiler (``DSQL_PROFILE``:
+  ``on_query_complete``) and the event bus (``DSQL_EVENTS``: the trace id
+  stamped on the root, ``query.begin`` / ``query.done``).  The autopilot
+  and the fleet plane are not ported: ``trace_scope`` raises
+  ``NotImplementedError`` when one is armed (``runtime/gates.py``).
+- ``note_devices`` / ``used_devices``: the devices this process's
+  Contexts run on, the only ones the profiler reads memory of.
 """
 from __future__ import annotations
 
@@ -620,7 +625,8 @@ class QueryReport:
 
     __slots__ = ("query", "wall_ms", "phases", "counters", "root",
                  "rows_out", "bytes_out", "started_unix", "cache", "tier",
-                 "priority", "operators", "spilled", "trace_id", "tenant")
+                 "priority", "operators", "spilled", "skew_ratio",
+                 "collective_bytes", "cost_err", "trace_id", "tenant")
 
     def __init__(self, trace: QueryTrace):
         root = trace.root
@@ -628,9 +634,11 @@ class QueryReport:
         self.started_unix = trace.started_unix
         self.wall_ms = root.wall_ms
         self.root = root
-        # the JAX package's event bus stamps an end-to-end trace id; the
-        # port has none, and consumers emit the field only when present
-        self.trace_id = None
+        # the end-to-end trace id (runtime/events.py stamps it on the root
+        # at trace open when DSQL_EVENTS is armed); consumers emit the
+        # field only when present
+        tid = root.attrs.get("trace_id")
+        self.trace_id = str(tid) if tid else None
         ten = root.attrs.get("tenant")
         self.tenant = str(ten) if ten else None
         self.rows_out = int(root.attrs.get("rows_out", 0))
@@ -678,6 +686,36 @@ class QueryReport:
                       "bytes": int(REGISTRY.get_gauge("result_cache_bytes")),
                       "host_bytes":
                           int(REGISTRY.get_gauge("result_cache_host_bytes"))}
+        # the device-level profile: worst shard/partition skew (SPMD
+        # stages and grace-hash joins annotate ``skew_ratio``), collective
+        # bytes by kind, and the counted cost's error against the measured
+        # bytes (the result plus every materialized stage boundary, the
+        # flight recorder's definition); None when nothing annotated them
+        skew: Optional[float] = None
+        coll: Dict[str, int] = {}
+        cost_bytes = 0.0
+        measured = 0
+        for s in root.walk():
+            r = s.attrs.get("skew_ratio")
+            if r is not None:
+                skew = max(float(r), skew) if skew is not None else float(r)
+            for attr, kind in (("spmd_exchange_bytes", "all_to_all"),
+                               ("spmd_all_gather_bytes", "all_gather"),
+                               ("spmd_psum_bytes", "psum")):
+                v = s.attrs.get(attr)
+                if v:
+                    coll[kind] = coll.get(kind, 0) + int(v)
+            cb = s.attrs.get("cost_bytes")
+            if cb:
+                cost_bytes += float(cb)
+            sb = s.attrs.get("stage_bytes")
+            if sb:
+                measured += int(sb)
+        self.skew_ratio = round(skew, 3) if skew is not None else None
+        self.collective_bytes = coll or None
+        measured += self.bytes_out
+        self.cost_err = (round(abs(cost_bytes - measured) / measured, 4)
+                         if cost_bytes and measured else None)
 
     def span_count(self, name: str) -> int:
         return sum(1 for s in self.root.walk() if s.name == name)
@@ -691,6 +729,9 @@ class QueryReport:
                 "priority": self.priority,
                 "operators": list(self.operators),
                 "spilled": self.spilled,
+                "skew_ratio": self.skew_ratio,
+                "collective_bytes": self.collective_bytes,
+                "cost_err": self.cost_err,
                 "rows_out": self.rows_out, "bytes_out": self.bytes_out,
                 "spans": self.root.to_dict()}
 
@@ -709,6 +750,13 @@ class QueryReport:
             lines.append("operators: " + "; ".join(self.operators))
         if self.spilled:
             lines.append("spilled: true")
+        if self.skew_ratio is not None:
+            lines.append(f"skew_ratio: {self.skew_ratio}")
+        if self.collective_bytes:
+            lines.append("collective_bytes: " + "  ".join(
+                f"{k}={v}" for k, v in sorted(self.collective_bytes.items())))
+        if self.cost_err is not None:
+            lines.append(f"cost_err: {self.cost_err}")
 
         def walk(s: Span, depth: int):
             attrs = "".join(f" {k}={v}" for k, v in sorted(s.attrs.items()))
@@ -736,8 +784,11 @@ class QueryReport:
                              else repr(v))
                          for k, v in s.attrs.items()},
             })
+        other = {"query": self.query[:500]}
+        if self.trace_id:
+            other["trace_id"] = self.trace_id
         return {"traceEvents": events, "displayTimeUnit": "ms",
-                "otherData": {"query": self.query[:500]}}
+                "otherData": other}
 
 
 def _env_float(name: str) -> Optional[float]:
@@ -806,14 +857,41 @@ def _close_trace(trace: QueryTrace, error: Optional[BaseException]) -> None:
         REGISTRY.inc("slow_queries")
         logger.warning(
             "slow query (%.0f ms >= DSQL_SLOW_QUERY_MS=%.0f): %s | tier: %s "
-            "| cacheHit: %s | priority: %s | phases: %s | counters: %s%s",
+            "| cacheHit: %s | priority: %s | skew: %s | collectives: %s "
+            "| costErr: %s | phases: %s | counters: %s%s%s",
             report.wall_ms, slow_ms, report.query.strip()[:500],
             report.tier or "eager", bool(report.cache.get("hit")),
             report.priority or "-",
+            report.skew_ratio if report.skew_ratio is not None else "-",
+            report.collective_bytes or "-",
+            report.cost_err if report.cost_err is not None else "-",
             {k: round(v, 1) for k, v in sorted(report.phases.items())},
             dict(sorted(report.counters.items())),
+            f" | trace: {report.trace_id}" if report.trace_id else "",
             f" | tenant: {report.tenant}" if report.tenant else "")
     _export_chrome_trace(report)
+
+    # the armed subsystems, each variable checked before its import
+    from . import gates
+    if gates.history_on():
+        try:
+            from . import flight_recorder as _fr
+            _fr.record_query(report, error)
+        except Exception:
+            REGISTRY.inc("history_errors")
+            logger.debug("flight recorder append failed", exc_info=True)
+    if gates.profile_on():
+        try:
+            from . import profiler as _prof
+            _prof.on_query_complete(report)
+        except Exception:
+            logger.debug("profiler query hook failed", exc_info=True)
+    if gates.events_on():
+        try:
+            from . import events as _ev
+            _ev.on_query_complete(report, error)
+        except Exception:
+            logger.debug("event hook failed", exc_info=True)
 
 
 @contextmanager
@@ -822,20 +900,35 @@ def trace_scope(query: str = ""):
 
     A nested call (a query issued while another runs on this thread)
     yields None and rides the enclosing trace: one trace and one report
-    per outermost ``Context.sql``.  The JAX package's hooks at trace open
-    and close import the flight recorder, the device profiler, the event
-    bus, the autopilot and the fleet plane when their variables arm them;
-    the port raises ``NotImplementedError`` then."""
+    per outermost ``Context.sql``.  The flight recorder registers the open
+    trace and the event bus stamps its trace id when their variables arm
+    them; the autopilot and the fleet plane, which the JAX package also
+    hooks here, are not ported, and armed they raise
+    ``NotImplementedError``."""
     if _tls.trace is not None:
         yield None
         return
-    from .gates import refuse
-    refuse("DSQL_HISTORY_FILE", "DSQL_PROFILE", "DSQL_EVENTS",
-           "DSQL_AUTOPILOT", "DSQL_FLEET_DIR")
+    from . import gates
+    gates.refuse("DSQL_AUTOPILOT", "DSQL_FLEET_DIR")
     trace = QueryTrace(query)
     _tls.trace = trace
     _tls.span = trace.root
     _tls.exec_profile = {}
+    # the live-query registry of GET /v1/engine
+    registered = False
+    if gates.history_on():
+        try:
+            from . import flight_recorder as _fr
+            registered = _fr.begin_query(trace)
+        except Exception:
+            logger.debug("flight recorder begin failed", exc_info=True)
+    # ingress: the end-to-end trace id on the root, and query.begin
+    if gates.events_on():
+        try:
+            from . import events as _ev
+            _ev.on_trace_open(trace)
+        except Exception:
+            logger.debug("event trace-open hook failed", exc_info=True)
     err: Optional[BaseException] = None
     try:
         yield trace
@@ -849,11 +942,37 @@ def trace_scope(query: str = ""):
             _close_trace(trace, err)
         except Exception:  # never mask the query's result
             logger.exception("telemetry close failed")
+        if registered:
+            _fr.end_query(trace)
 
 
 def last_report() -> Optional[QueryReport]:
     """The report of the last trace closed on this thread."""
     return _tls.last_report
+
+
+# ---------------------------------------------------------------------------
+# the devices in use (the profiler's memory rows read only these)
+# ---------------------------------------------------------------------------
+
+_devices_lock = threading.Lock()
+_USED_DEVICES: Dict[str, Any] = {}
+
+
+def note_devices(*devices) -> None:
+    """Record devices this process runs on (each Context notes its device
+    and its mesh's, in order of first use)."""
+    import torch
+
+    with _devices_lock:
+        for d in devices:
+            d = torch.device(d)
+            _USED_DEVICES.setdefault(str(d), d)
+
+
+def used_devices() -> list:
+    with _devices_lock:
+        return list(_USED_DEVICES.values())
 
 
 # ---------------------------------------------------------------------------

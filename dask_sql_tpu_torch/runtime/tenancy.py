@@ -37,6 +37,7 @@ import time
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
 
+from . import gates
 from . import telemetry as _tel
 from .resilience import (AdmissionTimeout, DeadlineExceeded, FatalError,
                          TenantCircuitOpen, TenantQuotaExceeded)
@@ -289,6 +290,10 @@ class TenantRegistry:
                 "tenant %r circuit OPEN (%d consecutive fatal/timeout "
                 "verdicts); rejecting for %.0f s", grant.tenant,
                 breaker_threshold(), breaker_ttl_s())
+            if gates.events_on():
+                from . import events as _ev
+                _ev.publish("tenant.circuit_open", tenant=grant.tenant,
+                            ttl_s=round(breaker_ttl_s(), 1))
 
     # -- introspection ------------------------------------------------------
     def rows(self) -> List[dict]:

@@ -37,10 +37,23 @@ quarantine, background builds, tenants, the card's memory) and
   gains an ``ingest`` section, and a drain commits the buffered rows.
   Unarmed, the route answers 404.
 
+- The event bus (``DSQL_EVENTS``, ``runtime/events.py``): every response
+  to a statement carries ``X-DSQL-Trace`` (the client's id when valid,
+  else a minted one; the final stats add ``traceId``), the query's span
+  tree, history envelope and events carry the same id, ``GET
+  /v1/events?cursor=&limit=&timeout_ms=`` long-polls the bus as JSON lines
+  (the next cursor in ``X-DSQL-Cursor``), and rejections, cancels and a
+  drain publish ``server.rejected`` / ``server.cancel`` /
+  ``server.drain``.  Unarmed, no header is sent and ``/v1/events``
+  answers 404.
+- ``GET /v1/engine``'s ``active`` and ``history`` sections read the flight
+  recorder (``DSQL_HISTORY_FILE``), ``profile`` the device profiler
+  (``DSQL_PROFILE``) and ``slo`` the event bus; each reads as disabled
+  while its variable is unset, and its module stays unloaded.
+
 Rows travel as ``Table.to_pylist`` values, without pandas (the card's
-machine has none).  The JAX package's event bus (``X-DSQL-Trace``,
-``/v1/events``) and fleet plane (``/v1/fleet``, replica labels) are not
-ported: unarmed, their routes answer 404 as there; ``run_server`` raises
+machine has none).  The JAX package's fleet plane (``/v1/fleet``, replica
+labels), autopilot and program store are not ported: ``run_server`` raises
 ``NotImplementedError`` when one is armed.
 """
 from __future__ import annotations
@@ -59,7 +72,10 @@ from typing import Dict, Optional
 from ..runtime import (faults as _faults, ingest as _ing,
                        resilience as _res, scheduler as _sched,
                        telemetry as _tel)
-from ..runtime.gates import refuse, tenancy_on as _tenancy_on
+from ..runtime.gates import (events_on as _events_on,
+                             history_on as _history_on,
+                             profile_on as _profile_on, refuse,
+                             tenancy_on as _tenancy_on)
 
 logger = logging.getLogger(__name__)
 
@@ -69,8 +85,6 @@ logger = logging.getLogger(__name__)
 # /v1/statement answers when the verdict is known before a query id exists
 # (admission, drain); verdicts raised later ride the Presto convention:
 # HTTP 200 with a FAILED payload carrying errorType/errorName/errorCode.
-# The load shed's row keeps the JAX package's values although the event
-# bus is not ported.
 # ---------------------------------------------------------------------------
 
 ERROR_WIRE_MATRIX = {
@@ -191,6 +205,9 @@ def _stats(state: str, info: Optional["_QueryInfo"] = None) -> dict:
         if info.phases:
             out["phaseMillis"] = {k: round(v, 3)
                                   for k, v in info.phases.items()}
+        # the end-to-end trace id (DSQL_EVENTS), as X-DSQL-Trace carries it
+        if info.trace_id:
+            out["traceId"] = info.trace_id
     return out
 
 
@@ -198,7 +215,7 @@ class _QueryInfo:
     __slots__ = ("submitted", "started", "finished", "cpu_sec", "rows",
                  "bytes", "peak_memory", "compiles", "cache_hits", "phases",
                  "cache_hit", "cache_tier", "subplan_cache_hits",
-                 "queued_ms", "tier", "operators")
+                 "queued_ms", "tier", "operators", "trace_id")
 
     def __init__(self):
         self.submitted = time.monotonic()
@@ -217,6 +234,7 @@ class _QueryInfo:
         self.queued_ms = None
         self.tier = None
         self.operators = []
+        self.trace_id = None
 
 
 def _peak_memory(context) -> int:
@@ -245,10 +263,19 @@ def _run_tracked(context, sql: str, info: _QueryInfo,
                  cancel: Optional[threading.Event] = None,
                  seat: Optional[_sched.Seat] = None,
                  params: Optional[list] = None,
-                 grant=None):
+                 grant=None, trace_id: Optional[str] = None):
     from contextlib import nullcontext
 
     from ..physical import compiled
+
+    # the ingress trace id rides into the worker thread, where
+    # trace_scope's hook stamps it on the span tree (only ever set while
+    # DSQL_EVENTS is armed)
+    if trace_id:
+        from ..runtime import events as _ev
+        tid_scope = _ev.trace_id_scope(trace_id)
+    else:
+        tid_scope = nullcontext()
 
     # the POST-time tenant pre-claim rides into the worker thread;
     # tenancy's admission (around the plan's execution) consumes it once
@@ -268,7 +295,7 @@ def _run_tracked(context, sql: str, info: _QueryInfo,
         # the cancel token joins the query's supervision scope: DELETE
         # /v1/cancel sets it and the layers stop at their next checkpoint;
         # seat_scope hands the POST-time admission seat to the manager
-        with g_scope, _sched.seat_scope(seat), \
+        with tid_scope, g_scope, _sched.seat_scope(seat), \
                 _res.query_scope(cancel=cancel):
             table = context.sql(sql, params=params)
     finally:
@@ -356,11 +383,12 @@ class _Spool:
     ``n`` carries no data and no ``nextUri`` and drops the spool."""
 
     __slots__ = ("uid", "columns", "pages", "page_bytes", "next_page",
-                 "created", "last_access")
+                 "created", "last_access", "trace_id")
 
     def __init__(self, uid: str, columns: list, pages: int,
-                 page_bytes: Dict[int, int]):
+                 page_bytes: Dict[int, int], trace_id: Optional[str] = None):
         self.uid = uid
+        self.trace_id = trace_id        # the query's, for X-DSQL-Trace
         self.columns = columns
         self.pages = pages              # data pages (page 0 included)
         self.page_bytes = page_bytes    # stored page -> payload bytes
@@ -376,7 +404,8 @@ class _Spool:
         return max(self.pages - self.next_page, 0)
 
 
-def _spool_result(state: "_AppState", uid: str, table):
+def _spool_result(state: "_AppState", uid: str, table,
+                  info: Optional[_QueryInfo] = None):
     """Spool ``table`` into pages; returns ``(spool, page0_rows)``, or
     None when the result is small, paging is off, or the spool faulted:
     the caller then serves the single payload."""
@@ -410,7 +439,8 @@ def _spool_result(state: "_AppState", uid: str, table):
         logger.warning("result spool failed for %s (%s); serving the "
                        "unpaged response", uid, e)
         return None
-    spool = _Spool(uid, _columns_payload(table), n_pages, page_bytes)
+    spool = _Spool(uid, _columns_payload(table), n_pages, page_bytes,
+                   trace_id=getattr(info, "trace_id", None))
     with state.lock:
         state.spools[uid] = spool
     _tel.inc("result_spooled")
@@ -442,11 +472,13 @@ def _spill_section(counters: dict) -> dict:
 
 
 def _engine_snapshot(state: "_AppState") -> dict:
-    """One poll of the whole engine: server queries, the workload manager,
-    the ledger, cache and spill tiers, quarantine, background builds,
-    tenants and the card.  The sections of unported subsystems (the flight
-    recorder's live queries and history, the program store, the profiler,
-    the SLO monitor) read as the JAX package's do with them unarmed."""
+    """One poll of the whole engine: the queries in flight (the flight
+    recorder's live registry), server queries, the workload manager, the
+    ledger, cache and spill tiers, quarantine, background builds, the
+    history ring, the cards, the profiler, the SLO monitor and tenants.
+    Each armed subsystem's module is imported only when its variable is
+    set; unarmed, its section reads as disabled.  The program store is
+    not ported: its section reads as the JAX package's does unarmed."""
     from ..physical import compiled as _compiled
     from ..runtime import quarantine as _quar
     from ..runtime import result_cache as _rc
@@ -462,9 +494,12 @@ def _engine_snapshot(state: "_AppState") -> dict:
                        else "RUNNING")}
             for uid, fut in state.future_list.items()]
     qstore = _quar.get_store()
+    history = _history_on()
+    if history:
+        from ..runtime import flight_recorder as _fr
     out = {
         "pid": os.getpid(),
-        "active": [],
+        "active": _fr.active_snapshot() if history else [],
         "serverQueries": server_queries,
         "scheduler": {
             "enabled": mgr.enabled(),
@@ -490,11 +525,12 @@ def _engine_snapshot(state: "_AppState") -> dict:
             "done": int(counters.get("background_compiles_done", 0)),
             "errors": int(counters.get("background_compile_errors", 0)),
         },
-        "history": {"enabled": False, "file": "",
+        "history": {"enabled": history,
+                    "file": _fr.history_path() if history else "",
                     "records": int(counters.get("history_records", 0))},
         "devices": _devices_section(),
-        "profile": {"enabled": False},
-        "slo": {"enabled": False},
+        "profile": _profile_section(),
+        "slo": _slo_section(),
     }
     if _page_rows() > 0 or state.spools:
         out["results"] = state.spools_snapshot()
@@ -504,6 +540,24 @@ def _engine_snapshot(state: "_AppState") -> dict:
     if _ing.enabled():
         out["ingest"] = _ing.engine_section(state.context)
     return out
+
+
+def _profile_section() -> dict:
+    """The device profiler's own section, its module imported only when
+    ``DSQL_PROFILE`` arms it."""
+    if not _profile_on():
+        return {"enabled": False}
+    from ..runtime import profiler as _prof
+    return _prof.engine_section()
+
+
+def _slo_section() -> dict:
+    """Per-class SLO burn rates and anomaly flags (``runtime/events.py``),
+    imported only when ``DSQL_EVENTS`` arms the bus."""
+    if not _events_on():
+        return {"enabled": False}
+    from ..runtime import events as _ev
+    return _ev.engine_section()
 
 
 def _devices_section() -> list:
@@ -698,6 +752,10 @@ def _drain_and_shutdown(server, state: _AppState,
     mgr.begin_drain()
     logger.warning("%s: draining server (timeout %.0f s, %d in flight)",
                    reason, timeout, len(state.future_list))
+    if _events_on():
+        from ..runtime import events as _ev
+        _ev.publish("server.drain", reason=reason,
+                    in_flight=len(state.future_list), timeout_s=timeout)
     try:
         with _tel.trace_scope(f"<drain:{reason}>"):
             with _tel.span("drain", reason=reason, timeout_s=timeout):
@@ -788,8 +846,62 @@ def _make_handler(state: _AppState, base_url: str):
             self.end_headers()
             self.wfile.write(body)
 
-        # GET /metrics | /v1/engine | /v1/empty | /v1/status/{id} |
-        # /v1/result/{id}/{page}
+        def _req_trace(self) -> Optional[str]:
+            """The client's ``X-DSQL-Trace``, sanitized, or None (always
+            None with the event bus unarmed, and nothing imported)."""
+            if not _events_on():
+                return None
+            from ..runtime import events as _ev
+            return _ev.sanitize_trace_id(self.headers.get("X-DSQL-Trace"))
+
+        def _trace_headers(self, info: Optional[_QueryInfo] = None,
+                           tid: Optional[str] = None) -> Optional[dict]:
+            """``X-DSQL-Trace`` for every response to a statement, success
+            and error alike: the query's id when known, else the
+            client's echoed; None (no header) with the bus unarmed."""
+            if not _events_on():
+                return None
+            tid = tid or (getattr(info, "trace_id", None)
+                          if info is not None else None) \
+                or self._req_trace()
+            return {"X-DSQL-Trace": tid} if tid else None
+
+        def _serve_events(self):
+            """GET /v1/events?cursor=N&timeout_ms=M&limit=K: JSON lines of
+            the events with ``seq > cursor``, waiting up to ``timeout_ms``
+            (at most 30 s; none while draining) for the first; the next
+            cursor goes in ``X-DSQL-Cursor``."""
+            from urllib.parse import parse_qs, urlparse
+
+            from ..runtime import events as _ev
+
+            q = parse_qs(urlparse(self.path).query)
+
+            def qint(name: str, default: int) -> int:
+                try:
+                    return int(q.get(name, [default])[0])
+                except (ValueError, TypeError, IndexError):
+                    return default
+
+            limit = min(max(qint("limit", 500), 1), 5000)
+            timeout_s = min(max(qint("timeout_ms", 0), 0) / 1e3, 30.0)
+            if _sched.get_manager().draining():
+                timeout_s = 0.0
+            cursor = max(qint("cursor", 0), 0)
+            evs, nxt = _ev.read_since(cursor, limit=limit,
+                                      timeout_s=timeout_s)
+            body = b"".join(
+                json.dumps(e, separators=(",", ":"), default=str).encode()
+                + b"\n" for e in evs)
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-ndjson")
+            self.send_header("Content-Length", str(len(body)))
+            self.send_header("X-DSQL-Cursor", str(nxt))
+            self.end_headers()
+            self.wfile.write(body)
+
+        # GET /metrics | /v1/engine | /v1/events (armed) | /v1/empty |
+        # /v1/status/{id} | /v1/result/{id}/{page}
         def do_GET(self):
             route = self.path.rstrip("/").split("?")[0]
             if route == "/metrics":
@@ -809,6 +921,9 @@ def _make_handler(state: _AppState, base_url: str):
                     self._send(500, {"error": "snapshot failed"})
                     return
                 self._send(200, payload)
+                return
+            if route == "/v1/events" and _events_on():
+                self._serve_events()
                 return
             if self.path.rstrip("/") == "/v1/empty":
                 self._send(200, {
@@ -850,9 +965,10 @@ def _make_handler(state: _AppState, base_url: str):
                                     f"{spool.next_page}"),
                         "columns": spool.columns,
                         "stats": _stats("FINISHED"),
-                    })
+                    }, headers=self._trace_headers(tid=spool.trace_id))
                     return
-                self._send(404, _error_payload("Unknown query id", uid))
+                self._send(404, _error_payload("Unknown query id", uid),
+                           headers=self._trace_headers())
                 return
             info = state.query_info.get(uid)
             if not fut.done():
@@ -861,16 +977,17 @@ def _make_handler(state: _AppState, base_url: str):
                     "nextUri": f"{base_url}/v1/status/{uid}",
                     "partialCancelUri": f"{base_url}/v1/cancel/{uid}",
                     "stats": _stats("RUNNING", info),
-                })
+                }, headers=self._trace_headers(info))
                 return
             try:
                 table = fut.result()
             except Exception as e:
                 state.forget(uid)
                 _tel.inc("server_query_errors")
-                self._send(200, _error_payload(str(e), uid, exc=e))
+                self._send(200, _error_payload(str(e), uid, exc=e),
+                           headers=self._trace_headers(info))
                 return
-            spooled = _spool_result(state, uid, table)
+            spooled = _spool_result(state, uid, table, info)
             state.forget(uid)
             if spooled is not None:
                 # page 0 inline and a nextUri: the rest pages through
@@ -882,7 +999,7 @@ def _make_handler(state: _AppState, base_url: str):
                     "columns": spool.columns,
                     "data": page0,
                     "stats": _stats("FINISHED", info),
-                })
+                }, headers=self._trace_headers(info))
                 return
             payload = {
                 "id": uid, "infoUri": base_url,
@@ -891,7 +1008,7 @@ def _make_handler(state: _AppState, base_url: str):
             if table is not None and table.num_columns:
                 payload["columns"] = _columns_payload(table)
                 payload["data"] = _data_payload(table)
-            self._send(200, payload)
+            self._send(200, payload, headers=self._trace_headers(info))
 
         def _serve_result_page(self, uid: str, page: int):
             """One spooled page, in order: fetching page p frees every
@@ -902,14 +1019,16 @@ def _make_handler(state: _AppState, base_url: str):
                 spool = state.spools.get(uid)
             if spool is None:
                 self._send(404, _error_payload(
-                    "Unknown or expired result id", uid))
+                    "Unknown or expired result id", uid),
+                    headers=self._trace_headers())
                 return
             spool.last_access = time.monotonic()
+            hdrs = self._trace_headers(tid=spool.trace_id)
             if page < spool.next_page or page > spool.pages:
                 self._send(410, _error_payload(
                     f"result page {page} of {uid} already collected "
                     f"(pages free as fetched; next is "
-                    f"{spool.next_page})", uid))
+                    f"{spool.next_page})", uid), headers=hdrs)
                 return
             if page == spool.pages:
                 state.drop_spool(uid)
@@ -918,7 +1037,7 @@ def _make_handler(state: _AppState, base_url: str):
                     "id": uid, "infoUri": base_url,
                     "columns": spool.columns, "data": [],
                     "stats": _stats("FINISHED"),
-                })
+                }, headers=hdrs)
                 return
             from ..runtime import spill as _spill
             try:
@@ -929,7 +1048,8 @@ def _make_handler(state: _AppState, base_url: str):
                 logger.exception("result page fetch failed: %s/%d",
                                  uid, page)
                 self._send(500, _error_payload(
-                    f"result page fetch failed: {e}", uid, exc=e))
+                    f"result page fetch failed: {e}", uid, exc=e),
+                    headers=hdrs)
                 return
             state.advance_spool(uid, page)
             _tel.inc("result_pages_served")
@@ -938,7 +1058,7 @@ def _make_handler(state: _AppState, base_url: str):
                 "nextUri": f"{base_url}/v1/result/{uid}/{page + 1}",
                 "columns": spool.columns, "data": rows,
                 "stats": _stats("FINISHED"),
-            })
+            }, headers=hdrs)
 
         # POST /v1/statement | POST /v1/ingest (armed)
         def do_POST(self):
@@ -966,18 +1086,32 @@ def _make_handler(state: _AppState, base_url: str):
                     _tel.inc("server_query_errors")
                     self._send(400, _error_payload(
                         'Invalid JSON statement body (expected '
-                        '{"sql": "...", "params": [...]})', uid))
+                        '{"sql": "...", "params": [...]})', uid),
+                        headers=self._trace_headers())
                     return
                 if params is not None and not isinstance(params, list):
                     _tel.inc("server_query_errors")
                     self._send(400, _error_payload(
-                        '"params" must be a JSON array', uid))
+                        '"params" must be a JSON array', uid),
+                        headers=self._trace_headers())
                     return
             mgr = _sched.get_manager()
+            # the trace id at ingress, before any verdict, so that success
+            # and every rejection answer with the same id (None unarmed)
+            tid = None
+            if _events_on():
+                from ..runtime import events as _ev
+                tid = self._req_trace() or _ev.mint_trace_id()
 
             def reject(e: _res.AdmissionRejected) -> None:
                 hdrs = {"Retry-After":
                         str(max(int(math.ceil(e.retry_after_s)), 1))}
+                hdrs.update(self._trace_headers(tid=tid) or {})
+                if tid:
+                    from ..runtime import events as _ev
+                    _ev.publish("server.rejected", trace=tid,
+                                error=type(e).__name__,
+                                retry_after_s=round(e.retry_after_s, 3))
                 self._send(submit_status(e),
                            _error_payload(str(e), uid, exc=e), headers=hdrs)
 
@@ -1016,20 +1150,21 @@ def _make_handler(state: _AppState, base_url: str):
                 reject(e)
                 return
             info = _QueryInfo()
+            info.trace_id = tid
             cancel = threading.Event()
             state.query_info[uid] = info
             state.cancel_events[uid] = cancel
             if seat is not None:
                 state.seats[uid] = seat
             fut = state.pool.submit(_run_tracked, state.context, sql, info,
-                                    cancel, seat, params, grant)
+                                    cancel, seat, params, grant, tid)
             state.future_list[uid] = fut
             self._send(200, {
                 "id": uid, "infoUri": base_url,
                 "nextUri": f"{base_url}/v1/status/{uid}",
                 "partialCancelUri": f"{base_url}/v1/cancel/{uid}",
                 "stats": _stats("QUEUED", info),
-            })
+            }, headers=self._trace_headers(tid=tid))
 
         def _do_ingest(self):
             """POST /v1/ingest: one WAL-committed append per request.
@@ -1040,10 +1175,20 @@ def _make_handler(state: _AppState, base_url: str):
             mismatch, 503 while draining."""
             _tel.inc("server_ingest_requests")
             uid = str(uuid_mod.uuid4())
+            tid = None
+            if _events_on():
+                from ..runtime import events as _ev
+                tid = self._req_trace() or _ev.mint_trace_id()
 
             def reject(e: _res.AdmissionRejected) -> None:
                 hdrs = {"Retry-After":
                         str(max(int(math.ceil(e.retry_after_s)), 1))}
+                hdrs.update(self._trace_headers(tid=tid) or {})
+                if tid:
+                    from ..runtime import events as _ev
+                    _ev.publish("server.rejected", trace=tid,
+                                error=type(e).__name__,
+                                retry_after_s=round(e.retry_after_s, 3))
                 self._send(submit_status(e),
                            _error_payload(str(e), uid, exc=e), headers=hdrs)
 
@@ -1120,16 +1265,22 @@ def _make_handler(state: _AppState, base_url: str):
             # a cancel can also target a spooled result mid-page
             dropped = state.drop_spool(uid)
             if fut is None and not dropped:
-                self._send(404, _error_payload("Unknown query id", uid))
+                self._send(404, _error_payload("Unknown query id", uid),
+                           headers=self._trace_headers())
                 return
+            tid = None
             if fut is not None:
                 # the cancel token stops a running query at its next
                 # checkpoint; fut.cancel() only stops one not yet started
                 if cancel is not None:
                     cancel.set()
                 fut.cancel()
+                tid = getattr(info, "trace_id", None)
+                if tid and _events_on():
+                    from ..runtime import events as _ev
+                    _ev.publish("server.cancel", trace=tid, id=uid)
             _tel.inc("server_cancels")
-            self._send(200, None)
+            self._send(200, None, headers=self._trace_headers(tid=tid))
 
     return Handler
 
@@ -1180,8 +1331,8 @@ def run_server(context=None, host: str = "0.0.0.0", port: int = 8080,
         logging.basicConfig(level=log_level)
     from ..context import Context
 
-    # the JAX package arms its fleet plane here, and its event bus adds
-    # trace headers and a route
+    # the JAX package arms its fleet plane here (with its autopilot and
+    # program store, not ported)
     refuse()
     context = context or Context()
     mesh = getattr(context, "mesh", None)

@@ -18,7 +18,12 @@ Modes:
   ``partial_agg.py`` and ``distributed.py`` on seeded inputs
   (``collective_inputs``, shared with the test); writes ``<out>.npz``;
 - ``errors``: a stage that raises on every rank, then one that raises on
-  ``bad_rank`` only; writes ``<out>.json`` with what each query did.
+  ``bad_rank`` only; writes ``<out>.json`` with what each query did;
+- ``profile``: ``DSQL_PROFILE`` armed on the ranks of ``profile_ranks``
+  only, then each SQL of ``queries``; writes ``<out>.json`` with, per
+  query, the tier and each ``spmd_stage`` span's skew probe
+  (``shard_rows``, ``shard_first``, ``skew_ratio``), and ``<out>.npz``
+  with the answers.
 """
 import json
 import os
@@ -278,6 +283,29 @@ def apply_writes(ctx, frames: dict) -> None:
         cols, batch_rows=256), chunked=True)
 
 
+def run_profiled(ctx, cfg: dict) -> tuple:
+    """The queries of ``cfg``, this rank armed with ``DSQL_PROFILE`` when it
+    is one of ``profile_ranks``: (answers, per query its tier and stage
+    probes)."""
+    if cfg["rank"] in cfg["profile_ranks"]:
+        os.environ["DSQL_PROFILE"] = "1"
+    else:
+        os.environ.pop("DSQL_PROFILE", None)
+    arrays, report = {}, {}
+    for name, sql in cfg["queries"].items():
+        df = ctx.sql(sql, return_futures=False)
+        stages, tier = [], None
+        for s in ctx.last_report.root.walk():
+            tier = tier or s.attrs.get("tier")
+            if s.name == "spmd_stage":
+                stages.append({k: s.attrs.get(k) for k in (
+                    "index", "shard_rows", "shard_first", "skew_ratio")})
+        report[name] = {"tier": tier, "stages": stages}
+        for col, a in answer_arrays(df).items():
+            arrays[f"{name}/{col}"] = a
+    return arrays, report
+
+
 def run_errors(ctx, cfg: dict) -> dict:
     """What each query does when the walker raises: on every rank (all fall
     back), then on ``bad_rank`` only (every rank raises ``RankError``),
@@ -351,6 +379,9 @@ def main(path: str) -> int:
             apply_writes(ctx, frames)
             more, info["writes"] = run_queries(ctx, WRITE_QUERIES)
             np.savez(out + ".npz", **arrays, **more)
+        elif cfg["mode"] == "profile":
+            arrays, info["profile"] = run_profiled(ctx, cfg)
+            np.savez(out + ".npz", **arrays)
         else:
             info["errors"] = run_errors(ctx, cfg)
     with open(out + ".json", "w") as f:

@@ -235,11 +235,8 @@ def test_server_round_trip_without_pandas():
 
 
 @pytest.mark.parametrize("variable,module", [
-    ("DSQL_EVENTS", "runtime/events.py"),
     ("DSQL_FLEET_DIR", "runtime/fleet.py"),
     ("DSQL_AUTOPILOT", "runtime/autopilot.py"),
-    ("DSQL_HISTORY_FILE", "runtime/flight_recorder.py"),
-    ("DSQL_PROFILE", "runtime/profiler.py"),
     ("DSQL_PROGRAM_STORE", "runtime/program_store.py"),
 ])
 def test_armed_unported_subsystems_raise(monkeypatch, tmp_path, variable,
@@ -263,6 +260,107 @@ def test_armed_unported_subsystems_raise(monkeypatch, tmp_path, variable,
             c.sql("SELECT SUM(a) AS s FROM t")
     with pytest.raises(NotImplementedError, match=module):
         run_server(context=c, host="127.0.0.1", port=0, blocking=False)
+
+
+def test_unported_list_holds_the_three_left():
+    from dask_sql_tpu_torch.runtime import gates
+
+    assert set(gates.UNPORTED) == {"DSQL_FLEET_DIR", "DSQL_AUTOPILOT",
+                                   "DSQL_PROGRAM_STORE"}
+
+
+@pytest.mark.parametrize("variable,module", [
+    ("DSQL_EVENTS", "events"),
+    ("DSQL_HISTORY_FILE", "flight_recorder"),
+    ("DSQL_PROFILE", "profiler"),
+])
+def test_armed_observability_runs(monkeypatch, tmp_path, variable, module):
+    """Each observability variable arms its ported module: the query runs
+    and leaves its mark there (an event, an envelope, a sample), and the
+    server starts with it armed."""
+    import importlib
+
+    import numpy as np
+
+    from dask_sql_tpu_torch import Context, run_server
+
+    monkeypatch.setenv(variable, str(tmp_path / "hist.jsonl")
+                       if variable == "DSQL_HISTORY_FILE" else "1")
+    c = Context(device="cpu")
+    c.create_table("t", {"a": np.arange(3)})
+    mod = importlib.import_module(f"dask_sql_tpu_torch.runtime.{module}")
+    samples = mod.snapshots() if module == "profiler" else None
+    assert c.sql("SELECT SUM(a) AS s FROM t").to_pylist() == [[3]]
+    assert f"dask_sql_tpu_torch.runtime.{module}" in sys.modules
+    if module == "events":
+        assert c.last_report.trace_id
+        done = [e for e in mod.get_bus().snapshot()
+                if e["type"] == "query.done"
+                and e["trace"] == c.last_report.trace_id]
+        assert done and done[0]["rows_out"] == 1
+    elif module == "flight_recorder":
+        (env,) = mod.read_events(kind="query")
+        assert env["outcome"] == "ok" and env["rows_out"] == 1
+    else:
+        assert len(mod.snapshots()) > len(samples)
+    srv = run_server(context=c, host="127.0.0.1", port=0, blocking=False)
+    try:
+        assert srv.server_port > 0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+_UNARMED = """
+import json, sys
+import numpy as np
+from dask_sql_tpu_torch import Context
+c = Context(device="cpu")
+c.create_table("t", {"a": np.arange(4)})
+assert c.sql("SELECT SUM(a) AS s FROM t").to_pylist() == [[6]]
+c.sql("EXPLAIN PROFILE SELECT SUM(a) AS s FROM t")
+print(json.dumps(sorted(m for m in sys.modules if m.split(".")[-1] in (
+    "events", "flight_recorder", "profiler") and m.startswith("dask_sql"))))
+"""
+
+
+def test_unarmed_query_loads_none_of_the_three():
+    """With DSQL_EVENTS, DSQL_HISTORY_FILE and DSQL_PROFILE unset a query
+    (and an EXPLAIN PROFILE, which then only prints the plan) never
+    imports runtime/events.py, flight_recorder.py or profiler.py."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DSQL_EVENTS", "DSQL_HISTORY_FILE", "DSQL_PROFILE")}
+    env.update(DSQL_TIERED="0", CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", _UNARMED], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=env, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+_JAX_UNARMED = """
+import sys
+from dask_sql_tpu import Context
+c = Context()
+c.create_table('t', {'a': [1, 2, 3]})
+assert c.sql('SELECT SUM(a) AS s FROM t').to_pylist() == [[6]]
+print(sorted(m for m in sys.modules if m in (
+    'dask_sql_tpu.runtime.events', 'dask_sql_tpu.runtime.profiler')))
+"""
+
+
+def test_jax_package_unarmed_query_loads_neither():
+    """The JAX package's own rule, which the port keeps for all three
+    modules (above): an unarmed query loads neither the bus nor the
+    profiler.  (Its workload manager imports the
+    flight recorder for the estimate ladder whatever the variable says;
+    the port checks the variable first.)"""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DSQL_")}
+    env["JAX_PLATFORMS"] = "cpu"
+    proc = subprocess.run([sys.executable, "-c", _JAX_UNARMED], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_ingest_dir_arms_the_ported_log(monkeypatch, tmp_path):

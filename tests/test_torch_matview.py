@@ -574,14 +574,27 @@ def test_duplicate_name_checks():
     pair.raises("REFRESH MATERIALIZED VIEW nope", JaxUserError, UserError)
 
 
-def test_events_armed_refuses_the_refresh(monkeypatch):
-    """The JAX package publishes each refresh on its event bus; the port
-    has no bus and refuses an armed DSQL_EVENTS where it would publish."""
-    c = Context(device=CPU)
-    c.create_table("t", _tiny())
-    c.sql("CREATE MATERIALIZED VIEW v AS SELECT SUM(x) AS s FROM t")
-    c.append_rows("t", [("z", 9.0, 9)])
+def test_refresh_publishes_the_jax_packages_mv_events(monkeypatch):
+    """With DSQL_EVENTS armed an incremental and a full refresh publish the
+    same ``mv.refresh`` events (view, mode, reason) in both packages."""
+    from dask_sql_tpu.runtime import events as jax_ev
+    from dask_sql_tpu_torch.runtime import events as port_ev
+
     monkeypatch.setenv("DSQL_EVENTS", "1")
-    # the refresh itself (a query would be refused by its trace first)
-    with pytest.raises(NotImplementedError, match="runtime/events.py"):
-        port_mv.refresh_matview(c, ["v"])
+    got = []
+    for ctx, mv, ev in ((JaxContext(), jax_mv, jax_ev),
+                        (Context(device=CPU), port_mv, port_ev)):
+        ev._reset_for_tests()
+        ctx.create_table("t", _tiny())
+        ctx.sql("CREATE MATERIALIZED VIEW v AS SELECT SUM(x) AS s FROM t")
+        ctx.sql("CREATE MATERIALIZED VIEW w AS SELECT k, MAX(x) AS m "
+                "FROM t GROUP BY k")
+        ctx.append_rows("t", [("z", 9.0, 9)])
+        mv.refresh_matview(ctx, ["v"])
+        mv.refresh_matview(ctx, ["w"])
+        got.append([{k: e.get(k) for k in ("view", "mode", "reason")}
+                    for e in ev.get_bus().snapshot()
+                    if e["type"].startswith("mv.")])
+        ev._reset_for_tests()
+    assert got[0] == got[1]
+    assert {e["mode"] for e in got[1]} >= {"incremental"}

@@ -325,7 +325,6 @@ def test_explain_analyze_lists_the_choices_it_took(contexts, monkeypatch):
      "CREATE EXPERIMENT"),
     ("EXPORT MODEL m WITH (format = 'pickle', location = 'm.pkl')",
      "EXPORT MODEL"),
-    ("EXPLAIN PROFILE SELECT a FROM t", "EXPLAIN PROFILE"),
 ])
 def test_unported_statements_name_themselves(sql, name):
     pc = Context(device=CPU)
