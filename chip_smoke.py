@@ -299,6 +299,46 @@ the compiled tier first.
    ``kernels`` line carries 19(a)'s Q1 launches as
    ``launches_profiled_q1``.
 
+20. the system schema, the autopilot and the fleet plane (last;
+   ``runtime/{system_tables,autopilot,fleet}.py``), on a new Context over
+   phase 3's encoded tables on the default path, its files under
+   ``build/phase20``.  (a) Every one of the 18 ``system.*`` tables binds
+   and runs on the card; ``system.devices``' row of the card equals the
+   caching allocator's reading (bytes in use, peak) and its total memory;
+   ``system.table_stats`` of lineitem equals a CPU context's over the same
+   table; ``system.mesh`` lists the card, and a four-shard mesh's
+   placement.  (b) The autopilot (``DSQL_AUTOPILOT=1``, explicit ticks,
+   two hits, the history armed, the result cache on): Q1 with its
+   whitespace collapsed (470 characters; the history cuts a text at 500
+   and the autopilot skips a cut one, so Q1 as written never
+   materializes) three times, then a tick makes ``auto_mv_<fp[:12]>``;
+   after one RF1 (phase 16's generator) the next Q1 is served from the
+   view after an incremental refresh, kernel 1 launching twice (the
+   delta's partial and the merge), equal to a direct Q1 with
+   ``DSQL_AUTOPILOT=0`` (ints, strings and counts exact, doubles within
+   1e-12: the view's partial sums are doubles, so a merged sum is rounded
+   twice; the cells that differ in their last bits are counted); after a
+   second RF1 a tick refreshes the view (two launches) and Q1 is served
+   as it stands; then the daemon at 50 ms beside a tiering build of Q16
+   while RF1s land: the build lands with no error (its capture retries
+   reported), the daemon refreshes the view, and the served Q1 equals a
+   direct one.  (c) Q14 on a four-shard mesh of the card with
+   ``DSQL_PROFILE`` and ``DSQL_AUTOPILOT_SKEW=1.0``: the first run records
+   a hint that flips its SPMD join, the next takes the other join with
+   stage programs captured anew (the hint is in the stage key), answers
+   equal (doubles rtol 1e-9), a third replays them, and both verdicts are
+   journaled.
+   (e) Q1-Q22 three times each with ``DSQL_PROFILE`` and the autopilot
+   armed: the hints recorded, applied and reverted (``autopilot
+   hints:``).  (d), last: the fleet armed, a server on the card and a
+   child replica (this script with ``--replica``) on the same card at SF
+   0.01: both heartbeats alive, ``/v1/fleet`` and ``system.replicas`` show
+   two replicas, ``system.events`` and ``system.queries`` merge both; the
+   child killed with SIGKILL ages out after the TTL.  ``system table:``,
+   ``autopilot table:``, ``replan table:``, ``autopilot hints:``, ``fleet
+   table:`` and ``system summary:`` lines; the ``kernels`` line carries
+   (b)'s served Q1's kernel-1 launches as ``launches_autopilot``.
+
 The last two lines are a JSON object ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints neither.
@@ -4127,10 +4167,18 @@ def obs_sampler(ctx, answers: dict) -> dict:
     Then ``Context.profile(Q6)`` called while the same build runs: it
     waits for the build, which lands with no error and no retry."""
     from dask_sql_tpu_torch.runtime import profiler as prof
+    from dask_sql_tpu_torch.runtime import telemetry as tel
 
     os.environ["DSQL_PROFILE_SAMPLE_MS"] = "10"
     try:
         prof.ensure_sampler()
+        # the sampler may still sleep out its last interval (500 ms by
+        # default): the build starts once it samples at 10 ms
+        n0 = tel.REGISTRY.get("profile_samples", 0)
+        deadline = time.monotonic() + 5
+        while tel.REGISTRY.get("profile_samples", 0) < n0 + 2 \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
         got, first, second = _background_build(ctx, 3)
     finally:
         os.environ.pop("DSQL_PROFILE_SAMPLE_MS", None)
@@ -5846,6 +5894,621 @@ def phase_multiprocess(dev, base: dict, answers: dict, sf: float,
     return {"world1": world1, "cards": cards}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the system schema, the autopilot and the fleet plane
+# (runtime/{system_tables,autopilot,fleet}.py)
+# ---------------------------------------------------------------------------
+
+SYS_DIR = os.path.join("build", "phase20")
+#: the autopilot's query: Q1 with its whitespace collapsed (470
+#: characters).  The history keeps a text's first 500 characters and the
+#: autopilot never acts on a cut text, so Q1 as written (636) never
+#: materializes, in either package
+AP_Q1 = " ".join(QUERIES[1].split())
+#: 20(b): the autopilot with explicit ticks, a candidate at two hits, the
+#: result cache on (it holds the view's state), the history under SYS_DIR
+AP_ENV = {"DSQL_AUTOPILOT": "1", "DSQL_AUTOPILOT_INTERVAL_S": "0",
+          "DSQL_AUTOPILOT_MIN_HITS": "2", "DSQL_RESULT_CACHE_MB": "2048"}
+#: 20(b): the daemon's interval beside the tiering build, the query that
+#: builds (Q16 scans neither orders nor lineitem, so the appends leave its
+#: program's inputs as they are), and the RF1 appends made while it builds
+#: (each a refresh for the daemon)
+AP_DAEMON_S = "0.05"
+AP_BUILD_QUERY = 16
+AP_DAEMON_APPENDS = 3
+#: 20(c): the query re-planned on the SPMD path (a broadcast join of
+#: lineitem and part), and its forced skew: any shard skew trips the hint
+#: (max/mean >= 1)
+AP_REPLAN_QUERY = 14
+AP_FORCED_SKEW = "1.0"
+#: 20(d): the heartbeat's interval (the TTL is three of them) and the
+#: child replica's scale
+FLEET_BEAT_S = "0.2"
+FLEET_CHILD_SF = 0.01
+FLEET_CHILD_LIMIT_S = 300.0
+
+
+class _Env:
+    """Set environment variables (None: unset) for a block, then restore
+    them as they were."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        self.prev = {k: os.environ.get(k) for k in self.env}
+        for k, v in self.env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _stats_rows(ctx, table: str) -> list:
+    """``system.table_stats``' rows of one table, collected_ms masked."""
+    res = ctx.sql("SELECT * FROM system.table_stats")
+    i = res.names.index("collected_ms")
+    return [r[:i] + r[i + 1:] for r in res.to_pylist() if r[1] == table]
+
+
+def sys_tables(dev, ctx) -> dict:
+    """20(a): every ``system.*`` table binds and runs on the card; the
+    card's row of ``system.devices`` equal to the allocator's reading and
+    its total memory; ``system.table_stats`` for lineitem equal to a CPU
+    context's over the same table; ``system.mesh`` lists the card, in a
+    four-shard mesh's placement too."""
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.parallel.mesh import Mesh
+    from dask_sql_tpu_torch.runtime import system_tables as st
+
+    walls, rows = {}, {}
+    for name in st.TABLE_NAMES:
+        out = {}
+        walls[name] = wall_ms(lambda: out.setdefault(
+            "r", ctx.sql(f"SELECT * FROM system.{name}")))
+        if out["r"].num_columns == 0:
+            raise AssertionError(f"20(a) system.{name}: no columns")
+        rows[name] = out["r"].num_rows
+    i = torch.cuda.current_device()
+    torch.cuda.synchronize()
+    in_use = torch.cuda.memory_stats(i)["allocated_bytes.all.current"]
+    dev_rows = st.build("devices", ctx).to_pylist()
+    want = [i, "gpu", torch.cuda.get_device_name(i), in_use,
+            torch.cuda.memory_stats(i)["allocated_bytes.all.peak"],
+            torch.cuda.get_device_properties(i).total_memory]
+    if len(dev_rows) != torch.cuda.device_count() or dev_rows[i] != want:
+        raise AssertionError(f"20(a) system.devices: {dev_rows} != {want}")
+    sql_rows = ctx.sql("SELECT * FROM system.devices").to_pylist()
+    if sql_rows[i][:3] != want[:3] or sql_rows[i][5] != want[5] \
+            or not 0 < sql_rows[i][3] <= sql_rows[i][4]:
+        raise AssertionError(f"20(a) system.devices by SQL: {sql_rows}")
+    t0 = time.perf_counter()
+    cpu = Context(device=torch.device("cpu"))
+    cpu.create_table("lineitem", ctx.schema["root"].tables["lineitem"].table)
+    card_stats, cpu_stats = _stats_rows(ctx, "lineitem"), \
+        _stats_rows(cpu, "lineitem")
+    if not card_stats or card_stats != cpu_stats:
+        raise AssertionError(f"20(a) system.table_stats: {card_stats} != "
+                             f"{cpu_stats}")
+    stats_s = time.perf_counter() - t0
+    del cpu
+    mesh_rows = ctx.sql("SELECT * FROM system.mesh").to_pylist()
+    if [r[:3] for r in mesh_rows] != [
+            [d, "gpu", torch.cuda.get_device_name(d)]
+            for d in range(torch.cuda.device_count())]:
+        raise AssertionError(f"20(a) system.mesh: {mesh_rows}")
+    mctx = Context(mesh=Mesh([f"cuda:{i}"] * MESH_SHARDS))
+    placed = mctx.sql("SELECT device_id, in_mesh, mesh_axes, mesh_size "
+                      "FROM system.mesh").to_pylist()
+    if [i, True, f"data:{MESH_SHARDS}", MESH_SHARDS] not in placed:
+        raise AssertionError(f"20(a) system.mesh of a mesh: {placed}")
+    del mctx
+    out = {"rows": rows, "ms": walls, "device_row": dev_rows[i],
+           "lineitem_stats_columns": len(card_stats),
+           "stats_equal_s": stats_s}
+    print("system table: " + json.dumps(out))
+    return out
+
+
+def _rf1_append(ctx, sf: float, rng, first_key: int) -> int:
+    orders, lineitem = rf1(sf, rng, first_key)
+    ctx.append_rows("orders", orders)
+    ctx.append_rows("lineitem", lineitem)
+    return int(orders["o_orderkey"][-1]) + 4
+
+
+def _ap_counters() -> dict:
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+
+    c = tel.REGISTRY.counters()
+    return {k: c.get(k, 0) for k in (
+        "autopilot_mv_serves", "autopilot_mv_refreshes",
+        "autopilot_mv_creates", "mv_refresh_incremental", "mv_refresh_full",
+        "background_compiles_done", "background_compile_errors",
+        "background_capture_retries")}
+
+
+def _moved(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _ap_counters().items()}
+
+
+def _view_stale(ctx, view: str) -> bool:
+    reg = ctx._matview_registry
+    mv = reg.views[("root", view)]
+    with reg.lock:
+        kind, _ = reg._staleness(ctx, mv)
+    return kind != "fresh"
+
+
+#: 20(b): a served Q1 against a direct one.  The view keeps each SUM's
+#: partial as a double, so a merged sum is rounded twice (the state's, then
+#: the merge's) where the direct query rounds the exact total once: a
+#: double may differ in its last bits (not bit for bit), and is held to
+#: this relative bound; ints, strings and counts are exact
+AP_SERVED_RTOL = 1e-12
+
+
+def _served_equal(name: str, got, want) -> dict:
+    """``got`` against ``want`` as ``check_same_result`` holds them at
+    ``AP_SERVED_RTOL``; returns the doubles that are not bit for bit equal
+    and their largest relative difference."""
+    check_same_result(name, got, want, AP_SERVED_RTOL)
+    cells, worst = 0, 0.0
+    for g, w in zip(got.columns, want.columns):
+        gv, wv = g.to_numpy(), w.to_numpy()
+        if wv.dtype.kind != "f":
+            continue
+        diff = gv.view(np.int64) != wv.view(np.int64)
+        cells += int(diff.sum())
+        if diff.any():
+            worst = max(worst, float(np.max(np.abs(gv[diff] - wv[diff])
+                                            / np.abs(wv[diff]))))
+    return {"doubles_not_bit_equal": cells, "max_rel_diff": worst}
+
+
+def _direct_q1(ctx):
+    """Q1 with the autopilot off, past the result cache: a direct run."""
+    with _Env(DSQL_AUTOPILOT="0"):
+        out, ms = _direct_ms(ctx, AP_Q1)
+    return out, ms
+
+
+def _served(ctx) -> tuple:
+    """(result, wall ms, launches, counters moved) of Q1 served by the
+    autopilot, the launch counts set to 0 before it and read after it."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    gk.reset_launch_counts()
+    before = _ap_counters()
+    out = {}
+    ms = wall_ms(lambda: out.setdefault("r", ctx.sql(AP_Q1)))
+    launches = dict(gk.LAUNCHES)
+    return out["r"], ms, launches, _moved(before)
+
+
+def ap_views(ctx, sf: float, seed: int) -> dict:
+    """20(b): Q1's collapsed text three times, then a tick makes
+    ``auto_mv_<fp>``; after one RF1 the next Q1 is served from the view
+    after an incremental refresh (two kernel-1 launches: the delta's
+    partial and the merge), equal to a direct Q1 (``_served_equal``);
+    after a second RF1 a tick refreshes the view (two launches) and Q1 is
+    served from it as it stands.  Then the daemon at ``AP_DAEMON_S``
+    beside a tiering build of Q16 while RF1s land: the build lands, the
+    daemon refreshes, and the served Q1 equals a direct one."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+    from dask_sql_tpu_torch.runtime import autopilot as ap
+
+    rng = np.random.RandomState(seed + 20)
+    first_key = int(ctx.sql("SELECT MAX(o_orderkey) AS m FROM orders")
+                    .to_pylist()[0][0]) + 4
+    runs = [wall_ms(lambda: ctx.sql(AP_Q1)) for _ in range(3)]
+    before = _ap_counters()
+    create_ms = wall_ms(lambda: ap.tick(ctx))
+    made = ap.engine_section()["managedViews"]
+    (rec,) = [r for r in ap.journal_rows() if r["action"] == "mv_create"]
+    view = f"auto_mv_{rec['fingerprint'][:12]}"
+    if made != [view] or _moved(before)["autopilot_mv_creates"] != 1:
+        raise AssertionError(f"20(b): the tick made {made}, not {view}")
+    out = {"q1_ms": runs, "create_ms": create_ms, "view": view,
+           "fingerprint": rec["fingerprint"], "view_bytes": rec["bytes"]}
+    # (1) an RF1, then Q1 served after an incremental refresh
+    first_key = _rf1_append(ctx, sf, rng, first_key)
+    served, ms, launches, moved = _served(ctx)
+    if moved["autopilot_mv_serves"] != 1 \
+            or moved["mv_refresh_incremental"] != 1 \
+            or moved["mv_refresh_full"] != 0 \
+            or launches.get("segsum_fixedpoint", 0) != 2:
+        raise AssertionError(f"20(b) served after RF1: {moved}, {launches}")
+    direct, direct_ms = _direct_q1(ctx)
+    out.update(served_refresh_ms=ms, served_launches=launches,
+               direct_ms=direct_ms,
+               served_vs_direct=_served_equal("20(b) served Q1", served,
+                                              direct))
+    # (2) an RF1, a tick refreshes the view, Q1 served as it stands
+    first_key = _rf1_append(ctx, sf, rng, first_key)
+    gk.reset_launch_counts()
+    before = _ap_counters()
+    refresh = {}
+    out["tick_refresh_ms"] = wall_ms(lambda: refresh.setdefault(
+        "r", ap.tick(ctx)))
+    tick_launches = dict(gk.LAUNCHES)
+    if refresh["r"].get("refreshed") != 1 \
+            or _moved(before)["mv_refresh_incremental"] != 1 \
+            or tick_launches.get("segsum_fixedpoint", 0) != 2:
+        raise AssertionError(f"20(b) tick refresh: {refresh['r']}, "
+                             f"{tick_launches}")
+    served, ms, launches, moved = _served(ctx)
+    if moved["autopilot_mv_serves"] != 1 \
+            or moved["mv_refresh_incremental"] != 0:
+        raise AssertionError(f"20(b) served fresh: {moved}")
+    direct, direct_ms = _direct_q1(ctx)
+    out.update(tick_launches=tick_launches, served_fresh_ms=ms,
+               served_fresh_launches=launches, direct2_ms=direct_ms,
+               served_fresh_vs_direct=_served_equal(
+                   "20(b) served Q1 after the tick", served, direct))
+    # (3) the daemon beside a tiering background build, RF1s landing
+    before = _ap_counters()
+    appended = [0]
+
+    def during():
+        nonlocal first_key
+        if appended[0] < AP_DAEMON_APPENDS:
+            first_key = _rf1_append(ctx, sf, rng, first_key)
+            appended[0] += 1
+        time.sleep(0.01)
+
+    # only refreshes: no new candidate materializes on the daemon thread
+    with _Env(DSQL_AUTOPILOT_INTERVAL_S=AP_DAEMON_S,
+              DSQL_AUTOPILOT_MIN_HITS="1000000"):
+        # Q16's first arrival (eager, its build on a thread of tiering's)
+        # starts the autopilot's daemon too
+        build, _, _ = _background_build(ctx, AP_BUILD_QUERY, during=during)
+        deadline = time.monotonic() + 60
+        while _view_stale(ctx, view) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        daemon_alive = ap._DAEMON is not None and ap._DAEMON.is_alive()
+    # the interval back at 0: the daemon's loop ends
+    deadline = time.monotonic() + 10
+    while ap._DAEMON is not None and time.monotonic() < deadline:
+        time.sleep(0.05)
+    moved = _moved(before)
+    if not daemon_alive or ap._DAEMON is not None:
+        raise AssertionError("20(b): the daemon did not run, or did not "
+                             "stop")
+    if build["background_compile_errors"] or \
+            build["background_compiles_done"] < 1 or \
+            moved["autopilot_mv_refreshes"] < 1:
+        raise AssertionError(f"20(b) daemon beside the build: {build}, "
+                             f"{moved}")
+    served, ms, launches, moved2 = _served(ctx)
+    direct, _ = _direct_q1(ctx)
+    out.update(daemon=dict(build, appends=appended[0],
+                           daemon_refreshes=moved["autopilot_mv_refreshes"],
+                           served_ms=ms,
+                           refreshed_at_serve=moved2["mv_refresh_incremental"],
+                           served_vs_direct=_served_equal(
+                               "20(b) served Q1 after the daemon", served,
+                               direct)))
+    print("autopilot table: " + json.dumps(out))
+    return out
+
+
+def _new_captures(report) -> int:
+    """CUDA graphs captured during a query (its report's counters)."""
+    return report.counters.get("graph_captures", 0)
+
+
+def ap_replan(base: dict) -> dict:
+    """20(c): a forced-skew re-plan on the SPMD path.  Q14 on a four-shard
+    mesh of the card (phase 17's placement; lineitem and part) with
+    ``DSQL_PROFILE`` (the stages' skew probe), ``DSQL_AUTOPILOT_SKEW`` at
+    1.0 and the result cache off: the first run (a broadcast join)
+    records a hint that flips the join; the next run takes the other
+    join, records and captures its stage programs anew (the hint is part
+    of the stage key: a new capture, never a replay of the unhinted
+    graph), and answers equal to the first (ints exact, doubles rtol
+    1e-9: the join feeds the sums in another order); a third replays the
+    hinted programs; each hinted run's verdict is journaled."""
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.parallel.mesh import Mesh
+    from dask_sql_tpu_torch.runtime import autopilot as ap
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+
+    dev = base["lineitem"].columns[0].data.device
+    mctx = Context(mesh=Mesh([dev] * MESH_SHARDS))
+    for name in ("lineitem", "part"):
+        mctx.create_table(name, base[name])
+    runs = []
+    with _Env(DSQL_PROFILE="1", DSQL_AUTOPILOT_SKEW=AP_FORCED_SKEW,
+              DSQL_RESULT_CACHE_MB="0", DSQL_MESH=None):
+        for _ in range(3):
+            res = {}
+            c0 = tel.REGISTRY.get("spmd_compiles", 0)
+            ms = wall_ms(lambda: res.setdefault(
+                "r", mctx.sql(QUERIES[AP_REPLAN_QUERY])))
+            rep = mctx.last_report
+            runs.append({
+                "ms": ms, "result": res["r"], "tier": rep.tier,
+                "join": [o.split(" ", 1)[0] for o in rep.operators
+                         if o.startswith("spmd_join=")],
+                "spmd_compiles": tel.REGISTRY.get("spmd_compiles", 0) - c0,
+                "captures": _new_captures(rep),
+                "replays": rep.counters.get("graph_replays", 0),
+                "hinted": any(s.attrs.get("autopilot_hinted")
+                              for s in rep.root.walk()),
+                "skew": rep.skew_ratio})
+    print("replan runs: " + json.dumps([
+        {k: v for k, v in r.items() if k != "result"} for r in runs]))
+    recs = [r for r in ap.journal_rows() if r["action"] == "hint_record"]
+    if len(recs) != 1 or not recs[0]["trigger"].startswith("skew_ratio="):
+        raise AssertionError(f"20(c): hint records {recs}")
+    fp = recs[0]["fingerprint"]
+    hint = ap.get_hint(fp)["hints"]
+    first, hinted, again = runs
+    flipped = {"spmd_join=broadcast": "exchange",
+               "spmd_join=exchange": "broadcast"}.get(
+                   (first["join"] or [""])[0])
+    if any(r["tier"] != "spmd" for r in runs) or flipped is None \
+            or hint.get("join") != flipped or not hinted["hinted"] \
+            or hinted["join"] != [f"spmd_join={flipped}"] \
+            or hinted["spmd_compiles"] < 1 or hinted["captures"] < 1 \
+            or again["captures"] or again["join"] != hinted["join"]:
+        raise AssertionError(f"20(c): hint {hint}; runs {runs}")
+    for r in (hinted, again):
+        check_same_result("20(c) hinted Q14", r["result"], first["result"],
+                          1e-9)
+    verdicts = [r for r in ap.journal_rows()
+                if r["fingerprint"] == fp
+                and r["action"] in ("hint_verdict", "hint_strike",
+                                    "hint_revert")]
+    if len(verdicts) != 2:
+        raise AssertionError(f"20(c): verdicts {verdicts}")
+    out = {"query": AP_REPLAN_QUERY, "fingerprint": fp,
+           "trigger": recs[0]["trigger"], "hint": hint,
+           "verdicts": [(v["action"], v["verdict"]) for v in verdicts],
+           "runs": [{k: v for k, v in r.items() if k != "result"}
+                    for r in runs]}
+    print("replan table: " + json.dumps(out))
+    del mctx
+    return out
+
+
+def ap_hint_pass(ctx) -> dict:
+    """20(e): Q1-Q22 three times each with ``DSQL_PROFILE`` and the
+    autopilot armed (every program dropped first, so that each build
+    counts its cost; the result cache off, so that every run is a
+    sample): the hints recorded, applied, struck and reverted."""
+    from dask_sql_tpu_torch.runtime import autopilot as ap
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+
+    names = ("autopilot_hints_recorded", "autopilot_hints_applied",
+             "autopilot_hints_reverted")
+    c0 = {k: tel.REGISTRY.get(k, 0) for k in names}
+    # the managed view would answer Q1 (its plan is the view's): forgotten,
+    # every query executes
+    for view in ap.engine_section()["managedViews"]:
+        ctx.sql(f"DROP MATERIALIZED VIEW {view}")
+    ap._reset_for_tests()
+    forget_programs()
+    cost_err, query_of = {}, {}
+    t0 = time.perf_counter()
+    # a hint file of its own: (c)'s Q14 hint would apply to this Q14
+    hints = os.path.abspath(os.path.join(SYS_DIR, "hint-pass.json"))
+    with _Env(DSQL_PROFILE="1", DSQL_RESULT_CACHE_MB="0",
+              DSQL_AUTOPILOT_FILE=hints):
+        for q in sorted(QUERIES):
+            for _ in range(3):
+                ctx.sql(QUERIES[q])
+            rep = ctx.last_report
+            cost_err[q] = rep.cost_err
+            for s in rep.root.walk():
+                if "plan_fp" in s.attrs:
+                    query_of[s.attrs["plan_fp"]] = q
+    journal = ap.journal_rows()
+    acts = [r["action"] for r in journal]
+    out = {k: tel.REGISTRY.get(k, 0) - v for k, v in c0.items()}
+    out.update(strikes=acts.count("hint_strike"),
+               verdicts=acts.count("hint_verdict"),
+               seconds=time.perf_counter() - t0,
+               hints={f"Q{query_of.get(r['fingerprint'], '?')}":
+                      [r["trigger"], json.loads(r["detail"] or "{}")]
+                      for r in journal if r["action"] == "hint_record"},
+               reverted=[f"Q{query_of.get(r['fingerprint'], '?')}"
+                         for r in journal if r["action"] == "hint_revert"],
+               cost_err={q: v for q, v in cost_err.items()})
+    print("autopilot hints: " + json.dumps(out))
+    forget_programs()
+    return out
+
+
+def fleet_replica(args) -> int:
+    """20(d)'s child replica, started by ``fleet_plane`` as
+    ``chip_smoke.py --replica RID``: a Context on the card (which arms the
+    fleet: ``DSQL_FLEET_DIR`` and ``DSQL_REPLICA_ID`` come from the
+    parent), TPC-H at ``--sf``, Q1 and Q6 against the numpy oracles, a
+    heartbeat, then ``ready`` on stdout and a wait until it is killed (at
+    most ``FLEET_CHILD_LIMIT_S``)."""
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.runtime import fleet
+
+    dev = torch.device(args.device or "cuda")
+    tables = generate_tpch(args.sf, args.seed)
+    ctx = Context(device=dev)
+    for name, cols in tables.items():
+        ctx.create_table(name, cols)
+    for q, oracle in ((1, oracle_q1), (6, oracle_q6)):
+        res = ctx.sql(QUERIES[q])
+        check_answer(f"20(d) child Q{q}", {n: c.to_numpy().tolist()
+                                            for n, c in zip(res.names,
+                                                            res.columns)},
+                     oracle(tables["lineitem"]))
+    fleet.write_heartbeat_now()
+    print("ready " + fleet.replica_id(), flush=True)
+    time.sleep(FLEET_CHILD_LIMIT_S)
+    return 0
+
+
+def _fleet_alive(base: str) -> dict:
+    status, _, body = _http("GET", f"{base}/v1/fleet")
+    if status != 200:
+        raise AssertionError(f"20(d) /v1/fleet: {status}")
+    snap = json.loads(body)
+    return {r["replica"]: bool(r["alive"]) for r in snap["replicas"]}
+
+
+def fleet_plane(ctx, sf: float, seed: int) -> dict:
+    """20(d), last: the fleet armed (its directory under SYS_DIR, beats of
+    ``FLEET_BEAT_S``), a server on the card, and a child replica of the
+    port on the same card at ``FLEET_CHILD_SF``: both heartbeats alive,
+    ``/v1/fleet`` and ``system.replicas`` show two replicas,
+    ``system.events`` merges both rings; the child killed, it ages out
+    after the TTL.  The variables the fleet set are removed after."""
+    import select
+    import shutil
+    import signal
+
+    from dask_sql_tpu_torch.runtime import events, fleet
+
+    fdir = os.path.abspath(os.path.join(SYS_DIR, "fleet"))
+    shutil.rmtree(fdir, ignore_errors=True)
+    armed_vars = ("DSQL_EVENTS", "DSQL_EVENTS_FILE", "DSQL_HISTORY_FILE",
+                  "DSQL_REPLICA_ID")
+    for k in armed_vars:
+        os.environ.pop(k, None)
+    os.environ.update(DSQL_FLEET_DIR=fdir, DSQL_FLEET_BEAT_S=FLEET_BEAT_S,
+                      DSQL_REPLICA_ID="r-main")
+    fleet._reset_for_tests()
+    events._reset_for_tests()
+    t0 = time.perf_counter()
+    child = srv = None
+    try:
+        srv = ctx.run_server(host="127.0.0.1", port=0, blocking=False)
+        base = f"http://127.0.0.1:{srv.server_port}"
+        env = {k: v for k, v in os.environ.items() if k not in armed_vars}
+        env.update(DSQL_REPLICA_ID="r-child", DSQL_TIERED="0")
+        err_path = os.path.join(SYS_DIR, "child.err")
+        with open(err_path, "w") as err:
+            child = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--replica",
+                 "r-child", "--sf", str(FLEET_CHILD_SF), "--seed",
+                 str(seed)], env=env, stdout=subprocess.PIPE, stderr=err,
+                text=True)
+        ready, _, _ = select.select([child.stdout], [], [],
+                                    FLEET_CHILD_LIMIT_S)
+        line = child.stdout.readline() if ready else ""
+        if not line.startswith("ready r-child"):
+            child.kill()
+            child.wait(timeout=60)
+            with open(err_path) as f:
+                raise AssertionError(f"20(d) child: {line!r} "
+                                     f"{f.read()[-3000:]}")
+        ready_s = time.perf_counter() - t0
+        ctx.sql(AP_Q1)                # one query of this replica's own
+        alive = _fleet_alive(base)
+        reps = ctx.sql("SELECT replica, alive FROM system.replicas"
+                       ).to_pylist()
+        evs = ctx.sql("SELECT replica, type FROM system.events").to_pylist()
+        qs = ctx.sql("SELECT replica FROM system.queries").to_pylist()
+        if alive != {"r-main": True, "r-child": True} \
+                or sorted(reps) != [["r-child", True], ["r-main", True]] \
+                or {r[0] for r in evs} != {"r-main", "r-child"} \
+                or {"r-main", "r-child"} - {r[0] for r in qs}:
+            raise AssertionError(f"20(d) two replicas: {alive}, {reps}, "
+                                 f"{sorted({tuple(r) for r in evs})}")
+        t_kill = time.perf_counter()
+        child.send_signal(signal.SIGKILL)
+        child.wait(timeout=60)
+        deadline = time.monotonic() + 10 * fleet.ttl_s() + 5
+        while _fleet_alive(base).get("r-child") \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        aged_s = time.perf_counter() - t_kill
+        alive = _fleet_alive(base)
+        reps = ctx.sql("SELECT replica, alive FROM system.replicas"
+                       ).to_pylist()
+        if alive != {"r-main": True, "r-child": False} \
+                or sorted(reps) != [["r-child", False], ["r-main", True]]:
+            raise AssertionError(f"20(d) after the kill: {alive}, {reps}")
+        out = {"child_ready_s": ready_s, "aged_out_s": aged_s,
+               "ttl_s": fleet.ttl_s(), "events": len(evs),
+               "events_by_replica": {r: sum(1 for e in evs if e[0] == r)
+                                     for r in ("r-main", "r-child")},
+               "seconds": time.perf_counter() - t0}
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        fleet._reset_for_tests()
+        events._reset_for_tests()
+        for k in armed_vars + ("DSQL_FLEET_DIR", "DSQL_FLEET_BEAT_S"):
+            os.environ.pop(k, None)
+    print("fleet table: " + json.dumps(out))
+    return out
+
+
+def phase_system(dev, base: dict, sf: float, seed: int) -> dict:
+    """Phase 20, after phase 18: a new Context over phase 3's encoded
+    tables on the default path (the compiled tier first, the workload
+    manager on), (a) the system schema, (b) the autopilot's views with
+    the result cache on and its history under SYS_DIR, (c) a forced-skew
+    re-plan of an SPMD join, (e) the armed TPC-H hint pass, then (d) the
+    fleet, last, so
+    that nothing before runs with its variables.  The kernels line's
+    ``launches_autopilot`` is (b)'s served Q1 after its RF1: the launch
+    counts set to 0 just before it and read just after."""
+    import shutil
+
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.runtime import autopilot as ap
+
+    _unpin_serving()
+    os.environ.pop("DSQL_COMPILE", None)
+    shutil.rmtree(SYS_DIR, ignore_errors=True)
+    os.makedirs(SYS_DIR, exist_ok=True)
+    forget_programs()
+    t0 = time.perf_counter()
+    ctx = Context(device=dev)
+    for name, table in base.items():
+        ctx.create_table(name, table)
+    out = {"system": sys_tables(dev, ctx)}
+    t1 = time.perf_counter()
+    hist = os.path.abspath(os.path.join(SYS_DIR, "history.jsonl"))
+    try:
+        with _Env(DSQL_HISTORY_FILE=hist, **AP_ENV):
+            ap._reset_for_tests()
+            out["autopilot"] = ap_views(ctx, sf, seed)
+            t2 = time.perf_counter()
+            out["replan"] = ap_replan(base)
+            t3 = time.perf_counter()
+            out["hints"] = ap_hint_pass(ctx)
+            t4 = time.perf_counter()
+    finally:
+        ap._reset_for_tests()
+        os.environ.update(SERVING_PINS)
+    _unpin_serving()
+    out["fleet"] = fleet_plane(ctx, sf, seed)
+    os.environ.update(SERVING_PINS)
+    out["seconds"] = {"system": t1 - t0, "autopilot": t2 - t1,
+                      "replan": t3 - t2, "hints": t4 - t3,
+                      "fleet": time.perf_counter() - t4,
+                      "all": time.perf_counter() - t0}
+    print("system summary: " + json.dumps(out["seconds"]))
+    del ctx
+    forget_programs()
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--sf", type=float, default=1.0)
@@ -5854,8 +6517,11 @@ def main(argv=None) -> int:
     for flag in ("--rank", "--world", "--port"):
         p.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--device", default=None, help=argparse.SUPPRESS)
+    # phase 20(d)'s child replica, started by the script itself
+    p.add_argument("--replica", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    rehearsal = args.rank is not None and args.device == "cpu"
+    rehearsal = (args.rank is not None or args.replica is not None) \
+        and args.device == "cpu"
     if not torch.cuda.is_available() and not rehearsal:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -5868,6 +6534,8 @@ def main(argv=None) -> int:
 
     if args.rank is not None:
         return multiprocess_rank(args)
+    if args.replica is not None:
+        return fleet_replica(args)
     # the production default: statistics-driven dispatch, nothing forced;
     # phases 4-8 and 10-11 measure the eager executor (DSQL_COMPILE=0) as
     # they did before the compiled tier, phases 9 and 12 the compiled tier
@@ -5931,6 +6599,7 @@ def main(argv=None) -> int:
     mesh = phase_mesh(dev, base, tables, on_results, compiled_rows, args.sf,
                       args.seed)
     multi = phase_multiprocess(dev, base, on_results, args.sf, args.seed)
+    system = phase_system(dev, base, args.sf, args.seed)
     kernel1["launches"] = compiled_launches["segsum_fixedpoint"]
     kernel1["launches_out_of_core_q1"] = ooc["q1_launches"]
     kernel1["launches_write_path"] = write["launches"]["segsum_fixedpoint"]
@@ -5938,6 +6607,8 @@ def main(argv=None) -> int:
         "segsum_fixedpoint", 0)
     kernel1["launches_multiprocess"] = multi["world1"]["kernel1_launches"]
     kernel1["launches_profiled_q1"] = observability["q1_launches"]
+    kernel1["launches_autopilot"] = system["autopilot"]["served_launches"].get(
+        "segsum_fixedpoint", 0)
     print(f"card: {card}")
     print(json.dumps({"kernels": [kernel1, kernel2]}))
     print(json.dumps({"ok": True, "device": {

@@ -36,6 +36,15 @@ incrementally.  ``DSQL_INGEST_DIR`` arms the write-ahead log
 (``runtime/ingest.py``): appends commit through it, a new Context replays
 it, and each query reads the tables as pinned at its admission.
 
+``system.<name>`` resolves to a fresh snapshot of the engine's state
+(``runtime/system_tables.py``, 18 tables) unless a user schema named
+``system`` shadows it.  ``DSQL_FLEET_DIR`` arms the fleet plane
+(``runtime/fleet.py``) at the first Context, and ``DSQL_AUTOPILOT`` the
+autopilot (``runtime/autopilot.py``) around each plan: an exact repeat of
+a managed view's query is answered from the view, and a fingerprint's
+re-plan hint scopes to its execution.  Each variable is read before its
+module is imported.
+
 Queries run on the card unless the caller asks for another device:
 ``Context()`` means ``device="cuda"`` and raises when CUDA is unavailable;
 the tests pass ``device="cpu"``.
@@ -105,10 +114,15 @@ class Context:
             raise ValueError(
                 f"Context: the mesh's first device {mesh.devices[0]} must be "
                 f"the context's device {device}")
-        from .runtime.gates import refuse
-
-        # the JAX package arms its fleet plane here
-        refuse("DSQL_FLEET_DIR")
+        # the fleet plane (runtime/fleet.py), armed once per process when
+        # DSQL_FLEET_DIR names a shared directory (read before the import;
+        # a second Context finds it armed)
+        if os.environ.get("DSQL_FLEET_DIR"):
+            try:
+                from .runtime import fleet as _fleet
+                _fleet.ensure_armed()
+            except Exception:  # as in the JAX package: the plane is advisory
+                logger.debug("fleet arming failed", exc_info=True)
         self.device = device
         self.mesh = mesh
         self.server = None
@@ -124,6 +138,10 @@ class Context:
         self._epoch_counter = itertools.count(1)
         # PREPARE: name -> PrepareStatement; EXECUTE binds its query anew
         self._prepared: dict = {}
+        # the builtin "system" schema (runtime/system_tables.py), made at
+        # the first system.* resolution; a user schema named "system"
+        # shadows it
+        self._system_schema: Optional[SchemaContainer] = None
         # a chunked table was registered: plans are checked for chunked
         # scans, which go to the streaming executor
         self._has_chunked = False
@@ -585,10 +603,13 @@ class Context:
         ``compiled``, ``eager`` or the tier's own ``eager-compiling``.
         Only a successful execution is stored.  Before all of it, a plan
         that scans a chunked table goes to the streaming executor
-        (``physical/streaming.py``), whose batches take the same tiers."""
+        (``physical/streaming.py``), whose batches take the same tiers.
+        Under ``DSQL_AUTOPILOT`` a managed view may answer after the cache
+        lookup, and the plan's hints scope to the tiers."""
         from .physical.compiled import try_execute_compiled
         from .physical.rel.executor import RelExecutor
         from .runtime import result_cache as _rc
+        from .runtime.gates import armed
 
         if self._has_chunked:
             # a chunked table's entry holds a binding stub: its plans
@@ -596,7 +617,27 @@ class Context:
             from .physical.streaming import (execute_streaming,
                                              plan_references_chunked)
             if plan_references_chunked(plan, self):
-                return execute_streaming(plan, self)
+                if not armed("DSQL_AUTOPILOT"):
+                    return execute_streaming(plan, self)
+                # the autopilot's hints cover the streaming tier (the grace
+                # join's partitions); its fingerprint rides autopilot_fp,
+                # not plan_fp: a chunked source has no content identity,
+                # so it stays out of the history's statistics and the view
+                # candidates
+                from .runtime import autopilot as _ap
+                from .runtime import flight_recorder as _fr
+                fp = None
+                try:
+                    fp = _fr.plan_fingerprint(plan, self)
+                    if fp is not None:
+                        _tel.annotate(autopilot_fp=fp)
+                except Exception:  # the hint store is advisory
+                    logger.debug("plan fingerprint failed", exc_info=True)
+                _ap.begin_query(fp, self)
+                try:
+                    return execute_streaming(plan, self)
+                finally:
+                    _ap.end_query()
         cache = _rc.get_cache()
         ckey = _rc.plan_key(plan, self) if cache.enabled() else None
         if ckey is not None:
@@ -615,47 +656,64 @@ class Context:
                     return table
                 _tel.inc("result_cache_misses")
         # the flight recorder's canonical plan fingerprint on the execute
-        # span: the envelope and the EWMA statistics key to it.  The
-        # JAX package's autopilot keys its hints on it too (not ported:
-        # DSQL_AUTOPILOT raises at trace open)
-        self._stamp_plan_fingerprint(plan)
-        # the SPMD stage executor first under a mesh (parallel/spmd.py);
-        # None: outside its envelope or a runtime flag tripped, and the
-        # single-device tiers serve the padded tables
-        result = None
-        span = _tel.current_span()
-        if self.mesh is not None:
-            from .parallel.spmd import try_execute_spmd
-            result = try_execute_spmd(plan, self)
-            if result is not None and span is not None:
-                span.attrs.setdefault("tier", "spmd")
-        if result is None:
-            result = try_execute_compiled(plan, self)
-        if result is None:
-            if span is not None:
-                span.attrs.setdefault("tier", "eager")
-            result = RelExecutor(self).execute(plan)
-        elif span is not None:
-            span.attrs.setdefault("tier", "compiled")
-        if ckey is not None and result is not None \
-                and cache.put(ckey, result):
-            _tel.annotate(result_cache="store")
-        return result
+        # span: the envelope and the EWMA statistics key to it, and so do
+        # the autopilot's hints
+        autopilot = armed("DSQL_AUTOPILOT")
+        fp = self._stamp_plan_fingerprint(plan, autopilot)
+        if autopilot:
+            # an exact repeat of a managed view's query is answered from
+            # the view; otherwise this fingerprint's active hint scopes to
+            # this execution (the variable is read before the import)
+            from .runtime import autopilot as _ap
+            served = _ap.try_serve(plan, self)
+            if served is not None:
+                return served
+            _ap.begin_query(fp, self)
+        try:
+            # the SPMD stage executor first under a mesh
+            # (parallel/spmd.py); None: outside its envelope or a runtime
+            # flag tripped, and the single-device tiers serve the padded
+            # tables
+            result = None
+            span = _tel.current_span()
+            if self.mesh is not None:
+                from .parallel.spmd import try_execute_spmd
+                result = try_execute_spmd(plan, self)
+                if result is not None and span is not None:
+                    span.attrs.setdefault("tier", "spmd")
+            if result is None:
+                result = try_execute_compiled(plan, self)
+            if result is None:
+                if span is not None:
+                    span.attrs.setdefault("tier", "eager")
+                result = RelExecutor(self).execute(plan)
+            elif span is not None:
+                span.attrs.setdefault("tier", "compiled")
+            if ckey is not None and result is not None \
+                    and cache.put(ckey, result):
+                _tel.annotate(result_cache="store")
+            return result
+        finally:
+            if autopilot:
+                _ap.end_query()
 
-    def _stamp_plan_fingerprint(self, plan: RelNode) -> None:
+    def _stamp_plan_fingerprint(self, plan: RelNode,
+                                autopilot: bool = False) -> Optional[str]:
         """``plan_fp`` on the current span when ``DSQL_HISTORY_FILE`` arms
-        the flight recorder (checked before its import)."""
+        the flight recorder or ``autopilot`` (``DSQL_AUTOPILOT``) needs it
+        (each variable read before the recorder's import); returns it."""
         from .runtime.gates import history_on
-        if not history_on():
-            return
+        if not (history_on() or autopilot):
+            return None
         try:
             from .runtime import flight_recorder as _fr
             fp = _fr.plan_fingerprint(plan, self)
         except Exception:  # the history is advisory
             logger.debug("plan fingerprint failed", exc_info=True)
-            return
+            return None
         if fp is not None:
             _tel.annotate(plan_fp=fp)
+        return fp
 
     def _get_plan(self, query: A.SelectLike, sql: str = "",
                   params: Optional[list] = None) -> RelNode:
@@ -734,6 +792,10 @@ class Context:
 
     def resolve_table(self, parts: List[str]):
         """Binder hook: (schema, table, fields, view_plan) or None."""
+        if len(parts) == 2 and parts[0] == "system":
+            resolved = self._resolve_system_table(parts[1])
+            if resolved is not None:
+                return resolved
         candidates = []
         if len(parts) == 1:
             candidates.append((self.schema_name, parts[0]))
@@ -760,6 +822,30 @@ class Context:
                       zip(entry.table.names, entry.table.columns)]
             return schema_name, table_name.lower(), fields, None
         return None
+
+    def _resolve_system_table(self, table_name: str):
+        """Bind ``system.<name>`` to a fresh snapshot of the engine's state
+        (``runtime/system_tables.py``), registered in the sentinel schema
+        so that the executor's ordinary lookup scans the rows the binder
+        saw; the next resolution builds it anew.  A user schema named
+        "system" shadows the builtin (None: the ordinary lookup goes on).
+        No catalog epoch moves: the result cache marks system scans
+        volatile instead."""
+        existing = self.schema.get("system")
+        if existing is not None and existing is not self._system_schema:
+            return None
+        from .runtime import system_tables as _sys
+
+        name = table_name.lower()
+        tbl = _sys.build(name, self)
+        if tbl is None:
+            return None
+        if self._system_schema is None:
+            self._system_schema = SchemaContainer("system")
+        self.schema["system"] = self._system_schema
+        self._system_schema.tables[name] = TableEntry(table=tbl)
+        fields = [Field(n, c.stype) for n, c in zip(tbl.names, tbl.columns)]
+        return "system", name, fields, None
 
     def get_function(self, name: str) -> Optional[FunctionDescription]:
         """Binder hook: the registered function of that name, or None."""

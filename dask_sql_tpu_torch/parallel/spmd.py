@@ -410,6 +410,13 @@ class _Walker:
             both_sharded = left.sharded and right.sharded
             variant = ("exchange" if both_sharded
                        and est_build > _broadcast_rows_cap() else "broadcast")
+            # the autopilot's re-plan hint flips the strategy ("exchange"
+            # only where legal); the hint is part of the stage program's
+            # key (_autopilot_join_hint), so the hinted stage records and
+            # captures a program of its own
+            hj = _autopilot_join_hint()
+            if hj == "broadcast" or (hj == "exchange" and both_sharded):
+                variant = hj
             di = len(self.meta["decisions"])
             self._decide("spmd_join", variant, build=build_side,
                          est_build=int(est_build),
@@ -1052,13 +1059,24 @@ def _stats_fingerprint(context, scans) -> tuple:
     return tuple(out)
 
 
+def _autopilot_join_hint() -> Optional[str]:
+    """The autopilot's join hint for the query on this thread
+    (``DSQL_AUTOPILOT``, read before the import), else None."""
+    if not gates.armed("DSQL_AUTOPILOT"):
+        return None
+    from ..runtime import autopilot as _ap
+    return _ap.current_hint("join")
+
+
 def _stage_key(plan_fp: str, inputs_fp, mesh, stats_fp, params,
                root: bool = False) -> tuple:
     """The identity of one stage program: the canonical plan (temp names
     replaced by position-stable placeholders), the input layout, the
     mesh, the statistics, the parameters' values and the caps (and
     whether it is the root of a mesh across processes, which gathers
-    its output)."""
+    its output), and the autopilot's join hint when one applies: its
+    decisions are recorded once per key, so a hinted run never replays
+    the unhinted program."""
     mapping: Dict[str, str] = {}
 
     def sub(m):
@@ -1068,6 +1086,9 @@ def _stage_key(plan_fp: str, inputs_fp, mesh, stats_fp, params,
     key = ("spmd1", canon, inputs_fp, mesh.signature(), stats_fp,
            tuple(repr(p.value) for p in params),
            (_broadcast_rows_cap(), _group_cap(), _dense_cap()))
+    hint = _autopilot_join_hint()
+    if hint is not None:
+        key += (("autopilot_join", hint),)
     return key + (("root",) if root else ())
 
 

@@ -37,9 +37,9 @@ Everything here is gated on ``DSQL_SPILL_MB > 0``: with spilling disabled
 the streaming lowerer never dispatches here and a join of two chunked
 tables raises ``StreamingUnsupported``.  Every run a query opens is freed
 when it ends, on the error path too (``streaming._cleanup``).  With
-``DSQL_EVENTS`` armed each grace join publishes ``morsel.join``.  The JAX
-package's autopilot partition hint has no counterpart here: its module is
-not ported (``DSQL_AUTOPILOT`` raises at every query).
+``DSQL_EVENTS`` armed each grace join publishes ``morsel.join``.  Under
+``DSQL_AUTOPILOT`` a skew hint for the query sets the partition count
+(``runtime/autopilot.py``).
 """
 from __future__ import annotations
 
@@ -410,6 +410,15 @@ def grace_join_split(join: LogicalJoin, context):
     P = min(max(-(-int(lsrc.n_rows) // max(int(lsrc.batch_rows), 1)),
                 -(-int(rsrc.n_rows) // max(int(rsrc.batch_rows), 1)),
                 1), MAX_PARTITIONS)
+    if _gates.armed("DSQL_AUTOPILOT"):
+        # a skew-triggered autopilot hint re-partitions finer on the next
+        # run (the variable read before the import); the count changes
+        # only run sizes, never results, and the pairs' capacities key a
+        # program of their own
+        from ..runtime import autopilot as _ap
+        hp = _ap.current_hint("partitions")
+        if hp:
+            P = min(max(int(hp), 1), MAX_PARTITIONS)
     runs_l = [f"g{tag}:L{p}" for p in range(P)]
     runs_r = [f"g{tag}:R{p}" for p in range(P)]
     out_run = f"g{tag}:out"

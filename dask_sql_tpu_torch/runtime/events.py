@@ -35,8 +35,9 @@ admissions while a class burns (``scheduler._check_shed``).  Surfaced as
 ``slo_*`` gauges and the ``slo`` section of ``GET /v1/engine`` with
 :func:`anomalies`.
 
-The fleet plane (``DSQL_FLEET_DIR``, ``runtime/fleet.py``) is not ported:
-where the JAX package would stamp a replica id, the port raises.
+Under the fleet plane (``DSQL_FLEET_DIR``, ``runtime/fleet.py``) every
+event carries its replica's id, as in the JAX package, and the ring is
+the replica's own file in the fleet directory.
 """
 from __future__ import annotations
 
@@ -281,27 +282,28 @@ _CORE_FIELDS = ("seq", "unix", "pid", "trace", "type", "replica")
 
 
 def _fleet_replica() -> Optional[str]:
-    """The JAX package's replica id under ``DSQL_FLEET_DIR``; the fleet
-    plane is not ported, so armed it raises, and unarmed events carry no
-    ``replica`` field."""
-    from .gates import refuse
-    refuse("DSQL_FLEET_DIR")
-    return None
+    """This replica's id under ``DSQL_FLEET_DIR`` (read before the
+    import), else None: unarmed events carry no ``replica`` field."""
+    if not os.environ.get("DSQL_FLEET_DIR"):
+        return None
+    from . import fleet as _fleet
+    return _fleet.replica_id()
 
 
 def publish(etype: str, **fields) -> Optional[dict]:
     """Publish one structured event; never raises (a failed publish
     counts ``events_dropped`` and the caller proceeds).  ``trace`` may be
     passed explicitly; otherwise the thread's current trace ID rides
-    along.  Callers gate on ``DSQL_EVENTS`` before importing.  Raises only
-    under ``DSQL_FLEET_DIR`` (not ported)."""
-    _fleet_replica()
+    along.  Callers gate on ``DSQL_EVENTS`` before importing."""
     try:
         tid = fields.pop("trace", None) or current_trace_id()
         rec: Dict[str, Any] = {"unix": round(time.time(), 3),
                                "pid": os.getpid(),
                                "trace": str(tid) if tid else "",
                                "type": str(etype)}
+        rid = _fleet_replica()
+        if rid:
+            rec["replica"] = rid
         for k, v in fields.items():
             if v is not None and k not in _CORE_FIELDS:
                 rec[k] = v
@@ -341,7 +343,8 @@ def events_rows(limit: int = 2000) -> List[dict]:
                                   default=str, sort_keys=True)
                        if extra else ""),
         }
-        # a record of the JAX package's fleet plane keeps its replica
+        # stamped only when a fleet replica published it: unarmed rows
+        # keep their keys
         if rec.get("replica"):
             row["replica"] = str(rec["replica"])
         rows.append(row)

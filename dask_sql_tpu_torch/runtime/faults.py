@@ -30,6 +30,9 @@ port places these of the JAX package's sites:
   ``result_spool``   spooling a large server result into pages
                      (``server/app.py``): a fired fault serves the result
                      unpaged
+  ``autopilot``      the top of an autopilot tick
+                     (``runtime/autopilot.py``): a fired fault makes the
+                     tick a journaled no-op
 
 ``SITES`` keeps the JAX package's whole list, so a spec parses the same
 in both packages; the other sites belong to modules not ported yet.

@@ -33,8 +33,9 @@ days) and keeps at most ``DSQL_HISTORY_STATS_MAX`` (4096).
 ``GET /v1/engine``'s ``active`` section lists the queries in flight with
 their phase, tier and stage progress.
 
-The fleet plane (``DSQL_FLEET_DIR``, ``runtime/fleet.py``) is not ported:
-where the JAX package would stamp a replica id, the port raises.
+Under the fleet plane (``DSQL_FLEET_DIR``, ``runtime/fleet.py``) every
+record carries its replica's id, as in the JAX package, and the ring is
+the replica's own file in the fleet directory.
 """
 from __future__ import annotations
 
@@ -121,12 +122,12 @@ _STATS = MtimeCachedJsonFile(stats_path)
 
 
 def _fleet_replica() -> Optional[str]:
-    """The JAX package's replica id under ``DSQL_FLEET_DIR``; the fleet
-    plane is not ported, so armed it raises, and unarmed records carry no
-    ``replica`` field."""
-    from .gates import refuse
-    refuse("DSQL_FLEET_DIR")
-    return None
+    """This replica's id under ``DSQL_FLEET_DIR`` (read before the
+    import), else None: unarmed records carry no ``replica`` field."""
+    if not os.environ.get("DSQL_FLEET_DIR"):
+        return None
+    from . import fleet as _fleet
+    return _fleet.replica_id()
 
 
 # ---------------------------------------------------------------------------

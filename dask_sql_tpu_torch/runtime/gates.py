@@ -9,13 +9,16 @@ process.  The port keeps the same variables with the same meanings:
   is ``0``) arms ``runtime/ingest.py``; the port has both.
 - ``DSQL_PROFILE`` arms ``runtime/profiler.py``, ``DSQL_HISTORY_FILE``
   ``runtime/flight_recorder.py`` and ``DSQL_EVENTS`` ``runtime/events.py``;
-  the port has all three, and every caller checks the variable before it
-  imports the module, so an unarmed query loads none of them.
-- The subsystems of ``UNPORTED`` are armed only by their variable, and
-  their modules are not ported.  Unset, the port behaves as the JAX package does
-  with them unset.  Set, ``refuse`` raises ``NotImplementedError`` naming
-  the module, at the places where the JAX package would import it: the
-  port never silently answers without a subsystem its caller armed.
+  ``DSQL_FLEET_DIR`` arms ``runtime/fleet.py`` and ``DSQL_AUTOPILOT``
+  ``runtime/autopilot.py``.  The port has all five, and every caller
+  checks the variable before it imports the module, so an unarmed query
+  loads none of them.
+- The subsystem of ``UNPORTED`` (the program store) is armed only by its
+  variable, and its module is not ported.  Unset, the port behaves as the
+  JAX package does with it unset.  Set, ``refuse`` raises
+  ``NotImplementedError`` naming the module, at the places where the JAX
+  package would import it: the port never silently answers without a
+  subsystem its caller armed.
 """
 from __future__ import annotations
 
@@ -23,8 +26,6 @@ import os
 
 #: variable -> the JAX package's module it arms (not ported)
 UNPORTED = {
-    "DSQL_FLEET_DIR": "runtime/fleet.py",
-    "DSQL_AUTOPILOT": "runtime/autopilot.py",
     "DSQL_PROGRAM_STORE": "runtime/program_store.py",
 }
 

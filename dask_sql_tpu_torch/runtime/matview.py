@@ -723,8 +723,8 @@ def refresh_matview(context, name_parts: List[str]) -> None:
 
 
 def matview_rows(context) -> List[dict]:
-    """One row per registered view: the JAX package's ``system.matviews``
-    rows (the system tables are not ported; this is their source)."""
+    """One row per registered view: ``system.matviews``' rows, as the JAX
+    package's."""
     reg = get_registry(context)
     if reg is None:
         return []
@@ -762,10 +762,10 @@ def matview_rows(context) -> List[dict]:
 
 
 def view_candidate_rows(context) -> List[dict]:
-    """The JAX package's ``system.view_candidates`` rows (the system
-    tables are not ported; this is their source): hot repeated plan
-    fingerprints from the flight recorder's EWMA statistics, ranked by
-    hits times recompute cost, each with its last SQL.  Empty unless
+    """``system.view_candidates``' rows, as the JAX package's: hot
+    repeated plan fingerprints from the flight recorder's EWMA
+    statistics, ranked by hits times recompute cost, each with its last
+    SQL.  Empty unless
     ``DSQL_HISTORY_FILE`` arms the recorder (checked before its import)."""
     if not _history_on():
         return []

@@ -75,8 +75,9 @@ _sampler_started = False
 # double-counting.
 _ledger: Dict[str, Dict[str, Dict[str, float]]] = {}
 _measured: Dict[str, Dict[str, float]] = {}
-# card index -> total memory, read once (``get_device_properties``)
-_limits: Dict[int, int] = {}
+# card index -> total memory, read once (``get_device_properties``;
+# the cache is telemetry's, which ``system.devices`` reads through too)
+_limits: Dict[int, int] = _tel.CARD_LIMITS
 
 
 def _fp_key(query_fp: Optional[str]) -> Optional[str]:
@@ -94,48 +95,19 @@ def _fp_key(query_fp: Optional[str]) -> Optional[str]:
 # device memory sampling
 # ---------------------------------------------------------------------------
 
-def _card_limit(index: int) -> int:
-    lim = _limits.get(index)
-    if lim is None:
-        import torch
-        lim = _limits[index] = int(
-            torch.cuda.get_device_properties(index).total_memory)
-    return lim
-
-
 def device_memory_rows(devices=None) -> List[Dict[str, Any]]:
     """One row per device of ``devices`` (EXPLAIN PROFILE: its Context's
     device and mesh), by default per device this process uses
     (``telemetry.used_devices``; the CPU when no Context noted one), each
-    once.  A card's row reads the allocator's host-side statistics, which
-    take no synchronisation; a CPU device reports zeros.  A card whose
-    statistics cannot be read raises: a profile never shows a made-up
-    zero for a card."""
+    once, as ``telemetry.device_memory_rows`` reads them: a card's from
+    the allocator's host-side statistics, which take no synchronisation,
+    a CPU device's zeros.  A card whose statistics cannot be read raises:
+    a profile never shows a made-up zero for a card."""
     import torch
 
     if devices is None:
         devices = _tel.used_devices() or [torch.device("cpu")]
-    rows: List[Dict[str, Any]] = []
-    for dev in dict.fromkeys(torch.device(d) for d in devices):
-        if dev.type == "cuda":
-            index = dev.index if dev.index is not None else \
-                torch.cuda.current_device()
-            mem = torch.cuda.memory_stats(index)
-            rows.append({
-                "id": int(index),
-                "platform": "gpu",
-                "kind": torch.cuda.get_device_name(index),
-                "bytes_in_use": int(mem.get("allocated_bytes.all.current",
-                                            0)),
-                "peak_bytes_in_use": int(mem.get("allocated_bytes.all.peak",
-                                                 0)),
-                "bytes_limit": _card_limit(index),
-            })
-        else:
-            rows.append({"id": int(dev.index or 0), "platform": dev.type,
-                         "kind": dev.type, "bytes_in_use": 0,
-                         "peak_bytes_in_use": 0, "bytes_limit": 0})
-    return rows
+    return _tel.device_memory_rows(devices)
 
 
 def sample() -> List[Dict[str, Any]]:

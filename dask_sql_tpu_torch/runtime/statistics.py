@@ -29,9 +29,12 @@ decisions, so that both packages plan and dispatch a query alike.
   workload manager's statistics rung (``estimate_plan_bytes_stats``: the
   scanned bytes plus each heavy operator's estimated output).
 
-Not part of the port (each waits for the part of the system that needs
-it): the flight recorder's measured rows, the autopilot's hint and the
-``system.table_stats`` rows.
+- The autopilot's GROUP BY hint (``DSQL_AUTOPILOT``, read before its
+  import) wins in ``groupby_decision`` over everything but a forced pin;
+  ``system_rows`` is ``system.table_stats``' payload.
+
+Not part of the port (it waits for the part of the system that needs
+it): the flight recorder's measured rows.
 """
 from __future__ import annotations
 
@@ -531,6 +534,16 @@ def groupby_decision(rel, context) -> Tuple[str, Dict[str, Any]]:
     if forced is not None:
         info["forced"] = 1
         return forced, info
+    from .gates import armed
+    if armed("DSQL_AUTOPILOT"):
+        # the autopilot's re-plan hint for this query's fingerprint wins
+        # over the crossover (never over a forced pin); the variable is
+        # read before the import
+        from . import autopilot as _ap
+        hinted = _ap.current_hint("groupby")
+        if hinted in ("hash", "sorted", "dense"):
+            info["autopilot"] = 1
+            return hinted, info
     if not adaptive_enabled() or not rel.group_keys:
         return "hash", info
     rows = estimate_rows(rel.input, context)
@@ -761,3 +774,29 @@ def estimate_plan_bytes_stats(plan, context) -> Optional[int]:
     except Exception:
         logger.debug("stats byte estimate failed", exc_info=True)
         return None
+
+
+# ---------------------------------------------------------------------------
+# system.table_stats
+# ---------------------------------------------------------------------------
+
+def system_rows(context) -> List[dict]:
+    """One row per (schema, table, column) with its ingest statistics:
+    the payload of ``system.table_stats``."""
+    rows: List[dict] = []
+    for schema_name, schema in sorted(context.schema.items()):
+        for table_name, entry in sorted(schema.tables.items()):
+            ts = getattr(entry, "stats", None)
+            if ts is None:
+                continue
+            base = {"schema": schema_name, "table": table_name,
+                    "rows": int(ts.rows),
+                    "collected_ms": float(ts.collected_ms)}
+            if not ts.cols:
+                rows.append({**base, "column": "", "ndv": -1,
+                             "min": float("nan"), "max": float("nan"),
+                             "null_frac": 0.0, "is_int": False,
+                             "dense": False, "domain": -1})
+            for name in ts.cols:
+                rows.append({**base, **ts.cols[name].to_row()})
+    return rows

@@ -44,11 +44,14 @@ The counterpart of ``dask_sql_tpu/runtime/telemetry.py``:
   recorder (``DSQL_HISTORY_FILE``: ``begin_query`` / ``end_query``,
   ``record_query``), the device profiler (``DSQL_PROFILE``:
   ``on_query_complete``) and the event bus (``DSQL_EVENTS``: the trace id
-  stamped on the root, ``query.begin`` / ``query.done``).  The autopilot
-  and the fleet plane are not ported: ``trace_scope`` raises
-  ``NotImplementedError`` when one is armed (``runtime/gates.py``).
+  stamped on the root, ``query.begin`` / ``query.done``) and the autopilot
+  (``DSQL_AUTOPILOT``: ``on_query_complete``, its hints' verdicts); under
+  ``DSQL_FLEET_DIR`` every report carries its ``replica``
+  (``runtime/fleet.py``).
 - ``note_devices`` / ``used_devices``: the devices this process's
-  Contexts run on, the only ones the profiler reads memory of.
+  Contexts run on, the only ones the profiler reads memory of;
+  ``device_memory_rows``: a device's allocator statistics, which the
+  profiler and ``system.devices`` both read.
 """
 from __future__ import annotations
 
@@ -609,6 +612,18 @@ _PHASE_SPANS = ("parse", "plan", "execute", "fetch", "compile",
                 "queued", "retry_backoff", "drain")
 
 
+def _fleet_replica() -> Optional[str]:
+    """This replica's id under ``DSQL_FLEET_DIR`` (read before the
+    import), else None."""
+    if not os.environ.get("DSQL_FLEET_DIR"):
+        return None
+    try:
+        from . import fleet as _fleet
+        return _fleet.replica_id()
+    except Exception:
+        return None
+
+
 class QueryReport:
     """What one ``Context.sql`` call did.
 
@@ -626,7 +641,8 @@ class QueryReport:
     __slots__ = ("query", "wall_ms", "phases", "counters", "root",
                  "rows_out", "bytes_out", "started_unix", "cache", "tier",
                  "priority", "operators", "spilled", "skew_ratio",
-                 "collective_bytes", "cost_err", "trace_id", "tenant")
+                 "collective_bytes", "cost_err", "trace_id", "tenant",
+                 "replica")
 
     def __init__(self, trace: QueryTrace):
         root = trace.root
@@ -641,6 +657,9 @@ class QueryReport:
         self.trace_id = str(tid) if tid else None
         ten = root.attrs.get("tenant")
         self.tenant = str(ten) if ten else None
+        # the fleet replica's id, only under DSQL_FLEET_DIR (read before
+        # the import): an unarmed report keeps its keys
+        self.replica = _fleet_replica()
         self.rows_out = int(root.attrs.get("rows_out", 0))
         self.bytes_out = int(root.attrs.get("bytes_out", 0))
         phases: Dict[str, float] = {}
@@ -721,7 +740,7 @@ class QueryReport:
         return sum(1 for s in self.root.walk() if s.name == name)
 
     def to_dict(self) -> dict:
-        return {"query": self.query, "wall_ms": round(self.wall_ms, 3),
+        out = {"query": self.query, "wall_ms": round(self.wall_ms, 3),
                 "trace_id": self.trace_id, "tenant": self.tenant,
                 "phases": {k: round(v, 3) for k, v in self.phases.items()},
                 "counters": dict(self.counters),
@@ -734,6 +753,9 @@ class QueryReport:
                 "cost_err": self.cost_err,
                 "rows_out": self.rows_out, "bytes_out": self.bytes_out,
                 "spans": self.root.to_dict()}
+        if self.replica:
+            out["replica"] = self.replica
+        return out
 
     def render(self) -> str:
         """Human-readable report: header + indented span tree."""
@@ -892,6 +914,13 @@ def _close_trace(trace: QueryTrace, error: Optional[BaseException]) -> None:
             _ev.on_query_complete(report, error)
         except Exception:
             logger.debug("event hook failed", exc_info=True)
+    # the autopilot's feedback: a hinted run's verdict, or a new hint
+    if gates.armed("DSQL_AUTOPILOT"):
+        try:
+            from . import autopilot as _ap
+            _ap.on_query_complete(report, error)
+        except Exception:
+            logger.debug("autopilot hook failed", exc_info=True)
 
 
 @contextmanager
@@ -902,14 +931,11 @@ def trace_scope(query: str = ""):
     yields None and rides the enclosing trace: one trace and one report
     per outermost ``Context.sql``.  The flight recorder registers the open
     trace and the event bus stamps its trace id when their variables arm
-    them; the autopilot and the fleet plane, which the JAX package also
-    hooks here, are not ported, and armed they raise
-    ``NotImplementedError``."""
+    them."""
     if _tls.trace is not None:
         yield None
         return
     from . import gates
-    gates.refuse("DSQL_AUTOPILOT", "DSQL_FLEET_DIR")
     trace = QueryTrace(query)
     _tls.trace = trace
     _tls.span = trace.root
@@ -973,6 +999,52 @@ def note_devices(*devices) -> None:
 def used_devices() -> list:
     with _devices_lock:
         return list(_USED_DEVICES.values())
+
+
+#: a card's total memory by index, read once (``device_memory_rows``)
+CARD_LIMITS: Dict[int, int] = {}
+
+
+def _card_limit(index: int) -> int:
+    lim = CARD_LIMITS.get(index)
+    if lim is None:
+        import torch
+        lim = CARD_LIMITS[index] = int(
+            torch.cuda.get_device_properties(index).total_memory)
+    return lim
+
+
+def device_memory_rows(devices) -> List[Dict[str, Any]]:
+    """One row per device of ``devices``, each once: a card's from the
+    caching allocator's host-side statistics (``memory_stats``: bytes
+    allocated now and at the peak; its total memory as the limit), which
+    take no synchronisation; a CPU device's zeros.  A card whose
+    statistics cannot be read raises: a row never shows a made-up zero
+    for a card.  The profiler's samples and ``system.devices`` both read
+    here, so that the system table needs no profiler."""
+    import torch
+
+    rows: List[Dict[str, Any]] = []
+    for dev in dict.fromkeys(torch.device(d) for d in devices):
+        if dev.type == "cuda":
+            index = dev.index if dev.index is not None else \
+                torch.cuda.current_device()
+            mem = torch.cuda.memory_stats(index)
+            rows.append({
+                "id": int(index),
+                "platform": "gpu",
+                "kind": torch.cuda.get_device_name(index),
+                "bytes_in_use": int(mem.get("allocated_bytes.all.current",
+                                            0)),
+                "peak_bytes_in_use": int(mem.get("allocated_bytes.all.peak",
+                                                 0)),
+                "bytes_limit": _card_limit(index),
+            })
+        else:
+            rows.append({"id": int(dev.index or 0), "platform": dev.type,
+                         "kind": dev.type, "bytes_in_use": 0,
+                         "peak_bytes_in_use": 0, "bytes_limit": 0})
+    return rows
 
 
 # ---------------------------------------------------------------------------

@@ -51,10 +51,19 @@ quarantine, background builds, tenants, the card's memory) and
   (``DSQL_PROFILE``) and ``slo`` the event bus; each reads as disabled
   while its variable is unset, and its module stays unloaded.
 
+- The fleet plane (``DSQL_FLEET_DIR``, ``runtime/fleet.py``):
+  ``run_server`` arms it before serving; ``GET /v1/fleet`` is the fleet's
+  snapshot (every replica's heartbeat, sums over the live ones, SLOs over
+  the union of their envelopes), ``GET /v1/events?fleet=1`` long-polls
+  every replica's ring merged, with a composite ``replica:seq;...`` cursor,
+  every ``/metrics`` series carries a ``replica`` label, and
+  ``/v1/engine`` gains a ``fleet`` section.  Unarmed, ``/v1/fleet``
+  answers 404 and no label is written.  ``DSQL_AUTOPILOT`` adds the
+  ``autopilot`` section (``runtime/autopilot.py``).
+
 Rows travel as ``Table.to_pylist`` values, without pandas (the card's
-machine has none).  The JAX package's fleet plane (``/v1/fleet``, replica
-labels), autopilot and program store are not ported: ``run_server`` raises
-``NotImplementedError`` when one is armed.
+machine has none).  The JAX package's program store is not ported:
+``run_server`` raises ``NotImplementedError`` when it is armed.
 """
 from __future__ import annotations
 
@@ -72,7 +81,7 @@ from typing import Dict, Optional
 from ..runtime import (faults as _faults, ingest as _ing,
                        resilience as _res, scheduler as _sched,
                        telemetry as _tel)
-from ..runtime.gates import (events_on as _events_on,
+from ..runtime.gates import (armed as _armed, events_on as _events_on,
                              history_on as _history_on,
                              profile_on as _profile_on, refuse,
                              tenancy_on as _tenancy_on)
@@ -477,8 +486,9 @@ def _engine_snapshot(state: "_AppState") -> dict:
     ledger, cache and spill tiers, quarantine, background builds, the
     history ring, the cards, the profiler, the SLO monitor and tenants.
     Each armed subsystem's module is imported only when its variable is
-    set; unarmed, its section reads as disabled.  The program store is
-    not ported: its section reads as the JAX package's does unarmed."""
+    set; unarmed, its section reads as disabled (the fleet's and the
+    autopilot's are absent).  The program store is not ported: its
+    section reads as the JAX package's does unarmed."""
     from ..physical import compiled as _compiled
     from ..runtime import quarantine as _quar
     from ..runtime import result_cache as _rc
@@ -539,6 +549,16 @@ def _engine_snapshot(state: "_AppState") -> dict:
         out["tenants"] = _ten.get_registry().snapshot()
     if _ing.enabled():
         out["ingest"] = _ing.engine_section(state.context)
+    if _armed("DSQL_FLEET_DIR"):
+        from ..runtime import fleet as _fleet
+        out["fleet"] = {"replica": _fleet.replica_id(),
+                        "dir": _fleet.fleet_dir() or ""}
+    if _armed("DSQL_AUTOPILOT"):
+        try:
+            from ..runtime import autopilot as _ap
+            out["autopilot"] = _ap.engine_section()
+        except Exception:
+            logger.debug("autopilot engine section failed", exc_info=True)
     return out
 
 
@@ -870,7 +890,9 @@ def _make_handler(state: _AppState, base_url: str):
             """GET /v1/events?cursor=N&timeout_ms=M&limit=K: JSON lines of
             the events with ``seq > cursor``, waiting up to ``timeout_ms``
             (at most 30 s; none while draining) for the first; the next
-            cursor goes in ``X-DSQL-Cursor``."""
+            cursor goes in ``X-DSQL-Cursor``.  ``fleet=1`` under an armed
+            fleet reads every replica's ring, merged in timestamp order,
+            with the composite cursor ``replica:seq;...``."""
             from urllib.parse import parse_qs, urlparse
 
             from ..runtime import events as _ev
@@ -887,9 +909,17 @@ def _make_handler(state: _AppState, base_url: str):
             timeout_s = min(max(qint("timeout_ms", 0), 0) / 1e3, 30.0)
             if _sched.get_manager().draining():
                 timeout_s = 0.0
-            cursor = max(qint("cursor", 0), 0)
-            evs, nxt = _ev.read_since(cursor, limit=limit,
-                                      timeout_s=timeout_s)
+            if q.get("fleet", ["0"])[0] not in ("", "0") \
+                    and _armed("DSQL_FLEET_DIR"):
+                # every replica's ring, merged, under a composite cursor
+                from ..runtime import fleet as _fleet
+                evs, nxt = _fleet.read_merged_since(
+                    q.get("cursor", [""])[0], limit=limit,
+                    timeout_s=timeout_s)
+            else:
+                cursor = max(qint("cursor", 0), 0)
+                evs, nxt = _ev.read_since(cursor, limit=limit,
+                                          timeout_s=timeout_s)
             body = b"".join(
                 json.dumps(e, separators=(",", ":"), default=str).encode()
                 + b"\n" for e in evs)
@@ -900,12 +930,19 @@ def _make_handler(state: _AppState, base_url: str):
             self.end_headers()
             self.wfile.write(body)
 
-        # GET /metrics | /v1/engine | /v1/events (armed) | /v1/empty |
-        # /v1/status/{id} | /v1/result/{id}/{page}
+        # GET /metrics | /v1/engine | /v1/fleet and /v1/events (armed) |
+        # /v1/empty | /v1/status/{id} | /v1/result/{id}/{page}
         def do_GET(self):
             route = self.path.rstrip("/").split("?")[0]
             if route == "/metrics":
-                body = _tel.REGISTRY.render_prometheus().encode()
+                # under an armed fleet every series carries this
+                # replica's label, so a scraper summing replicas never
+                # mixes series
+                labels = None
+                if _armed("DSQL_FLEET_DIR"):
+                    from ..runtime import fleet as _fleet
+                    labels = {"replica": _fleet.replica_id()}
+                body = _tel.REGISTRY.render_prometheus(labels).encode()
                 self.send_response(200)
                 self.send_header("Content-Type",
                                  "text/plain; version=0.0.4; charset=utf-8")
@@ -919,6 +956,16 @@ def _make_handler(state: _AppState, base_url: str):
                 except Exception:
                     logger.exception("/v1/engine snapshot failed")
                     self._send(500, {"error": "snapshot failed"})
+                    return
+                self._send(200, payload)
+                return
+            if route == "/v1/fleet" and _armed("DSQL_FLEET_DIR"):
+                try:
+                    from ..runtime import fleet as _fleet
+                    payload = _fleet.snapshot()
+                except Exception:
+                    logger.exception("/v1/fleet snapshot failed")
+                    self._send(500, {"error": "fleet snapshot failed"})
                     return
                 self._send(200, payload)
                 return
@@ -1331,9 +1378,13 @@ def run_server(context=None, host: str = "0.0.0.0", port: int = 8080,
         logging.basicConfig(level=log_level)
     from ..context import Context
 
-    # the JAX package arms its fleet plane here (with its autopilot and
-    # program store, not ported)
+    # the program store is not ported: armed, it raises
     refuse()
+    # the fleet plane, armed before serving so that this replica's
+    # heartbeat registers before its first request (idempotent)
+    if _armed("DSQL_FLEET_DIR"):
+        from ..runtime import fleet as _fleet
+        _fleet.ensure_armed()
     context = context or Context()
     mesh = getattr(context, "mesh", None)
     if mesh is not None and mesh.spans_processes:

@@ -776,3 +776,26 @@ def test_world1_nccl_group_exchange_and_psum_equal_the_single_process_mesh(
         assert _same_bits(PA.psum(sums, mesh.group), PA.psum(sums))
     finally:
         G.close(mesh.group)
+
+
+@pytest.mark.gpu
+def test_system_devices_read_the_allocator_of_each_card(cuda_device):
+    """``system.devices`` on a card: one row per visible card, its name,
+    the caching allocator's bytes in use and peak, and its total memory as
+    the limit."""
+    c = Context(device=cuda_device)
+    keep = torch.empty(1 << 20, dtype=torch.uint8, device=cuda_device)
+    rows = c.sql("SELECT * FROM system.devices").to_pylist()
+    assert len(rows) == torch.cuda.device_count()
+    for i, row in enumerate(rows):
+        stats = torch.cuda.memory_stats(i)
+        assert row[:3] == [i, "gpu", torch.cuda.get_device_name(i)]
+        assert row[5] == torch.cuda.get_device_properties(i).total_memory
+        assert 0 <= row[3] <= row[4] <= row[5]
+        if i == torch.cuda.current_device():
+            assert row[3] >= keep.numel()
+            assert row[4] <= stats["allocated_bytes.all.peak"]
+    mesh = c.sql("SELECT device_id, platform, in_mesh FROM system.mesh"
+                 ).to_pylist()
+    assert [r[:2] for r in mesh] == [[i, "gpu"] for i in range(len(rows))]
+    del keep

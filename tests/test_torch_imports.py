@@ -235,8 +235,6 @@ def test_server_round_trip_without_pandas():
 
 
 @pytest.mark.parametrize("variable,module", [
-    ("DSQL_FLEET_DIR", "runtime/fleet.py"),
-    ("DSQL_AUTOPILOT", "runtime/autopilot.py"),
     ("DSQL_PROGRAM_STORE", "runtime/program_store.py"),
 ])
 def test_armed_unported_subsystems_raise(monkeypatch, tmp_path, variable,
@@ -250,14 +248,11 @@ def test_armed_unported_subsystems_raise(monkeypatch, tmp_path, variable,
 
     c = Context(device="cpu")
     c.create_table("t", {"a": np.arange(3)})
-    monkeypatch.setenv(variable, str(tmp_path / "x") if variable in (
-        "DSQL_FLEET_DIR", "DSQL_HISTORY_FILE", "DSQL_PROGRAM_STORE")
-        else "1")
+    monkeypatch.setenv(variable, str(tmp_path / "x"))
     with pytest.raises(NotImplementedError, match=module):
-        if variable == "DSQL_FLEET_DIR":
-            Context(device="cpu")
-        else:
-            c.sql("SELECT SUM(a) AS s FROM t")
+        c.sql("SELECT SUM(a) AS s FROM t")
+    with pytest.raises(NotImplementedError, match=module):
+        c.sql("SELECT * FROM system.programs")
     with pytest.raises(NotImplementedError, match=module):
         run_server(context=c, host="127.0.0.1", port=0, blocking=False)
 
@@ -265,50 +260,85 @@ def test_armed_unported_subsystems_raise(monkeypatch, tmp_path, variable,
 def test_unported_list_holds_the_three_left():
     from dask_sql_tpu_torch.runtime import gates
 
-    assert set(gates.UNPORTED) == {"DSQL_FLEET_DIR", "DSQL_AUTOPILOT",
-                                   "DSQL_PROGRAM_STORE"}
+    assert set(gates.UNPORTED) == {"DSQL_PROGRAM_STORE"}
+
+
+#: what arming the fleet writes into os.environ (setdefault, which
+#: monkeypatch does not see)
+_FLEET_ENV = ("DSQL_EVENTS", "DSQL_EVENTS_FILE", "DSQL_HISTORY_FILE",
+              "DSQL_REPLICA_ID")
 
 
 @pytest.mark.parametrize("variable,module", [
     ("DSQL_EVENTS", "events"),
     ("DSQL_HISTORY_FILE", "flight_recorder"),
     ("DSQL_PROFILE", "profiler"),
+    ("DSQL_FLEET_DIR", "fleet"),
+    ("DSQL_AUTOPILOT", "autopilot"),
 ])
 def test_armed_observability_runs(monkeypatch, tmp_path, variable, module):
     """Each observability variable arms its ported module: the query runs
-    and leaves its mark there (an event, an envelope, a sample), and the
-    server starts with it armed."""
+    and leaves its mark there (an event, an envelope, a sample, this
+    replica's heartbeat and id on the report, the autopilot's context),
+    and the server starts with it armed.  The fleet and the autopilot
+    raised here before they were ported."""
     import importlib
 
     import numpy as np
 
     from dask_sql_tpu_torch import Context, run_server
 
-    monkeypatch.setenv(variable, str(tmp_path / "hist.jsonl")
-                       if variable == "DSQL_HISTORY_FILE" else "1")
-    c = Context(device="cpu")
-    c.create_table("t", {"a": np.arange(3)})
-    mod = importlib.import_module(f"dask_sql_tpu_torch.runtime.{module}")
-    samples = mod.snapshots() if module == "profiler" else None
-    assert c.sql("SELECT SUM(a) AS s FROM t").to_pylist() == [[3]]
-    assert f"dask_sql_tpu_torch.runtime.{module}" in sys.modules
-    if module == "events":
-        assert c.last_report.trace_id
-        done = [e for e in mod.get_bus().snapshot()
-                if e["type"] == "query.done"
-                and e["trace"] == c.last_report.trace_id]
-        assert done and done[0]["rows_out"] == 1
-    elif module == "flight_recorder":
-        (env,) = mod.read_events(kind="query")
-        assert env["outcome"] == "ok" and env["rows_out"] == 1
+    if variable in ("DSQL_HISTORY_FILE", "DSQL_FLEET_DIR"):
+        monkeypatch.setenv(variable, str(tmp_path / "hist.jsonl"))
     else:
-        assert len(mod.snapshots()) > len(samples)
-    srv = run_server(context=c, host="127.0.0.1", port=0, blocking=False)
+        monkeypatch.setenv(variable, "1")
+    if module == "fleet":
+        for key in _FLEET_ENV:
+            monkeypatch.delenv(key, raising=False)
+        monkeypatch.setenv("DSQL_REPLICA_ID", "r-imports")
+    else:
+        monkeypatch.setenv("DSQL_AUTOPILOT_INTERVAL_S", "0")
+    mod = importlib.import_module(f"dask_sql_tpu_torch.runtime.{module}")
+    if module in ("fleet", "autopilot"):
+        mod._reset_for_tests()
     try:
-        assert srv.server_port > 0
+        c = Context(device="cpu")
+        c.create_table("t", {"a": np.arange(3)})
+        samples = mod.snapshots() if module == "profiler" else None
+        assert c.sql("SELECT SUM(a) AS s FROM t").to_pylist() == [[3]]
+        assert f"dask_sql_tpu_torch.runtime.{module}" in sys.modules
+        if module == "events":
+            assert c.last_report.trace_id
+            done = [e for e in mod.get_bus().snapshot()
+                    if e["type"] == "query.done"
+                    and e["trace"] == c.last_report.trace_id]
+            assert done and done[0]["rows_out"] == 1
+        elif module == "flight_recorder":
+            (env,) = mod.read_events(kind="query")
+            assert env["outcome"] == "ok" and env["rows_out"] == 1
+        elif module == "fleet":
+            assert c.last_report.replica == "r-imports"
+            assert [r["replica"] for r in mod.read_replicas()] == [
+                "r-imports"]
+        elif module == "autopilot":
+            assert mod._CTX_REF() is c
+        else:
+            assert len(mod.snapshots()) > len(samples)
+        srv = run_server(context=c, host="127.0.0.1", port=0,
+                         blocking=False)
+        try:
+            assert srv.server_port > 0
+        finally:
+            srv.shutdown()
+            srv.server_close()
     finally:
-        srv.shutdown()
-        srv.server_close()
+        if module in ("fleet", "autopilot"):
+            mod._reset_for_tests()
+        if module == "fleet":
+            from dask_sql_tpu_torch.runtime import events
+            events._reset_for_tests()
+            for key in _FLEET_ENV:
+                os.environ.pop(key, None)
 
 
 _UNARMED = """
@@ -332,6 +362,37 @@ def test_unarmed_query_loads_none_of_the_three():
            if k not in ("DSQL_EVENTS", "DSQL_HISTORY_FILE", "DSQL_PROFILE")}
     env.update(DSQL_TIERED="0", CUDA_VISIBLE_DEVICES="")
     out = subprocess.run([sys.executable, "-c", _UNARMED], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=env, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+_UNARMED_SLICE = """
+import json, sys
+import numpy as np
+from dask_sql_tpu_torch import Context
+c = Context(device="cpu")
+c.create_table("t", {"a": np.arange(4)})
+assert c.sql("SELECT SUM(a) AS s FROM t").to_pylist() == [[6]]
+assert c.sql("SELECT * FROM system.devices").num_rows == 1
+for name in ("queries", "events", "replicas", "autopilot", "mesh"):
+    c.sql(f"SELECT * FROM system.{name}")
+print(json.dumps(sorted(m for m in sys.modules if m.split(".")[-1] in (
+    "fleet", "autopilot", "profiler", "program_store")
+    and m.startswith("dask_sql"))))
+"""
+
+
+def test_unarmed_query_loads_neither_fleet_nor_autopilot():
+    """With DSQL_FLEET_DIR and DSQL_AUTOPILOT unset a query, and reads of
+    the system tables they feed, import neither runtime/fleet.py nor
+    runtime/autopilot.py; system.devices reads the card's memory without
+    importing runtime/profiler.py."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DSQL_FLEET_DIR", "DSQL_AUTOPILOT", "DSQL_PROFILE",
+                        "DSQL_PROGRAM_STORE")}
+    env.update(DSQL_TIERED="0", CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", _UNARMED_SLICE], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,
                          env=env, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
