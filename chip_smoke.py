@@ -299,7 +299,7 @@ the compiled tier first.
    ``kernels`` line carries 19(a)'s Q1 launches as
    ``launches_profiled_q1``.
 
-20. the system schema, the autopilot and the fleet plane (last;
+20. the system schema, the autopilot and the fleet plane (after 18;
    ``runtime/{system_tables,autopilot,fleet}.py``), on a new Context over
    phase 3's encoded tables on the default path, its files under
    ``build/phase20``.  (a) Every one of the 18 ``system.*`` tables binds
@@ -338,6 +338,35 @@ the compiled tier first.
    ``autopilot table:``, ``replan table:``, ``autopilot hints:``, ``fleet
    table:`` and ``system summary:`` lines; the ``kernels`` line carries
    (b)'s served Q1's kernel-1 launches as ``launches_autopilot``.
+
+21. the host boundary (last; ``io/inputs.py``, ``models/``, row UDFs and
+   custom aggregations), on a new Context over phase 3's encoded lineitem
+   and a CPU Context over a copy of its columns, files under
+   ``build/phase21``.  (a) ``host libraries:``, whether pandas, pyarrow,
+   sklearn, joblib and IPython import here (asked in a child process).
+   (b) ``create_table`` from a ``Table``, a dict of numpy arrays and a
+   list of two dicts (lineitem's numeric columns, the rows in two
+   halves), each on the card and answering the same sums as lineitem
+   (doubles rtol 1e-12, the rest exact); then a csv path, CREATE TABLE
+   ... WITH (location), a row UDF query and a UDAF query: where pandas is
+   absent each raises ImportError naming pandas, where it is present each
+   runs on the card and equals the CPU's answer.  (c) ``_Lstsq`` (exact
+   least squares in float64, defined here): CREATE MODEL on lineitem's
+   ``l_quantity, l_discount, l_tax`` against ``l_extendedprice`` (the
+   card's and the CPU's coefficients equal), SHOW MODELS and DESCRIBE
+   MODEL, then a GROUP BY over PREDICT: kernel 1 launches at least once
+   (the counts set to 0 just before it and read just after), the answer
+   equals the CPU's (strings and counts exact, doubles rtol 1e-9), and a
+   warm repeat equals it exactly;
+   PREDICT's column equals ``predict`` of the host matrix bit for bit;
+   ``wrap_fit`` over the same columns as a chunked table streams
+   ``HB_BATCHES`` (6) ``partial_fit`` calls, its coefficients within
+   1e-9 of the gathered fit's; EXPORT MODEL to pickle predicts the same
+   bits; DROP MODEL.  A ``host boundary table:`` line has the walls (the
+   training query, the gather, the fit; for the cold and the warm GROUP
+   BY over PREDICT, PREDICT's input, gather, predict-and-upload and the
+   rest, the GROUP BY); the ``kernels`` line
+   carries (c)'s launches as ``launches_predict``.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -4197,8 +4226,10 @@ def obs_sampler(ctx, answers: dict) -> dict:
     prof_walls = []
 
     def profile_q6():
+        # timed to a stream synchronisation: a device-wide one here, while
+        # the build captures, fails on this thread (F12)
         if not prof_walls:
-            prof_walls.append(wall_ms(lambda: ctx.profile(
+            prof_walls.append(stream_wall_ms(lambda: ctx.profile(
                 QUERIES[6], trace_dir=os.path.join(OBS_DIR, "trace"))))
 
     beside, _, second = _background_build(ctx, 3, during=profile_q6)
@@ -6509,6 +6540,308 @@ def phase_system(dev, base: dict, sf: float, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the host boundary (input plugins, models with PREDICT, UDFs)
+# ---------------------------------------------------------------------------
+
+HB_DIR = os.path.join("build", "phase21")
+#: phase 21(a): the libraries of the host boundary
+HB_LIBRARIES = ("pandas", "pyarrow", "sklearn", "joblib", "IPython")
+HB_FEATURES = ("l_quantity", "l_discount", "l_tax")
+HB_TARGET = "l_extendedprice"
+#: 21(c)'s chunked lineitem is streamed in this many batches
+HB_BATCHES = 6
+#: 21(b): the rows the pandas-only surfaces read (a row UDF is a Python
+#: call per row)
+HB_ROW_UDF_KEYS = 400
+HB_UDAF_KEYS = 40_000
+HB_MODEL = "CREATE MODEL {name} WITH (model_class = '{cls}', {extra}" \
+    "target_column = '" + HB_TARGET + "') AS (SELECT " \
+    + ", ".join(HB_FEATURES) + ", " + HB_TARGET + " FROM {table})"
+HB_PREDICT = ("SELECT l_returnflag, l_linestatus, SUM(target) AS s, "
+              "AVG(target) AS a, COUNT(*) AS n FROM PREDICT(MODEL m, "
+              "SELECT l_returnflag, l_linestatus, " + ", ".join(HB_FEATURES)
+              + " FROM lineitem) GROUP BY l_returnflag, l_linestatus")
+
+
+class _Lstsq:
+    """An exact least-squares regressor for phase 21: the normal equations
+    (with an intercept) accumulated and solved in float64; ``fit`` is one
+    ``partial_fit`` over everything.  ``predict`` is elementwise, so its
+    bits do not depend on a BLAS's blocking."""
+
+    def __init__(self):
+        self.partial_fits_ = 0
+
+    def _normal(self, X, y):
+        A = np.column_stack([np.asarray(X, np.float64), np.ones(len(X))])
+        return A.T @ A, A.T @ np.asarray(y, np.float64)
+
+    def fit(self, X, y):
+        self.ata_, self.aty_ = self._normal(X, y)
+        self.coef_ = np.linalg.solve(self.ata_, self.aty_)
+        return self
+
+    def partial_fit(self, X, y):
+        ata, aty = self._normal(X, y)
+        self.ata_ = getattr(self, "ata_", 0.0) + ata
+        self.aty_ = getattr(self, "aty_", 0.0) + aty
+        self.coef_ = np.linalg.solve(self.ata_, self.aty_)
+        self.partial_fits_ += 1
+        return self
+
+    def predict(self, X):
+        X = np.asarray(X, np.float64)
+        out = np.full(len(X), self.coef_[-1])
+        for j in range(X.shape[1]):
+            out = out + X[:, j] * self.coef_[j]
+        return out
+
+    def get_params(self, deep=True):
+        return {"solver": "normal equations"}
+
+
+def host_libraries() -> dict:
+    """Whether each library of ``HB_LIBRARIES`` imports, asked in a child
+    process (this one imports none of them)."""
+    probe = ("import importlib, json\nout = {}\nfor m in %r:\n"
+             "    try:\n        importlib.import_module(m)\n"
+             "        out[m] = True\n    except Exception:\n"
+             "        out[m] = False\nprint(json.dumps(out))"
+             % (HB_LIBRARIES,))
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=120, check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _span_ms(report, name: str) -> float:
+    return sum(s.wall_ms for s in report.root.walk() if s.name == name)
+
+
+def _hb_sums(ctx, table: str) -> object:
+    return ctx.sql(f"SELECT COUNT(*) AS n, SUM(l_orderkey) AS k, "
+                   f"SUM(l_quantity) AS q, SUM(l_extendedprice) AS p, "
+                   f"SUM(l_tax) AS t FROM {table}")
+
+
+def _hb_predict(ctx) -> tuple:
+    """The GROUP BY over PREDICT once: its result and walls (the query's,
+    and the PREDICT node's input, gather, predict-and-upload from its
+    spans; the rest, the GROUP BY and the query's own overheads)."""
+    t0 = time.perf_counter()
+    got = ctx.sql(HB_PREDICT)
+    torch.cuda.synchronize()
+    walls = {"query_ms": (time.perf_counter() - t0) * 1e3}
+    for span in ("predict_input", "predict_gather", "predict_model"):
+        walls[f"{span}_ms"] = _span_ms(ctx.last_report, span)
+    walls["group_by_ms"] = walls["query_ms"] - sum(
+        walls[f"{span}_ms"] for span in ("predict_input", "predict_gather",
+                                         "predict_model"))
+    return got, walls
+
+
+def hb_inputs(dev, ctx, cpu_ctx, base: dict, tables: dict,
+              pandas_present: bool) -> dict:
+    """21(b): ``create_table`` from a Table, a dict of numpy arrays and a
+    list of two dicts (lineitem's numeric columns, the rows split in two
+    halves), each answering phase 3's lineitem's sums; then the four
+    surfaces that need pandas: each raises ImportError naming it where
+    pandas is absent, and equals the CPU's answer where it is present."""
+    li = tables["lineitem"]
+    numeric = [k for k, v in li.items() if v.dtype.kind in "if"]
+    half = len(li[numeric[0]]) // 2
+    want = _hb_sums(ctx, "lineitem")
+    sources = {
+        "from_table": base["lineitem"].limit_to(numeric),
+        "from_dict": {k: li[k] for k in numeric},
+        "from_list": [{k: li[k][:half] for k in numeric},
+                      {k: li[k][half:] for k in numeric}],
+    }
+    out = {}
+    for name, source in sources.items():
+        t0 = time.perf_counter()
+        ctx.create_table(name, source)
+        entry = ctx.schema["root"].tables[name]
+        if any(c.data.device.type != dev.type for c in entry.table.columns):
+            raise AssertionError(f"21(b) {name}: a column is not on {dev}")
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        check_same_result(f"21(b) {name}", _hb_sums(ctx, name), want,
+                          rtol=1e-12)
+        ctx.drop_table(name)
+
+    os.makedirs(HB_DIR, exist_ok=True)
+    csv_path = os.path.join(HB_DIR, "li.csv")
+    keys = li["l_orderkey"] < HB_UDAF_KEYS
+    with open(csv_path, "w") as f:
+        f.write("l_orderkey,l_quantity,l_tax\n")
+        for row in zip(li["l_orderkey"][keys][:2000].tolist(),
+                       li["l_quantity"][keys][:2000].tolist(),
+                       li["l_tax"][keys][:2000].tolist()):
+            f.write("%d,%r,%r\n" % row)
+    for c in (ctx, cpu_ctx):
+        c.register_function(lambda row: row["a0"] * 2.0 + row["a1"], "rowf",
+                            [("x", np.float64), ("y", np.float64)],
+                            np.float64, row_udf=True, replace=True)
+        c.register_aggregation(lambda s: float(s.max() - s.min()), "span",
+                               [("x", np.float64)], np.float64, replace=True)
+    surfaces = {
+        "csv": lambda c: (c.create_table("csv_t", csv_path),
+                          c.sql("SELECT COUNT(*) AS n, SUM(l_tax) AS t "
+                                "FROM csv_t"))[1],
+        "location": lambda c: (c.sql(
+            f"CREATE OR REPLACE TABLE loc_t WITH (location = '{csv_path}', "
+            "format = 'csv')"), c.sql("SELECT SUM(l_quantity) AS q, "
+                                      "COUNT(*) AS n FROM loc_t"))[1],
+        "row_udf": lambda c: c.sql(
+            "SELECT l_orderkey, l_linenumber, rowf(l_quantity, l_tax) AS r "
+            f"FROM lineitem WHERE l_orderkey < {HB_ROW_UDF_KEYS}"),
+        "udaf": lambda c: c.sql(
+            "SELECT l_returnflag, span(l_extendedprice) AS s, COUNT(*) AS n "
+            f"FROM lineitem WHERE l_orderkey < {HB_UDAF_KEYS} "
+            "GROUP BY l_returnflag"),
+    }
+    for name, run in surfaces.items():
+        t0 = time.perf_counter()
+        if not pandas_present:
+            try:
+                run(ctx)
+            except ImportError as exc:
+                if "pandas" not in str(exc):
+                    raise AssertionError(
+                        f"21(b) {name}: ImportError without pandas' name: "
+                        f"{exc}") from exc
+                out[name] = "ImportError"
+            else:
+                raise AssertionError(
+                    f"21(b) {name} ran without pandas: it must raise")
+        else:
+            check_same_rows(f"21(b) {name}", run(ctx), run(cpu_ctx))
+            out[name] = "equal"
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def hb_models(dev, ctx, cpu_ctx, tables: dict) -> dict:
+    """21(c): CREATE MODEL, SHOW / DESCRIBE, the GROUP BY over PREDICT
+    (kernel 1, counts set to 0 just before it and read just after),
+    against the CPU; PREDICT's column against ``predict`` of the host
+    matrix, bit for bit; wrap_fit over a chunked lineitem in
+    ``HB_BATCHES`` batches; EXPORT MODEL and DROP MODEL."""
+    import pickle
+
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    cls = f"{__name__}._Lstsq"
+    li = tables["lineitem"]
+    host_X = np.column_stack([li[c].astype(np.float64) for c in HB_FEATURES])
+    out = {}
+    for c in (ctx, cpu_ctx):
+        c.sql(HB_MODEL.format(name="m", cls=cls, extra="", table="lineitem"))
+    report = ctx.last_report
+    out["training_query_ms"] = _span_ms(report, "model_training_query")
+    out["gather_ms"] = _span_ms(report, "model_gather")
+    out["fit_ms"] = _span_ms(report, "model_fit")
+    model = ctx.schema["root"].models["m"][0]
+    cpu_model = cpu_ctx.schema["root"].models["m"][0]
+    if model.coef_.tolist() != cpu_model.coef_.tolist():
+        raise AssertionError("21(c): the card's and the CPU's fits differ")
+    shown = ctx.sql("SHOW MODELS").to_pylist()
+    described = dict(ctx.sql("DESCRIBE MODEL m").to_pylist())
+    if shown != [["m"]] or described.get("training_columns") != \
+            str(list(HB_FEATURES)):
+        raise AssertionError(f"21(c) SHOW / DESCRIBE: {shown} {described}")
+
+    gk.reset_launch_counts()
+    got, out["predict_cold"] = _hb_predict(ctx)
+    launches = gk.LAUNCHES["segsum_fixedpoint"]
+    if launches < 1:
+        raise AssertionError("21(c): the GROUP BY over PREDICT launched no "
+                             "kernel 1")
+    check_same_rows("21(c) PREDICT GROUP BY", got, cpu_ctx.sql(HB_PREDICT))
+    out["launches"] = launches
+    again, out["predict_warm"] = _hb_predict(ctx)
+    check_same_rows("21(c) PREDICT GROUP BY warm", again, got, rtol=0.0)
+    col = ctx.sql("SELECT * FROM PREDICT(MODEL m, SELECT "
+                  + ", ".join(HB_FEATURES) + " FROM lineitem)"
+                  ).column("target").to_numpy()
+    want = model.predict(host_X)
+    if col.dtype != np.float64 or not np.array_equal(
+            col.view(np.int64), want.view(np.int64)):
+        raise AssertionError("21(c): PREDICT's column is not predict() of "
+                             "the host matrix bit for bit")
+
+    n = len(host_X)
+    batch_rows = -(-n // HB_BATCHES)
+    ctx.create_table("li_chunked", {c: li[c] for c in HB_FEATURES + (
+        HB_TARGET,)}, chunked=True, batch_rows=batch_rows)
+    t0 = time.perf_counter()
+    ctx.sql(HB_MODEL.format(name="ms", cls=cls, extra="wrap_fit = True, ",
+                            table="li_chunked"))
+    out["wrap_fit_ms"] = (time.perf_counter() - t0) * 1e3
+    streamed = ctx.schema["root"].models["ms"][0]
+    rel = np.max(np.abs(streamed.coef_ - model.coef_)
+                 / np.maximum(np.abs(model.coef_), 1e-300))
+    if streamed.partial_fits_ != HB_BATCHES or rel > 1e-9:
+        raise AssertionError(f"21(c) wrap_fit: {streamed.partial_fits_} "
+                             f"partial fits, coef rel err {rel}")
+    out["wrap_fit_partial_fits"] = streamed.partial_fits_
+    out["wrap_fit_coef_rel_err"] = float(rel)
+    ctx.drop_table("li_chunked")
+
+    path = os.path.join(HB_DIR, "m.pkl")
+    ctx.sql(f"EXPORT MODEL m WITH (format = 'pickle', location = '{path}')")
+    with open(path, "rb") as f:
+        loaded = pickle.load(f)
+    if not np.array_equal(loaded.predict(host_X).view(np.int64),
+                          want.view(np.int64)):
+        raise AssertionError("21(c): the exported model predicts other bits")
+    for c in (ctx, cpu_ctx):
+        c.sql("DROP MODEL m")
+    if ctx.sql("SHOW MODELS").to_pylist() != [["ms"]]:
+        raise AssertionError("21(c): DROP MODEL left m")
+    return out
+
+
+def phase_host_boundary(dev, base: dict, tables: dict) -> dict:
+    """Phase 21, after phase 20: a new Context over phase 3's encoded
+    tables and a CPU Context over a copy of lineitem's columns; (a) the
+    host libraries, (b) the input plugins and the pandas-only surfaces,
+    (c) models and PREDICT.  The kernels line's ``launches_predict`` is
+    (c)'s GROUP BY over PREDICT."""
+    import shutil
+
+    from dask_sql_tpu_torch import Context
+
+    t0 = time.perf_counter()
+    shutil.rmtree(HB_DIR, ignore_errors=True)
+    os.makedirs(HB_DIR, exist_ok=True)
+    libraries = host_libraries()
+    print("host libraries: " + json.dumps(libraries))
+    forget_programs()
+    ctx = Context(device=dev)
+    ctx.create_table("lineitem", base["lineitem"])
+    cpu_ctx = Context(device=torch.device("cpu"))
+    # the CPU's copy of the lineitem columns 21(b) and 21(c) read
+    cpu_ctx.create_table("lineitem", base["lineitem"].limit_to(
+        ["l_orderkey", "l_linenumber", "l_returnflag", "l_linestatus",
+         HB_TARGET, *HB_FEATURES]))
+    t1 = time.perf_counter()
+    out = {"libraries": libraries,
+           "inputs": hb_inputs(dev, ctx, cpu_ctx, base, tables,
+                               libraries["pandas"])}
+    t2 = time.perf_counter()
+    out["models"] = hb_models(dev, ctx, cpu_ctx, tables)
+    out["seconds"] = {"setup": t1 - t0, "inputs": t2 - t1,
+                      "models": time.perf_counter() - t2,
+                      "all": time.perf_counter() - t0}
+    print("host boundary table: " + json.dumps(
+        {"inputs": out["inputs"], "models": out["models"],
+         "seconds": out["seconds"]}))
+    del ctx, cpu_ctx
+    forget_programs()
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--sf", type=float, default=1.0)
@@ -6600,6 +6933,7 @@ def main(argv=None) -> int:
                       args.seed)
     multi = phase_multiprocess(dev, base, on_results, args.sf, args.seed)
     system = phase_system(dev, base, args.sf, args.seed)
+    host_boundary = phase_host_boundary(dev, base, tables)
     kernel1["launches"] = compiled_launches["segsum_fixedpoint"]
     kernel1["launches_out_of_core_q1"] = ooc["q1_launches"]
     kernel1["launches_write_path"] = write["launches"]["segsum_fixedpoint"]
@@ -6609,6 +6943,7 @@ def main(argv=None) -> int:
     kernel1["launches_profiled_q1"] = observability["q1_launches"]
     kernel1["launches_autopilot"] = system["autopilot"]["served_launches"].get(
         "segsum_fixedpoint", 0)
+    kernel1["launches_predict"] = host_boundary["models"]["launches"]
     print(f"card: {card}")
     print(json.dumps({"kernels": [kernel1, kernel2]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,20 @@
 """Context: the user-facing catalog and SQL entry point of the port.
 
-The counterpart of ``dask_sql_tpu.Context``: ``create_table`` (a dict of
-numpy arrays, a ``Table``, or a pandas frame; it collects the table's
-statistics, ``runtime/statistics.py``; ``chunked=True`` keeps the table on
-the host in batches, streamed by ``physical/streaming.py``), ``drop_table``, ``alter_table``,
-the schemas (``create_schema``, ``drop_schema``, ``alter_schema``,
-``fqn``), per-table catalog epochs, ``sql`` (queries with ``params`` for
-their ``?`` markers, and every statement of
+The counterpart of ``dask_sql_tpu.Context``: ``create_table`` (whatever
+the input plugins of ``io/inputs.py`` take: a dict of numpy arrays, a
+``Table``, a pandas frame, a pyarrow table, a file path, a Hive cursor, an
+intake catalog or a list of these; it collects the table's statistics,
+``runtime/statistics.py``; ``chunked=True`` keeps the table on the host in
+batches, streamed by ``physical/streaming.py``), ``drop_table``,
+``alter_table``, the schemas (``create_schema``, ``drop_schema``,
+``alter_schema``, ``fqn``), per-table catalog epochs, ``sql`` (queries
+with ``params`` for their ``?`` markers, and every statement of
 ``physical/rel/custom.py``: DDL, views, CTAS, SHOW, EXPLAIN [ANALYZE],
-PREPARE / EXECUTE), ``explain`` and ``register_function`` (column UDFs).
+PREPARE / EXECUTE, the model statements), ``explain``,
+``register_function`` (column and row UDFs), ``register_aggregation``,
+``register_model`` (``FROM PREDICT(MODEL m, ...)``) and ``ipython_magic``.
+Row UDFs, custom aggregations, the file readers and non-numeric model
+features go through pandas on the host, imported where they run.
 Parsing and optimization are native (``native/``), with the JAX package's
 Python parser and optimizer, copied, for what the native ones do not take;
 the statistics-driven join order follows either.  Execution tries the
@@ -153,6 +159,16 @@ class Context:
         # the ingest log: opened, replayed for registered tables and its
         # flusher started when DSQL_INGEST_DIR arms it (create_table
         # replays tables registered later)
+        # the input plugins, in the JAX package's order (io/inputs.py)
+        from .io.inputs import (ArrowInputPlugin, DeviceTableInputPlugin,
+                                DictInputPlugin, HiveInputPlugin, InputUtil,
+                                IntakeCatalogInputPlugin, LocationInputPlugin,
+                                PandasLikeInputPlugin)
+        for plugin in (DeviceTableInputPlugin(), PandasLikeInputPlugin(),
+                       DictInputPlugin(), ArrowInputPlugin(),
+                       HiveInputPlugin(), IntakeCatalogInputPlugin(),
+                       LocationInputPlugin()):
+            InputUtil.add_plugin(type(plugin).__name__, plugin, replace=False)
         if _ing.enabled():
             if mesh is not None and mesh.spans_processes:
                 # every rank would append to (and replay) one log
@@ -241,10 +257,22 @@ class Context:
 
     # -------------------------------------------------------------- tables
     def create_table(self, table_name: str, input_table: Any,
-                     schema_name: Optional[str] = None, chunked: bool = False,
-                     batch_rows: Optional[int] = None) -> None:
-        """Register a dict of column -> numpy array (or list), a ``Table``,
-        or a pandas DataFrame as a SQL table on this context's device.
+                     format: Optional[str] = None, persist: bool = False,
+                     schema_name: Optional[str] = None,
+                     statistics: Optional[dict] = None, gpu: bool = False,
+                     chunked: bool = False, batch_rows: Optional[int] = None,
+                     **kwargs) -> None:
+        """Register anything the input plugins take (``io/inputs.py``) as
+        a SQL table on this context's device: a ``Table``, a dict of
+        column -> numpy array (or list), a pandas DataFrame or Series, a
+        pyarrow table, a file path (csv/tsv/txt, parquet, json,
+        feather/arrow, orc; ``format`` overrides the extension), a Hive
+        cursor, an intake catalog, or a list of these (concatenated).
+        ``kwargs`` go to the reader.  A ``Table`` and a dict need no
+        pandas; the readers do.  ``persist`` and ``gpu`` are kept for the
+        JAX package's signature (the data is always on the device);
+        ``statistics`` is stored on the entry beside the statistics the
+        context collects (``runtime/statistics.py``).
 
         ``chunked=True``: out-of-device-memory mode.  The data stays on the
         host as encoded batches of ``batch_rows`` rows (default
@@ -253,6 +281,8 @@ class Context:
         takes a dict of numpy arrays (``ChunkedSource.from_columns``, no
         pandas needed), a pandas frame, a parquet path (pyarrow) or a
         ``ChunkedSource``."""
+        from .io.inputs import InputUtil
+
         schema_name = schema_name or self.schema_name
         reg = self._matviews()
         if reg is not None:
@@ -260,24 +290,19 @@ class Context:
             reg.discard_view(schema_name, table_name.lower())
         if chunked:
             self._create_chunked(table_name, input_table, schema_name,
-                                 batch_rows)
+                                 batch_rows, statistics)
             return
-        if isinstance(input_table, Table):
-            table = Table(input_table.names,
-                          [_to(c, self.device) for c in input_table.columns])
-        elif isinstance(input_table, dict):
-            table = Table.from_pydict(input_table, self.device)
-        elif hasattr(input_table, "columns") and hasattr(input_table, "dtypes"):
-            table = Table.from_pandas(input_table, self.device)
-        else:
-            raise TypeError(
-                f"create_table: unsupported input {type(input_table).__name__}")
+        table = InputUtil.to_table(input_table, device=self.device,
+                                   file_format=format, table_name=table_name,
+                                   **kwargs)
         row_valid = None
         if self.mesh is not None:
             from .parallel.mesh import shard_table_with_validity
             table, row_valid = shard_table_with_validity(table, self.mesh)
         self.schema[schema_name].tables[table_name.lower()] = TableEntry(
-            table=table, row_valid=row_valid,
+            table=table, statistics=statistics,
+            filepath=input_table if isinstance(input_table, str) else None,
+            gpu=gpu, row_valid=row_valid,
             stats=_stats.collect_table_stats(table, row_valid=row_valid))
         self.bump_table_epoch(schema_name, table_name)
         if _ing.enabled():
@@ -291,7 +316,8 @@ class Context:
                 log.truncate(schema_name, table_name.lower())
 
     def _create_chunked(self, table_name: str, input_table: Any,
-                        schema_name: str, batch_rows: Optional[int]) -> None:
+                        schema_name: str, batch_rows: Optional[int],
+                        statistics: Optional[dict] = None) -> None:
         from .io.chunked import DEFAULT_BATCH_ROWS, ChunkedSource
 
         rows = batch_rows or DEFAULT_BATCH_ROWS
@@ -310,7 +336,7 @@ class Context:
         self._has_chunked = True
         self.schema[schema_name].tables[table_name.lower()] = TableEntry(
             table=source.schema_table(self.device), chunked=source,
-            statistics={"row_count": source.n_rows},
+            statistics=statistics or {"row_count": source.n_rows},
             filepath=input_table if isinstance(input_table, str) else None)
         self.bump_table_epoch(schema_name, table_name)
 
@@ -457,14 +483,30 @@ class Context:
         """Register a scalar UDF.  ``parameters`` / ``return_type`` take
         numpy dtypes, Python types or SQL type names; the result is DOUBLE
         unless said otherwise.  A column UDF gets each argument as a numpy
-        array; a row UDF (``row_udf=True``) is accepted here and raises
-        ``NotImplementedError`` when a query calls it."""
+        array; a row UDF (``row_udf=True``) is called once per row with a
+        pandas row whose fields are ``a0 .. an`` (pandas needed)."""
+        self._register_callable(f, name, False, parameters, return_type,
+                                replace, schema_name, row_udf)
+
+    def register_aggregation(self, f: Callable, name: str,
+                             parameters: List[Tuple[str, Any]] = None,
+                             return_type: Any = None, replace: bool = False,
+                             schema_name: Optional[str] = None):
+        """Register a custom aggregation: ``f`` gets each group's values
+        as a pandas Series on the host and returns one value (the eager
+        executor's groupby-apply; pandas needed)."""
+        self._register_callable(f, name, True, parameters, return_type,
+                                replace, schema_name, False)
+
+    def _register_callable(self, f, name, aggregation, parameters,
+                           return_type, replace, schema_name, row_udf):
         schema_name = schema_name or self.schema_name
         params = [(pname, _to_sql_type(t)) for pname, t in (parameters or [])]
         rt = (SqlType("DOUBLE") if return_type is None
               else _to_sql_type(return_type))
         fd = FunctionDescription(name=name, parameters=params, return_type=rt,
-                                 aggregation=False, func=f, row_udf=row_udf)
+                                 aggregation=aggregation, func=f,
+                                 row_udf=row_udf)
         schema = self.schema[schema_name]
         lower = name.lower()
         if not replace and lower in schema.functions and \
@@ -472,6 +514,23 @@ class Context:
             raise ValueError(f"Function {name} is already registered")
         schema.functions[lower] = fd
         schema.function_lists.append(fd)
+
+    # -------------------------------------------------------------- models
+    def register_model(self, model_name: str, model: Any,
+                       training_columns: List[str],
+                       schema_name: Optional[str] = None):
+        """Register a fitted model (anything with ``predict``) for
+        ``PREDICT(MODEL ...)``; ``training_columns`` are the feature
+        columns, in the order ``predict`` takes them."""
+        schema_name = schema_name or self.schema_name
+        self.schema[schema_name].models[model_name.lower()] = (
+            model, list(training_columns))
+
+    def _get_model(self, parts: List[str]):
+        info = self.resolve_model(parts)
+        if info is None:
+            raise KeyError(f"Model {'.'.join(parts)} not found")
+        return info
 
     # ----------------------------------------------------------------- sql
     def sql(self, sql: str, return_futures: bool = True,
@@ -856,7 +915,18 @@ class Context:
         return None
 
     def resolve_model(self, parts: List[str]):
-        return None
+        """Binder hook: (model, training columns) or None."""
+        if len(parts) == 2 and parts[0] in self.schema:
+            schema_name, model_name = parts[0], parts[1]
+        else:
+            schema_name, model_name = self.schema_name, ".".join(parts)
+        return self.schema[schema_name].models.get(model_name.lower())
+
+    # -------------------------------------------------------- integrations
+    def ipython_magic(self, auto_include: bool = False):
+        """Register the ``%%sql`` magic (``integrations/ipython.py``)."""
+        from .integrations.ipython import ipython_integration
+        ipython_integration(self, auto_include=auto_include)
 
     # -------------------------------------------------------------- server
     def run_server(self, **kwargs):
@@ -886,7 +956,8 @@ def _coerce_delta(target: Table, rows: Any, device) -> Table:
     names = list(target.names)
     if isinstance(rows, Table):
         given = list(rows.names)
-        cols = [_to(c, device) for c in rows.columns]
+        from .io.inputs import table_on_device
+        cols = table_on_device(rows, device).columns
         n = rows.num_rows
     elif hasattr(rows, "columns") and hasattr(rows, "dtypes"):
         t = Table.from_pandas(rows, device)
@@ -1023,10 +1094,3 @@ def _to_sql_type(t) -> SqlType:
         return SqlType(python[t])
     return sql_type_from_numpy(t)
 
-
-def _to(col, device):
-    from .table import Column
-
-    return Column(col.data.to(device), col.stype,
-                  None if col.mask is None else col.mask.to(device),
-                  col.dictionary)

@@ -1,16 +1,16 @@
 """Statement handlers: schemas, tables and views, materialized views,
 INSERT INTO, SHOW / DESCRIBE, ANALYZE TABLE, EXPLAIN [ANALYZE | PROFILE],
-PREPARE / EXECUTE / DEALLOCATE.
+PREPARE / EXECUTE / DEALLOCATE, and the model statements.
 
 The counterpart of ``dask_sql_tpu/physical/rel/custom.py``: one handler per
 statement AST class, registered in ``StatementDispatcher``.  A handler takes
 (statement, context, sql text) and returns a device ``Table`` of rows (SHOW,
 DESCRIBE, EXPLAIN, EXECUTE) or None (DDL).
 
-The statements whose machinery the port lacks raise ``NotImplementedError``
-naming themselves and what they wait for (``_UNPORTED``): CREATE TABLE ...
-WITH (location) (the file readers, ``io/inputs.py``) and the model
-statements (``models/``, with ``register_model``).
+CREATE TABLE ... WITH (location=...) reads through the input plugins
+(``io/inputs.py``); the model statements (CREATE / DROP / EXPORT MODEL,
+CREATE EXPERIMENT, SHOW MODELS, DESCRIBE MODEL) go to ``models/`` and the
+context's model catalog.
 
 Every statement that reads a table's rows (CTAS, INSERT INTO ... SELECT,
 ANALYZE TABLE over a view) runs its plan through
@@ -84,6 +84,31 @@ def _use_schema(stmt: A.UseSchema, context, sql):
 # ---------------------------------------------------------------------------
 # tables and views
 # ---------------------------------------------------------------------------
+
+def _create_table(stmt: A.CreateTable, context, sql):
+    """CREATE [OR REPLACE] TABLE ... WITH (location=..., format=...): the
+    file read by the input plugins, the other parameters passed to the
+    reader."""
+    schema_name, name = context.fqn(stmt.name)
+    if name in context.schema[schema_name].tables:
+        if stmt.if_not_exists:
+            return None
+        if not stmt.or_replace:
+            raise RuntimeError(
+                f"A table with the name {name} is already present.")
+    kwargs = dict(stmt.kwargs)
+    try:
+        location = kwargs.pop("location")
+    except KeyError:
+        raise AttributeError(
+            "Parameters must include a 'location' parameter.") from None
+    fmt = kwargs.pop("format", None)
+    persist = bool(kwargs.pop("persist", False))
+    kwargs.pop("gpu", None)
+    context.create_table(name, location, format=fmt, persist=persist,
+                         schema_name=schema_name, **kwargs)
+    return None
+
 
 def _create_table_as(stmt: A.CreateTableAs, context, sql):
     """CREATE [OR REPLACE] TABLE ... AS runs the query on the context's
@@ -694,33 +719,56 @@ def _deallocate(stmt: A.DeallocateStatement, context, sql):
 
 
 # ---------------------------------------------------------------------------
-# not ported yet
+# models
 # ---------------------------------------------------------------------------
 
-def _waits_for(what: str, module: str):
-    def handler(stmt, context, sql):
-        raise NotImplementedError(
-            f"{what} is not ported yet: it waits for {module}")
-    return handler
+def _show_models(stmt: A.ShowModels, context, sql):
+    names = list(context.schema[context.schema_name].models.keys())
+    return _meta_table({"Models": _strings(names)}, context)
 
 
-_UNPORTED = {
-    "CreateTable": ("CREATE TABLE ... WITH (location=...)",
-                    "io/inputs.py (its readers are pandas)"),
-    "ShowModels": ("SHOW MODELS", "models/ and register_model"),
-    "DescribeModel": ("DESCRIBE MODEL", "models/ and register_model"),
-    "CreateModel": ("CREATE MODEL", "models/ and register_model"),
-    "DropModel": ("DROP MODEL", "models/ and register_model"),
-    "CreateExperiment": ("CREATE EXPERIMENT", "models/ and register_model"),
-    "ExportModel": ("EXPORT MODEL", "models/ and register_model"),
-}
+def _describe_model(stmt: A.DescribeModel, context, sql):
+    info = context.resolve_model(stmt.name)
+    if info is None:
+        raise RuntimeError(
+            f"A model with the name {'.'.join(stmt.name)} is not present.")
+    model, training_columns = info
+    params = model.get_params() if hasattr(model, "get_params") else {}
+    params["training_columns"] = list(training_columns)
+    return _meta_table({"Params": _strings(params.keys()),
+                        "Value": _strings(str(v) for v in params.values())},
+                       context)
 
-for _name, (_what, _module) in _UNPORTED.items():
-    StatementDispatcher.add_plugin(_name, _waits_for(_what, _module))
+
+def _drop_model(stmt: A.DropModel, context, sql):
+    schema_name, name = context.fqn(stmt.name)
+    if name not in context.schema[schema_name].models:
+        if stmt.if_exists:
+            return None
+        raise RuntimeError(f"A model with the name {name} is not present.")
+    del context.schema[schema_name].models[name]
+    return None
+
+
+def _create_model(stmt: A.CreateModel, context, sql):
+    from ...models.training import create_model
+    return create_model(stmt, context, sql)
+
+
+def _create_experiment(stmt: A.CreateExperiment, context, sql):
+    from ...models.training import create_experiment
+    return create_experiment(stmt, context, sql)
+
+
+def _export_model(stmt: A.ExportModel, context, sql):
+    from ...models.training import export_model
+    return export_model(stmt, context, sql)
+
 
 StatementDispatcher.add_plugin("CreateSchema", _create_schema)
 StatementDispatcher.add_plugin("DropSchema", _drop_schema)
 StatementDispatcher.add_plugin("UseSchema", _use_schema)
+StatementDispatcher.add_plugin("CreateTable", _create_table)
 StatementDispatcher.add_plugin("CreateTableAs", _create_table_as)
 StatementDispatcher.add_plugin("DropTable", _drop_table)
 StatementDispatcher.add_plugin("CreateMaterializedView", _create_matview)
@@ -732,6 +780,12 @@ StatementDispatcher.add_plugin("ShowSchemas", _show_schemas)
 StatementDispatcher.add_plugin("ShowTables", _show_tables)
 StatementDispatcher.add_plugin("ShowColumns", _show_columns)
 StatementDispatcher.add_plugin("DescribeTable", _describe_table)
+StatementDispatcher.add_plugin("ShowModels", _show_models)
+StatementDispatcher.add_plugin("DescribeModel", _describe_model)
+StatementDispatcher.add_plugin("DropModel", _drop_model)
+StatementDispatcher.add_plugin("CreateModel", _create_model)
+StatementDispatcher.add_plugin("CreateExperiment", _create_experiment)
+StatementDispatcher.add_plugin("ExportModel", _export_model)
 StatementDispatcher.add_plugin("ExplainStatement", _explain)
 StatementDispatcher.add_plugin("PrepareStatement", _prepare)
 StatementDispatcher.add_plugin("ExecuteStatement", _execute_prepared)

@@ -8,7 +8,11 @@ Values, Aggregate (DISTINCT aggregates included), Sort (with OFFSET/LIMIT),
 Join (every join type, equi keys plus a residual condition), the set
 operations Union, Intersect and Except, Window (``ops/window.py``) and
 Sample (TABLESAMPLE BERNOULLI / SYSTEM, seeded by REPEATABLE on the table's
-device).  Any other node (PREDICT) raises ``NotImplementedError``.
+device) and Predict (``FROM PREDICT(MODEL m, ...)``: the features go to the
+host as one float64 matrix, the model predicts there, the prediction comes
+back to the device).  A custom aggregation (``register_aggregation``) is a
+host groupby-apply in pandas over the device's group codes, as in the JAX
+package.
 
 The statistics choose the operators, as in the JAX package
 (``runtime/statistics.py``): ``groupby_decision`` picks the GROUP BY codes
@@ -53,7 +57,7 @@ from ...runtime import statistics as _stats
 from ...runtime import telemetry as _tel
 from ...table import Column, Scalar, Table, dict_sort_order
 from ...types import BOOLEAN, exact_decimal_scale, physical_dtype, torch_dtype
-from ...utils import Pluggable
+from ...utils import Pluggable, import_pandas
 from ..rex.cast import cast_column
 from ..rex.evaluate import evaluate_predicate, evaluate_rex
 
@@ -170,6 +174,10 @@ def _aggregate(rel: LogicalAggregate, ex: RelExecutor) -> Table:
             f = rel.schema[j]
             col = src.columns[agg.args[0]] if agg.args else None
             fmask, rows = _agg_filter(agg, src), n
+            if agg.udaf is not None:
+                out_cols.append(_run_udaf(agg, col, None, 1, fmask, src,
+                                          ex.device))
+                continue
             if agg.distinct and col is not None:
                 zeros = torch.zeros(n, dtype=torch.int64, device=ex.device)
                 keep = G.dedup_for_distinct_agg(zeros, col, fmask)
@@ -193,6 +201,10 @@ def _aggregate(rel: LogicalAggregate, ex: RelExecutor) -> Table:
     for j, agg in enumerate(rel.aggs):
         f = rel.schema[len(rel.group_keys) + j]
         col = src.columns[agg.args[0]] if agg.args else None
+        if agg.udaf is not None:
+            out_cols.append(_run_udaf(agg, col, codes, num_groups,
+                                      _agg_filter(agg, src), src, ex.device))
+            continue
         if agg.distinct and col is not None:
             keep = G.dedup_for_distinct_agg(codes, col, _agg_filter(agg, src))
             out_cols.append(G.segment_aggregate(
@@ -202,6 +214,35 @@ def _aggregate(rel: LogicalAggregate, ex: RelExecutor) -> Table:
             out_cols.append(G.segment_aggregate(
                 agg.op, col, codes, num_groups, f.stype, _agg_filter(agg, src), n))
     return Table(out_names, out_cols)
+
+
+def _run_udaf(agg, col: Optional[Column], codes: Optional[torch.Tensor],
+              num_groups: int, filter_mask: Optional[torch.Tensor],
+              src: Table, device: torch.device) -> Column:
+    """A custom aggregation: the values and the group codes come to the
+    host, and pandas applies the function to each group's Series.  A
+    group with no row (all filtered out) is NULL."""
+    pd = import_pandas(f"The custom aggregation {agg.udaf.name}")
+    vals = col.to_numpy() if col is not None else np.zeros(src.num_rows)
+    np_codes = (codes.cpu().numpy() if codes is not None
+                else np.zeros(len(vals), dtype=np.int64))
+    keep = (filter_mask.cpu().numpy() if filter_mask is not None
+            else np.ones(len(vals), bool))
+    result = pd.Series(vals[keep]).groupby(
+        pd.Series(np_codes[keep])).apply(agg.udaf.func)
+    out = np.empty(num_groups, dtype=object)
+    out[:] = None
+    for k, v in result.items():
+        out[int(k)] = v
+    mask = np.array([v is not None for v in out], dtype=bool)
+    if agg.stype.is_string:
+        return Column._encode_strings(
+            np.where(mask, out, "").astype(object),
+            None if mask.all() else mask, device)
+    arr = np.array([v if v is not None else 0 for v in out])
+    return Column.from_encoded(arr.astype(physical_dtype(agg.stype)),
+                               agg.stype, None if mask.all() else mask,
+                               None, device)
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +405,30 @@ def _sample(rel: LogicalSample, ex: RelExecutor) -> Table:
     return src.take(mask_to_indices(u < rel.percentage / 100.0))
 
 
+def _predict(rel, ex: RelExecutor) -> Table:
+    """PREDICT: the model's feature columns go to the host as one float64
+    matrix (NULL as NaN; without training columns, a pandas frame of the
+    input), ``model.predict`` runs there, and the prediction comes back to
+    the device as the plan's ``target`` column."""
+    from ...models.training import float64_matrix
+
+    with _tel.span("predict_input"):
+        src = ex.execute(rel.input)
+    model, training_columns = ex.context._get_model(rel.model_name)
+    with _tel.span("predict_gather"):
+        if training_columns:
+            X = float64_matrix([src.column(c) for c in training_columns],
+                               src.num_rows, order="C")
+        else:
+            import_pandas("PREDICT without training columns")
+            X = src.to_pandas()
+    target = rel.schema[-1]
+    with _tel.span("predict_model"):
+        out = cast_column(Column.from_numpy(np.asarray(model.predict(X)),
+                                            ex.device), target.stype)
+    return Table(list(src.names) + [target.name], list(src.columns) + [out])
+
+
 STATIC_DOMAIN_CAP = 4096
 STATIC_DOMAIN_MAX = 256
 
@@ -444,7 +509,8 @@ def _static_domain_aggregate(rel: LogicalAggregate, src: Table,
         return None
     for agg in rel.aggs:
         col = src.columns[agg.args[0]] if agg.args else None
-        if agg.op not in ("SUM", "$SUM0", "AVG", "COUNT") or agg.distinct:
+        if agg.op not in ("SUM", "$SUM0", "AVG", "COUNT") or agg.distinct \
+                or agg.udaf is not None:
             return None
         if col is not None and (col.stype.is_string or col.data.dtype == torch.bool):
             return None
@@ -532,3 +598,4 @@ RelExecutor.add_plugin("LogicalIntersect", _intersect)
 RelExecutor.add_plugin("LogicalExcept", _except)
 RelExecutor.add_plugin("LogicalWindow", _window)
 RelExecutor.add_plugin("LogicalSample", _sample)
+RelExecutor.add_plugin("LogicalPredict", _predict)

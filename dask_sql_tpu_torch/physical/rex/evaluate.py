@@ -6,9 +6,8 @@ An uncorrelated scalar subquery runs its plan once and becomes a Scalar
 (inside a compiled trace, the tracer inlines it instead); a parameter
 reads the compiled program's input for it, or its node's value elsewhere;
 a column UDF (``Context.register_function``) runs on the host over numpy
-arrays.  A row UDF, which the JAX package feeds a
-pandas row at a time, raises ``NotImplementedError``: the card's machine
-has no pandas.
+arrays, a row UDF on a pandas row at a time, as in the JAX package (pandas
+imported only then: a machine without it raises ``ImportError``).
 """
 from __future__ import annotations
 
@@ -23,7 +22,7 @@ from ...plan.nodes import (
 )
 from ...table import Column, Scalar, Table
 from ...types import physical_to_python_value, python_value_to_physical
-from ...utils import Pluggable
+from ...utils import Pluggable, import_pandas
 from .cast import cast_value
 from .ops import OPERATION_MAPPING
 
@@ -91,17 +90,21 @@ def _eval_scalar_subquery(rex: RexScalarSubquery, table: Table, executor):
 
 def _eval_udf(rex: RexUdf, table: Table, executor):
     """A column UDF: called once with each argument as a host numpy array
-    (NULLs as NaN / None / NaT) or a Python scalar; a returned array (or
-    tensor) becomes a column of the UDF's return type on the table's
-    device, a scalar a Scalar."""
-    if rex.row_udf:
-        raise NotImplementedError(
-            f"Row UDF {rex.name} is not ported yet (it needs pandas)")
+    (NULLs as NaN / None / NaT) or a Python scalar.  A row UDF: called once
+    per row of a pandas frame whose columns are ``a0 .. an`` (pandas
+    ``iterrows``, as in the JAX package).  A returned array (or tensor)
+    becomes a column of the UDF's return type on the table's device, a
+    scalar a Scalar."""
     args = [RexExecutor.convert(o, table, executor) for o in rex.operands]
     host_args = [a.to_numpy() if isinstance(a, Column)
                  else physical_to_python_value(a.value, a.stype)
                  for a in args]
-    out = rex.func(*host_args)
+    if rex.row_udf:
+        pd = import_pandas(f"The row UDF {rex.name}")
+        df = pd.DataFrame({f"a{i}": v for i, v in enumerate(host_args)})
+        out = np.asarray([rex.func(row) for _, row in df.iterrows()])
+    else:
+        out = rex.func(*host_args)
     if isinstance(out, torch.Tensor):
         out = out.cpu().numpy()
     out = np.asarray(out)

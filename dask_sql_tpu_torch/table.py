@@ -525,7 +525,8 @@ def host_encode_numpy(values: np.ndarray, stype: Optional[SqlType] = None,
         import decimal as _decimal
 
         isna = np.array([v is None or (isinstance(v, float)
-                                       and np.isnan(v)) for v in values])
+                                       and np.isnan(v)) for v in values],
+                        dtype=bool)
         present = values[~isna]
         if len(present) and all(isinstance(v, _decimal.Decimal)
                                 and v.is_finite() for v in present):

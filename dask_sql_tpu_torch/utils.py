@@ -88,6 +88,20 @@ def new_temporary_column(existing) -> str:
             return name
 
 
+def import_pandas(what: str):
+    """pandas, for ``what`` (a reader, a row UDF, a custom aggregation):
+    the port imports it only at the host boundary that needs it, and a
+    machine without it gets an ``ImportError`` naming pandas and the
+    surface, never a quiet answer computed some other way."""
+    try:
+        import pandas as pd
+    except ImportError as exc:
+        raise ImportError(
+            f"{what} needs pandas, which cannot be imported here "
+            f"({exc})") from exc
+    return pd
+
+
 def convert_sql_kwargs(kwargs) -> dict:
     """Normalize a parsed kwargs dict (values are python literals already).
 

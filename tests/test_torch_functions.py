@@ -438,7 +438,7 @@ def test_sql_functions_match_jax(contexts, sql):
 def test_register_function_column_udf(contexts):
     """A column UDF gets numpy arrays and its result becomes a column of the
     declared type; the same function registered in both packages answers
-    the same.  A row UDF (pandas rows) raises in the port."""
+    the same, and so does a row UDF (pandas rows)."""
     jc, pc = contexts
 
     def f(x, y):
@@ -450,8 +450,7 @@ def test_register_function_column_udf(contexts):
         ctx.register_function(lambda row: row["a0"], "row_fn", [("x", np.int64)],
                               np.int64, replace=True, row_udf=True)
     _same_sql(contexts, "SELECT twice_or_less(f, i) AS u, i FROM t")
-    with pytest.raises(NotImplementedError, match="row_fn"):
-        pc.sql("SELECT row_fn(i) FROM t")
+    _same_sql(contexts, "SELECT row_fn(i) AS r, i FROM t")
     with pytest.raises(ValueError, match="already registered"):
         pc.register_function(lambda x: x, "twice_or_less")
 

@@ -26,11 +26,19 @@ print(json.dumps(sorted(m for m in sys.modules
                         or m.startswith("dask_sql_tpu") and not (
                             m == "dask_sql_tpu_torch"
                             or m.startswith("dask_sql_tpu_torch."))
-                        or m == "pandas")))
+                        or m.split(".")[0] in _HOST_LIBRARIES)))
 """
+
+#: the libraries of the host boundary: imported only inside the functions
+#: that need them, never when a module of the port is imported
+_HOST_LIBRARIES = ("pandas", "pyarrow", "sklearn", "joblib", "IPython",
+                   "fugue", "intake", "fsspec")
+_PROBE = _PROBE.replace("_HOST_LIBRARIES", repr(_HOST_LIBRARIES))
 
 
 def test_import_pulls_in_no_jax_and_no_jax_package():
+    """Nor any library of the host boundary (pandas, pyarrow, sklearn,
+    joblib, IPython, fugue, intake, fsspec)."""
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=120, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
@@ -134,6 +142,121 @@ def test_walk_covers_the_out_of_core_path():
             "dask_sql_tpu_torch.io.chunked",
             "dask_sql_tpu_torch.physical.streaming",
             "dask_sql_tpu_torch.physical.morsel"} <= names
+
+
+def test_walk_covers_the_host_boundary():
+    """The import probe walks the input plugins, Hive, the models and the
+    integrations."""
+    import pkgutil
+
+    import dask_sql_tpu_torch
+
+    names = {info.name for info in pkgutil.walk_packages(
+        dask_sql_tpu_torch.__path__, "dask_sql_tpu_torch.")}
+    assert {"dask_sql_tpu_torch.io.inputs",
+            "dask_sql_tpu_torch.io.hive",
+            "dask_sql_tpu_torch.models.training",
+            "dask_sql_tpu_torch.models.incremental",
+            "dask_sql_tpu_torch.models.executor_bridge",
+            "dask_sql_tpu_torch.integrations.ipython",
+            "dask_sql_tpu_torch.integrations.fugue"} <= names
+
+
+_NO_PANDAS_MODELS = """
+import sys
+sys.modules["pandas"] = None          # a machine without pandas
+sys.modules["sklearn"] = None         # nor sklearn (the card's has none)
+import json, os, pickle
+import numpy as np
+from dask_sql_tpu_torch import Context
+
+
+class Lstsq:
+    def fit(self, X, y):
+        A = np.column_stack([X, np.ones(len(X))])
+        self.coef_ = np.linalg.solve(A.T @ A, A.T @ y)
+        return self
+
+    def partial_fit(self, X, y):
+        A = np.column_stack([X, np.ones(len(X))])
+        self.ata_ = getattr(self, "ata_", 0) + A.T @ A
+        self.aty_ = getattr(self, "aty_", 0) + A.T @ y
+        self.coef_ = np.linalg.solve(self.ata_, self.aty_)
+        return self
+
+    def predict(self, X):
+        return X @ self.coef_[:-1] + self.coef_[-1]
+
+    def get_params(self, deep=True):
+        return {}
+
+
+rng = np.random.RandomState(0)
+n = 3000
+cols = {"a": rng.rand(n), "b": rng.randint(0, 9, n), "k": rng.choice(
+    ["x", "y"], n)}
+cols["t"] = 2 * cols["a"] - 0.5 * cols["b"] + 1.0
+c = Context(device="cpu")
+c.create_table("t", cols)
+c.create_table("tc", {k: cols[k] for k in ("a", "b", "t")}, chunked=True,
+               batch_rows=700)
+c.sql("CREATE MODEL m WITH (model_class = '__main__.Lstsq', "
+      "target_column = 't') AS (SELECT a, b, t FROM t)")
+c.sql("CREATE MODEL ms WITH (model_class = '__main__.Lstsq', wrap_fit = "
+      "True, target_column = 't') AS (SELECT a, b, t FROM tc)")
+got = c.sql("SELECT k, SUM(target) AS s, COUNT(*) AS n FROM PREDICT(MODEL m, "
+            "SELECT k, a, b FROM t) GROUP BY k ORDER BY k").to_pylist()
+c.sql("EXPORT MODEL m WITH (format = 'pickle', location = 'm.pkl')")
+loaded = pickle.load(open("m.pkl", "rb"))
+errors = {}
+c.register_function(lambda r: r["a0"], "rowf", [("x", np.float64)],
+                    np.float64, row_udf=True)
+c.register_aggregation(lambda s: s.max(), "smax", [("x", np.float64)],
+                       np.float64)
+np.savetxt("t.csv", np.arange(4.0))
+for name, fn in (
+        ("csv", lambda: c.create_table("u", "t.csv")),
+        ("location", lambda: c.sql(
+            "CREATE TABLE u WITH (location = 't.csv', format = 'csv')")),
+        ("row_udf", lambda: c.sql("SELECT rowf(a) FROM t")),
+        ("udaf", lambda: c.sql("SELECT k, smax(a) FROM t GROUP BY k"))):
+    try:
+        fn()
+        errors[name] = None
+    except ImportError as exc:
+        errors[name] = str(exc)
+want = [[k, float((cols["t"][cols["k"] == k]).sum()),
+         int((cols["k"] == k).sum())] for k in ("x", "y")]
+print(json.dumps({
+    "got": got, "want": want,
+    "coef": c.schema["root"].models["m"][0].coef_.tolist(),
+    "stream_coef": c.schema["root"].models["ms"][0].coef_.tolist(),
+    "loaded": loaded.coef_.tolist(), "errors": errors,
+    "blocked": [sys.modules.get(m) is None for m in ("pandas", "sklearn")]}))
+"""
+
+
+def test_models_and_host_boundary_without_pandas(tmp_path):
+    """A machine without pandas, here: with pandas and sklearn blocked, CREATE
+    MODEL over numeric columns (gathered and streamed with wrap_fit),
+    PREDICT under a GROUP BY and EXPORT MODEL work with a numpy model
+    class; a csv path, CREATE TABLE ... WITH (location), a row UDF and a
+    UDAF raise ImportError naming pandas."""
+    env = {**os.environ, "DSQL_TIERED": "0", "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "-c", _NO_PANDAS_MODELS],
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=180, check=True,
+                         env={**env, "PYTHONPATH": str(ROOT)})
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["blocked"] == [True, True]
+    assert res["coef"] == pytest.approx([2.0, -0.5, 1.0], rel=1e-9)
+    assert res["stream_coef"] == pytest.approx(res["coef"], rel=1e-9)
+    assert res["loaded"] == res["coef"]
+    for (k, s, n), (wk, ws, wn) in zip(res["got"], res["want"]):
+        assert (k, n) == (wk, wn) and s == pytest.approx(ws, rel=1e-9)
+    assert set(res["errors"]) == {"csv", "location", "row_udf", "udaf"}
+    for name, message in res["errors"].items():
+        assert message is not None and "pandas" in message, name
 
 
 _NO_PANDAS_CHUNKED = """

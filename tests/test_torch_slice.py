@@ -183,10 +183,13 @@ def test_scalar_operators_match_jax(small_tables, tpch_li, name):
 
 
 def test_unported_operator_names_itself(small_tables):
-    """A row UDF (fed pandas rows in the JAX package) is not ported: the
-    query raises and names it."""
-    _, pc = _contexts(small_tables)
-    pc.register_function(lambda row: row["a0"], "row_identity",
-                         [("x", np.float64)], np.float64, row_udf=True)
-    with pytest.raises(NotImplementedError, match="row_identity"):
-        pc.sql("SELECT row_identity(v) FROM t")
+    """A row UDF, fed pandas rows in both packages, answers as the JAX
+    package's does (it raised NotImplementedError before the port had
+    row UDFs)."""
+    jc, pc = _contexts(small_tables)
+    for ctx in (jc, pc):
+        ctx.register_function(lambda row: row["a0"], "row_identity",
+                              [("x", np.float64)], np.float64, row_udf=True)
+    sql = "SELECT ik, row_identity(v) AS r FROM t"
+    _assert_same(pc.sql(sql, return_futures=False),
+                 jc.sql(sql, return_futures=False))
