@@ -130,7 +130,10 @@ the compiled tier first.
    Q22) that compiles without one kernel-1 launch per replay, fails it;
    then Q1 and Q9 profiled (device busy, idle share against the
    unprofiled warm wall).  One ``compiled table:`` JSON line per query.
-   The ``kernels`` line's launches for kernel 1 are this phase's.
+   The ``kernels`` line's launches for kernel 1 are this phase's.  The
+   pass runs with ``DSQL_PROGRAM_STORE`` and ``DSQL_CAPS_FILE`` on an
+   empty ``build/phase22`` (22(a)): it finds nothing there, and stores a
+   build record after every build.
 13. the rest of the compiled tier (after phase 12): parameters, stage
    graphs, tiering and the ladder (``params table:``, ``stages table:``);
    13(c) also runs a cold query whose background build's capture is held
@@ -190,7 +193,7 @@ the compiled tier first.
    left after a query, and with ``DSQL_SPILL_MB=0`` the join raises
    ``StreamingUnsupported``.  (c) phase 10's W1 over the chunked lineitem
    (buckets of l_suppkey) equal to the resident answer row for row.  (d)
-   lineitem at SF 10 (about 60 M rows, 15 batches of the default
+   lineitem at SF 5 (about 30 M rows, 8 batches of the default
    4,194,304) chunked, Q1 and Q6 cold and warm against the numpy oracles
    of the same data.  One ``ooc table:`` JSON line per query of (a) and an
    ``ooc summary:`` line; the ``kernels`` line carries Q1's kernel-1
@@ -367,6 +370,30 @@ the compiled tier first.
    BY over PREDICT, PREDICT's input, gather, predict-and-upload and the
    rest, the GROUP BY); the ``kernels`` line
    carries (c)'s launches as ``launches_predict``.
+
+22. the program store (last; ``runtime/program_store.py``, build records).
+   (a) After phase 12: its records' count and bytes (``store:``), its
+   answers and walls handed over in ``build/phase22/answers.pkl``.  (d)
+   Q1 and Q12 on phase 17's four-shard mesh with the store armed store
+   their stage records.  (b) A fresh process (this script with
+   ``--store-child store``) generates the same tables from the same seed
+   and runs Q1-Q22 compiled over the store: per query a ``store table:``
+   line (cold wall, warm-up and capture ms, builds, recompiles,
+   ``program_store_hits``, ``graph_captures``, kernel-1 launches per
+   replay, the answer bit for bit phase 12's); every query phase 12 built
+   takes 0 builds and 0 recompiles, kernel 1 replays once per run of Q1,
+   Q4, Q5, Q12, Q22, Q2 falls back on its runtime flag (F8) as in phase
+   12; then (d) Q1 and Q12 on a four-shard mesh of its tables from the
+   stage records (``spmd_store_hits``, no ``spmd_compiles``, answers
+   equal), and (e) a corrupt entry (Q6), a fingerprint mismatch (Q14),
+   altered constants (the first of Q13, Q9, Q20, Q3, Q10 whose record
+   holds any) and a record without constants over dropped kernel-1
+   layouts (Q1) each fall back to a build, counted, the answer equal.
+   (c) Where the script has used under ``STORE_CAPS_BEFORE_S`` (780 s), a
+   fresh process over ``DSQL_CAPS_FILE`` alone.  A ``store summary:``
+   line sums phase 12's, (b)'s and (c)'s cold walls, warm-ups, captures,
+   builds and recompiles; the ``kernels`` line carries (b)'s kernel-1
+   launches as ``launches_program_store``.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -4328,7 +4355,7 @@ def mesh_profile(mctx) -> dict:
 #: (a)-(c): lineitem in batches of 1,048,576 rows (6 at SF 1, the last short)
 OOC_BATCH_ROWS = 1 << 20
 #: (d): lineitem at this scale in the default 4,194,304-row batches
-OOC_SCALE_SF = 10.0
+OOC_SCALE_SF = 5.0
 #: (b): the spill store as scripts/ooc_smoke.py sets it
 OOC_SPILL_ENV = {"DSQL_SPILL_MB": "64", "DSQL_SPILL_DEVICE_MB": "8"}
 #: (b): a Q3-shaped orders-lineitem join under a GROUP BY
@@ -6842,6 +6869,449 @@ def phase_host_boundary(dev, base: dict, tables: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the program store (build records across processes)
+# ---------------------------------------------------------------------------
+
+STORE_DIR = os.path.join("build", "phase22")
+#: the static GROUP BYs: kernel 1 launches once per replay
+STORE_KERNEL1 = (1, 4, 5, 12, 22)
+#: 22(d): on phase 17's four-shard mesh of the card
+STORE_MESH_QUERIES = (1, 12)
+#: 22(e): the query whose entry is corrupted, whose fingerprint is changed,
+#: whose recorded constants are altered (the first of these whose record
+#: holds any), and whose record loses its constants while the process's
+#: cached uploads are dropped (its capture asks for one)
+STORE_CORRUPT, STORE_MISMATCH, STORE_MISSING = 6, 14, 1
+STORE_ALTERED = (13, 9, 20, 3, 10)
+STORE_CHILD_LIMIT_S = 600.0
+#: 22(c) runs only while the script has used less than this many seconds
+#: (it takes about a minute of a 1200 s limit)
+STORE_CAPS_BEFORE_S = 780.0
+#: when main started (22(c)'s budget)
+_STARTED = [time.perf_counter()]
+#: the script a child of 22(b)/(c) runs (a rehearsal points it at a wrapper)
+STORE_CHILD_SCRIPT = os.path.abspath(__file__)
+
+
+def _store_paths() -> dict:
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), STORE_DIR)
+    return {"root": root, "store": os.path.join(root, "store"),
+            "caps": os.path.join(root, "caps.json"),
+            "answers": os.path.join(root, "answers.pkl")}
+
+
+def store_arm() -> dict:
+    """22(a), before phase 12: ``DSQL_PROGRAM_STORE`` and ``DSQL_CAPS_FILE``
+    on an empty directory, so that phase 12's compiled pass (which finds
+    nothing there) stores a record after every build."""
+    import shutil
+
+    from dask_sql_tpu_torch.physical import compiled
+
+    paths = _store_paths()
+    shutil.rmtree(paths["root"], ignore_errors=True)
+    os.makedirs(paths["store"], exist_ok=True)
+    os.environ["DSQL_PROGRAM_STORE"] = paths["store"]
+    os.environ["DSQL_CAPS_FILE"] = paths["caps"]
+    compiled._caps_disk = None
+    return paths
+
+
+def _table_arrays(result) -> list:
+    return [(name, col.to_numpy())
+            for name, col in zip(result.names, result.columns)]
+
+
+def _same_arrays(got: list, want: list) -> bool:
+    """Two answers as column arrays, bit for bit."""
+    if [n for n, _ in got] != [n for n, _ in want]:
+        return False
+    for (_, g), (_, w) in zip(got, want):
+        if len(g) != len(w):
+            return False
+        if w.dtype.kind == "f":
+            if g.dtype != w.dtype or not np.array_equal(
+                    np.ascontiguousarray(g).view(np.uint8),
+                    np.ascontiguousarray(w).view(np.uint8)):
+                return False
+        elif g.tolist() != w.tolist():
+            return False
+    return True
+
+
+def store_populated(paths: dict, rows: list, answers: dict) -> dict:
+    """22(a), after phase 12: the store disarmed, its entries and bytes
+    printed; phase 12's answers and per-query walls handed to 22(b) in a
+    file."""
+    import pickle
+
+    from dask_sql_tpu_torch.physical import compiled
+    from dask_sql_tpu_torch.runtime import program_store
+
+    os.environ.pop("DSQL_PROGRAM_STORE", None)
+    os.environ.pop("DSQL_CAPS_FILE", None)
+    compiled._caps_disk = None
+    store = program_store.ProgramStore(paths["store"])
+    caps_keys = 0
+    if os.path.exists(paths["caps"]):
+        with open(paths["caps"]) as f:
+            caps_keys = len(json.load(f))
+    p12 = {r["q"]: {"tier": r["tier"], "reason": r["reason"],
+                    "cold_ms": r["cold_ms"],
+                    "warmup_ms": r["warmup_ms"] or 0.0,
+                    "capture_ms": r["capture_ms"] or 0.0,
+                    "builds": r["cold_counters"].get("compiles", 0),
+                    "recompiles": r["cold_counters"].get("recompiles", 0)}
+           for r in rows}
+    with open(paths["answers"], "wb") as f:
+        pickle.dump({"answers": {q: _table_arrays(t)
+                                 for q, t in answers.items()},
+                     "phase12": p12, "mesh": {}}, f)
+    out = {"entries": len(store.entries()), "bytes": store.total_bytes(),
+           "caps_keys": caps_keys}
+    print(f"store: phase 12 stored {out['entries']} build records, "
+          f"{out['bytes']} bytes; the caps file holds {caps_keys} programs")
+    return out
+
+
+def store_mesh_records(dev, base: dict, paths: dict) -> dict:
+    """22(d)'s records: Q1 and Q12 on a four-shard mesh of the card (phase
+    17's) with the store armed; returns their answers."""
+    from dask_sql_tpu_torch.parallel import spmd
+    from dask_sql_tpu_torch.parallel.mesh import Mesh
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+
+    for k in ("DSQL_COMPILE", "DSQL_MESH"):
+        os.environ.pop(k, None)
+    forget_programs()
+    spmd.clear_programs()
+    os.environ["DSQL_PROGRAM_STORE"] = paths["store"]
+    out = {}
+    try:
+        mctx, _ = _mesh_context(Mesh([torch.device(dev.type, 0) if dev.type
+                                      == "cuda" else dev] * MESH_SHARDS),
+                                base)
+        for qid in STORE_MESH_QUERIES:
+            c0 = tel.REGISTRY.counters()
+            result = mctx.sql(QUERIES[qid])
+            c1 = tel.REGISTRY.counters()
+            d = {k: c1.get(k, 0) - c0.get(k, 0)
+                 for k in ("spmd_compiles", "program_store_stores")}
+            tier = _last_tier(mctx)[0]
+            if tier != "spmd" or d["spmd_compiles"] < 1 \
+                    or d["program_store_stores"] < d["spmd_compiles"]:
+                raise AssertionError(f"22(d) Q{qid}: {tier}, {d}")
+            out[qid] = _table_arrays(result)
+            print(f"store mesh: Q{qid} stored {d['program_store_stores']} "
+                  f"stage records ({tier})")
+        del mctx
+    finally:
+        os.environ.pop("DSQL_PROGRAM_STORE", None)
+        spmd.clear_programs()
+        forget_programs()
+    return out
+
+
+def _store_query(ctx, qid: int, handed: dict, mode: str) -> dict:
+    """22(b)/(c) for one query: the cold run (a record's capture and
+    replay, or a build) and one warm replay, the launch counts set to 0
+    before each run and read after it."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    text = QUERIES[qid]
+    box = {}
+    gk.reset_launch_counts()
+    cold = wall_ms(lambda: box.update(r=ctx.sql(text)))
+    cold_k1 = gk.LAUNCHES["segsum_fixedpoint"]
+    tier, reason, counters = _last_tier(ctx)
+    rep = ctx.last_report.counters
+    graph = _graph_attrs(ctx)
+    gk.reset_launch_counts()
+    warm = wall_ms(lambda: box.update(w=ctx.sql(text)))
+    k1 = gk.LAUNCHES["segsum_fixedpoint"]
+    want = handed["answers"][qid]
+    row = {"q": qid, "mode": mode, "tier": tier, "reason": reason,
+           "cold_ms": cold, "warmup_ms": graph.get("warmup_ms", 0.0),
+           "capture_ms": graph.get("capture_ms", 0.0),
+           "builds": counters.get("compiles", 0),
+           "recompiles": counters.get("recompiles", 0),
+           "program_store_hits": rep.get("program_store_hits", 0),
+           "program_store_errors": rep.get("program_store_errors", 0),
+           "program_store_rejects": rep.get("program_store_rejects", 0),
+           "graph_captures": counters.get("graph_captures", 0),
+           "cold_kernel1": cold_k1, "kernel1_per_replay": k1,
+           "warm_ms": warm,
+           "equal": (_same_arrays(_table_arrays(box["r"]), want)
+                     and _same_arrays(_table_arrays(box["w"]), want))}
+    print("store table: " + json.dumps(row))
+    return row
+
+
+def _entry_digests(ctx, store, qid: int) -> list:
+    """The store digests a fresh run of ``qid`` loads (their ``used_at``
+    moves on a hit)."""
+    forget_programs(learned=True)
+    before = {d: e.get("used_at") for d, e in store.entries().items()}
+    ctx.sql(QUERIES[qid])
+    return sorted(d for d, e in store.entries().items()
+                  if e.get("used_at") != before.get(d))
+
+
+def _rewrite_entry(store, digest: str, change) -> None:
+    import pickle
+
+    path = store._entry_path(digest)
+    with open(path, "rb") as f:
+        raw = pickle.load(f)
+    change(raw)
+    with open(path, "wb") as f:
+        pickle.dump(raw, f)
+
+
+def store_fallbacks(ctx, handed: dict) -> dict:
+    """22(e): each damaged entry falls back to a build, counted, with the
+    answer equal to phase 12's."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+    from dask_sql_tpu_torch.physical import compiled
+    from dask_sql_tpu_torch.runtime import program_store
+
+    store = program_store.get_store()
+    names = ("program_store_errors", "program_store_rejects",
+             "program_store_hits", "compiles")
+
+    def damaged_run(label: str, qid: int, counter: str) -> dict:
+        forget_programs(learned=True)
+        before = dict(compiled.stats)
+        result = ctx.sql(QUERIES[qid])
+        d = _counter_delta(before, names)
+        equal = _same_arrays(_table_arrays(result), handed["answers"][qid])
+        if d[counter] < 1 or d["compiles"] < 1 or not equal:
+            raise AssertionError(f"22(e) {label} Q{qid}: {d}, equal {equal}")
+        print(f"store fallback: {label} entry of Q{qid} -> {counter} "
+              f"{d[counter]}, rebuilt ({d['compiles']} builds), answer equal")
+        return {"q": qid, **d, "equal": equal}
+
+    out = {}
+    (digest,) = _entry_digests(ctx, store, STORE_CORRUPT)
+    with open(store._entry_path(digest), "wb") as f:
+        f.write(b"\x80corrupt")
+    out["corrupt"] = damaged_run("corrupt", STORE_CORRUPT,
+                                 "program_store_errors")
+
+    (digest,) = _entry_digests(ctx, store, STORE_MISMATCH)
+    _rewrite_entry(store, digest, lambda raw: raw["fingerprint"].update(
+        device="cuda:another card"))
+    out["fingerprint"] = damaged_run("fingerprint", STORE_MISMATCH,
+                                     "program_store_rejects")
+
+    import pickle
+    for qid in STORE_ALTERED:
+        digests = _entry_digests(ctx, store, qid)
+        with_consts = []
+        for d in digests:
+            with open(store._entry_path(d), "rb") as f:
+                if pickle.load(f)["consts"]:
+                    with_consts.append(d)
+        if with_consts:
+            break
+    else:
+        raise AssertionError(f"22(e): no record of {STORE_ALTERED} holds a "
+                             f"constant")
+
+    def alter(raw):
+        key, (arr, n) = next(iter(raw["consts"].items()))
+        arr = arr.copy()
+        arr.reshape(-1).view(np.uint8)[0] ^= 1
+        raw["consts"][key] = (arr, n)
+
+    for d in with_consts:
+        _rewrite_entry(store, d, alter)
+    out["altered_consts"] = damaged_run("altered-constants", qid,
+                                        "program_store_errors")
+
+    for d in _entry_digests(ctx, store, STORE_MISSING):
+        _rewrite_entry(store, d, lambda raw: raw.update(consts={}))
+    # the process's cached uploads dropped: the capture asks for them
+    gk._row_layout.cache_clear()
+    gk._kernel_plan.cache_clear()
+    out["missing_consts"] = damaged_run("constant-less", STORE_MISSING,
+                                        "program_store_errors")
+    return out
+
+
+def store_child_mesh(ctx, handed: dict) -> dict:
+    """22(d) in the child: Q1 and Q12 on a four-shard mesh of the card over
+    its own tables, from the stored stage records."""
+    from dask_sql_tpu_torch.parallel.mesh import Mesh
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+
+    base = {name: entry.table
+            for name, entry in ctx.schema["root"].tables.items()}
+    dev = ctx.device
+    mctx, _ = _mesh_context(Mesh([torch.device(dev.type, 0) if dev.type ==
+                                  "cuda" else dev] * MESH_SHARDS), base)
+    out = {}
+    for qid in STORE_MESH_QUERIES:
+        box = {}
+        c0 = tel.REGISTRY.counters()
+        cold = wall_ms(lambda: box.update(r=mctx.sql(QUERIES[qid])))
+        c1 = tel.REGISTRY.counters()
+        d = {k: c1.get(k, 0) - c0.get(k, 0)
+             for k in ("spmd_queries", "spmd_compiles", "spmd_store_hits",
+                       "program_store_errors", "spmd_eager_stages")}
+        row = {"q": qid, "tier": _last_tier(mctx)[0], "cold_ms": cold, **d,
+               "equal": _same_arrays(_table_arrays(box["r"]),
+                                     handed["mesh"][qid])}
+        print("store mesh: " + json.dumps(row))
+        out[qid] = row
+    return out
+
+
+def store_child(args) -> int:
+    """22(b) (``--store-child store``) and (c) (``--store-child caps``): a
+    fresh process, the same tables from the same seed, Q1-Q22 compiled
+    over the store (or over the caps file alone); then, over the store,
+    22(d) and 22(e).  Prints ``store table:`` lines and a ``store child:``
+    JSON line."""
+    import pickle
+    import traceback
+
+    paths = _store_paths()
+    for k in [k for k in os.environ if k.startswith("DSQL_")]:
+        os.environ.pop(k)
+    os.environ.update({"DSQL_TIERED": "0", "DSQL_EAGER_FALLBACK": "0",
+                       **SERVING_PINS})
+    if args.store_child == "store":
+        os.environ["DSQL_PROGRAM_STORE"] = paths["store"]
+    else:
+        os.environ["DSQL_CAPS_FILE"] = paths["caps"]
+    with open(paths["answers"], "rb") as f:
+        handed = pickle.load(f)
+    t0 = time.perf_counter()
+    tables = generate_tpch(args.sf, args.seed)
+    ctx, create_s = register(torch.device(args.device or "cuda"), tables)
+    del tables
+    out = {"mode": args.store_child, "setup_s": time.perf_counter() - t0,
+           "create_s": create_s, "rows": [], "failures": []}
+    parts = [("queries", lambda: out["rows"].extend(
+        _store_query(ctx, q, handed, args.store_child)
+        for q in sorted(QUERIES)))]
+    if args.store_child == "store":
+        parts += [("mesh", lambda: out.update(mesh=store_child_mesh(
+            ctx, handed))),
+                  ("fallbacks", lambda: out.update(fallbacks=store_fallbacks(
+                      ctx, handed)))]
+    for label, part in parts:
+        try:
+            part()
+        except Exception as exc:   # reported together by the parent
+            traceback.print_exc()
+            out["failures"].append(f"{label}: {type(exc).__name__}: {exc}")
+    print("store child: " + json.dumps(out))
+    return 0
+
+
+def _run_store_child(mode: str, sf: float, seed: int) -> dict:
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DSQL_")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, STORE_CHILD_SCRIPT, "--store-child", mode,
+         "--sf", str(sf), "--seed", str(seed)],
+        cwd=here, env=env, capture_output=True, text=True,
+        timeout=STORE_CHILD_LIMIT_S)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        if not line.startswith("store child: "):
+            print(line)
+    if proc.returncode != 0 or not lines \
+            or not lines[-1].startswith("store child: "):
+        raise AssertionError(f"22 {mode} child failed ({proc.returncode}): "
+                             f"{proc.stderr[-3000:]}")
+    out = json.loads(lines[-1][len("store child: "):])
+    out["process_s"] = time.perf_counter() - t0
+    if out["failures"]:
+        print(proc.stderr[-3000:])
+    return out
+
+
+def _store_sums(rows) -> dict:
+    rows = list(rows)
+    return {k: sum(r[k] for r in rows)
+            for k in ("cold_ms", "warmup_ms", "capture_ms", "builds",
+                      "recompiles")}
+
+
+def phase_store(dev, base: dict, sf: float, seed: int,
+                populated: dict) -> dict:
+    """Phase 22, last: (d)'s stage records from this process, (b) the
+    fresh child over the store, (c) the fresh child over the caps file
+    alone where the time allows, the checks, and the ``store summary:``
+    line."""
+    import pickle
+
+    t0 = time.perf_counter()
+    paths = _store_paths()
+    mesh_answers = store_mesh_records(dev, base, paths)
+    with open(paths["answers"], "rb") as f:
+        handed = pickle.load(f)
+    handed["mesh"] = mesh_answers
+    with open(paths["answers"], "wb") as f:
+        pickle.dump(handed, f)
+    p12 = handed["phase12"]
+    child = _run_store_child("store", sf, seed)
+    used = time.perf_counter() - _STARTED[0]
+    caps = None
+    if used < STORE_CAPS_BEFORE_S:
+        caps = _run_store_child("caps", sf, seed)
+    else:
+        print(f"store: 22(c) skipped, {used:.0f} s used of the "
+              f"{STORE_CAPS_BEFORE_S:.0f} s it needs to start within")
+    failures = list(child["failures"]) + (caps or {}).get("failures", [])
+    for r in child["rows"]:
+        q = r["q"]
+        if not r["equal"]:
+            failures.append(f"Q{q}: the answer is not phase 12's")
+        if p12[q]["builds"] and (r["builds"] or r["recompiles"]):
+            failures.append(f"Q{q}: {r['builds']} builds, {r['recompiles']} "
+                            f"recompiles from the store")
+        if q in STORE_KERNEL1 and r["kernel1_per_replay"] != 1:
+            failures.append(f"Q{q}: kernel 1 launched "
+                            f"{r['kernel1_per_replay']} times per replay")
+        if ("runtime" in p12[q]["reason"]) != ("runtime" in r["reason"]):
+            failures.append(f"Q{q}: {r['reason']!r}, phase 12 "
+                            f"{p12[q]['reason']!r}")
+    for q, m in (child.get("mesh") or {}).items():
+        if (m["tier"] != "spmd" or m["spmd_compiles"] or not m["equal"]
+                or m["spmd_store_hits"] < 1):
+            failures.append(f"22(d) Q{q}: {m}")
+    for r in (caps or {}).get("rows", []):
+        if not r["equal"]:
+            failures.append(f"22(c) Q{r['q']}: the answer is not phase 12's")
+    hits = [r for r in child["rows"] if r["program_store_hits"]]
+    summary = {
+        "phase12": _store_sums(p12.values()),
+        "store": {**_store_sums(child["rows"]),
+                  "hits": sum(r["program_store_hits"] for r in hits),
+                  "setup_s": child["setup_s"],
+                  "process_s": child["process_s"]},
+        "caps": None if caps is None else {
+            **_store_sums(caps["rows"]), "setup_s": caps["setup_s"],
+            "process_s": caps["process_s"]},
+        "hit_skipped_warmup": bool(hits) and all(
+            r["warmup_ms"] == 0 for r in hits),
+        "entries": populated["entries"], "bytes": populated["bytes"],
+        "mesh": child.get("mesh"), "fallbacks": child.get("fallbacks"),
+        "kernel1_launches": sum(r["cold_kernel1"] + r["kernel1_per_replay"]
+                                for r in child["rows"]),
+        "seconds": time.perf_counter() - t0}
+    print("store summary: " + json.dumps(summary))
+    if failures:
+        raise AssertionError("phase 22: " + "; ".join(failures))
+    return summary
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--sf", type=float, default=1.0)
@@ -6852,9 +7322,13 @@ def main(argv=None) -> int:
     p.add_argument("--device", default=None, help=argparse.SUPPRESS)
     # phase 20(d)'s child replica, started by the script itself
     p.add_argument("--replica", default=None, help=argparse.SUPPRESS)
+    # phase 22's fresh processes, started by the script itself
+    p.add_argument("--store-child", default=None, choices=("store", "caps"),
+                   help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    rehearsal = (args.rank is not None or args.replica is not None) \
-        and args.device == "cpu"
+    _STARTED[0] = time.perf_counter()
+    rehearsal = (args.rank is not None or args.replica is not None
+                 or args.store_child is not None) and args.device == "cpu"
     if not torch.cuda.is_available() and not rehearsal:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -6869,6 +7343,8 @@ def main(argv=None) -> int:
         return multiprocess_rank(args)
     if args.replica is not None:
         return fleet_replica(args)
+    if args.store_child is not None:
+        return store_child(args)
     # the production default: statistics-driven dispatch, nothing forced;
     # phases 4-8 and 10-11 measure the eager executor (DSQL_COMPILE=0) as
     # they did before the compiled tier, phases 9 and 12 the compiled tier
@@ -6908,8 +7384,10 @@ def main(argv=None) -> int:
     off_launches = phase_adaptive(ctx, on_results)
     print(f"launches: eager path (adaptive on) {launches}, adaptive off and "
           f"forced {off_launches}")
+    store_paths = store_arm()
     compiled_launches, compiled_rows, compiled_answers = phase_compiled(
         ctx, on_results, eager_rows)
+    populated = store_populated(store_paths, compiled_rows, compiled_answers)
     print(f"launches: compiled tier (the main path) {compiled_launches}")
     phase_params(ctx)
     phase_stages(ctx, on_results)
@@ -6934,6 +7412,8 @@ def main(argv=None) -> int:
     multi = phase_multiprocess(dev, base, on_results, args.sf, args.seed)
     system = phase_system(dev, base, args.sf, args.seed)
     host_boundary = phase_host_boundary(dev, base, tables)
+    del tables
+    store = phase_store(dev, base, args.sf, args.seed, populated)
     kernel1["launches"] = compiled_launches["segsum_fixedpoint"]
     kernel1["launches_out_of_core_q1"] = ooc["q1_launches"]
     kernel1["launches_write_path"] = write["launches"]["segsum_fixedpoint"]
@@ -6944,6 +7424,7 @@ def main(argv=None) -> int:
     kernel1["launches_autopilot"] = system["autopilot"]["served_launches"].get(
         "segsum_fixedpoint", 0)
     kernel1["launches_predict"] = host_boundary["models"]["launches"]
+    kernel1["launches_program_store"] = store["kernel1_launches"]
     print(f"card: {card}")
     print(json.dumps({"kernels": [kernel1, kernel2]}))
     print(json.dumps({"ok": True, "device": {

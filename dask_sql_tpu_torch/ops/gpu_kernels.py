@@ -45,6 +45,7 @@ import subprocess
 import tempfile
 import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
@@ -161,6 +162,56 @@ def recording_launches():
         _launch_tls.record = prev
 
 
+# cached uploads: device tensors that a cache of this process filled from
+# the host (kernel 1's layouts below, the string byte matrices of
+# ``strings_fast``), each with its host source.  A program's warm-up notes
+# the ones it reads (``noting_cached``), so that its build record carries
+# them (``physical/graphs.py``): a process whose cache is cold makes those
+# copies inside the capture taken from the record
+_uploads: Dict[int, tuple] = {}
+_note_tls = threading.local()
+
+
+def cached_upload(host: torch.Tensor, device) -> torch.Tensor:
+    """``host`` copied to ``device`` for a cache, remembered with its host
+    source while the copy lives."""
+    dev = host.to(device)
+    if dev.is_cuda:
+        k = id(dev)
+
+        def forget(ref, k=k):
+            hit = _uploads.get(k)
+            if hit is not None and hit[0] is ref:
+                _uploads.pop(k, None)
+
+        _uploads[k] = (weakref.ref(dev, forget), host)
+    return dev
+
+
+@contextmanager
+def noting_cached(note):
+    """While the block runs on this thread, ``note(device tensor, host
+    source)`` for every cached upload it reads (``note_cached``); None
+    notes nothing."""
+    prev = getattr(_note_tls, "note", None)
+    _note_tls.note = note
+    try:
+        yield
+    finally:
+        _note_tls.note = prev
+
+
+def note_cached(*tensors) -> None:
+    """The caller read these cached tensors (a cache hit)."""
+    note = getattr(_note_tls, "note", None)
+    if note is None:
+        return
+    for t in tensors:
+        hit = None if t is None else _uploads.get(id(t))
+        if hit is not None and hit[0]() is t:
+            note(t, hit[1])
+
+
 # ---------------------------------------------------------------------------
 # shared pieces: exact powers of two, grid exponents, limb layout
 # ---------------------------------------------------------------------------
@@ -183,7 +234,7 @@ def _grid_exponents(vals: torch.Tensor, mask: torch.Tensor,
     """
     a = vals.shape[0]
     k = torch.zeros(a, dtype=torch.int64, device=vals.device)
-    idx = _row_layout(tuple(row_classes), vals.device).float_rows
+    idx = _noted(_row_layout(tuple(row_classes), vals.device)).float_rows
     if idx is None:
         return k
     fv = vals.index_select(0, idx)
@@ -325,12 +376,15 @@ def _row_layout(row_classes: Tuple[str, ...], device: torch.device) -> _RowLayou
             src[i][j] = out0[i] + j
             lk[i][j] = j % limbs[i]
             sign[i][j] = 1.0 if j < limbs[i] else -1.0
+
+    def up(rows, dtype):
+        return cached_upload(torch.tensor(rows, dtype=dtype).reshape(a, width),
+                             device)
+
     return _RowLayout(
-        torch.tensor(float_rows, dtype=torch.int64, device=device)
+        cached_upload(torch.tensor(float_rows, dtype=torch.int64), device)
         if float_rows else None,
-        torch.tensor(src, dtype=torch.int64, device=device).reshape(a, width),
-        torch.tensor(lk, dtype=torch.int64, device=device).reshape(a, width),
-        torch.tensor(sign, dtype=torch.float64, device=device).reshape(a, width))
+        up(src, torch.int64), up(lk, torch.int64), up(sign, torch.float64))
 
 
 @functools.lru_cache(maxsize=256)
@@ -338,8 +392,15 @@ def _kernel_plan(row_classes: Tuple[str, ...], num_groups: int,
                  device: torch.device) -> _KernelPlan:
     limbs, _, out0 = limb_layout(row_classes)
     tiles, smem, private = _kernel_tiles(row_classes, num_groups)
-    meta = torch.tensor(limbs + out0 + tiles, dtype=torch.int32, device=device)
+    meta = cached_upload(torch.tensor(limbs + out0 + tiles, dtype=torch.int32),
+                         device)
     return _KernelPlan(meta, len(tiles) - 1, smem, private)
+
+
+def _noted(cached):
+    """A cache hit's tuple, its tensors noted (``note_cached``)."""
+    note_cached(*(t for t in cached if isinstance(t, torch.Tensor)))
+    return cached
 
 
 def segsum_limb_totals_cuda(vals: torch.Tensor, codes: torch.Tensor,
@@ -376,7 +437,7 @@ def segsum_limb_totals_cuda(vals: torch.Tensor, codes: torch.Tensor,
     out_nonfinite = torch.zeros((3 * a, num_groups), dtype=torch.int64, device=dev)
     if n == 0 or a == 0:
         return out_limbs, out_nonfinite
-    plan = _kernel_plan(tuple(row_classes), num_groups, dev)
+    plan = _noted(_kernel_plan(tuple(row_classes), num_groups, dev))
     lib = _load_library("segsum_fixedpoint")
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.dsql_segsum_fixedpoint(
@@ -426,7 +487,7 @@ def _recombine(totals: torch.Tensor, row_classes: Sequence[str],
     Neumaier compensation, all rows at once."""
     g = totals.shape[1]
     dev = totals.device
-    lay = _row_layout(tuple(row_classes), dev)
+    lay = _noted(_row_layout(tuple(row_classes), dev))
     a, width = lay.src.shape
     ext = torch.cat([totals, torch.zeros((1, g), dtype=totals.dtype, device=dev)])
     weight = _pow2(LIMB_BITS * lay.limb - k[:, None]) * lay.sign
@@ -727,6 +788,13 @@ _ARGTYPES = {
                           "dsql_segsum_accumulate_f64": "PliPPiiiiPlPPP"},
 }
 _CTYPES = {"P": ctypes.c_void_p, "l": ctypes.c_longlong, "i": ctypes.c_int}
+
+
+def load_kernel_library(name: str) -> None:
+    """Build (where missing) and load kernel ``name``'s library: before a
+    CUDA graph capture that launches it, which must not load it itself."""
+    if name in _SOURCES:
+        _load_library(name)
 
 
 @functools.lru_cache(maxsize=None)

@@ -28,6 +28,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import gpu_kernels as gk
+
 DEVICE_STRING_THRESHOLD = int(
     os.environ.get("DSQL_DEVICE_STRING_THRESHOLD", str(1 << 15)))
 _MAX_DEVICE_STR_LEN = 128
@@ -175,14 +177,16 @@ def _bytes_matrix(dictionary: np.ndarray, device: torch.device):
     key = (id(dictionary), str(device))
     hit = _matrix_memo.get(key)
     if hit is not None and hit[0]() is dictionary:
+        gk.note_cached(hit[1], hit[2])
         return hit[1], hit[2], hit[3]
     built = _encode_matrix(dictionary)
     if built is None:
         return None
     mat, lens = built
     all_ascii = bool((mat < 128).all())
-    dev_mat = torch.from_numpy(np.ascontiguousarray(mat)).to(device)
-    dev_lens = torch.from_numpy(lens).to(device)
+    dev_mat = gk.cached_upload(torch.from_numpy(np.ascontiguousarray(mat)),
+                               device)
+    dev_lens = gk.cached_upload(torch.from_numpy(lens), device)
     _matrix_memo[key] = (
         weakref.ref(dictionary, lambda _r, k=key: _matrix_memo.pop(k, None)),
         dev_mat, dev_lens, all_ascii)

@@ -78,8 +78,15 @@ across processes a rank reads only what it holds (its own shards, from
 adds no collective and ranks that disagree on ``DSQL_PROFILE`` still pair
 theirs.  Under ``DSQL_EVENTS`` a served query publishes ``spmd.query``.
 
-Not ported yet: the stage programs' persistence in the program store (its
-module is not ported).
+With ``DSQL_PROGRAM_STORE`` set, a stage program of a virtual mesh (one
+card repeated, or the CPU) stores its build record after its first run
+(``runtime/program_store.py``: the recorded meta, decisions included, and
+the graph's constants), under the digest of its key (``_stage_digest``);
+a process that finds the record makes the program from it and captures
+it without a warm-up, counted ``spmd_store_hits`` instead of
+``spmd_compiles``.  A record that does not serve (its capture fails) is
+``program_store_errors``, dropped, and the stage is built anew.  On a
+mesh across processes every stage runs eagerly, so nothing is stored.
 
 Variables: ``DSQL_MESH=0`` turns the backend off;
 ``DSQL_SPMD_BROADCAST_ROWS`` (65536) is the build-side estimate above
@@ -923,13 +930,18 @@ class _StageProgram:
     (None where the stage runs eagerly).  ``lock`` serializes an eager
     run that records, so that two first runs do not both record."""
 
-    __slots__ = ("body", "meta", "graph", "lock")
+    __slots__ = ("body", "meta", "graph", "lock", "digest", "pending")
 
-    def __init__(self, body, meta: Dict, graph):
+    def __init__(self, body, meta: Dict, graph, digest=None, pending=None):
         self.body = body
         self.meta = meta
         self.graph = graph
         self.lock = threading.Lock()
+        #: the program store's digest (armed, on a virtual mesh), and what
+        #: the first run settles (``_settle``): ("hit", the record's
+        #: outputs) or ("build", None), whose record is stored after it
+        self.digest = digest
+        self.pending = pending
 
 
 _prog_lock = threading.Lock()
@@ -1093,9 +1105,11 @@ def _stage_key(plan_fp: str, inputs_fp, mesh, stats_fp, params,
 
 
 def _program(key: tuple, stage_plan, context, scans, mesh, meta: Dict,
-             counts: Dict[str, int], root: bool = False) -> _StageProgram:
-    """The cached stage program for ``key``, made (and counted
-    ``spmd_compiles``) on a miss.  A mesh across processes is never
+             counts: Dict[str, int], root: bool = False,
+             use_store: bool = True) -> _StageProgram:
+    """The cached stage program for ``key``; on a miss made from its
+    stored record where there is one (``use_store``), else built (and
+    counted ``spmd_compiles``).  A mesh across processes is never
     ``virtual``: its stages hold collectives of the process group, which
     no CUDA graph captures yet, so they run eagerly on every rank."""
     from ..physical import compiled as _C
@@ -1106,6 +1120,13 @@ def _program(key: tuple, stage_plan, context, scans, mesh, meta: Dict,
         if prog is not None:
             _prog_cache.move_to_end(key)
             return prog
+    digest = record = None
+    if mesh.virtual and _C._store_armed():
+        digest = _stage_digest(key)
+        if use_store:
+            record = _pstore_load(digest, len(_C._flatten_tables(scans)))
+    if record is not None:
+        meta = record["meta"]
     body = _make_stage_body(stage_plan, context, _scan_specs(scans), mesh,
                             meta, root)
     graph = None
@@ -1115,14 +1136,105 @@ def _program(key: tuple, stage_plan, context, scans, mesh, meta: Dict,
         copied = _C._copied_positions(scans, 0)
         copied.extend(i for i, temp in enumerate(_flat_in_temps(scans))
                       if temp)
-        graph = GraphProgram(body, mesh.devices[0], copied=copied)
-    prog = _StageProgram(body, meta, graph)
-    counts["spmd_compiles"] = counts.get("spmd_compiles", 0) + 1
+        graph = GraphProgram(body, mesh.devices[0], copied=copied,
+                             record=record)
+        if record is not None and record.get("cost"):
+            graph.cost = dict(record["cost"])
+    prog = _StageProgram(body, meta, graph, digest,
+                         None if digest is None
+                         else ("hit", int(record["n_outs"])) if record
+                         else ("build", None))
+    if record is None:
+        counts["spmd_compiles"] = counts.get("spmd_compiles", 0) + 1
     with _prog_lock:
         _prog_cache[key] = prog
         while len(_prog_cache) > _PROG_CACHE_CAP:
             _release(_prog_cache.popitem(last=False)[1])
     return prog
+
+
+# ---------------------------------------------------------------------------
+# the program store (runtime/program_store.py, imported only when
+# DSQL_PROGRAM_STORE is set)
+# ---------------------------------------------------------------------------
+
+class _StoredStageFailed(Exception):
+    """The first run of a stage program made from its record failed."""
+
+
+def _stage_digest(key: tuple) -> str:
+    """The store address of a stage program: its key (already canonical:
+    temp names are positions, and it holds the input layout, the mesh, the
+    statistics the decisions were made from, the parameters and the caps)
+    folded with the runtime fingerprint."""
+    from ..runtime import program_store as _pstore
+    return _pstore.get_store().digest(key)
+
+
+def _pstore_load(digest: str, n_args: int) -> Optional[Dict]:
+    """The stage's stored record (its meta a fresh copy), or None: a miss,
+    or an entry that does not fit (counted ``program_store_errors`` and
+    dropped)."""
+    from ..physical.graphs import check_record
+    from ..runtime import program_store as _pstore
+
+    store = _pstore.get_store()
+    raw = store.load(digest)
+    if raw is None:
+        return None
+    try:
+        if (int(raw.get("v", 0)) != 1 or raw.get("kind") != "spmd"
+                or int(raw["n_args"]) != n_args
+                or not raw["meta"].get("recorded")):
+            raise ValueError("entry layout mismatch")
+        check_record(raw["consts"])
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except Exception as e:
+        _tel.inc("program_store_errors")
+        logger.warning("spmd store entry %s not usable (%s: %s); building "
+                       "anew", digest[:12], type(e).__name__, str(e)[:120])
+        store._drop(digest)
+        return None
+    return raw
+
+
+def _pstore_save(prog: _StageProgram, n_args: int, n_outs: int) -> None:
+    """Store a stage program's record after its first run (best-effort):
+    its meta (the output dictionaries left out: the first run of the
+    program made from it records them again) and its graph's constants."""
+    from ..runtime import program_store as _pstore
+
+    try:
+        meta = dict(prog.meta)
+        meta["out"] = [(stype, hm, None) for stype, hm, _ in meta["out"]]
+        rec = prog.graph.build_record()
+        rec.update(v=1, kind="spmd", meta=meta, n_args=int(n_args),
+                   n_outs=int(n_outs))
+        if gates.profile_on() and prog.graph.cost is not None:
+            rec["cost"] = dict(prog.graph.cost)
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except Exception as e:
+        _tel.inc("program_store_errors")
+        logger.debug("spmd build record not made (%s); not stored", e)
+        return
+    _pstore.get_store().store(prog.digest, rec)
+
+
+def _settle(prog: _StageProgram, flat, outs, counts: Dict[str, int]) -> None:
+    """After a stage program's first run: count a hit from the store (its
+    arity checked), or store the record of a build."""
+    if prog.pending is None:
+        return
+    (what, n_outs), prog.pending = prog.pending, None
+    if what == "hit":
+        if len(outs) != n_outs:
+            raise _StoredStageFailed(f"{len(outs)} outputs, the record "
+                                     f"has {n_outs}")
+        counts["spmd_store_hits"] = counts.get("spmd_store_hits", 0) + 1
+    elif prog.graph is not None:
+        _pstore_save(prog, len(flat), len(outs))
 
 
 def _release(prog: _StageProgram) -> None:
@@ -1173,6 +1285,8 @@ def _run_program(prog: _StageProgram, flat, counts: Dict[str, int]):
         except Exception as e:
             if not first:
                 raise
+            if prog.pending is not None and prog.pending[0] == "hit":
+                raise _StoredStageFailed(f"{type(e).__name__}: {e}") from e
             logger.debug("spmd: stage not capturable (%s: %s); eager",
                          type(e).__name__, str(e)[:160])
             prog.graph = None
@@ -1388,7 +1502,28 @@ def _run_stage(stage, context, mesh, counts: Dict[str, int],
         prog = _program(st["key"], stage.plan, context, st["scans"], mesh,
                         st["meta"], counts, root)
         st["meta"] = prog.meta
-        return _run_program(prog, st["flat"], counts)
+        try:
+            outs = _run_program(prog, st["flat"], counts)
+            _settle(prog, st["flat"], outs, counts)
+            return outs
+        except _StoredStageFailed as e:
+            # the record does not serve: drop it and build the stage anew
+            _tel.inc("program_store_errors")
+            logger.warning("spmd store entry %s not usable (%s); building "
+                           "anew", prog.digest[:12], str(e)[:120])
+            from ..runtime import program_store as _pstore
+            _pstore.get_store()._drop(prog.digest)
+            with _prog_lock:
+                if _prog_cache.get(st["key"]) is prog:
+                    del _prog_cache[st["key"]]
+            _release(prog)
+            prog = _program(st["key"], stage.plan, context, st["scans"],
+                            mesh, {"counts": {}, "decisions": []}, counts,
+                            root, use_store=False)
+            st["meta"] = prog.meta
+            outs = _run_program(prog, st["flat"], counts)
+            _settle(prog, st["flat"], outs, counts)
+            return outs
 
     while True:
         outs = _agreed(mesh, launch, lambda: st["meta"]["decisions"])

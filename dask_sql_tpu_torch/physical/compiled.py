@@ -72,10 +72,15 @@ Around that single-program path, as in the JAX package:
   cache (``result_cache.stage_key``) is answered from it, counter
   ``result_cache_subplan_hits``; a stage that ran stores its output.
 
-Not ported yet: the persistent program store (the JAX package serializes
-XLA executables; a CUDA graph cannot be serialized, and what a fresh
-process could reuse needs a design of its own); ``DSQL_PROGRAM_STORE``
-raises ``NotImplementedError``.
+- **The program store** (``DSQL_PROGRAM_STORE``,
+  ``runtime/program_store.py``, imported only when the variable is set):
+  after every build (the escalated ones included) the program's build
+  record is stored under its canonical key (``__split__`` boundary names
+  rewritten to positions), and a build that finds a record is made with
+  the stored caps and captured from the recorded constants without a
+  warm-up, counted ``program_store_hits`` instead of ``compiles``.  The
+  tier decision treats a stored program as ready.  ``DSQL_CAPS_FILE``
+  keys are canonical the same way.
 """
 from __future__ import annotations
 
@@ -83,6 +88,7 @@ import hashlib
 import logging
 import math
 import os
+import re
 import threading
 import time
 import weakref
@@ -109,7 +115,6 @@ from ..runtime import quarantine as _quar
 from ..runtime import resilience as _res
 from ..runtime import result_cache as _rcache
 from ..runtime import telemetry as _tel
-from ..runtime.gates import refuse
 from ..table import dict_sort_order, tensors_to_host, Column, Scalar, Table
 from ..types import exact_decimal_scale, torch_dtype
 from .graphs import (GraphProgram, HostRead, capture_retry_armed,
@@ -1700,8 +1705,25 @@ _caps_disk: Optional[Dict[str, Dict[str, int]]] = None
 _caps_seed: Optional[Dict[str, Dict[str, int]]] = None
 
 
+# stage boundary names embed the scanned tables' uids (``_stage_table_name``),
+# which differ between processes; the program does not depend on them, so
+# the keys that outlive a process (the program store, ``DSQL_CAPS_FILE``)
+# rewrite them to position-stable placeholders
+_BOUNDARY_NAME_RE = re.compile(r"__split__\.t[0-9a-f]{16}")
+
+
+def _canonical_program_key(base_key) -> tuple:
+    plan_fp = base_key[0]
+    mapping: Dict[str, str] = {}
+
+    def sub(m):
+        return mapping.setdefault(m.group(0), f"__split__.#{len(mapping)}")
+
+    return (_BOUNDARY_NAME_RE.sub(sub, plan_fp),) + tuple(base_key[1:])
+
+
 def _caps_disk_key(base_key) -> str:
-    return _kv.digest_key(base_key)
+    return _kv.digest_key(_canonical_program_key(base_key))
 
 
 def _caps_disk_read(path: str) -> Dict[str, Dict[str, int]]:
@@ -1865,9 +1887,11 @@ def _maybe_parameterize(plan: RelNode, count: bool = True) -> RelNode:
 
 
 def _build(plan: RelNode, context, scans, caps: Dict[str, int],
-           params=None, origin=None) -> _Compiled:
+           params=None, origin=None, record=None) -> _Compiled:
     """The program for this plan and input spec; ``params`` (the plan's
-    RexParam nodes in fingerprint order) are its trailing inputs."""
+    RexParam nodes in fingerprint order) are its trailing inputs;
+    ``record``: a stored build record, whose constants the first capture
+    is taken from (``graphs.GraphProgram``)."""
     spec = []
     for skey, tbl, row_valid in scans:
         spec.append((skey, [(c.stype, c.mask is not None, c.dictionary)
@@ -1929,7 +1953,8 @@ def _build(plan: RelNode, context, scans, caps: Dict[str, int],
         return tuple(outs)
 
     program = GraphProgram(fn, dev,
-                           copied=_copied_positions(scans, len(params)))
+                           copied=_copied_positions(scans, len(params)),
+                           record=record)
     return _Compiled(program, meta, dict(caps), origin)
 
 
@@ -2332,9 +2357,10 @@ def _unregister_stage_table(context, name: str) -> None:
 
 
 def _program_digest(base_key) -> str:
-    """A program's digest in the profiler's ledger (the JAX package keys
-    it by its program-store digest; the port has no store)."""
-    return _kv.digest_key(("program", base_key))
+    """A program's digest in the profiler's ledger, alike in every process
+    (the JAX package keys it by its program-store digest, which imports the
+    store; the port imports it only when it is armed)."""
+    return _kv.digest_key(("program", _canonical_program_key(base_key)))
 
 
 def _record_program_cost(entry: _Compiled, query_fp: str, base_key) -> None:
@@ -2353,6 +2379,116 @@ def _record_program_cost(entry: _Compiled, query_fp: str, base_key) -> None:
     cost["kernels"] = dict(entry.fn.cost.get("kernels") or {})
     _prof.record_program_cost(query_fp, _program_digest(base_key), cost)
     _tel.annotate(cost_flops=cost["flops"], cost_bytes=cost["bytes"])
+
+
+# ---------------------------------------------------------------------------
+# the program store (runtime/program_store.py, imported only when
+# DSQL_PROGRAM_STORE is set): a build's record is stored after it, and a
+# build that finds one takes the stored caps and constants instead of
+# learning them
+# ---------------------------------------------------------------------------
+
+_RECORD_VERSION = 1
+
+
+def _store_armed() -> bool:
+    return _gates.armed("DSQL_PROGRAM_STORE")
+
+
+def _pstore_digest(base_key) -> str:
+    from ..runtime import program_store as _pstore
+    return _pstore.get_store().digest(_canonical_program_key(base_key))
+
+
+def _meta_shape(meta: dict) -> dict:
+    """A trace's output spec without the dictionaries (the input layout,
+    which the key holds, fixes them): what a record keeps of ``meta``."""
+    return {"names": list(meta["names"]),
+            "cols": [(stype, has_mask, dictionary is not None)
+                     for stype, has_mask, dictionary in meta["cols"]],
+            "has_valid": meta["has_valid"],
+            "ngroup_caps": list(meta["ngroup_caps"]),
+            "agg_sites": list(meta["agg_sites"]),
+            "round_sites": list(meta["round_sites"]),
+            "n_out": meta["n_out"]}
+
+
+def _pstore_put(entry: _Compiled, base_key, n_args: int, n_outs: int
+                ) -> None:
+    """Store a build's record (best-effort)."""
+    if not _store_armed():
+        return
+    from ..runtime import program_store as _pstore
+
+    try:
+        rec = entry.fn.build_record()
+        rec.update(v=_RECORD_VERSION, kind="program",
+                   caps={k: int(v) for k, v in entry.caps.items()},
+                   meta=_meta_shape(entry.meta), n_args=int(n_args),
+                   n_outs=int(n_outs))
+        if _gates.profile_on() and entry.fn.cost is not None:
+            rec["cost"] = dict(entry.fn.cost)
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except Exception as e:
+        _tel.inc("program_store_errors")
+        logger.debug("build record not made (%s); not stored", e)
+        return
+    _pstore.get_store().store(_pstore_digest(base_key), rec)
+
+
+def _pstore_attempt(plan: RelNode, context, scans, params, base_key, flat,
+                    query_fp: str):
+    """Build this program from its stored record and run it once: (entry,
+    outputs, caps) on a hit, else None (a miss, a rejected or corrupt
+    entry, or a record that does not describe this program: the caller
+    builds normally).  The stored caps supersede the caller's guess."""
+    from ..runtime import program_store as _pstore
+
+    store = _pstore.get_store()
+    digest = _pstore_digest(base_key)
+    raw = store.load(digest)
+    if raw is None:
+        return None
+    entry = None
+    try:
+        if (int(raw.get("v", 0)) != _RECORD_VERSION
+                or raw.get("kind") != "program"
+                or int(raw["n_args"]) != len(flat)):
+            raise ValueError("entry layout mismatch")
+        from .graphs import check_record
+        check_record(raw["consts"])
+        caps = {str(k): int(v) for k, v in raw["caps"].items()}
+        entry = _build(plan, context, scans, caps, params=params,
+                       origin=query_fp, record=raw)
+        if raw.get("cost"):
+            entry.fn.cost = dict(raw["cost"])
+        with entry.fn.lock:
+            outs = entry.fn(*flat)
+        if len(outs) != int(raw["n_outs"]) \
+                or _meta_shape(entry.meta) != raw["meta"]:
+            raise ValueError("the record does not describe this program")
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except Exception as e:
+        err = _res.classify(e)
+        if isinstance(err, (_res.DeadlineExceeded, _res.QueryCancelled,
+                            _res.DeviceLost)):
+            raise err if err is e else err from e
+        if entry is not None:
+            entry.fn.release()
+        _tel.inc("program_store_errors")
+        logger.warning("program store entry %s not usable (%s: %s); "
+                       "building anew", digest[:12], type(e).__name__,
+                       str(e)[:120])
+        store._drop(digest)
+        return None
+    _tel.inc("program_store_hits")
+    _tel.annotate(program_store="hit")
+    if _gates.profile_on():
+        # the stored cost seeds this process's ledger without a warm-up
+        _record_program_cost(entry, query_fp, base_key)
+    return entry, outs, caps
 
 
 def _record_stage_stats(st, idx: int, out: Table, query_fp: str,
@@ -2649,8 +2785,8 @@ def _initial_caps(plan: RelNode, context, base_key, runtime_key,
 
 def _program_decided(plan: RelNode, context, base_key, scans) -> bool:
     """True when the normal path needs no fresh build for this program: an
-    entry (or an unsupported verdict) in the cache, a runtime exile, or a
-    standing quarantine verdict."""
+    entry (or an unsupported verdict) in the cache, a runtime exile, a
+    standing quarantine verdict, or a record in the program store."""
     runtime_key = (base_key, tuple(t.uid for _, t, _ in scans))
     caps = _initial_caps(plan, context, base_key, runtime_key, count=False)
     key = (base_key, tuple(sorted(caps.items())))
@@ -2658,7 +2794,12 @@ def _program_decided(plan: RelNode, context, base_key, scans) -> bool:
         if key in _cache or runtime_key in _runtime_eager:
             return True
     qstore = _quar.get_store()
-    return qstore.enabled() and _quar.program_key(base_key) in qstore.entries()
+    if qstore.enabled() and _quar.program_key(base_key) in qstore.entries():
+        return True
+    if not _store_armed():
+        return False
+    from ..runtime import program_store as _pstore
+    return _pstore.get_store().contains(_pstore_digest(base_key))
 
 
 def _probe_single(plan: RelNode, context, tpu: bool) -> bool:
@@ -2831,8 +2972,6 @@ def try_execute_compiled(plan: RelNode, context,
     value)."""
     if os.environ.get("DSQL_COMPILE", "1") == "0":
         return None
-    # the JAX package's persistent program store (not ported)
-    refuse("DSQL_PROGRAM_STORE")
     _res.check("compile_entry")
     # literals hoist here, at the one entry of the tier, so every key
     # below (whole plan, stages) sees the shape; the eager executor never
@@ -2958,14 +3097,20 @@ def _build_and_run(plan: RelNode, context, scans, params, caps, key,
     if qstore.enabled():
         # a build that succeeded lifts any verdict left on it
         qstore.clear(qkey)
+    _cache_put(key, entry)
+    _record_program_cost(entry, query_fp, base_key)
+    # the record of what this build learned, for a fresh process
+    _pstore_put(entry, base_key, len(flat), len(outs))
+    return entry, outs
+
+
+def _cache_put(key, entry: _Compiled) -> None:
     with _state_lock:
         while len(_cache) >= _CACHE_LIMIT:
             _, old = _cache.popitem(last=False)
             if isinstance(old, _Compiled):
                 old.fn.release()
         _cache[key] = entry
-    _record_program_cost(entry, query_fp, base_key)
-    return entry, outs
 
 
 def _execute_program(plan: RelNode, context, query_fp: str,
@@ -2989,12 +3134,14 @@ def _execute_program(plan: RelNode, context, query_fp: str,
         _tel.annotate(compiled_fallback="runtime verdict of these tables")
         return None
     caps = _initial_caps(plan, context, base_key, runtime_key)
+    store_tried = False   # the program store is tried once, before a build
     # escalation bound: the JAX package's 8 for capacities, and the five
     # doublings of a hash site's rounds (2 -> 64)
     for _ in range(16):
         _res.check("execute")
         key = (base_key, tuple(sorted(caps.items())))
         my_event = None
+        adopted = None
         with _state_lock:
             entry = _cache.get(key)
             if entry is None:
@@ -3011,9 +3158,18 @@ def _execute_program(plan: RelNode, context, query_fp: str,
             _res.check("compile_wait")
             with _state_lock:
                 entry = _cache.get(key)
-                if entry is None:   # its builder failed: take over
+                learned = _learned_caps.get(base_key)
+                if entry is None and learned is not None \
+                        and learned != caps:
+                    # it loaded the program from the store, under the
+                    # stored caps: take those
+                    adopted = dict(learned)
+                elif entry is None:   # its build failed: take over
                     my_event = threading.Event()
                     _inflight[key] = my_event
+        if adopted is not None:
+            caps = adopted
+            continue
         try:
             if entry is _UNSUPPORTED:
                 _tel.inc("unsupported")
@@ -3021,12 +3177,26 @@ def _execute_program(plan: RelNode, context, query_fp: str,
             flat = _flatten_tables(scans)
             if params:
                 flat = flat + _param_args(params, context.device)
+            got = None
+            if entry is None and not store_tried and _store_armed():
+                store_tried = True
+                with _tel.span("program_store_load"):
+                    hit = _pstore_attempt(plan, context, scans, params,
+                                          base_key, flat, query_fp)
+                if hit is not None:
+                    entry, outs, caps = hit
+                    if params:
+                        # a stored program served this literal variant
+                        _tel.inc("param_plan_hits")
+                    _cache_put((base_key, tuple(sorted(caps.items()))),
+                               entry)
+                    with _state_lock:
+                        _bounded_put(_learned_caps, base_key, dict(caps))
+                    got = (entry, outs)
             if entry is None:
                 got = _build_and_run(plan, context, scans, params, caps,
                                      key, base_key, plan_fp, query_fp, flat,
                                      split_limit, in_stage)
-            else:
-                got = None
         finally:
             if my_event is not None:
                 with _state_lock:

@@ -67,6 +67,15 @@ of a warm-up or a capture:
   ``gpu_kernels.LAUNCHES`` once per replay; other threads' launches count
   as usual.
 
+Build records (``runtime/program_store.py``): ``build_record`` hands out
+what the last capture learned, its constants with their host copies (and
+the cached uploads its warm-up read, ``gpu_kernels.note_cached``), its
+pool's bytes and its hand kernels; a program made with a record's
+``consts`` takes its first capture on the card straight from them, with
+the kernels' libraries loaded first and no warm-up, and the capture's
+replay answers the call.  A capture that asks for a constant the record
+lacks raises, as do the host reads a warm-up would have reported.
+
 Under ``DSQL_PROFILE`` the first warm-up of a program also counts its work
 (``_CostCount``, kept as ``GraphProgram.cost``): the device profiler's
 cost model, in place of XLA's ``cost_analysis()``.  It counts once per
@@ -77,6 +86,7 @@ counts as the one record its entry point reports
 from __future__ import annotations
 
 import hashlib
+import logging
 import threading
 import time
 import warnings
@@ -92,6 +102,8 @@ from torch.utils._pytree import tree_leaves, tree_map
 from ..ops import gpu_kernels as gk
 from ..runtime import gates
 from ..runtime import telemetry as _tel
+
+logger = logging.getLogger(__name__)
 
 #: captures kept per program (distinct input tensors)
 CAPTURES_PER_PROGRAM = 2
@@ -208,39 +220,6 @@ class _SyncWatch:
 _SYNCS = _SyncWatch()
 
 
-class _Consts:
-    """A program's host-to-device constants, by content: recorded in the
-    warm-up, handed back in the same order per content during capture."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.by_key: Dict[tuple, List[torch.Tensor]] = {}
-        self._cursor: Dict[tuple, int] = {}
-
-    def record(self, host: torch.Tensor) -> torch.Tensor:
-        # the copy synchronises; a capture replays its result, so it is
-        # not a synchronisation of the program
-        with _SYNCS.suspended():
-            dev = host.to(self.device)
-        self.by_key.setdefault(_digest(host), []).append(dev)
-        return dev
-
-    def replay(self, host: torch.Tensor) -> torch.Tensor:
-        key = _digest(host)
-        i = self._cursor.get(key, 0)
-        got = self.by_key.get(key, [])
-        if i >= len(got):
-            raise RuntimeError(
-                f"compiled program: a host-to-device copy ({key[0]}, shape "
-                f"{key[1]}) during capture that the warm-up did not make")
-        self._cursor[key] = i + 1
-        return got[i]
-
-    def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for ts in self.by_key.values() for t in ts)
-
-
 class _IdSet:
     """A set of tensors by identity that does not keep them alive."""
 
@@ -256,6 +235,101 @@ class _IdSet:
     def __contains__(self, t) -> bool:
         r = self._d.get(id(t))
         return r is not None and r() is t
+
+
+class _Consts:
+    """A program's host-to-device constants, by content: recorded in the
+    warm-up, handed back in the same order per content during capture.
+
+    Each content keeps its host copy, so that a build record
+    (``GraphProgram.build_record``) can carry it to another process; a
+    cached upload the warm-up reads without making it
+    (``gpu_kernels.note_cached``: kernel 1's layouts, string byte matrices)
+    is noted with its host copy as well, since a process whose cache is
+    cold makes that copy inside the capture."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.by_key: Dict[tuple, List[torch.Tensor]] = {}
+        self.host: Dict[tuple, torch.Tensor] = {}
+        self._noted: Dict[tuple, int] = {}
+        self._seen = _IdSet()
+        self._cursor: Dict[tuple, int] = {}
+
+    def record(self, host: torch.Tensor) -> torch.Tensor:
+        # the copy synchronises; a capture replays its result, so it is
+        # not a synchronisation of the program
+        with _SYNCS.suspended():
+            dev = host.to(self.device)
+        key = _digest(host)
+        self.by_key.setdefault(key, []).append(dev)
+        self.host.setdefault(key, host)
+        self._seen.add(dev)
+        return dev
+
+    def note(self, dev: torch.Tensor, host: torch.Tensor) -> None:
+        """The warm-up read ``dev``, a cached upload of ``host``."""
+        if dev in self._seen:
+            return
+        self._seen.add(dev)
+        key = _digest(host)
+        self.host.setdefault(key, host)
+        self._noted[key] = self._noted.get(key, 0) + 1
+
+    def replay(self, host: torch.Tensor) -> torch.Tensor:
+        key = _digest(host)
+        i = self._cursor.get(key, 0)
+        got = self.by_key.get(key, [])
+        if i >= len(got):
+            raise RuntimeError(
+                f"compiled program: a host-to-device copy ({key[0]}, shape "
+                f"{key[1]}) during capture that the warm-up did not make")
+        self._cursor[key] = i + 1
+        return got[i]
+
+    def rewind(self) -> None:
+        """Hand the constants out from the first again (a capture that is
+        taken once more)."""
+        self._cursor.clear()
+
+    def trim(self) -> None:
+        """Let go of the constants the capture did not ask for."""
+        self.by_key = {k: ts[:self._cursor.get(k, 0)]
+                       for k, ts in self.by_key.items()}
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for ts in self.by_key.values() for t in ts)
+
+    def to_record(self) -> Dict[tuple, tuple]:
+        """{content digest: (host numpy array, count)}: every copy the
+        warm-up made and every cached upload it read."""
+        out = {}
+        for key, host in self.host.items():
+            n = len(self.by_key.get(key, ())) + self._noted.get(key, 0)
+            out[key] = (host.contiguous().numpy(), n)
+        return out
+
+    @classmethod
+    def from_record(cls, device: torch.device, record: Dict[tuple, tuple]
+                    ) -> "_Consts":
+        """The constants of a build record, copied to ``device`` (before a
+        capture: the copies synchronise)."""
+        consts = cls(device)
+        for key, (arr, n) in record.items():
+            host = torch.from_numpy(arr)
+            consts.host[key] = host
+            consts.by_key[key] = [host.to(device) for _ in range(int(n))]
+        return consts
+
+
+def check_record(record: Dict[tuple, tuple]) -> None:
+    """Raise ``ValueError`` unless every constant of a build record matches
+    the content digest it is filed under."""
+    for key, (arr, n) in record.items():
+        if int(n) < 1 or _digest(torch.from_numpy(arr)) != key:
+            raise ValueError(f"a recorded constant ({key[0]}, shape "
+                             f"{key[1]}) does not match its digest")
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -564,9 +638,11 @@ class GraphProgram:
     """One compiled program: ``fn`` captured and replayed on the card, run
     eagerly on the CPU (module docstring).  ``copied``: the positions of
     the inputs that change per call, copied into each capture's own
-    buffers."""
+    buffers.  ``record``: a build record's ``consts`` and ``kernels``
+    (``runtime/program_store.py``), from which the first capture on the
+    card is taken without a warm-up; the CPU ignores it."""
 
-    def __init__(self, fn, device: torch.device, copied=()):
+    def __init__(self, fn, device: torch.device, copied=(), record=None):
         self.fn = fn
         self.device = torch.device(device)
         self.copied: FrozenSet[int] = frozenset(copied)
@@ -575,6 +651,7 @@ class GraphProgram:
         self.captures: "OrderedDict[tuple, _Capture]" = OrderedDict()
         #: the first profiled warm-up's counted work (``_CostCount``)
         self.cost: Optional[Dict[str, object]] = None
+        self.record = record if self.device.type == "cuda" else None
 
     def _cost_count(self) -> Optional[_CostCount]:
         """A work count for this warm-up: under ``DSQL_PROFILE``, once."""
@@ -584,11 +661,25 @@ class GraphProgram:
 
     def _warm_up(self, inputs, consts: Optional[_Consts] = None):
         count = self._cost_count()
-        with gk.counting_work(count), _TraceMode(inputs, consts, cost=count):
+        with gk.counting_work(count), \
+                gk.noting_cached(None if consts is None else consts.note), \
+                _TraceMode(inputs, consts, cost=count):
             outs = self.fn(*inputs)
         if count is not None:
             self.cost = count.summary()
         return outs
+
+    def build_record(self) -> Dict[str, object]:
+        """What the last capture learned, for a build record: its
+        constants with their host copies (``_Consts.to_record``), its
+        memory pool's bytes and the hand kernels it launches.  Empty on
+        the CPU, which captures nothing."""
+        if not self.captures:
+            return {"consts": {}, "pool_bytes": 0, "kernels": []}
+        cap = next(reversed(self.captures.values()))
+        return {"consts": cap.consts.to_record(),
+                "pool_bytes": int(cap.pool_bytes),
+                "kernels": sorted(cap.launches)}
 
     def __call__(self, *flat):
         if self.device.type != "cuda":
@@ -607,12 +698,15 @@ class GraphProgram:
                     if (self, key) in _LIVE:
                         _LIVE.move_to_end((self, key))
                 self._load(cap.inputs, flat)
-                cap.graph.replay()
-                gk.add_launches(cap.launches)
-                _tel.inc("graph_replays")
-                _tel.annotate(graph_pool_bytes=cap.pool_bytes)
-                return cap.outs
+                return self._replay(cap)
             return self._warm_and_capture(key, flat)
+
+    def _replay(self, cap: "_Capture"):
+        cap.graph.replay()
+        gk.add_launches(cap.launches)
+        _tel.inc("graph_replays")
+        _tel.annotate(graph_pool_bytes=cap.pool_bytes)
+        return cap.outs
 
     def _load(self, inputs, flat) -> None:
         """Copy this call's values of the copied inputs into a capture's
@@ -626,6 +720,9 @@ class GraphProgram:
                        if i in self.copied else t
                        for i, t in enumerate(flat))
         self._load(inputs, flat)
+        record, self.record = self.record, None
+        if record is not None:
+            return self._capture_from_record(key, inputs, record)
         consts = _Consts(self.device)
         t0 = time.perf_counter()
         with _SYNCS.watch() as seen:
@@ -634,6 +731,35 @@ class GraphProgram:
             raise HostRead(f"synchronisation in the trace: {seen[0]}")
         t1 = time.perf_counter()
         cap = capture_retrying(lambda: self._capture(inputs, consts))
+        self._keep(key, cap)
+        _tel.inc("graph_captures")
+        _tel.annotate(graph_pool_bytes=cap.pool_bytes,
+                      graph_const_bytes=consts.nbytes(),
+                      graph_warmup_ms=(t1 - t0) * 1e3,
+                      graph_capture_ms=(time.perf_counter() - t1) * 1e3)
+        return outs
+
+    def _capture_from_record(self, key, inputs, record):
+        """The first capture from a build record: its hand kernels' libraries
+        loaded and its constants copied to the card first, then the capture
+        with no warm-up, whose replay answers the call.  A capture that asks
+        for a constant the record lacks, or reads device data on the host,
+        raises: the caller builds the program anew."""
+        for name in record.get("kernels", ()):
+            gk.load_kernel_library(name)
+        consts = _Consts.from_record(self.device, record["consts"])
+        t0 = time.perf_counter()
+        cap = capture_retrying(lambda: self._capture(inputs, consts))
+        consts.trim()
+        self._keep(key, cap)
+        t1 = time.perf_counter()
+        _tel.inc("graph_captures")
+        _tel.annotate(graph_const_bytes=consts.nbytes(), graph_warmup_ms=0.0,
+                      graph_capture_ms=(t1 - t0) * 1e3)
+        return self._replay(cap)
+
+    def _keep(self, key, cap: "_Capture") -> None:
+        """Keep a new capture within the per-program and pool budgets."""
         self.captures[key] = cap
         while len(self.captures) > CAPTURES_PER_PROGRAM:
             self._drop(next(iter(self.captures)))
@@ -644,16 +770,11 @@ class GraphProgram:
             while len(_LIVE) > 1 and sum(_LIVE.values()) > budget:
                 prog, k = next(iter(_LIVE))
                 prog._drop(k)
-        _tel.inc("graph_captures")
-        _tel.annotate(graph_pool_bytes=cap.pool_bytes,
-                      graph_const_bytes=consts.nbytes(),
-                      graph_warmup_ms=(t1 - t0) * 1e3,
-                      graph_capture_ms=(time.perf_counter() - t1) * 1e3)
-        return outs
 
     def _capture(self, inputs, consts: _Consts) -> "_Capture":
         """One capture of ``fn`` on a stream of its own."""
         graph = torch.cuda.CUDAGraph()
+        consts.rewind()
         mode = _TraceMode(inputs, consts, capture=True)
         current = torch.cuda.current_stream(self.device)
         stream = torch.cuda.Stream(self.device)
@@ -672,10 +793,19 @@ class GraphProgram:
                     failed = e
                 try:
                     graph.capture_end()
-                except Exception:
+                except Exception as e:
                     if failed is None:
-                        raise
+                        failed = e
                 if failed is not None:
+                    # destroy the failed graph now: a destructor that runs
+                    # later (the exception's frames keep the object alive
+                    # until the cycle collector frees it) would call into
+                    # CUDA in the middle of this thread's next capture and
+                    # invalidate it
+                    try:
+                        graph.reset()
+                    except Exception:
+                        logger.debug("failed graph not reset", exc_info=True)
                     raise failed
             current.wait_stream(stream)
             r1 = torch.cuda.memory_reserved(self.device)

@@ -677,7 +677,12 @@ def _explain_analyze(plan, context) -> list:
     lines.append(cache_line)
     lines.extend("-- operator: " + _stats.format_choice(op, variant, info)
                  for op, variant, info in choices)
-    lines.append(f"-- tier: {exec_tier}")
+    store_hits = (snap1.get("program_store_hits", 0)
+                  - snap0.get("program_store_hits", 0))
+    tier_line = f"-- tier: {exec_tier}"
+    if store_hits:
+        tier_line += f" program_store_hits=+{store_hits}"
+    lines.append(tier_line)
     delta = {k: v - snap0.get(k, 0) for k, v in snap1.items()
              if v != snap0.get(k, 0)}
     if delta:

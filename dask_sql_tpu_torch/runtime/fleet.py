@@ -36,9 +36,10 @@ merge all replicas' rings in timestamp order, and
 (``replica:seq;replica:seq``): a k-way merge in per-replica seq order, so
 each replica's delivery is monotonic and lossless while others append.
 
-The program store is not ported: the heartbeat's ``programStore`` section
-reads ``enabled: false`` and zeros, nothing imports a store, and a port
-replica adds 0 to ``/v1/fleet``'s ``warmServes``.
+The heartbeat's ``programStore`` section is the JAX package's: the
+store's entries, bytes, hits, misses and hit rate while
+``DSQL_PROGRAM_STORE`` is set (``runtime/program_store.py``), and
+``enabled: false`` with zeros, nothing imported, while it is not.
 """
 from __future__ import annotations
 
@@ -268,10 +269,24 @@ def collect_heartbeat() -> dict:
         "hostBytes": int(gauges.get("spill_host_bytes", 0)),
         "diskBytes": int(gauges.get("spill_disk_bytes", 0)),
     }
-    # the program store is not ported: its section is the JAX package's
-    # with the store disabled, and no store is imported
     hb["programStore"] = {"enabled": False, "entries": 0, "bytes": 0,
                           "hits": 0, "misses": 0, "hitRate": 0.0}
+    try:
+        from .gates import armed
+        if armed("DSQL_PROGRAM_STORE"):
+            from . import program_store as _pstore
+            store = _pstore.get_store()
+            hits = int(counters.get("program_store_hits", 0))
+            misses = int(counters.get("program_store_misses", 0))
+            hb["programStore"] = {
+                "enabled": True, "entries": len(store.entries()),
+                "bytes": store.total_bytes(), "hits": hits,
+                "misses": misses,
+                "hitRate": round(hits / (hits + misses), 6)
+                if hits + misses else 0.0,
+            }
+    except Exception:
+        logger.debug("heartbeat program-store probe failed", exc_info=True)
     # the SLO and anomaly sections ride the event bus (armed whenever the
     # fleet is: ensure_armed set DSQL_EVENTS); read before the import
     try:

@@ -13,21 +13,14 @@ process.  The port keeps the same variables with the same meanings:
   ``runtime/autopilot.py``.  The port has all five, and every caller
   checks the variable before it imports the module, so an unarmed query
   loads none of them.
-- The subsystem of ``UNPORTED`` (the program store) is armed only by its
-  variable, and its module is not ported.  Unset, the port behaves as the
-  JAX package does with it unset.  Set, ``refuse`` raises
-  ``NotImplementedError`` naming the module, at the places where the JAX
-  package would import it: the port never silently answers without a
-  subsystem its caller armed.
+- ``DSQL_PROGRAM_STORE`` arms ``runtime/program_store.py``, which holds
+  build records where the JAX package holds executables.
+
+Every subsystem of the JAX package that a variable arms is ported.
 """
 from __future__ import annotations
 
 import os
-
-#: variable -> the JAX package's module it arms (not ported)
-UNPORTED = {
-    "DSQL_PROGRAM_STORE": "runtime/program_store.py",
-}
 
 
 def _flag(name: str, default: str = "0") -> bool:
@@ -65,13 +58,3 @@ def armed(variable: str) -> bool:
         return bool(os.environ.get(variable)) and os.environ.get(
             "DSQL_INGEST", "1").strip() not in ("0", "false")
     return _flag(variable)
-
-
-def refuse(*variables: str) -> None:
-    """Raise ``NotImplementedError`` for the first of ``variables`` (all
-    of ``UNPORTED`` when none are named) that is armed."""
-    for variable in variables or tuple(UNPORTED):
-        if armed(variable):
-            raise NotImplementedError(
-                f"{variable} arms {UNPORTED[variable]}, which is not ported "
-                f"yet; unset it to run without that subsystem")

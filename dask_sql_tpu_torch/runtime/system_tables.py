@@ -28,10 +28,10 @@ Where the JAX package reads JAX's devices, the port reads torch's:
   context runs there or no card is visible), with the context's
   ``parallel.mesh.Mesh`` placement by device index: a mesh of one card
   repeated marks that card; ``mesh_axes`` is ``<axis>:<size>``.
-- ``system.programs``: the program store is not ported.  Unarmed
-  (``DSQL_PROGRAM_STORE`` unset) the table has its fixed empty schema and
-  nothing is imported; armed, it raises ``NotImplementedError`` naming
-  ``runtime/program_store.py`` (``gates.refuse``).
+- ``system.programs``: the program store's index, one row per stored
+  build record (``runtime/program_store.py``), with the JAX package's
+  schema.  Unarmed (``DSQL_PROGRAM_STORE`` unset) the table has its fixed
+  empty schema and the store is not imported.
 
 Tables are built on the resolving context's device (the CPU without one).
 """
@@ -209,10 +209,13 @@ def _quarantine() -> dict:
 
 
 def _programs() -> dict:
-    """The program store's index: not ported, so armed it raises where
-    the JAX package would import the store; unarmed, the empty schema."""
-    gates.refuse("DSQL_PROGRAM_STORE")
+    """The program store's index (empty, and the store not imported, while
+    it is unarmed)."""
     rows: List[dict] = []
+    if gates.armed("DSQL_PROGRAM_STORE"):
+        from . import program_store as _pstore
+        rows = [{"digest": d, **(e if isinstance(e, dict) else {})}
+                for d, e in sorted(_pstore.get_store().entries().items())]
     return {
         "digest": _col(rows, "digest", object, ""),
         "nbytes": _col(rows, "bytes", np.int64, 0),

@@ -83,7 +83,7 @@ from ..runtime import (faults as _faults, ingest as _ing,
                        telemetry as _tel)
 from ..runtime.gates import (armed as _armed, events_on as _events_on,
                              history_on as _history_on,
-                             profile_on as _profile_on, refuse,
+                             profile_on as _profile_on,
                              tenancy_on as _tenancy_on)
 
 logger = logging.getLogger(__name__)
@@ -209,6 +209,9 @@ def _stats(state: str, info: Optional["_QueryInfo"] = None) -> dict:
             out["subplanCacheHits"] = info.subplan_cache_hits
         if info.tier:
             out["tier"] = info.tier
+        # the program-store records this query was built from
+        if info.program_store_hits:
+            out["programStoreHits"] = info.program_store_hits
         if info.operators:
             out["operatorChoices"] = list(info.operators)
         if info.phases:
@@ -224,7 +227,8 @@ class _QueryInfo:
     __slots__ = ("submitted", "started", "finished", "cpu_sec", "rows",
                  "bytes", "peak_memory", "compiles", "cache_hits", "phases",
                  "cache_hit", "cache_tier", "subplan_cache_hits",
-                 "queued_ms", "tier", "operators", "trace_id")
+                 "queued_ms", "tier", "program_store_hits", "operators",
+                 "trace_id")
 
     def __init__(self):
         self.submitted = time.monotonic()
@@ -242,6 +246,7 @@ class _QueryInfo:
         self.subplan_cache_hits = 0
         self.queued_ms = None
         self.tier = None
+        self.program_store_hits = 0
         self.operators = []
         self.trace_id = None
 
@@ -330,6 +335,8 @@ def _run_tracked(context, sql: str, info: _QueryInfo,
             info.cache_tier = cache.get("tier")
             info.subplan_cache_hits = int(cache.get("subplan_hits", 0))
             info.tier = report.tier
+            info.program_store_hits = int(
+                (report.counters or {}).get("program_store_hits", 0))
             info.operators = list(report.operators or ())
     if table is not None and getattr(table, "num_columns", 0):
         info.rows = table.num_rows
@@ -462,6 +469,17 @@ def _spool_result(state: "_AppState", uid: str, table,
 # GET /v1/engine
 # ---------------------------------------------------------------------------
 
+def _program_store_section() -> dict:
+    """``/v1/engine``'s ``programStore``: the store's entries and bytes
+    while ``DSQL_PROGRAM_STORE`` is set (the store imported only then)."""
+    if not _armed("DSQL_PROGRAM_STORE"):
+        return {"enabled": False, "entries": 0, "bytes": 0}
+    from ..runtime import program_store as _pstore
+    store = _pstore.get_store()
+    return {"enabled": True, "entries": len(store.entries()),
+            "bytes": store.total_bytes()}
+
+
 def _spill_section(counters: dict) -> dict:
     from ..runtime import spill as _spill
 
@@ -529,7 +547,7 @@ def _engine_snapshot(state: "_AppState") -> dict:
             "enabled": qstore.enabled(),
             "entries": len(qstore.entries()) if qstore.enabled() else 0,
         },
-        "programStore": {"enabled": False, "entries": 0, "bytes": 0},
+        "programStore": _program_store_section(),
         "backgroundCompiles": {
             "inflight": len(_compiled.inflight_background_compiles()),
             "done": int(counters.get("background_compiles_done", 0)),
@@ -1378,8 +1396,6 @@ def run_server(context=None, host: str = "0.0.0.0", port: int = 8080,
         logging.basicConfig(level=log_level)
     from ..context import Context
 
-    # the program store is not ported: armed, it raises
-    refuse()
     # the fleet plane, armed before serving so that this replica's
     # heartbeat registers before its first request (idempotent)
     if _armed("DSQL_FLEET_DIR"):

@@ -142,18 +142,28 @@ def test_corrupt_and_torn_heartbeats_are_skipped(armed):
     assert [r["replica"] for r in jax_fleet.read_replicas()] == ["r-a"]
 
 
-def test_heartbeat_has_the_jax_packages_sections(armed):
+def test_heartbeat_has_the_jax_packages_sections(armed, monkeypatch):
+    import dask_sql_tpu_torch.runtime as runtime_pkg
+
+    # another test of this process may have armed the store and imported
+    # it: take it out of the process, so that an import by the heartbeat
+    # shows below
+    name = "dask_sql_tpu_torch.runtime.program_store"
+    if name in sys.modules:
+        monkeypatch.delitem(sys.modules, name)
+    if hasattr(runtime_pkg, "program_store"):
+        monkeypatch.delattr(runtime_pkg, "program_store")
     fleet.ensure_armed()
     hb = fleet.collect_heartbeat()
     jhb = jax_fleet.collect_heartbeat()
     assert set(hb) == set(jhb)
     assert set(hb["counters"]) == set(jhb["counters"])
     assert hb["replica"] == "r-a" and hb["pid"] == os.getpid()
-    # the program store is not ported: disabled, zeros, nothing imported
+    # the program store unarmed: disabled, zeros, nothing imported
     assert hb["programStore"] == {"enabled": False, "entries": 0,
                                   "bytes": 0, "hits": 0, "misses": 0,
                                   "hitRate": 0.0}
-    assert "dask_sql_tpu_torch.runtime.program_store" not in sys.modules
+    assert name not in sys.modules
 
 
 def test_a_context_arms_the_fleet_and_stamps_its_reports(armed):

@@ -5,6 +5,8 @@ so it runs on a machine that has only torch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -799,3 +801,96 @@ def test_system_devices_read_the_allocator_of_each_card(cuda_device):
                  ).to_pylist()
     assert [r[:2] for r in mesh] == [[i, "gpu"] for i in range(len(rows))]
     del keep
+
+
+# ---------------------------------------------------------------------------
+# the program store: a record captured without a warm-up
+# ---------------------------------------------------------------------------
+
+def _forget_programs():
+    from dask_sql_tpu_torch.physical import compiled
+
+    for entry in list(compiled._cache.values()):
+        if isinstance(entry, compiled._Compiled):
+            entry.fn.release()
+    compiled._cache.clear()
+    compiled._learned_caps.clear()
+    compiled._hints_memo.clear()
+
+
+def _graph_attr(ctx, key):
+    return sum(s.attrs.get(key, 0) for s in ctx.last_report.root.walk())
+
+
+@pytest.fixture
+def program_store(tmp_path, monkeypatch):
+    for name, value in (("DSQL_PROGRAM_STORE", str(tmp_path / "programs")),
+                        ("DSQL_TIERED", "0"), ("DSQL_RESULT_CACHE_MB", "0"),
+                        ("DSQL_MAX_CONCURRENT_QUERIES", "0")):
+        monkeypatch.setenv(name, value)
+    from dask_sql_tpu_torch.runtime import program_store as ps
+    _forget_programs()
+    yield ps.get_store()
+    _forget_programs()
+
+
+@pytest.mark.gpu
+def test_a_record_is_captured_without_a_warm_up(cuda_device, program_store):
+    """A program built from its stored record captures with no warm-up;
+    the capture's replay answers the first call, kernel 1 in it."""
+    from dask_sql_tpu_torch.physical import compiled
+
+    c = Context(device=cuda_device)
+    rng = np.random.default_rng(0)
+    c.create_table("t", {"k": np.array(["a", "b", "c", "d"])[
+        rng.integers(0, 4, 100_000)], "x": rng.random(100_000)})
+    q = "SELECT k, SUM(x) AS s, COUNT(*) AS n FROM t GROUP BY k ORDER BY k"
+    cold = c.sql(q).to_pylist()
+    assert _graph_attr(c, "graph_warmup_ms") > 0
+    _forget_programs()
+    before = dict(compiled.stats)
+    gk.reset_launch_counts()
+    warm = c.sql(q).to_pylist()
+    d = {k: compiled.stats.get(k, 0) - before.get(k, 0)
+         for k in ("compiles", "program_store_hits", "graph_captures",
+                   "graph_replays")}
+    assert d == {"compiles": 0, "program_store_hits": 1,
+                 "graph_captures": 1, "graph_replays": 1}
+    assert _graph_attr(c, "graph_warmup_ms") == 0
+    assert gk.LAUNCHES["segsum_fixedpoint"] == 1
+    assert warm == cold
+
+
+@pytest.mark.gpu
+def test_a_record_without_its_constants_falls_back(cuda_device,
+                                                   program_store):
+    """A capture that asks for a constant its record lacks (the process's
+    cached uploads dropped) is counted and the program built anew."""
+    import pickle
+
+    from dask_sql_tpu_torch.physical import compiled
+
+    c = Context(device=cuda_device)
+    rng = np.random.default_rng(1)
+    c.create_table("t", {"g": np.array(["a", "b", "c"])[
+        rng.integers(0, 3, 50_000)], "x": rng.random(50_000)})
+    q = "SELECT g, SUM(x) AS s FROM t GROUP BY g ORDER BY g"
+    want = c.sql(q).to_pylist()
+    path = program_store.path()
+    for name in os.listdir(path):
+        if name.endswith(".prog"):
+            with open(os.path.join(path, name), "rb") as f:
+                raw = pickle.load(f)
+            raw["consts"] = {}
+            with open(os.path.join(path, name), "wb") as f:
+                pickle.dump(raw, f)
+    gk._row_layout.cache_clear()
+    gk._kernel_plan.cache_clear()
+    _forget_programs()
+    before = dict(compiled.stats)
+    got = c.sql(q).to_pylist()
+    d = {k: compiled.stats.get(k, 0) - before.get(k, 0)
+         for k in ("compiles", "program_store_errors", "program_store_hits")}
+    assert d["program_store_errors"] == 1 and d["compiles"] >= 1, d
+    assert d["program_store_hits"] == 0, d
+    assert got == want

@@ -357,35 +357,6 @@ def test_server_round_trip_without_pandas():
                    "pandas": True}
 
 
-@pytest.mark.parametrize("variable,module", [
-    ("DSQL_PROGRAM_STORE", "runtime/program_store.py"),
-])
-def test_armed_unported_subsystems_raise(monkeypatch, tmp_path, variable,
-                                         module):
-    """A subsystem that only its variable arms, and whose module is not
-    ported, raises NotImplementedError naming the module wherever the JAX
-    package would import it; the server refuses to start with it armed."""
-    import numpy as np
-
-    from dask_sql_tpu_torch import Context, run_server
-
-    c = Context(device="cpu")
-    c.create_table("t", {"a": np.arange(3)})
-    monkeypatch.setenv(variable, str(tmp_path / "x"))
-    with pytest.raises(NotImplementedError, match=module):
-        c.sql("SELECT SUM(a) AS s FROM t")
-    with pytest.raises(NotImplementedError, match=module):
-        c.sql("SELECT * FROM system.programs")
-    with pytest.raises(NotImplementedError, match=module):
-        run_server(context=c, host="127.0.0.1", port=0, blocking=False)
-
-
-def test_unported_list_holds_the_three_left():
-    from dask_sql_tpu_torch.runtime import gates
-
-    assert set(gates.UNPORTED) == {"DSQL_PROGRAM_STORE"}
-
-
 #: what arming the fleet writes into os.environ (setdefault, which
 #: monkeypatch does not see)
 _FLEET_ENV = ("DSQL_EVENTS", "DSQL_EVENTS_FILE", "DSQL_HISTORY_FILE",
@@ -555,7 +526,7 @@ def test_ingest_dir_arms_the_ported_log(monkeypatch, tmp_path):
     from dask_sql_tpu_torch import Context, run_server
     from dask_sql_tpu_torch.runtime import gates, ingest
 
-    assert "DSQL_INGEST_DIR" not in gates.UNPORTED
+    assert not hasattr(gates, "UNPORTED")   # nothing is left unported
     monkeypatch.setenv("DSQL_INGEST_DIR", str(tmp_path / "ing"))
     monkeypatch.setenv("DSQL_INGEST", "0")
     c = Context(device="cpu")

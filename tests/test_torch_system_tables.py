@@ -11,7 +11,7 @@ pids and the process-global counters' values masked; ``system`` reads are
 never cached, a user schema named ``system`` shadows the builtin, an
 unknown name fails in both packages, and ``system.active`` shows a query
 while it runs.  ``system.programs`` is empty while ``DSQL_PROGRAM_STORE``
-is unset and raises armed (the store is not ported).  ``system.devices``
+is unset and lists the stored build records armed.  ``system.devices``
 and ``system.mesh`` hold one ``cpu`` row here where the JAX package has 8
 virtual CPU devices: their schemas and per-row values are compared, not
 their row counts.
@@ -293,15 +293,26 @@ def test_active_shows_a_live_query(hist):
 # ---------------------------------------------------------------------------
 
 def test_programs_is_empty_unarmed_and_raises_armed(tmp_path, monkeypatch):
+    """Empty with the JAX package's schema while ``DSQL_PROGRAM_STORE`` is
+    unset; armed, one row per stored build record (the name is the one
+    the test had while the store was not ported and arming it raised)."""
     monkeypatch.delenv("DSQL_PROGRAM_STORE", raising=False)
     c = Context(device=CPU)
     out = c.sql("SELECT * FROM system.programs")
     assert out.num_rows == 0
     assert _schema(out) == _schema(jax_st.build("programs"))
     monkeypatch.setenv("DSQL_PROGRAM_STORE", str(tmp_path / "store"))
-    with pytest.raises(NotImplementedError,
-                       match="runtime/program_store.py"):
-        c.sql("SELECT * FROM system.programs")
+    c.create_table("p", {"a": np.arange(50) % 7, "b": np.arange(50) * 0.5})
+    c.sql("SELECT a, SUM(b) AS s FROM p GROUP BY a")
+    from dask_sql_tpu_torch.runtime import program_store
+    index = program_store.get_store().entries()
+    out = c.sql("SELECT * FROM system.programs")
+    assert _schema(out) == _schema(jax_st.build("programs"))
+    rows = out.to_pylist()
+    assert len(index) >= 1 and [r[0] for r in rows] == sorted(index)
+    for digest, nbytes, used_at, stored_at, flops, nb in rows:
+        assert nbytes == index[digest]["bytes"] > 0
+        assert used_at >= stored_at > 0 and flops == nb == 0.0
 
 
 def test_devices_report_the_cpu_row_of_zeros():
