@@ -252,20 +252,30 @@ the compiled tier first.
    process group of one rank in this process over NCCL
    (``init_multihost("127.0.0.1:<port>", 1, 0, local_shards=4)``, the
    same four shards as phase 17, every collective through the group):
-   Q1-Q22 cold and warm on the resident tables, each run held to phase
-   17's checks (Q1, Q6, Q8, Q12 and Q14 served, Q3 served or falling back
-   on ``radix_overflow`` only, no walker error), a served run must count
-   ``mesh_process_collectives`` and ``mesh_process_bytes``, Q4, Q5 and
-   Q22 must launch kernel 1 on the compiled tier, every answer equal to
-   phase 7's and every served one bit for bit 17(a)'s; the group is
+   Q1-Q22 cold and three times warm on the resident tables, each run
+   held to phase 17's checks (Q1, Q6, Q8, Q12 and Q14 served, Q3 served
+   or falling back on ``radix_overflow`` only, no walker error, no stage
+   outside a CUDA graph: each stage is captured with its NCCL calls
+   inside), a served run must count ``mesh_process_collectives`` and
+   ``mesh_process_bytes``, and each warm run must replay one graph per
+   stage program and count the cold run's collectives and bytes; Q4, Q5
+   and Q22 must launch kernel 1 on the compiled tier, every answer equal
+   to phase 7's and every served one bit for bit 17(a)'s; one
+   ``multiprocess walls:`` line per served query sets its cold and warm
+   walls beside 17(a)'s and beside those of eager stages
+   (``MP_EAGER_MS``); the mean wall of a store rendezvous; the group is
    destroyed after.  (b) Where the machine has two cards or more, one
    rank per card (up to four), each a process of this script
    (``--rank``) that generates the tables from ``--seed`` at ``--sf``,
    holds one shard and runs the same checks; every rank's answers equal
    phase 7's, rank 0's bit for bit, and with four ranks 18(a)'s served
-   answers bit for bit.  On one card one line says 18(b) is skipped.
-   One warm run each of Q1 and Q12 in 18(a) under ``torch.profiler``
-   (device busy and idle share).
+   answers bit for bit.  Then the last rank leaves, and every other
+   rank's next query (Q6, its stage replayed) must end in ``RankError``
+   within a group timeout of 20 s plus 30, and every rank process must
+   exit.  On one card one line says 18(b) is skipped (``--only
+   multiprocess`` runs phase 18 alone with its set-up, for a machine of
+   four cards).  One warm run each of Q1 and Q12 in 18(a) under
+   ``torch.profiler`` (device busy and idle share).
    One ``multiprocess table:`` JSON line per query and part, a
    ``multiprocess summary:`` line per part; the ``kernels`` line carries
    18(a)'s kernel-1 launches as ``launches_multiprocess``.
@@ -375,7 +385,13 @@ the compiled tier first.
    (a) After phase 12: its records' count and bytes (``store:``), its
    answers and walls handed over in ``build/phase22/answers.pkl``.  (d)
    Q1 and Q12 on phase 17's four-shard mesh with the store armed store
-   their stage records.  (b) A fresh process (this script with
+   their stage records; then on 18(a)'s mesh across processes (a group of
+   one rank holding four shards of the card), twice, each pass after
+   ``spmd.clear_programs()``: the second makes every stage program from
+   the first's records (``spmd_store_hits`` as many as its builds, no
+   ``spmd_compiles``, no eager stage, the collectives of the first),
+   answers bit for bit the first's and the one-process mesh's (``store
+   mesh: process`` lines).  (b) A fresh process (this script with
    ``--store-child store``) generates the same tables from the same seed
    and runs Q1-Q22 compiled over the store: per query a ``store table:``
    line (cold wall, warm-up and capture ms, builds, recompiles,
@@ -402,6 +418,7 @@ beside it, the script exits non-zero and prints neither.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import gc
 import json
 import math
@@ -5405,17 +5422,19 @@ def _spmd_run(ctx) -> dict:
 
 
 def check_spmd_runs(label: str, qid: int, tier: str, runs: list,
-                    virtual: bool) -> None:
+                    captured: bool) -> None:
     """Every run of a query on the SPMD path did what the walker should:
     no error caught by its generic handler; a served shape served, or
     falling back on its one known flag only; any other shape declined up
-    front; on one card (``virtual``) no stage run outside a CUDA graph."""
+    front; where the mesh's shards sit on one card (``captured``: a mesh
+    of one card, or a rank of a mesh across processes) no stage run
+    outside a CUDA graph."""
     for run in runs:
         c = run["counters"]
         if c.get("spmd_errors") or run["error"]:
             raise AssertionError(f"{label} Q{qid}: the SPMD walker failed: "
                                  f"{run}")
-        if virtual and c.get("spmd_eager_stages"):
+        if captured and c.get("spmd_eager_stages"):
             raise AssertionError(f"{label} Q{qid}: stages ran outside a "
                                  f"CUDA graph: {run}")
         if qid not in MESH_SPMD_SERVED:
@@ -5488,6 +5507,8 @@ MESH_LAUNCHES: dict = {}
 #: 17(a)'s answers (four shards in one process), which phase 18's mesh
 #: across processes (four shards too) must give bit for bit
 MESH_ANSWERS: dict = {}
+#: 17(a)'s cold and warm median walls (ms), printed beside 18(a)'s
+MESH_WALLS: dict = {}
 
 
 def mesh_spmd(mctx, answers: dict) -> list:
@@ -5502,10 +5523,11 @@ def mesh_spmd(mctx, answers: dict) -> list:
         row = _mesh_runs(mctx, qid, answers, MESH_WARM, MESH_ANSWERS)
         row["part"] = "spmd"
         rows.append(row)
+        MESH_WALLS[qid] = (row["cold_ms"], row["warm_median_ms"])
         print("mesh table: " + json.dumps(
             {k: v for k, v in row.items() if k != "spmd_runs"}))
         check_spmd_runs("mesh", qid, row["tier"], row["spmd_runs"],
-                        virtual=True)
+                        captured=True)
     return rows
 
 
@@ -5616,7 +5638,7 @@ def mesh_distinct_cards(base: dict, answers: dict) -> dict:
     rows = [_mesh_runs(dctx, qid, answers, 1) for qid in MESH_DISTINCT]
     for r in rows:
         check_spmd_runs("distinct-card mesh", r["q"], r["tier"],
-                        r.pop("spmd_runs"), virtual=False)
+                        r.pop("spmd_runs"), captured=False)
     row = {"part": "distinct-cards", "devices": [str(d) for d in mesh.devices],
            "create_s": seconds, "queries": rows}
     print("mesh table: " + json.dumps(row))
@@ -5638,6 +5660,7 @@ def phase_mesh(dev, base: dict, tables: dict, answers: dict,
     os.environ.pop("DSQL_MESH", None)
     MESH_LAUNCHES.clear()
     MESH_ANSWERS.clear()
+    MESH_WALLS.clear()
     forget_programs()
     shard = torch.device(dev.type, 0) if dev.type == "cuda" else dev
     mesh = Mesh([shard] * MESH_SHARDS)
@@ -5699,9 +5722,25 @@ MP_RANK_LIMIT_S = 600.0
 #: on each rank's compiled tier
 MP_KERNEL1 = tuple(q for q in MESH_KERNEL1 if q not in MESH_SPMD_SERVED)
 MP_COUNTERS = ("mesh_process_collectives", "mesh_process_bytes")
+#: warm runs per query after the cold one (17(a)'s count)
+MP_WARM = MESH_WARM
 #: 18(a)'s warm runs under torch.profiler: a psum-tree query and a
-#: broadcast join, eager stages both
+#: broadcast join, replayed graphs both
 MP_PROFILED = (1, 12)
+#: 18(a)'s warm walls (ms) when every stage across processes ran eagerly,
+#: as PERF.md section 5 records them (NVIDIA H100 80GB HBM3, 700.00 W),
+#: printed beside this run's captured ones
+MP_EAGER_MS = {1: 43.44, 6: 12.86, 8: 3123.42, 12: 69.04,
+                       14: 41.77}
+#: 18(b)'s last part: the last rank exits, and every other rank must end
+#: its next query (a served one, its stages replayed) with RankError
+#: within the group's timeout, set to this for the part, and the margin
+MP_EXIT_QUERY = 6
+MP_EXIT_TIMEOUT_S = 20.0
+MP_EXIT_MARGIN_S = 30.0
+#: rounds of the group's store rendezvous timed after the queries (each
+#: stage's agreed outcome takes one)
+MP_RENDEZVOUS_ROUNDS = 50
 MP_RANK_DIR = os.path.join("build", "dask_sql_tpu_torch", "multiprocess")
 #: what 18(b) starts once per rank (with ``--rank``)
 MP_RANK_SCRIPT = os.path.abspath(__file__)
@@ -5726,19 +5765,22 @@ def _mp_env() -> None:
 
 
 def _mp_queries(mctx, label: str, answers: dict = None) -> tuple:
-    """Q1-Q22 on a mesh across processes, a cold and a warm run each, the
-    launch counts set to 0 before each run and read after it.  Every run
-    is held to ``check_spmd_runs`` (served shapes served, Q3 falling back
-    on its one known flag only, no walker error), a served run must have
-    gone through the process group, the declined static GROUP BYs must
-    launch kernel 1, and the answer must equal ``answers`` (doubles rtol
-    1e-9) where given.  Returns the rows and the warm answers."""
+    """Q1-Q22 on a mesh across processes, a cold and ``MP_WARM`` warm runs
+    each, the launch counts set to 0 before each run and read after it.
+    Every run is held to ``check_spmd_runs`` (served shapes served, Q3
+    falling back on its one known flag only, no walker error, no stage
+    outside a CUDA graph), a served run must have gone through the
+    process group, each warm run must replay one graph per stage program
+    the cold run built and count the cold run's collectives and bytes,
+    the declined static GROUP BYs must launch kernel 1, and the answer
+    must equal ``answers`` (doubles rtol 1e-9) where given.  Returns the
+    rows and the last warm answers."""
     from dask_sql_tpu_torch.ops import gpu_kernels as gk
 
     rows, results = [], {}
     for qid in sorted(QUERIES):
-        walls, launches, runs, traffic = [], [], [], []
-        for _ in range(2):
+        walls, launches, runs, traffic, replays = [], [], [], [], []
+        for _ in range(1 + MP_WARM):
             gk.reset_launch_counts()
             box = {}
             walls.append(wall_ms(lambda: box.update(
@@ -5747,14 +5789,24 @@ def _mp_queries(mctx, label: str, answers: dict = None) -> tuple:
             runs.append(_spmd_run(mctx))
             traffic.append({k: mctx.last_report.counters.get(k, 0)
                             for k in MP_COUNTERS})
+            replays.append(_replays(mctx.last_report))
         tier = _last_tier(mctx)[0]
-        check_spmd_runs(label, qid, tier, runs, virtual=False)
+        check_spmd_runs(label, qid, tier, runs, captured=True)
         for run, moved in zip(runs, traffic):
             if run["counters"].get("spmd_rank_errors"):
                 raise AssertionError(f"{label} Q{qid}: ranks disagreed: {run}")
             if tier == "spmd" and not all(moved.values()):
                 raise AssertionError(f"{label} Q{qid}: served without the "
                                      f"process group: {moved}")
+        programs = runs[0]["counters"].get("spmd_compiles", 0)
+        if tier == "spmd" and (
+                any(n != programs for n in replays[1:])
+                or programs < runs[1]["counters"].get("spmd_stages", 0)
+                or any(t != traffic[0] for t in traffic[1:])):
+            raise AssertionError(f"{label} Q{qid}: the warm runs replayed "
+                                 f"{replays[1:]} graphs for {programs} stage "
+                                 f"programs and moved {traffic[1:]}, the "
+                                 f"cold run {traffic[0]}")
         if qid in MP_KERNEL1 and min(launches) < 1:
             raise AssertionError(f"{label} Q{qid}: kernel 1 did not launch "
                                  f"on the compiled tier: {launches}")
@@ -5766,10 +5818,38 @@ def _mp_queries(mctx, label: str, answers: dict = None) -> tuple:
                "spmd_fallback": sorted({str(r["fallback"]) for r in runs
                                         if r["fallback"]}),
                "kernel1_launches": launches, "process_traffic": traffic,
-               "cold_ms": walls[0], "warm_ms": walls[1]}
+               "graph_replays": replays, "cold_ms": walls[0],
+               "warm_ms": walls[1:], "warm_median_ms": _median(walls[1:])}
         rows.append(row)
         print("multiprocess table: " + json.dumps(dict(row, part=label)))
     return rows, results
+
+
+def _rendezvous_ms(group) -> float:
+    """The mean wall of one store rendezvous of ``group`` (every rank runs
+    the same rounds)."""
+    from dask_sql_tpu_torch.parallel import group as G
+
+    t0 = time.perf_counter()
+    for _ in range(MP_RENDEZVOUS_ROUNDS):
+        G.rendezvous(group, {"step": "timed"})
+    return (time.perf_counter() - t0) * 1e3 / MP_RENDEZVOUS_ROUNDS
+
+
+def _mp_walls(rows: list, label: str) -> None:
+    """One line per served query: its cold and warm walls across processes
+    (captured stages) beside 17(a)'s and the eager stages' of
+    ``MP_EAGER_MS``."""
+    for r in rows:
+        if r["tier"] != "spmd":
+            continue
+        cold17, warm17 = MESH_WALLS.get(r["q"], (None, None))
+        print("multiprocess walls: " + json.dumps({
+            "part": label, "q": r["q"], "cold_ms": r["cold_ms"],
+            "warm_median_ms": r["warm_median_ms"],
+            "warm_ms": r["warm_ms"], "mesh_17a_cold_ms": cold17,
+            "mesh_17a_warm_median_ms": warm17,
+            "eager_stages_warm_ms": MP_EAGER_MS.get(r["q"])}))
 
 
 def _mp_summary(rows: list, world: int, seconds: float) -> dict:
@@ -5805,6 +5885,8 @@ def multiprocess_world1(dev, base: dict, answers: dict) -> tuple:
             raise AssertionError(f"18(a): a {mesh.group.backend} group")
         mctx, create_s = _mesh_context(mesh, base)
         rows, results = _mp_queries(mctx, "18(a)", answers)
+        _mp_walls(rows, "18(a)")
+        rendezvous_ms = _rendezvous_ms(mesh.group)
         profiles = {q: profile_query(mctx, f"18(a) Q{q}", QUERIES[q])
                     for q in MP_PROFILED}
         for row in rows:
@@ -5815,16 +5897,54 @@ def multiprocess_world1(dev, base: dict, answers: dict) -> tuple:
     finally:
         G.close(mesh.group)
     summary = _mp_summary(rows, 1, time.perf_counter() - t0)
-    summary.update(create_s=create_s, profiles=profiles)
+    summary.update(create_s=create_s, profiles=profiles,
+                   rendezvous_ms=rendezvous_ms)
     return summary, results
+
+
+def _mp_exit_part(mctx, rank: int, world: int) -> dict:
+    """18(b)'s last part, on every rank after its queries: every rank runs
+    ``MP_EXIT_QUERY`` once more (so that its stages' captures are the
+    most recently used: the graphs' memory budget evicts the least
+    recently used), the ranks meet at the group's store, then the last
+    one leaves (returns ``"exits"``), and every other runs
+    ``MP_EXIT_QUERY`` again (its stages replayed, each holding an NCCL
+    call the gone rank never joins) under a group timeout of
+    ``MP_EXIT_TIMEOUT_S``: the query must end in ``RankError``."""
+    from dask_sql_tpu_torch.parallel import group as G
+    from dask_sql_tpu_torch.parallel.spmd import RankError
+
+    group = mctx.mesh.group
+    mctx.sql(QUERIES[MP_EXIT_QUERY])
+    G.rendezvous(group, {"step": "exit"})
+    if rank == world - 1:
+        return {"exits": True}
+    group.timeout_s = MP_EXIT_TIMEOUT_S
+    # a rank that does not end the query in time prints its stacks
+    faulthandler.dump_traceback_later(MP_EXIT_TIMEOUT_S + MP_EXIT_MARGIN_S)
+    t0 = time.perf_counter()
+    try:
+        mctx.sql(QUERIES[MP_EXIT_QUERY])
+        raised, text = None, ""
+    except Exception as exc:
+        raised, text = type(exc).__name__, str(exc)[:300]
+    seconds = time.perf_counter() - t0
+    faulthandler.cancel_dump_traceback_later()
+    print(f"18(b) rank {rank}: Q{MP_EXIT_QUERY} after rank {world - 1} left: "
+          f"{raised} in {seconds:.1f} s: {text}", flush=True)
+    return {"exits": False, "raised": raised, "error": text,
+            "seconds": seconds, "rank_error": raised == RankError.__name__}
 
 
 def multiprocess_rank(args) -> int:
     """One rank of 18(b), started by ``multiprocess_cards`` as ``chip_smoke.py
     --rank R --world W --port P``: the tables generated from ``--seed`` at
     ``--sf``, a mesh of one shard per rank (rank ``r`` on ``cuda:r``), the
-    22 queries held to 18(a)'s checks; the answers (on the host) and the
-    summary pickled under ``MP_RANK_DIR`` for the parent."""
+    22 queries held to 18(a)'s checks, then the exit part
+    (``_mp_exit_part``); the answers (on the host), the summary and the
+    exit part pickled under ``MP_RANK_DIR`` for the parent.  The process
+    ends with ``os._exit``: a rank that left, or one whose communicator
+    was aborted, has nothing to tear down."""
     import pickle
 
     from dask_sql_tpu_torch import Context
@@ -5838,24 +5958,33 @@ def multiprocess_rank(args) -> int:
     t0 = time.perf_counter()
     mesh = init_multihost(f"127.0.0.1:{args.port}", args.world, args.rank,
                           device=args.device, local_shards=1)
-    try:
-        tables = generate_tpch(args.sf, args.seed)
-        mctx = Context(mesh=mesh)
-        for name, cols in tables.items():
-            mctx.create_table(name, cols)
-        ready_s = time.perf_counter() - t0
-        rows, results = _mp_queries(mctx, f"18(b) rank {args.rank}")
-    finally:
-        G.close(mesh.group)
+    tables = generate_tpch(args.sf, args.seed)
+    mctx = Context(mesh=mesh)
+    for name, cols in tables.items():
+        mctx.create_table(name, cols)
+    ready_s = time.perf_counter() - t0
+    rows, results = _mp_queries(mctx, f"18(b) rank {args.rank}")
+    if args.rank == 0:
+        _mp_walls(rows, "18(b) rank 0")
+    rendezvous_ms = _rendezvous_ms(mesh.group)
     host = {q: Table(r.names, [Column(
         c.data.cpu(), c.stype, None if c.mask is None else c.mask.cpu(),
         c.dictionary) for c in r.columns]) for q, r in results.items()}
     summary = _mp_summary(rows, args.world, time.perf_counter() - t0)
     summary.update(rank=args.rank, device=str(mesh.devices[0]),
-                   ready_s=ready_s)
-    with open(os.path.join(MP_RANK_DIR, f"rank{args.rank}.pkl"), "wb") as f:
-        pickle.dump({"summary": summary, "answers": host}, f)
-    return 0
+                   ready_s=ready_s, rendezvous_ms=rendezvous_ms)
+    path = os.path.join(MP_RANK_DIR, f"rank{args.rank}.pkl")
+    exit_part = _mp_exit_part(mctx, args.rank, args.world)
+    with open(path, "wb") as f:
+        pickle.dump({"summary": summary, "answers": host, "exit": exit_part},
+                    f)
+    if exit_part["exits"]:
+        # leave as a rank that is gone: no teardown of the communicator
+        mesh.group.broken = "this rank left the mesh"
+    # rank 0 serves the store and waits in close for every other rank
+    G.close(mesh.group)
+    sys.stdout.flush()
+    os._exit(0)
 
 
 def multiprocess_cards(sf: float, seed: int, answers: dict, world1: dict,
@@ -5864,7 +5993,10 @@ def multiprocess_cards(sf: float, seed: int, answers: dict, world1: dict,
     (``multiprocess_rank``) over NCCL, when the machine has two cards or
     more; else one line saying why it is skipped.  Every rank's answers
     equal the resident ones (doubles rtol 1e-9), and the served ones 18(a)'s
-    bit for bit where the ranks hold as many shards (four)."""
+    bit for bit where the ranks hold as many shards (four).  Then the last
+    rank leaves, and every other rank's next query must end in
+    ``RankError`` within ``MP_EXIT_TIMEOUT_S`` plus ``MP_EXIT_MARGIN_S``;
+    every process must have exited within ``MP_RANK_LIMIT_S``."""
     import pickle
 
     n = n_ranks or min(torch.cuda.device_count(), MP_MAX_RANKS)
@@ -5876,28 +6008,36 @@ def multiprocess_cards(sf: float, seed: int, answers: dict, world1: dict,
     t0 = time.perf_counter()
     os.makedirs(MP_RANK_DIR, exist_ok=True)
     for r in range(n):
-        path = os.path.join(MP_RANK_DIR, f"rank{r}.pkl")
-        if os.path.exists(path):
-            os.remove(path)
+        for suffix in ("pkl", "log"):
+            path = os.path.join(MP_RANK_DIR, f"rank{r}.{suffix}")
+            if os.path.exists(path):
+                os.remove(path)
     port = _free_port()
     cmd = [sys.executable, MP_RANK_SCRIPT, "--sf", repr(sf),
            "--seed", str(seed), "--world", str(n), "--port", str(port)]
     if device:
         cmd += ["--device", device]
-    procs = [subprocess.Popen(cmd + ["--rank", str(r)],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(n)]
+    paths = [os.path.join(MP_RANK_DIR, f"rank{r}.log") for r in range(n)]
+    procs = []
+    for r, path in enumerate(paths):
+        with open(path, "w") as log:
+            procs.append(subprocess.Popen(
+                cmd + ["--rank", str(r)], stdout=log,
+                stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONUNBUFFERED="1")))
     logs = []
     deadline = time.monotonic() + MP_RANK_LIMIT_S
     try:
         for r, p in enumerate(procs):
-            out, _ = p.communicate(timeout=max(1.0,
-                                               deadline - time.monotonic()))
-            logs.append(out)
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            with open(paths[r]) as f:
+                logs.append(f.read())
             if p.returncode:
+                # the C++ frames of a native error crowd out the Python ones
+                tail = "\n".join(line for line in logs[-1].splitlines()
+                                 if "frame #" not in line)
                 raise AssertionError(f"18(b) rank {r} exited {p.returncode}:"
-                                     f"\n{out[-4000:]}")
+                                     f"\n{tail[-6000:]}")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -5907,6 +6047,12 @@ def multiprocess_cards(sf: float, seed: int, answers: dict, world1: dict,
     for r in range(n):
         with open(os.path.join(MP_RANK_DIR, f"rank{r}.pkl"), "rb") as f:
             got = pickle.load(f)
+        gone = got["exit"]
+        if gone["exits"] != (r == n - 1) or (not gone["exits"] and (
+                not gone["rank_error"]
+                or gone["seconds"] > MP_EXIT_TIMEOUT_S + MP_EXIT_MARGIN_S)):
+            raise AssertionError(f"18(b) rank {r} after rank {n - 1} left: "
+                                 f"{gone}")
         for qid, result in got["answers"].items():
             check_same_result(f"18(b) rank {r} Q{qid}", result, answers[qid],
                               rtol=1e-9)
@@ -5917,11 +6063,14 @@ def multiprocess_cards(sf: float, seed: int, answers: dict, world1: dict,
                 _bit_equal_tables(f"18(b) rank {r} Q{qid} against rank 0",
                                   result, ranks[0]["answers"][qid])
         ranks.append(got)
-    for line in logs[0].splitlines():
-        if line.startswith("multiprocess table: "):
-            print(line)
+    for r, log in enumerate(logs):
+        for line in log.splitlines():
+            if line.startswith("18(b) rank") or (r == 0 and line.startswith(
+                    ("multiprocess table: ", "multiprocess walls: "))):
+                print(line)
     return {"world_size": n, "seconds": time.perf_counter() - t0,
-            "ranks": [g["summary"] for g in ranks]}
+            "ranks": [g["summary"] for g in ranks],
+            "exit": [g["exit"] for g in ranks]}
 
 
 def phase_multiprocess(dev, base: dict, answers: dict, sf: float,
@@ -7013,6 +7162,68 @@ def store_mesh_records(dev, base: dict, paths: dict) -> dict:
     return out
 
 
+def store_process_mesh(dev, base: dict, paths: dict, want: dict) -> dict:
+    """22(d) across processes: Q1 and Q12 on a one-rank process group
+    holding four shards of the card (18(a)'s mesh) with the store armed,
+    twice, each pass after every stage program was dropped: the first
+    builds and stores this rank's stage records, the second makes every
+    stage program from them (``spmd_store_hits`` as many as the first
+    pass's builds, no ``spmd_compiles``), answers bit for bit the first
+    pass's and ``want``'s (the same four shards in one process)."""
+    from dask_sql_tpu_torch.parallel import group as G
+    from dask_sql_tpu_torch.parallel import spmd
+    from dask_sql_tpu_torch.parallel.mesh import init_multihost
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+
+    names = ("spmd_compiles", "spmd_store_hits", "spmd_eager_stages",
+             "program_store_stores", "program_store_errors",
+             "mesh_process_collectives")
+    device = "cpu" if dev.type == "cpu" else "cuda:0"
+    mesh = init_multihost(f"127.0.0.1:{_free_port()}", 1, 0, device=device,
+                          local_shards=MESH_SHARDS)
+    os.environ["DSQL_PROGRAM_STORE"] = paths["store"]
+    passes, failures = [], []
+    try:
+        mctx, _ = _mesh_context(mesh, base)
+        for n in (1, 2):
+            spmd.clear_programs()
+            done = {}
+            for qid in STORE_MESH_QUERIES:
+                box = {}
+                c0 = tel.REGISTRY.counters()
+                cold = wall_ms(lambda: box.update(r=mctx.sql(QUERIES[qid])))
+                c1 = tel.REGISTRY.counters()
+                done[qid] = {"tier": _last_tier(mctx)[0], "cold_ms": cold,
+                             "result": _table_arrays(box["r"]),
+                             **{k: c1.get(k, 0) - c0.get(k, 0)
+                                for k in names}}
+            passes.append(done)
+        del mctx
+    finally:
+        os.environ.pop("DSQL_PROGRAM_STORE", None)
+        spmd.clear_programs()
+        G.close(mesh.group)
+    out = {}
+    for qid in STORE_MESH_QUERIES:
+        built, hit = passes[0][qid], passes[1][qid]
+        got = hit.pop("result")
+        row = {"q": qid, "equal": _same_arrays(got, built.pop("result"))
+               and _same_arrays(got, want[qid]), "build": built, "hit": hit}
+        print("store mesh: process " + json.dumps(row))
+        if (built["tier"] != "spmd" or hit["tier"] != "spmd"
+                or not row["equal"] or hit["spmd_compiles"]
+                or hit["spmd_eager_stages"] or built["spmd_eager_stages"]
+                or built["spmd_compiles"] < 1
+                or hit["spmd_store_hits"] != built["spmd_compiles"]
+                or hit["mesh_process_collectives"]
+                != built["mesh_process_collectives"]):
+            failures.append(f"22(d) across processes Q{qid}: {row}")
+        out[qid] = row
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 def _store_query(ctx, qid: int, handed: dict, mode: str) -> dict:
     """22(b)/(c) for one query: the cold run (a record's capture and
     replay, or a build) and one warm replay, the launch counts set to 0
@@ -7254,6 +7465,7 @@ def phase_store(dev, base: dict, sf: float, seed: int,
     t0 = time.perf_counter()
     paths = _store_paths()
     mesh_answers = store_mesh_records(dev, base, paths)
+    process_mesh = store_process_mesh(dev, base, paths, mesh_answers)
     with open(paths["answers"], "rb") as f:
         handed = pickle.load(f)
     handed["mesh"] = mesh_answers
@@ -7302,7 +7514,8 @@ def phase_store(dev, base: dict, sf: float, seed: int,
         "hit_skipped_warmup": bool(hits) and all(
             r["warmup_ms"] == 0 for r in hits),
         "entries": populated["entries"], "bytes": populated["bytes"],
-        "mesh": child.get("mesh"), "fallbacks": child.get("fallbacks"),
+        "mesh": child.get("mesh"), "process_mesh": process_mesh,
+        "fallbacks": child.get("fallbacks"),
         "kernel1_launches": sum(r["cold_kernel1"] + r["kernel1_per_replay"]
                                 for r in child["rows"]),
         "seconds": time.perf_counter() - t0}
@@ -7310,6 +7523,37 @@ def phase_store(dev, base: dict, sf: float, seed: int,
     if failures:
         raise AssertionError("phase 22: " + "; ".join(failures))
     return summary
+
+
+def main_multiprocess(args) -> int:
+    """``--only multiprocess``: the kernels built, the tables at ``--sf``
+    and their eager answers (phase 7's), then phase 18; on a machine of
+    four cards 18(b) runs a rank on each.  Prints a ``multiprocess only:``
+    JSON line last."""
+    os.environ.pop("DSQL_ADAPTIVE", None)
+    os.environ.pop("DSQL_FORCE_GROUPBY", None)
+    os.environ.update({"DSQL_TIERED": "0", "DSQL_EAGER_FALLBACK": "0",
+                       **SERVING_PINS})
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    card = phase_environment()
+    phase_build()
+    ctx, tables = phase_data(dev, args.sf, args.seed)
+    base = {name: entry.table
+            for name, entry in ctx.schema["root"].tables.items()}
+    os.environ["DSQL_COMPILE"] = "0"
+    answers = {q: ctx.sql(QUERIES[q]) for q in sorted(QUERIES)}
+    os.environ.pop("DSQL_COMPILE")
+    del ctx, tables
+    multi = phase_multiprocess(dev, base, answers, args.sf, args.seed)
+    print(f"card: {card}")
+    print("multiprocess only: " + json.dumps({
+        "ok": True, "cards": torch.cuda.device_count(),
+        "world1_served": multi["world1"]["served"],
+        "ranks": multi["cards"].get("world_size"),
+        "exit": multi["cards"].get("exit"),
+        "seconds": time.perf_counter() - t0}))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -7325,6 +7569,9 @@ def main(argv=None) -> int:
     # phase 22's fresh processes, started by the script itself
     p.add_argument("--store-child", default=None, choices=("store", "caps"),
                    help=argparse.SUPPRESS)
+    p.add_argument("--only", default=None, choices=("multiprocess",),
+                   help="run only phase 18 and the set-up it needs (with "
+                        "four cards, 18(b) runs four ranks)")
     args = p.parse_args(argv)
     _STARTED[0] = time.perf_counter()
     rehearsal = (args.rank is not None or args.replica is not None
@@ -7345,6 +7592,8 @@ def main(argv=None) -> int:
         return fleet_replica(args)
     if args.store_child is not None:
         return store_child(args)
+    if args.only == "multiprocess":
+        return main_multiprocess(args)
     # the production default: statistics-driven dispatch, nothing forced;
     # phases 4-8 and 10-11 measure the eager executor (DSQL_COMPILE=0) as
     # they did before the compiled tier, phases 9 and 12 the compiled tier

@@ -440,11 +440,14 @@ def segsum_limb_totals_cuda(vals: torch.Tensor, codes: torch.Tensor,
     plan = _noted(_kernel_plan(tuple(row_classes), num_groups, dev))
     lib = _load_library("segsum_fixedpoint")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.dsql_segsum_fixedpoint(
-        vals.data_ptr(), n, a, codes.data_ptr(), mask.data_ptr(),
-        scale.data_ptr(), plan.meta.data_ptr(), plan.n_tiles, num_groups,
-        int(plan.private), plan.smem, out_limbs.data_ptr(),
-        out_nonfinite.data_ptr(), stream)
+    # the entry point launches on the calling thread's current device (a
+    # worker thread's is cuda:0 unless set)
+    with torch.cuda.device(dev):
+        rc = lib.dsql_segsum_fixedpoint(
+            vals.data_ptr(), n, a, codes.data_ptr(), mask.data_ptr(),
+            scale.data_ptr(), plan.meta.data_ptr(), plan.n_tiles,
+            num_groups, int(plan.private), plan.smem, out_limbs.data_ptr(),
+            out_nonfinite.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"segsum_fixedpoint launch failed: CUDA error {rc}")
     count_launch("segsum_fixedpoint")
@@ -660,10 +663,11 @@ def segsum_accumulate_cuda(vals: torch.Tensor, codes: torch.Tensor,
     lib = _load_library("segsum_accumulate")
     fn = (lib.dsql_segsum_accumulate_f32 if vals.dtype == torch.float32
           else lib.dsql_segsum_accumulate_f64)
-    rc = fn(vals.data_ptr(), n, a, codes.data_ptr(), mask.data_ptr(),
-            num_groups, width, ACC_STAGE, smem, partial.data_ptr(),
-            partial.numel(), nonfinite.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # as in segsum_limb_totals_cuda
+        rc = fn(vals.data_ptr(), n, a, codes.data_ptr(), mask.data_ptr(),
+                num_groups, width, ACC_STAGE, smem, partial.data_ptr(),
+                partial.numel(), nonfinite.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segsum_accumulate launch failed: CUDA error {rc}")
     count_launch("segsum_accumulate")

@@ -27,20 +27,41 @@ this rank put into it, ``mesh_process_bytes``.  A collective that fails
 (the group's timeout, a peer gone) marks the group broken: collectives
 after it would pair with the wrong peers' calls, so every later one
 raises ``CollectiveError`` at once.
+
+A stage program captured as a CUDA graph (``physical/graphs.py``) holds
+its NCCL calls inside the graph, and a replay runs no Python.  So a
+capture records its collectives and their bytes per group
+(``recording_collectives``) instead of counting them, and each replay
+adds them once (``count_replay``): ``ProcessGroup.collectives``, which
+every rank's agreed stage outcome carries, advances on a replay as on an
+eager run.  A replayed NCCL kernel whose peer is gone spins for ever, and
+PyTorch's watchdog does not track work launched inside a graph, so the
+caller waits for a replay with ``wait_device``: at most the group's
+timeout, after which the group is broken, its communicator aborted (no
+kernel stays spinning on the stream) and ``CollectiveError`` raised.
 """
 from __future__ import annotations
 
 import datetime
 import json
+import logging
 import threading
-from typing import List, Optional, Sequence
+import time
+from contextlib import contextmanager
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from ..runtime import telemetry as _tel
 
+logger = logging.getLogger(__name__)
+
 #: seconds a collective or a rendezvous waits for the other ranks
 DEFAULT_TIMEOUT_S = 300.0
+#: seconds ``wait_device`` gives the communicator's abort before it
+#: raises (the abort goes on in its thread: NCCL's can wait for a peer
+#: that is gone)
+ABORT_WAIT_S = 5.0
 
 
 class CollectiveError(RuntimeError):
@@ -157,11 +178,55 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     return torch.cat([b, b.new_zeros(pad)]) if pad else b
 
 
-def _collective(group: ProcessGroup, nbytes: int, fn):
+def _refuse_broken(group: ProcessGroup) -> None:
     if group.broken is not None:
         raise CollectiveError(f"rank {group.rank}: the mesh's process group "
                               f"broke earlier ({group.broken}); set it up "
                               f"again with init_multihost")
+
+
+# a capture on this thread records its collectives here: {id(group):
+# [group, collectives, bytes]}
+_record_tls = threading.local()
+
+
+@contextmanager
+def recording_collectives():
+    """Collectives issued on this thread in the block are recorded in the
+    yielded dict (per group: ``[group, collectives, bytes]``) instead of
+    counted: a capture records them into a graph, which runs them once per
+    replay (``count_replay``).  A call that fails while recording fails
+    the capture only: nothing was sent, so the group stays whole."""
+    prev = getattr(_record_tls, "tally", None)
+    tally: Dict[int, list] = {}
+    _record_tls.tally = tally
+    try:
+        yield tally
+    finally:
+        _record_tls.tally = prev
+
+
+def count_replay(tally: Sequence[list]) -> None:
+    """A replay of a graph whose capture recorded ``tally`` (the values of
+    ``recording_collectives``' dict): each group's collectives and bytes
+    counted once, as an eager run counts them.  Raises ``CollectiveError``
+    (and counts nothing) if one of the groups broke."""
+    for group, _, _ in tally:
+        _refuse_broken(group)
+    for group, n, nbytes in tally:
+        group.collectives += n
+        _tel.inc("mesh_process_collectives", n)
+        _tel.inc("mesh_process_bytes", nbytes)
+
+
+def _collective(group: ProcessGroup, nbytes: int, fn):
+    _refuse_broken(group)
+    tally = getattr(_record_tls, "tally", None)
+    if tally is not None:
+        rec = tally.setdefault(id(group), [group, 0, 0])
+        rec[1] += 1
+        rec[2] += nbytes
+        return fn()
     group.collectives += 1
     _tel.inc("mesh_process_collectives")
     _tel.inc("mesh_process_bytes", nbytes)
@@ -172,6 +237,61 @@ def _collective(group: ProcessGroup, nbytes: int, fn):
         raise CollectiveError(f"rank {group.rank}: collective "
                               f"#{group.collectives} failed: "
                               f"{group.broken}") from e
+
+
+def wait_device(group: ProcessGroup, what: str = "a graph replay") -> None:
+    """Wait for the work queued on the current stream of the group's card
+    (``what``: a replay whose collectives the watchdog does not track), at
+    most the group's timeout, polling an event recorded after it.  Past
+    the timeout the group is broken, its communicator's abort started on a
+    thread of its own (a replayed NCCL kernel whose peer is gone would
+    spin on the stream for ever) and given ``ABORT_WAIT_S``, and
+    ``CollectiveError`` raised.  On the CPU the work has ended already."""
+    if group.device.type != "cuda":
+        return
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(group.device))
+    deadline = time.monotonic() + group.timeout_s
+    pause = 2e-5
+    while not done.query():
+        if time.monotonic() > deadline:
+            group.broken = (f"{what} did not end within "
+                            f"{group.timeout_s:g} s")
+            aborting = threading.Thread(target=_abort, args=(group,),
+                                        name="dsql-abort", daemon=True)
+            aborting.start()
+            aborting.join(ABORT_WAIT_S)
+            raise CollectiveError(
+                f"rank {group.rank}: {group.broken}; the communicator's "
+                f"abort " + ("is still running" if aborting.is_alive()
+                             else "ended"))
+        time.sleep(pause)
+        pause = min(2 * pause, 1e-3)
+
+
+def _abort(group: ProcessGroup) -> None:
+    """Abort the default group's communicator (best-effort: the group is
+    broken either way and never used again)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return
+    c10d = dist.distributed_c10d
+    pg = c10d._get_default_group()
+    tries = []
+    if hasattr(c10d, "_abort_process_group"):
+        tries.append(lambda: c10d._abort_process_group(pg))
+    tries.append(lambda: pg._get_backend(group.device).abort())
+    tries.append(lambda: pg.abort())
+    for attempt in tries:
+        try:
+            attempt()
+            return
+        except Exception as e:  # the next way, on an older torch
+            logger.debug("communicator abort failed (%s: %s)",
+                         type(e).__name__, str(e)[:160])
+    logger.warning("rank %d: the communicator could not be aborted",
+                   group.rank)
 
 
 def _gather_rows(group: ProcessGroup, b: torch.Tensor) -> torch.Tensor:
@@ -262,17 +382,20 @@ def all_to_all(group: ProcessGroup,
     return out
 
 
-def rendezvous(group: ProcessGroup, payload: dict) -> List[Optional[dict]]:
+def rendezvous(group: ProcessGroup, payload: dict,
+               wait_s: Optional[float] = None) -> List[Optional[dict]]:
     """Every rank's ``payload`` (JSON), in rank order, through the store.
-    A rank that does not arrive within the group's timeout reads as None.
-    Every rank calls this as often as the others: each call is a round
-    with keys of its own."""
+    A rank that does not arrive within ``wait_s`` (the group's timeout by
+    default) reads as None.  Every rank calls this as often as the
+    others: each call is a round with keys of its own."""
     group.rounds += 1
     r = group.rounds
     keys = [f"rv/{r}/{k}" for k in range(group.world_size)]
     group.store.set(keys[group.rank], json.dumps(payload))
+    wait = group.timeout_s if wait_s is None else min(wait_s,
+                                                      group.timeout_s)
     try:
-        group.store.wait(keys, datetime.timedelta(seconds=group.timeout_s))
+        group.store.wait(keys, datetime.timedelta(seconds=wait))
     except Exception:  # the store's timeout: read who arrived
         pass
     out: List[Optional[dict]] = []

@@ -30,6 +30,13 @@ local_size`` to ``rank * local_size + local_size - 1``.  Every rank runs
 the same program over the same registered data, and the catalog
 holds the whole padded table on each rank's device: ``split`` picks this
 rank's shards out of it.
+
+``graph_stages`` says which meshes build each SPMD stage as one graph
+program (``parallel/spmd.py``; a CUDA graph on the card): a mesh of one
+device repeated (``virtual``) and a mesh across processes, whose local
+shards sit on the rank's one device (its collectives are captured in
+the graph).  A single-process mesh of distinct cards runs its stages
+eagerly.
 """
 from __future__ import annotations
 
@@ -94,6 +101,12 @@ class Mesh:
     def virtual(self) -> bool:
         """Every shard on one device (no transfer between shards)."""
         return not self.spans_processes and len(set(self.devices)) == 1
+
+    @property
+    def graph_stages(self) -> bool:
+        """Each SPMD stage is built as one graph program: every local
+        shard on one device, in one process or across processes."""
+        return len(set(self.devices)) == 1
 
     def distinct_devices(self) -> List[torch.device]:
         return list(dict.fromkeys(self.devices))

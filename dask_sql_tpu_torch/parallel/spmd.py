@@ -24,16 +24,20 @@ it; every collective combines the list in shard order, so answers and
 the byte counters (``spmd_exchange_bytes``, ``spmd_all_gather_bytes``,
 ``spmd_psum_bytes``) equal the JAX package's.
 
-A stage's function has fixed shapes.  On a card whose mesh is one device
-repeated it is captured as a CUDA graph (``physical/graphs.GraphProgram``,
-as the compiled tier does) and replayed; the runtime flags are outputs,
-read on the host after the replay.  A stage that cannot be captured (a
-host read in its body, a mesh of distinct cards) runs eagerly, counted
-``spmd_eager_stages``.  The dispatch decisions of a stage program (join
-side and variant, group-by variant) are recorded on its first run and
-replayed by every later one; the program's key holds the canonical stage
-plan, the input layout, the mesh, the scanned tables' statistics and the
-caps, as the JAX stage digest does.
+A stage's function has fixed shapes.  Where every local shard sits on
+one device (``Mesh.graph_stages``: one device repeated, or a rank of a
+mesh across processes) it is built as a graph program
+(``physical/graphs.GraphProgram``, as the compiled tier does, counted
+``spmd_compiles``): on a card captured once as a CUDA graph and replayed,
+on the CPU a checked function that is called.  The runtime flags are
+outputs, read on the host after the replay.  A stage that cannot be
+captured (a host read in its body, a mesh of distinct cards in one
+process) runs eagerly, counted ``spmd_eager_stages``.  The dispatch
+decisions of a stage program (join side and variant, group-by variant)
+are recorded on its first run and replayed by every later one; the
+program's key holds the canonical stage plan, the input layout, the
+mesh, the scanned tables' statistics and the caps, as the JAX stage
+digest does.
 
 Correctness over silent degradation: what the walker cannot express
 (non-INNER or multi-key joins, DISTINCT aggregates, float keys, windows,
@@ -67,8 +71,20 @@ epilogue.  Ranks must take the same host decisions, so:
   raised; where their collectives no longer pair (a collective failed,
   or the ranks stopped at different ones) the group is marked broken
   and every later query that needs it raises at once;
-- a stage that holds a collective of the process group runs eagerly
-  (``spmd_eager_stages``): no CUDA graph captures an NCCL call yet.
+- each stage is a graph program with the process group's collectives
+  inside: on the card its NCCL ``all_gather_into_tensor`` /
+  ``all_to_all_single`` calls are captured in the CUDA graph after a
+  warm-up that ran them (and so set up NCCL's connections), and each
+  replay counts them once (``group.count_replay``), so the agreed
+  collective count advances as on an eager run.  Whether this rank's
+  capture succeeded rides the stage's outcome (``captured``); every rank
+  keeps its graph only if every rank's succeeded, else every rank drops
+  it, answers from its warm-up and counts ``spmd_eager_stages`` alike, so
+  no collective runs twice on one rank only.  A replay is followed by a
+  bounded wait (``group.wait_device``, the group's timeout) before the
+  flags are read: past it the group is broken, the communicator aborted
+  and the stage ends in ``CollectiveError``, which the outcome's
+  rendezvous turns into ``RankError`` on every rank.
 
 Under ``DSQL_PROFILE`` each stage's span carries its shard skew
 (``skew_ratio``: max over mean of the shards' valid rows, and
@@ -78,15 +94,20 @@ across processes a rank reads only what it holds (its own shards, from
 adds no collective and ranks that disagree on ``DSQL_PROFILE`` still pair
 theirs.  Under ``DSQL_EVENTS`` a served query publishes ``spmd.query``.
 
-With ``DSQL_PROGRAM_STORE`` set, a stage program of a virtual mesh (one
-card repeated, or the CPU) stores its build record after its first run
-(``runtime/program_store.py``: the recorded meta, decisions included, and
-the graph's constants), under the digest of its key (``_stage_digest``);
-a process that finds the record makes the program from it and captures
-it without a warm-up, counted ``spmd_store_hits`` instead of
-``spmd_compiles``.  A record that does not serve (its capture fails) is
+With ``DSQL_PROGRAM_STORE`` set, a graph-built stage program stores its
+build record after its first run (``runtime/program_store.py``: the
+recorded meta, decisions included, and the graph's constants), under the
+digest of its key (``_stage_digest``); a process that finds the record
+makes the program from it, counted ``spmd_store_hits`` instead of
+``spmd_compiles``, and on a mesh of one card captures it without a
+warm-up.  A record that does not serve (its capture fails) is
 ``program_store_errors``, dropped, and the stage is built anew.  On a
-mesh across processes every stage runs eagerly, so nothing is stored.
+mesh across processes each rank keeps its own records (the key holds
+``/world{W}:rank{r}``), the ranks agree through the store whether every
+rank found its record (a damaged one counts ``program_store_errors`` on
+the rank that read it) and either all build or all use their records,
+and a hit warms up before its capture: the warm-up's collectives set up
+NCCL's connections, which a capture cannot.
 
 Variables: ``DSQL_MESH=0`` turns the backend off;
 ``DSQL_SPMD_BROADCAST_ROWS`` (65536) is the build-side estimate above
@@ -926,19 +947,23 @@ class _Fallback(Exception):
 
 
 class _StageProgram:
-    """One stage's function, its recorded ``meta`` and its CUDA graph
-    (None where the stage runs eagerly).  ``lock`` serializes an eager
-    run that records, so that two first runs do not both record."""
+    """One stage's function, its recorded ``meta`` and its graph program
+    (None where the stage runs eagerly), and on a mesh across processes
+    its ``group``.  ``lock`` serializes an eager run that records, so
+    that two first runs do not both record."""
 
-    __slots__ = ("body", "meta", "graph", "lock", "digest", "pending")
+    __slots__ = ("body", "meta", "graph", "lock", "digest", "pending",
+                 "group")
 
-    def __init__(self, body, meta: Dict, graph, digest=None, pending=None):
+    def __init__(self, body, meta: Dict, graph, digest=None, pending=None,
+                 group=None):
         self.body = body
         self.meta = meta
         self.graph = graph
+        self.group = group
         self.lock = threading.Lock()
-        #: the program store's digest (armed, on a virtual mesh), and what
-        #: the first run settles (``_settle``): ("hit", the record's
+        #: the program store's digest (armed, on a graph-built stage), and
+        #: what the first run settles (``_settle``): ("hit", the record's
         #: outputs) or ("build", None), whose record is stored after it
         self.digest = digest
         self.pending = pending
@@ -1108,10 +1133,11 @@ def _program(key: tuple, stage_plan, context, scans, mesh, meta: Dict,
              counts: Dict[str, int], root: bool = False,
              use_store: bool = True) -> _StageProgram:
     """The cached stage program for ``key``; on a miss made from its
-    stored record where there is one (``use_store``), else built (and
-    counted ``spmd_compiles``).  A mesh across processes is never
-    ``virtual``: its stages hold collectives of the process group, which
-    no CUDA graph captures yet, so they run eagerly on every rank."""
+    stored record where there is one (``use_store``; on a mesh across
+    processes only where every rank found its own), else built (and
+    counted ``spmd_compiles``).  On a mesh across processes the graph
+    program carries the group: its first capture waits for the stage's
+    agreed outcome (``_run_stage``)."""
     from ..physical import compiled as _C
     from ..physical.graphs import GraphProgram
 
@@ -1120,30 +1146,35 @@ def _program(key: tuple, stage_plan, context, scans, mesh, meta: Dict,
         if prog is not None:
             _prog_cache.move_to_end(key)
             return prog
+    spans = mesh.spans_processes
     digest = record = None
-    if mesh.virtual and _C._store_armed():
+    if mesh.graph_stages and _C._store_armed():
         digest = _stage_digest(key)
         if use_store:
             record = _pstore_load(digest, len(_C._flatten_tables(scans)))
+            if spans:
+                record = _agreed_record(mesh.group, record)
     if record is not None:
         meta = record["meta"]
     body = _make_stage_body(stage_plan, context, _scan_specs(scans), mesh,
                             meta, root)
     graph = None
-    if mesh.virtual:
+    if mesh.graph_stages:
         # the inputs of __spmd__ temps change per query: a graph copies
         # them into its buffers instead of keying a capture on them
         copied = _C._copied_positions(scans, 0)
         copied.extend(i for i, temp in enumerate(_flat_in_temps(scans))
                       if temp)
+        # across processes a hit warms up too (module docstring)
         graph = GraphProgram(body, mesh.devices[0], copied=copied,
-                             record=record)
+                             record=None if spans else record,
+                             group=mesh.group)
         if record is not None and record.get("cost"):
             graph.cost = dict(record["cost"])
     prog = _StageProgram(body, meta, graph, digest,
                          None if digest is None
                          else ("hit", int(record["n_outs"])) if record
-                         else ("build", None))
+                         else ("build", None), mesh.group)
     if record is None:
         counts["spmd_compiles"] = counts.get("spmd_compiles", 0) + 1
     with _prog_lock:
@@ -1197,6 +1228,18 @@ def _pstore_load(digest: str, n_args: int) -> Optional[Dict]:
         store._drop(digest)
         return None
     return raw
+
+
+def _agreed_record(group, record: Optional[Dict]) -> Optional[Dict]:
+    """``record`` if every rank of the group found its own, else None (every
+    rank builds): the outcome of the load agreed through the store."""
+    peers = G.rendezvous(group, {"step": "store", "hit": record is not None})
+    if any(p is None or p.get("step") != "store" for p in peers):
+        msg = (f"rank {group.rank}: the ranks did not agree on a stage "
+               f"record within {group.timeout_s:g} s")
+        group.broken = group.broken or msg
+        raise RankError(msg)
+    return record if all(p["hit"] for p in peers) else None
 
 
 def _pstore_save(prog: _StageProgram, n_args: int, n_outs: int) -> None:
@@ -1269,7 +1312,13 @@ def _run_program(prog: _StageProgram, flat, counts: Dict[str, int]):
     and captures, later ones replay; the outputs are copied out of the
     graph's pool), else eagerly.  A stage whose first graph call fails
     (a host read in its body, an op a capture cannot hold) runs eagerly
-    from then on."""
+    from then on.  On a mesh across processes a replay is waited for
+    within the group's timeout (``group.wait_device``); only a host read
+    reruns a first call eagerly there (it stops every rank's warm-up at
+    the same op: it depends on the body's ops, not on the data), and a
+    capture that fails is held for the agreed outcome, not rerun."""
+    from ..physical.graphs import HostRead
+
     graph = prog.graph
     if graph is not None:
         first = not (graph.checked or graph.captures)
@@ -1278,14 +1327,18 @@ def _run_program(prog: _StageProgram, flat, counts: Dict[str, int]):
                 outs = graph(*flat)
                 if graph.device.type == "cuda":
                     outs = tuple(o.clone() for o in outs)
+            if prog.group is not None:
+                G.wait_device(prog.group)
             _annotate_stage_cost(graph)
             return outs
         except (KeyboardInterrupt, SystemExit):
             raise
         except Exception as e:
-            if not first:
+            if not first or (prog.group is not None
+                             and not isinstance(e, HostRead)):
                 raise
-            if prog.pending is not None and prog.pending[0] == "hit":
+            if prog.pending is not None and prog.pending[0] == "hit" \
+                    and prog.group is None:
                 raise _StoredStageFailed(f"{type(e).__name__}: {e}") from e
             logger.debug("spmd: stage not capturable (%s: %s); eager",
                          type(e).__name__, str(e)[:160])
@@ -1416,13 +1469,21 @@ def _disagreement(group, peers: List[Optional[Dict]]) -> RankError:
     return RankError(msg)
 
 
-def _agreed(mesh, fn, decisions=None):
+#: seconds a rank whose collective failed waits for the others' reports:
+#: its step ends in RankError whatever they report, so the wait only
+#: names them (a peer that is gone would otherwise cost a second timeout)
+_FAILED_REPORT_WAIT_S = 5.0
+
+
+def _agreed(mesh, fn, decisions=None, capture=None):
     """``fn()``; on a mesh across processes, then how it ended agreed with
     every other rank through the group's store.  Alike on every rank (and
     no collective failed), the result is returned or this rank's
     exception raised (marked agreed), so every rank goes on the same way;
-    otherwise ``RankError`` on every rank.  ``decisions()``, after a success, is the recorded dispatch
-    decisions, which must be equal too."""
+    otherwise ``RankError`` on every rank.  ``decisions()``, after a
+    success, is the recorded dispatch decisions, which must be equal too.
+    ``capture`` (``_CaptureVote``) carries whether this rank's held
+    capture succeeded, and is told what every rank reported."""
     if not mesh.spans_processes:
         return fn()
     import hashlib
@@ -1431,6 +1492,10 @@ def _agreed(mesh, fn, decisions=None):
     out, err = None, None
     try:
         out = fn()
+    except RankError:  # the ranks' rounds no longer pair: no rendezvous
+        if capture is not None:
+            capture.settle(None)
+        raise
     except (KeyboardInterrupt, SystemExit):
         raise
     except Exception as e:  # reported to every rank, then acted on alike
@@ -1439,15 +1504,60 @@ def _agreed(mesh, fn, decisions=None):
     if err is None and decisions is not None:
         mine["decisions"] = hashlib.sha1(
             repr(decisions()).encode()).hexdigest()[:16]
-    peers = G.rendezvous(group, mine)
+    if capture is not None:
+        mine["captured"] = capture.outcome()
+    peers = G.rendezvous(group, mine,
+                         _FAILED_REPORT_WAIT_S
+                         if mine["status"] == "collective" else None)
     # a failed collective is never an outcome to go on from, even alike
-    if mine["status"] != "collective" \
-            and all(p is not None and _alike(p, mine) for p in peers):
+    alike = mine["status"] != "collective" \
+        and all(p is not None and _alike(p, mine) for p in peers)
+    if capture is not None:
+        capture.settle(peers if alike and err is None else None)
+    if alike:
         if err is not None:
             err.spmd_agreed = True
             raise err
         return out
     raise _disagreement(group, peers) from err
+
+
+class _CaptureVote:
+    """The held first capture of a stage program on a mesh across
+    processes (``GraphProgram(group=...)``): ``outcome`` is this rank's
+    (None where the run held none: it replayed a capture it kept before,
+    which a rank whose capture was evicted takes anew), ``settle`` keeps
+    it unless a rank's capture failed, else drops it: the program then
+    runs eagerly on every rank, this run counted ``spmd_eager_stages``
+    already (its outputs were its warm-up's)."""
+
+    def __init__(self, st: Dict, counts: Dict[str, int]):
+        self.st = st
+        self.counts = counts
+
+    def _graph(self):
+        prog = self.st.get("prog")
+        graph = None if prog is None else prog.graph
+        return prog, (graph if graph is not None
+                      and graph.pending is not None else None)
+
+    def outcome(self) -> Optional[bool]:
+        _, graph = self._graph()
+        return None if graph is None else graph.capture_outcome()
+
+    def settle(self, peers) -> None:
+        prog, graph = self._graph()
+        if graph is None:
+            return
+        failed = None if peers is None else [
+            r for r, p in enumerate(peers) if p.get("captured") is False]
+        if graph.confirm(failed == []) or peers is None:
+            return
+        logger.info("spmd: the capture failed on ranks %s; every rank runs "
+                    "the stage eagerly", failed)
+        prog.graph = None
+        self.counts["spmd_eager_stages"] = (
+            self.counts.get("spmd_eager_stages", 0) + 1)
 
 
 def _skew_probe(valid, mesh, gathered: bool) -> Dict:
@@ -1497,10 +1607,11 @@ def _run_stage(stage, context, mesh, counts: Dict[str, int],
                                  root))
 
     def launch():
-        if not st:
+        if "key" not in st:
             prepare()
         prog = _program(st["key"], stage.plan, context, st["scans"], mesh,
                         st["meta"], counts, root)
+        st["prog"] = prog
         st["meta"] = prog.meta
         try:
             outs = _run_program(prog, st["flat"], counts)
@@ -1520,13 +1631,16 @@ def _run_stage(stage, context, mesh, counts: Dict[str, int],
             prog = _program(st["key"], stage.plan, context, st["scans"],
                             mesh, {"counts": {}, "decisions": []}, counts,
                             root, use_store=False)
+            st["prog"] = prog
             st["meta"] = prog.meta
             outs = _run_program(prog, st["flat"], counts)
             _settle(prog, st["flat"], outs, counts)
             return outs
 
+    vote = _CaptureVote(st, counts)
     while True:
-        outs = _agreed(mesh, launch, lambda: st["meta"]["decisions"])
+        st.pop("prog", None)
+        outs = _agreed(mesh, launch, lambda: st["meta"]["decisions"], vote)
         try:
             table, valid = _parse_stage_outputs(stage.plan, outs, st["meta"])
         except _Fallback as e:

@@ -67,6 +67,26 @@ of a warm-up or a capture:
   ``gpu_kernels.LAUNCHES`` once per replay; other threads' launches count
   as usual.
 
+Collectives of a mesh across processes (``parallel/group.py``): a
+capture records the process group's ``all_gather_into_tensor`` /
+``all_to_all_single`` calls into the graph, after a warm-up that ran them
+for real (which sets up NCCL's connections lazily, as a capture cannot).
+The capture records them instead of counting them
+(``group.recording_collectives``), and each replay adds its collectives
+and bytes to the group and to ``mesh_process_collectives`` /
+``mesh_process_bytes`` once (``group.count_replay``), as if they had run
+on the host.  A program made with the ``group`` whose collectives it
+holds waits for its warm-up's work within the group's timeout before it
+captures (``group.wait_device``: a warm-up whose peer is gone would
+otherwise block the capture's device synchronisation for ever), and
+holds its first capture (on the CPU, the check that ends its first
+call) until the caller has agreed it with the other ranks:
+``capture_outcome`` says whether this rank's succeeded, ``confirm(keep)``
+keeps it or drops it, so that every rank keeps its graph or every rank
+drops it; a failed capture is then reported instead of raised.  On the
+CPU the step that would capture is ``_capture``, which captures nothing
+there.
+
 Build records (``runtime/program_store.py``): ``build_record`` hands out
 what the last capture learned, its constants with their host copies (and
 the cached uploads its warm-up read, ``gpu_kernels.note_cached``), its
@@ -601,7 +621,7 @@ def capture_retrying(attempt):
 
 class _Capture:
     __slots__ = ("graph", "outs", "inputs", "consts", "hold", "launches",
-                 "pool_bytes")
+                 "collectives", "pool_bytes")
 
 
 _lock = threading.RLock()
@@ -640,9 +660,12 @@ class GraphProgram:
     the inputs that change per call, copied into each capture's own
     buffers.  ``record``: a build record's ``consts`` and ``kernels``
     (``runtime/program_store.py``), from which the first capture on the
-    card is taken without a warm-up; the CPU ignores it."""
+    card is taken without a warm-up; the CPU ignores it.  ``group``: the
+    process group whose collectives ``fn`` holds; a warm-up is waited for
+    and a first capture held for ``confirm`` (module docstring)."""
 
-    def __init__(self, fn, device: torch.device, copied=(), record=None):
+    def __init__(self, fn, device: torch.device, copied=(), record=None,
+                 group=None):
         self.fn = fn
         self.device = torch.device(device)
         self.copied: FrozenSet[int] = frozenset(copied)
@@ -652,6 +675,10 @@ class GraphProgram:
         #: the first profiled warm-up's counted work (``_CostCount``)
         self.cost: Optional[Dict[str, object]] = None
         self.record = record if self.device.type == "cuda" else None
+        self.group = group
+        #: a first capture awaiting ``confirm`` (with a ``group``): (key,
+        #: the capture or None on the CPU, the exception of a failed one)
+        self.pending: Optional[tuple] = None
 
     def _cost_count(self) -> Optional[_CostCount]:
         """A work count for this warm-up: under ``DSQL_PROFILE``, once."""
@@ -686,7 +713,7 @@ class GraphProgram:
             if self.checked:
                 return self.fn(*flat)
             outs = self._warm_up(flat)
-            self.checked = True
+            self._captured(None, lambda: self._capture(flat, None))
             return outs
         key = tuple(t.data_ptr() for i, t in enumerate(flat)
                     if i not in self.copied)
@@ -701,7 +728,56 @@ class GraphProgram:
                 return self._replay(cap)
             return self._warm_and_capture(key, flat)
 
+    def _captured(self, key, take) -> Optional["_Capture"]:
+        """The step after a warm-up: ``take()`` captures (None on the CPU,
+        whose program is then checked).  Kept at once, or, with a
+        ``group``, held for ``confirm``, a failure included."""
+        try:
+            cap = take()
+        except Exception as e:
+            if self.group is None:
+                raise
+            logger.debug("capture failed, held for agreement (%s: %s)",
+                         type(e).__name__, str(e)[:160])
+            self.pending = (key, None, e)
+            return None
+        if self.group is not None:
+            self.pending = (key, cap, None)
+        else:
+            self._install(key, cap)
+        return cap
+
+    def _install(self, key, cap: Optional["_Capture"]) -> None:
+        if cap is None:
+            self.checked = True
+        else:
+            self._keep(key, cap)
+
+    def capture_outcome(self) -> Optional[bool]:
+        """Whether this rank's held capture succeeded (None: none held)."""
+        if self.pending is None:
+            return None
+        return self.pending[2] is None
+
+    def confirm(self, keep: bool) -> bool:
+        """Keep the held capture (``keep``, and it succeeded) or drop it;
+        True if it was kept."""
+        with self.lock:
+            held, self.pending = self.pending, None
+            if held is None:
+                return False
+            key, cap, failed = held
+            if keep and failed is None:
+                self._install(key, cap)
+                return True
+            if cap is not None:
+                cap.graph.reset()
+            return False
+
     def _replay(self, cap: "_Capture"):
+        if cap.collectives:
+            from ..parallel import group as _G
+            _G.count_replay(cap.collectives)
         cap.graph.replay()
         gk.add_launches(cap.launches)
         _tel.inc("graph_replays")
@@ -729,14 +805,18 @@ class GraphProgram:
             outs = self._warm_up(inputs, consts)
         if seen:
             raise HostRead(f"synchronisation in the trace: {seen[0]}")
+        if self.group is not None:
+            from ..parallel import group as _G
+            _G.wait_device(self.group, "a warm-up")
         t1 = time.perf_counter()
-        cap = capture_retrying(lambda: self._capture(inputs, consts))
-        self._keep(key, cap)
-        _tel.inc("graph_captures")
-        _tel.annotate(graph_pool_bytes=cap.pool_bytes,
-                      graph_const_bytes=consts.nbytes(),
-                      graph_warmup_ms=(t1 - t0) * 1e3,
-                      graph_capture_ms=(time.perf_counter() - t1) * 1e3)
+        cap = self._captured(key, lambda: capture_retrying(
+            lambda: self._capture(inputs, consts)))
+        if cap is not None:
+            _tel.inc("graph_captures")
+            _tel.annotate(graph_pool_bytes=cap.pool_bytes,
+                          graph_const_bytes=consts.nbytes(),
+                          graph_warmup_ms=(t1 - t0) * 1e3,
+                          graph_capture_ms=(time.perf_counter() - t1) * 1e3)
         return outs
 
     def _capture_from_record(self, key, inputs, record):
@@ -771,8 +851,14 @@ class GraphProgram:
                 prog, k = next(iter(_LIVE))
                 prog._drop(k)
 
-    def _capture(self, inputs, consts: _Consts) -> "_Capture":
-        """One capture of ``fn`` on a stream of its own."""
+    def _capture(self, inputs, consts: Optional[_Consts]
+                 ) -> Optional["_Capture"]:
+        """One capture of ``fn`` on a stream of its own; None on the CPU,
+        which captures nothing (its program runs ``fn`` on every call)."""
+        if self.device.type != "cuda":
+            return None
+        from ..parallel import group as _G
+
         graph = torch.cuda.CUDAGraph()
         consts.rewind()
         mode = _TraceMode(inputs, consts, capture=True)
@@ -784,6 +870,7 @@ class GraphProgram:
             r0 = torch.cuda.memory_reserved(self.device)
             failed: Optional[BaseException] = None
             with gk.recording_launches() as launched, \
+                    _G.recording_collectives() as collectives, \
                     torch.cuda.stream(stream):
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
@@ -815,6 +902,7 @@ class GraphProgram:
         cap.graph, cap.outs, cap.inputs = graph, static, inputs
         cap.consts, cap.hold = consts, mode.hold
         cap.launches = {k: v for k, v in launched.items() if v}
+        cap.collectives = list(collectives.values())
         cap.pool_bytes = max(r1 - r0, 0)
         return cap
 

@@ -33,9 +33,18 @@ port places these of the JAX package's sites:
   ``autopilot``      the top of an autopilot tick
                      (``runtime/autopilot.py``): a fired fault makes the
                      tick a journaled no-op
+  ``chunked_read``   uploading a host batch of a chunked table
+                     (``io/chunked.py``) or of a spilled run
+                     (``physical/morsel.py``)
+  ``mv_refresh``     a view's incremental refresh
+                     (``runtime/matview.py``): a fired fault recomputes
+                     the view in full
+  ``ingest``         the top of a logged batch's commit
+                     (``runtime/ingest.py``): the batch is refused whole
 
-``SITES`` keeps the JAX package's whole list, so a spec parses the same
-in both packages; the other sites belong to modules not ported yet.
+``SITES`` is the JAX package's whole list, so a spec parses the same in
+both packages, and every site on it is called in the port where the JAX
+package calls it.
 
 Arm via ``DSQL_FAULT_INJECT`` (comma-separated specs) or the ``inject``
 context manager.  ``site:nth[+]`` fires on the nth call (``+``: and every

@@ -62,8 +62,10 @@ quarantine, background builds, tenants, the card's memory) and
   ``autopilot`` section (``runtime/autopilot.py``).
 
 Rows travel as ``Table.to_pylist`` values, without pandas (the card's
-machine has none).  The JAX package's program store is not ported:
-``run_server`` raises ``NotImplementedError`` when it is armed.
+machine has none).  With ``DSQL_PROGRAM_STORE`` set, ``run_server``
+serves over the program store like any other context (a query's
+``programStoreHits`` in its stats), and ``/v1/engine``'s
+``programStore`` section gives the store's entries and bytes.
 """
 from __future__ import annotations
 
@@ -505,8 +507,8 @@ def _engine_snapshot(state: "_AppState") -> dict:
     history ring, the cards, the profiler, the SLO monitor and tenants.
     Each armed subsystem's module is imported only when its variable is
     set; unarmed, its section reads as disabled (the fleet's and the
-    autopilot's are absent).  The program store is not ported: its
-    section reads as the JAX package's does unarmed."""
+    autopilot's are absent).  The program store's section gives its
+    entries and bytes while ``DSQL_PROGRAM_STORE`` is set."""
     from ..physical import compiled as _compiled
     from ..runtime import quarantine as _quar
     from ..runtime import result_cache as _rc

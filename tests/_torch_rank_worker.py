@@ -10,15 +10,22 @@ Modes:
 
 - ``queries``: the tables of ``data`` (an ``.npz`` of ``table/column``
   arrays) on ``Context(mesh=init_multihost(...))``, then each SQL of
-  ``queries``, then ``WRITE_QUERIES`` after ``apply_writes``; writes
-  ``<out>.npz`` (``name/column`` answers) and ``<out>.json`` (per query:
-  the ``spmd_*`` and ``mesh_process_*`` counter deltas, the tier, the
-  wall seconds);
+  ``queries``, then ``WRITE_QUERIES`` after ``apply_writes``, then, with
+  ``DSQL_PROGRAM_STORE`` at ``store``, two passes of the ``stored``
+  queries, each after ``spmd.clear_programs()`` (``run_store_passes``);
+  writes ``<out>.npz`` (``name/column`` answers; a pass's as
+  ``store1_<name>`` and ``store2_<name>``) and ``<out>.json`` (per
+  query: the ``spmd_*`` and ``mesh_process_*`` counter deltas, the tier,
+  the wall seconds; per pass the same with ``program_store_*``);
 - ``collectives``: every collective of ``exchange.py``,
   ``partial_agg.py`` and ``distributed.py`` on seeded inputs
   (``collective_inputs``, shared with the test); writes ``<out>.npz``;
-- ``errors``: a stage that raises on every rank, then one that raises on
-  ``bad_rank`` only; writes ``<out>.json`` with what each query did;
+- ``errors``: a stage that raises on every rank; then a query whose first
+  stage's capture step fails on ``bad_rank`` only, after its warm-up's
+  collectives ran (``GraphProgram._capture``, which captures nothing on
+  the CPU: where the card's capture would fail), run twice; then a stage
+  that raises on ``bad_rank`` only; writes ``<out>.json`` with what each
+  query did (its answer, counters and collectives);
 - ``profile``: ``DSQL_PROFILE`` armed on the ranks of ``profile_ranks``
   only, then each SQL of ``queries``; writes ``<out>.json`` with, per
   query, the tier and each ``spmd_stage`` span's skew probe
@@ -234,13 +241,16 @@ def answer_arrays(df) -> dict:
     return out
 
 
-def _deltas(c0: dict, c1: dict) -> dict:
+COUNTED = ("spmd_", "mesh_process_", "stream_batches")
+
+
+def _deltas(c0: dict, c1: dict, kinds: tuple = COUNTED) -> dict:
     return {k: v - c0.get(k, 0) for k, v in c1.items()
-            if k.startswith(("spmd_", "mesh_process_", "stream_batches"))
-            and v != c0.get(k, 0)}
+            if k.startswith(kinds) and v != c0.get(k, 0)}
 
 
-def run_queries(ctx, queries: dict) -> tuple:
+def run_queries(ctx, queries: dict, prefix: str = "",
+                kinds: tuple = COUNTED) -> tuple:
     from dask_sql_tpu_torch.runtime import telemetry as tel
 
     arrays, report = {}, {}
@@ -252,10 +262,31 @@ def run_queries(ctx, queries: dict) -> tuple:
         tier = None
         for s in ctx.last_report.root.walk():
             tier = tier or s.attrs.get("tier")
-        report[name] = {"counters": _deltas(c0, tel.REGISTRY.counters()),
+        report[name] = {"counters": _deltas(c0, tel.REGISTRY.counters(),
+                                            kinds),
                         "tier": tier, "seconds": seconds}
         for col, a in answer_arrays(df).items():
-            arrays[f"{name}/{col}"] = a
+            arrays[f"{prefix}{name}/{col}"] = a
+    return arrays, report
+
+
+def run_store_passes(ctx, queries: dict, store: str) -> tuple:
+    """Two passes of ``queries`` with the program store at ``store``, each
+    after every stage program was dropped: the first builds and stores
+    this rank's records, the second makes its programs from them."""
+    from dask_sql_tpu_torch.parallel import spmd
+
+    kinds = COUNTED + ("program_store_",)
+    os.environ["DSQL_PROGRAM_STORE"] = store
+    try:
+        arrays, report = {}, {}
+        for n in (1, 2):
+            spmd.clear_programs()
+            more, report[f"pass{n}"] = run_queries(ctx, queries,
+                                                   f"store{n}_", kinds)
+            arrays.update(more)
+    finally:
+        os.environ.pop("DSQL_PROGRAM_STORE", None)
     return arrays, report
 
 
@@ -308,34 +339,58 @@ def run_profiled(ctx, cfg: dict) -> tuple:
 
 def run_errors(ctx, cfg: dict) -> dict:
     """What each query does when the walker raises: on every rank (all fall
-    back), then on ``bad_rank`` only (every rank raises ``RankError``),
-    then a served query on the broken group and a declined one."""
+    back); then when the step that would capture fails on ``bad_rank``
+    only, after the warm-up (every rank runs that stage eagerly), twice;
+    then when the walker raises on ``bad_rank`` only (every rank raises
+    ``RankError``), then a served query on the broken group and a
+    declined one."""
     from dask_sql_tpu_torch.parallel import spmd
+    from dask_sql_tpu_torch.physical import graphs
 
     rank = cfg["rank"]
     sql = cfg["queries"]
+    group = ctx.mesh.group
     out = {}
     real = spmd._Walker._aggregate
+    real_capture = graphs.GraphProgram._capture
 
     def boom(self, rel):
         raise ValueError(f"stub raised on rank {rank}")
 
-    def run(name):
+    armed = [rank == cfg["bad_rank"]]
+
+    def capture_fails_once(self, inputs, consts):
+        if armed[0]:
+            armed[0] = False
+            raise RuntimeError(f"capture stub failed on rank {rank}")
+        return real_capture(self, inputs, consts)
+
+    def run(name, text=None):
         from dask_sql_tpu_torch.runtime import telemetry as tel
 
         c0 = tel.REGISTRY.counters()
+        n0 = group.collectives
         t0 = time.perf_counter()
         try:
-            df = ctx.sql(sql[name], return_futures=False)
-            out[name] = {"ok": True, "rows": len(df)}
+            df = ctx.sql(text or sql[name], return_futures=False)
+            out[name] = {"ok": True, "rows": len(df),
+                         "answer": {c: a.tolist() for c, a in
+                                    answer_arrays(df).items()}}
         except Exception as e:
             out[name] = {"ok": False, "type": type(e).__name__,
                          "error": str(e)}
         out[name]["seconds"] = time.perf_counter() - t0
         out[name]["counters"] = _deltas(c0, tel.REGISTRY.counters())
+        out[name]["collectives"] = group.collectives - n0
 
     spmd._Walker._aggregate = boom
     run("every_rank")
+    spmd._Walker._aggregate = real
+    graphs.GraphProgram._capture = capture_fails_once
+    run("capture_one_rank")
+    run("capture_again", sql["capture_one_rank"])
+    graphs.GraphProgram._capture = real_capture
+    spmd._Walker._aggregate = boom
     if rank != cfg["bad_rank"]:
         spmd._Walker._aggregate = real
     run("one_rank")
@@ -378,7 +433,10 @@ def main(path: str) -> int:
             arrays, info["queries"] = run_queries(ctx, cfg["queries"])
             apply_writes(ctx, frames)
             more, info["writes"] = run_queries(ctx, WRITE_QUERIES)
-            np.savez(out + ".npz", **arrays, **more)
+            stored, info["store"] = run_store_passes(
+                ctx, {k: cfg["queries"][k] for k in cfg["stored"]},
+                cfg["store"])
+            np.savez(out + ".npz", **arrays, **more, **stored)
         elif cfg["mode"] == "profile":
             arrays, info["profile"] = run_profiled(ctx, cfg)
             np.savez(out + ".npz", **arrays)

@@ -781,6 +781,79 @@ def test_world1_nccl_group_exchange_and_psum_equal_the_single_process_mesh(
 
 
 @pytest.mark.gpu
+def test_world1_nccl_collectives_captured_in_a_graph_replay_as_eager(
+        cuda_device):
+    """A one-rank NCCL group: a body holding ``all_to_all_single`` (the
+    exchange), ``all_gather_into_tensor`` (the gather and the ordered
+    psum) captured as one CUDA graph; its replays equal the eager run bit
+    for bit, on the inputs it was captured on and on new values in the
+    same tensors, and each replay counts the eager run's collectives and
+    bytes."""
+    import socket
+
+    from dask_sql_tpu_torch.parallel import exchange as X
+    from dask_sql_tpu_torch.parallel import group as G
+    from dask_sql_tpu_torch.parallel import partial_agg as PA
+    from dask_sql_tpu_torch.parallel.mesh import init_multihost
+    from dask_sql_tpu_torch.physical.graphs import GraphProgram
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mesh = init_multihost(f"127.0.0.1:{port}", 1, 0, device="cuda:0",
+                          local_shards=4, timeout_s=60.0)
+    group = mesh.group
+
+    def body(codes, vals):
+        c_parts, v_parts = mesh.split(codes), mesh.split(vals)
+        got_codes, got_vals = X.exchange(c_parts, [[v] for v in v_parts],
+                                         mesh.devices, group)
+        total = PA.psum([v.sum() for v in v_parts], group)
+        return (torch.stack(got_codes), torch.stack([g[0] for g in got_vals]),
+                total, X.gather_build(v_parts, group))
+
+    def counted(fn):
+        n0 = group.collectives
+        c0 = tel.REGISTRY.counters()
+        outs = tuple(o.clone() for o in fn())
+        G.wait_device(group)
+        c1 = tel.REGISTRY.counters()
+        return outs, (group.collectives - n0,
+                      c1.get("mesh_process_collectives", 0)
+                      - c0.get("mesh_process_collectives", 0),
+                      c1.get("mesh_process_bytes", 0)
+                      - c0.get("mesh_process_bytes", 0))
+
+    try:
+        rng = np.random.RandomState(18)
+        codes = torch.from_numpy(rng.randint(-1, 50, 4 * 4096)).cuda()
+        vals = torch.from_numpy(rng.standard_normal(4 * 4096) * 1e6).cuda()
+        eager, n_eager = counted(lambda: body(codes, vals))
+        assert n_eager[0] == n_eager[1] >= 3 and n_eager[2] > 0
+        prog = GraphProgram(body, cuda_device)
+        warm, n_warm = counted(lambda: prog(codes, vals))
+        assert n_warm == n_eager and len(prog.captures) == 1
+        cap = next(iter(prog.captures.values()))
+        assert [c[1:] for c in cap.collectives] == [[n_eager[0],
+                                                     n_eager[2]]]
+        r0 = tel.REGISTRY.counters().get("graph_replays", 0)
+        replay, n_replay = counted(lambda: prog(codes, vals))
+        assert tel.REGISTRY.counters().get("graph_replays", 0) == r0 + 1
+        assert n_replay == n_eager
+        for a, b, c in zip(eager, warm, replay):
+            assert _same_bits(a, b) and _same_bits(a, c)
+        vals.mul_(-0.5)
+        again, n_again = counted(lambda: body(codes, vals))
+        replay, n_replay = counted(lambda: prog(codes, vals))
+        assert n_replay == n_again == n_eager
+        for a, b in zip(again, replay):
+            assert _same_bits(a, b)
+    finally:
+        G.close(group)
+
+
+@pytest.mark.gpu
 def test_system_devices_read_the_allocator_of_each_card(cuda_device):
     """``system.devices`` on a card: one row per visible card, its name,
     the caching allocator's bytes in use and peak, and its total memory as

@@ -17,11 +17,16 @@ Q1, Q3, Q6, Q8, Q12 and Q14 equals:
 - every other rank's, bit for bit.
 
 Every ``spmd_*`` counter of Q1, Q3 and Q8 equals the JAX package's on
-every rank, but ``spmd_eager_stages``: a stage that holds a collective
-of the process group runs eagerly, one count per stage run.  Q5 and Q18
-decline the walker and answer through each rank's single-device tiers.
-Rows appended on every rank, and a chunked table streamed on every rank,
-answer as on the single-process mesh after the same steps.
+every rank: each stage, collectives of the process group included, is a
+built graph program (``spmd_compiles``), and none runs eagerly (no
+``spmd_eager_stages``).  Q5 and Q18 decline the walker and answer through
+each rank's single-device tiers.  Rows appended on every rank, and a
+chunked table streamed on every rank, answer as on the single-process
+mesh after the same steps.  With the program store armed, Q1, Q3, Q8 and
+Q12 run again after every stage program was dropped, then once more
+after that: the last pass makes every stage program from this rank's
+record (``spmd_store_hits`` as many as the first pass's builds, no
+``spmd_compiles``) and answers bit for bit as the first.
 
 The module name holds "spmd": the conftest's ``DSQL_MESH=0`` pin does not
 apply.
@@ -50,6 +55,7 @@ SERVED = {"mh": MULTIHOST, **{f"q{q}": QUERIES[q]
                               for q in (1, 3, 6, 8, 12, 14)}}
 DECLINED = {f"q{q}": QUERIES[q] for q in (5, 18)}
 COUNTED = ("q1", "q3", "q8")
+STORED = ("q1", "q3", "q8", "q12")
 RUN_LIMIT_S = 120.0
 
 
@@ -77,9 +83,11 @@ def data(tmp_path_factory):
 def ranks(request, data, tmp_path_factory):
     """Every rank's answers and counters, one spawn per layout."""
     world, local = request.param
-    runs = W.spawn(tmp_path_factory.mktemp(f"w{world}"), "queries", world,
-                   local, timeout_s=60.0, limit_s=RUN_LIMIT_S,
-                   data=data[0], queries={**SERVED, **DECLINED})
+    out_dir = tmp_path_factory.mktemp(f"w{world}")
+    runs = W.spawn(out_dir, "queries", world, local, timeout_s=60.0,
+                   limit_s=RUN_LIMIT_S, data=data[0],
+                   queries={**SERVED, **DECLINED}, stored=list(STORED),
+                   store=str(out_dir / "store"))
     out = []
     for rc, log, prefix in runs:
         assert rc == 0, log
@@ -200,9 +208,7 @@ def test_spmd_counters_equal_jax(ranks, jax_mesh, name):
     for rank, (info, _) in enumerate(out):
         got = {k: v for k, v in info["queries"][name]["counters"].items()
                if k.startswith("spmd_")}
-        # one count per stage program run (a join flip runs its stage
-        # again): eager, never a CUDA graph
-        assert got.pop("spmd_eager_stages") >= want["spmd_stages"], got
+        # every stage a built graph program, none eager
         assert got == want, (rank, got, want)
 
 
@@ -248,3 +254,37 @@ def test_appends_and_streaming_equal_the_single_process_mesh(ranks, data,
         else:
             assert run["tier"] == "spmd", run
         _assert_bits(answers, want, name, f"rank {rank}")
+
+
+@pytest.mark.parametrize("name", STORED)
+def test_a_second_store_pass_makes_every_stage_from_its_record(
+        ranks, jax_mesh, name):
+    _, _, out = ranks
+    want_jax, _ = _jax(jax_mesh, name, SERVED[name])
+    first_rank = out[0][1]
+    for rank, (info, answers) in enumerate(out):
+        built = info["store"]["pass1"][name]
+        hit = info["store"]["pass2"][name]
+        assert built["tier"] == hit["tier"] == "spmd", (rank, built, hit)
+        b, h = built["counters"], hit["counters"]
+        # one stage program per stage, and one more per flipped variant:
+        # as many as the first run of the query built
+        programs = info["queries"][name]["counters"]["spmd_compiles"]
+        assert programs >= b["spmd_stages"], b
+        assert b["spmd_compiles"] == programs and "spmd_store_hits" not in b
+        assert b.get("program_store_stores", 0) >= 1, b
+        assert h.get("spmd_store_hits") == programs, (rank, h)
+        assert "spmd_compiles" not in h and "spmd_eager_stages" not in h
+        assert "program_store_errors" not in h, h
+        assert h["mesh_process_collectives"] == \
+            b["mesh_process_collectives"], (rank, b, h)
+        stored = {k.split("_", 1)[1]: v for k, v in answers.items()
+                  if k.startswith(f"store1_{name}/")}
+        again = {k.split("_", 1)[1]: v for k, v in answers.items()
+                 if k.startswith(f"store2_{name}/")}
+        _assert_bits(again, stored, name, f"rank {rank} store passes")
+        _assert_bits(stored, {k: v for k, v in first_rank.items()
+                              if k.startswith(name + "/")}, name,
+                     f"rank {rank} store pass vs rank 0's first run")
+        _assert_same(_rank_frame(again, name), want_jax,
+                     "ORDER BY" in SERVED[name])

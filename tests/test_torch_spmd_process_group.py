@@ -8,12 +8,20 @@ collective alone, and what a stage that raises does to every rank.
   function on the single-process 8-shard mesh bit for bit: every
   reduction adds in global shard order.
 - A stage that raises on every rank at the same point falls back on
-  every rank, as on one process.  A stage that raises on one rank (a
-  stub in the walker) leaves the other waiting in a collective: with the
+  every rank, as on one process.  Where the step that would capture a
+  stage (on the card; on the CPU it captures nothing) fails on one rank
+  only, after the warm-up's collectives ran, the ranks agree to drop the
+  stage's graph: every rank answers from its warm-up and runs that
+  stage eagerly after, with equal ``spmd_eager_stages`` and collective
+  counts, answers bit for bit the single-process mesh's and no
+  ``RankError``.  A stage that raises on one rank (a stub in the walker,
+  inside the warm-up) leaves the other waiting in a collective: with the
   group's timeout at 10 s, every rank's query ends with ``RankError``
   within it, naming the rank that raised; the broken group then refuses
   the next SPMD query at once, and a query the walker declines still
   answers on each rank's own tiers.
+- A capture records the collectives it holds instead of counting them,
+  and each replay counts them once.
 
 The module name holds "spmd": the conftest's ``DSQL_MESH=0`` pin does not
 apply.
@@ -30,8 +38,11 @@ from dask_sql_tpu_torch.parallel.mesh import Mesh
 
 LAYOUTS = [(2, 4), (4, 2)]
 GROUP_TIMEOUT_S = 10.0
+CAPTURE_QUERY = ("SELECT cust, COUNT(*) AS n, SUM(amount) AS s FROM "
+                 "mh_orders WHERE cust > 2 GROUP BY cust ORDER BY cust")
 ERROR_QUERIES = {
     "every_rank": "SELECT SUM(amount) AS s FROM mh_orders WHERE cust > 3",
+    "capture_one_rank": CAPTURE_QUERY,
     "one_rank": "SELECT SUM(amount) AS s FROM mh_orders WHERE cust > 4",
     "after": "SELECT SUM(amount) AS s FROM mh_orders WHERE cust > 5",
     "declined": "SELECT COUNT(DISTINCT cust) AS n FROM mh_orders",
@@ -96,6 +107,32 @@ def test_an_error_on_every_rank_falls_back_on_every_rank(rank_errors):
         assert run["counters"].get("spmd_fallbacks") == 1, run
 
 
+@pytest.mark.parametrize("name", ["capture_one_rank", "capture_again"])
+def test_a_capture_failing_on_one_rank_runs_the_stage_eagerly_everywhere(
+        rank_errors, name):
+    from dask_sql_tpu_torch import Context
+
+    ctx = Context(mesh=Mesh(["cpu"] * W.N_GLOBAL))
+    for table, frame in W.multihost_frames().items():
+        ctx.create_table(f"mh_{table}", frame)
+    want = {c: a.tolist() for c, a in W.answer_arrays(
+        ctx.sql(CAPTURE_QUERY, return_futures=False)).items()}
+    first = rank_errors[0][name]
+    for rank, runs in enumerate(rank_errors):
+        run = runs[name]
+        assert run["ok"], (rank, run)
+        c = run["counters"]
+        assert c.get("spmd_queries") == 1 and "spmd_rank_errors" not in c
+        assert "spmd_fallbacks" not in c, (rank, run)
+        # the stage whose capture failed on one rank, on every rank
+        assert c.get("spmd_eager_stages") == 1, (rank, run)
+        assert c == first["counters"], (rank, c, first["counters"])
+        # its collectives ran once: as many as the first run's
+        assert run["collectives"] == first["collectives"] \
+            == runs["capture_one_rank"]["collectives"] > 0, (rank, run)
+        assert run["answer"] == want, (rank, run)
+
+
 def test_an_error_on_one_rank_ends_every_ranks_query(rank_errors):
     for rank, runs in enumerate(rank_errors):
         run = runs["one_rank"]
@@ -140,6 +177,13 @@ def test_split_picks_this_ranks_shards():
         Mesh(["meta"] * 2, group=mesh.group)
 
 
+def test_stage_programs_are_graphs_on_one_device_or_across_processes():
+    assert Mesh(["cpu"] * 4).graph_stages
+    assert _rank_mesh(1, 2, 4).graph_stages
+    # a single-process mesh of distinct devices runs its stages eagerly
+    assert not Mesh(["cpu", "meta"]).graph_stages
+
+
 def test_a_broken_group_refuses_every_collective():
     mesh = _rank_mesh(0, 2, 2)
     mesh.group.broken = "a peer left"
@@ -158,3 +202,40 @@ def test_server_and_ingest_log_refuse_a_mesh_across_processes(monkeypatch,
     monkeypatch.setenv("DSQL_INGEST_DIR", str(tmp_path))
     with pytest.raises(NotImplementedError, match="ingest log"):
         Context(mesh=_rank_mesh(0, 2, 2))
+
+
+def test_a_capture_records_its_collectives_and_a_replay_counts_them():
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+
+    group = _rank_mesh(0, 2, 2).group
+    c0 = tel.REGISTRY.counters()
+    with G.recording_collectives() as tally:
+        assert G._collective(group, 24, lambda: "sent") == "sent"
+        assert G._collective(group, 8, lambda: "sent") == "sent"
+        with pytest.raises(RuntimeError, match="not in a capture"):
+            G._collective(group, 8, _fails)
+    # a call that fails while recording fails the capture, not the group
+    assert group.broken is None and group.collectives == 0
+    assert [v[1:] for v in tally.values()] == [[3, 40]]
+    for replay in (1, 2):
+        G.count_replay(list(tally.values()))
+        assert group.collectives == 3 * replay
+    now = tel.REGISTRY.counters()
+    assert now.get("mesh_process_collectives", 0) - c0.get(
+        "mesh_process_collectives", 0) == 6
+    assert now.get("mesh_process_bytes", 0) - c0.get(
+        "mesh_process_bytes", 0) == 80
+    group.broken = "a peer left"
+    with pytest.raises(G.CollectiveError, match="a peer left"):
+        G.count_replay(list(tally.values()))
+    assert group.collectives == 6
+
+
+def _fails():
+    raise RuntimeError("the call is not in a capture")
+
+
+def test_the_replay_wait_returns_at_once_on_the_cpu():
+    group = _rank_mesh(0, 2, 2).group
+    G.wait_device(group)
+    assert group.broken is None
