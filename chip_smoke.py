@@ -263,16 +263,27 @@ the compiled tier first.
    to phase 7's and every served one bit for bit 17(a)'s; one
    ``multiprocess walls:`` line per served query sets its cold and warm
    walls beside 17(a)'s and beside those of eager stages
-   (``MP_EAGER_MS``); the mean wall of a store rendezvous; the group is
-   destroyed after.  (b) Where the machine has two cards or more, one
-   rank per card (up to four), each a process of this script
-   (``--rank``) that generates the tables from ``--seed`` at ``--sf``,
-   holds one shard and runs the same checks; every rank's answers equal
-   phase 7's, rank 0's bit for bit, and with four ranks 18(a)'s served
-   answers bit for bit.  Then the last rank leaves, and every other
-   rank's next query (Q6, its stage replayed) must end in ``RankError``
-   within a group timeout of 20 s plus 30, and every rank process must
-   exit.  On one card one line says 18(b) is skipped (``--only
+   (``MP_EAGER_MS``); the mean wall of a store rendezvous; a world of
+   one rank holds whole tables, so no run gathers (``mesh_gathers`` 0);
+   the group is destroyed after.  (b) Where the machine has two cards or
+   more, one rank per card (up to four), each a process of this script
+   (``--rank``) that generates the tables from ``--seed`` at ``--sf``
+   and holds one shard: its catalog holds only its rows of each table
+   (the bytes allocated on its card by the registration within the
+   tables' bytes over the world plus the padding and one padded column;
+   the registration's peak printed), and it runs the same checks, a
+   declined query over the columns it scans gathered from every rank
+   (``mesh_gathers`` and ``mesh_gather_bytes`` of its cold run; no warm
+   run gathers); every rank's answers equal phase 7's, rank 0's bit for
+   bit, and with four ranks 18(a)'s served answers bit for bit; one RF1
+   appended to orders and lineitem on every rank, then Q1, equal to a
+   plain context's after the same append and rank 0's bit for bit.
+   Rank 0's walls go on one ``multiprocess walls:`` line per query, and
+   each rank's catalog and RF1 on ``18(b) rank`` lines, each with its
+   card's name and power limit.  Then the last rank leaves, and every
+   other rank's next query (Q6, its stage replayed) must end in
+   ``RankError`` within a group timeout of 20 s plus 30, and every rank
+   process must exit.  On one card one line says 18(b) is skipped (``--only
    multiprocess`` runs phase 18 alone with its set-up, for a machine of
    four cards).  One warm run each of Q1 and Q12 in 18(a) under
    ``torch.profiler`` (device busy and idle share).
@@ -5722,6 +5733,8 @@ MP_RANK_LIMIT_S = 600.0
 #: on each rank's compiled tier
 MP_KERNEL1 = tuple(q for q in MESH_KERNEL1 if q not in MESH_SPMD_SERVED)
 MP_COUNTERS = ("mesh_process_collectives", "mesh_process_bytes")
+#: the gathers of catalog rows a run made (parallel/gather.py)
+MP_GATHERS = ("mesh_gathers", "mesh_gather_bytes")
 #: warm runs per query after the cold one (17(a)'s count)
 MP_WARM = MESH_WARM
 #: 18(a)'s warm runs under torch.profiler: a psum-tree query and a
@@ -5773,13 +5786,18 @@ def _mp_queries(mctx, label: str, answers: dict = None) -> tuple:
     process group, each warm run must replay one graph per stage program
     the cold run built and count the cold run's collectives and bytes,
     the declined static GROUP BYs must launch kernel 1, and the answer
-    must equal ``answers`` (doubles rtol 1e-9) where given.  Returns the
-    rows and the last warm answers."""
+    must equal ``answers`` (doubles rtol 1e-9) where given.  Gathers of
+    catalog rows (``mesh_gathers``): none in a world of one rank (its
+    entries are whole), none in a served run, none in a warm run (the
+    gathered columns are cached).  Returns the rows and the last warm
+    answers."""
     from dask_sql_tpu_torch.ops import gpu_kernels as gk
 
+    world = mctx.mesh.world_size
     rows, results = [], {}
     for qid in sorted(QUERIES):
         walls, launches, runs, traffic, replays = [], [], [], [], []
+        gathers = []
         for _ in range(1 + MP_WARM):
             gk.reset_launch_counts()
             box = {}
@@ -5789,6 +5807,8 @@ def _mp_queries(mctx, label: str, answers: dict = None) -> tuple:
             runs.append(_spmd_run(mctx))
             traffic.append({k: mctx.last_report.counters.get(k, 0)
                             for k in MP_COUNTERS})
+            gathers.append({k: mctx.last_report.counters.get(k, 0)
+                            for k in MP_GATHERS})
             replays.append(_replays(mctx.last_report))
         tier = _last_tier(mctx)[0]
         check_spmd_runs(label, qid, tier, runs, captured=True)
@@ -5810,6 +5830,12 @@ def _mp_queries(mctx, label: str, answers: dict = None) -> tuple:
         if qid in MP_KERNEL1 and min(launches) < 1:
             raise AssertionError(f"{label} Q{qid}: kernel 1 did not launch "
                                  f"on the compiled tier: {launches}")
+        counted = [g["mesh_gathers"] for g in gathers]
+        if (world == 1 or tier == "spmd") and any(counted) \
+                or any(counted[1:]):
+            raise AssertionError(f"{label} Q{qid}: gathers {gathers} on a "
+                                 f"world of {world}, tier {tier} (only a "
+                                 f"cold run of a declined query gathers)")
         if answers is not None:
             check_same_result(f"{label} Q{qid}", box["r"], answers[qid],
                               rtol=1e-9)
@@ -5818,11 +5844,100 @@ def _mp_queries(mctx, label: str, answers: dict = None) -> tuple:
                "spmd_fallback": sorted({str(r["fallback"]) for r in runs
                                         if r["fallback"]}),
                "kernel1_launches": launches, "process_traffic": traffic,
-               "graph_replays": replays, "cold_ms": walls[0],
+               "gathers": gathers, "graph_replays": replays,
+               "cold_ms": walls[0],
                "warm_ms": walls[1:], "warm_median_ms": _median(walls[1:])}
         rows.append(row)
         print("multiprocess table: " + json.dumps(dict(row, part=label)))
     return rows, results
+
+
+def _card(dev) -> str:
+    """The card's name and power limit as nvidia-smi gives them ("cpu" for
+    a rehearsal on the CPU)."""
+    if dev.type != "cuda":
+        return "cpu"
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+
+
+def _mp_catalog(mctx, dev, allocated0: int) -> dict:
+    """18(b): what this rank's catalog holds.  Every resident entry holds
+    this rank's ``padded / world`` rows; on the card the bytes allocated
+    since ``allocated0`` (before the tables were registered) must stay
+    within the whole tables' bytes over the world, plus the padding and
+    the largest padded column (one whole column passes through the card
+    while its statistics are collected: the peak is printed too)."""
+    world = mctx.mesh.world_size
+    whole = padding = largest = local = 0
+    for name, e in mctx.schema["root"].tables.items():
+        rr = e.rank_rows
+        if rr is None or e.table.num_rows != rr.padded // world:
+            raise AssertionError(f"18(b): {name} holds {e.table.num_rows} "
+                                 f"rows, not its rank's part ({rr})")
+        per_row = sum(c.data.element_size() + (c.mask is not None)
+                      for c in e.table.columns)
+        whole += rr.rows * per_row
+        padding += (rr.padded - rr.rows) * per_row + (
+            rr.padded if e.row_valid is not None else 0)
+        largest = max([largest] + [rr.padded * c.data.element_size()
+                                   for c in e.table.columns])
+        local += e.table.num_rows * per_row + (
+            0 if e.row_valid is None else e.table.num_rows)
+    out = {"world": world, "resident_bytes": whole, "local_bytes": local,
+           "padding_bytes": padding, "largest_column_bytes": largest,
+           "bound_bytes": whole // world + padding + largest}
+    if dev.type != "cuda":
+        out["catalog_bytes"] = "not measured (CPU)"
+        return out
+    torch.cuda.synchronize(dev)
+    out["catalog_bytes"] = torch.cuda.memory_allocated(dev) - allocated0
+    out["registration_peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                      - allocated0)
+    if out["catalog_bytes"] > out["bound_bytes"]:
+        raise AssertionError(f"18(b): the rank's catalog holds "
+                             f"{out['catalog_bytes']} bytes on the card, "
+                             f"above {out['bound_bytes']}: {out}")
+    return out
+
+
+def _mp_rf1(mctx, tables: dict, sf: float, seed: int) -> tuple:
+    """18(b): one RF1 (phase 16's generator) appended on every rank to
+    orders and lineitem, then Q1: (the answer, the append's facts).  The
+    appended entries hold this rank's part of the new padded rows."""
+    first_key = int(tables["orders"]["o_orderkey"].max()) + 1
+    orders, lines = rf1(sf, np.random.RandomState(seed + 18), first_key)
+    t0 = time.perf_counter()
+    mctx.append_rows("orders", orders)
+    mctx.append_rows("lineitem", lines)
+    append_ms = (time.perf_counter() - t0) * 1e3
+    world = mctx.mesh.world_size
+    for name, added in (("orders", orders), ("lineitem", lines)):
+        e = mctx.schema["root"].tables[name]
+        n = len(tables[name][next(iter(tables[name]))]) + len(
+            next(iter(added.values())))
+        if e.rank_rows is None or e.rank_rows.rows != n \
+                or e.table.num_rows != e.rank_rows.padded // world \
+                or e.stats.rows != n:
+            raise AssertionError(f"18(b) RF1: {name} holds "
+                                 f"{e.table.num_rows} rows of {e.rank_rows}"
+                                 f", statistics of {e.stats.rows}, not {n}")
+    box = {}
+    q1_ms = wall_ms(lambda: box.update(r=mctx.sql(QUERIES[1])))
+    return box["r"], {"append_ms": append_ms, "q1_cold_ms": q1_ms,
+                      "tier": _last_tier(mctx)[0],
+                      "lineitem_rows": len(lines["l_orderkey"])}
+
+
+def _host_table(r):
+    from dask_sql_tpu_torch.table import Column, Table
+
+    return Table(r.names, [Column(
+        c.data.cpu(), c.stype, None if c.mask is None else c.mask.cpu(),
+        c.dictionary) for c in r.columns])
 
 
 def _rendezvous_ms(group) -> float:
@@ -5836,20 +5951,23 @@ def _rendezvous_ms(group) -> float:
     return (time.perf_counter() - t0) * 1e3 / MP_RENDEZVOUS_ROUNDS
 
 
-def _mp_walls(rows: list, label: str) -> None:
-    """One line per served query: its cold and warm walls across processes
-    (captured stages) beside 17(a)'s and the eager stages' of
-    ``MP_EAGER_MS``."""
+def _mp_walls(rows: list, label: str, card: str, every: bool = False) -> None:
+    """One line per served query (per query where ``every``): its cold and
+    warm walls across processes (captured stages) beside 17(a)'s and the
+    eager stages' of ``MP_EAGER_MS``, its tier and gathers, and the card
+    (name and power limit)."""
     for r in rows:
-        if r["tier"] != "spmd":
+        if r["tier"] != "spmd" and not every:
             continue
         cold17, warm17 = MESH_WALLS.get(r["q"], (None, None))
         print("multiprocess walls: " + json.dumps({
-            "part": label, "q": r["q"], "cold_ms": r["cold_ms"],
+            "part": label, "q": r["q"], "tier": r["tier"],
+            "cold_ms": r["cold_ms"],
             "warm_median_ms": r["warm_median_ms"],
-            "warm_ms": r["warm_ms"], "mesh_17a_cold_ms": cold17,
+            "warm_ms": r["warm_ms"], "gathers": r["gathers"][0],
+            "mesh_17a_cold_ms": cold17,
             "mesh_17a_warm_median_ms": warm17,
-            "eager_stages_warm_ms": MP_EAGER_MS.get(r["q"])}))
+            "eager_stages_warm_ms": MP_EAGER_MS.get(r["q"]), "card": card}))
 
 
 def _mp_summary(rows: list, world: int, seconds: float) -> dict:
@@ -5865,6 +5983,10 @@ def _mp_summary(rows: list, world: int, seconds: float) -> dict:
                          for r in rows for t in r["process_traffic"]),
             "kernel1_launches": sum(sum(r["kernel1_launches"])
                                     for r in rows),
+            "mesh_gathers": sum(g["mesh_gathers"]
+                                for r in rows for g in r["gathers"]),
+            "mesh_gather_bytes": sum(g["mesh_gather_bytes"]
+                                     for r in rows for g in r["gathers"]),
             "seconds": seconds}
 
 
@@ -5885,7 +6007,7 @@ def multiprocess_world1(dev, base: dict, answers: dict) -> tuple:
             raise AssertionError(f"18(a): a {mesh.group.backend} group")
         mctx, create_s = _mesh_context(mesh, base)
         rows, results = _mp_queries(mctx, "18(a)", answers)
-        _mp_walls(rows, "18(a)")
+        _mp_walls(rows, "18(a)", _card(dev))
         rendezvous_ms = _rendezvous_ms(mesh.group)
         profiles = {q: profile_query(mctx, f"18(a) Q{q}", QUERIES[q])
                     for q in MP_PROFILED}
@@ -5939,10 +6061,13 @@ def _mp_exit_part(mctx, rank: int, world: int) -> dict:
 def multiprocess_rank(args) -> int:
     """One rank of 18(b), started by ``multiprocess_cards`` as ``chip_smoke.py
     --rank R --world W --port P``: the tables generated from ``--seed`` at
-    ``--sf``, a mesh of one shard per rank (rank ``r`` on ``cuda:r``), the
-    22 queries held to 18(a)'s checks, then the exit part
-    (``_mp_exit_part``); the answers (on the host), the summary and the
-    exit part pickled under ``MP_RANK_DIR`` for the parent.  The process
+    ``--sf``, a mesh of one shard per rank (rank ``r`` on ``cuda:r``) whose
+    catalog holds this rank's rows (``_mp_catalog``: its bytes on the card
+    and the registration's peak), the 22 queries held to 18(a)'s checks
+    (the declined ones over gathered columns, a warm run gathering
+    nothing), one RF1 appended and Q1 again (``_mp_rf1``), then the exit
+    part (``_mp_exit_part``); the answers (on the host), the summary and
+    the exit part pickled under ``MP_RANK_DIR`` for the parent.  The process
     ends with ``os._exit``: a rank that left, or one whose communicator
     was aborted, has nothing to tear down."""
     import pickle
@@ -5950,7 +6075,6 @@ def multiprocess_rank(args) -> int:
     from dask_sql_tpu_torch import Context
     from dask_sql_tpu_torch.parallel import group as G
     from dask_sql_tpu_torch.parallel.mesh import init_multihost
-    from dask_sql_tpu_torch.table import Column, Table
 
     _mp_env()
     os.environ.pop("DSQL_ADAPTIVE", None)
@@ -5958,26 +6082,40 @@ def multiprocess_rank(args) -> int:
     t0 = time.perf_counter()
     mesh = init_multihost(f"127.0.0.1:{args.port}", args.world, args.rank,
                           device=args.device, local_shards=1)
+    dev = mesh.devices[0]
+    card = _card(dev)
     tables = generate_tpch(args.sf, args.seed)
+    allocated0 = 0
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        allocated0 = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
     mctx = Context(mesh=mesh)
     for name, cols in tables.items():
         mctx.create_table(name, cols)
+    catalog = _mp_catalog(mctx, dev, allocated0)
+    catalog.update(create_s=time.perf_counter() - t1, card=card)
+    print(f"18(b) rank {args.rank} catalog: " + json.dumps(catalog),
+          flush=True)
     ready_s = time.perf_counter() - t0
     rows, results = _mp_queries(mctx, f"18(b) rank {args.rank}")
     if args.rank == 0:
-        _mp_walls(rows, "18(b) rank 0")
+        _mp_walls(rows, "18(b) rank 0", card, every=True)
     rendezvous_ms = _rendezvous_ms(mesh.group)
-    host = {q: Table(r.names, [Column(
-        c.data.cpu(), c.stype, None if c.mask is None else c.mask.cpu(),
-        c.dictionary) for c in r.columns]) for q, r in results.items()}
+    host = {q: _host_table(r) for q, r in results.items()}
+    q1_rf1, rf1_facts = _mp_rf1(mctx, tables, args.sf, args.seed)
+    print(f"18(b) rank {args.rank} RF1: " + json.dumps(
+        dict(rf1_facts, card=card)), flush=True)
     summary = _mp_summary(rows, args.world, time.perf_counter() - t0)
     summary.update(rank=args.rank, device=str(mesh.devices[0]),
-                   ready_s=ready_s, rendezvous_ms=rendezvous_ms)
+                   ready_s=ready_s, rendezvous_ms=rendezvous_ms,
+                   catalog=catalog, rf1=rf1_facts, card=card)
     path = os.path.join(MP_RANK_DIR, f"rank{args.rank}.pkl")
     exit_part = _mp_exit_part(mctx, args.rank, args.world)
     with open(path, "wb") as f:
-        pickle.dump({"summary": summary, "answers": host, "exit": exit_part},
-                    f)
+        pickle.dump({"summary": summary, "answers": host,
+                     "q1_rf1": _host_table(q1_rf1), "exit": exit_part}, f)
     if exit_part["exits"]:
         # leave as a rank that is gone: no teardown of the communicator
         mesh.group.broken = "this rank left the mesh"
@@ -5988,15 +6126,18 @@ def multiprocess_rank(args) -> int:
 
 
 def multiprocess_cards(sf: float, seed: int, answers: dict, world1: dict,
-                       n_ranks: int = None, device: str = None) -> dict:
+                       base: dict, n_ranks: int = None,
+                       device: str = None) -> dict:
     """18(b): one rank per card (up to four), each a process of its own
     (``multiprocess_rank``) over NCCL, when the machine has two cards or
     more; else one line saying why it is skipped.  Every rank's answers
-    equal the resident ones (doubles rtol 1e-9), and the served ones 18(a)'s
-    bit for bit where the ranks hold as many shards (four).  Then the last
-    rank leaves, and every other rank's next query must end in
-    ``RankError`` within ``MP_EXIT_TIMEOUT_S`` plus ``MP_EXIT_MARGIN_S``;
-    every process must have exited within ``MP_RANK_LIMIT_S``."""
+    equal the resident ones (doubles rtol 1e-9) and rank 0's bit for bit,
+    and the served ones 18(a)'s bit for bit where the ranks hold as many
+    shards (four); Q1 after the RF1 equals Q1 on a plain context over
+    ``base`` after the same append.  Then the last rank leaves, and every
+    other rank's next query must end in ``RankError`` within
+    ``MP_EXIT_TIMEOUT_S`` plus ``MP_EXIT_MARGIN_S``; every process must
+    have exited within ``MP_RANK_LIMIT_S``."""
     import pickle
 
     n = n_ranks or min(torch.cuda.device_count(), MP_MAX_RANKS)
@@ -6043,10 +6184,16 @@ def multiprocess_cards(sf: float, seed: int, answers: dict, world1: dict,
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    q1_rf1 = _plain_q1_after_rf1(base, sf, seed, device)
     ranks = []
     for r in range(n):
         with open(os.path.join(MP_RANK_DIR, f"rank{r}.pkl"), "rb") as f:
             got = pickle.load(f)
+        check_same_result(f"18(b) rank {r} Q1 after RF1", got["q1_rf1"],
+                          q1_rf1, rtol=1e-9)
+        if r:
+            _bit_equal_tables(f"18(b) rank {r} Q1 after RF1 against rank 0",
+                              got["q1_rf1"], ranks[0]["q1_rf1"])
         gone = got["exit"]
         if gone["exits"] != (r == n - 1) or (not gone["exits"] and (
                 not gone["rank_error"]
@@ -6073,6 +6220,20 @@ def multiprocess_cards(sf: float, seed: int, answers: dict, world1: dict,
             "exit": [g["exit"] for g in ranks]}
 
 
+def _plain_q1_after_rf1(base: dict, sf: float, seed: int, device) -> Table:
+    """Q1 over ``base``'s lineitem on one device after the RF1 the ranks of
+    18(b) append (``_mp_rf1``'s batch)."""
+    from dask_sql_tpu_torch import Context
+
+    keys = base["orders"].column("o_orderkey").data
+    first_key = int(keys.max()) + 1
+    _, lines = rf1(sf, np.random.RandomState(seed + 18), first_key)
+    plain = Context(device=device or "cuda")
+    plain.create_table("lineitem", base["lineitem"])
+    plain.append_rows("lineitem", lines)
+    return _host_table(plain.sql(QUERIES[1]))
+
+
 def phase_multiprocess(dev, base: dict, answers: dict, sf: float,
                        seed: int) -> dict:
     """Phase 18: the mesh across processes.  18(a) in this process (a
@@ -6088,7 +6249,7 @@ def phase_multiprocess(dev, base: dict, answers: dict, sf: float,
     forget_programs()
     print("multiprocess summary: " + json.dumps(dict(world1, part="18(a)")))
     t1 = time.perf_counter()
-    cards = multiprocess_cards(sf, seed, answers, results)
+    cards = multiprocess_cards(sf, seed, answers, results, base)
     if "ranks" in cards:
         print("multiprocess summary: " + json.dumps(dict(cards,
                                                          part="18(b)")))

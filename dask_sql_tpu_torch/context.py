@@ -105,7 +105,12 @@ class Context:
         padded tables where that declines.  On a mesh across processes
         (``init_multihost`` with a coordinator) every rank makes its own
         context, registers the same tables and runs the same queries in
-        the same order; each rank holds the whole padded table."""
+        the same order.  With more than one rank each rank holds only its
+        rows of a registered table (``TableEntry.rank_rows``; the
+        statistics and dictionaries stay the whole table's), and a plan
+        the walker declines runs on every rank's tiers over the columns
+        it scans, gathered from every rank and cached
+        (``parallel/gather.py``)."""
         if device is None and mesh is not None:
             device = mesh.devices[0]
         device = torch.device("cuda" if device is None else device)
@@ -131,6 +136,11 @@ class Context:
                 logger.debug("fleet arming failed", exc_info=True)
         self.device = device
         self.mesh = mesh
+        # a mesh across processes of more than one rank: the catalog holds
+        # this rank's rows, and the single-device tiers read gathered
+        # whole tables (parallel/gather.py)
+        self._rank_local = (mesh is not None and mesh.spans_processes
+                            and mesh.world_size > 1)
         self.server = None
         # the devices the profiler may read memory of (runtime/profiler.py)
         _tel.note_devices(device, *(mesh.devices if mesh is not None
@@ -193,8 +203,10 @@ class Context:
         """The executors' catalog read (raises KeyError like the dict).
         Inside a pinned query it is the entry at admission, so one query
         reads one committed prefix of every table while a writer
-        appends."""
-        if _ing.enabled():
+        appends; on a mesh across processes, inside the single-device
+        tiers of a plan, a rank-local table's gathered whole entry
+        (``parallel/gather.py``)."""
+        if self._rank_local or _ing.enabled():
             entry = _ing.pinned_entry(schema_name, table_name)
             if entry is not None:
                 return entry
@@ -212,6 +224,9 @@ class Context:
         key = (schema_name, table_name.lower())
         epoch = next(self._epoch_counter)
         self._table_epochs[key] = epoch
+        if self._rank_local:
+            from .parallel.gather import drop
+            drop(self, schema_name, table_name)
         _rc.get_cache().invalidate_table(schema_name, table_name.lower())
         reg = self._matviews()
         if reg is not None:
@@ -292,18 +307,18 @@ class Context:
             self._create_chunked(table_name, input_table, schema_name,
                                  batch_rows, statistics)
             return
-        table = InputUtil.to_table(input_table, device=self.device,
+        # on a mesh across processes the table is encoded on the host and
+        # goes to the card one column at a time (_place)
+        staging = (torch.device("cpu")
+                   if self._rank_local and not isinstance(input_table, Table)
+                   else self.device)
+        table = InputUtil.to_table(input_table, device=staging,
                                    file_format=format, table_name=table_name,
                                    **kwargs)
-        row_valid = None
-        if self.mesh is not None:
-            from .parallel.mesh import shard_table_with_validity
-            table, row_valid = shard_table_with_validity(table, self.mesh)
         self.schema[schema_name].tables[table_name.lower()] = TableEntry(
-            table=table, statistics=statistics,
+            statistics=statistics,
             filepath=input_table if isinstance(input_table, str) else None,
-            gpu=gpu, row_valid=row_valid,
-            stats=_stats.collect_table_stats(table, row_valid=row_valid))
+            gpu=gpu, **self._place(table))
         self.bump_table_epoch(schema_name, table_name)
         if _ing.enabled():
             # the restart path: logged batches of this table apply on the
@@ -314,6 +329,28 @@ class Context:
                 log.maybe_replay(schema_name, table_name.lower())
             else:
                 log.truncate(schema_name, table_name.lower())
+
+    def _place(self, table: Table) -> dict:
+        """A resident table's catalog placement and statistics, as
+        ``TableEntry`` fields: whole without a mesh, padded with a
+        ``row_valid`` on a mesh, and on a mesh across processes of more
+        than one rank this rank's rows, the statistics collected over the
+        whole padded table one column at a time (each column whole on
+        the card only while it is read)."""
+        if self._rank_local:
+            from .parallel.mesh import place_rank_rows
+            collector = _stats.StatsCollector(table.num_rows)
+            table, row_valid, rank_rows = place_rank_rows(
+                table, self.mesh, collector.add)
+            return dict(table=table, row_valid=row_valid,
+                        rank_rows=rank_rows, stats=collector.done())
+        row_valid = None
+        if self.mesh is not None:
+            from .parallel.mesh import shard_table_with_validity
+            table, row_valid = shard_table_with_validity(table, self.mesh)
+        return dict(table=table, row_valid=row_valid,
+                    stats=_stats.collect_table_stats(table,
+                                                     row_valid=row_valid))
 
     def _create_chunked(self, table_name: str, input_table: Any,
                         schema_name: str, batch_rows: Optional[int],
@@ -446,19 +483,20 @@ class Context:
             raise UserError(f"Table {table_name} not found in schema "
                             f"{schema_name}; create it before INSERT INTO.")
         delta = _coerce_delta(entry.table, delta, self.device)
-        base, row_valid = entry.table, None
-        if entry.row_valid is not None:
+        base = entry.table
+        if entry.rank_rows is not None:
+            # this rank's rows: the whole base gathered from every rank
+            # (each appends the same batch), its valid prefix
+            from .parallel.gather import whole_entry
+            base = whole_entry(self, schema_name, table_name).table.slice(
+                0, entry.rank_rows.rows)
+        elif entry.row_valid is not None:
             # a sharded base: its valid prefix (the padding is at the end)
             base = base.slice(0, int(entry.row_valid.sum()))
         new_table = concat_tables([base, delta])
-        if self.mesh is not None:
-            from .parallel.mesh import shard_table_with_validity
-            new_table, row_valid = shard_table_with_validity(new_table,
-                                                             self.mesh)
         new_entry = TableEntry(
-            table=new_table, statistics=entry.statistics,
-            filepath=entry.filepath, gpu=entry.gpu, row_valid=row_valid,
-            stats=_stats.collect_table_stats(new_table, row_valid=row_valid))
+            statistics=entry.statistics, filepath=entry.filepath,
+            gpu=entry.gpu, **self._place(new_table))
         reg = self._matviews()
         if reg is not None:
             # the swap and the delta record are one step under the
@@ -677,7 +715,8 @@ class Context:
                                              plan_references_chunked)
             if plan_references_chunked(plan, self):
                 if not armed("DSQL_AUTOPILOT"):
-                    return execute_streaming(plan, self)
+                    with self._whole_tables(plan):
+                        return execute_streaming(plan, self)
                 # the autopilot's hints cover the streaming tier (the grace
                 # join's partitions); its fingerprint rides autopilot_fp,
                 # not plan_fp: a chunked source has no content identity,
@@ -694,7 +733,8 @@ class Context:
                     logger.debug("plan fingerprint failed", exc_info=True)
                 _ap.begin_query(fp, self)
                 try:
-                    return execute_streaming(plan, self)
+                    with self._whole_tables(plan):
+                        return execute_streaming(plan, self)
                 finally:
                     _ap.end_query()
         cache = _rc.get_cache()
@@ -731,8 +771,9 @@ class Context:
         try:
             # the SPMD stage executor first under a mesh
             # (parallel/spmd.py); None: outside its envelope or a runtime
-            # flag tripped, and the single-device tiers serve the padded
-            # tables
+            # flag tripped (alike on every rank of a mesh across
+            # processes), and the single-device tiers serve the padded
+            # tables, on such a mesh gathered whole from every rank
             result = None
             span = _tel.current_span()
             if self.mesh is not None:
@@ -741,13 +782,14 @@ class Context:
                 if result is not None and span is not None:
                     span.attrs.setdefault("tier", "spmd")
             if result is None:
-                result = try_execute_compiled(plan, self)
-            if result is None:
-                if span is not None:
-                    span.attrs.setdefault("tier", "eager")
-                result = RelExecutor(self).execute(plan)
-            elif span is not None:
-                span.attrs.setdefault("tier", "compiled")
+                with self._whole_tables(plan):
+                    result = try_execute_compiled(plan, self)
+                    if result is None:
+                        if span is not None:
+                            span.attrs.setdefault("tier", "eager")
+                        result = RelExecutor(self).execute(plan)
+                    elif span is not None:
+                        span.attrs.setdefault("tier", "compiled")
             if ckey is not None and result is not None \
                     and cache.put(ckey, result):
                 _tel.annotate(result_cache="store")
@@ -755,6 +797,16 @@ class Context:
         finally:
             if autopilot:
                 _ap.end_query()
+
+    def _whole_tables(self, plan: RelNode):
+        """The block a single-device tier runs ``plan`` in: on a mesh
+        across processes its rank-local tables read whole
+        (``parallel.gather.whole_tables``), else nothing changes."""
+        if not self._rank_local:
+            from contextlib import nullcontext
+            return nullcontext()
+        from .parallel.gather import whole_tables
+        return whole_tables(self, plan)
 
     def _stamp_plan_fingerprint(self, plan: RelNode,
                                 autopilot: bool = False) -> Optional[str]:

@@ -24,6 +24,16 @@ class FunctionDescription:
     row_udf: bool = False
 
 
+@dataclass(frozen=True)
+class RankRows:
+    """What a rank-local catalog entry holds on a mesh across processes:
+    rows ``[first, first + padded // world)`` of the global padded table
+    of ``padded`` rows, of which the first ``rows`` are real."""
+    padded: int
+    rows: int
+    first: int
+
+
 @dataclass
 class TableEntry:
     """A registered table: materialized device table or a lazy view plan."""
@@ -38,9 +48,14 @@ class TableEntry:
     stats: Any = None
     filepath: Optional[str] = None
     gpu: bool = False              # parity flag only
-    # mesh mode: columns are padded to device-count divisibility and
+    # mesh mode: columns are padded to a multiple of the mesh size and
     # row-sharded; row_valid (same sharding) marks the real rows
     row_valid: Any = None
+    # a mesh across processes of more than one rank: the table, its
+    # row_valid included, holds this rank's rows only (``RankRows``; the
+    # statistics and string dictionaries stay the whole table's).  None:
+    # the entry is whole (every other mesh, CTAS and view results, temps)
+    rank_rows: Optional[RankRows] = None
     # out-of-HBM mode: host-resident ChunkedSource (io/chunked.py);
     # ``table`` is then a 1-row binding stub, and execution must go through
     # physical/streaming.py (context routes it)

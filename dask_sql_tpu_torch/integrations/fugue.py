@@ -92,10 +92,16 @@ def fsql_tpu(sql: str, ctx=None, register: bool = False,
     _, _, FugueSQLWorkflow, WorkflowDataFrame = _require_fugue()
     engine = _engine_classes()["TpuSQLExecutionEngine"]
     dag = FugueSQLWorkflow()
-    dfs = ({} if ctx is None else
-           {k: dag.df(entry.table.to_pandas())
-            for k, entry in ctx.schema[ctx.schema_name].tables.items()
-            if entry.table is not None})
+    dfs = {}
+    if ctx is not None:
+        for k, entry in ctx.schema[ctx.schema_name].tables.items():
+            if entry.rank_rows is not None:
+                # this rank's rows (a mesh across processes): the whole
+                # table, gathered from every rank
+                from ..parallel.gather import whole_entry
+                entry = whole_entry(ctx, ctx.schema_name, k)
+            if entry.table is not None:
+                dfs[k] = dag.df(entry.table.to_pandas())
     result = dag._sql(sql, **dfs)
     dag.run(engine(conf=fugue_conf))
 

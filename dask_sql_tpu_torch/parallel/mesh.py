@@ -12,13 +12,14 @@ every placement explicit:
 - a mesh may repeat one device: ``Mesh(["cuda:0"] * 4)`` is four shards
   on one card, the counterpart of the JAX tests' virtual CPU devices
   (``Mesh(["cpu"] * 8)`` on the CPU);
-- the catalog holds a table's global padded columns and its ``row_valid``
-  on ``devices[0]`` (the context's device), where the single-device tiers
-  read them.  ``Mesh.split`` gives the shards: ``narrow`` views where the
-  shard's device is ``devices[0]`` (a repeated-device mesh copies
-  nothing), and on a mesh of distinct cards a copy on the shard's own
-  card, made once per tensor (so once per catalog epoch) and counted
-  (``mesh_placements``, ``mesh_placement_bytes``).
+- on a mesh in one process the catalog holds a table's global padded
+  columns and its ``row_valid`` on ``devices[0]`` (the context's
+  device), where the single-device tiers read them.  ``Mesh.split``
+  gives the shards: ``narrow`` views where the shard's device is
+  ``devices[0]`` (a repeated-device mesh copies nothing), and on a mesh
+  of distinct cards a copy on the shard's own card, made once per tensor
+  (so once per catalog epoch) and counted (``mesh_placements``,
+  ``mesh_placement_bytes``).
 
 A mesh across processes (``init_multihost`` with a coordinator) spans
 ``world_size`` ranks, one process each, and carries their
@@ -27,9 +28,15 @@ device repeated ``local_size`` times (``devices[0]`` is the rank's
 context device); ``size`` is the global shard count, ``world_size *
 local_size``, and this rank's shards are the global ones ``rank *
 local_size`` to ``rank * local_size + local_size - 1``.  Every rank runs
-the same program over the same registered data, and the catalog
-holds the whole padded table on each rank's device: ``split`` picks this
-rank's shards out of it.
+the same program over the same registered data.  With more than one
+rank the catalog holds on each rank only its rows of the global padded
+table (``place_rank_rows``: the padding ``shard_table_with_validity``
+gives, then this rank's ``padded // world_size`` rows copied out, the
+columns' dictionaries kept whole), and ``split_local`` cuts them into
+the rank's shards.  ``gather_rows`` rebuilds the global padded table on
+every rank, one all_gather per tensor through the process group, for
+what the SPMD walker does not serve (``parallel/gather.py``).  A world
+of one rank holds the whole table, as a mesh in one process does.
 
 ``graph_stages`` says which meshes build each SPMD stage as one graph
 program (``parallel/spmd.py``; a CUDA graph on the card): a mesh of one
@@ -196,10 +203,11 @@ def _padded(t: torch.Tensor, pad: int, device) -> torch.Tensor:
 
 
 def shard_table_with_validity(table, mesh: Mesh):
-    """The catalog's placement under a mesh: rows padded to a multiple of
-    the mesh size on ``devices[0]``, column NULL masks untouched (padding
-    is a table property: COUNT(*) must not see pad rows), and a
-    ``row_valid`` marking the real rows, None when nothing was padded."""
+    """The whole placement under a mesh (a mesh in one process, a world
+    of one rank, a streamed batch): rows padded to a multiple of the mesh
+    size on ``devices[0]``, column NULL masks untouched (padding is a
+    table property: COUNT(*) must not see pad rows), and a ``row_valid``
+    marking the real rows, None when nothing was padded."""
     from ..table import Column, Table
 
     n = table.num_rows
@@ -213,6 +221,78 @@ def shard_table_with_validity(table, mesh: Mesh):
             for c in table.columns]
     row_valid = (torch.arange(padded, device=dev) < n) if pad else None
     return Table(list(table.names), cols), row_valid
+
+
+def _rank_rows(t: torch.Tensor, first: int, count: int) -> torch.Tensor:
+    """Rows ``[first, first + count)`` of ``t`` as a tensor of their own
+    (a view would keep the whole column's storage alive)."""
+    return t.narrow(0, first, count).clone()
+
+
+def place_rank_rows(table, mesh: Mesh, visit):
+    """This rank's rows of ``shard_table_with_validity``'s placement on a
+    mesh across processes: (table, row_valid or None, ``RankRows``).  One
+    column at a time, the whole padded column is put on ``devices[0]``
+    (padded where it lies, so one whole copy reaches the card),
+    ``visit(name, column, row_valid)`` sees it whole (the statistics are
+    the whole table's), and this rank's rows are copied out of it; the
+    column's dictionary is kept as it is (one built from this rank's rows
+    would give each rank other string codes).  The row_valid is this
+    rank's part of the global one, present on every rank where the table
+    was padded."""
+    from ..datacontainer import RankRows
+    from ..table import Column, Table
+
+    n = table.num_rows
+    padded = pad_to_multiple(max(n, 1), mesh.size)
+    pad = padded - n
+    dev = mesh.devices[0]
+    count = padded // mesh.world_size
+    first = mesh.rank * count
+    row_valid = (torch.arange(padded, device=dev) < n) if pad else None
+    cols = []
+    for name, c in zip(table.names, table.columns):
+        data = on(_padded(c.data, pad, c.data.device), dev)
+        mask = (None if c.mask is None
+                else on(_padded(c.mask, pad, c.mask.device), dev))
+        visit(name, Column(data, c.stype, mask, c.dictionary), row_valid)
+        cols.append(Column(_rank_rows(data, first, count), c.stype,
+                           None if mask is None
+                           else _rank_rows(mask, first, count),
+                           c.dictionary))
+        del data, mask
+    local_valid = (None if row_valid is None
+                   else _rank_rows(row_valid, first, count))
+    return (Table(list(table.names), cols), local_valid,
+            RankRows(padded=padded, rows=n, first=first))
+
+
+def gather_rows(table, row_valid, mesh: Mesh):
+    """The global padded table, and its row_valid, from every rank's rows
+    of it (``place_rank_rows``): per tensor one all_gather through the
+    process group (``group.gather_shards``), in shard order, so the result
+    is bit for bit the whole placement.  Counted ``mesh_gathers`` (one per
+    all_gather) and ``mesh_gather_bytes`` (the whole tensors' bytes).  On
+    the card the gathers are queued, not waited for: the caller bounds the
+    wait (``group.wait_device``)."""
+    from ..table import Column, Table
+    from . import group as G
+
+    moved = [0, 0]
+
+    def whole(t: torch.Tensor) -> torch.Tensor:
+        out = torch.cat(G.gather_shards(mesh.group, mesh.split_local(t)))
+        moved[0] += 1
+        moved[1] += out.numel() * out.element_size()
+        return out
+
+    cols = [Column(whole(c.data), c.stype,
+                   None if c.mask is None else whole(c.mask), c.dictionary)
+            for c in table.columns]
+    valid = None if row_valid is None else whole(row_valid)
+    _tel.inc("mesh_gathers", moved[0])
+    _tel.inc("mesh_gather_bytes", moved[1])
+    return Table(list(table.names), cols), valid
 
 
 def shard_table(table, mesh: Mesh):

@@ -4,8 +4,9 @@ The counterpart of ``dask_sql_tpu/parallel/spmd.py``.  Each stage of the
 stage graph (``physical/stages.py``) runs as one function over the
 shards of its row-sharded inputs, with the collectives placed explicitly:
 
-- base-table scans read the catalog's global padded columns split into
-  the mesh's shards (``Mesh.split``);
+- base-table scans read the catalog's padded columns split into the
+  mesh's shards (``Mesh.split`` of a whole entry, ``Mesh.split_local`` of
+  one that holds this rank's rows);
 - Project and Filter run per shard through the rex evaluator;
 - equi joins run as a hash-partitioned all_to_all exchange and a local
   probe, or as an all_gather broadcast of a small build side, chosen by
@@ -51,12 +52,17 @@ sends the query to the single-device tiers; the query's span carries the
 tripped flags (``spmd_fallback``) or the error (``spmd_error``).
 
 A mesh across processes (``init_multihost`` with a coordinator) runs the
-same walker on every rank over that rank's shards (``Mesh.split``), and
-each collective goes on through the process group
-(``parallel/group.py``).  A stage's output stays on its rank (a
-``__spmd__`` temp holds this rank's rows); the root stage's output is
-gathered to every rank, and every rank compacts it and runs the
-epilogue.  Ranks must take the same host decisions, so:
+same walker on every rank over that rank's shards, and each collective
+goes on through the process group (``parallel/group.py``).  With more
+than one rank a registered table's entry holds this rank's rows only
+(``TableEntry.rank_rows``), as a ``__spmd__`` temp does (a stage's
+output stays on its rank): the scan splits an entry by what it holds
+(``_local_scans``), so whole entries (a CTAS result, a view's table) and
+rank-local ones mix in one plan.  The root stage's output is gathered to
+every rank, and every rank compacts it and runs the epilogue.  A plan
+the walker declines or falls back on goes, alike on every rank, to the
+single-device tiers over gathered whole tables (``parallel/gather.py``).
+Ranks must take the same host decisions, so:
 
 - the stage's flag vector is agreed inside the stage (``group.agree``,
   the max over the ranks), and every rank reads the same flags;
@@ -140,6 +146,7 @@ from ..types import torch_dtype
 from . import exchange as X
 from . import group as G
 from . import partial_agg as PA
+from .gather import walker_scope
 from .mesh import on
 
 logger = logging.getLogger(__name__)
@@ -983,14 +990,15 @@ def _make_spmd_scan(node: RelNode, context) -> LogicalTableScan:
                 for i, f in enumerate(node.schema)])
 
 
-def _scan_specs(scans) -> list:
+def _scan_specs(scans, local: List[bool]) -> list:
     """What the stage function needs to know of its inputs: per scan its
-    key, column names, types, mask presence, dictionaries and whether a
-    row_valid follows (no tensors: a cached program holds no table)."""
+    key, column names, types, mask presence, dictionaries, whether a
+    row_valid follows and whether it holds this rank's rows only (no
+    tensors: a cached program holds no table)."""
     return [(key, list(tbl.names),
              [(c.stype, c.mask is not None, c.dictionary)
-              for c in tbl.columns], row_valid is not None)
-            for key, tbl, row_valid in scans]
+              for c in tbl.columns], row_valid is not None, loc)
+            for (key, tbl, row_valid), loc in zip(scans, local)]
 
 
 def _make_stage_body(stage_plan: RelNode, context, specs, mesh, meta: Dict,
@@ -999,9 +1007,11 @@ def _make_stage_body(stage_plan: RelNode, context, specs, mesh, meta: Dict,
     order) split into shards, the stage plan walked, every output
     returned as a global tensor on the first device (a replicated one
     padded to a multiple of the mesh size), the flags last.  On a mesh
-    across processes a ``__spmd__`` input holds this rank's rows and so
-    does an output, but the ``root`` stage's, which every rank gets
-    whole; the flags are agreed over the ranks."""
+    across processes an input that holds this rank's rows (a rank-local
+    entry, a ``__spmd__`` temp) is cut into the rank's shards, a whole
+    one has them picked out, and an output holds this rank's rows, but
+    the ``root`` stage's, which every rank gets whole; the flags are
+    agreed over the ranks."""
     ctx_ref = weakref.ref(context)
     n_dev = mesh.size
     n_loc = mesh.local_size
@@ -1012,9 +1022,8 @@ def _make_stage_body(stage_plan: RelNode, context, specs, mesh, meta: Dict,
     def body(*flat):
         scan_tables: Dict[Tuple[str, str], _ST] = {}
         i = 0
-        for key, names, colspecs, has_rv in specs:
-            split = (mesh.split_local if key[0] == _SPMD_SCHEMA
-                     else mesh.split)
+        for key, names, colspecs, has_rv, local in specs:
+            split = mesh.split_local if local else mesh.split
             per_shard: List[List[Column]] = [[] for _ in range(n_loc)]
             for stype, has_mask, dictionary in colspecs:
                 data = split(flat[i])
@@ -1129,8 +1138,8 @@ def _stage_key(plan_fp: str, inputs_fp, mesh, stats_fp, params,
     return key + (("root",) if root else ())
 
 
-def _program(key: tuple, stage_plan, context, scans, mesh, meta: Dict,
-             counts: Dict[str, int], root: bool = False,
+def _program(key: tuple, stage_plan, context, scans, local: List[bool],
+             mesh, meta: Dict, counts: Dict[str, int], root: bool = False,
              use_store: bool = True) -> _StageProgram:
     """The cached stage program for ``key``; on a miss made from its
     stored record where there is one (``use_store``; on a mesh across
@@ -1156,14 +1165,15 @@ def _program(key: tuple, stage_plan, context, scans, mesh, meta: Dict,
                 record = _agreed_record(mesh.group, record)
     if record is not None:
         meta = record["meta"]
-    body = _make_stage_body(stage_plan, context, _scan_specs(scans), mesh,
-                            meta, root)
+    body = _make_stage_body(stage_plan, context, _scan_specs(scans, local),
+                            mesh, meta, root)
     graph = None
     if mesh.graph_stages:
         # the inputs of __spmd__ temps change per query: a graph copies
         # them into its buffers instead of keying a capture on them
         copied = _C._copied_positions(scans, 0)
-        copied.extend(i for i, temp in enumerate(_flat_in_temps(scans))
+        temps = [k[0] == _SPMD_SCHEMA for k, _, _ in scans]
+        copied.extend(i for i, temp in enumerate(_flat_flags(scans, temps))
                       if temp)
         # across processes a hit warms up too (module docstring)
         graph = GraphProgram(body, mesh.devices[0], copied=copied,
@@ -1404,15 +1414,32 @@ def _compact(table: Table, valid) -> Table:
     return table.take(mask_to_indices(valid))
 
 
-def _flat_in_temps(scans) -> List[bool]:
-    """Per flat input (``compiled._flatten_tables`` order): whether it
-    belongs to a ``__spmd__`` temp, which on a mesh across processes holds
-    this rank's rows only."""
+def _flat_flags(scans, flags: List[bool]) -> List[bool]:
+    """A flag per scan, repeated per flat input of the scan
+    (``compiled._flatten_tables`` order)."""
     out: List[bool] = []
-    for skey, tbl, row_valid in scans:
+    for (_, tbl, row_valid), flag in zip(scans, flags):
         n = (sum(2 if c.mask is not None else 1 for c in tbl.columns)
              + (row_valid is not None))
-        out.extend([skey[0] == _SPMD_SCHEMA] * n)
+        out.extend([flag] * n)
+    return out
+
+
+def _local_scans(context, mesh, scans) -> List[bool]:
+    """Per scan: whether it holds this rank's rows only (on a mesh across
+    processes a ``__spmd__`` temp, or a catalog entry with ``rank_rows``)
+    rather than the whole padded table."""
+    if not mesh.spans_processes:
+        return [False] * len(scans)
+    out: List[bool] = []
+    for key, _, _ in scans:
+        if key[0] == _SPMD_SCHEMA:
+            out.append(True)
+            continue
+        try:
+            out.append(context.catalog_entry(*key).rank_rows is not None)
+        except KeyError:
+            out.append(False)
     return out
 
 
@@ -1593,24 +1620,25 @@ def _run_stage(stage, context, mesh, counts: Dict[str, int],
         params: list = []
         plan_fp = _C._fp_plan(stage.plan, context, scans, params)
         flat = _C._flatten_tables(scans)
-        for a, temp in zip(flat, _flat_in_temps(scans)):
-            # a temp of a mesh across processes holds this rank's rows
-            n = (mesh.local_size if temp and mesh.spans_processes
-                 else mesh.size)
+        local = _local_scans(context, mesh, scans)
+        for a, loc in zip(flat, _flat_flags(scans, local)):
+            # an input that holds this rank's rows splits into its shards
+            n = mesh.local_size if loc else mesh.size
             if a.shape[0] % n:
                 raise Unsupported(f"length {a.shape[0]} not divisible "
                                   f"by {n} shards")
-        st.update(scans=scans, flat=flat, flipped=set(),
+        st.update(scans=scans, flat=flat, local=local, flipped=set(),
                   meta={"counts": {}, "decisions": []},
-                  key=_stage_key(plan_fp, _C._fp_inputs(scans), mesh,
+                  key=_stage_key(plan_fp, (_C._fp_inputs(scans),
+                                           tuple(local)), mesh,
                                  _stats_fingerprint(context, scans), params,
                                  root))
 
     def launch():
         if "key" not in st:
             prepare()
-        prog = _program(st["key"], stage.plan, context, st["scans"], mesh,
-                        st["meta"], counts, root)
+        prog = _program(st["key"], stage.plan, context, st["scans"],
+                        st["local"], mesh, st["meta"], counts, root)
         st["prog"] = prog
         st["meta"] = prog.meta
         try:
@@ -1629,8 +1657,9 @@ def _run_stage(stage, context, mesh, counts: Dict[str, int],
                     del _prog_cache[st["key"]]
             _release(prog)
             prog = _program(st["key"], stage.plan, context, st["scans"],
-                            mesh, {"counts": {}, "decisions": []}, counts,
-                            root, use_store=False)
+                            st["local"], mesh,
+                            {"counts": {}, "decisions": []}, counts, root,
+                            use_store=False)
             st["prog"] = prog
             st["meta"] = prog.meta
             outs = _run_program(prog, st["flat"], counts)
@@ -1736,26 +1765,28 @@ def try_execute_spmd(plan: RelNode, context) -> Optional[Table]:
     lock = mesh.group.lock if spans else threading.Lock()
     lock.acquire()
     try:
-        result = None
-        for si, stage in enumerate(graph.stages):
-            root = stage.scan is None
-            with _tel.span("spmd_stage", index=si):
-                table, valid, meta = _run_stage(stage, context, mesh, counts,
-                                                root and spans)
-                if profile and valid is not None:
-                    probe = _skew_probe(valid, mesh, root and spans)
-                    _tel.annotate(**probe)
-                    r = probe.get("skew_ratio")
-                    if r is not None:
-                        skew = max(skew, r) if skew is not None else r
-            metas.append(meta)
-            if not root:
-                name = stage.scan.table_name
-                _register_temp(context, name, table, valid)
-                registered.append(name)
-            else:
-                result = _agreed(mesh, lambda: _apply_epilogue(
-                    _compact(table, valid), epilogue, mesh.devices[0]))
+        # the walker's scans read this rank's rows (parallel/gather.py)
+        with walker_scope():
+            result = None
+            for si, stage in enumerate(graph.stages):
+                root = stage.scan is None
+                with _tel.span("spmd_stage", index=si):
+                    table, valid, meta = _run_stage(stage, context, mesh,
+                                                    counts, root and spans)
+                    if profile and valid is not None:
+                        probe = _skew_probe(valid, mesh, root and spans)
+                        _tel.annotate(**probe)
+                        r = probe.get("skew_ratio")
+                        if r is not None:
+                            skew = max(skew, r) if skew is not None else r
+                metas.append(meta)
+                if not root:
+                    name = stage.scan.table_name
+                    _register_temp(context, name, table, valid)
+                    registered.append(name)
+                else:
+                    result = _agreed(mesh, lambda: _apply_epilogue(
+                        _compact(table, valid), epilogue, mesh.devices[0]))
     except RankError as e:
         _tel.inc("spmd_rank_errors")
         _tel.annotate(spmd_error=f"RankError: {str(e)[:200]}")

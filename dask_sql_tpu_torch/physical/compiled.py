@@ -216,6 +216,9 @@ def _fp_plan(rel: RelNode, context, scans: list, params=None) -> str:
     schema = ";".join(f"{f.name}:{f.stype.name}" for f in rel.schema)
     if isinstance(rel, LogicalTableScan):
         entry = context.catalog_entry(rel.schema_name, rel.table_name)
+        if entry.rank_rows is not None:
+            from ..parallel.gather import check_whole
+            check_whole(entry, rel.schema_name, rel.table_name)
         if entry.table is None:
             raise Unsupported("view scan")
         if entry.table.num_rows == 0:

@@ -256,7 +256,9 @@ def _analyze_table(stmt: A.AnalyzeTable, context, sql):
     A resident table is read from its ``Table``, and a view runs its plan
     through ``Context._execute_query_plan``.  A chunked table is read one
     column at a time (``_chunked_column``): its catalog entry holds only a
-    one-row binding stub, and the table does not fit on the device."""
+    one-row binding stub, and the table does not fit on the device.  On a
+    mesh across processes a table that holds this rank's rows is read one
+    column at a time too, each gathered whole from every rank."""
     resolved = context.resolve_table(stmt.table)
     if resolved is None:
         raise AttributeError(f"Table {'.'.join(stmt.table)} is not defined.")
@@ -269,6 +271,13 @@ def _analyze_table(stmt: A.AnalyzeTable, context, sql):
         described = [_describe(_chunked_column(source, c, context))
                      for c in columns]
         stypes = [source.stypes[source.names.index(c)] for c in columns]
+    elif entry.rank_rows is not None:
+        from ...parallel.gather import whole_entry
+        columns = stmt.columns or list(entry.table.names)
+        described = [_describe(whole_entry(context, schema_name, table_name,
+                                           [c]).table.column(c))
+                     for c in columns]
+        stypes = [entry.table.column(c).stype for c in columns]
     else:
         table = (context._execute_query_plan(entry.plan)
                  if entry.table is None else entry.table)

@@ -95,6 +95,9 @@ class RelExecutor(Pluggable):
 
 def _table_scan(rel: LogicalTableScan, ex: RelExecutor) -> Table:
     entry = ex.context.catalog_entry(rel.schema_name, rel.table_name)
+    if entry.rank_rows is not None:
+        from ...parallel.gather import check_whole
+        check_whole(entry, rel.schema_name, rel.table_name)
     t = entry.table if entry.table is not None else ex.execute(entry.plan)
     if entry.table is not None and entry.row_valid is not None:
         # a padded table (a streamed batch, a stage boundary): drop the

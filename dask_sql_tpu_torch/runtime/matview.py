@@ -272,17 +272,19 @@ def _execute_plan(context, plan: RelNode, eager: bool = False) -> Table:
     every round, so a compiled run would warm up and capture a CUDA graph
     again per refresh, which costs far more than the delta-sized work.
     The eager executor is the right tier for delta- and group-count-sized
-    inputs."""
-    if getattr(context, "_has_chunked", False):
-        from ..physical.streaming import (execute_streaming,
-                                          plan_references_chunked)
-        if plan_references_chunked(plan, context):
-            return execute_streaming(plan, context)
-    if eager:
-        from ..physical.rel.executor import RelExecutor
-        return RelExecutor(context).execute(plan)
-    from ..physical.streaming import _run_resident
-    return _run_resident(plan, context)
+    inputs.  On a mesh across processes the plan's rank-local tables are
+    read whole (``Context._whole_tables``)."""
+    with context._whole_tables(plan):
+        if getattr(context, "_has_chunked", False):
+            from ..physical.streaming import (execute_streaming,
+                                              plan_references_chunked)
+            if plan_references_chunked(plan, context):
+                return execute_streaming(plan, context)
+        if eager:
+            from ..physical.rel.executor import RelExecutor
+            return RelExecutor(context).execute(plan)
+        from ..physical.streaming import _run_resident
+        return _run_resident(plan, context)
 
 
 def _replace(plan: RelNode, old: RelNode, new: RelNode) -> RelNode:

@@ -209,6 +209,11 @@ def _entry_bytes(entry) -> int:
         total += int(getattr(c.data, "nbytes", 0))
         if getattr(c, "mask", None) is not None:
             total += int(getattr(c.mask, "nbytes", 0))
+    rank_rows = getattr(entry, "rank_rows", None)
+    if rank_rows is not None and table.num_rows:
+        # this rank's rows of a mesh across processes: the whole table's
+        # bytes, as the JAX package's global arrays count them
+        total = total * rank_rows.padded // table.num_rows
     return total
 
 

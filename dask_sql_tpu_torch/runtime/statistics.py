@@ -144,25 +144,41 @@ def collect_table_stats(table, row_valid=None) -> Optional[TableStats]:
     Never raises: a column that fails is left out, and a failure of the
     whole collection returns None (the engine then plans and dispatches
     without statistics)."""
-    t0 = time.perf_counter()
     try:
         rows = int(table.num_rows)
         if row_valid is not None:
             rows = int(row_valid.sum())
-        ts = TableStats(rows=rows)
+        collector = StatsCollector(rows)
         for name, col in zip(table.names, table.columns):
-            cs = _collect_column(name, col, rows, row_valid)
-            if cs is not None:
-                ts.cols[name] = cs
-        ts.collected_ms = (time.perf_counter() - t0) * 1e3
-        _tel.inc("stats_tables_collected")
-        return ts
+            collector.add(name, col, row_valid)
+        return collector.done()
     except (KeyboardInterrupt, SystemExit):
         raise
     except Exception:
         logger.debug("stats collection failed", exc_info=True)
         _tel.inc("stats_collect_errors")
         return None
+
+
+class StatsCollector:
+    """``collect_table_stats`` one column at a time, for a caller that
+    holds one whole column at a time (the placement of a rank's rows,
+    ``parallel.mesh.place_rank_rows``): ``add`` each column, then
+    ``done``.  ``rows``: the table's real rows."""
+
+    def __init__(self, rows: int):
+        self.t0 = time.perf_counter()
+        self.ts = TableStats(rows=int(rows))
+
+    def add(self, name: str, col, row_valid=None) -> None:
+        cs = _collect_column(name, col, self.ts.rows, row_valid)
+        if cs is not None:
+            self.ts.cols[name] = cs
+
+    def done(self) -> TableStats:
+        self.ts.collected_ms = (time.perf_counter() - self.t0) * 1e3
+        _tel.inc("stats_tables_collected")
+        return self.ts
 
 
 def _collect_column(name: str, col, rows: int,

@@ -9,22 +9,31 @@ local shard count, the group's timeout, the mode and the output prefix.
 Modes:
 
 - ``queries``: the tables of ``data`` (an ``.npz`` of ``table/column``
-  arrays) on ``Context(mesh=init_multihost(...))``, then each SQL of
-  ``queries``, then ``WRITE_QUERIES`` after ``apply_writes``, then, with
-  ``DSQL_PROGRAM_STORE`` at ``store``, two passes of the ``stored``
-  queries, each after ``spmd.clear_programs()`` (``run_store_passes``);
-  writes ``<out>.npz`` (``name/column`` answers; a pass's as
-  ``store1_<name>`` and ``store2_<name>``) and ``<out>.json`` (per
-  query: the ``spmd_*`` and ``mesh_process_*`` counter deltas, the tier,
-  the wall seconds; per pass the same with ``program_store_*``);
+  arrays) on ``Context(mesh=init_multihost(...))`` and what each rank's
+  entry holds (``placement``: its rows, ``rank_rows`` and statistics, and
+  ``gather_rows`` of it as ``placed/<table>/...`` arrays), then each SQL
+  of ``queries`` (those of ``again`` a second time, those of
+  ``unmeshed`` with ``DSQL_MESH=0``), ``ANALYZED``, then
+  ``WRITE_QUERIES`` after ``apply_writes`` and the placement of the
+  appended table, then, with ``DSQL_PROGRAM_STORE`` at ``store``, two
+  passes of the ``stored`` queries, each after ``spmd.clear_programs()``
+  (``run_store_passes``); writes ``<out>.npz`` (``name/column``
+  answers; a pass's as ``store1_<name>`` and ``store2_<name>``) and
+  ``<out>.json`` (per query: the ``spmd_*``, ``mesh_process_*``,
+  ``mesh_gather*`` and ``mv_refresh_*`` counter deltas, the tier, the
+  wall seconds; per pass the same with ``program_store_*``);
 - ``collectives``: every collective of ``exchange.py``,
   ``partial_agg.py`` and ``distributed.py`` on seeded inputs
   (``collective_inputs``, shared with the test); writes ``<out>.npz``;
+  then every rank but 0 leaves, and rank 0 runs a query the walker
+  declines, whose gather must end in ``RankError`` (``run_gather_exit``;
+  ``<out>.json``);
 - ``errors``: a stage that raises on every rank; then a query whose first
   stage's capture step fails on ``bad_rank`` only, after its warm-up's
   collectives ran (``GraphProgram._capture``, which captures nothing on
   the CPU: where the card's capture would fail), run twice; then a stage
-  that raises on ``bad_rank`` only; writes ``<out>.json`` with what each
+  that raises on ``bad_rank`` only; then, on the broken group, the
+  queries after it (``run_errors``); writes ``<out>.json`` with what each
   query did (its answer, counters and collectives);
 - ``profile``: ``DSQL_PROFILE`` armed on the ranks of ``profile_ranks``
   only, then each SQL of ``queries``; writes ``<out>.json`` with, per
@@ -241,12 +250,50 @@ def answer_arrays(df) -> dict:
     return out
 
 
-COUNTED = ("spmd_", "mesh_process_", "stream_batches")
+COUNTED = ("spmd_", "mesh_process_", "mesh_gather", "mv_refresh_",
+           "stream_batches")
 
 
 def _deltas(c0: dict, c1: dict, kinds: tuple = COUNTED) -> dict:
     return {k: v - c0.get(k, 0) for k, v in c1.items()
             if k.startswith(kinds) and v != c0.get(k, 0)}
+
+
+def placement(ctx, tables) -> tuple:
+    """What this rank's entry of each table holds: (arrays of
+    ``gather_rows`` of it, as ``placed/<table>/<column>`` with ``.mask``
+    and ``.dict`` and ``placed/<table>/.row_valid``; per table its local
+    rows, ``rank_rows`` and statistics).  Every rank calls this alike."""
+    from dask_sql_tpu_torch.parallel.mesh import gather_rows
+
+    arrays, report = {}, {}
+    for name in tables:
+        entry = ctx.schema["root"].tables[name]
+        whole, valid = gather_rows(entry.table, entry.row_valid, ctx.mesh)
+        for col_name, col in zip(whole.names, whole.columns):
+            arrays[f"placed/{name}/{col_name}"] = col.data.numpy()
+            if col.mask is not None:
+                arrays[f"placed/{name}/{col_name}.mask"] = col.mask.numpy()
+            if col.dictionary is not None:
+                arrays[f"placed/{name}/{col_name}.dict"] = np.asarray(
+                    col.dictionary).astype(str)
+        if valid is not None:
+            arrays[f"placed/{name}/.row_valid"] = valid.numpy()
+        rr = entry.rank_rows
+        report[name] = {
+            "rows": entry.table.num_rows,
+            "rank_rows": None if rr is None else [rr.padded, rr.rows,
+                                                  rr.first],
+            "stats": stats_summary(entry.stats)}
+    return arrays, report
+
+
+def stats_summary(ts) -> list:
+    """A ``TableStats`` as JSON: its rows and every column's fields (its
+    collection time left out)."""
+    return [ts.rows, sorted([name, cs.ndv, cs.min, cs.max, cs.null_frac,
+                             cs.is_int, cs.dense, cs.domain]
+                            for name, cs in ts.cols.items())]
 
 
 def run_queries(ctx, queries: dict, prefix: str = "",
@@ -290,23 +337,35 @@ def run_store_passes(ctx, queries: dict, store: str) -> tuple:
     return arrays, report
 
 
-#: the write path and streaming on the mesh: rows appended to mh_orders,
-#: and mh_orders registered again as a chunked table of small batches
+#: ANALYZE TABLE of a padded table (37 rows on 8 shards), which reads its
+#: columns whole: on a mesh across processes gathered one at a time
+ANALYZED = {"analyzed": "ANALYZE TABLE mh_cust COMPUTE STATISTICS FOR ALL "
+                          "COLUMNS"}
+
+#: the write path and streaming on the mesh: a materialized view joining
+#: mh_orders and mh_cust, rows appended to mh_orders (the view refreshes
+#: in full on a mesh, over its bases read whole), and mh_orders
+#: registered again as a chunked table of small batches
 APPEND_ROWS = {"okey": np.arange(1000, 1013), "cust": np.arange(13) % 37,
                "amount": np.round(np.arange(13) * 1.25 + 0.5, 2)}
+JOIN_VIEW = ("CREATE MATERIALIZED VIEW mh_order_segs AS SELECT okey, "
+             "amount, seg FROM mh_orders JOIN mh_cust ON cust = ckey")
 WRITE_QUERIES = {
     "appended": ("SELECT cust, COUNT(*) AS n, SUM(amount) AS s FROM "
                  "mh_orders GROUP BY cust ORDER BY cust"),
     "streamed": ("SELECT cust, COUNT(*) AS n, SUM(amount) AS s FROM "
                  "mh_orders_c WHERE amount > 20 GROUP BY cust ORDER BY cust"),
+    "joined_view": ("SELECT seg, COUNT(*) AS n, SUM(amount) AS s FROM "
+                    "mh_order_segs GROUP BY seg ORDER BY seg"),
 }
 
 
 def apply_writes(ctx, frames: dict) -> None:
-    """The same appends and chunked registration on every rank (and on
-    the tests' single-process mesh)."""
+    """The same appends, view and chunked registration on every rank (and
+    on the tests' single-process mesh)."""
     from dask_sql_tpu_torch.io.chunked import ChunkedSource
 
+    ctx.sql(JOIN_VIEW)
     ctx.append_rows("mh_orders", dict(APPEND_ROWS))
     cols = {c: frames["mh_orders"][c].to_numpy()
             for c in frames["mh_orders"].columns}
@@ -342,8 +401,9 @@ def run_errors(ctx, cfg: dict) -> dict:
     back); then when the step that would capture fails on ``bad_rank``
     only, after the warm-up (every rank runs that stage eagerly), twice;
     then when the walker raises on ``bad_rank`` only (every rank raises
-    ``RankError``), then a served query on the broken group and a
-    declined one."""
+    ``RankError``), then a served query on the broken group, a declined
+    one whose columns an earlier fallback gathered, and a declined one
+    that needs a new gather."""
     from dask_sql_tpu_torch.parallel import spmd
     from dask_sql_tpu_torch.physical import graphs
 
@@ -397,7 +457,30 @@ def run_errors(ctx, cfg: dict) -> dict:
     spmd._Walker._aggregate = real
     run("after")
     run("declined")
+    run("declined_gather")
     return out
+
+
+def run_gather_exit(mesh, cfg: dict) -> dict:
+    """After the collectives: a table on every rank, then every rank but 0
+    leaves the mesh, and rank 0 runs a query the walker declines, whose
+    gather pairs with no one: it must end in ``RankError``."""
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.parallel import group as G
+
+    ctx = Context(mesh=mesh)
+    ctx.create_table("t", {"k": np.arange(40) % 7, "v": np.arange(40.0)})
+    G.rendezvous(mesh.group, {"step": "leave"})
+    if mesh.rank:
+        return {"left": True}
+    t0 = time.perf_counter()
+    try:
+        ctx.sql("SELECT COUNT(DISTINCT k) AS n FROM t")
+        raised, text = None, ""
+    except Exception as e:
+        raised, text = type(e).__name__, str(e)
+    return {"left": False, "raised": raised, "error": text,
+            "seconds": time.perf_counter() - t0}
 
 
 def main(path: str) -> int:
@@ -424,19 +507,32 @@ def main(path: str) -> int:
     out = cfg["out"]
     if cfg["mode"] == "collectives":
         np.savez(out + ".npz", **run_collectives(mesh))
+        info["gather_exit"] = run_gather_exit(mesh, cfg)
     else:
         ctx = Context(mesh=mesh)
         frames = frames_from_npz(cfg["data"])
         for name, frame in frames.items():
             ctx.create_table(name, frame)
         if cfg["mode"] == "queries":
+            placed, info["placement"] = placement(ctx, frames)
             arrays, info["queries"] = run_queries(ctx, cfg["queries"])
+            _, info["again"] = run_queries(
+                ctx, {k: cfg["queries"][k] for k in cfg["again"]})
+            os.environ["DSQL_MESH"] = "0"
+            unmeshed, info["unmeshed"] = run_queries(
+                ctx, {k: cfg["queries"][k] for k in cfg["unmeshed"]},
+                "unmeshed_")
+            os.environ.pop("DSQL_MESH")
+            analyzed, info["analyzed"] = run_queries(ctx, ANALYZED)
             apply_writes(ctx, frames)
             more, info["writes"] = run_queries(ctx, WRITE_QUERIES)
+            appended, info["appended"] = placement(ctx, ["mh_orders"])
             stored, info["store"] = run_store_passes(
                 ctx, {k: cfg["queries"][k] for k in cfg["stored"]},
                 cfg["store"])
-            np.savez(out + ".npz", **arrays, **more, **stored)
+            np.savez(out + ".npz", **arrays, **more, **stored, **placed,
+                     **unmeshed, **analyzed,
+                     **{"appended_" + k: v for k, v in appended.items()})
         elif cfg["mode"] == "profile":
             arrays, info["profile"] = run_profiled(ctx, cfg)
             np.savez(out + ".npz", **arrays)

@@ -19,9 +19,23 @@ Q1, Q3, Q6, Q8, Q12 and Q14 equals:
 Every ``spmd_*`` counter of Q1, Q3 and Q8 equals the JAX package's on
 every rank: each stage, collectives of the process group included, is a
 built graph program (``spmd_compiles``), and none runs eagerly (no
-``spmd_eager_stages``).  Q5 and Q18 decline the walker and answer through
-each rank's single-device tiers.  Rows appended on every rank, and a
-chunked table streamed on every rank, answer as on the single-process
+``spmd_eager_stages``).
+
+Each rank's catalog entry holds only its ``padded / world`` rows of a
+table, with the whole table's dictionaries and statistics (equal to the
+single-process mesh's); ``gather_rows`` of every rank gives that mesh's
+padded columns bit for bit.  Q5 and Q18 decline the walker and answer
+through each rank's single-device tiers over the columns they scan,
+gathered from every rank (``mesh_gathers``), bit for bit as one device;
+a second run gathers nothing; with ``DSQL_MESH=0`` Q1 answers on the
+tiers over gathers, bit for bit as one device; ANALYZE TABLE of a padded
+table reads its columns gathered, as the single-process mesh's.  On world 2 x 4 every
+TPC-H query, served or declined, equals the JAX package's 8-device
+mesh.  Rows appended on every rank (the appended table's new padded rows
+split by rank), a materialized view joining two tables kept fresh across
+an append by the full recompute (a mesh refuses the delta join, as in
+the JAX package; the refresh reads its bases gathered whole), and a
+chunked table streamed on every rank answer as on the single-process
 mesh after the same steps.  With the program store armed, Q1, Q3, Q8 and
 Q12 run again after every stage program was dropped, then once more
 after that: the last pass makes every stage program from this rank's
@@ -32,6 +46,7 @@ The module name holds "spmd": the conftest's ``DSQL_MESH=0`` pin does not
 apply.
 """
 import json
+import threading
 
 import numpy as np
 import pandas as pd
@@ -54,9 +69,16 @@ MULTIHOST = ("SELECT seg, COUNT(*) AS n, SUM(amount) AS s "
 SERVED = {"mh": MULTIHOST, **{f"q{q}": QUERIES[q]
                               for q in (1, 3, 6, 8, 12, 14)}}
 DECLINED = {f"q{q}": QUERIES[q] for q in (5, 18)}
+#: the rest of TPC-H, run on world 2 x 4 only
+REST = {f"q{q}": QUERIES[q] for q in sorted(QUERIES)
+        if f"q{q}" not in SERVED and f"q{q}" not in DECLINED}
+ALL_LAYOUT = (2, 4)
+#: run again with ``DSQL_MESH=0``: the walker off, the tiers over gathers
+UNMESHED = ("q1",)
 COUNTED = ("q1", "q3", "q8")
 STORED = ("q1", "q3", "q8", "q12")
-RUN_LIMIT_S = 120.0
+RUN_LIMIT_S = 150.0
+JAX_LIMIT_S = 600.0
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -65,6 +87,18 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _pins_held_for_the_module():
+    """The conftest's per-test pins of this module, held across its tests:
+    the JAX package's answers (``jax_mesh``) are computed on a thread that
+    runs on while tests start and end."""
+    mp = pytest.MonkeyPatch()
+    for k, v in W.RANK_ENV.items():
+        mp.setenv(k, v)
+    yield
+    mp.undo()
 
 
 @pytest.fixture(scope="module")
@@ -78,23 +112,44 @@ def data(tmp_path_factory):
     return path, W.frames_from_npz(path)
 
 
+@pytest.fixture(scope="module")
+def spawns():
+    """The spawns made so far, by layout."""
+    return {}
+
+
+def _spawn(spawns: dict, layout, data, tmp_path_factory):
+    """Every rank's answers and counters, one spawn per layout."""
+    if layout not in spawns:
+        world, local = layout
+        out_dir = tmp_path_factory.mktemp(f"w{world}")
+        queries = {**SERVED, **DECLINED,
+                   **(REST if layout == ALL_LAYOUT else {})}
+        runs = W.spawn(out_dir, "queries", world, local, timeout_s=60.0,
+                       limit_s=RUN_LIMIT_S, data=data[0], queries=queries,
+                       again=list(DECLINED), unmeshed=list(UNMESHED),
+                       stored=list(STORED),
+                       store=str(out_dir / "store"))
+        out = []
+        for rc, log, prefix in runs:
+            assert rc == 0, log
+            answers = dict(np.load(prefix + ".npz"))
+            with open(prefix + ".json") as f:
+                out.append((json.load(f), answers))
+        spawns[layout] = (world, local, out)
+    return spawns[layout]
+
+
 @pytest.fixture(scope="module", params=LAYOUTS,
                 ids=[f"world{w}x{loc}" for w, loc in LAYOUTS])
-def ranks(request, data, tmp_path_factory):
-    """Every rank's answers and counters, one spawn per layout."""
-    world, local = request.param
-    out_dir = tmp_path_factory.mktemp(f"w{world}")
-    runs = W.spawn(out_dir, "queries", world, local, timeout_s=60.0,
-                   limit_s=RUN_LIMIT_S, data=data[0],
-                   queries={**SERVED, **DECLINED}, stored=list(STORED),
-                   store=str(out_dir / "store"))
-    out = []
-    for rc, log, prefix in runs:
-        assert rc == 0, log
-        answers = dict(np.load(prefix + ".npz"))
-        with open(prefix + ".json") as f:
-            out.append((json.load(f), answers))
-    return world, local, out
+def ranks(request, spawns, data, jax_mesh, tmp_path_factory):
+    return _spawn(spawns, request.param, data, tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def ranks_all(spawns, data, jax_mesh, tmp_path_factory):
+    """World 2 x 4, which also ran the rest of TPC-H."""
+    return _spawn(spawns, ALL_LAYOUT, data, tmp_path_factory)
 
 
 @pytest.fixture(scope="module")
@@ -111,28 +166,47 @@ def port_contexts(data):
 
 @pytest.fixture(scope="module")
 def jax_mesh(data):
+    """The JAX package's 8-device mesh over the frames, and its answers
+    and ``spmd_*`` counters to every query of the module, computed on a
+    thread of their own while the ranks run (``_jax`` waits for it)."""
     mesh = default_mesh()
     if mesh.devices.size != 8:
         pytest.skip("needs the 8-device virtual CPU mesh")
-    ctx = JaxContext(mesh=mesh)
-    for name, frame in data[1].items():
-        ctx.create_table(name, frame)
-    return ctx, {}
+    memo: dict = {}
+
+    def answer_all():
+        ctx = JaxContext(mesh=mesh)
+        for name, frame in data[1].items():
+            ctx.create_table(name, frame)
+        for name, sql in {**SERVED, **DECLINED, **REST}.items():
+            c0 = jtel.REGISTRY.counters()
+            try:
+                df = ctx.sql(sql, return_futures=False)
+            except Exception as e:  # read by the test that needs it
+                memo[name] = (e, {})
+                continue
+            memo[name] = (df, _spmd(jtel.REGISTRY.counters(), c0))
+
+    worker = threading.Thread(target=answer_all, name="jax-mesh",
+                              daemon=True)
+    worker.start()
+    return worker, memo
 
 
-def _jax(jax_mesh, name: str, sql: str):
-    """The JAX package's answer and ``spmd_*`` counters, once per query."""
-    ctx, memo = jax_mesh
-    if name not in memo:
-        c0 = jtel.REGISTRY.counters()
-        df = ctx.sql(sql, return_futures=False)
-        memo[name] = (df, _spmd(jtel.REGISTRY.counters(), c0))
-    return memo[name]
+def _jax(jax_mesh, name: str):
+    """The JAX package's answer and ``spmd_*`` counters to one query."""
+    worker, memo = jax_mesh
+    worker.join(timeout=JAX_LIMIT_S)
+    assert not worker.is_alive(), f"the JAX answers ran past {JAX_LIMIT_S} s"
+    df, counters = memo[name]
+    if isinstance(df, Exception):
+        raise df
+    return df, counters
 
 
-def _spmd(now: dict, before: dict) -> dict:
+def _spmd(now: dict, before: dict, kind: str = "spmd_") -> dict:
     return {k: v - before.get(k, 0) for k, v in now.items()
-            if k.startswith("spmd_") and v != before.get(k, 0)}
+            if k.startswith(kind) and v != before.get(k, 0)}
 
 
 def _rank_frame(answers: dict, name: str) -> pd.DataFrame:
@@ -186,7 +260,7 @@ def test_served_answers_equal_jax_and_the_single_process_mesh(
         ranks, port_contexts, jax_mesh, name):
     _, _, out = ranks
     sql = SERVED[name]
-    want_jax, _ = _jax(jax_mesh, name, sql)
+    want_jax, _ = _jax(jax_mesh, name)
     single = W.answer_arrays(port_contexts[1].sql(sql, return_futures=False))
     single = {f"{name}/{k}": v for k, v in single.items()}
     first = out[0][1]
@@ -204,7 +278,7 @@ def test_served_answers_equal_jax_and_the_single_process_mesh(
 @pytest.mark.parametrize("name", COUNTED)
 def test_spmd_counters_equal_jax(ranks, jax_mesh, name):
     _, _, out = ranks
-    _, want = _jax(jax_mesh, name, SERVED[name])
+    _, want = _jax(jax_mesh, name)
     for rank, (info, _) in enumerate(out):
         got = {k: v for k, v in info["queries"][name]["counters"].items()
                if k.startswith("spmd_")}
@@ -221,9 +295,106 @@ def test_declined_queries_answer_on_each_ranks_tiers(ranks, port_contexts,
     want = {f"{name}/{k}": v for k, v in want.items()}
     for rank, (info, answers) in enumerate(out):
         run = info["queries"][name]
-        assert run["counters"] == {"spmd_unsupported": 1}, (rank, run)
+        c = run["counters"]
+        # the columns it scans gathered from every rank: one all_gather
+        # each through the process group, and nothing else
+        assert c.pop("spmd_unsupported") == 1, (rank, run)
+        assert c["mesh_gathers"] > 0 and c["mesh_gather_bytes"] > 0, run
+        assert c.pop("mesh_gathers") == c.pop("mesh_process_collectives")
+        assert set(c) == {"mesh_gather_bytes", "mesh_process_bytes"}, run
         assert run["tier"] != "spmd", run
+        # the second run reads the cached columns
+        again = info["again"][name]
+        assert again["counters"] == {"spmd_unsupported": 1}, (rank, again)
         _assert_bits(answers, want, name, f"rank {rank} vs one device")
+
+
+@pytest.mark.parametrize("name", UNMESHED)
+def test_the_mesh_kill_switch_answers_over_gathers(ranks, port_contexts,
+                                                   name):
+    _, _, out = ranks
+    want = W.answer_arrays(port_contexts[0].sql(SERVED[name],
+                                                return_futures=False))
+    want = {f"unmeshed_{name}/{k}": v for k, v in want.items()}
+    for rank, (info, answers) in enumerate(out):
+        run = info["unmeshed"][name]
+        c = run["counters"]
+        assert not any(k.startswith("spmd_") for k in c), (rank, run)
+        assert c["mesh_gathers"] == c["mesh_process_collectives"] > 0, run
+        _assert_bits(answers, want, f"unmeshed_{name}",
+                     f"rank {rank} vs one device")
+
+
+def test_analyze_reads_the_gathered_columns(ranks, port_contexts):
+    _, _, out = ranks
+    name, sql = next(iter(W.ANALYZED.items()))
+    want = W.answer_arrays(port_contexts[1].sql(sql, return_futures=False))
+    want = {f"{name}/{k}": v for k, v in want.items()}
+    for rank, (info, answers) in enumerate(out):
+        c = info["analyzed"][name]["counters"]
+        # two columns, then the row_valid of the padded table
+        assert c["mesh_gathers"] == c["mesh_process_collectives"] == 3, c
+        _assert_bits(answers, want, name, f"rank {rank} vs one process")
+
+
+def _entry_arrays(entry, prefix: str) -> dict:
+    """A whole entry's arrays as ``placement`` names them."""
+    out = {}
+    for name, col in zip(entry.table.names, entry.table.columns):
+        out[f"{prefix}/{name}"] = col.data.numpy()
+        if col.mask is not None:
+            out[f"{prefix}/{name}.mask"] = col.mask.numpy()
+        if col.dictionary is not None:
+            out[f"{prefix}/{name}.dict"] = np.asarray(
+                col.dictionary).astype(str)
+    if entry.row_valid is not None:
+        out[f"{prefix}/.row_valid"] = entry.row_valid.numpy()
+    return out
+
+
+def _assert_placed(info: dict, answers: dict, ctx, tables, world: int,
+                   rank: int, key: str) -> None:
+    """Each of ``tables`` holds this rank's ``padded / world`` rows with
+    the single-process mesh ``ctx``'s statistics, and its gather is that
+    mesh's padded table bit for bit."""
+    for table in tables:
+        whole = ctx.schema["root"].tables[table]
+        padded = whole.table.num_rows
+        got = info[table]
+        assert got["rows"] == padded // world, (rank, table, got)
+        assert got["rank_rows"] == [padded, whole.stats.rows,
+                                    rank * padded // world], (rank, got)
+        assert got["stats"] == json.loads(json.dumps(
+            W.stats_summary(whole.stats))), (rank, table)
+        prefix = f"{key}placed/{table}"
+        want = _entry_arrays(whole, prefix)
+        assert sorted(k for k in answers if k.startswith(prefix + "/")) \
+            == sorted(want), (rank, table)
+        for k, w in want.items():
+            assert answers[k].dtype == w.dtype, (rank, k)
+            assert answers[k].tobytes() == w.tobytes(), (rank, k)
+
+
+def test_each_rank_holds_its_rows_and_gathers_the_whole_table(
+        ranks, port_contexts, data):
+    world, _, out = ranks
+    for rank, (info, answers) in enumerate(out):
+        _assert_placed(info["placement"], answers, port_contexts[1],
+                       data[1], world, rank, "")
+
+
+@pytest.mark.parametrize("name", sorted(SERVED) + sorted(DECLINED)
+                         + sorted(REST, key=lambda q: int(q[1:])))
+def test_every_tpch_query_equals_jax_on_world_2x4(ranks_all, jax_mesh,
+                                                  name):
+    _, _, out = ranks_all
+    sql = {**SERVED, **DECLINED, **REST}[name]
+    want_jax, _ = _jax(jax_mesh, name)
+    first = out[0][1]
+    for rank, (info, answers) in enumerate(out):
+        _assert_same(_rank_frame(answers, name), want_jax,
+                     "ORDER BY" in sql)
+        _assert_bits(answers, first, name, f"rank {rank} vs rank 0")
 
 
 def test_single_process_mesh_counts_no_process_traffic(port_contexts):
@@ -235,32 +406,57 @@ def test_single_process_mesh_counts_no_process_traffic(port_contexts):
         "mesh_process_collectives", 0)
 
 
-@pytest.mark.parametrize("name", sorted(W.WRITE_QUERIES))
-def test_appends_and_streaming_equal_the_single_process_mesh(ranks, data,
-                                                             name):
-    _, _, out = ranks
+@pytest.fixture(scope="module")
+def written(data):
+    """The single-process mesh after ``apply_writes``, and its answer to
+    each write query with the view refreshes that query made."""
     ctx = Context(mesh=Mesh(["cpu"] * 8))
     frames = {k: v for k, v in data[1].items() if k.startswith("mh_")}
     for table, frame in frames.items():
         ctx.create_table(table, frame)
     W.apply_writes(ctx, frames)
-    want = W.answer_arrays(ctx.sql(W.WRITE_QUERIES[name],
-                                   return_futures=False))
-    want = {f"{name}/{k}": v for k, v in want.items()}
+    answers = {}
+    for name, sql in W.WRITE_QUERIES.items():
+        c0 = tel.REGISTRY.counters()
+        got = W.answer_arrays(ctx.sql(sql, return_futures=False))
+        answers[name] = ({f"{name}/{k}": v for k, v in got.items()},
+                         _spmd(tel.REGISTRY.counters(), c0, "mv_refresh_"))
+    return ctx, answers
+
+
+@pytest.mark.parametrize("name", sorted(W.WRITE_QUERIES))
+def test_appends_and_streaming_equal_the_single_process_mesh(ranks, written,
+                                                             name):
+    _, _, out = ranks
+    want, refreshed = written[1][name]
     for rank, (info, answers) in enumerate(out):
         run = info["writes"][name]
         if name == "streamed":
             assert run["counters"].get("stream_batches", 0) >= 4, run
+        elif name == "joined_view":
+            # recomputed after the append, its bases gathered whole
+            assert refreshed == {"mv_refresh_full": 1}, refreshed
+            c = run["counters"]
+            assert c.get("mv_refresh_full") == 1, (rank, run)
+            assert "mv_refresh_incremental" not in c, (rank, run)
+            assert c.get("mesh_gathers", 0) > 0, (rank, run)
         else:
             assert run["tier"] == "spmd", run
         _assert_bits(answers, want, name, f"rank {rank}")
+
+
+def test_appended_tables_hold_their_new_rows_by_rank(ranks, written):
+    world, _, out = ranks
+    for rank, (info, answers) in enumerate(out):
+        _assert_placed(info["appended"], answers, written[0],
+                       ["mh_orders"], world, rank, "appended_")
 
 
 @pytest.mark.parametrize("name", STORED)
 def test_a_second_store_pass_makes_every_stage_from_its_record(
         ranks, jax_mesh, name):
     _, _, out = ranks
-    want_jax, _ = _jax(jax_mesh, name, SERVED[name])
+    want_jax, _ = _jax(jax_mesh, name)
     first_rank = out[0][1]
     for rank, (info, answers) in enumerate(out):
         built = info["store"]["pass1"][name]

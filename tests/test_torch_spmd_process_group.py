@@ -19,9 +19,16 @@ collective alone, and what a stage that raises does to every rank.
   group's timeout at 10 s, every rank's query ends with ``RankError``
   within it, naming the rank that raised; the broken group then refuses
   the next SPMD query at once, and a query the walker declines still
-  answers on each rank's own tiers.
+  answers on each rank's own tiers from the columns an earlier fallback
+  gathered, while one that needs a new gather refuses at once.  After the
+  collectives every rank but 0 leaves, and rank 0's gather for a declined
+  query ends in ``RankError`` within the group's timeout.
 - A capture records the collectives it holds instead of counting them,
   and each replay counts them once.
+- On rank 1 of a world 3 x 2 (no spawn: nothing gathers) a registered
+  table holds that rank's rows of the global padded table, with the
+  whole table's dictionaries and statistics; ``system.table_stats``
+  reports the global row count.
 
 The module name holds "spmd": the conftest's ``DSQL_MESH=0`` pin does not
 apply.
@@ -38,6 +45,9 @@ from dask_sql_tpu_torch.parallel.mesh import Mesh
 
 LAYOUTS = [(2, 4), (4, 2)]
 GROUP_TIMEOUT_S = 10.0
+#: the collectives' group timeout, which also bounds the gather after the
+#: other ranks left
+GATHER_TIMEOUT_S = 30.0
 CAPTURE_QUERY = ("SELECT cust, COUNT(*) AS n, SUM(amount) AS s FROM "
                  "mh_orders WHERE cust > 2 GROUP BY cust ORDER BY cust")
 ERROR_QUERIES = {
@@ -46,6 +56,7 @@ ERROR_QUERIES = {
     "one_rank": "SELECT SUM(amount) AS s FROM mh_orders WHERE cust > 4",
     "after": "SELECT SUM(amount) AS s FROM mh_orders WHERE cust > 5",
     "declined": "SELECT COUNT(DISTINCT cust) AS n FROM mh_orders",
+    "declined_gather": "SELECT COUNT(DISTINCT okey) AS n FROM mh_orders",
 }
 BAD_RANK = 1
 
@@ -57,13 +68,19 @@ def single_process():
 
 @pytest.fixture(scope="module", params=LAYOUTS,
                 ids=[f"world{w}x{loc}" for w, loc in LAYOUTS])
-def rank_collectives(request, tmp_path_factory):
+def rank_collective_runs(request, tmp_path_factory):
     world, local = request.param
     runs = W.spawn(tmp_path_factory.mktemp(f"c{world}"), "collectives",
-                   world, local, timeout_s=60.0)
+                   world, local, timeout_s=GATHER_TIMEOUT_S)
     for rc, log, _ in runs:
         assert rc == 0, log
-    return [dict(np.load(prefix + ".npz")) for _, _, prefix in runs]
+    return runs
+
+
+@pytest.fixture(scope="module")
+def rank_collectives(rank_collective_runs):
+    return [dict(np.load(prefix + ".npz"))
+            for _, _, prefix in rank_collective_runs]
 
 
 @pytest.mark.parametrize("name", W.COLLECTIVES)
@@ -152,7 +169,31 @@ def test_a_broken_group_refuses_at_once_and_declined_queries_answer(
         # refused before any collective: well inside one group timeout
         assert "broke earlier" in after["error"]
         assert after["seconds"] < GROUP_TIMEOUT_S / 2, after
-        assert runs["declined"]["ok"] and runs["declined"]["rows"] == 1
+        # the column it scans was gathered by every_rank's fallback: no
+        # collective is needed
+        declined = runs["declined"]
+        assert declined["ok"] and declined["rows"] == 1, declined
+        assert declined["collectives"] == 0, declined
+        assert "mesh_gathers" not in declined["counters"], declined
+        # a column never gathered: refused before any collective
+        fresh = runs["declined_gather"]
+        assert not fresh["ok"] and fresh["type"] == "RankError", fresh
+        assert "broke earlier" in fresh["error"]
+        assert fresh["seconds"] < GROUP_TIMEOUT_S / 2, fresh
+        assert fresh["collectives"] == 0, fresh
+
+
+def test_a_gather_whose_peers_left_raises_rank_error(rank_collective_runs):
+    for rank, (_, _, prefix) in enumerate(rank_collective_runs):
+        with open(prefix + ".json") as f:
+            got = json.load(f)["gather_exit"]
+        if rank:
+            assert got == {"left": True}, got
+            continue
+        assert got["raised"] == "RankError", got
+        assert "did not report" in got["error"] \
+            or "collective failed" in got["error"], got
+        assert got["seconds"] < GATHER_TIMEOUT_S + 10, got
 
 
 def _rank_mesh(rank: int, world: int, local: int) -> Mesh:
@@ -175,6 +216,68 @@ def test_split_picks_this_ranks_shards():
     assert mesh.signature() == "data:6@cpu,cpu/world3:rank1"
     with pytest.raises(ValueError, match="rank's shards"):
         Mesh(["meta"] * 2, group=mesh.group)
+
+
+def _padded_table(n: int = 22) -> dict:
+    """``n`` rows, a string column among them: on a mesh of 6 shards
+    they pad to 24, 8 per rank of a world of 3."""
+    return {"k": np.arange(n) * 3, "s": np.array([f"v{i % 5}"
+                                                 for i in range(n)]),
+            "x": np.arange(n) * 0.5}
+
+
+def test_a_rank_holds_its_rows_of_the_padded_table():
+    from dask_sql_tpu_torch import Context
+
+    ctx = Context(mesh=_rank_mesh(1, 3, 2))
+    ctx.create_table("t", _padded_table())
+    entry = ctx.schema["root"].tables["t"]
+    rr = entry.rank_rows
+    assert (rr.padded, rr.rows, rr.first) == (24, 22, 8)
+    assert entry.table.num_rows == 8
+    assert entry.table.column("k").data.tolist() == [3 * i for i in
+                                                     range(8, 16)]
+    assert entry.row_valid.tolist() == [True] * 8
+    # a view of the whole column would keep its storage alive
+    k = entry.table.column("k").data
+    assert k.untyped_storage().nbytes() == k.numel() * k.element_size()
+    # the statistics are the whole padded table's, as one process's mesh
+    whole = Context(mesh=Mesh(["cpu"] * 6))
+    whole.create_table("t", _padded_table())
+    assert W.stats_summary(entry.stats) == W.stats_summary(
+        whole.schema["root"].tables["t"].stats)
+    last = Context(mesh=_rank_mesh(2, 3, 2))
+    last.create_table("t", _padded_table())
+    assert last.schema["root"].tables["t"].row_valid.tolist() == \
+        [True] * 6 + [False] * 2
+
+
+def test_a_ranks_columns_keep_the_whole_dictionary():
+    from dask_sql_tpu_torch import Context
+
+    ctx = Context(mesh=_rank_mesh(1, 3, 2))
+    ctx.create_table("t", _padded_table())
+    whole = Context(mesh=Mesh(["cpu"] * 6))
+    whole.create_table("t", _padded_table())
+    col = ctx.schema["root"].tables["t"].table.column("s")
+    want = whole.schema["root"].tables["t"].table.column("s")
+    # rank 1's rows hold four of the five strings; the codes stay global
+    assert list(col.dictionary) == list(want.dictionary) == [
+        f"v{i}" for i in range(5)]
+    assert col.data.tolist() == want.data[8:16].tolist()
+
+
+def test_system_table_stats_report_the_global_row_count(monkeypatch):
+    from dask_sql_tpu_torch import Context
+
+    # no group behind the mesh: the tiers answer (nothing to gather)
+    monkeypatch.setenv("DSQL_MESH", "0")
+    ctx = Context(mesh=_rank_mesh(1, 3, 2))
+    ctx.create_table("t", _padded_table())
+    got = ctx.sql("SELECT \"column\", \"rows\" FROM system.table_stats "
+                  "WHERE \"table\" = 't'", return_futures=False)
+    assert sorted(got["column"]) == ["k", "s", "x"]
+    assert set(got["rows"]) == {22}
 
 
 def test_stage_programs_are_graphs_on_one_device_or_across_processes():
