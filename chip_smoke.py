@@ -5755,6 +5755,15 @@ MP_EXIT_MARGIN_S = 30.0
 #: stage's agreed outcome takes one)
 MP_RENDEZVOUS_ROUNDS = 50
 MP_RANK_DIR = os.path.join("build", "dask_sql_tpu_torch", "multiprocess")
+#: 18(b)'s streamed part: lineitem registered again as a chunked table in
+#: phase 15(a)'s batches on every rank, these queries cold and ``MP_WARM``
+#: warm; then lineitem at phase 15(d)'s scale in its batches
+MP_STREAMED = (1, 6, 12, 14, 3)
+MP_STREAM_TABLE = "lineitem_c"
+MP_STREAM_SCALE = (1, 6)
+MP_SCALE_TABLE = "lineitem_scale"
+#: the queries whose every batch the walker must serve
+MP_STREAM_SERVED = (1, 6)
 #: what 18(b) starts once per rank (with ``--rank``)
 MP_RANK_SCRIPT = os.path.abspath(__file__)
 
@@ -5932,6 +5941,247 @@ def _mp_rf1(mctx, tables: dict, sf: float, seed: int) -> tuple:
                       "lineitem_rows": len(lines["l_orderkey"])}
 
 
+class RendezvousTimer:
+    """Calls of the group's store rendezvous (``parallel.group.rendezvous``:
+    each agreed stage, epilogue and gather takes one) while entered, and
+    their wall in ms."""
+
+    def __enter__(self):
+        from dask_sql_tpu_torch.parallel import group as G
+
+        self.calls, self.ms = 0, 0.0
+        self._orig = orig = G.rendezvous
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                self.calls += 1
+                self.ms += (time.perf_counter() - t0) * 1e3
+
+        G.rendezvous = timed
+        return self
+
+    def __exit__(self, *exc):
+        from dask_sql_tpu_torch.parallel import group as G
+
+        G.rendezvous = self._orig
+
+
+def _on_table(text: str, table: str) -> str:
+    """A TPC-H query over ``table`` in place of lineitem."""
+    return re.sub(r"\blineitem\b", table, text)
+
+
+def _mp_stream_run(mctx, text: str, dev) -> dict:
+    """18(b): one streamed run on a rank (the launch counts set to 0 before
+    it and read after it): the result, the wall, each batch's upload bytes
+    and how its plan ran (``stream_tier``: the walker over this rank's
+    rows, or the tiers over the batch gathered whole), the gathers, the
+    stage programs built and the graphs captured, the rendezvous calls and
+    their ms, and the peak device bytes above what the card held before
+    the run (the catalog)."""
+    from dask_sql_tpu_torch.ops import gpu_kernels as gk
+
+    gk.reset_launch_counts()
+    box = {}
+    held = 0
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    with RendezvousTimer() as rv:
+        ms = wall_ms(lambda: box.update(r=mctx.sql(text)))
+    peak = (torch.cuda.max_memory_allocated(dev) - held
+            if dev.type == "cuda" else "not measured (CPU)")
+    rep = mctx.last_report
+    spans = [s for s in rep.root.walk() if s.name == "stream_batch"]
+    c = rep.counters
+    return {"result": box["r"], "ms": ms,
+            "uploads": [s.attrs.get("upload_bytes") for s in spans],
+            "tiers": [s.attrs.get("stream_tier") for s in spans],
+            "fallbacks": sorted({s.attrs["spmd_fallback"] for s in spans
+                                 if "spmd_fallback" in s.attrs}),
+            "batches": c.get("stream_batches", 0),
+            "gathers": c.get("mesh_gathers", 0),
+            "gather_bytes": c.get("mesh_gather_bytes", 0),
+            "spmd_compiles": c.get("spmd_compiles", 0),
+            "spmd_stages": c.get("spmd_stages", 0),
+            "spmd_join_flips": c.get("spmd_join_flips", 0),
+            "compiles": c.get("compiles", 0),
+            "captures": c.get("graph_captures", 0),
+            "rendezvous": rv.calls, "rendezvous_ms": rv.ms,
+            "peak_bytes": peak,
+            "launches": gk.LAUNCHES.get("segsum_fixedpoint", 0)}
+
+
+def _check_stream_programs(label: str, runs: list) -> None:
+    """The stage programs of a streamed query: at most two per stage of
+    its batch plan cold (the full batch's and the short last batch's; a
+    join whose build side flipped takes a program of its own for each),
+    none built and no graph captured warm, every batch of a query in
+    ``MP_STREAM_SERVED`` served by the walker."""
+    cold, warm = runs[0], runs[1:]
+    served = sum(t == "spmd" for t in cold["tiers"])
+    if served:
+        per_plan = cold["spmd_stages"] // served
+        most = 2 * per_plan * (2 if cold["spmd_join_flips"] else 1)
+        if cold["spmd_compiles"] > most:
+            raise AssertionError(f"{label}: {cold['spmd_compiles']} stage "
+                                 f"programs for {per_plan} stages a batch")
+    for run in warm:
+        if run["spmd_compiles"] or run["compiles"] or run["captures"]:
+            raise AssertionError(f"{label}: a warm run built or captured: "
+                                 f"{run}")
+
+
+def _mp_stream(mctx, tables: dict, dev, rank: int) -> dict:
+    """18(b)'s streamed part on a rank: lineitem registered again as the
+    chunked ``MP_STREAM_TABLE`` in ``OOC_BATCH_ROWS`` batches, then each
+    query of ``MP_STREAMED`` cold and ``MP_WARM`` warm (``_mp_stream_run``,
+    ``_check_stream_programs``); one ``18(b) rank r stream:`` line per
+    query.  The columns that Q1-Q22 gathered are dropped first, so that a
+    cold run pays the gather of the resident tables its plan scans (read
+    whole before streaming: ``Context._whole_tables``), which a warm run
+    finds cached (``resident_gather_bytes``, the cold run's gathered
+    bytes less a warm run's).  Returns the last answers (on the host) and
+    the runs' facts."""
+    from dask_sql_tpu_torch.io.chunked import ChunkedSource
+
+    mctx.__dict__.pop("_gathered", None)
+    t0 = time.perf_counter()
+    source = ChunkedSource.from_columns(tables["lineitem"],
+                                        batch_rows=OOC_BATCH_ROWS)
+    mctx.create_table(MP_STREAM_TABLE, source, chunked=True)
+    encode_s = time.perf_counter() - t0
+    answers, rows = {}, {}
+    for qid in MP_STREAMED:
+        label = f"18(b) rank {rank} streamed Q{qid}"
+        runs = [_mp_stream_run(mctx, _on_table(QUERIES[qid],
+                                               MP_STREAM_TABLE), dev)
+                for _ in range(1 + MP_WARM)]
+        _check_stream_programs(label, runs)
+        for run in runs:
+            if run["batches"] != source.n_batches or len(set(
+                    run["uploads"])) != 1:
+                raise AssertionError(f"{label}: {run['batches']} batches "
+                                     f"uploading {run['uploads']} bytes")
+            if qid in MP_STREAM_SERVED and set(run["tiers"]) != {"spmd"}:
+                raise AssertionError(f"{label}: batches ran {run['tiers']}")
+        if qid == 1 and min(r["launches"] for r in runs) < 1:
+            raise AssertionError(f"{label}: kernel 1 did not launch in the "
+                                 f"merge: {[r['launches'] for r in runs]}")
+        answers[qid] = _host_table(runs[-1]["result"])
+        warm = runs[1:]
+        row = {"q": qid, "cold_ms": runs[0]["ms"],
+               "warm_ms": [r["ms"] for r in warm],
+               "warm_median_ms": _median([r["ms"] for r in warm]),
+               "batches": runs[0]["batches"],
+               "upload_bytes_per_batch": runs[0]["uploads"][0],
+               "tiers": sorted(set(runs[0]["tiers"])),
+               "served_batches": sum(t == "spmd" for t in runs[0]["tiers"]),
+               "fallbacks": runs[0]["fallbacks"],
+               "gathers": [r["gathers"] for r in runs],
+               "gather_bytes": [r["gather_bytes"] for r in runs],
+               "resident_gather_bytes": (runs[0]["gather_bytes"]
+                                         - runs[-1]["gather_bytes"]),
+               "peak_bytes": [r["peak_bytes"] for r in runs],
+               "spmd_stages": runs[0]["spmd_stages"],
+               "spmd_join_flips": runs[0]["spmd_join_flips"],
+               "programs_cold": runs[0]["spmd_compiles"],
+               "compiles_cold": runs[0]["compiles"],
+               "captures_cold": runs[0]["captures"],
+               "programs_warm": [r["spmd_compiles"] for r in warm],
+               "captures_warm": [r["captures"] for r in warm],
+               "rendezvous_warm": warm[-1]["rendezvous"],
+               "rendezvous_warm_ms": [r["rendezvous_ms"] for r in warm],
+               "launches": [r["launches"] for r in runs]}
+        rows[qid] = row
+        print(f"18(b) rank {rank} stream: " + json.dumps(row), flush=True)
+    mctx.drop_table(MP_STREAM_TABLE)
+    return answers, {"rows": rows, "encode_s": encode_s,
+                     "n_batches": source.n_batches}
+
+
+def _mp_stream_scale(mctx, sf: float, seed: int, dev, rank: int) -> dict:
+    """18(b): lineitem at ``sf`` (generated here from ``seed``) chunked in
+    the default batches as ``MP_SCALE_TABLE``, Q1 and Q6 cold and warm on
+    every rank, each held to the numpy oracle of the same data; one
+    ``18(b) rank r stream scale:`` line.  Returns the warm answers (on the
+    host) and the runs' facts."""
+    from dask_sql_tpu_torch.io.chunked import DEFAULT_BATCH_ROWS, ChunkedSource
+
+    t0 = time.perf_counter()
+    tables = generate_tpch(sf, seed)
+    li = tables.pop("lineitem")
+    tables.clear()
+    gen_s = time.perf_counter() - t0
+    want = {1: oracle_q1(li), 6: oracle_q6(li)}
+    t1 = time.perf_counter()
+    source = ChunkedSource.from_columns(li, batch_rows=DEFAULT_BATCH_ROWS)
+    del li
+    mctx.create_table(MP_SCALE_TABLE, source, chunked=True)
+    out = {"sf": sf, "rows": source.n_rows, "batches": source.n_batches,
+           "generate_s": gen_s, "encode_s": time.perf_counter() - t1}
+    answers = {}
+    for qid in MP_STREAM_SCALE:
+        label = f"18(b) rank {rank} SF {sf} streamed Q{qid}"
+        runs = [_mp_stream_run(mctx, _on_table(QUERIES[qid],
+                                               MP_SCALE_TABLE), dev)
+                for _ in range(2)]
+        for name, run in zip(("cold", "warm"), runs):
+            got = {k: v.tolist() for k, v in run["result"].to_numpy().items()}
+            check_answer(f"{label} {name}", got, want[qid])
+        _check_stream_programs(label, runs)
+        answers[qid] = _host_table(runs[1]["result"])
+        out[f"Q{qid}"] = {"cold_ms": runs[0]["ms"], "warm_ms": runs[1]["ms"],
+                          "upload_bytes_per_batch": runs[1]["uploads"][0],
+                          "tiers": sorted(set(runs[1]["tiers"])),
+                          "gathers": [r["gathers"] for r in runs],
+                          "peak_bytes": [r["peak_bytes"] for r in runs],
+                          "rendezvous_warm": runs[1]["rendezvous"],
+                          "rendezvous_warm_ms": runs[1]["rendezvous_ms"],
+                          "launches": [r["launches"] for r in runs]}
+    mctx.drop_table(MP_SCALE_TABLE)
+    print(f"18(b) rank {rank} stream scale: " + json.dumps(out), flush=True)
+    return answers, out
+
+
+def mp_stream_reference(dev, base: dict, answers: dict, sf: float,
+                        seed: int) -> dict:
+    """18(b)'s one-card reference, in this process before the ranks start:
+    phase 15(a)'s set-up (lineitem chunked in ``OOC_BATCH_ROWS`` batches,
+    the other tables resident from ``base``) and the queries of
+    ``MP_STREAMED`` cold and ``MP_WARM`` warm, each answer equal to phase
+    7's: their walls and bytes uploaded per batch."""
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.io.chunked import ChunkedSource
+
+    octx = Context(device=dev)
+    for name, table in base.items():
+        if name != "lineitem":
+            octx.create_table(name, table)
+    octx.create_table("lineitem", ChunkedSource.from_columns(
+        generate_tpch(sf, seed)["lineitem"], batch_rows=OOC_BATCH_ROWS),
+        chunked=True)
+    rows = {}
+    for qid in MP_STREAMED:
+        runs = [_ooc_run(octx, QUERIES[qid]) for _ in range(1 + MP_WARM)]
+        for run in runs:
+            check_same_result(f"18(b) one-card streamed Q{qid}",
+                              run["result"], answers[qid], 1e-9)
+        rows[qid] = {"cold_ms": runs[0]["ms"],
+                     "warm_median_ms": _median([r["ms"] for r in runs[1:]]),
+                     "upload_bytes_per_batch": (runs[0]["upload_bytes"]
+                                                / runs[0]["uploads"])}
+    del octx
+    forget_programs()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _host_table(r):
     from dask_sql_tpu_torch.table import Column, Table
 
@@ -6065,9 +6315,10 @@ def multiprocess_rank(args) -> int:
     catalog holds this rank's rows (``_mp_catalog``: its bytes on the card
     and the registration's peak), the 22 queries held to 18(a)'s checks
     (the declined ones over gathered columns, a warm run gathering
-    nothing), one RF1 appended and Q1 again (``_mp_rf1``), then the exit
-    part (``_mp_exit_part``); the answers (on the host), the summary and
-    the exit part pickled under ``MP_RANK_DIR`` for the parent.  The process
+    nothing), the streamed part (``_mp_stream``, ``_mp_stream_scale``),
+    one RF1 appended and Q1 again (``_mp_rf1``), then the exit part
+    (``_mp_exit_part``); the answers (on the host), the summary and the
+    exit part pickled under ``MP_RANK_DIR`` for the parent.  The process
     ends with ``os._exit``: a rank that left, or one whose communicator
     was aborted, has nothing to tear down."""
     import pickle
@@ -6104,17 +6355,22 @@ def multiprocess_rank(args) -> int:
         _mp_walls(rows, "18(b) rank 0", card, every=True)
     rendezvous_ms = _rendezvous_ms(mesh.group)
     host = {q: _host_table(r) for q, r in results.items()}
+    streamed, stream = _mp_stream(mctx, tables, dev, args.rank)
+    scaled, scale = _mp_stream_scale(mctx, OOC_SCALE_SF, args.seed, dev,
+                                     args.rank)
     q1_rf1, rf1_facts = _mp_rf1(mctx, tables, args.sf, args.seed)
     print(f"18(b) rank {args.rank} RF1: " + json.dumps(
         dict(rf1_facts, card=card)), flush=True)
     summary = _mp_summary(rows, args.world, time.perf_counter() - t0)
     summary.update(rank=args.rank, device=str(mesh.devices[0]),
                    ready_s=ready_s, rendezvous_ms=rendezvous_ms,
-                   catalog=catalog, rf1=rf1_facts, card=card)
+                   catalog=catalog, rf1=rf1_facts, card=card, stream=stream,
+                   stream_scale=scale)
     path = os.path.join(MP_RANK_DIR, f"rank{args.rank}.pkl")
     exit_part = _mp_exit_part(mctx, args.rank, args.world)
     with open(path, "wb") as f:
         pickle.dump({"summary": summary, "answers": host,
+                     "streamed": streamed, "scaled": scaled,
                      "q1_rf1": _host_table(q1_rf1), "exit": exit_part}, f)
     if exit_part["exits"]:
         # leave as a rank that is gone: no teardown of the communicator
@@ -6134,8 +6390,11 @@ def multiprocess_cards(sf: float, seed: int, answers: dict, world1: dict,
     equal the resident ones (doubles rtol 1e-9) and rank 0's bit for bit,
     and the served ones 18(a)'s bit for bit where the ranks hold as many
     shards (four); Q1 after the RF1 equals Q1 on a plain context over
-    ``base`` after the same append.  Then the last rank leaves, and every
-    other rank's next query must end in ``RankError`` within
+    ``base`` after the same append; the streamed answers and uploads are
+    held by ``_mp_check_streams`` against the one-card reference that this
+    process runs before the ranks start (``mp_stream_reference``).  Then
+    the last rank leaves, and every other rank's next query must end in
+    ``RankError`` within
     ``MP_EXIT_TIMEOUT_S`` plus ``MP_EXIT_MARGIN_S``; every process must
     have exited within ``MP_RANK_LIMIT_S``."""
     import pickle
@@ -6147,6 +6406,8 @@ def multiprocess_cards(sf: float, seed: int, answers: dict, world1: dict,
               "verified by this run")
         return {"skipped": "one card"}
     t0 = time.perf_counter()
+    one_card = mp_stream_reference(torch.device(device or "cuda"), base,
+                                   answers, sf, seed)
     os.makedirs(MP_RANK_DIR, exist_ok=True)
     for r in range(n):
         for suffix in ("pkl", "log"):
@@ -6200,6 +6461,8 @@ def multiprocess_cards(sf: float, seed: int, answers: dict, world1: dict,
                 or gone["seconds"] > MP_EXIT_TIMEOUT_S + MP_EXIT_MARGIN_S)):
             raise AssertionError(f"18(b) rank {r} after rank {n - 1} left: "
                                  f"{gone}")
+        _mp_check_streams(r, n, got, ranks[0] if r else None, answers,
+                          one_card)
         for qid, result in got["answers"].items():
             check_same_result(f"18(b) rank {r} Q{qid}", result, answers[qid],
                               rtol=1e-9)
@@ -6215,9 +6478,56 @@ def multiprocess_cards(sf: float, seed: int, answers: dict, world1: dict,
             if line.startswith("18(b) rank") or (r == 0 and line.startswith(
                     ("multiprocess table: ", "multiprocess walls: "))):
                 print(line)
+    card = ranks[0]["summary"]["card"]
+    rows0 = ranks[0]["summary"]["stream"]["rows"]
+    for qid in MP_STREAMED:
+        row, ref = rows0[qid], one_card[qid]
+        print("multiprocess stream: " + json.dumps({
+            "q": qid, "ranks": n, "cold_ms": row["cold_ms"],
+            "warm_median_ms": row["warm_median_ms"],
+            "warm_ms": row["warm_ms"],
+            "one_card_cold_ms": ref["cold_ms"],
+            "one_card_warm_median_ms": ref["warm_median_ms"],
+            "upload_bytes_per_batch": row["upload_bytes_per_batch"],
+            "one_card_upload_bytes_per_batch": ref["upload_bytes_per_batch"],
+            "tiers": row["tiers"], "fallbacks": row["fallbacks"],
+            "gathers": row["gathers"],
+            "resident_gather_bytes": row["resident_gather_bytes"],
+            "rendezvous_warm": row["rendezvous_warm"],
+            "rendezvous_warm_ms": row["rendezvous_warm_ms"],
+            "card": card}))
     return {"world_size": n, "seconds": time.perf_counter() - t0,
             "ranks": [g["summary"] for g in ranks],
-            "exit": [g["exit"] for g in ranks]}
+            "exit": [g["exit"] for g in ranks], "one_card_stream": one_card,
+            "stream_q1_launches": rows0[1]["launches"][-1]}
+
+
+def _mp_check_streams(r: int, n: int, got: dict, first, answers: dict,
+                      one_card: dict) -> None:
+    """18(b)'s streamed part of rank ``r`` of ``n``: every answer equal to
+    phase 7's (doubles rtol 1e-9) and to rank 0's (``first``) bit for bit,
+    the scaled ones to rank 0's bit for bit (each rank held them to the
+    oracles), and each batch's upload at most the one-card upload over the
+    ranks plus one padding row."""
+    rows = got["summary"]["stream"]["rows"]
+    for qid, result in got["streamed"].items():
+        label = f"18(b) rank {r} streamed Q{qid}"
+        check_same_result(label, result, answers[qid], rtol=1e-9)
+        if first is not None:
+            _bit_equal_tables(f"{label} against rank 0", result,
+                              first["streamed"][qid])
+        whole = one_card[qid]["upload_bytes_per_batch"]
+        bound = whole / n + whole / OOC_BATCH_ROWS
+        if rows[qid]["upload_bytes_per_batch"] > bound:
+            raise AssertionError(f"{label}: {rows[qid]['upload_bytes_per_batch']}"
+                                 f" bytes uploaded per batch, above {bound} "
+                                 f"(one card {whole} over {n} ranks and a "
+                                 f"padding row)")
+    if first is not None:
+        for qid, result in got["scaled"].items():
+            _bit_equal_tables(f"18(b) rank {r} SF {OOC_SCALE_SF} streamed "
+                              f"Q{qid} against rank 0", result,
+                              first["scaled"][qid])
 
 
 def _plain_q1_after_rf1(base: dict, sf: float, seed: int, device) -> Table:
@@ -7713,6 +8023,8 @@ def main_multiprocess(args) -> int:
         "world1_served": multi["world1"]["served"],
         "ranks": multi["cards"].get("world_size"),
         "exit": multi["cards"].get("exit"),
+        "launches_multiprocess_stream": multi["cards"].get(
+            "stream_q1_launches"),
         "seconds": time.perf_counter() - t0}))
     return 0
 
@@ -7830,6 +8142,9 @@ def main(argv=None) -> int:
     kernel1["launches_mesh"] = mesh["summary"]["kernel1_launches"].get(
         "segsum_fixedpoint", 0)
     kernel1["launches_multiprocess"] = multi["world1"]["kernel1_launches"]
+    # rank 0's streamed Q1 (its merge) across cards: None on one card
+    kernel1["launches_multiprocess_stream"] = multi["cards"].get(
+        "stream_q1_launches")
     kernel1["launches_profiled_q1"] = observability["q1_launches"]
     kernel1["launches_autopilot"] = system["autopilot"]["served_launches"].get(
         "segsum_fixedpoint", 0)

@@ -20,6 +20,13 @@ staging buffer (``table.arrays_to_device``), and the compiled tier copies
 it into a CUDA graph's input buffers (``physical/compiled.py``
 ``_copied_positions``): a batch is one device copy and one replay.
 
+On a mesh across processes of more than one rank each rank uploads only
+its rows of a batch (``batch_table``'s ``ranks``): the batch padded on the
+host to a multiple of the mesh size, then rows ``[first, first + count)``
+(``rank_slice``) staged and copied, the dictionaries kept whole (every
+rank gives a string the same code).  ``batch_rank_rows`` says what that
+upload holds (``RankRows``).
+
 Constructors: ``from_columns`` (a dict of numpy arrays, without pandas: the
 card's machine has none), ``from_pandas`` and ``from_parquet`` (pyarrow);
 the last two import pandas and pyarrow inside themselves.
@@ -31,6 +38,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..datacontainer import RankRows
 from ..runtime import faults as _faults, telemetry as _tel
 from ..runtime.resilience import UserError
 from ..table import (Column, Table, arrays_to_device, host_encode_numpy,
@@ -65,6 +73,19 @@ def _column_input(values) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     if arr.dtype.kind == "O" and not _all_strings(arr):
         return _denull(values)
     return arr, None
+
+
+def rank_slice(rows: int, ranks) -> Tuple[int, int, int]:
+    """(padded, first, count) of a batch of ``rows`` rows on a mesh across
+    processes: the batch padded to a multiple of the mesh size
+    ``ranks.size`` (as ``shard_table_with_validity`` pads it on one
+    process), and this rank's ``count = padded // ranks.world_size`` rows
+    of it from ``first``.  ``ranks``: anything with ``size``, ``rank`` and
+    ``world_size`` (a ``parallel.mesh.Mesh``)."""
+    k = int(ranks.size)
+    padded = -(-max(int(rows), 1) // k) * k
+    count = padded // int(ranks.world_size)
+    return padded, int(ranks.rank) * count, count
 
 
 class ChunkedSource:
@@ -315,29 +336,42 @@ class ChunkedSource:
                                stype, None, dictionary))
         return Table(self.names, cols)
 
-    def batch_table(self, i: int, device, columns=None
+    def batch_rank_rows(self, i: int, ranks) -> RankRows:
+        """What ``batch_table(i, ..., ranks=ranks)`` holds of the global
+        padded batch ``i``."""
+        padded, first, _ = rank_slice(self.batch_rows, ranks)
+        enc = self.batches[i]
+        return RankRows(padded=padded, rows=len(enc[0][0]) if enc else 0,
+                        first=first)
+
+    def batch_table(self, i: int, device, columns=None, ranks=None
                     ) -> Tuple[Table, Optional[torch.Tensor]]:
         """The device ``Table`` of batch ``i``, padded to ``batch_rows``,
         and its ``row_valid`` (None for a full batch).  ``columns``: the
         names the scan reads (all when None); only those are uploaded.
+        ``ranks`` (a mesh across processes, ``rank_slice``): only this
+        rank's rows of the batch padded to a multiple of the mesh size,
+        with this rank's part of its ``row_valid``.
 
         The upload is the ``chunked_read`` fault site: the caller retries
         transients (the encoded host batch is immutable, so an upload can
-        run again).  Its byte count annotates the enclosing span
-        (``upload_bytes``)."""
+        run again).  Its byte count (this rank's) annotates the enclosing
+        span (``upload_bytes``)."""
         _faults.maybe_fail("chunked_read")
         keep = [ci for ci, name in enumerate(self.names)
                 if columns is None or name in columns]
         enc = self.batches[i]
         n = len(enc[0][0]) if enc else 0
+        padded, first, count = (
+            (self.batch_rows, 0, self.batch_rows) if ranks is None
+            else rank_slice(self.batch_rows, ranks))
         arrays = []
         for data, mask in (enc[ci] for ci in keep):
-            arrays.append(data)
+            arrays.append(data[first:first + count])
             if mask is not None:
-                arrays.append(mask)
-        upload_bytes = sum(int(a.itemsize) * self.batch_rows for a in arrays)
-        tensors = iter(arrays_to_device(arrays, device,
-                                        pad_to=self.batch_rows))
+                arrays.append(mask[first:first + count])
+        upload_bytes = sum(int(a.itemsize) * count for a in arrays)
+        tensors = iter(arrays_to_device(arrays, device, pad_to=count))
         cols = []
         for ci in keep:
             dev = next(tensors)
@@ -345,8 +379,9 @@ class ChunkedSource:
             cols.append(Column(dev, self.stypes[ci], m,
                                self.dictionaries[ci]))
         row_valid = None
-        if n < self.batch_rows:
-            row_valid = torch.arange(self.batch_rows, device=device) < n
+        if n < padded:
+            # this rank's part of the batch's row_valid (all of it without
+            # ranks), present on every rank where the batch was padded
+            row_valid = torch.arange(first, first + count, device=device) < n
         _tel.annotate(upload_bytes=upload_bytes)
         return Table([self.names[ci] for ci in keep], cols), row_valid
-

@@ -12,8 +12,11 @@ global arrays:
 - ``whole_tables(context, plan)``: the block in which the single-device
   tiers run ``plan`` (the walker declined it or fell back, alike on every
   rank, or ``DSQL_MESH=0``; a materialized view's refresh; a streamed
-  plan's resident tables).  Each rank-local table the plan scans is
-  pinned for the block as a whole entry of the columns the plan scans
+  plan's resident tables; a streamed batch plan the walker declines, over
+  the batch's rows from every rank, dropped before the next batch's
+  gather and when the query ends: ``drop_schema``).  Each rank-local
+  table the plan scans is pinned for the block as a whole entry of the
+  columns the plan scans
   (``runtime/ingest.carried_pins``): ``Context.catalog_entry`` reads it,
   on this thread and on the threads the compiled tier carries the pins
   to (stage workers, background builds);
@@ -105,6 +108,15 @@ def drop(context, schema_name: str, table_name: str) -> None:
     """Forget a table's gathered columns (its epoch moved)."""
     context.__dict__.get("_gathered", {}).pop(
         (schema_name, table_name.lower()), None)
+
+
+def drop_schema(context, schema_name: str) -> None:
+    """Forget the gathered columns of every table of ``schema_name`` (a
+    streamed query's ``__stream__`` batch, before the next batch's gather
+    and when the query ends)."""
+    cache = context.__dict__.get("_gathered", {})
+    for key in [k for k in cache if k[0] == schema_name]:
+        del cache[key]
 
 
 def _record(context, key, entry) -> _Whole:

@@ -29,6 +29,11 @@ the card) takes the classic grace-hash strategy on top of the spill store
    GROUP BY above pipelines per-chunk partials through the partial/merge
    algebra and the full join result never materializes.
 
+On a mesh across processes of more than one rank each side's batches are
+this rank's rows (``streaming._batch_ranks``), and a re-entering
+``SpillBackedSource`` uploads this rank's rows of each chunk; the pair
+sides stay whole on every rank (``_set_grace_entry``).
+
 Skew: one shared pad capacity means a hot key inflates every pair.
 Correctness is unaffected; the weakened device bound is reported
 (``morsel_skew_warnings`` and a warning), never silently.
@@ -49,7 +54,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from ..io.chunked import ChunkedSource
+from ..io.chunked import ChunkedSource, rank_slice
 from ..plan.nodes import (
     Field, LogicalFilter, LogicalJoin, LogicalProject, LogicalTableScan,
     RelNode, RexCall, RexInputRef,
@@ -225,17 +230,22 @@ def _partition_side(side: RelNode, scan: LogicalTableScan, source,
     reconstruction."""
     path = _stream._path_to(side, scan)
     below = _stream._stream_partial_plans(side, scan, path, context)
+    ranks = _stream._batch_ranks(context)
     layout = None
     for bi in range(source.n_batches):
         _res.check("grace_partition")
         with _tel.span("morsel_batch", index=bi):
             table, row_valid = _res.retry_transient(
                 lambda: source.batch_table(bi, context.device,
-                                           _stream._scan_columns(scan)),
+                                           _stream._scan_columns(scan),
+                                           ranks),
                 site="chunked_read")
             _tel.inc("stream_batches")
-            _tel.inc("stream_batch_rows", table.num_rows)
-            _stream._set_batch_entry(context, table, row_valid)
+            _tel.inc("stream_batch_rows", int(source.batch_rows))
+            _stream._set_batch_entry(
+                context, table, row_valid,
+                rank_rows=(None if ranks is None
+                           else source.batch_rank_rows(bi, ranks)))
             result = _stream._run_resident(below, context)
             names, cols = _stream._host_partial(result)
             if layout is None:
@@ -268,18 +278,26 @@ def _partition_side(side: RelNode, scan: LogicalTableScan, source,
 # pair materialization
 # ---------------------------------------------------------------------------
 
-def _padded_masked(cols, cap: int, device):
-    """(table, row_valid): host columns padded to ``cap`` rows, with masks
-    ALWAYS present and row_valid always given, so that every pair (and
-    every chunk of a spill-backed source) shares one program key."""
+def _padded_masked(cols, cap: int, device, ranks=None):
+    """(table, row_valid, upload bytes): host columns padded to ``cap``
+    rows, with masks ALWAYS present and row_valid always given, so that
+    every pair (and every chunk of a spill-backed source) shares one
+    program key.  ``ranks`` (a mesh across processes): only this rank's
+    rows of them padded to a multiple of the mesh size (``rank_slice``),
+    and its part of the row_valid."""
     import torch
 
     n = len(cols[0][0]) if cols else 0
-    host = [(data, np.ones(n, dtype=bool) if mask is None else mask, stype, d)
+    first, count = 0, cap
+    if ranks is not None:
+        _, first, count = rank_slice(cap, ranks)
+    host = [(data[first:first + count],
+             (np.ones(n, dtype=bool) if mask is None else mask)[
+                 first:first + count], stype, d)
             for data, mask, stype, d in cols]
-    table = _stream._host_cols_to_table(host, device, pad_to=cap)
-    row_valid = torch.arange(cap, device=device) < n
-    upload = sum(cap * (d.itemsize + 1) for d, _m, _, _ in host)
+    table = _stream._host_cols_to_table(host, device, pad_to=count)
+    row_valid = torch.arange(first, first + count, device=device) < n
+    upload = sum(count * (d.itemsize + 1) for d, _m, _, _ in host)
     return table, row_valid, upload
 
 
@@ -297,6 +315,11 @@ def _set_grace_entry(context, name: str, run: Optional[str], layout,
                 for dt, st, di in colmeta]
     n = len(cols[0][0]) if cols else 0
     table, row_valid, _ = _padded_masked(cols, cap, context.device)
+    # whole on every rank of a mesh across processes too: the partition is
+    # built on the host from spill runs that hold every rank's rows (each
+    # side's batch result came to every rank whole), and the pair plan
+    # scans no rank-local entry, so it runs on the rank's single-device
+    # tiers as on one process (``streaming._run_resident``)
     _stream._set_batch_entry(context, table, row_valid, name=name)
     return n
 
@@ -323,7 +346,15 @@ class SpillBackedSource(ChunkedSource):
     def n_batches(self) -> int:
         return self._store.n_chunks(self._run)
 
-    def batch_table(self, i: int, device, columns=None):
+    def batch_rank_rows(self, i: int, ranks):
+        from ..datacontainer import RankRows
+
+        padded, first, _ = rank_slice(self.batch_rows, ranks)
+        return RankRows(padded=padded,
+                        rows=self._store.chunk_meta(self._run, i)[3],
+                        first=first)
+
+    def batch_table(self, i: int, device, columns=None, ranks=None):
         _faults.maybe_fail("chunked_read")
         _cnames, cols = self._store.get_host_cols(self._run, i)
         keep = [ci for ci, name in enumerate(self.names)
@@ -341,7 +372,7 @@ class SpillBackedSource(ChunkedSource):
                 ).astype(np.int32)
             fixed.append((data, mask, self.stypes[ci], union))
         table, row_valid, upload = _padded_masked(fixed, self.batch_rows,
-                                                  device)
+                                                  device, ranks)
         _tel.annotate(upload_bytes=upload)
         return table.with_names([self.names[ci] for ci in keep]), row_valid
 

@@ -57,7 +57,17 @@ of an outer join) raise ``StreamingUnsupported`` with a reason, never a
 wrong answer on binding stubs.
 
 Under ``Context(mesh=...)`` each uploaded batch is row-sharded over the
-mesh (``_set_batch_entry``): out-of-core and over the mesh at once.
+mesh (``_set_batch_entry``): out-of-core and over the mesh at once.  On a
+mesh in one process (or a world of one rank) the batch is placed whole on
+the context's device, as a resident mesh table is, and its plans run on
+the compiled tier.  On a mesh across processes of more than one rank each
+rank uploads only its rows of every batch (``ChunkedSource.batch_table``'s
+``ranks``, ``_batch_ranks``), and the batch entry holds them as a
+rank-local catalog entry does (``TableEntry.rank_rows``); a plan that
+scans it goes to the SPMD walker first, and where the walker declines it
+the tiers run it over the batch gathered whole once
+(``_run_resident``).  ``stream_batches`` and ``stream_batch_rows`` count
+the global batch on every rank.
 """
 from __future__ import annotations
 
@@ -170,7 +180,7 @@ def _replace(plan: RelNode, old: RelNode, new: RelNode) -> RelNode:
 # execution plumbing
 # ---------------------------------------------------------------------------
 
-def _run_resident(plan: RelNode, context) -> Table:
+def _run_tiers(plan: RelNode, context) -> Table:
     from .compiled import try_execute_compiled
     from .rel.executor import RelExecutor
 
@@ -178,6 +188,53 @@ def _run_resident(plan: RelNode, context) -> Table:
     if result is None:
         result = RelExecutor(context).execute(plan)
     return result
+
+
+def _scans_rank_local(plan: RelNode, context) -> bool:
+    """Whether ``plan`` scans a ``__stream__`` entry that holds this rank's
+    rows only (a batch on a mesh across processes)."""
+    if not getattr(context, "_rank_local", False):
+        return False
+    temps = context.schema.get(STREAM_SCHEMA)
+    if temps is None:
+        return False
+    from ..runtime.ingest import _collect_scans
+
+    scans: list = []
+    _collect_scans(plan, scans)
+    return any(s.schema_name == STREAM_SCHEMA and getattr(
+        temps.tables.get(s.table_name), "rank_rows", None) is not None
+        for s in scans)
+
+
+def _run_resident(plan: RelNode, context) -> Table:
+    """``plan`` on the resident tiers: the compiled tier, the eager
+    executor where it declines.  A plan that scans a rank-local batch
+    goes to the SPMD walker first, over this rank's rows
+    (``stream_tier=spmd`` on the span); where the walker declines it or a
+    runtime flag trips (alike on every rank) the tiers run it over the
+    batch gathered whole once (``parallel.gather.whole_tables``,
+    ``stream_tier=gathered``), after the previous batch's gathered
+    columns were dropped, so that at most one gathered batch is resident.
+    The streamed plan's resident tables are pinned whole already
+    (``Context._whole_tables``): their columns are cached and not gathered
+    again.  Called under ``_EXEC_LOCK``; the walker and the gather take
+    ``mesh.group.lock`` inside it, never the other way round (neither the
+    compiled tier's stage workers nor its background builds take
+    either)."""
+    if not _scans_rank_local(plan, context):
+        return _run_tiers(plan, context)
+    from ..parallel import gather
+    from ..parallel.spmd import try_execute_spmd
+
+    result = try_execute_spmd(plan, context)
+    if result is not None:
+        _tel.annotate(stream_tier="spmd")
+        return result
+    gather.drop_schema(context, STREAM_SCHEMA)
+    _tel.annotate(stream_tier="gathered")
+    with gather.whole_tables(context, plan):
+        return _run_tiers(plan, context)
 
 
 _tmp_counter = [0]   # temp names of the running query (reset per query)
@@ -233,10 +290,23 @@ def _register_chunked_temp(context, source) -> str:
     return name
 
 
+def _batch_ranks(context):
+    """The rank slice a batch upload takes (``ChunkedSource.batch_table``'s
+    ``ranks``): the mesh of a context whose catalog holds each rank's rows
+    (a mesh across processes of more than one rank), else None."""
+    return context.mesh if getattr(context, "_rank_local", False) else None
+
+
 def _set_batch_entry(context, table: Table, row_valid,
-                     name: str = BATCH_TABLE) -> None:
+                     name: str = BATCH_TABLE, rank_rows=None) -> None:
+    """The ``__stream__`` entry ``name`` (the batch, a window bucket, a
+    grace pair side).  ``rank_rows``: the batch holds this rank's rows of
+    the global padded batch (``ChunkedSource.batch_rank_rows``), kept as
+    it is, as a rank-local catalog entry; otherwise under a mesh the
+    batch is placed whole."""
     _ensure_schema(context)
-    if getattr(context, "mesh", None) is not None and name == BATCH_TABLE:
+    if rank_rows is None and getattr(context, "mesh", None) is not None \
+            and name == BATCH_TABLE:
         # streaming x mesh: the uploaded batch is row-sharded over the
         # mesh, its row_valid ANDed into the shard validity, so that the
         # batch's program runs over the mesh table as a resident one does
@@ -251,11 +321,15 @@ def _set_batch_entry(context, table: Table, row_valid,
         else:
             row_valid = shard_valid
     context.schema[STREAM_SCHEMA].tables[name] = TableEntry(
-        table=table, row_valid=row_valid)
+        table=table, row_valid=row_valid, rank_rows=rank_rows)
 
 
 def _cleanup(context) -> None:
     context.schema.pop(STREAM_SCHEMA, None)
+    if getattr(context, "_rank_local", False):
+        # no gathered batch outlives its query, on the error path neither
+        from ..parallel.gather import drop_schema
+        drop_schema(context, STREAM_SCHEMA)
     # grace-hash joins (physical/morsel.py) spill partition/output runs;
     # free them on the error path too, so a failed query leaks no bytes
     runs = getattr(context, "_spill_runs", None)
@@ -287,7 +361,15 @@ def _stream_partial_plans(subtree: RelNode, scan: LogicalTableScan,
                         "a second chunked table feeds the streamed subtree")
                 return rel
             t = _run_resident(rel, context)
-            return _register_temp_typed(context, t, rel.schema)
+            row_valid = None
+            if getattr(context, "_rank_local", False):
+                # whole on every rank, its length a multiple of the mesh
+                # size, so that the walker can split it beside a
+                # rank-local batch
+                from ..parallel.mesh import shard_table_with_validity
+                t, row_valid = shard_table_with_validity(t, context.mesh)
+            return _retype(_register_temp(context, t, row_valid),
+                           rel.schema)
         if isinstance(rel, LogicalJoin):
             left_on = any(id(rel.left) == id(p) for p in path) or rel.left is scan
             jt = rel.join_type
@@ -650,17 +732,24 @@ def _scan_columns(scan: LogicalTableScan) -> List[str]:
 def _run_batches(partial_plan: RelNode, source, context, columns,
                  dedup_each_batch: bool = False) -> List[tuple]:
     acc: List[tuple] = []
+    ranks = _batch_ranks(context)
     for bi in range(source.n_batches):
         # per-batch checkpoint: a cancelled/over-deadline query stops
         # between batches, not after the remaining uploads
         _res.check("stream_batch")
         with _tel.span("stream_batch", index=bi):
             table, row_valid = _res.retry_transient(
-                lambda: source.batch_table(bi, context.device, columns),
+                lambda: source.batch_table(bi, context.device, columns,
+                                           ranks),
                 site="chunked_read")
+            # the global batch's rows, also where this rank uploaded only
+            # its part of it
             _tel.inc("stream_batches")
-            _tel.inc("stream_batch_rows", table.num_rows)
-            _set_batch_entry(context, table, row_valid)
+            _tel.inc("stream_batch_rows", int(source.batch_rows))
+            _set_batch_entry(
+                context, table, row_valid,
+                rank_rows=(None if ranks is None
+                           else source.batch_rank_rows(bi, ranks)))
             result = _run_resident(partial_plan, context)
             # the (small, post-aggregate) partial comes to the host NOW:
             # at most one batch stays resident on the device
@@ -874,6 +963,12 @@ def _stream_window_split(win: LogicalWindow, scan, path, source, context):
         # program
         row_valid = torch.arange(cap, device=context.device) < len(sel)
         with _tel.span("stream_batch", bucket_rows=len(sel)):
+            # whole on every rank of a mesh across processes too: the
+            # bucket is built on the host from the below-window rows,
+            # which every rank holds whole (each batch's result came to
+            # every rank), and the walker declines a LogicalWindow
+            # (spmd._gate_plan), so a rank-local bucket would only be
+            # gathered back whole
             _set_batch_entry(context, btable, row_valid)
             result = _run_resident(win_plan, context)
             _tel.inc("stream_batches")

@@ -420,6 +420,12 @@ def estimate_rows(rel, context, _depth: int = 0) -> Optional[float]:
         if chunked is not None:
             # the entry's table is a 1-row binding stub: the source counts
             return float(getattr(chunked, "n_rows", 0))
+        rank_rows = getattr(entry, "rank_rows", None)
+        if rank_rows is not None:
+            # this rank's rows of a mesh across processes (a streamed
+            # batch; a registered table has statistics): the whole
+            # placement's rows, as on one process
+            return float(rank_rows.padded)
         table = getattr(entry, "table", None)
         return float(table.num_rows) if table is not None else None
     if isinstance(rel, N.LogicalValues):

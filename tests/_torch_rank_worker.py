@@ -17,11 +17,16 @@ Modes:
   ``WRITE_QUERIES`` after ``apply_writes`` and the placement of the
   appended table, then, with ``DSQL_PROGRAM_STORE`` at ``store``, two
   passes of the ``stored`` queries, each after ``spmd.clear_programs()``
-  (``run_store_passes``); writes ``<out>.npz`` (``name/column``
-  answers; a pass's as ``store1_<name>`` and ``store2_<name>``) and
-  ``<out>.json`` (per query: the ``spmd_*``, ``mesh_process_*``,
-  ``mesh_gather*`` and ``mv_refresh_*`` counter deltas, the tier, the
-  wall seconds; per pass the same with ``program_store_*``);
+  (``run_store_passes``), then lineitem registered chunked
+  (``register_stream``) and each SQL of ``streamed`` over it (those of
+  ``stream_again`` a second time, then ``stream_fault`` with a fault at
+  its third upload: ``run_streams``); writes ``<out>.npz``
+  (``name/column`` answers; a pass's as ``store1_<name>`` and
+  ``store2_<name>``) and ``<out>.json`` (per query: the ``spmd_*``,
+  ``mesh_process_*``, ``mesh_gather*`` and ``mv_refresh_*`` counter
+  deltas, the tier, the wall seconds; per pass the same with
+  ``program_store_*``; per streamed query what each batch entry held and
+  what each batch plan did);
 - ``collectives``: every collective of ``exchange.py``,
   ``partial_agg.py`` and ``distributed.py`` on seeded inputs
   (``collective_inputs``, shared with the test); writes ``<out>.npz``;
@@ -373,6 +378,103 @@ def apply_writes(ctx, frames: dict) -> None:
         cols, batch_rows=256), chunked=True)
 
 
+#: streaming on the mesh across processes: lineitem registered again as a
+#: chunked table of small batches (8 at SF 0.01, the last short)
+STREAM_TABLE = "lineitem_c"
+STREAM_BATCH_ROWS = 8192
+
+
+def register_stream(ctx, frames: dict) -> None:
+    """lineitem as the chunked ``STREAM_TABLE`` (on every rank, and on the
+    tests' single-process mesh)."""
+    from dask_sql_tpu_torch.io.chunked import ChunkedSource
+
+    li = frames["lineitem"]
+    ctx.create_table(STREAM_TABLE, ChunkedSource.from_columns(
+        {c: li[c].to_numpy() for c in li.columns},
+        batch_rows=STREAM_BATCH_ROWS), chunked=True)
+
+
+def run_streams(ctx, cfg: dict) -> tuple:
+    """Each SQL of ``streamed`` over ``STREAM_TABLE`` (those of
+    ``stream_again`` once more), recording per query what every batch
+    entry held (its rows, ``rank_rows`` and row_valid length) and what
+    every batch plan did (whether it scanned this rank's rows, whether
+    the walker served it, its gathers and gather steps), and the
+    ``__stream__`` keys left among the gathered columns after it; then
+    ``stream_fault`` with a fatal fault at the third upload
+    (``chunked_read``), which must leave no gathered batch either."""
+    from dask_sql_tpu_torch.parallel import gather as G
+    from dask_sql_tpu_torch.physical import streaming as S
+    from dask_sql_tpu_torch.runtime import faults
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+
+    log: dict = {}
+    real_set, real_run, real_fill = (S._set_batch_entry, S._run_resident,
+                                     G._fill)
+    steps = [0]
+
+    def set_entry(context, table, row_valid, name=S.BATCH_TABLE,
+                  rank_rows=None):
+        if name == S.BATCH_TABLE:
+            log["entries"].append([
+                table.num_rows,
+                None if rank_rows is None else [rank_rows.padded,
+                                                rank_rows.rows,
+                                                rank_rows.first],
+                None if row_valid is None else int(row_valid.shape[0])])
+        return real_set(context, table, row_valid, name, rank_rows)
+
+    def run(plan, context):
+        local = S._scans_rank_local(plan, context)
+        c0, s0 = tel.REGISTRY.counters(), steps[0]
+        out = real_run(plan, context)
+        c1 = tel.REGISTRY.counters()
+        log["plans"].append({
+            "local": local,
+            "served": c1.get("spmd_queries", 0) - c0.get("spmd_queries", 0),
+            "gathers": (c1.get("mesh_gathers", 0)
+                        - c0.get("mesh_gathers", 0)),
+            "steps": steps[0] - s0})
+        return out
+
+    def fill(context, wants):
+        steps[0] += 1
+        return real_fill(context, wants)
+
+    def stale() -> list:
+        return [list(k) for k in ctx.__dict__.get("_gathered", {})
+                if k[0] == S.STREAM_SCHEMA]
+
+    S._set_batch_entry, S._run_resident, G._fill = set_entry, run, fill
+    arrays, report = {}, {}
+    try:
+        for label, names in (("", list(cfg["streamed"])),
+                             ("again_", cfg["stream_again"])):
+            for name in names:
+                log.update(entries=[], plans=[])
+                more, rep = run_queries(ctx, {name: cfg["streamed"][name]},
+                                        label)
+                arrays.update(more)
+                report[label + name] = dict(
+                    rep[name], entries=log["entries"], plans=log["plans"],
+                    stale=stale())
+        name = cfg["stream_fault"]
+        log.update(entries=[], plans=[])
+        with faults.inject("chunked_read:3:fatal"):
+            try:
+                ctx.sql(cfg["streamed"][name], return_futures=False)
+                raised = None
+            except Exception as e:
+                raised = type(e).__name__
+        report["fault"] = {"raised": raised, "plans": log["plans"],
+                           "stale": stale()}
+    finally:
+        S._set_batch_entry, S._run_resident, G._fill = (real_set, real_run,
+                                                         real_fill)
+    return arrays, report
+
+
 def run_profiled(ctx, cfg: dict) -> tuple:
     """The queries of ``cfg``, this rank armed with ``DSQL_PROFILE`` when it
     is one of ``profile_ranks``: (answers, per query its tier and stage
@@ -530,8 +632,10 @@ def main(path: str) -> int:
             stored, info["store"] = run_store_passes(
                 ctx, {k: cfg["queries"][k] for k in cfg["stored"]},
                 cfg["store"])
+            register_stream(ctx, frames)
+            streamed, info["streams"] = run_streams(ctx, cfg)
             np.savez(out + ".npz", **arrays, **more, **stored, **placed,
-                     **unmeshed, **analyzed,
+                     **unmeshed, **analyzed, **streamed,
                      **{"appended_" + k: v for k, v in appended.items()})
         elif cfg["mode"] == "profile":
             arrays, info["profile"] = run_profiled(ctx, cfg)

@@ -42,10 +42,25 @@ after that: the last pass makes every stage program from this rank's
 record (``spmd_store_hits`` as many as the first pass's builds, no
 ``spmd_compiles``) and answers bit for bit as the first.
 
+Streaming: lineitem registered again as a chunked table of 8,192-row
+batches (8, the last short) and TPC-H Q1, Q3, Q6 and Q14 streamed over
+it, with a GROUP BY on a float key that the walker declines.  Each
+rank's batch entry holds only its ``padded / world`` rows
+(``rank_rows``); a batch plan the walker serves gathers nothing, a
+declined one gathers the batch in one step; no gathered ``__stream__``
+column outlives its query, a failed one (a fault at an upload)
+included; a repeated Q1 builds no stage program.  The answers equal the
+single-process 8-shard mesh's streamed ones (ints and strings exact,
+doubles rtol 1e-9: a served batch sums on the walker, in global shard
+order, where that mesh sums a whole batch on the compiled tier), every
+other rank's bit for bit and, on world 2 x 4, the JAX package's
+8-device mesh over the same chunked table.
+
 The module name holds "spmd": the conftest's ``DSQL_MESH=0`` pin does not
 apply.
 """
 import json
+import re
 import threading
 
 import numpy as np
@@ -77,6 +92,18 @@ ALL_LAYOUT = (2, 4)
 UNMESHED = ("q1",)
 COUNTED = ("q1", "q3", "q8")
 STORED = ("q1", "q3", "q8", "q12")
+#: streamed over the chunked lineitem (``W.STREAM_TABLE``): TPC-H shapes the
+#: walker serves per batch, and a float GROUP BY key, which it declines
+STREAMED = {**{f"s_q{q}": re.sub(r"\blineitem\b", W.STREAM_TABLE,
+                                 QUERIES[q]) for q in (1, 3, 6, 14)},
+            "s_fkey": (f"SELECT l_discount, COUNT(*) AS n, SUM(l_quantity) "
+                       f"AS q FROM {W.STREAM_TABLE} GROUP BY l_discount "
+                       f"ORDER BY l_discount")}
+STREAM_SERVED = ("s_q1", "s_q6")
+STREAM_DECLINED = ("s_fkey",)
+#: run twice: the second run builds no stage program (Q3's batch plan
+#: joins a ``__stream__`` temp, named alike by every run of the query)
+STREAM_AGAIN = ("s_q1", "s_q3")
 RUN_LIMIT_S = 150.0
 JAX_LIMIT_S = 600.0
 
@@ -129,7 +156,9 @@ def _spawn(spawns: dict, layout, data, tmp_path_factory):
                        limit_s=RUN_LIMIT_S, data=data[0], queries=queries,
                        again=list(DECLINED), unmeshed=list(UNMESHED),
                        stored=list(STORED),
-                       store=str(out_dir / "store"))
+                       store=str(out_dir / "store"), streamed=STREAMED,
+                       stream_again=list(STREAM_AGAIN),
+                       stream_fault=STREAM_DECLINED[0])
         out = []
         for rc, log, prefix in runs:
             assert rc == 0, log
@@ -178,7 +207,9 @@ def jax_mesh(data):
         ctx = JaxContext(mesh=mesh)
         for name, frame in data[1].items():
             ctx.create_table(name, frame)
-        for name, sql in {**SERVED, **DECLINED, **REST}.items():
+        ctx.create_table(W.STREAM_TABLE, data[1]["lineitem"], chunked=True,
+                         batch_rows=W.STREAM_BATCH_ROWS)
+        for name, sql in {**SERVED, **DECLINED, **REST, **STREAMED}.items():
             c0 = jtel.REGISTRY.counters()
             try:
                 df = ctx.sql(sql, return_futures=False)
@@ -484,3 +515,107 @@ def test_a_second_store_pass_makes_every_stage_from_its_record(
                      f"rank {rank} store pass vs rank 0's first run")
         _assert_same(_rank_frame(again, name), want_jax,
                      "ORDER BY" in SERVED[name])
+
+
+@pytest.fixture(scope="module")
+def streamed_mesh(data):
+    """The single-process 8-shard mesh's answers to the streamed queries
+    over the same chunked lineitem."""
+    ctx = Context(mesh=Mesh(["cpu"] * 8))
+    ctx.create_table("lineitem", data[1]["lineitem"])
+    W.register_stream(ctx, data[1])
+    for name in ("part", "customer", "orders"):
+        ctx.create_table(name, data[1][name])
+    return {name: W.answer_arrays(ctx.sql(sql, return_futures=False))
+            for name, sql in STREAMED.items()}
+
+
+@pytest.mark.parametrize("name", sorted(STREAMED))
+def test_each_rank_streams_only_its_rows_of_every_batch(ranks, data, name):
+    world, _, out = ranks
+    n = len(data[1]["lineitem"])
+    batches = -(-n // W.STREAM_BATCH_ROWS)
+    assert batches == 8
+    for rank, (info, _) in enumerate(out):
+        run = info["streams"][name]
+        assert run["counters"]["stream_batches"] == batches, (rank, run)
+        padded = W.STREAM_BATCH_ROWS          # a multiple of the 8 shards
+        count = padded // world
+        want = [[count, [padded, min(W.STREAM_BATCH_ROWS,
+                                     n - b * W.STREAM_BATCH_ROWS),
+                         rank * count],
+                 None if b < batches - 1 else count]
+                for b in range(batches)]
+        assert run["entries"] == want, (rank, run["entries"])
+        local = [p for p in run["plans"] if p["local"]]
+        assert len(local) == batches, (rank, run["plans"])
+        for p in local:
+            if p["served"]:
+                # the walker read this rank's rows: nothing gathered
+                assert p["gathers"] == 0 and p["steps"] == 0, (rank, p)
+            else:
+                # the batch gathered whole once, the resident tables
+                # found cached
+                assert p["steps"] == 1 and p["gathers"] > 0, (rank, p)
+        served = [bool(p["served"]) for p in local]
+        if name in STREAM_SERVED:
+            assert all(served), (rank, run["plans"])
+        if name in STREAM_DECLINED:
+            assert not any(served), (rank, run["plans"])
+        # alike on every rank
+        assert run["plans"] == out[0][0]["streams"][name]["plans"]
+        assert run["stale"] == [], (rank, run["stale"])
+
+
+@pytest.mark.parametrize("name", sorted(STREAMED))
+def test_streamed_answers_equal_the_single_process_mesh(ranks,
+                                                        streamed_mesh,
+                                                        name):
+    _, _, out = ranks
+    want = pd.DataFrame(streamed_mesh[name])
+    first = out[0][1]
+    for rank, (_, answers) in enumerate(out):
+        _assert_same(_rank_frame(answers, name), want,
+                     "ORDER BY" in STREAMED[name])
+        _assert_bits(answers, first, name, f"rank {rank} vs rank 0")
+
+
+@pytest.mark.parametrize("name", sorted(STREAMED))
+def test_streamed_answers_equal_jax_on_world_2x4(ranks_all, jax_mesh, name):
+    _, _, out = ranks_all
+    want_jax, _ = _jax(jax_mesh, name)
+    for rank, (_, answers) in enumerate(out):
+        _assert_same(_rank_frame(answers, name), want_jax,
+                     "ORDER BY" in STREAMED[name])
+
+
+@pytest.mark.parametrize("name", STREAM_AGAIN)
+def test_a_repeated_streamed_query_builds_no_stage_program(ranks, name):
+    _, _, out = ranks
+    for rank, (info, answers) in enumerate(out):
+        cold = info["streams"][name]
+        again = info["streams"]["again_" + name]
+        served = sum(p["served"] for p in cold["plans"])
+        c = cold["counters"]
+        # the full batch's program and the short last batch's, per stage
+        per_plan = c["spmd_stages"] // served
+        assert 0 < c["spmd_compiles"] <= 2 * per_plan, (rank, c)
+        assert "spmd_compiles" not in again["counters"], (rank, again)
+        assert again["counters"]["spmd_stages"] == c["spmd_stages"]
+        assert again["stale"] == []
+        _assert_bits({k[len("again_"):]: v for k, v in answers.items()
+                      if k.startswith("again_")},
+                     {k: v for k, v in answers.items()
+                      if k.startswith(name + "/")}, name,
+                     f"rank {rank} repeated")
+
+
+def test_a_failed_stream_leaves_no_gathered_batch(ranks):
+    _, _, out = ranks
+    for rank, (info, _) in enumerate(out):
+        fault = info["streams"]["fault"]
+        assert fault["raised"] is not None, (rank, fault)
+        # two batches gathered before the third upload failed
+        local = [p for p in fault["plans"] if p["local"]]
+        assert [p["steps"] for p in local] == [1, 1], (rank, fault)
+        assert fault["stale"] == [], (rank, fault)
