@@ -236,15 +236,23 @@ the compiled tier first.
    compiled tier where it declines), the ``spmd_*`` counters and
    collective bytes, kernel-1 launches, syncs, cold and warm walls; each
    answer equal to phase 7's (doubles rtol 1e-9), the last two warm runs
-   bit for bit.  (b) The 22 queries with
+   bit for bit.  Then a CAST to VARCHAR and a string CASE over lineitem
+   (order keys up to 4,000, ``LIMIT 1000``), cold and warm: each stage
+   reads device values on the host, so the walker falls back on
+   ``host_read`` alone (``spmd_fallbacks`` 1, as in JAX) and the answer
+   equals the ``DSQL_MESH=0`` one.  (b) The 22 queries with
    ``DSQL_MESH=0``: the compiled tier over the padded mesh tables, each
    with phase 12's tier (no new fallback), kernel 1 launching for Q1, Q4,
    Q5, Q12 and Q22, answers equal.  (c) Q1 and Q6 streamed over lineitem
    chunked on the mesh (batches of 1,048,576 rows, each sharded), equal.
    (d) One RF1 appended to the mesh lineitem, then Q1, equal to a plain
-   context's after the same append.  (e) Q1, Q3 and Q6 on
-   ``default_mesh()`` when the machine has two cards or more, else one
-   line saying the branch is skipped.  One ``mesh table:`` JSON line per
+   context's after the same append.  (e) Q1, Q3, Q6, Q12 and Q14 on
+   ``default_mesh()`` (one shard per card) when the machine has two cards
+   or more, cold and twice warm: every stage one CUDA graph over all the
+   cards, no eager stage, a graph replayed in every warm run, the answers
+   phase 7's, Q3 falling back on ``radix_overflow`` only; per query the
+   walls and per run the graph replays, eager stages and stage programs
+   built.  On one card, one line saying the branch is skipped.  One ``mesh table:`` JSON line per
    query and part, and a ``mesh summary:`` line; the ``kernels`` line
    carries the phase's kernel-1 launches as ``launches_mesh``.
 
@@ -5399,7 +5407,9 @@ MESH_SHARDS = 4
 MESH_WARM = 3
 #: the static GROUP BYs the single-device tier sums through kernel 1
 MESH_KERNEL1 = (1, 4, 5, 12, 22)
-MESH_DISTINCT = (1, 3, 6)
+#: 17(e) on distinct cards: psum trees (Q1, Q6), joins whose exchange or
+#: all-gather crosses the cards (Q12, Q14), Q3's known fallback
+MESH_DISTINCT = (1, 3, 6, 12, 14)
 MESH_STREAMED = (1, 6)
 MESH_BATCH_ROWS = 1 << 20
 #: the queries the SPMD walker serves (tests/test_torch_spmd_tpch.py's
@@ -5409,6 +5419,18 @@ MESH_SPMD_SERVED = (1, 3, 6, 8, 12, 14)
 #: group codes pass 2**62 over microsecond timestamps at SF 1, as in JAX
 #: (a duplicate-build-key flag of the same run would only flip its join)
 MESH_SPMD_FLAGS = {3: "radix_overflow"}
+#: 17(a)'s stages that read device values on the host (each shard would
+#: build its own dictionary): the walker falls back on ``host_read``, as
+#: the JAX stage whose trace fails does, and the tiers answer.  The filter
+#: keeps the tiers' strings small: built on the host for all 6.0 M rows
+#: of SF 1, the CAST took 27 s a run on the card
+MESH_HOST_READS = {
+    "cast": ("SELECT l_orderkey, CAST(l_quantity AS VARCHAR) AS q "
+             "FROM lineitem WHERE l_orderkey <= 4000 LIMIT 1000"),
+    "case": ("SELECT l_orderkey, CASE WHEN l_quantity > 25 THEN l_shipmode "
+             "ELSE 'zz' END AS m FROM lineitem WHERE l_orderkey <= 4000 "
+             "LIMIT 1000"),
+}
 
 
 def _spmd_counters(ctx) -> dict:
@@ -5425,11 +5447,12 @@ def _span_attr(ctx, key: str):
 
 def _spmd_run(ctx) -> dict:
     """What the SPMD executor did in the context's last query: its
-    counters, the runtime flags that sent it to the tiers and the error
-    its walker raised, if any."""
+    counters, the runtime flags that sent it to the tiers, the error its
+    walker raised, if any, and the graph replays of the query."""
     return {"counters": _spmd_counters(ctx),
             "fallback": _span_attr(ctx, "spmd_fallback"),
-            "error": _span_attr(ctx, "spmd_error")}
+            "error": _span_attr(ctx, "spmd_error"),
+            "graph_replays": _replays(ctx.last_report)}
 
 
 def check_spmd_runs(label: str, qid: int, tier: str, runs: list,
@@ -5542,6 +5565,38 @@ def mesh_spmd(mctx, answers: dict) -> list:
     return rows
 
 
+def mesh_host_reads(mctx) -> list:
+    """17(a'): ``MESH_HOST_READS`` on the mesh: each falls back on
+    ``host_read`` alone (``spmd_fallbacks`` 1, no walker error, no eager
+    stage) and equals its ``DSQL_MESH=0`` answer, cold and warm."""
+    rows = []
+    for name, sql in MESH_HOST_READS.items():
+        walls, results, runs = [], [], []
+        for _ in range(2):
+            box = {}
+            walls.append(wall_ms(lambda: box.update(r=mctx.sql(sql))))
+            results.append(box["r"])
+            runs.append(_spmd_run(mctx))
+        os.environ["DSQL_MESH"] = "0"
+        try:
+            want = mctx.sql(sql)
+        finally:
+            os.environ.pop("DSQL_MESH", None)
+        for i, (got, run) in enumerate(zip(results, runs)):
+            check_same_result(f"mesh host read {name} run {i}", got, want,
+                              rtol=0.0)
+            if run["counters"] != {"spmd_fallbacks": 1} \
+                    or run["fallback"] != "host_read" or run["error"]:
+                raise AssertionError(f"mesh host read {name}: expected one "
+                                     f"host_read fallback: {run}")
+        row = {"part": "host-read", "name": name, "rows": want.num_rows,
+               "tier": _last_tier(mctx)[0], "cold_ms": walls[0],
+               "warm_ms": walls[1], "spmd": runs[-1]["counters"]}
+        rows.append(row)
+        print("mesh table: " + json.dumps(row))
+    return rows
+
+
 def mesh_single_device(mctx, answers: dict, resident_tiers: dict) -> list:
     """17(b): the 22 queries with ``DSQL_MESH=0``: each served by the
     compiled tier over the mesh tables with no fallback that phase 12's
@@ -5635,9 +5690,16 @@ def mesh_append(dev, mctx, base: dict, tables: dict, sf: float,
     return row
 
 
+#: 17(e)'s warm runs per query after the cold one
+MESH_DISTINCT_WARM = 2
+
+
 def mesh_distinct_cards(base: dict, answers: dict) -> dict:
-    """17(e): Q1, Q3 and Q6 on ``default_mesh()`` when it spans distinct
-    cards (each shard on its own card; stages run eagerly there)."""
+    """17(e): ``MESH_DISTINCT`` on ``default_mesh()`` when it spans
+    distinct cards (each shard on its own card): every stage one CUDA
+    graph over all the cards (no eager stage), replayed on the warm runs,
+    the answers phase 7's.  Per query its cold and warm walls, and per
+    run its graph replays, eager stages and stage programs built."""
     from dask_sql_tpu_torch.parallel.mesh import default_mesh
 
     if torch.cuda.device_count() < 2:
@@ -5646,10 +5708,20 @@ def mesh_distinct_cards(base: dict, answers: dict) -> dict:
         return {"part": "distinct-cards", "skipped": "one card"}
     mesh = default_mesh()
     dctx, seconds = _mesh_context(mesh, base)
-    rows = [_mesh_runs(dctx, qid, answers, 1) for qid in MESH_DISTINCT]
+    rows = [_mesh_runs(dctx, qid, answers, MESH_DISTINCT_WARM)
+            for qid in MESH_DISTINCT]
     for r in rows:
-        check_spmd_runs("distinct-card mesh", r["q"], r["tier"],
-                        r.pop("spmd_runs"), captured=False)
+        runs = r.pop("spmd_runs")
+        r["graph_replays"] = [run["graph_replays"] for run in runs]
+        r["spmd_eager_stages"] = [run["counters"].get("spmd_eager_stages", 0)
+                                  for run in runs]
+        r["spmd_compiles"] = [run["counters"].get("spmd_compiles", 0)
+                              for run in runs]
+        check_spmd_runs("distinct-card mesh", r["q"], r["tier"], runs,
+                        captured=True)
+        if min(r["graph_replays"][1:]) < 1:
+            raise AssertionError(f"distinct-card mesh Q{r['q']}: a warm run "
+                                 f"replayed no graph: {r}")
     row = {"part": "distinct-cards", "devices": [str(d) for d in mesh.devices],
            "create_s": seconds, "queries": rows}
     print("mesh table: " + json.dumps(row))
@@ -5680,6 +5752,7 @@ def phase_mesh(dev, base: dict, tables: dict, answers: dict,
     out = {"create_s": create_s}
     t1 = time.perf_counter()
     out["spmd"] = mesh_spmd(mctx, answers)
+    out["host_reads"] = mesh_host_reads(mctx)
     out["profile"] = mesh_profile(mctx)
     t2 = time.perf_counter()
     out["single_device"] = mesh_single_device(

@@ -19,7 +19,10 @@ every placement explicit:
   ``devices[0]`` (a repeated-device mesh copies nothing), and on a mesh
   of distinct cards a copy on the shard's own card, made once per tensor
   (so once per catalog epoch) and counted (``mesh_placements``,
-  ``mesh_placement_bytes``).
+  ``mesh_placement_bytes``); a tensor that a stage program refills on
+  every call (a stage's boundary table) is copied on every split instead
+  (``cache=False``, not counted: inside a graph the copies are its
+  nodes).
 
 A mesh across processes (``init_multihost`` with a coordinator) spans
 ``world_size`` ranks, one process each, and carries their
@@ -39,11 +42,12 @@ what the SPMD walker does not serve (``parallel/gather.py``).  A world
 of one rank holds the whole table, as a mesh in one process does.
 
 ``graph_stages`` says which meshes build each SPMD stage as one graph
-program (``parallel/spmd.py``; a CUDA graph on the card): a mesh of one
-device repeated (``virtual``) and a mesh across processes, whose local
-shards sit on the rank's one device (its collectives are captured in
-the graph).  A single-process mesh of distinct cards runs its stages
-eagerly.
+program (``parallel/spmd.py``; a CUDA graph on the card): every mesh
+whose devices are of one kind.  A mesh of one device repeated
+(``virtual``) and a rank of a mesh across processes capture on that
+device (a rank's collectives inside the graph); a single-process mesh of
+distinct cards captures one graph that holds every card's nodes, its
+copies between cards included (``graphs.GraphProgram(devices=...)``).
 """
 from __future__ import annotations
 
@@ -111,9 +115,9 @@ class Mesh:
 
     @property
     def graph_stages(self) -> bool:
-        """Each SPMD stage is built as one graph program: every local
-        shard on one device, in one process or across processes."""
-        return len(set(self.devices)) == 1
+        """Each SPMD stage is built as one graph program over the mesh's
+        distinct devices: all of one kind (not the CPU beside a card)."""
+        return len({d.type for d in self.devices}) == 1
 
     def distinct_devices(self) -> List[torch.device]:
         return list(dict.fromkeys(self.devices))
@@ -130,15 +134,19 @@ class Mesh:
     def __repr__(self) -> str:
         return f"Mesh({self.signature()})"
 
-    def split(self, t: torch.Tensor) -> List[torch.Tensor]:
+    def split(self, t: torch.Tensor, cache: bool = True
+              ) -> List[torch.Tensor]:
         """This process's row shards of the global ``t`` (whose length
-        divides by the size), each on its shard's device."""
+        divides by the size), each on its shard's device; ``cache=False``
+        copies them anew instead of keeping the copies for ``t``."""
         local = int(t.shape[0]) // self.size
         first = self.rank * self.local_size
         parts = [t.narrow(0, (first + i) * local, local)
                  for i in range(self.local_size)]
         if all(d == t.device for d in self.devices):
             return parts
+        if not cache:
+            return [on(p, d) for p, d in zip(parts, self.devices)]
         key = id(t)
         with self._lock:
             hit = self._placed.get(key)

@@ -25,15 +25,23 @@ it; every collective combines the list in shard order, so answers and
 the byte counters (``spmd_exchange_bytes``, ``spmd_all_gather_bytes``,
 ``spmd_psum_bytes``) equal the JAX package's.
 
-A stage's function has fixed shapes.  Where every local shard sits on
-one device (``Mesh.graph_stages``: one device repeated, or a rank of a
-mesh across processes) it is built as a graph program
+A stage's function has fixed shapes.  It is built as a graph program
 (``physical/graphs.GraphProgram``, as the compiled tier does, counted
-``spmd_compiles``): on a card captured once as a CUDA graph and replayed,
-on the CPU a checked function that is called.  The runtime flags are
-outputs, read on the host after the replay.  A stage that cannot be
-captured (a host read in its body, a mesh of distinct cards in one
-process) runs eagerly, counted ``spmd_eager_stages``.  The dispatch
+``spmd_compiles``) over the mesh's distinct devices
+(``Mesh.graph_stages``): on the cards captured once as one CUDA graph
+and replayed, on the CPU a checked function that is called.  One device
+repeated, or a rank of a mesh across processes, captures on its card;
+a single-process mesh of distinct cards captures one graph that holds
+every card's nodes, the copies between cards of its collectives
+included, while the walker maps the local operators over the shards in
+one thread as on one card.  The runtime flags are outputs, read on the
+host after the replay.  A stage whose body reads device values on the
+host (a dictionary built per shard, by a CAST to VARCHAR, a string CASE
+or COALESCE) is caught by its first run's checks and falls back, as the
+JAX stage whose trace fails does (``spmd_fallbacks``, ``spmd_fallback``
+``host_read``), so a stage that runs never reads the host in its body.
+A stage whose capture fails otherwise runs eagerly, counted
+``spmd_eager_stages`` and logged with the error.  The dispatch
 decisions of a stage program (join side and variant, group-by variant)
 are recorded on its first run and replayed by every later one; the
 program's key holds the canonical stage plan, the input layout, the
@@ -46,7 +54,8 @@ set operations) refuses up front (``spmd_unsupported``); a runtime flag
 (duplicate build keys, a key equal to the sentinel, radix or group-cap
 overflow) refuses after the run (``spmd_fallbacks``), except duplicate
 build keys, where the join's build side flips and the stage runs again
-(``spmd_join_flips``).  A stage that raises counts ``spmd_fallbacks``
+(``spmd_join_flips``).  A stage that reads the host falls back as a
+flag does (``host_read``).  A stage that raises counts ``spmd_fallbacks``
 too, as in the JAX package, and ``spmd_errors`` apart.  Either way None
 sends the query to the single-device tiers; the query's span carries the
 tripped flags (``spmd_fallback``) or the error (``spmd_error``).
@@ -106,7 +115,8 @@ recorded meta, decisions included, and the graph's constants), under the
 digest of its key (``_stage_digest``); a process that finds the record
 makes the program from it, counted ``spmd_store_hits`` instead of
 ``spmd_compiles``, and on a mesh of one card captures it without a
-warm-up.  A record that does not serve (its capture fails) is
+warm-up.  A record holds no card, so a mesh of distinct cards keeps
+none and builds its stages anew.  A record that does not serve (its capture fails) is
 ``program_store_errors``, dropped, and the stage is built anew.  On a
 mesh across processes each rank keeps its own records (the key holds
 ``/world{W}:rank{r}``), the ranks agree through the store whether every
@@ -953,6 +963,10 @@ class _Fallback(Exception):
         self.tripped = list(tripped)
 
 
+#: the fallback label of a stage whose body reads device values on the host
+_HOST_READ = "host_read"
+
+
 class _StageProgram:
     """One stage's function, its recorded ``meta`` and its graph program
     (None where the stage runs eagerly), and on a mesh across processes
@@ -960,7 +974,7 @@ class _StageProgram:
     that two first runs do not both record."""
 
     __slots__ = ("body", "meta", "graph", "lock", "digest", "pending",
-                 "group")
+                 "group", "host_read")
 
     def __init__(self, body, meta: Dict, graph, digest=None, pending=None,
                  group=None):
@@ -974,6 +988,8 @@ class _StageProgram:
         #: outputs) or ("build", None), whose record is stored after it
         self.digest = digest
         self.pending = pending
+        #: the body reads device values on the host: every run falls back
+        self.host_read = False
 
 
 _prog_lock = threading.Lock()
@@ -1002,7 +1018,7 @@ def _scan_specs(scans, local: List[bool]) -> list:
 
 
 def _make_stage_body(stage_plan: RelNode, context, specs, mesh, meta: Dict,
-                     root: bool = False):
+                     root: bool = False, copied=()):
     """The stage function: the flat inputs (``compiled._flatten_tables``
     order) split into shards, the stage plan walked, every output
     returned as a global tensor on the first device (a replicated one
@@ -1011,7 +1027,11 @@ def _make_stage_body(stage_plan: RelNode, context, specs, mesh, meta: Dict,
     entry, a ``__spmd__`` temp) is cut into the rank's shards, a whole
     one has them picked out, and an output holds this rank's rows, but
     the ``root`` stage's, which every rank gets whole; the flags are
-    agreed over the ranks."""
+    agreed over the ranks.  The inputs at the ``copied`` positions are
+    refilled on every call of a graph: on a mesh of distinct cards their
+    shards are copied to the cards on every call (``Mesh.split(cache=
+    False)``), inside the graph."""
+    fresh = frozenset(copied)
     ctx_ref = weakref.ref(context)
     n_dev = mesh.size
     n_loc = mesh.local_size
@@ -1021,24 +1041,22 @@ def _make_stage_body(stage_plan: RelNode, context, specs, mesh, meta: Dict,
 
     def body(*flat):
         scan_tables: Dict[Tuple[str, str], _ST] = {}
-        i = 0
+        pos = iter(range(len(flat)))
+
+        def split(local: bool) -> List[torch.Tensor]:
+            i = next(pos)
+            return (mesh.split_local(flat[i]) if local
+                    else mesh.split(flat[i], cache=i not in fresh))
+
         for key, names, colspecs, has_rv, local in specs:
-            split = mesh.split_local if local else mesh.split
             per_shard: List[List[Column]] = [[] for _ in range(n_loc)]
             for stype, has_mask, dictionary in colspecs:
-                data = split(flat[i])
-                i += 1
-                mask = [None] * n_loc
-                if has_mask:
-                    mask = split(flat[i])
-                    i += 1
+                data = split(local)
+                mask = split(local) if has_mask else [None] * n_loc
                 for s in range(n_loc):
                     per_shard[s].append(Column(data[s], stype, mask[s],
                                                dictionary))
-            valid = [None] * n_loc
-            if has_rv:
-                valid = split(flat[i])
-                i += 1
+            valid = split(local) if has_rv else [None] * n_loc
             scan_tables[key] = _ST([Table(names, cols) for cols in per_shard],
                                    valid, sharded=True)
         walker = _Walker(ctx_ref(), mesh, scan_tables, meta)
@@ -1157,7 +1175,9 @@ def _program(key: tuple, stage_plan, context, scans, local: List[bool],
             return prog
     spans = mesh.spans_processes
     digest = record = None
-    if mesh.graph_stages and _C._store_armed():
+    # a record holds no card: a mesh of distinct cards builds anew
+    if mesh.graph_stages and len(mesh.distinct_devices()) == 1 \
+            and _C._store_armed():
         digest = _stage_digest(key)
         if use_store:
             record = _pstore_load(digest, len(_C._flatten_tables(scans)))
@@ -1165,20 +1185,21 @@ def _program(key: tuple, stage_plan, context, scans, local: List[bool],
                 record = _agreed_record(mesh.group, record)
     if record is not None:
         meta = record["meta"]
+    # the inputs of __spmd__ temps change per query: a graph copies them
+    # into its buffers instead of keying a capture on them
+    copied = _C._copied_positions(scans, 0)
+    temps = [k[0] == _SPMD_SCHEMA for k, _, _ in scans]
+    copied.extend(i for i, temp in enumerate(_flat_flags(scans, temps))
+                  if temp)
     body = _make_stage_body(stage_plan, context, _scan_specs(scans, local),
-                            mesh, meta, root)
+                            mesh, meta, root, copied)
     graph = None
     if mesh.graph_stages:
-        # the inputs of __spmd__ temps change per query: a graph copies
-        # them into its buffers instead of keying a capture on them
-        copied = _C._copied_positions(scans, 0)
-        temps = [k[0] == _SPMD_SCHEMA for k, _, _ in scans]
-        copied.extend(i for i, temp in enumerate(_flat_flags(scans, temps))
-                      if temp)
         # across processes a hit warms up too (module docstring)
         graph = GraphProgram(body, mesh.devices[0], copied=copied,
                              record=None if spans else record,
-                             group=mesh.group)
+                             group=mesh.group,
+                             devices=mesh.distinct_devices())
         if record is not None and record.get("cost"):
             graph.cost = dict(record["cost"])
     prog = _StageProgram(body, meta, graph, digest,
@@ -1320,15 +1341,21 @@ def _annotate_stage_cost(graph) -> None:
 def _run_program(prog: _StageProgram, flat, counts: Dict[str, int]):
     """Run the stage: its graph where it has one (the first call warms up
     and captures, later ones replay; the outputs are copied out of the
-    graph's pool), else eagerly.  A stage whose first graph call fails
-    (a host read in its body, an op a capture cannot hold) runs eagerly
-    from then on.  On a mesh across processes a replay is waited for
-    within the group's timeout (``group.wait_device``); only a host read
-    reruns a first call eagerly there (it stops every rank's warm-up at
-    the same op: it depends on the body's ops, not on the data), and a
-    capture that fails is held for the agreed outcome, not rerun."""
+    graph's pool), else eagerly.  A stage whose body reads device values
+    on the host (``HostRead`` in the first call's checks: the CPU's, or
+    the warm-up of a capture on the card) falls back, as a JAX stage
+    whose trace fails does: ``_Fallback(["host_read"])``, alike on every
+    rank of a mesh across processes (it stops every rank's warm-up at the
+    same op: it depends on the body's ops, not on the data), and on
+    every later run of the program without running it again.  A stage
+    whose first capture fails otherwise runs eagerly from then on
+    (``spmd_eager_stages``); on a mesh across processes such a capture
+    is held for the agreed outcome, not rerun, and a replay is waited
+    for within the group's timeout (``group.wait_device``)."""
     from ..physical.graphs import HostRead
 
+    if prog.host_read:
+        raise _Fallback([_HOST_READ])
     graph = prog.graph
     if graph is not None:
         first = not (graph.checked or graph.captures)
@@ -1336,6 +1363,7 @@ def _run_program(prog: _StageProgram, flat, counts: Dict[str, int]):
             with graph.lock:
                 outs = graph(*flat)
                 if graph.device.type == "cuda":
+                    # each output cloned on its own card
                     outs = tuple(o.clone() for o in outs)
             if prog.group is not None:
                 G.wait_device(prog.group)
@@ -1344,14 +1372,20 @@ def _run_program(prog: _StageProgram, flat, counts: Dict[str, int]):
         except (KeyboardInterrupt, SystemExit):
             raise
         except Exception as e:
-            if not first or (prog.group is not None
-                             and not isinstance(e, HostRead)):
+            if not first:
                 raise
             if prog.pending is not None and prog.pending[0] == "hit" \
                     and prog.group is None:
                 raise _StoredStageFailed(f"{type(e).__name__}: {e}") from e
+            if isinstance(e, HostRead):
+                logger.info("spmd: the stage reads device values on the "
+                            "host (%s); falling back", str(e)[:160])
+                prog.host_read = True
+                raise _Fallback([_HOST_READ]) from e
+            if prog.group is not None:
+                raise
             logger.debug("spmd: stage not capturable (%s: %s); eager",
-                         type(e).__name__, str(e)[:160])
+                           type(e).__name__, str(e)[:160])
             prog.graph = None
     counts["spmd_eager_stages"] = counts.get("spmd_eager_stages", 0) + 1
     if prog.meta.get("recorded"):

@@ -87,6 +87,15 @@ drops it; a failed capture is then reported instead of raised.  On the
 CPU the step that would capture is ``_capture``, which captures nothing
 there.
 
+A program over several cards (``devices``: an SPMD stage of a mesh of
+distinct cards in one process) is one CUDA graph that holds every card's
+nodes (``_capture``): the other cards' side streams join the capture
+through events and their allocations go to private pools, so a copy
+between cards is an edge of the graph.  A replay waits for every card's
+current stream and every card's current stream waits for it; the
+warm-up's constants are made on the card of the program that a copy
+names, which a build record cannot say: such a program keeps none.
+
 Build records (``runtime/program_store.py``): ``build_record`` hands out
 what the last capture learned, its constants with their host copies (and
 the cached uploads its warm-up read, ``gpu_kernels.note_cached``), its
@@ -112,7 +121,7 @@ import time
 import warnings
 import weakref
 from collections import OrderedDict
-from contextlib import contextmanager
+from contextlib import ExitStack, contextmanager
 from typing import Dict, FrozenSet, List, Optional
 
 import torch
@@ -268,19 +277,26 @@ class _Consts:
     is noted with its host copy as well, since a process whose cache is
     cold makes that copy inside the capture."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, others=()):
         self.device = device
+        #: the program's other cards, where a copy that names one goes
+        self.others = frozenset(others)
         self.by_key: Dict[tuple, List[torch.Tensor]] = {}
         self.host: Dict[tuple, torch.Tensor] = {}
         self._noted: Dict[tuple, int] = {}
         self._seen = _IdSet()
         self._cursor: Dict[tuple, int] = {}
 
-    def record(self, host: torch.Tensor) -> torch.Tensor:
+    def _card(self, device) -> torch.device:
+        """Where a copy to ``device`` goes: that card where it is one of
+        the program's other cards, else the program's first card."""
+        return device if device in self.others else self.device
+
+    def record(self, host: torch.Tensor, device=None) -> torch.Tensor:
         # the copy synchronises; a capture replays its result, so it is
         # not a synchronisation of the program
         with _SYNCS.suspended():
-            dev = host.to(self.device)
+            dev = host.to(self._card(device))
         key = _digest(host)
         self.by_key.setdefault(key, []).append(dev)
         self.host.setdefault(key, host)
@@ -296,14 +312,16 @@ class _Consts:
         self.host.setdefault(key, host)
         self._noted[key] = self._noted.get(key, 0) + 1
 
-    def replay(self, host: torch.Tensor) -> torch.Tensor:
+    def replay(self, host: torch.Tensor, device=None) -> torch.Tensor:
         key = _digest(host)
         i = self._cursor.get(key, 0)
         got = self.by_key.get(key, [])
-        if i >= len(got):
+        want = self._card(device)
+        if i >= len(got) or (self.others and got[i].device != want):
             raise RuntimeError(
                 f"compiled program: a host-to-device copy ({key[0]}, shape "
-                f"{key[1]}) during capture that the warm-up did not make")
+                f"{key[1]}, to {want}) during capture that the warm-up did "
+                f"not make")
         self._cursor[key] = i + 1
         return got[i]
 
@@ -472,11 +490,11 @@ class _TraceMode(TorchFunctionMode):
         self.made = _IdSet()
 
     # -- helpers -----------------------------------------------------------
-    def _const(self, host: torch.Tensor) -> torch.Tensor:
+    def _const(self, host: torch.Tensor, device) -> torch.Tensor:
         host = host.detach()
         if self.capture:
-            return self.consts.replay(host)
-        return self.consts.record(host)
+            return self.consts.replay(host, device)
+        return self.consts.record(host, device)
 
     def _h2d(self, name, args, kwargs):
         """The constant for a host-to-device copy, or None if the call is
@@ -489,7 +507,7 @@ class _TraceMode(TorchFunctionMode):
             if src.device.type != "cpu":
                 return None
             if name == "cuda":
-                dtype = None
+                dev, dtype = None, None
             else:
                 try:
                     dev, dtype = torch._C._nn._parse_to(*args[1:],
@@ -499,7 +517,8 @@ class _TraceMode(TorchFunctionMode):
                 if dev is None or torch.device(dev).type != "cuda":
                     return None
             host = src if dtype is None else src.to(dtype)
-            return self._const(host)
+            return self._const(host, None if dev is None
+                               else torch.device(dev))
         if name in _H2D_FACTORIES:
             dev = kwargs.get("device")
             if dev is None or torch.device(dev).type != "cuda":
@@ -509,7 +528,8 @@ class _TraceMode(TorchFunctionMode):
             if isinstance(data, torch.Tensor) and data.device.type != "cpu":
                 return None
             # the same factory without the device: the host copy
-            return self._const(getattr(torch, name)(data, **host_kw))
+            return self._const(getattr(torch, name)(data, **host_kw),
+                               torch.device(dev))
         return None
 
     def _check_read(self, name, args, kwargs, leaves):
@@ -546,7 +566,8 @@ class _TraceMode(TorchFunctionMode):
             base = args[0]
             if isinstance(base, torch.Tensor) and base.is_cuda:
                 idx = tree_map(
-                    lambda x: self._const(x) if isinstance(x, torch.Tensor)
+                    lambda x: self._const(x, base.device)
+                    if isinstance(x, torch.Tensor)
                     and x.device.type == "cpu" and x.dim() > 0 else x,
                     args[1])
                 args = (base, idx) + tuple(args[2:])
@@ -621,7 +642,17 @@ def capture_retrying(attempt):
 
 class _Capture:
     __slots__ = ("graph", "outs", "inputs", "consts", "hold", "launches",
-                 "collectives", "pool_bytes")
+                 "collectives", "pool_bytes", "__weakref__")
+
+
+def _pool_release(devices, pool) -> None:
+    """Let the allocator free the private pools once their graph is gone
+    (a finalizer of the capture: no replay can follow)."""
+    for d in devices:
+        try:
+            torch._C._cuda_releasePool(d.index, pool)
+        except Exception:  # pragma: no cover - interpreter shutdown
+            logger.debug("graph pool of %s not released", d, exc_info=True)
 
 
 _lock = threading.RLock()
@@ -635,7 +666,10 @@ _capture_gate = threading.Lock()
 _captures_underway = 0
 
 
-def _capture_enter(device: torch.device) -> None:
+def _capture_enter() -> None:
+    """Count a capture in; the first releases the free blocks of every
+    card's cache (``empty_cache`` empties every card's allocator, so a
+    capture over several cards has all of its cards emptied)."""
     global _captures_underway
     with _capture_gate:
         if _captures_underway == 0:
@@ -665,9 +699,12 @@ class GraphProgram:
     and a first capture held for ``confirm`` (module docstring)."""
 
     def __init__(self, fn, device: torch.device, copied=(), record=None,
-                 group=None):
+                 group=None, devices=()):
         self.fn = fn
         self.device = torch.device(device)
+        #: every card ``fn`` runs on, ``device`` (the capturing card) first
+        self.devices = tuple(dict.fromkeys(
+            [self.device] + [torch.device(d) for d in devices]))
         self.copied: FrozenSet[int] = frozenset(copied)
         self.lock = threading.RLock()
         self.checked = False
@@ -778,7 +815,15 @@ class GraphProgram:
         if cap.collectives:
             from ..parallel import group as _G
             _G.count_replay(cap.collectives)
+        others = self.devices[1:]
+        launch = torch.cuda.current_stream(self.device)
+        for d in others:
+            # eager work queued on another card (a placement, the copied
+            # inputs) is done before the graph's nodes there read it
+            launch.wait_stream(torch.cuda.current_stream(d))
         cap.graph.replay()
+        for d in others:
+            torch.cuda.current_stream(d).wait_stream(launch)
         gk.add_launches(cap.launches)
         _tel.inc("graph_replays")
         _tel.annotate(graph_pool_bytes=cap.pool_bytes)
@@ -799,7 +844,7 @@ class GraphProgram:
         record, self.record = self.record, None
         if record is not None:
             return self._capture_from_record(key, inputs, record)
-        consts = _Consts(self.device)
+        consts = _Consts(self.device, self.devices[1:])
         t0 = time.perf_counter()
         with _SYNCS.watch() as seen:
             outs = self._warm_up(inputs, consts)
@@ -854,7 +899,16 @@ class GraphProgram:
     def _capture(self, inputs, consts: Optional[_Consts]
                  ) -> Optional["_Capture"]:
         """One capture of ``fn`` on a stream of its own; None on the CPU,
-        which captures nothing (its program runs ``fn`` on every call)."""
+        which captures nothing (its program runs ``fn`` on every call).
+
+        Over several cards it is one graph that holds every card's nodes:
+        the capture begins on a side stream of the first card; each other
+        card's side stream joins it by waiting on an event recorded on the
+        capturing stream, is that card's current stream while ``fn`` runs
+        (so a copy between cards records events between captured streams,
+        edges of the graph), and its allocations go to a private pool of
+        that card; before the capture ends every card's branch joins the
+        capturing stream again."""
         if self.device.type != "cuda":
             return None
         from ..parallel import group as _G
@@ -862,20 +916,50 @@ class GraphProgram:
         graph = torch.cuda.CUDAGraph()
         consts.rewind()
         mode = _TraceMode(inputs, consts, capture=True)
-        current = torch.cuda.current_stream(self.device)
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(current)
-        _capture_enter(self.device)
+        others = self.devices[1:]
+        current = {d: torch.cuda.current_stream(d) for d in self.devices}
+        streams = {d: torch.cuda.Stream(d) for d in self.devices}
+        for d in self.devices:
+            streams[d].wait_stream(current[d])
+        stream = streams[self.device]
+        # the other cards' allocations go to one private pool id, as
+        # capture_begin routes the capturing card's: without it a block
+        # the graph still uses would be handed to eager work
+        pool = torch.cuda.graph_pool_handle() if others else None
+        routed: List[torch.device] = []
+        _capture_enter()
         try:
-            r0 = torch.cuda.memory_reserved(self.device)
+            r0 = sum(torch.cuda.memory_reserved(d) for d in self.devices)
             failed: Optional[BaseException] = None
-            with gk.recording_launches() as launched, \
-                    _G.recording_collectives() as collectives, \
-                    torch.cuda.stream(stream):
+            with ExitStack() as stack:
+                launched = stack.enter_context(gk.recording_launches())
+                collectives = stack.enter_context(
+                    _G.recording_collectives())
+                # the other cards' streams first: entering a stream makes
+                # its card current, and the capturing card must be last
+                for d in others:
+                    stack.enter_context(torch.cuda.stream(streams[d]))
+                stack.enter_context(torch.cuda.stream(stream))
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    with mode:
-                        static = self.fn(*inputs)
+                    if others:
+                        fork = torch.cuda.Event()
+                        fork.record(stream)
+                    try:
+                        for d in others:
+                            streams[d].wait_event(fork)
+                            torch._C._cuda_beginAllocateCurrentThreadToPool(
+                                d.index, pool)
+                            routed.append(d)
+                        with mode:
+                            static = self.fn(*inputs)
+                    finally:
+                        for d in routed:
+                            torch._C._cuda_endAllocateToPool(d.index, pool)
+                    for d in others:
+                        join = torch.cuda.Event()
+                        join.record(streams[d])
+                        stream.wait_event(join)
                 except BaseException as e:
                     failed = e
                 try:
@@ -893,9 +977,11 @@ class GraphProgram:
                         graph.reset()
                     except Exception:
                         logger.debug("failed graph not reset", exc_info=True)
+                    _pool_release(routed, pool)
                     raise failed
-            current.wait_stream(stream)
-            r1 = torch.cuda.memory_reserved(self.device)
+            for d in self.devices:
+                current[d].wait_stream(streams[d])
+            r1 = sum(torch.cuda.memory_reserved(d) for d in self.devices)
         finally:
             _capture_exit()
         cap = _Capture()
@@ -904,6 +990,8 @@ class GraphProgram:
         cap.launches = {k: v for k, v in launched.items() if v}
         cap.collectives = list(collectives.values())
         cap.pool_bytes = max(r1 - r0, 0)
+        if pool is not None:
+            weakref.finalize(cap, _pool_release, others, pool)
         return cap
 
     def _drop(self, key) -> None:

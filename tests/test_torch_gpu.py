@@ -746,6 +746,51 @@ def test_segment_sum_lanes_on_the_card(cuda_device, groups):
 
 
 @pytest.mark.gpu
+def test_spmd_on_two_cards_replays_one_graph_per_stage(cuda_device,
+                                                       monkeypatch):
+    """Q1 and Q12 on a mesh of two distinct cards: every stage one CUDA
+    graph over both cards (no eager stage), replayed on the second run,
+    the answers bit for bit those of ``Mesh([cuda:0] * 2)``."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from benchmarks.tpch import QUERIES, generate_tpch
+    from dask_sql_tpu_torch.parallel.mesh import Mesh
+    from dask_sql_tpu_torch.runtime import telemetry as tel
+
+    monkeypatch.setenv("DSQL_MESH", "1")
+    monkeypatch.setenv("DSQL_RESULT_CACHE_MB", "0")
+    monkeypatch.setenv("DSQL_TIERED", "0")
+    frames = generate_tpch(0.01, seed=4)
+    two = Context(mesh=Mesh(["cuda:0", "cuda:1"]))
+    one = Context(mesh=Mesh(["cuda:0"] * 2))
+    for c in (two, one):
+        for name, frame in frames.items():
+            c.create_table(name, frame)
+    keys = ("spmd_queries", "spmd_eager_stages", "spmd_compiles",
+            "graph_replays")
+    for q in (1, 12):
+        moved = []
+        for _ in range(2):
+            before = tel.REGISTRY.counters()
+            got = two.sql(QUERIES[q])
+            now = tel.REGISTRY.counters()
+            moved.append({k: now.get(k, 0) - before.get(k, 0) for k in keys})
+        assert [m["spmd_queries"] for m in moved] == [1, 1], (q, moved)
+        assert [m["spmd_eager_stages"] for m in moved] == [0, 0], (q, moved)
+        assert moved[0]["spmd_compiles"] > 0, (q, moved)
+        assert moved[1]["spmd_compiles"] == 0, (q, moved)
+        assert moved[1]["graph_replays"] > 0, (q, moved)
+        want = one.sql(QUERIES[q])
+        assert got.names == want.names and got.num_rows == want.num_rows
+        for a, b in zip(got.columns, want.columns):
+            assert torch.equal(a.data.cpu(), b.data.cpu()), q
+            assert (a.mask is None) == (b.mask is None), q
+            if a.mask is not None:
+                assert torch.equal(a.mask.cpu(), b.mask.cpu()), q
+        assert got.to_pylist() == want.to_pylist(), q
+
+
+@pytest.mark.gpu
 def test_world1_nccl_group_exchange_and_psum_equal_the_single_process_mesh(
         cuda_device):
     import socket

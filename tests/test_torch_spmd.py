@@ -14,7 +14,11 @@ agree to rtol 1e-9, integers and strings exactly.
   the answers and every ``spmd_*`` counter (queries, stages, compiles,
   exchanges, joins, partial aggregates and the bytes of each collective
   kind) equal the JAX package's;
-- a build side with duplicate keys flips and runs again, as in JAX.
+- a build side with duplicate keys flips and runs again, as in JAX;
+- a stage whose body reads device values on the host (a CAST to VARCHAR,
+  a string CASE or COALESCE: each shard would build its own dictionary)
+  falls back as the JAX stage whose trace fails does, with its counters,
+  and a dictionary map (``UPPER``) stays served.
 
 The module name holds "spmd": the conftest's ``DSQL_MESH=0`` pin does not
 apply.
@@ -258,6 +262,11 @@ def _frames():
     gk[fact.index[::11]] = np.nan
     fact["gk"] = gk.astype("Int64")
     fact["tag"] = np.array(["x", "y", "z"])[fact["grp"].to_numpy() % 3]
+    # a string column with NULLs
+    s = np.array(["ab", "cd", "ef", "gh", "ij"], dtype=object)[
+        rng.randint(0, 5, n)]
+    s[::6] = None
+    fact["s"] = s
     dim = pd.DataFrame({"k": np.arange(20, dtype=np.int64),
                         "w": np.round(np.arange(20) * 0.25, 6)})
     return fact, dim
@@ -478,3 +487,139 @@ def test_concurrent_first_eager_runs_record_once(ctxs, monkeypatch):
             pd.testing.assert_frame_equal(o, again)
     finally:
         spmd.clear_programs()
+
+
+# ---------------------------------------------------------------------------
+# a stage that reads device values on the host falls back, as in JAX
+# ---------------------------------------------------------------------------
+
+HOST_READ_EXPRS = {
+    "cast_int": "CAST(k AS VARCHAR)",
+    "cast_double": "CAST(v AS VARCHAR)",
+    "case_strings": "CASE WHEN grp > 1 THEN s ELSE 'zz' END",
+    "case_literals": "CASE WHEN grp > 1 THEN 'hi' ELSE 'lo' END",
+    "coalesce": "COALESCE(s, 'none')",
+    "concat": "s || CAST(grp AS VARCHAR)",
+    "upper": "UPPER(s)",
+}
+HOST_READ_SQL = {
+    name: f"SELECT k, grp, v, {expr} AS c FROM fact"
+    for name, expr in HOST_READ_EXPRS.items()}
+HOST_READ_SQL["cast_group_by"] = (
+    "SELECT CAST(k AS VARCHAR) AS c, COUNT(*) AS n, SUM(v) AS t FROM fact "
+    "GROUP BY CAST(k AS VARCHAR) ORDER BY c")
+
+
+@pytest.fixture(scope="module")
+def plain():
+    fact, _ = _frames()
+    c = Context(device="cpu")
+    c.create_table("fact", fact)
+    return c
+
+
+@pytest.mark.parametrize("name", sorted(HOST_READ_SQL))
+def test_host_read_stage_falls_back_as_in_jax(ctxs, plain, name):
+    jc, pc, _ = ctxs
+    sql = HOST_READ_SQL[name]
+    want, got, dj, dp = _both(jc, pc, sql)
+    served = name == "upper"
+    assert dp == dj, (dp, dj)
+    if served:
+        assert dp.get("spmd_queries") == 1 and "spmd_fallbacks" not in dp
+    else:
+        assert dp == {"spmd_fallbacks": 1}, dp
+        assert _span_attr(pc, "spmd_fallback") == "host_read"
+        assert _span_attr(pc, "spmd_error") is None
+    assert "spmd_errors" not in dp and "spmd_eager_stages" not in dp, dp
+    _assert_frames(got, want)
+    _assert_frames(got, plain.sql(sql, return_futures=False))
+    # a later run replays the served stage, and falls back again from one
+    # that reads the host without running it
+    c0 = tel.REGISTRY.counters()
+    again = pc.sql(sql, return_futures=False)
+    assert _deltas(tel.REGISTRY, c0) == {
+        k: v for k, v in dp.items() if k != "spmd_compiles"}
+    _assert_frames(again, want)
+
+
+# ---------------------------------------------------------------------------
+# a mesh of distinct cards builds one graph program over all of them
+# ---------------------------------------------------------------------------
+
+def test_a_mesh_of_distinct_cards_builds_one_graph_program_over_them(
+        ctxs, monkeypatch):
+    from dask_sql_tpu_torch.physical import graphs
+
+    # an indexed card name touches no card: this builds without CUDA
+    mesh = Mesh(["cuda:0", "cuda:1"])
+    assert mesh.devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert mesh.graph_stages and not mesh.virtual
+    assert not Mesh(["cpu", "cuda:0"]).graph_stages
+    made = []
+
+    class Recorder:
+        def __init__(self, fn, device, **kw):
+            made.append((torch.device(device), kw))
+            self.cost = None
+
+        def release(self):
+            pass
+
+    monkeypatch.setattr(graphs, "GraphProgram", Recorder)
+    _, pc, _ = ctxs
+    counts = {}
+    key = ("distinct-cards-test",)
+    try:
+        prog = spmd._program(key, None, pc, [], [], mesh,
+                             {"counts": {}, "decisions": []}, counts)
+    finally:
+        spmd._prog_cache.pop(key, None)
+    assert isinstance(prog.graph, Recorder)
+    assert counts == {"spmd_compiles": 1}
+    (device, kw), = made
+    assert device == torch.device("cuda", 0)
+    assert list(kw["devices"]) == [torch.device("cuda", 0),
+                                   torch.device("cuda", 1)]
+    assert kw["group"] is None
+    # a stage record carries no card: such a mesh keeps none in the store
+    assert prog.digest is None
+
+
+def test_stage_inputs_refilled_per_call_are_split_anew():
+    # on a mesh of distinct devices a stage's boundary table is copied to
+    # the shards' devices on every call (inside a graph), a catalog column
+    # once ("meta" stands in for a second card)
+    mesh = Mesh(["cpu", "meta"])
+    t = torch.arange(8)
+    first = mesh.split(t)
+    assert mesh.split(t)[1] is first[1]
+    fresh = mesh.split(t, cache=False)
+    assert fresh[1] is not first[1] and fresh[1].device.type == "meta"
+    assert mesh.split(t, cache=False)[1] is not fresh[1]
+
+
+def test_graph_constants_go_to_the_card_a_copy_names():
+    # a program over several cards makes a constant on the card of the
+    # program that a copy names, else on its first; the capture hands the
+    # warm-up's back in order ("meta" stands in for a second card)
+    from dask_sql_tpu_torch.physical import graphs
+
+    cpu, meta = torch.device("cpu"), torch.device("meta")
+    host = torch.arange(5)
+    consts = graphs._Consts(cpu, [meta])
+    first = consts.record(host, meta)
+    second = consts.record(host, None)
+    assert (first.device, second.device) == (meta, cpu)
+    consts.rewind()
+    assert consts.replay(host, meta) is first
+    assert consts.replay(host, torch.device("cuda")) is second
+    consts.rewind()
+    with pytest.raises(RuntimeError, match="did not make"):
+        consts.replay(host, None)
+    # one card: every copy goes to it, whatever card it names
+    one = graphs._Consts(cpu)
+    made = one.record(host, meta)
+    assert made.device == cpu
+    one.rewind()
+    assert one.replay(host, torch.device("cuda")) is made

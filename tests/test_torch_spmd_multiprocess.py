@@ -19,7 +19,10 @@ Q1, Q3, Q6, Q8, Q12 and Q14 equals:
 Every ``spmd_*`` counter of Q1, Q3 and Q8 equals the JAX package's on
 every rank: each stage, collectives of the process group included, is a
 built graph program (``spmd_compiles``), and none runs eagerly (no
-``spmd_eager_stages``).
+``spmd_eager_stages``).  A CAST to VARCHAR and a string CASE over
+``supplier`` read device values on the host inside their stage: every
+rank falls back (``spmd_fallbacks`` 1, as the JAX mesh counts) and
+answers as the JAX mesh and every other rank.
 
 Each rank's catalog entry holds only its ``padded / world`` rows of a
 table, with the whole table's dictionaries and statistics (equal to the
@@ -44,7 +47,8 @@ record (``spmd_store_hits`` as many as the first pass's builds, no
 
 Streaming: lineitem registered again as a chunked table of 8,192-row
 batches (8, the last short) and TPC-H Q1, Q3, Q6 and Q14 streamed over
-it, with a GROUP BY on a float key that the walker declines.  Each
+it, with a GROUP BY on a float key that the walker declines and one on
+a CAST to VARCHAR, whose batch plans fall back on the host read.  Each
 rank's batch entry holds only its ``padded / world`` rows
 (``rank_rows``); a batch plan the walker serves gathers nothing, a
 declined one gathers the batch in one step; no gathered ``__stream__``
@@ -84,6 +88,14 @@ MULTIHOST = ("SELECT seg, COUNT(*) AS n, SUM(amount) AS s "
 SERVED = {"mh": MULTIHOST, **{f"q{q}": QUERIES[q]
                               for q in (1, 3, 6, 8, 12, 14)}}
 DECLINED = {f"q{q}": QUERIES[q] for q in (5, 18)}
+#: stages that read device values on the host: the walker falls back on
+#: every rank, as the JAX stage whose trace fails does
+HOST_READ = {
+    "hr_cast": ("SELECT s_suppkey, CAST(s_acctbal AS VARCHAR) AS a "
+                "FROM supplier ORDER BY s_suppkey"),
+    "hr_case": ("SELECT s_suppkey, CASE WHEN s_nationkey > 10 THEN s_name "
+                "ELSE 'zz' END AS n FROM supplier ORDER BY s_suppkey"),
+}
 #: the rest of TPC-H, run on world 2 x 4 only
 REST = {f"q{q}": QUERIES[q] for q in sorted(QUERIES)
         if f"q{q}" not in SERVED and f"q{q}" not in DECLINED}
@@ -98,9 +110,14 @@ STREAMED = {**{f"s_q{q}": re.sub(r"\blineitem\b", W.STREAM_TABLE,
                                  QUERIES[q]) for q in (1, 3, 6, 14)},
             "s_fkey": (f"SELECT l_discount, COUNT(*) AS n, SUM(l_quantity) "
                        f"AS q FROM {W.STREAM_TABLE} GROUP BY l_discount "
-                       f"ORDER BY l_discount")}
+                       f"ORDER BY l_discount"),
+            # a CAST to VARCHAR under the GROUP BY: a host read per batch
+            "s_cast": (f"SELECT CAST(l_linenumber AS VARCHAR) AS ln, "
+                       f"COUNT(*) AS n, SUM(l_quantity) AS q "
+                       f"FROM {W.STREAM_TABLE} "
+                       f"GROUP BY CAST(l_linenumber AS VARCHAR) ORDER BY ln")}
 STREAM_SERVED = ("s_q1", "s_q6")
-STREAM_DECLINED = ("s_fkey",)
+STREAM_DECLINED = ("s_fkey", "s_cast")
 #: run twice: the second run builds no stage program (Q3's batch plan
 #: joins a ``__stream__`` temp, named alike by every run of the query)
 STREAM_AGAIN = ("s_q1", "s_q3")
@@ -150,7 +167,7 @@ def _spawn(spawns: dict, layout, data, tmp_path_factory):
     if layout not in spawns:
         world, local = layout
         out_dir = tmp_path_factory.mktemp(f"w{world}")
-        queries = {**SERVED, **DECLINED,
+        queries = {**SERVED, **DECLINED, **HOST_READ,
                    **(REST if layout == ALL_LAYOUT else {})}
         runs = W.spawn(out_dir, "queries", world, local, timeout_s=60.0,
                        limit_s=RUN_LIMIT_S, data=data[0], queries=queries,
@@ -209,7 +226,8 @@ def jax_mesh(data):
             ctx.create_table(name, frame)
         ctx.create_table(W.STREAM_TABLE, data[1]["lineitem"], chunked=True,
                          batch_rows=W.STREAM_BATCH_ROWS)
-        for name, sql in {**SERVED, **DECLINED, **REST, **STREAMED}.items():
+        for name, sql in {**SERVED, **DECLINED, **HOST_READ, **REST,
+                          **STREAMED}.items():
             c0 = jtel.REGISTRY.counters()
             try:
                 df = ctx.sql(sql, return_futures=False)
@@ -315,6 +333,21 @@ def test_spmd_counters_equal_jax(ranks, jax_mesh, name):
                if k.startswith("spmd_")}
         # every stage a built graph program, none eager
         assert got == want, (rank, got, want)
+
+
+@pytest.mark.parametrize("name", sorted(HOST_READ))
+def test_host_read_stages_fall_back_alike_on_every_rank(ranks, jax_mesh,
+                                                        name):
+    _, _, out = ranks
+    want_jax, want = _jax(jax_mesh, name)
+    assert want == {"spmd_fallbacks": 1}, want
+    first = out[0][1]
+    for rank, (info, answers) in enumerate(out):
+        got = {k: v for k, v in info["queries"][name]["counters"].items()
+               if k.startswith("spmd_")}
+        assert got == want, (rank, got)
+        _assert_bits(answers, first, name, f"rank {rank} vs rank 0")
+        _assert_same(_rank_frame(answers, name), want_jax, True)
 
 
 @pytest.mark.parametrize("name", sorted(DECLINED))
